@@ -1,0 +1,92 @@
+"""Carry the JAX package's tables and state across to the port.
+
+The counterpart of loading weights: ``tables_from_arrays`` and
+``state_from_arrays`` take the reference's synapse tables and simulation
+state as numpy arrays (``np.asarray`` of each leaf) and return the
+port's.  bfloat16 arrays (ml_dtypes' ``bfloat16``) are reinterpreted
+bit for bit, so neither ml_dtypes nor jax is needed here.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from .engine import EngineConfig
+from .synapses import TORCH_DTYPES, SynapseTables, TableStorage
+
+
+def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if dtype == torch.bfloat16 and a.dtype.itemsize == 2 \
+            and a.dtype.kind not in "iu":
+        # ml_dtypes bfloat16: reinterpret the bits
+        t = torch.from_numpy(np.array(a).view(np.uint16))
+        t = t.view(torch.bfloat16)
+    elif dtype == torch.bfloat16:
+        f = torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
+        t = f.to(torch.bfloat16)
+        if not torch.equal(t.to(torch.float32), f):
+            raise ValueError("weights are not bfloat16-representable")
+    else:
+        t = torch.from_numpy(np.array(a)).to(dtype)
+    # ascontiguousarray makes 0-d arrays 1-d; restore the shape
+    return t.reshape(a.shape).to(device)
+
+
+def _tier(arrays: dict, storage: TableStorage, device) -> dict:
+    return {"tgt": _tensor(arrays["tgt"], TORCH_DTYPES[storage.tgt_dtype],
+                           device),
+            "w": _tensor(arrays["w"], TORCH_DTYPES[storage.weight_dtype],
+                         device),
+            "dslot": _tensor(arrays["dslot"], torch.int8, device),
+            "nnz": _tensor(arrays["nnz"], torch.int32, device)}
+
+
+def tables_from_arrays(local: dict, halo: Sequence[dict], storage_meta: dict,
+                       stats: Optional[dict] = None,
+                       device="cuda") -> SynapseTables:
+    """The port's tables from the reference's: ``local`` and each ``halo``
+    tier as dicts of numpy arrays, ``storage_meta`` the reference's
+    ``TableStorage.meta()``."""
+    dev = resolve_device(device)
+    storage = TableStorage.from_meta(storage_meta)
+    tabs = SynapseTables(_tier(local, storage, dev),
+                         [_tier(t, storage, dev) for t in halo], storage,
+                         stats=stats)
+    caps = [t["tgt"].shape[1] for t in tabs.tiers()]
+    if caps != storage.caps():
+        raise ValueError(f"table capacities {caps} do not match the "
+                         f"storage descriptor {storage.caps()}")
+    return tabs
+
+
+def state_from_arrays(arrays: dict, cfg: EngineConfig,
+                      rng_seed: Optional[int] = None,
+                      device="cuda") -> dict:
+    """The port's state from the reference's state dict of numpy arrays.
+
+    The reference's PRNG key has no torch counterpart: the drive
+    generator is seeded with ``rng_seed`` (default: the seed
+    ``init_sim_state`` uses for tile (0, 0))."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cfg.state_seed_value if rng_seed is None else rng_seed)
+
+    def f32(x):
+        return _tensor(x, torch.float32, dev)
+
+    nrn = arrays["neuron"]
+    return {
+        "neuron": {"v": f32(nrn["v"]), "c": f32(nrn["c"]),
+                   "refrac": _tensor(nrn["refrac"], torch.int32, dev)},
+        "i_ring": f32(arrays["i_ring"]),
+        "t": int(np.asarray(arrays["t"])),
+        "rng": gen,
+        "active": _tensor(arrays["active"], torch.bool, dev),
+        "metrics": {k: f32(arrays["metrics"][k])
+                    for k in ("spikes", "events", "dropped")},
+    }

@@ -12,6 +12,8 @@ def pytest_configure(config):
     # invocations from other rootdirs still know the marker
     config.addinivalue_line(
         "markers", "slow: multi-minute cases excluded from tier-1")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skipped without one")
 
 
 @pytest.fixture

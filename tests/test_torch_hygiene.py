@@ -1,0 +1,121 @@
+"""The port's package rules: it imports neither jax nor the JAX package,
+its entry points raise rather than fall back when CUDA is missing, and
+repro-lint finds nothing in it."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.core import engine as teng
+from repro_torch.core.convert import state_from_arrays, tables_from_arrays
+from repro_torch.kernels import _build
+
+from _torch_parity import configs
+
+PORT = Path(repro_torch.__file__).resolve().parent
+SRC = PORT.parent
+MODULES = sorted(
+    ".".join(p.relative_to(SRC).with_suffix("").parts).removesuffix(
+        ".__init__")
+    for p in PORT.rglob("*.py"))
+
+
+def test_import_pulls_in_no_jax():
+    code = ("import importlib, sys\n"
+            f"for m in {MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'repro' or "
+            "m.startswith('repro.')]\n"
+            "assert not bad, bad\n"
+            "print(len(sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(PORT)))
+def test_source_names_no_jax_or_repro(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for n in names:
+            top = n.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro", "ml_dtypes"), \
+                f"{path}: imports {n}"
+
+
+def test_entry_points_raise_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: nothing to refuse")
+    _, tcfg = configs("gaussian", grid=2, n_per_col=10)
+    with pytest.raises(RuntimeError, match="cuda"):
+        repro_torch.resolve_device()
+    with pytest.raises(RuntimeError, match="cuda"):
+        teng.init_sim_state(tcfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        teng.build_shard_tables(tcfg)
+    tabs = teng.build_shard_tables(tcfg, device="cpu")
+    state = teng.init_sim_state(tcfg, device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        teng.simulate(state, tabs, tcfg, 2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        teng.simulate(state, tabs, tcfg, 2, device="cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        tables_from_arrays({}, [], tabs.storage.meta())
+    with pytest.raises(RuntimeError, match="cuda"):
+        state_from_arrays({}, tcfg)
+
+
+def test_resolve_device_and_routing_rules():
+    assert repro_torch.resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        repro_torch.resolve_device("meta")
+    assert _build.on_cuda(torch.zeros(1)) is False
+    with pytest.raises(ValueError):
+        _build.on_cuda(torch.zeros(1, device="meta"))
+
+
+def test_launch_counters_and_build_paths():
+    _build.reset_launch_counts()
+    _build.count_launch("lif_step")
+    _build.count_launch("lif_step")
+    assert _build.launch_counts() == {"lif_step": 2}
+    _build.reset_launch_counts()
+    assert _build.launch_counts() == {}
+    for name in _build.SOURCES:
+        assert (_build.CSRC / f"{name}.cu").exists()
+        assert _build._lib_path(name).parent == _build.build_dir()
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+def test_cpu_run_launches_no_kernel():
+    """On CPU tensors the wrappers take the plain versions: no launch is
+    counted, and nothing is compiled."""
+    _, tcfg = configs("gaussian", grid=2, n_per_col=10)
+    _build.reset_launch_counts()
+    teng.simulate(teng.init_sim_state(tcfg, device="cpu"),
+                  teng.build_shard_tables(tcfg, device="cpu"), tcfg, 3,
+                  device="cpu")
+    assert _build.launch_counts() == {}
+
+
+def test_repro_lint_clean_on_port():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro.launch.lint", str(PORT)],
+        capture_output=True, text=True, env=env)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
