@@ -1,8 +1,9 @@
 """PyTorch/CUDA port of the DPSNN simulator (``repro``) for NVIDIA Hopper.
 
 The layout mirrors ``repro``: ``core/`` (connectivity, grid, neuron,
-synapse tables, engine), ``kernels/`` (hand-written CUDA kernels, each
-with its plain PyTorch version beside it) and ``configs/``.  The port
+synapse tables, STDP, engine), ``kernels/`` (hand-written CUDA kernels,
+each with its plain PyTorch version beside it), ``obs/`` (the spike
+recorder) and ``configs/``.  The port
 imports ``torch`` and numpy, never ``jax`` and nothing of ``repro``.
 
 Device rule: every entry point takes ``device=`` and defaults to

@@ -1,9 +1,10 @@
 """Carry the JAX package's tables and state across to the port.
 
-The counterpart of loading weights: ``tables_from_arrays`` and
-``state_from_arrays`` take the reference's synapse tables and simulation
-state as numpy arrays (``np.asarray`` of each leaf) and return the
-port's.  bfloat16 arrays (ml_dtypes' ``bfloat16``) are reinterpreted
+The counterpart of loading weights: ``tables_from_arrays``,
+``state_from_arrays`` and ``plasticity_from_arrays`` take the
+reference's synapse tables (bfloat16 or float32 weights), simulation
+state and STDP auxiliaries as numpy arrays (``np.asarray`` of each leaf)
+and return the port's.  bfloat16 arrays (ml_dtypes' ``bfloat16``) are reinterpreted
 bit for bit, so neither ml_dtypes nor jax is needed here.
 """
 
@@ -89,4 +90,26 @@ def state_from_arrays(arrays: dict, cfg: EngineConfig,
         "active": _tensor(arrays["active"], torch.bool, dev),
         "metrics": {k: f32(arrays["metrics"][k])
                     for k in ("spikes", "events", "dropped")},
+    }
+
+
+def plasticity_from_arrays(aux: dict, device="cuda") -> dict:
+    """The port's ``init_plasticity`` output from the reference's, as
+    numpy arrays: the inverse index (``slots``, ``n_in``, ``bases``,
+    ``sizes``, ``total``, ``clipped``), the masks and the traces."""
+    dev = resolve_device(device)
+    inv = aux["inv"]
+
+    def f32(x):
+        return _tensor(x, torch.float32, dev)
+
+    return {
+        "inv": {"slots": _tensor(inv["slots"], torch.int32, dev),
+                "n_in": _tensor(inv["n_in"], torch.int32, dev),
+                "bases": np.asarray(inv["bases"], dtype=np.int64),
+                "sizes": np.asarray(inv["sizes"], dtype=np.int64),
+                "total": int(inv["total"]), "clipped": int(inv["clipped"])},
+        "masks": [f32(m) for m in aux["masks"]],
+        "traces": {"x_pre": [f32(x) for x in aux["traces"]["x_pre"]],
+                   "x_post": f32(aux["traces"]["x_post"])},
     }

@@ -1,6 +1,7 @@
 """Single-shard DPSNN engine: time-driven outer loop, event-driven delivery.
 
-The port of ``repro.core.engine`` (static runs).  One engine instance
+The port of ``repro.core.engine``: static, plastic (STDP) and recorded
+single-shard runs.  One engine instance
 simulates one tile of the column grid.  Step structure (dt = 1 ms):
 
   1. read the delayed-current ring slot for t, add external Poisson drive
@@ -12,7 +13,9 @@ simulates one tile of the column grid.  Step structure (dt = 1 ms):
 State is a dict of tensors plus the step counter ``t`` (a Python int,
 so ring slots never wait on the device) and the drive's
 ``torch.Generator``.  ``simulate`` is a Python loop over ``step``; the
-ring is updated in place.
+ring is updated in place.  Plastic runs (``simulate(plasticity=)``)
+replace step 4 by ``plastic_delivery_stdp``: delivery and STDP on a
+working copy of the local tier's float32 weights.
 
 The external drive is drawn with ``torch.poisson`` on the state's
 generator, which cannot reproduce ``jax.random.poisson``: for parity
@@ -34,9 +37,11 @@ from .connectivity import (ConnectivityLaw, EXTERNAL_RATE_HZ,
                            EXTERNAL_SYNAPSES)
 from .grid import TileDecomposition
 from .neuron import LIFParams, init_state, lif_sfa_step
+from .stdp import (STDPParams, check_weight_invariant, init_stdp_state,
+                   plastic_masks, stdp_ltp_finalize, stdp_step)
 from .synapses import (SynapseTableSpec, SynapseTables, TierPlan,
                        build_tables, compress_tables, deliver_events,
-                       deliver_gather_all)
+                       deliver_gather_all, with_local_tier)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,6 +66,7 @@ class EngineConfig:
     # Seed of the state realization (membrane init + drive generator);
     # None follows ``seed``, which also fixes the synapse tables.
     state_seed: Optional[int] = None
+    stdp: Optional[STDPParams] = None   # plastic when set
 
     @property
     def state_seed_value(self) -> int:
@@ -73,11 +79,16 @@ class EngineConfig:
 @functools.lru_cache(maxsize=64)
 def _spec(cfg: EngineConfig) -> SynapseTableSpec:
     single = cfg.decomp.tiles_y == 1 and cfg.decomp.tiles_x == 1
+    # plastic runs keep band rows for every stencil-reachable halo column
+    # (floor 0.0) and force float32 weights: STDP increments fall below
+    # the bfloat16 ulp at typical weight magnitudes
+    plastic = cfg.stdp is not None
     return SynapseTableSpec(
         decomp=cfg.decomp, law=cfg.law, d_ring=cfg.d_ring,
         dt_ms=cfg.lif.dt_ms, rate_cap_hz=cfg.rate_cap_hz,
-        cap_headroom=cfg.cap_headroom, weight_dtype=cfg.weight_dtype,
-        single_shard=single, halo_floor=0.5)
+        cap_headroom=cfg.cap_headroom,
+        weight_dtype="float32" if plastic else cfg.weight_dtype,
+        single_shard=single, halo_floor=0.0 if plastic else 0.5)
 
 
 def init_sim_state(cfg: EngineConfig, tile_y: int = 0, tile_x: int = 0,
@@ -138,17 +149,25 @@ def deliver_event_tiers(tables, spikes, halo_band_spikes, spec, i_ring,
                         plan: Optional[List[TierPlan]] = None):
     """Event-driven delivery of the local tier + every halo band into
     ``i_ring`` (in place).  With ``use_kernels`` all tiers go to
-    ``kops.synaptic_accum_banded``; otherwise ``deliver_events`` runs
-    per tier.  Returns (i_ring, events, dropped) as f32 scalars, summed
-    as the reference sums them."""
+    ``kops.synaptic_accum_banded`` (bfloat16 weights, atomic adds) or,
+    for float32 weights, whose sums depend on their order, to the
+    fixed-order ``kops.plastic_step_banded`` with LTD off, through the
+    tables' inverse index; otherwise ``deliver_events`` runs per tier.
+    Returns (i_ring, events, dropped) as f32 scalars, summed as the
+    reference sums them."""
     if plan is None:
         plan = spec.delivery_plan(getattr(tables, "storage", None))
     halo = list(zip(plan[1:], tables["halo"], halo_band_spikes))
     if use_kernels:
         tiers = [(tables["local"], spikes, plan[0].active_cap)]
         tiers += [(tab, spk, p.active_cap) for p, tab, spk in halo]
-        i_ring, ev, dr = kops.synaptic_accum_banded(
-            tiers, i_ring, slot, d_ring, plan=plan)
+        if tables["local"]["w"].dtype == torch.float32:
+            i_ring, _, ev, dr = kops.plastic_step_banded(
+                tiers, None, None, i_ring, slot, d_ring, 0.0,
+                inv=tables.inverse_index(), plan=plan)
+        else:
+            i_ring, ev, dr = kops.synaptic_accum_banded(
+                tiers, i_ring, slot, d_ring, plan=plan)
         return i_ring, ev.to(torch.float32), dr.to(torch.float32)
     i_ring, ev, dr = deliver_events(tables["local"], spikes, i_ring, slot,
                                     d_ring, plan[0].active_cap)
@@ -165,19 +184,21 @@ def deliver_event_tiers(tables, spikes, halo_band_spikes, spec, i_ring,
 def step(state: dict, tables, cfg: EngineConfig,
          halo_band_spikes: Optional[list] = None,
          drive: Optional[torch.Tensor] = None,
-         plan: Optional[List[TierPlan]] = None):
+         plan: Optional[List[TierPlan]] = None, deliver: bool = True):
     """One simulation step.
 
     ``halo_band_spikes``: per-band (rows_b,) spike vectors of the halo
     excitatory sources this step (None single-shard).  ``drive``: this
     step's external current (mV, (n_local,)); None draws it from
     ``state["rng"]``.  ``plan``: the tables' delivery plan (computed
-    when None).  Returns (new_state, local_spikes); the ring tensor is
-    updated in place and carried over.
+    when None).  ``deliver=False`` stops after the LIF update and the
+    ring-slot consume: the plastic loop delivers together with STDP
+    (``plastic_delivery_stdp``).  Returns (new_state, local_spikes); the
+    ring tensor is updated in place and carried over.
     """
     spec = cfg.spec()
     n_local = spec.n_local
-    if plan is None and cfg.mode == "event":
+    if plan is None and cfg.mode == "event" and deliver:
         plan = spec.delivery_plan(getattr(tables, "storage", None))
     slot = state["t"] % cfg.d_ring
     if drive is None:
@@ -196,7 +217,9 @@ def step(state: dict, tables, cfg: EngineConfig,
     halo_band_spikes = halo_band_spikes or []
     m = state["metrics"]
     n_spk = spikes.sum()
-    if cfg.mode == "event":
+    if not deliver:
+        metrics = dict(m, spikes=m["spikes"] + n_spk)
+    elif cfg.mode == "event":
         i_ring, ev, dr = deliver_event_tiers(
             tables, spikes, halo_band_spikes, spec, i_ring, slot,
             cfg.d_ring, cfg.use_kernels, plan=plan)
@@ -223,6 +246,48 @@ def step(state: dict, tables, cfg: EngineConfig,
     return new_state, spikes
 
 
+def plastic_delivery_stdp(tiers, masks, inv, traces, spike_tiers, spec,
+                          i_ring, slot: int, cfg: EngineConfig, plan):
+    """One plastic update: event delivery + STDP over ``tiers``.
+
+    With ``cfg.use_kernels`` one fixed-order launch per tier delivers
+    the old weights and applies LTD (``kops.plastic_step_banded``, the
+    CUDA kernel on CUDA tensors), then the plain ``stdp_ltp_finalize``
+    adds LTP, the clamp and the trace increments.  Otherwise the plain
+    two-pass reference: ``deliver_event_tiers`` then ``stdp_step``.
+    Both are bit-identical to the reference on the CPU.  ``tiers`` carry
+    the live weights (updated in place on the kernel path); ``traces``
+    is ``{"x_pre": [per tier], "x_post"}``.  Returns (i_ring, new_tiers,
+    new_traces, events, dropped) with events/dropped as f32 scalars.
+    """
+    p = cfg.stdp
+    spikes_local = spike_tiers[0]
+    post_cap = spec.active_cap_local
+    if cfg.use_kernels:
+        # decay first (updates read the previous activity), as stdp_step
+        x_pre_d = [xp * p.decay_plus for xp in traces["x_pre"]]
+        x_post_d = traces["x_post"] * p.decay_minus
+        tier_args = [(t, spk, tp.active_cap)
+                     for t, spk, tp in zip(tiers, spike_tiers, plan)]
+        i_ring, new_w, ev, dr = kops.plastic_step_banded(
+            tier_args, masks, x_post_d, i_ring, slot, cfg.d_ring,
+            -p.a_minus, inv=inv, plan=plan)
+        new_tiers = [dict(t, w=w) for t, w in zip(tiers, new_w)]
+        new_tiers, new_traces = stdp_ltp_finalize(
+            new_tiers, masks, inv, x_pre_d, x_post_d, spike_tiers,
+            spikes_local, p, post_cap)
+        return (i_ring, new_tiers, new_traces, ev.to(torch.float32),
+                dr.to(torch.float32))
+    tabs = {"local": tiers[0], "halo": list(tiers[1:])}
+    i_ring, ev, dr = deliver_event_tiers(
+        tabs, spikes_local, list(spike_tiers[1:]), spec, i_ring, slot,
+        cfg.d_ring, False, plan=plan)
+    new_tiers, new_traces = stdp_step(
+        tiers, masks, inv, traces, spike_tiers, spikes_local, p,
+        [tp.active_cap for tp in plan], post_cap)
+    return i_ring, new_tiers, new_traces, ev, dr
+
+
 DriveSource = Union[torch.Tensor, Callable[[int], torch.Tensor], None]
 
 
@@ -236,14 +301,32 @@ def _check_device(state: dict, tables, dev: torch.device) -> None:
             "device=")
 
 
+def _drive_at(drive: DriveSource, k: int, t: int):
+    """Step k's injected drive (None: draw it from the state's rng)."""
+    if isinstance(drive, torch.Tensor):
+        return drive[k]
+    if drive is not None:
+        return drive(t)
+    return None
+
+
 def simulate(state: dict, tables, cfg: EngineConfig, n_steps: int,
              record_spikes: bool = False, drive: DriveSource = None,
-             device="cuda"):
-    """Run ``n_steps`` of single-shard static simulation (no halo sources).
+             device="cuda", plasticity: Optional[dict] = None,
+             recorder=None):
+    """Run ``n_steps`` of single-shard simulation (no halo sources).
 
-    Returns ``(state, out)``: ``out`` is the per-step spike count
-    ``(n_steps,)`` f32, or the full raster ``(n_steps, n_local)`` f32
-    with ``record_spikes=True``.
+      - static (``plasticity=None``): returns ``(state, out)``; ``out``
+        is the per-step spike count ``(n_steps,)`` f32, or the full
+        raster ``(n_steps, n_local)`` f32 with ``record_spikes=True``.
+      - ``recorder``: an ``obs.record.RecorderSpec`` (static runs only);
+        every spike is also appended as a ``(sim_step, global_neuron_id)``
+        event to a bounded buffer, and the return becomes ``(state, out,
+        recorder_state)``.  Recording is a pure observer.
+      - ``plasticity=init_plasticity(tables, cfg)``: STDP each step;
+        returns ``((state, tables, traces), per_step_spike_counts)``.
+        The local tier's weights are cloned once on entry, so the
+        caller's ``tables`` are never changed.
 
     ``drive``: None draws the Poisson drive from ``state["rng"]``; a
     tensor ``(n_steps, n_local)`` gives step k of this call its row k
@@ -255,24 +338,90 @@ def simulate(state: dict, tables, cfg: EngineConfig, n_steps: int,
     _check_device(state, tables, dev)
     spec = cfg.spec()
     n_local = spec.n_local
-    plan = (spec.delivery_plan(getattr(tables, "storage", None))
-            if cfg.mode == "event" else None)
     if isinstance(drive, torch.Tensor) and \
             tuple(drive.shape) != (n_steps, n_local):
         raise ValueError(f"drive has shape {tuple(drive.shape)}, expected "
                          f"{(n_steps, n_local)}")
+    if plasticity is not None:
+        if recorder is not None or record_spikes:
+            raise ValueError("plastic runs do not support recorder/"
+                             "record_spikes (use the distributed driver)")
+        return _run_plastic(state, tables, plasticity, cfg, n_steps, drive)
+    plan = (spec.delivery_plan(getattr(tables, "storage", None))
+            if cfg.mode == "event" else None)
     shape = (n_steps, n_local) if record_spikes else (n_steps,)
     out = torch.empty(shape, dtype=torch.float32, device=dev)
+    rec = None
+    if recorder is not None:
+        from ..obs.record import (init_recorder_state, record_step,
+                                  tile_gid_map)
+        gids = torch.from_numpy(tile_gid_map(cfg.decomp, 0, 0)).to(dev)
+        rec = init_recorder_state(recorder, device=dev)
     for k in range(n_steps):
-        if isinstance(drive, torch.Tensor):
-            d = drive[k]
-        elif drive is not None:
-            d = drive(state["t"])
-        else:
-            d = None
-        state, spikes = step(state, tables, cfg, drive=d, plan=plan)
+        t = state["t"]
+        state, spikes = step(state, tables, cfg,
+                             drive=_drive_at(drive, k, t), plan=plan)
+        if rec is not None:
+            rec = record_step(rec, spikes, gids, t, recorder)
         out[k] = spikes if record_spikes else spikes.sum()
-    return state, out
+    return (state, out) if rec is None else (state, out, rec)
+
+
+def _run_plastic(state: dict, tables, stdp_aux: dict, cfg: EngineConfig,
+                 n_steps: int, drive: DriveSource):
+    """The plastic loop: the local tier's weights join the carry.
+
+    Single-shard only: only the local tier is stepped; halo tiers in
+    ``stdp_aux`` (a multi-tile config's tables) are ignored, as delivery
+    ignores them without halo spikes.  The inverse index still covers
+    every tier, as in the reference."""
+    if cfg.mode != "event":
+        raise ValueError(
+            f"plastic runs require mode='event' (got {cfg.mode!r}): the "
+            "STDP update is event-driven on the same compaction as "
+            "delivery")
+    if cfg.stdp is None or tables["local"]["w"].dtype != torch.float32:
+        raise ValueError("plastic runs need cfg.stdp set and float32 "
+                         "tables built from that config")
+    spec = cfg.spec()
+    plan = spec.delivery_plan(getattr(tables, "storage", None))[:1]
+    masks = stdp_aux["masks"][:1]
+    traces = {"x_pre": stdp_aux["traces"]["x_pre"][:1],
+              "x_post": stdp_aux["traces"]["x_post"]}
+    tiers = [dict(tables["local"], w=tables["local"]["w"].clone())]
+    out = torch.empty((n_steps,), dtype=torch.float32,
+                      device=state["i_ring"].device)
+    for k in range(n_steps):
+        slot = state["t"] % cfg.d_ring
+        state, spikes = step(state, tables, cfg,
+                             drive=_drive_at(drive, k, state["t"]),
+                             deliver=False)
+        i_ring, tiers, traces, ev, dr = plastic_delivery_stdp(
+            tiers, masks, stdp_aux["inv"], traces, [spikes], spec,
+            state["i_ring"], slot, cfg, plan)
+        m = state["metrics"]
+        state = dict(state, i_ring=i_ring,
+                     metrics=dict(m, events=m["events"] + ev,
+                                  dropped=m["dropped"] + dr))
+        out[k] = spikes.sum()
+    return (state, with_local_tier(tables, tiers[0]), traces), out
+
+
+def init_plasticity(tables: SynapseTables, cfg: EngineConfig) -> dict:
+    """Build the STDP auxiliaries: the inverse index over every tier the
+    tables carry (``tables.inverse_index()``, host numpy, kept with the
+    tables), the plastic masks and zero traces, on the tables' device."""
+    tiers = tables.tiers()
+    n_local = cfg.spec().n_local
+    dev = tables["local"]["tgt"].device
+    check_weight_invariant(tiers, cfg.stdp)
+    if tables["local"]["tgt"].shape[0] - 1 != n_local:
+        raise ValueError("the tables do not belong to this config")
+    return {
+        "inv": tables.inverse_index(),
+        "masks": plastic_masks(tiers),
+        "traces": init_stdp_state(tiers, n_local, device=dev),
+    }
 
 
 def firing_rate_hz(state: dict, cfg: EngineConfig,

@@ -145,3 +145,18 @@ def choose_tiling(n_shards_y: int, n_shards_x: int, grid: ColumnGrid,
                   radius: int) -> TileDecomposition:
     return TileDecomposition(grid=grid, tiles_y=n_shards_y, tiles_x=n_shards_x,
                              radius=radius)
+
+
+def global_column_ids(d: TileDecomposition) -> np.ndarray:
+    """(tiles_y, tiles_x, tile_cols) global column id; -1 for padded
+    columns that lie outside the logical grid (``repro.core.retile``)."""
+    H, W = d.grid.height, d.grid.width
+    out = np.full((d.tiles_y, d.tiles_x, d.tile_cols), -1, np.int64)
+    for ty in range(d.tiles_y):
+        for tx in range(d.tiles_x):
+            oy, ox = d.tile_origin(ty, tx)
+            ys = oy + np.arange(d.tile_h)[:, None]
+            xs = ox + np.arange(d.tile_w)[None, :]
+            gid = np.where((ys < H) & (xs < W), ys * W + xs, -1)
+            out[ty, tx] = gid.ravel()
+    return out

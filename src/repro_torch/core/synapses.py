@@ -34,8 +34,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..kernels.ref import synaptic_accum_ref
-from ..kernels.synaptic_accum import compact_events
+from ..kernels.ref import compact_events, synaptic_accum_ref
 from .connectivity import ConnectivityLaw, FRAC_EXCITATORY, P_LOCAL
 from .grid import TileDecomposition
 
@@ -118,6 +117,7 @@ class SynapseTables:
         self.halo = tuple(halo)
         self.storage = storage
         self.stats = stats
+        self._inv = None
 
     def __getitem__(self, key):
         if key in ("local", "halo", "stats"):
@@ -126,6 +126,18 @@ class SynapseTables:
 
     def tiers(self) -> List[dict]:
         return [self.local] + list(self.halo)
+
+    def inverse_index(self) -> dict:
+        """The target-major inverse index over every tier
+        (``core.stdp.build_inverse_index``), on the tables' device.  Built
+        on the host at first use and kept with the tables: the
+        fixed-order delivery of float32 weights walks it every step."""
+        if self._inv is None:
+            from .stdp import build_inverse_index
+            dev = self.local["tgt"].device
+            self._inv = build_inverse_index(
+                self.tiers(), self.local["tgt"].shape[0] - 1, device=dev)
+        return self._inv
 
     def to(self, device) -> "SynapseTables":
         def move(t):
@@ -136,6 +148,15 @@ class SynapseTables:
     def __repr__(self):
         return (f"SynapseTables(tiers={1 + len(self.halo)}, "
                 f"storage={self.storage})")
+
+
+def with_local_tier(tables, local_tier: dict):
+    """``tables`` with its local tier replaced; accepts ``SynapseTables``
+    or a ``{"local": ..., "halo": [...]}`` dict."""
+    if isinstance(tables, SynapseTables):
+        return SynapseTables(local_tier, tables.halo, tables.storage,
+                             stats=tables.stats)
+    return dict(tables, local=local_tier)
 
 
 def materialized_table_bytes(tables: SynapseTables) -> int:

@@ -4,7 +4,14 @@ PyTorch version in ``ref.py`` and a wrapper that routes by tensor device:
   * lif_step        -- fused memory-bound LIF+SFA neuron update
   * synaptic_accum  -- event delivery: cumsum compaction, then one warp
                        per spiking row gathers the row and atomically
-                       adds its weights into the delay ring
+                       adds its weights into the delay ring (bfloat16
+                       weights, where the order of the adds is exact)
+  * plastic_step    -- fixed-order delivery fused with STDP's LTD: one
+                       warp per target pulls its delivered synapses
+                       through the inverse index in the reference's
+                       order (float32 weights)
+  * spike_compact   -- stream compaction of the spike vector by an int32
+                       block prefix scan (the spike recorder)
 
 ``_build`` compiles the sources with ``nvcc`` at first use and counts
 every launch.

@@ -7,19 +7,20 @@
 // a two-level one-hot MXU contraction over ring tiles; both are TPU
 // workarounds.  Here one warp takes one compacted event row: it skips the
 // sink row, reads the row's nnz entries (target id int16/int32, weight
-// bf16/f32, delay slot int8) with neighbouring lanes on neighbouring
+// bf16, delay slot int8) with neighbouring lanes on neighbouring
 // entries, and adds each weight into ring[(t_slot + dslot) % d_ring][tgt]
 // with a float atomicAdd.  Lane 0 adds the row's nnz to the int32 event
 // counter.
 //
-// Bound: device-memory traffic.  Per synaptic event it reads 7 B (int32
-// ids) or 5 B (int16 ids) of table entries and read-modify-writes one
+// Bound: device-memory traffic.  Per synaptic event it reads 5 B (int16
+// ids) or 7 B (int32 ids) of table entries and read-modify-writes one
 // 4-byte ring word, which stays in L2 (the ring is d_ring * n_local * 4 B,
 // 2.5 MB at 8x8x1240).  The atomics make the order of additions vary, but
-// on the static bf16 path every ring value is a multiple of 2^-9 below
-// 2^15, so float32 sums are exact in any order and the ring is
-// bit-identical to the sequential reference.  With float32 weights
-// (plastic runs) the order shows in the last bits.
+// with bfloat16 weights every ring value is a multiple of 2^-9 below 2^15,
+// so float32 sums are exact in any order and the ring is bit-identical to
+// the sequential reference.  Float32 weights would show the order in the
+// last bits, so this kernel takes bfloat16 weights only; float32 tables go
+// to the fixed-order kernel (plastic_delivery.cu).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -27,15 +28,10 @@
 
 namespace {
 
-__device__ __forceinline__ float to_float(float w) { return w; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 w) {
-  return __bfloat162float(w);
-}
-
-template <typename TgtT, typename WT>
+template <typename TgtT>
 __global__ void deliver_rows_kernel(
     const int32_t* __restrict__ idx, int n_idx, const TgtT* __restrict__ tgt,
-    const WT* __restrict__ w, const int8_t* __restrict__ dslot,
+    const __nv_bfloat16* __restrict__ w, const int8_t* __restrict__ dslot,
     const int32_t* __restrict__ nnz, int cap, int sink_row,
     float* __restrict__ ring, int n_local, int d_ring, int t_slot,
     int32_t* __restrict__ events) {
@@ -48,14 +44,14 @@ __global__ void deliver_rows_kernel(
   const size_t base = (size_t)row * cap;
   for (int k = lane; k < n; k += 32) {
     const int t = (int)tgt[base + k];
-    const float wk = to_float(w[base + k]);
+    const float wk = __bfloat162float(w[base + k]);
     const int slot = (t_slot + (int)dslot[base + k]) % d_ring;
     atomicAdd(ring + (size_t)slot * n_local + t, wk);
   }
   if (lane == 0 && events) atomicAdd(events, n);
 }
 
-template <typename TgtT, typename WT>
+template <typename TgtT>
 int launch(const void* idx, int n_idx, const void* tgt, const void* w,
            const void* dslot, const void* nnz, int cap, int sink_row,
            void* ring, int n_local, int d_ring, int t_slot, void* events,
@@ -63,8 +59,9 @@ int launch(const void* idx, int n_idx, const void* tgt, const void* w,
   const int threads = 256;  // 8 warps: 8 event rows per block
   const int rows_per_block = threads / 32;
   const int blocks = (n_idx + rows_per_block - 1) / rows_per_block;
-  deliver_rows_kernel<TgtT, WT><<<blocks, threads, 0, stream>>>(
-      (const int32_t*)idx, n_idx, (const TgtT*)tgt, (const WT*)w,
+  deliver_rows_kernel<TgtT><<<blocks, threads, 0, stream>>>(
+      (const int32_t*)idx, n_idx, (const TgtT*)tgt,
+      (const __nv_bfloat16*)w,
       (const int8_t*)dslot, (const int32_t*)nnz, cap, sink_row, (float*)ring,
       n_local, d_ring, t_slot, (int32_t*)events);
   return (int)cudaGetLastError();
@@ -72,30 +69,21 @@ int launch(const void* idx, int n_idx, const void* tgt, const void* w,
 
 }  // namespace
 
-// tgt_bytes: 2 (int16) or 4 (int32); w_bytes: 2 (bfloat16) or 4 (float32).
+// tgt_bytes: 2 (int16) or 4 (int32); w_bytes must be 2 (bfloat16).
 // nnz may be null (every row is read to cap); events may be null.
 extern "C" int deliver_rows_launch(
     const void* idx, int n_idx, const void* tgt, int tgt_bytes, const void* w,
     int w_bytes, const void* dslot, const void* nnz, int cap, int sink_row,
     void* ring, int n_local, int d_ring, int t_slot, void* events,
     void* stream) {
+  if (w_bytes != 2) return (int)cudaErrorInvalidValue;
   if (n_idx <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  if (tgt_bytes == 2 && w_bytes == 2)
-    return launch<int16_t, __nv_bfloat16>(idx, n_idx, tgt, w, dslot, nnz, cap,
-                                          sink_row, ring, n_local, d_ring,
-                                          t_slot, events, s);
-  if (tgt_bytes == 4 && w_bytes == 2)
-    return launch<int32_t, __nv_bfloat16>(idx, n_idx, tgt, w, dslot, nnz, cap,
-                                          sink_row, ring, n_local, d_ring,
-                                          t_slot, events, s);
-  if (tgt_bytes == 2 && w_bytes == 4)
-    return launch<int16_t, float>(idx, n_idx, tgt, w, dslot, nnz, cap,
-                                  sink_row, ring, n_local, d_ring, t_slot,
-                                  events, s);
-  if (tgt_bytes == 4 && w_bytes == 4)
-    return launch<int32_t, float>(idx, n_idx, tgt, w, dslot, nnz, cap,
-                                  sink_row, ring, n_local, d_ring, t_slot,
-                                  events, s);
+  if (tgt_bytes == 2)
+    return launch<int16_t>(idx, n_idx, tgt, w, dslot, nnz, cap, sink_row,
+                           ring, n_local, d_ring, t_slot, events, s);
+  if (tgt_bytes == 4)
+    return launch<int32_t>(idx, n_idx, tgt, w, dslot, nnz, cap, sink_row,
+                           ring, n_local, d_ring, t_slot, events, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -12,6 +12,8 @@ from __future__ import annotations
 import torch
 
 from .lif_step import lif_step as _lif_step
+from .plastic_step import plastic_delivery_ltd
+from .spike_compact import spike_compact as _spike_compact
 from .synaptic_accum import event_delivery_banded
 
 
@@ -31,3 +33,23 @@ def synaptic_accum_banded(tiers, i_ring, t_slot: int, d_ring: int,
     ``SynapseTableSpec.delivery_plan()`` the tables are validated
     against.  Returns (ring, n_events, n_dropped) summed over tiers."""
     return event_delivery_banded(tiers, i_ring, t_slot, d_ring, plan=plan)
+
+
+def plastic_step_banded(tiers, masks, x_post_decayed, i_ring, t_slot: int,
+                        d_ring: int, neg_a_minus: float, *, inv: dict,
+                        plan=None):
+    """Fixed-order delivery + in-pass LTD (one launch per tier) through
+    the inverse index ``inv``.  ``x_post_decayed`` is the post trace
+    after this step's decay, before its spike increment; ``masks=None``
+    delivers only (static float32 weights).  Returns (ring, new_w_tiers,
+    n_events, n_dropped); ring and weights are updated in place."""
+    return plastic_delivery_ltd(tiers, masks, x_post_decayed, i_ring,
+                                t_slot, d_ring, neg_a_minus, inv=inv,
+                                plan=plan)
+
+
+def spike_compact(spikes, n_rows: int, active_cap: int):
+    """Kernel-backed drop-in for ``ref.compact_events``: the ascending
+    spiking-row index list (sink-padded) plus the uncapped spike count
+    (int32).  Feeds the device-side spike recorder."""
+    return _spike_compact(spikes, n_rows, active_cap)

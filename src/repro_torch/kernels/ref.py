@@ -47,6 +47,39 @@ def lif_step_ref(v, c, refrac, i_total, active, *, leak_decay, sfa_decay,
 
 
 # ---------------------------------------------------------------------------
+# Spike compaction (kernels/spike_compact.py; also the first stage of
+# event delivery)
+# ---------------------------------------------------------------------------
+
+def compact_events(spikes_src: torch.Tensor, n_rows: int, active_cap: int):
+    """Spiking-row compaction: ascending row indices of the (at most
+    ``active_cap``) spiking sources, padded with the sink row ``n_rows``.
+
+    Returns (idx int32 (active_cap,), n_spikes int64 0-d tensor).  A
+    fixed-size cumsum and scatter, no ``torch.nonzero``: the sizes are
+    static, so nothing waits for the device.
+    """
+    spk = spikes_src[:n_rows] > 0
+    dev = spikes_src.device
+    rank = torch.cumsum(spk, 0, dtype=torch.int32) - 1
+    dest = torch.where(spk & (rank < active_cap), rank,
+                       torch.full_like(rank, active_cap))
+    idx = torch.full((active_cap + 1,), n_rows, dtype=torch.int32,
+                     device=dev)
+    # every non-delivered row lands in the dump slot ``active_cap``
+    idx.scatter_(0, dest.long(),
+                 torch.arange(n_rows, dtype=torch.int32, device=dev))
+    return idx[:active_cap], spk.sum()
+
+
+def spike_compact_ref(spikes, n_rows: int, active_cap: int):
+    """Plain version of the compaction kernel: ``compact_events`` with
+    the uncapped count as an int32 0-d tensor."""
+    idx, n = compact_events(spikes, n_rows, active_cap)
+    return idx, n.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
 # Event-driven synaptic accumulation (kernels/synaptic_accum.py)
 # ---------------------------------------------------------------------------
 
@@ -74,3 +107,36 @@ def deliver_rows_ref(tables: dict, idx, ring, t_slot: int, events):
                        tables["dslot"], ring)
     events += tables["nnz"][idx.long()].sum().to(torch.int32)
     return ring
+
+
+# ---------------------------------------------------------------------------
+# Delivery + LTD in one pass (kernels/plastic_step.py)
+# ---------------------------------------------------------------------------
+
+def plastic_delivery_ltd_ref(tables: dict, spikes_src, active_cap: int,
+                             ring, t_slot: int, mask=None, x_post=None,
+                             neg_a_minus: float = 0.0):
+    """Plain version of the fixed-order delivery + LTD kernel, one tier.
+
+    Compaction, then the delivery of the compacted rows' old weights by a
+    sequential ``index_add_`` in (row, k) order (``synaptic_accum_ref``;
+    sequential on the CPU only), then, where ``mask`` is given, LTD on
+    every plastic synapse of the delivered rows:
+    ``w' = w + (f32(neg_a_minus) * x_post[tgt]) * mask``, each operation
+    rounded to float32 on its own.  ``ring`` and ``tables["w"]`` are
+    updated in place.  Returns (n_events int32, n_spikes int64)."""
+    n_rows = tables["tgt"].shape[0] - 1
+    idx, n_spk = compact_events(spikes_src, n_rows, active_cap)
+    synaptic_accum_ref(idx, t_slot, tables["tgt"], tables["w"],
+                       tables["dslot"], ring)
+    rows = idx.long()
+    if mask is not None:
+        w = tables["w"]
+        m = mask[rows]
+        neg_a = torch.tensor(neg_a_minus, dtype=torch.float32,
+                             device=w.device)
+        dw = (neg_a * x_post[tables["tgt"][rows].long()]) * m
+        w_rows = w[rows]
+        w.index_copy_(0, rows, torch.where(m > 0, w_rows + dw, w_rows))
+    n_events = tables["nnz"][rows].sum(dtype=torch.int32)
+    return n_events, n_spk

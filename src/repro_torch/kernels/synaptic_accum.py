@@ -16,7 +16,11 @@ Per tier (the local table, then each halo fan-out band):
     materialized it, lane-packed, for its one-hot MXU scatter).
 
 Bound: memory traffic, ~7 B of table entries per synaptic event (int32
-ids; 5 B with int16) plus one ring word per touched target.  Tiers are
+ids; 5 B with int16) plus one ring word per touched target.  The atomic
+adds land in no fixed order, which is exact only for bfloat16 weights
+(every ring value a multiple of 2^-9 far below 2^15): the kernel refuses
+float32 weights, which take the fixed-order kernel of
+``kernels/plastic_step.py``.  Tiers are
 one launch each.  Drop semantics match the reference exactly: only the
 first ``active_cap`` spiking rows, in ascending order, are delivered, and
 ``n_dropped = max(n_spikes - active_cap, 0)``.
@@ -34,13 +38,15 @@ from typing import Sequence, Tuple
 import torch
 
 from . import _build
-from .ref import deliver_rows_ref, synaptic_accum_ref
+from .ref import compact_events, deliver_rows_ref, synaptic_accum_ref
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 _TGT_BYTES = {torch.int16: 2, torch.int32: 4}
 _W_BYTES = {torch.bfloat16: 2, torch.float32: 4}
+# weights the atomic kernel may add in any order and still be exact
+_ORDER_FREE_W = (torch.bfloat16,)
 
 
 def _launcher():
@@ -54,31 +60,7 @@ def _launcher():
 
 
 # ---------------------------------------------------------------------------
-# Stage 1: compaction
-# ---------------------------------------------------------------------------
-
-def compact_events(spikes_src: torch.Tensor, n_rows: int, active_cap: int):
-    """Spiking-row compaction: ascending row indices of the (at most
-    ``active_cap``) spiking sources, padded with the sink row ``n_rows``.
-
-    Returns (idx int32 (active_cap,), n_spikes int64 0-d tensor).  The
-    sizes are static, so nothing waits for the device.
-    """
-    spk = spikes_src[:n_rows] > 0
-    dev = spikes_src.device
-    rank = torch.cumsum(spk, 0, dtype=torch.int32) - 1
-    dest = torch.where(spk & (rank < active_cap), rank,
-                       torch.full_like(rank, active_cap))
-    idx = torch.full((active_cap + 1,), n_rows, dtype=torch.int32,
-                     device=dev)
-    # every non-delivered row lands in the dump slot ``active_cap``
-    idx.scatter_(0, dest.long(),
-                 torch.arange(n_rows, dtype=torch.int32, device=dev))
-    return idx[:active_cap], spk.sum()
-
-
-# ---------------------------------------------------------------------------
-# Stage 2: the delivery kernel
+# The delivery kernel
 # ---------------------------------------------------------------------------
 
 def _check_tier(tables: dict, ring: torch.Tensor):
@@ -112,6 +94,11 @@ def deliver_rows_cuda(tables: dict, idx: torch.Tensor, ring: torch.Tensor,
     of one tier.  ``events``: int32 (1,) counter (or None); ``tables`` may
     omit ``nnz`` (every row is then read to its capacity)."""
     _check_tier(tables, ring)
+    if tables["w"].dtype not in _ORDER_FREE_W:
+        raise ValueError(
+            f"the atomic delivery kernel adds in no fixed order, which is "
+            f"exact only for bfloat16 weights; {tables['w'].dtype} weights "
+            "take the fixed-order kernel (kernels.plastic_step)")
     nnz = tables.get("nnz")
     if ring.device.type != "cuda" or idx.device != ring.device \
             or idx.dtype != torch.int32 or not idx.is_contiguous():

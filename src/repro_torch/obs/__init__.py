@@ -1,0 +1,4 @@
+"""Observability of the port: the device-side spike recorder."""
+
+from .record import (RecorderSpec, init_recorder_state, record_step,
+                     recorder_spec, tile_gid_map)

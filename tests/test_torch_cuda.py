@@ -1,24 +1,38 @@
 """The port's CUDA kernels against their plain versions, on the card.
 
 Marked ``cuda``: they skip where ``torch.cuda.is_available()`` is false
-(every CPU run) and run on an H100 with ``pytest -m cuda``.  Whether a
-card is present is decided inside the fixture, never at import time.
+(every CPU run) and run on an H100 with
+``pytest -m cuda tests/test_torch_cuda.py``.  Whether a card is present
+is decided inside the fixture, never at import time.  The file imports
+nothing of jax or the JAX package: the card tests need only the port.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import connectivity as tconn
 from repro_torch.core import engine as teng
+from repro_torch.core import grid as tgrid
 from repro_torch.core.neuron import LIFParams
 from repro_torch.core.synapses import deliver_events
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.lif_step import lif_step_cuda
 from repro_torch.kernels.synaptic_accum import event_delivery_banded
 
-from _torch_parity import configs
-
 pytestmark = pytest.mark.cuda
+
+
+def configs(law: str, grid: int = 4, n_per_col: int = 30, **kw):
+    """(None, port EngineConfig): the port's half of
+    ``_torch_parity.configs``, so that this file needs no jax."""
+    tl = getattr(tconn, f"{law}_law")()
+    return None, teng.EngineConfig(
+        decomp=tgrid.TileDecomposition(
+            tgrid.ColumnGrid(grid, grid, n_per_col), 1, 1, tl.radius),
+        law=tl, **kw)
 
 
 @pytest.fixture
@@ -63,7 +77,6 @@ def test_delivery_kernel_matches_plain(cuda, law):
 
 
 def test_kernel_path_run_matches_plain_path(cuda):
-    import dataclasses
     _, tcfg = configs("exponential", grid=4, n_per_col=100)
     tabs = teng.build_shard_tables(tcfg, device=cuda)
     _build.reset_launch_counts()
@@ -75,3 +88,123 @@ def test_kernel_path_run_matches_plain_path(cuda):
                            plain, 50, record_spikes=True, device=cuda)
     assert torch.equal(rk, rp)
     assert torch.equal(fk["i_ring"], fp["i_ring"])
+
+
+def _plastic_cfg(law, n_per_col=100, **kw):
+    from repro_torch.core.stdp import STDPParams
+    _, tcfg = configs(law, grid=4, n_per_col=n_per_col, **kw)
+    return dataclasses.replace(tcfg, stdp=STDPParams())
+
+
+@pytest.mark.parametrize("dens", [0.0, 0.3, 0.9])
+@pytest.mark.parametrize("law", ["gaussian", "exponential"])
+def test_plastic_kernel_matches_cpu_plain(cuda, law, dens):
+    """Fixed-order delivery + LTD on the card against the plain version
+    run on CPU copies of the same inputs: ring and weights exact."""
+    from repro_torch.kernels.plastic_step import plastic_delivery_ltd
+    tcfg = _plastic_cfg(law)
+    tabs = teng.build_shard_tables(tcfg, device="cpu")
+    aux = teng.init_plasticity(tabs, tcfg)
+    spec = tcfg.spec()
+    rng = np.random.default_rng(3)
+    local = dict(tabs.local)
+    m = aux["masks"][0] > 0
+    w = local["w"].clone()
+    w[m] = torch.tensor(rng.uniform(0, 0.6, int(m.sum())),
+                        dtype=torch.float32)
+    local["w"] = w
+    spk = torch.tensor(rng.random(spec.n_local) < dens, dtype=torch.float32)
+    x_post = torch.tensor(rng.uniform(0, 3, spec.n_local),
+                          dtype=torch.float32)
+    ring = torch.tensor(rng.normal(0, 4, (8, spec.n_local)),
+                        dtype=torch.float32)
+
+    def run(dev):
+        tier = {k: v.clone().to(dev) for k, v in local.items()}
+        inv = dict(aux["inv"], slots=aux["inv"]["slots"].to(dev),
+                   n_in=aux["inv"]["n_in"].to(dev))
+        r, new_w, ev, dr = plastic_delivery_ltd(
+            [(tier, spk.to(dev), spec.active_cap_local)],
+            [aux["masks"][0].to(dev)], x_post.to(dev), ring.clone().to(dev),
+            4, 8, -tcfg.stdp.a_minus, inv=inv)
+        return r.cpu(), new_w[0].cpu(), int(ev), int(dr)
+
+    rk, wk, ek, dk = run(cuda)
+    rp, wp, ep, dp = run("cpu")
+    assert torch.equal(rk.view(torch.int32), rp.view(torch.int32))
+    assert torch.equal(wk.view(torch.int32), wp.view(torch.int32))
+    assert (ek, dk) == (ep, dp)
+
+
+@pytest.mark.parametrize("dens", [0.0, 0.01, 0.5, 1.0])
+def test_spike_compact_kernel_matches_plain(cuda, dens):
+    from repro_torch.kernels.ref import compact_events
+    from repro_torch.kernels.spike_compact import spike_compact_cuda
+    g = torch.Generator(device=cuda).manual_seed(5)
+    n = 79_360
+    spk = (torch.rand(n + 1, device=cuda, generator=g) < dens).float()
+    for cap in (1, 700, 6_400, n):
+        idx, cnt = spike_compact_cuda(spk, n, cap)
+        ridx, rcnt = compact_events(spk, n, cap)
+        assert torch.equal(idx, ridx) and int(cnt) == int(rcnt)
+
+
+@pytest.mark.parametrize("law", ["gaussian", "exponential"])
+def test_static_float32_run_is_fixed_order(cuda, law):
+    """A static float32 run at 4x4x100 on the card goes through the
+    fixed-order kernel, not the atomic one: the same ring and raster
+    twice, and the same as the plain path on the CPU."""
+    _, tcfg = configs(law, grid=4, n_per_col=100, weight_dtype="float32")
+    cpu_tabs = teng.build_shard_tables(tcfg, device="cpu")
+    tabs = cpu_tabs.to(cuda)
+    n = tcfg.spec().n_local
+    gen = torch.Generator().manual_seed(11)
+    drive = torch.stack([teng.external_drive(gen, n, tcfg)
+                         for _ in range(60)])
+    runs = []
+    for _ in range(2):
+        _build.reset_launch_counts()
+        fin, raster = teng.simulate(teng.init_sim_state(tcfg, device=cuda),
+                                    tabs, tcfg, 60, record_spikes=True,
+                                    drive=drive.to(cuda), device=cuda)
+        counts = _build.launch_counts()
+        assert counts.get("plastic_delivery_ltd") == 60
+        assert "event_delivery" not in counts
+        runs.append((fin["i_ring"].cpu(), raster.cpu()))
+    plain = dataclasses.replace(tcfg, use_kernels=False)
+    fin_p, raster_p = teng.simulate(teng.init_sim_state(plain, device="cpu"),
+                                    cpu_tabs, plain, 60, record_spikes=True,
+                                    drive=drive, device="cpu")
+    for ring, raster in runs:
+        assert float(raster.sum()) > 0
+        assert torch.equal(raster, raster_p)
+        assert torch.equal(ring.view(torch.int32),
+                           fin_p["i_ring"].view(torch.int32))
+
+
+@pytest.mark.parametrize("law", ["gaussian", "exponential"])
+def test_plastic_run_matches_cpu_plain_path(cuda, law):
+    tcfg = _plastic_cfg(law)
+    cpu_tabs = teng.build_shard_tables(tcfg, device="cpu")
+    n = tcfg.spec().n_local
+    gen = torch.Generator().manual_seed(2)
+    drive = torch.stack([teng.external_drive(gen, n, tcfg)
+                         for _ in range(40)])
+    tabs = cpu_tabs.to(cuda)
+    _build.reset_launch_counts()
+    (sk, tk, rk), pk = teng.simulate(
+        teng.init_sim_state(tcfg, device=cuda), tabs, tcfg, 40,
+        drive=drive.to(cuda), device=cuda,
+        plasticity=teng.init_plasticity(tabs, tcfg))
+    assert _build.launch_counts() == {"lif_step": 40,
+                                      "plastic_delivery_ltd": 40}
+    plain = dataclasses.replace(tcfg, use_kernels=False)
+    (sp, tp, rp), pp = teng.simulate(
+        teng.init_sim_state(plain, device="cpu"), cpu_tabs, plain, 40,
+        drive=drive, device="cpu",
+        plasticity=teng.init_plasticity(cpu_tabs, plain))
+    assert torch.equal(pk.cpu(), pp)
+    for a, b in ((tk["local"]["w"], tp["local"]["w"]),
+                 (sk["i_ring"], sp["i_ring"]), (rk["x_post"], rp["x_post"]),
+                 (rk["x_pre"][0], rp["x_pre"][0])):
+        assert torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))

@@ -1,0 +1,334 @@
+"""Port parity: plastic (STDP) single-shard runs, bit for bit.
+
+The reference runs on its pure-XLA path (``use_kernels=False``) and its
+drive is injected into the port.  Weights are float32 here, so every
+comparison is of bits: the inverse index, one plastic step from random
+traces, whole 100-step runs (both laws, kernel and plain paths), the
+converter, and the fixed-order delivery of a static float32 run.
+"""
+
+import dataclasses
+import functools
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.core import engine as jeng
+from repro.core import stdp as jstdp
+from repro_torch.core import engine as teng
+from repro_torch.core import stdp as tstdp
+from repro_torch.core.convert import plasticity_from_arrays, tables_from_arrays
+from repro_torch.kernels.plastic_step import plastic_delivery_ltd
+from repro_torch.kernels.synaptic_accum import deliver_rows_cuda
+
+from _torch_parity import (LAWS, assert_bits_equal, configs,
+                           reference_drive, tier_arrays)
+
+STEPS = 100
+
+
+def plastic_configs(law, grid=4, n_per_col=30, tiles=1, **kw):
+    jcfg, tcfg = configs(law, grid=grid, n_per_col=n_per_col, tiles=tiles,
+                         **kw)
+    return (dataclasses.replace(jcfg, stdp=jstdp.STDPParams()),
+            dataclasses.replace(tcfg, stdp=tstdp.STDPParams()))
+
+
+def _np(x):
+    return jax.tree_util.tree_map(np.asarray, x)
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_plastic_run(law, steps=STEPS):
+    jcfg, tcfg = plastic_configs(law)
+    tabs = jeng.build_shard_tables(jcfg)
+    aux = jeng.init_plasticity(tabs, jcfg)
+    state = jeng.init_sim_state(jcfg)
+    drive = reference_drive(jcfg, state, steps)
+    (st, tb, tr), per = jax.jit(lambda s, t: jeng.simulate(
+        s, t, jcfg, steps, plasticity=aux))(state, tabs)
+    return (jcfg, tcfg, drive, _np(st), np.asarray(tb["local"]["w"]),
+            _np(tr), np.asarray(per), np.asarray(tabs["local"]["w"]))
+
+
+# ---------------------------------------------------------------------------
+# inverse index
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("tiles,ty,tx", [(1, 0, 0), (2, 0, 0), (2, 0, 1),
+                                         (2, 1, 0), (2, 1, 1)])
+@pytest.mark.parametrize("law", LAWS)
+def test_inverse_index_matches_reference(law, tiles, ty, tx):
+    jcfg, tcfg = plastic_configs(law, tiles=tiles)
+    jt = jeng.build_shard_tables(jcfg, ty, tx)
+    tt = teng.build_shard_tables(tcfg, ty, tx, device="cpu")
+    n_local = tcfg.spec().n_local
+    ji = jstdp.build_inverse_index(list(jt.tiers()), n_local)
+    ti = tstdp.build_inverse_index(tt.tiers(), n_local)
+    if tiles == 2:
+        assert len(tt.halo) > 0
+    for k in ("slots", "n_in", "bases", "sizes"):
+        assert_bits_equal(np.asarray(ji[k]), np.asarray(ti[k]), k)
+    assert ti["total"] == ji["total"] and ti["clipped"] == ji["clipped"] == 0
+    # the tables keep the same index for the fixed-order delivery
+    assert torch.equal(tt.inverse_index()["slots"], ti["slots"])
+    assert tt.inverse_index() is tt.inverse_index()
+
+
+# ---------------------------------------------------------------------------
+# one plastic step
+# ---------------------------------------------------------------------------
+
+def _step_inputs(law, case):
+    """Reference tables/aux plus random live weights, traces, ring and a
+    forced spike vector (numpy seed)."""
+    kw = {"rate_cap_hz": 2.0, "cap_headroom": 1.0} if case == "overflow" \
+        else {}
+    jcfg, tcfg = plastic_configs(law, **kw)
+    jt = jeng.build_shard_tables(jcfg)
+    aux = jeng.init_plasticity(jt, jcfg)
+    spec = tcfg.spec()
+    n_local = spec.n_local
+    rng = np.random.default_rng(7)
+    w = np.asarray(jt["local"]["w"]).copy()
+    mask = np.asarray(aux["masks"][0]) > 0
+    w[mask] = rng.uniform(0.0, 0.6, mask.sum()).astype(np.float32)
+    dens = {"random": 0.3, "overflow": 0.6, "zero": 0.0}[case]
+    spikes = (rng.random(n_local) < dens).astype(np.float32)
+    x_pre = rng.uniform(0, 3, w.shape[0]).astype(np.float32)
+    x_post = rng.uniform(0, 3, n_local).astype(np.float32)
+    ring = rng.normal(0, 4, (jcfg.d_ring, n_local)).astype(np.float32)
+    if case == "overflow":
+        assert spikes.sum() > spec.active_cap_local
+    return jcfg, tcfg, jt, aux, w, spikes, x_pre, x_post, ring
+
+
+@pytest.mark.parametrize("use_kernels", [True, False])
+@pytest.mark.parametrize("case", ["random", "overflow", "zero"])
+@pytest.mark.parametrize("law", LAWS)
+def test_one_plastic_step_bit_identical(law, case, use_kernels):
+    jcfg, tcfg, jt, aux, w, spikes, x_pre, x_post, ring = _step_inputs(
+        law, case)
+    jspec = jcfg.spec()
+    plan = jspec.delivery_plan(jt.storage)[:1]
+    slot = 5
+    jtiers = [dict(jt["local"], w=jax.numpy.asarray(w))]
+    jr, jtiers1, jtr, jev, jdr = jeng.plastic_delivery_stdp(
+        jtiers, aux["masks"][:1], aux["inv"],
+        {"x_pre": [jax.numpy.asarray(x_pre)],
+         "x_post": jax.numpy.asarray(x_post)},
+        [jax.numpy.asarray(spikes)], jspec, jax.numpy.asarray(ring), slot,
+        jcfg, plan)
+
+    tcfg = dataclasses.replace(tcfg, use_kernels=use_kernels)
+    tt = teng.build_shard_tables(tcfg, device="cpu")
+    taux = teng.init_plasticity(tt, tcfg)
+    tspec = tcfg.spec()
+    ttiers = [dict(tt["local"], w=torch.from_numpy(w.copy()))]
+    tr, ttiers1, ttr, tev, tdr = teng.plastic_delivery_stdp(
+        ttiers, taux["masks"][:1], taux["inv"],
+        {"x_pre": [torch.from_numpy(x_pre.copy())],
+         "x_post": torch.from_numpy(x_post.copy())},
+        [torch.from_numpy(spikes)], tspec, torch.from_numpy(ring.copy()),
+        slot, tcfg, tspec.delivery_plan(tt.storage)[:1])
+
+    assert_bits_equal(jr, tr, "ring")
+    assert_bits_equal(jtiers1[0]["w"], ttiers1[0]["w"], "w")
+    assert_bits_equal(jtr["x_post"], ttr["x_post"], "x_post")
+    assert_bits_equal(jtr["x_pre"][0], ttr["x_pre"][0], "x_pre")
+    assert float(jev) == float(tev) and float(jdr) == float(tdr)
+    if case == "zero":
+        assert float(tev) == 0 and np.array_equal(ring, tr.numpy())
+    else:
+        assert (ttiers1[0]["w"].numpy() != w).sum() > 0
+    if case == "overflow":
+        assert float(tdr) > 0
+
+
+# ---------------------------------------------------------------------------
+# whole plastic runs
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("use_kernels", [True, False])
+@pytest.mark.parametrize("law", LAWS)
+def test_whole_plastic_run_bit_identical(law, use_kernels):
+    jcfg, tcfg, drive, jst, jw, jtr, jper, w_built = _reference_plastic_run(
+        law)
+    tcfg = dataclasses.replace(tcfg, use_kernels=use_kernels)
+    tt = teng.build_shard_tables(tcfg, device="cpu")
+    assert_bits_equal(w_built, tt["local"]["w"], "built w")
+    aux = teng.init_plasticity(tt, tcfg)
+    (st, tb, tr), per = teng.simulate(
+        teng.init_sim_state(tcfg, device="cpu"), tt, tcfg, STEPS,
+        drive=torch.from_numpy(drive), device="cpu", plasticity=aux)
+    assert float(per.sum()) > 0
+    assert_bits_equal(jper, per, "per-step spikes")
+    assert_bits_equal(jw, tb["local"]["w"], "learned w")
+    assert (tb["local"]["w"].numpy() != w_built).sum() > 0
+    assert_bits_equal(jtr["x_post"], tr["x_post"], "x_post")
+    assert len(tr["x_pre"]) == 1
+    assert_bits_equal(jtr["x_pre"][0], tr["x_pre"][0], "x_pre")
+    for k in ("v", "c", "refrac"):
+        assert_bits_equal(jst["neuron"][k], st["neuron"][k], k)
+    assert_bits_equal(jst["i_ring"], st["i_ring"], "i_ring")
+    for k in ("spikes", "events", "dropped"):
+        assert_bits_equal(jst["metrics"][k], st["metrics"][k], k)
+    assert st["t"] == int(jst["t"]) == STEPS
+    # the caller's tables are not changed
+    assert_bits_equal(w_built, tt["local"]["w"], "caller's w")
+
+
+# ---------------------------------------------------------------------------
+# refusals and invariants
+# ---------------------------------------------------------------------------
+
+def test_weight_invariant_refused_like_reference():
+    jcfg, tcfg = plastic_configs("gaussian")
+    jt = jeng.build_shard_tables(jcfg)
+    tt = teng.build_shard_tables(tcfg, device="cpu")
+    low = 0.1
+    with pytest.raises(ValueError, match="exceeds STDP w_max"):
+        jstdp.check_weight_invariant(list(jt.tiers()),
+                                     jstdp.STDPParams(w_max=low))
+    with pytest.raises(ValueError, match="exceeds STDP w_max"):
+        tstdp.check_weight_invariant(tt.tiers(), tstdp.STDPParams(w_max=low))
+    with pytest.raises(ValueError, match="exceeds STDP w_max"):
+        teng.init_plasticity(tt, dataclasses.replace(
+            tcfg, stdp=tstdp.STDPParams(w_max=low)))
+    tstdp.check_weight_invariant(tt.tiers(), tcfg.stdp)
+
+
+def test_plastic_run_refusals():
+    _, tcfg = plastic_configs("gaussian", n_per_col=10)
+    tt = teng.build_shard_tables(tcfg, device="cpu")
+    aux = teng.init_plasticity(tt, tcfg)
+    state = teng.init_sim_state(tcfg, device="cpu")
+    with pytest.raises(ValueError, match="mode='event'"):
+        teng.simulate(state, tt, dataclasses.replace(tcfg, mode="gather_all"),
+                      2, device="cpu", plasticity=aux)
+    from repro_torch.obs.record import recorder_spec
+    with pytest.raises(ValueError, match="recorder"):
+        teng.simulate(state, tt, tcfg, 2, device="cpu", plasticity=aux,
+                      recorder=recorder_spec(tcfg, 2))
+    with pytest.raises(ValueError, match="record_spikes"):
+        teng.simulate(state, tt, tcfg, 2, device="cpu", plasticity=aux,
+                      record_spikes=True)
+    static = dataclasses.replace(tcfg, stdp=None)
+    bf16 = teng.build_shard_tables(static, device="cpu")
+    with pytest.raises(ValueError, match="float32"):
+        teng.simulate(state, bf16, tcfg, 2, device="cpu", plasticity=aux)
+    w0 = tt["local"]["w"].clone()
+    teng.simulate(state, tt, tcfg, 5, device="cpu", plasticity=aux)
+    assert torch.equal(tt["local"]["w"], w0)
+
+
+def test_plastic_spec_override_matches_reference():
+    jcfg, tcfg = plastic_configs("exponential", tiles=2)
+    js, ts = jcfg.spec(), tcfg.spec()
+    assert ts.weight_dtype == js.weight_dtype == "float32"
+    assert ts.halo_floor == js.halo_floor == 0.0
+    assert [b["rows"] for b in ts.halo_bands()] == \
+        [b["rows"] for b in js.halo_bands()]
+    assert dataclasses.replace(tcfg, stdp=None).spec().weight_dtype == \
+        "bfloat16"
+
+
+def test_plastic_delivery_refuses_clipped_index_and_wrong_tier():
+    _, tcfg = plastic_configs("gaussian", n_per_col=10)
+    tt = teng.build_shard_tables(tcfg, device="cpu")
+    spec = tcfg.spec()
+    ring = torch.zeros((tcfg.d_ring, spec.n_local))
+    spk = torch.ones(spec.n_local)
+    tiers = [(tt["local"], spk, spec.active_cap_local)]
+    clipped = dict(tt.inverse_index(), clipped=3)
+    with pytest.raises(ValueError, match="clipped"):
+        plastic_delivery_ltd(tiers, None, None, ring, 0, tcfg.d_ring, 0.0,
+                             inv=clipped)
+    wrong = dict(tt.inverse_index(), sizes=np.array([7]))
+    with pytest.raises(ValueError, match="tier size"):
+        plastic_delivery_ltd(tiers, None, None, ring, 0, tcfg.d_ring, 0.0,
+                             inv=wrong)
+
+
+# ---------------------------------------------------------------------------
+# converter
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("law", LAWS)
+def test_plasticity_from_arrays_equals_port_init(law):
+    jcfg, tcfg = plastic_configs(law, tiles=2)
+    jt = jeng.build_shard_tables(jcfg, 1, 0)
+    aux = _np(jeng.init_plasticity(jt, jcfg))
+    conv = plasticity_from_arrays(aux, device="cpu")
+    tt = tables_from_arrays(tier_arrays(jt)[0], tier_arrays(jt)[1:],
+                            jt.storage.meta(), device="cpu")
+    assert tt["local"]["w"].dtype == torch.float32
+    own_t = teng.build_shard_tables(tcfg, 1, 0, device="cpu")
+    for a, b in zip(tt.tiers(), own_t.tiers()):
+        for k in a:
+            assert_bits_equal(a[k], b[k], k)
+    own = teng.init_plasticity(tt, tcfg)
+    for k in ("slots", "n_in", "bases", "sizes"):
+        assert_bits_equal(np.asarray(conv["inv"][k]),
+                          np.asarray(own["inv"][k]), k)
+    assert conv["inv"]["total"] == own["inv"]["total"]
+    assert conv["inv"]["clipped"] == own["inv"]["clipped"] == 0
+    assert len(conv["masks"]) == len(own["masks"]) == 1 + len(tt.halo)
+    for a, b in zip(conv["masks"], own["masks"]):
+        assert_bits_equal(a, b, "mask")
+    for a, b in zip(conv["traces"]["x_pre"], own["traces"]["x_pre"]):
+        assert_bits_equal(a, b, "x_pre")
+    assert_bits_equal(conv["traces"]["x_post"], own["traces"]["x_post"],
+                      "x_post")
+
+
+def test_plasticity_from_arrays_needs_cuda_by_default():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: nothing to refuse")
+    jcfg, _ = plastic_configs("gaussian", n_per_col=10)
+    jt = jeng.build_shard_tables(jcfg)
+    aux = _np(jeng.init_plasticity(jt, jcfg))
+    with pytest.raises(RuntimeError, match="cuda"):
+        plasticity_from_arrays(aux)
+
+
+# ---------------------------------------------------------------------------
+# static runs with float32 weights: the fixed-order delivery
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("use_kernels", [True, False])
+@pytest.mark.parametrize("law", LAWS)
+def test_static_float32_run_bit_identical(law, use_kernels):
+    """A static run with float32 weights goes through the fixed-order
+    delivery (kernel path) and matches the reference bit for bit."""
+    steps = 100
+    jcfg, tcfg = configs(law, grid=4, n_per_col=30, weight_dtype="float32")
+    tcfg = dataclasses.replace(tcfg, use_kernels=use_kernels)
+    jt = jeng.build_shard_tables(jcfg)
+    js = jeng.init_sim_state(jcfg)
+    drive = reference_drive(jcfg, js, steps)
+    jfin, jraster = jax.jit(lambda s: jeng.simulate(
+        s, jt, jcfg, steps, record_spikes=True))(js)
+    tt = teng.build_shard_tables(tcfg, device="cpu")
+    assert tt["local"]["w"].dtype == torch.float32
+    tfin, traster = teng.simulate(
+        teng.init_sim_state(tcfg, device="cpu"), tt, tcfg, steps,
+        record_spikes=True, drive=torch.from_numpy(drive), device="cpu")
+    assert float(traster.sum()) > 0
+    assert_bits_equal(jraster, traster, "raster")
+    assert_bits_equal(jfin["i_ring"], tfin["i_ring"], "i_ring")
+    for k in ("spikes", "events", "dropped"):
+        assert_bits_equal(jfin["metrics"][k], tfin["metrics"][k], k)
+    assert (tt._inv is not None) == use_kernels
+
+
+def test_atomic_delivery_refuses_float32_weights():
+    _, tcfg = configs("gaussian", grid=2, n_per_col=10,
+                      weight_dtype="float32")
+    tt = teng.build_shard_tables(tcfg, device="cpu")
+    n = tcfg.spec().n_local
+    with pytest.raises(ValueError, match="bfloat16"):
+        deliver_rows_cuda(tt["local"], torch.zeros(4, dtype=torch.int32),
+                          torch.zeros((8, n)), 0, None)
