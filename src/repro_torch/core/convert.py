@@ -1,10 +1,11 @@
-"""Carry the JAX package's tables and state across to the port.
+"""Carry the JAX package's tables, state and weights across to the port.
 
 The counterpart of loading weights: ``tables_from_arrays``,
 ``state_from_arrays`` and ``plasticity_from_arrays`` take the
 reference's synapse tables (bfloat16 or float32 weights), simulation
 state and STDP auxiliaries as numpy arrays (``np.asarray`` of each leaf)
-and return the port's.  bfloat16 arrays (ml_dtypes' ``bfloat16``) are reinterpreted
+and return the port's; ``model_params_from_arrays`` does the same for
+the parameters of an LM.  bfloat16 arrays (ml_dtypes' ``bfloat16``) are reinterpreted
 bit for bit, so neither ml_dtypes nor jax is needed here.
 """
 
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..models.layers import torch_dtype
 from .engine import EngineConfig
 from .synapses import TORCH_DTYPES, SynapseTables, TableStorage
 
@@ -113,3 +115,40 @@ def plasticity_from_arrays(aux: dict, device="cuda") -> dict:
         "traces": {"x_pre": [f32(x) for x in aux["traces"]["x_pre"]],
                    "x_post": f32(aux["traces"]["x_post"])},
     }
+
+
+def model_params_from_arrays(cfg, tree: dict, device="cuda") -> dict:
+    """The port's LM parameters (``models.transformer`` layout) from the
+    reference's parameter tree as numpy arrays
+    (``jax.tree.map(np.asarray, params)``), in ``cfg.dtype``.
+
+    The reference stacks the layers of pattern position ``pos`` in
+    ``blocks[pos]`` with a leading period axis and keeps the remainder
+    layers in ``rest``: period ``i`` of ``blocks[pos]`` is layer
+    ``i * len(cfg.pattern) + pos``, and ``rest`` follows."""
+    dev = resolve_device(device)
+    dtype = torch_dtype(cfg.dtype)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        return _tensor(node, dtype, dev)
+
+    def take(node, i):
+        if isinstance(node, dict):
+            return {k: take(v, i) for k, v in node.items()}
+        return np.asarray(node)[i]
+
+    per = len(cfg.pattern)
+    layers = {}
+    for pos, stacked in enumerate(tree.get("blocks") or []):
+        for i in range(np.asarray(stacked["ln1"]["scale"]).shape[0]):
+            layers[i * per + pos] = conv(take(stacked, i))
+    base = len(layers)
+    for j, lp in enumerate(tree.get("rest") or []):
+        layers[base + j] = conv(lp)
+    if sorted(layers) != list(range(cfg.n_layers)):
+        raise ValueError(f"the tree holds layers {sorted(layers)}, the "
+                         f"config has {cfg.n_layers}")
+    return {"embed": conv(tree["embed"]), "ln_f": conv(tree["ln_f"]),
+            "layers": [layers[i] for i in range(cfg.n_layers)]}

@@ -128,7 +128,7 @@ def build_shard_tables(cfg: EngineConfig, tile_y: int = 0, tile_x: int = 0,
     dev = resolve_device(device)
     spec = cfg.spec()
     tabs = build_tables(spec, tile_y, tile_x, j_exc=cfg.lif.j_exc_mv,
-                        j_inh=cfg.lif.j_inh_mv, seed=cfg.seed)
+                        j_inh=cfg.lif.j_inh_mv, seed=cfg.seed, device="cpu")
     if compress:
         tabs = compress_tables(tabs)
     return tabs.to(dev)

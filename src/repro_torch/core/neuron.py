@@ -28,6 +28,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import resolve_device
 from ..kernels.ref import lif_step_ref
 
 
@@ -73,15 +74,16 @@ class LIFParams:
 
 
 def init_state(n: int, params: LIFParams,
-               rng: np.random.Generator | None = None, device="cpu"):
+               rng: np.random.Generator | None = None, device="cuda"):
     """Initial membrane state; small voltage jitter to break symmetry.
     Draws the same numbers as the reference for the same ``rng``."""
+    dev = resolve_device(device)
     rng = rng or np.random.default_rng(0)
     v0 = rng.uniform(params.v_rest_mv, 0.5 * params.theta_mv, size=n)
     return {
-        "v": torch.from_numpy(v0.astype(np.float32)).to(device),
-        "c": torch.zeros((n,), dtype=torch.float32, device=device),
-        "refrac": torch.zeros((n,), dtype=torch.int32, device=device),
+        "v": torch.from_numpy(v0.astype(np.float32)).to(dev),
+        "c": torch.zeros((n,), dtype=torch.float32, device=dev),
+        "refrac": torch.zeros((n,), dtype=torch.int32, device=dev),
     }
 
 

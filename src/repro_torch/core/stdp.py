@@ -29,6 +29,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import resolve_device
 from ..kernels.ref import compact_events
 
 
@@ -64,7 +65,7 @@ def _tier_sizes(tiers: Sequence[dict]) -> Tuple[np.ndarray, np.ndarray]:
 
 
 def build_inverse_index(tiers: Sequence[dict], n_targets: int,
-                        cap_pad: float = 1.3, device="cpu") -> dict:
+                        cap_pad: float = 1.3, device="cuda") -> dict:
     """Target-major index over all tiers (host-side numpy, the
     reference's layout), placed on ``device``.
 
@@ -74,6 +75,7 @@ def build_inverse_index(tiers: Sequence[dict], n_targets: int,
     sizes, numpy int64), ``total`` and ``clipped`` (ints).  Per-target
     slot order is (tier, row, k) ascending: the order in which the
     sequential delivery adds each target's weights."""
+    dev = resolve_device(device)
     bases, sizes = _tier_sizes(tiers)
     total = int(bases[-1] + sizes[-1]) if len(sizes) else 0
     tgt_parts: List[np.ndarray] = []
@@ -106,19 +108,20 @@ def build_inverse_index(tiers: Sequence[dict], n_targets: int,
         keep = within < k_in
         slots[ts[keep], within[keep]] = vs[keep]
     clipped = int(len(tgts) - n_in.sum())
-    return {"slots": torch.from_numpy(slots).to(device),
-            "n_in": torch.from_numpy(n_in).to(device),
+    return {"slots": torch.from_numpy(slots).to(dev),
+            "n_in": torch.from_numpy(n_in).to(dev),
             "bases": bases, "sizes": sizes, "total": total,
             "clipped": clipped}
 
 
 def init_stdp_state(tiers: Sequence[dict], n_local: int,
-                    device="cpu") -> dict:
+                    device="cuda") -> dict:
+    dev = resolve_device(device)
     return {
         "x_pre": [torch.zeros((t["tgt"].shape[0],), dtype=torch.float32,
-                              device=device) for t in tiers],
+                              device=dev) for t in tiers],
         "x_post": torch.zeros((n_local,), dtype=torch.float32,
-                              device=device),
+                              device=dev),
     }
 
 

@@ -34,6 +34,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import resolve_device
 from ..kernels.ref import compact_events, synaptic_accum_ref
 from .connectivity import ConnectivityLaw, FRAC_EXCITATORY, P_LOCAL
 from .grid import TileDecomposition
@@ -435,11 +436,12 @@ def _tier_tensors(tab: dict, weight_dtype: str, device) -> dict:
 
 def build_tables(spec: SynapseTableSpec, tile_y: int, tile_x: int,
                  j_exc: float, j_inh: float, seed: int = 0,
-                 w_jitter: float = 0.25, device="cpu") -> SynapseTables:
+                 w_jitter: float = 0.25, device="cuda") -> SynapseTables:
     """Materialize the synapse tables of one shard (numpy, host-side),
     drawing exactly what the reference draws, then place them on
     ``device``.  Returns tables at the *analytic* caps; run
     ``compress_tables`` afterwards to truncate all-padding columns."""
+    dev = resolve_device(device)
     d = spec.decomp
     N = spec.n_per_col
     n_exc = spec.n_exc_per_col
@@ -541,8 +543,8 @@ def build_tables(spec: SynapseTableSpec, tile_y: int, tile_x: int,
     tb = spec.table_bytes(storage)
     wd = storage.weight_dtype
     return SynapseTables(
-        _tier_tensors(local_tab, wd, device),
-        [_tier_tensors(t, wd, device) for t in halo_tabs],
+        _tier_tensors(local_tab, wd, dev),
+        [_tier_tensors(t, wd, dev) for t in halo_tabs],
         storage,
         stats={
             "n_synapses": n_syn,

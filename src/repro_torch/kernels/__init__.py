@@ -12,6 +12,8 @@ PyTorch version in ``ref.py`` and a wrapper that routes by tensor device:
                        order (float32 weights)
   * spike_compact   -- stream compaction of the spike vector by an int32
                        block prefix scan (the spike recorder)
+  * flash_attention -- blocked online-softmax attention with causal and
+                       sliding-window masks and GQA (the LM prefill)
 
 ``_build`` compiles the sources with ``nvcc`` at first use and counts
 every launch.

@@ -1,16 +1,18 @@
-"""Engine-facing wrappers around the CUDA kernels.
+"""Engine- and model-facing wrappers around the CUDA kernels.
 
 Routing is by tensor device: each wrapper launches its CUDA kernel for
 CUDA tensors (or raises; there is no fallback) and takes its plain
 version (``ref.py``) for CPU tensors.  The engine calls these when
 ``EngineConfig.use_kernels`` is set; with it unset the engine runs the
-plain ``core`` functions on any device.
+plain ``core`` functions on any device.  The LM stack calls
+``attention`` when ``ModelConfig.attn_impl == "pallas"``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .flash_attention import flash_attention
 from .lif_step import lif_step as _lif_step
 from .plastic_step import plastic_delivery_ltd
 from .spike_compact import spike_compact as _spike_compact
@@ -53,3 +55,12 @@ def spike_compact(spikes, n_rows: int, active_cap: int):
     spiking-row index list (sink-padded) plus the uncapped spike count
     (int32).  Feeds the device-side spike recorder."""
     return _spike_compact(spikes, n_rows, active_cap)
+
+
+def attention(q, k, v, *, causal: bool = True, window=None, scale=None,
+              q_offset: int = 0):
+    """Masked multi-head attention with GQA: q (BH, Sq, D), k, v
+    (BH_kv, Sk, D), BH % BH_kv == 0.  Returns (BH, Sq, D) in q's dtype;
+    rows that see no key are 0."""
+    return flash_attention(q, k, v, causal=causal, window=window,
+                           scale=scale, q_offset=q_offset)

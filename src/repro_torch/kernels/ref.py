@@ -8,6 +8,8 @@ card.  They run on any device.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 # repro-lint: ignore[dtype-bounds] the plain LIF evaluates each fused
@@ -140,3 +142,40 @@ def plastic_delivery_ltd_ref(tables: dict, spikes_src, active_cap: int,
         w.index_copy_(0, rows, torch.where(m > 0, w_rows + dw, w_rows))
     n_events = tables["nnz"][rows].sum(dtype=torch.int32)
     return n_events, n_spk
+
+
+# ---------------------------------------------------------------------------
+# Blocked online-softmax attention (kernels/flash_attention.py)
+# ---------------------------------------------------------------------------
+
+def attention_ref(q, k, v, *, causal=True, window=None, scale=None,
+                  q_offset: int = 0):
+    """Masked multi-head attention, the plain version of the flash kernel.
+
+    q: (BH, Sq, D); k, v: (BH_kv, Sk, D) with BH % BH_kv == 0 (GQA:
+    query head ``bh`` reads kv head ``bh // (BH // BH_kv)``).  KV is
+    repeated, the scores are a float32 einsum, masked with ``-inf``
+    (``window``: keys with ``q_pos - k_pos >= window`` are masked;
+    ``q_offset``: the absolute position of ``q[:, 0]``), softmaxed, and
+    fully masked rows give 0.  Returns (BH, Sq, D) in q's dtype.
+    """
+    bh, sq, d = q.shape
+    bh_kv, sk = k.shape[0], k.shape[1]
+    group = bh // bh_kv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    kk = torch.repeat_interleave(k, group, dim=0)
+    vv = torch.repeat_interleave(v, group, dim=0)
+    s = torch.einsum("bqd,bkd->bqk", q.to(torch.float32),
+                     kk.to(torch.float32)) * scale
+    q_pos = q_offset + torch.arange(sq, device=q.device)[:, None]
+    k_pos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window is not None:
+        mask &= (q_pos - k_pos) < window
+    s = s.masked_fill(~mask[None], float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(torch.isnan(p), torch.zeros_like(p), p)
+    return torch.einsum("bqk,bkd->bqd", p,
+                        vv.to(torch.float32)).to(q.dtype)

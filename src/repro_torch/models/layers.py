@@ -1,0 +1,134 @@
+"""Primitive layers of the LM stack: parameters as plain dicts of
+tensors, functional applies (the port of ``repro.models.layers``).
+
+The reference's quirks are carried across as they are:
+
+* ``apply_rmsnorm`` always uses the ``(1 + w)`` scale (the reference
+  never reads ``cfg.rms_offset``), computed in float32 with eps 1e-6;
+* ``apply_mlp``'s GeGLU is the tanh approximation of GELU (the default
+  of ``jax.nn.gelu``);
+* ``apply_embedding`` rounds ``sqrt(d)`` to the working dtype before it
+  multiplies;
+* ``apply_rope`` rotates split halves (not interleaved pairs), with its
+  angles in float32;
+* ``logits_from_embedding`` returns padded-vocabulary logits.
+
+The reference's ``init_*`` functions also return logical sharding
+names; one card has no mesh, so the port's return the parameters only.
+The conv and sinusoidal helpers belong to families not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a config's ``dtype`` string."""
+    try:
+        return DTYPES[name]
+    except KeyError:
+        raise ValueError(f"unsupported model dtype {name!r}") from None
+
+
+def _normal(gen: torch.Generator, shape, scale: float, dtype):
+    """N(0, scale^2) drawn in float32 on ``gen``'s device, then cast: the
+    distribution of the reference's ``_normal`` (not its numbers)."""
+    x = torch.randn(shape, generator=gen, dtype=torch.float32,
+                    device=gen.device)
+    return (x * scale).to(dtype)
+
+
+def init_dense(gen, d_in: int, d_out: int, dtype, bias: bool = False,
+               scale: Optional[float] = None) -> dict:
+    scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    p = {"w": _normal(gen, (d_in, d_out), scale, dtype)}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=gen.device)
+    return p
+
+
+def apply_dense(p, x):
+    y = x @ p["w"]
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
+def init_rmsnorm(d: int, dtype, device) -> dict:
+    return {"scale": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def apply_rmsnorm(p, x, *, offset: bool = True, eps: float = 1e-6):
+    """RMSNorm in float32; ``offset=True`` is the ``(1 + w)`` scale."""
+    dt = x.dtype
+    x = x.to(torch.float32)
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    w = p["scale"].to(torch.float32)
+    return (x * (1.0 + w if offset else w)).to(dt)
+
+
+def init_embedding(gen, vocab: int, d: int, dtype) -> dict:
+    return {"table": _normal(gen, (vocab, d), 1.0, dtype)}
+
+
+def apply_embedding(p, tokens, *, scale: bool = False):
+    x = p["table"][tokens.long()]
+    if scale:
+        x = x * torch.tensor(math.sqrt(x.shape[-1]), dtype=x.dtype,
+                             device=x.device)
+    return x
+
+
+def logits_from_embedding(p, x):
+    """Tied LM head: ``x @ table^T`` (padded-vocab logits)."""
+    return x @ p["table"].T
+
+
+# ---------------------------------------------------------------------------
+# Gated MLP (SwiGLU / GeGLU)
+# ---------------------------------------------------------------------------
+
+def init_mlp(gen, d: int, d_ff: int, dtype) -> dict:
+    return {
+        "gate": _normal(gen, (d, d_ff), 1.0 / math.sqrt(d), dtype),
+        "up": _normal(gen, (d, d_ff), 1.0 / math.sqrt(d), dtype),
+        "down": _normal(gen, (d_ff, d), 1.0 / math.sqrt(d_ff), dtype),
+    }
+
+
+def apply_mlp(p, x, act: str = "silu"):
+    a = x @ p["gate"]
+    a = F.silu(a) if act == "silu" else F.gelu(a, approximate="tanh")
+    return (a * (x @ p["up"])) @ p["down"]
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (B, S, H, D); positions: (B, S) or (S,) integer."""
+    d = x.shape[-1]
+    freqs = rope_frequencies(d, theta, x.device)            # (D/2,)
+    if positions.dim() == 1:
+        positions = positions[None, :]
+    ang = positions[..., None].to(torch.float32) * freqs    # (B, S, D/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)

@@ -25,6 +25,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import resolve_device
 from ..core.grid import TileDecomposition, global_column_ids
 
 
@@ -60,11 +61,13 @@ def recorder_spec(engine_cfg, segment_steps: int,
                         use_kernels=bool(engine_cfg.use_kernels))
 
 
-def init_recorder_state(rspec: RecorderSpec, device="cpu") -> dict:
+def init_recorder_state(rspec: RecorderSpec, device="cuda") -> dict:
     """Empty recorder (one shard): int32 ``step``/``gid`` buffers of
     ``capacity`` zeros, and int32 ``count``/``dropped`` scalars."""
+    dev = resolve_device(device)
+
     def zeros(*shape):
-        return torch.zeros(shape, dtype=torch.int32, device=device)
+        return torch.zeros(shape, dtype=torch.int32, device=dev)
     return {"step": zeros(rspec.capacity), "gid": zeros(rspec.capacity),
             "count": zeros(), "dropped": zeros()}
 

@@ -71,3 +71,23 @@ def assert_bits_equal(ref, port, what: str = "") -> None:
 def tier_arrays(tables) -> list:
     """Every tier of reference tables as a dict of numpy arrays."""
     return [{k: np.asarray(v) for k, v in t.items()} for t in tables.tiers()]
+
+
+def lm_params(jcfg, seed: int = 0):
+    """The reference's parameters of ``jcfg`` (``init_model``), with every
+    zero-initialised leaf (norm scales, QKV biases) set to small random
+    values so that the ``(1 + w)`` scales and the biases are exercised.
+    Returns the JAX tree and the same tree as numpy arrays."""
+    from repro.models.transformer import init_model
+    params, _ = init_model(jax.random.PRNGKey(seed), jcfg)
+    rng = np.random.default_rng(seed + 1)
+
+    def fill(path, leaf):
+        name = str(getattr(path[-1], "key", ""))
+        if name in ("scale", "bq", "bk", "bv", "q_norm", "k_norm"):
+            noise = rng.normal(scale=0.3, size=leaf.shape)
+            return jax.numpy.asarray(noise, leaf.dtype)
+        return leaf
+
+    params = jax.tree_util.tree_map_with_path(fill, params)
+    return params, jax.tree.map(np.asarray, params)

@@ -208,3 +208,104 @@ def test_plastic_run_matches_cpu_plain_path(cuda, law):
                  (sk["i_ring"], sp["i_ring"]), (rk["x_post"], rp["x_post"]),
                  (rk["x_pre"][0], rp["x_pre"][0])):
         assert torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# flash attention and the LM serving path
+# ---------------------------------------------------------------------------
+
+# the shapes of the reference's kernel test (tests/test_kernels.py), plus
+# a fully masked case and a head_dim-256 window
+FLASH_CASES = [
+    (4, 2, 64, 64, 32, True, None, 0),
+    (8, 2, 100, 100, 64, True, 48, 0),
+    (2, 2, 37, 129, 16, False, None, 0),
+    (2, 1, 1, 77, 32, True, None, 76),
+    (3, 3, 48, 16, 8, True, None, 0),
+    (6, 2, 200, 200, 128, True, None, 0),
+    (2, 1, 130, 130, 256, True, 40, 0),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,bhkv,sq,sk,d,causal,win,qoff", FLASH_CASES)
+def test_flash_kernel_matches_plain(cuda, bh, bhkv, sq, sk, d, causal, win,
+                                    qoff, dtype):
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda).manual_seed(sq + d)
+    q, k, v = (torch.randn(s, device=cuda, generator=g).to(dtype)
+               for s in ((bh, sq, d), (bhkv, sk, d), (bhkv, sk, d)))
+    kw = dict(causal=causal, window=win, q_offset=qoff)
+    got = flash_attention_cuda(q, k, v, **kw)
+    want = ref.attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (bh, sq, d)
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_kernel_fully_masked_rows_are_zero(cuda):
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    q = torch.randn(2, 8, 8, device=cuda)
+    out = flash_attention_cuda(q, q, q, causal=False, window=2,
+                               q_offset=100)
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.zeros_like(out))
+
+
+def test_flash_wrapper_counts_launches_and_refuses(cuda):
+    from repro_torch.kernels import ops
+    q = torch.randn(4, 32, 64, device=cuda)
+    k = torch.randn(2, 32, 64, device=cuda)
+    _build.reset_launch_counts()
+    ops.attention(q, k, k)
+    ops.attention(q, k, k, causal=False)
+    assert _build.launch_counts() == {"flash_attention": 2}
+    for bad in (torch.randn(2, 8, 12, device=cuda),
+                torch.randn(2, 8, 512, device=cuda)):
+        with pytest.raises(ValueError, match="head_dim"):
+            ops.attention(bad, bad, bad)
+    with pytest.raises(ValueError, match="device"):
+        ops.attention(q, k.cpu(), k)
+    assert _build.launch_counts() == {"flash_attention": 2}
+
+
+def test_lm_prefill_goes_through_the_kernel(cuda):
+    """Reduced qwen2 in float32: the kernel path's prefill and decode
+    logits agree with the plain path's, with one kernel launch per layer
+    in the prefill and none in decode."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import model as tm
+    from repro_torch.models import transformer as tt
+    torch.backends.cuda.matmul.allow_tf32 = False
+    base = get_reduced("qwen2-1.5b")
+    params = tt.init_model(base, seed=0, device=cuda)
+    tok = torch.randint(0, base.vocab_size, (2, 70), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(0))
+    out = {}
+    for impl in ("pallas", "naive"):
+        cfg = dataclasses.replace(base, attn_impl=impl)
+        state = tt.init_decode_state(cfg, 2, 72, device=cuda)
+        _build.reset_launch_counts()
+        lg, state = tm.make_prefill(cfg)(params, {"tokens": tok[:, :69]},
+                                         state)
+        n_prefill = _build.launch_counts().get("flash_attention", 0)
+        lg2, state = tm.make_serve_step(cfg)(params, state, tok[:, 69:], 69)
+        n_decode = _build.launch_counts().get("flash_attention", 0) \
+            - n_prefill
+        out[impl] = (lg, lg2, n_prefill, n_decode)
+    assert out["pallas"][2:] == (base.n_layers, 0)
+    assert out["naive"][2:] == (0, 0)
+    for a, b in zip(out["pallas"][:2], out["naive"][:2]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_serve_batch_on_card(cuda):
+    from repro_torch.launch.serve import serve_batch
+    out = serve_batch("gemma-2b", batch=2, prompt_len=16, gen=4, seed=1,
+                      device=cuda)
+    again = serve_batch("gemma-2b", batch=2, prompt_len=16, gen=4, seed=1,
+                        device=cuda)
+    assert out["tokens"].shape == (2, 4) and out["prefill_s"] > 0
+    np.testing.assert_array_equal(out["tokens"], again["tokens"])

@@ -1,8 +1,10 @@
 """The port's package rules: it imports neither jax nor the JAX package,
-its entry points raise rather than fall back when CUDA is missing, and
-repro-lint finds nothing in it."""
+its entry points default to CUDA and raise rather than fall back when
+CUDA is missing, and repro-lint finds nothing in it."""
 
 import ast
+import importlib
+import inspect
 import os
 import subprocess
 import sys
@@ -119,3 +121,48 @@ def test_repro_lint_clean_on_port():
         [sys.executable, "-m", "repro.launch.lint", str(PORT)],
         capture_output=True, text=True, env=env)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _public_callables():
+    """Every public function of the port, and every public method of its
+    public classes, defined in the port's own modules."""
+    for name in MODULES:
+        mod = importlib.import_module(name)
+        for attr, obj in vars(mod).items():
+            if attr.startswith("_") or getattr(obj, "__module__", "") != name:
+                continue
+            if inspect.isfunction(obj):
+                yield f"{name}.{attr}", obj
+            elif inspect.isclass(obj):
+                for meth, fn in vars(obj).items():
+                    if not meth.startswith("_") and inspect.isfunction(fn):
+                        yield f"{name}.{attr}.{meth}", fn
+
+
+def test_device_parameters_default_to_cuda():
+    """Every public function of the port with a ``device`` parameter
+    defaults it to ``"cuda"`` (or leaves it required): nothing defaults
+    to the CPU."""
+    checked, wrong = 0, []
+    for qual, fn in _public_callables():
+        param = inspect.signature(fn).parameters.get("device")
+        if param is None:
+            continue
+        checked += 1
+        if param.default is not inspect.Parameter.empty \
+                and param.default != "cuda":
+            wrong.append(f"{qual}: device={param.default!r}")
+    assert not wrong, wrong
+    assert checked >= 20, checked
+
+
+def test_package_rules_cover_the_lm_modules():
+    """The import, source-name and lint checks above walk every module of
+    the port, the LM serving slice's included."""
+    lm = {"repro_torch.models.config", "repro_torch.models.layers",
+          "repro_torch.models.attention", "repro_torch.models.transformer",
+          "repro_torch.models.model", "repro_torch.configs.qwen2_1_5b",
+          "repro_torch.configs.gemma_2b", "repro_torch.launch.serve",
+          "repro_torch.kernels.flash_attention"}
+    assert lm <= set(MODULES), lm - set(MODULES)
+    assert (_build.CSRC / "flash_attention.cu").exists()

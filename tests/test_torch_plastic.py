@@ -66,7 +66,7 @@ def test_inverse_index_matches_reference(law, tiles, ty, tx):
     tt = teng.build_shard_tables(tcfg, ty, tx, device="cpu")
     n_local = tcfg.spec().n_local
     ji = jstdp.build_inverse_index(list(jt.tiers()), n_local)
-    ti = tstdp.build_inverse_index(tt.tiers(), n_local)
+    ti = tstdp.build_inverse_index(tt.tiers(), n_local, device="cpu")
     if tiles == 2:
         assert len(tt.halo) > 0
     for k in ("slots", "n_in", "bases", "sizes"):

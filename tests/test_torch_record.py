@@ -121,7 +121,7 @@ def test_recorder_spec_sizing_and_refusals():
     assert (r.active_cap, r.n_rows) == (spec.active_cap_local, spec.n_local)
     with pytest.raises(ValueError, match="capacity"):
         trec.recorder_spec(tcfg, 10, capacity=0)
-    st = trec.init_recorder_state(r)
+    st = trec.init_recorder_state(r, device="cpu")
     assert st["step"].shape == (r.capacity,) and int(st["count"]) == 0
     with pytest.raises(ValueError, match="float32"):
         spike_compact(torch.zeros(4, dtype=torch.int32), 4, 2)
