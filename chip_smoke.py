@@ -12,8 +12,10 @@ Phases, each of which exits non-zero on failure:
    (``spk``/``refrac`` exact, ``v``/``c`` within 1 ulp), event delivery
    on real tables -- 4x4x1240 (int16 ids) and 8x8x1240 (int32 ids) --
    at three spike densities, one above ``active_cap`` (ring exact, event
-   and drop counts equal), and spike compaction at three densities
-   (exact);
+   and drop counts equal), spike compaction at densities 0 to 1 at the
+   main path's 79,360 rows and at one shard of the paper's 24x24x1240
+   grid (714,240 rows): exact, one launch per call; and both flash-
+   attention kernels (see 7);
 3. the static path, through the library API (``build_shard_tables`` ->
    ``init_sim_state`` -> ``simulate``), single shard, 8x8 columns of the
    paper's 1240 neurons, both connectivity laws: kernel-path steps
@@ -30,25 +32,31 @@ Phases, each of which exits non-zero on failure:
    default capacity (no drops; the events are the raster's spikes) and a
    small one (drops counted), each timed beside the same steps with the
    recorder off;
-6. timing of each kernel at its path's shapes: the device time of the
-   kernel (torch.profiler), of its plain version and of one PyTorch
-   library call where there is one; the wrapper's time per call (CUDA
-   events, host launch cost included); and the least time the card
+6. timing of each kernel at its path's shapes: its device time per
+   call (``ms``: CUDA events around back-to-back calls enqueued while
+   the stream is held, ``queued_ms``), beside torch.profiler's figure
+   (which misses some device events), the time per call with the
+   host's launch cost (CUDA events, ``call_ms``), the plain version's
+   device time (profiler) and one PyTorch library call's where there
+   is one; ptxas's registers and spills; and the least time the card
    could take (bytes over 3.35 TB/s, or operations over the card's
    peak rate where they take longer);
 7. the LM serving path (``init_model`` -> ``init_decode_state`` ->
    ``make_prefill`` -> ``make_serve_step``): qwen2-1.5b at its full
    width in bf16 with seeded random weights, a 4 x 2048-token prefill
-   through the flash kernel (one launch per layer) and 32 greedy decode
-   steps (no launch: decode attention is plain, as in the reference),
+   through the tensor-core flash kernel (one launch per layer, none of
+   the CUDA-core one) and 32 greedy decode steps (no launch: decode
+   attention is plain, as in the reference),
    held against the plain path (``attn_impl="naive"``) on the same
    weights and prompts, teacher-forced, beside a control (the chunked
    plain path against the plain path), then a float32 prefill of both
-   paths; prefill and decode times, the decode loop's device idle share
-   and peak memory; then the flash kernel's timing at the prefill
-   shape.  Phase 2 holds the flash kernel against its plain
-   version at the reference's kernel-test shapes, a fully masked case,
-   qwen2's prefill shape and a head_dim-256 window.
+   paths (the CUDA-core kernel, one launch per layer); prefill and
+   decode times, the decode loop's device idle share and peak memory;
+   then both flash kernels' timing at the prefill shape.  Phase 2
+   holds both flash kernels against their plain version at the
+   reference's kernel-test shapes, the tensor-core kernel's edge cases,
+   fully masked rows, qwen2's prefill shape and a head_dim-256
+   window.
 
 Launch counts are zeroed just before each of phases 3-5 and 7 and read
 just after it.  It prints the metrics, a ``{"kernels": [...]}`` line, the
@@ -95,6 +103,17 @@ FLASH_CASES = [                    # (bh, bh_kv, sq, sk, d, causal, window,
     (2, 1, 1, 77, 32, True, None, 76),
     (3, 3, 48, 16, 8, True, None, 0),
 ]
+SM90_CASES = [                     # the tensor-core kernel's edges (bf16)
+    (2, 1, 1, 77, 128, True, None, 76),
+    (12, 2, 1, 300, 128, False, None, 0),
+    (3, 3, 48, 16, 64, True, None, 0),
+    (2, 2, 37, 129, 128, False, None, 0),
+    (6, 1, 200, 200, 128, True, None, 0),
+    (4, 4, 129, 1000, 128, True, None, 871),
+    (2, 1, 513, 513, 64, True, 200, 0),
+    (8, 1, 130, 300, 256, True, 40, 0),
+    (2, 2, 300, 257, 256, False, None, 0),
+]
 
 
 def fail(msg: str) -> None:
@@ -124,6 +143,32 @@ def call_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def queued_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Mean device time per call of ``fn()`` with no host gap between
+    calls: the stream is held by a sleeping kernel while the host
+    enqueues ``iters`` calls between two CUDA events, so the calls run
+    back to back once it wakes.  ``fn`` must not wait for the device."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    # sleep for twice the enqueue time at up to 2 GHz (longer if slower)
+    torch.cuda._sleep(int(2 * host_s * 2e9) + 1_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def device_ms(fn, iters: int, warmup: int = 3) -> float:
     """Mean device time per call of ``fn()``: the summed durations of the
     kernels (and memsets) it runs, from torch.profiler's CUDA trace.
@@ -138,8 +183,12 @@ def device_ms(fn, iters: int, warmup: int = 3) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    us = sum(e.time_range.elapsed_us() for e in events)
+    if 0 < len(events) < iters:
+        print(f"device_ms: the profiler saw {len(events)} device events "
+              f"in {iters} calls of {getattr(fn, '__name__', fn)}")
     if us > 0:
         return us / iters / 1e3
     print(f"device_ms: the profiler saw no device time for "
@@ -151,6 +200,30 @@ def ulps(x, y):
     """Elementwise distance in float32 ulps (same-sign values)."""
     import torch
     return (x.view(torch.int32).long() - y.view(torch.int32).long()).abs()
+
+
+def ptxas(source: str) -> list:
+    """Registers and spill bytes of each kernel entry that ptxas built
+    from ``csrc/<source>.cu`` in this run (``_build.BUILD_LOG``)."""
+    import re
+    from repro_torch.kernels import _build
+    out, cur = [], None
+    for line in _build.BUILD_LOG.get(source, "").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = {"entry": m.group(1)}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -220,19 +293,28 @@ def check_delivery(tabs, spec, gen, label: str) -> float:
     return err
 
 
-def check_spike_compact(n: int, cap: int, gen) -> float:
+def check_spike_compact(sizes, gen) -> float:
+    """The compaction kernel against its plain version at each (n, cap)
+    of ``sizes``, densities 0 to 1: indices and count exact, one launch
+    per call."""
     import torch
+    from repro_torch.kernels import _build
     from repro_torch.kernels.ref import compact_events
     from repro_torch.kernels.spike_compact import spike_compact_cuda
-    for dens in (0.01, 0.05, 0.9):
-        spk = (torch.rand(n, device="cuda", generator=gen) < dens).float()
-        idx, cnt = spike_compact_cuda(spk, n, cap)
-        ridx, rcnt = compact_events(spk, n, cap)
-        torch.cuda.synchronize()
-        require(torch.equal(idx, ridx) and int(cnt) == int(rcnt),
-                f"spike_compact density {dens}: differs from plain")
-        print(f"check spike_compact n={n} cap={cap} density {dens}: "
-              f"{int(cnt)} spikes, indices and count exact")
+    for n, cap in sizes:
+        for dens in (0.0, 0.01, 0.05, 0.9, 1.0):
+            spk = (torch.rand(n, device="cuda", generator=gen) < dens).float()
+            before = _build.launch_counts().get("spike_compact", 0)
+            idx, cnt = spike_compact_cuda(spk, n, cap)
+            ridx, rcnt = compact_events(spk, n, cap)
+            torch.cuda.synchronize()
+            require(torch.equal(idx, ridx) and int(cnt) == int(rcnt),
+                    f"spike_compact n={n} density {dens}: differs from "
+                    "plain")
+            require(_build.launch_counts()["spike_compact"] == before + 1,
+                    "spike_compact: not one launch per call")
+            print(f"check spike_compact n={n} cap={cap} density {dens}: "
+                  f"{int(cnt)} spikes, indices and count exact")
     return 0.0
 
 
@@ -579,6 +661,7 @@ def time_lif(state, cfg, launches: int, err: float) -> dict:
     kw = cfg.lif.kernel_args()
     ms = device_ms(lambda: lif_step_cuda(*args, **kw), 200)
     per_call = call_ms(lambda: lif_step_cuda(*args, **kw), 200)
+    queued = queued_ms(lambda: lif_step_cuda(*args, **kw), 200)
     plain_ms = device_ms(lambda: ref.lif_step_ref(*args, **kw), 50)
     nbytes = n * (4 + 4 + 4 + 4 + 1) + n * (4 + 4 + 4 + 4)
     ops = 6 * n
@@ -586,9 +669,10 @@ def time_lif(state, cfg, launches: int, err: float) -> dict:
     return {"name": "lif_step", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/lif_step.cu",
             "replaces": "src/repro/kernels/lif_step.py:47",
-            "launches": launches, "max_abs_err": err, "ms": ms,
+            "launches": launches, "max_abs_err": err, "ms": queued,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
-            "library_ms": None, "call_ms": per_call, "shape": f"n={n}"}
+            "library_ms": None, "call_ms": per_call, "profiler_ms": ms,
+            "shape": f"n={n}", "ptxas": ptxas("lif_step")}
 
 
 def time_delivery(tabs, spec, spikes, launches: int, err: float,
@@ -617,6 +701,11 @@ def time_delivery(tabs, spec, spikes, launches: int, err: float,
     flat = slot * n + tgt
     w = local["w"][rows].float()[keep]
     library_ms = device_ms(lambda: ring.view(-1).index_add_(0, flat, w), 20)
+    library_call = call_ms(lambda: ring.view(-1).index_add_(0, flat, w), 20)
+    queued = queued_ms(lambda: deliver_rows_cuda(local, idx, ring, 3, ev),
+                       100)
+    library_queued = queued_ms(lambda: ring.view(-1).index_add_(0, flat, w),
+                               20)
     events = int(flat.numel())
     touched = int(torch.unique(flat).numel())
     entry_b = local["tgt"].element_size() + local["w"].element_size() + 1
@@ -626,32 +715,52 @@ def time_delivery(tabs, spec, spikes, launches: int, err: float,
     return {"name": "event_delivery", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/event_delivery.cu",
             "replaces": "src/repro/kernels/synaptic_accum.py:164",
-            "launches": launches, "max_abs_err": err, "ms": ms,
+            "launches": launches, "max_abs_err": err, "ms": queued,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
-            "library_ms": library_ms, "call_ms": per_call,
+            "library_ms": library_queued, "call_ms": per_call,
+            "library_call_ms": library_call, "profiler_ms": ms,
+            "library_profiler_ms": library_ms,
+            "ptxas": ptxas("event_delivery"),
             "shape": f"{label}: {int(n_spk)} spiking rows, {events} events,"
                      f" active_cap {cap}"}
 
 
 def time_spike_compact(spikes, n: int, cap: int, launches: int,
-                       err: float) -> dict:
+                       err: float, big=None) -> dict:
+    """The compaction kernel at the recorded path's shape (a mid-run
+    spike vector), and at ``big`` = (spikes, n, cap) when given: device
+    time per call (``queued_ms``), per call with the wrapper's host work
+    (``call_ms``) and the profiler's figure, beside ``torch.nonzero``
+    (device time, and per call: it waits for the device on every call to
+    size its output) and the plain version."""
     import torch
     from repro_torch.kernels.ref import spike_compact_ref
     from repro_torch.kernels.spike_compact import spike_compact_cuda
-    ms = device_ms(lambda: spike_compact_cuda(spikes, n, cap), 200)
-    per_call = call_ms(lambda: spike_compact_cuda(spikes, n, cap), 200)
-    plain_ms = device_ms(lambda: spike_compact_ref(spikes, n, cap), 50)
-    live = spikes[:n] > 0
-    library_ms = device_ms(lambda: torch.nonzero(live), 50)
-    nbytes = n * 4 + cap * 4 + 4
-    bound = max(nbytes / HBM_BYTES_PER_S, n / F32_OPS_PER_S) * 1e3
-    return {"name": "spike_compact", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/spike_compact.cu",
-            "replaces": "src/repro/kernels/spike_compact.py:102",
-            "launches": launches, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
-            "library_ms": library_ms, "call_ms": per_call,
+
+    def one(spikes, n, cap):
+        kern = lambda: spike_compact_cuda(spikes, n, cap)
+        live = spikes[:n] > 0
+        lib = lambda: torch.nonzero(live)
+        nbytes = n * 4 + cap * 4 + 4
+        return {
+            "ms": queued_ms(kern, 200), "call_ms": call_ms(kern, 200),
+            "profiler_ms": device_ms(kern, 200),
+            "plain_ms": device_ms(lambda: spike_compact_ref(spikes, n, cap),
+                                  50),
+            "library_ms": device_ms(lib, 50),
+            "library_call_ms": call_ms(lib, 50),
+            "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                            n / F32_OPS_PER_S) * 1e3,
             "shape": f"n={n}, cap={cap}, {int(live.sum())} spikes"}
+
+    res = {"name": "spike_compact", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/spike_compact.cu",
+           "replaces": "src/repro/kernels/spike_compact.py:102",
+           "launches": launches, "max_abs_err": err, "bound_by": "bytes",
+           **one(spikes, n, cap), "ptxas": ptxas("spike_compact")}
+    if big is not None:
+        res["at_24x24x1240"] = one(*big)
+    return res
 
 
 def time_plastic(run: dict, launches: int, err: float, law: str) -> dict:
@@ -677,6 +786,7 @@ def time_plastic(run: dict, launches: int, err: float, law: str) -> dict:
 
     ms = device_ms(kernel, 20)
     per_call = call_ms(kernel, 20)
+    queued = queued_ms(kernel, 20)
     plain_ms = device_ms(lambda: plastic_delivery_ltd_ref(
         tier, spikes, cap, ring, slot, mask, x_post_d, neg_a), 3, warmup=1)
     # the work of this step: every slot of the index is read; the
@@ -694,9 +804,10 @@ def time_plastic(run: dict, launches: int, err: float, law: str) -> dict:
     return {"name": "plastic_delivery_ltd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/plastic_delivery.cu",
             "replaces": "src/repro/kernels/plastic_step.py:172",
-            "launches": launches, "max_abs_err": err, "ms": ms,
+            "launches": launches, "max_abs_err": err, "ms": queued,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
-            "library_ms": None, "call_ms": per_call,
+            "library_ms": None, "call_ms": per_call, "profiler_ms": ms,
+            "ptxas": ptxas("plastic_delivery"),
             "shape": f"{law} {GRID}x{GRID}x{N_PER_COLUMN}: "
                      f"{int(rows.sum())} delivered rows, {delivered} "
                      f"events, {plastic} plastic, {slots_read} index "
@@ -721,58 +832,78 @@ def qwen2_prefill_qkv(gen):
             for s in shapes]
 
 
-def check_flash(gen) -> float:
-    """The flash kernel against its plain version on the card (TF32 off):
-    the reference's kernel-test shapes in both dtypes, a fully masked
-    case (exactly 0), qwen2-1.5b's prefill shape and a head_dim-256
-    sliding window (gemma's head dim, recurrentgemma's local attention).
-    Returns the largest difference seen, relative to the tolerance's
-    scale (|plain| + 1)."""
+def check_flash(gen) -> dict:
+    """Both flash kernels against their plain version on the card (TF32
+    off): the reference's kernel-test shapes in both dtypes, the
+    tensor-core kernel's edge cases (bf16, head_dim 64/128/256: Sq = 1,
+    ragged Sq/Sk, Sk below a tile, q_offset, windows, GQA groups 1, 6,
+    8), fully masked rows (exactly 0) on both routes, qwen2-1.5b's
+    prefill shape and a head_dim-256 sliding window over 4096 keys
+    (gemma's head dim, recurrentgemma's local attention).  Returns the
+    largest difference seen on each route (its tolerance's scale is
+    |plain| + 1)."""
     import torch
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import (ROUTE_KERNELS, _route,
+                                                     flash_attention_cuda)
     from repro_torch.kernels.ref import attention_ref
     torch.backends.cuda.matmul.allow_tf32 = False
-    worst = 0.0
+    worst = {r: 0.0 for r in ROUTE_KERNELS}
 
     def one(q, k, v, label, **kw):
-        nonlocal worst
+        route = _route(q.dtype, q.shape[2])
+        before = _build.launch_counts()
         got = flash_attention_cuda(q, k, v, **kw)
         want = attention_ref(q, k, v, **kw)
         torch.cuda.synchronize()
+        after = _build.launch_counts()
+        name = ROUTE_KERNELS[route]
+        require(after.get(name, 0) == before.get(name, 0) + 1 and sum(
+            after.values()) == sum(before.values()) + 1,
+            f"flash {label}: not one launch of {name}")
         tol = FLASH_TOL[str(q.dtype).removeprefix("torch.")]
         err = (got.float() - want.float()).abs()
         bad = int((err > tol + tol * want.float().abs()).sum())
         require(got.dtype == q.dtype and got.shape == q.shape,
                 f"flash {label}: dtype/shape")
-        require(bad == 0, f"flash {label}: {bad} values beyond {tol}")
-        worst = max(worst, float(err.max()))
-        print(f"check flash_attention {label}: max_abs_err "
+        require(bad == 0, f"flash {label} ({route}): {bad} values beyond "
+                f"{tol}")
+        worst[route] = max(worst[route], float(err.max()))
+        print(f"check flash_attention[{route}] {label}: max_abs_err "
               f"{float(err.max()):.3g} (tol {tol}), max |plain| "
               f"{float(want.float().abs().max()):.3g}")
 
+    def rand(*shape):
+        return torch.randn(shape, device="cuda", generator=gen)
+
     for bh, bhkv, sq, sk, d, causal, win, qoff in FLASH_CASES:
         for dtype in (torch.float32, torch.bfloat16):
-            q = torch.randn((bh, sq, d), device="cuda", generator=gen)
-            k = torch.randn((bhkv, sk, d), device="cuda", generator=gen)
-            v = torch.randn((bhkv, sk, d), device="cuda", generator=gen)
+            q, k, v = rand(bh, sq, d), rand(bhkv, sk, d), rand(bhkv, sk, d)
             one(q.to(dtype), k.to(dtype), v.to(dtype),
                 f"{(bh, bhkv, sq, sk, d)} causal={causal} window={win} "
                 f"q_offset={qoff} {dtype}", causal=causal, window=win,
                 q_offset=qoff)
-    q = torch.randn((1, 8, 8), device="cuda", generator=gen)
-    out = flash_attention_cuda(q, q, q, causal=False, window=2,
-                               q_offset=100)
-    torch.cuda.synchronize()
-    require(torch.equal(out, torch.zeros_like(out)),
-            "flash: fully masked rows are not exactly 0")
-    print("check flash_attention fully masked (window=2, q_offset=100): "
-          "exactly 0")
+    for bh, bhkv, sq, sk, d, causal, win, qoff in SM90_CASES:
+        q, k, v = rand(bh, sq, d), rand(bhkv, sk, d), rand(bhkv, sk, d)
+        one(q.bfloat16(), k.bfloat16(), v.bfloat16(),
+            f"{(bh, bhkv, sq, sk, d)} causal={causal} window={win} "
+            f"q_offset={qoff} bf16", causal=causal, window=win,
+            q_offset=qoff)
+    for dtype, d in ((torch.float32, 8), (torch.bfloat16, 64),
+                     (torch.bfloat16, 128), (torch.bfloat16, 256)):
+        q = rand(2, 8, d).to(dtype)
+        out = flash_attention_cuda(q, q, q, causal=False, window=2,
+                                   q_offset=100)
+        torch.cuda.synchronize()
+        require(torch.equal(out, torch.zeros_like(out)),
+                f"flash[{_route(dtype, d)}]: fully masked rows are not "
+                "exactly 0")
+        print(f"check flash_attention[{_route(dtype, d)}] fully masked "
+              f"(window=2, q_offset=100) {dtype} D={d}: exactly 0")
     q, k, v = qwen2_prefill_qkv(gen)
     one(q, k, v, f"qwen2-1.5b prefill q {tuple(q.shape)} k/v "
         f"{tuple(k.shape)} bf16 causal", causal=True)
-    q = torch.randn((8, 4096, 256), device="cuda", generator=gen)
-    k = torch.randn((1, 4096, 256), device="cuda", generator=gen)
-    v = torch.randn((1, 4096, 256), device="cuda", generator=gen)
+    q, k, v = rand(8, 4096, 256), rand(1, 4096, 256), rand(1, 4096, 256)
     one(q.bfloat16(), k.bfloat16(), v.bfloat16(),
         "(8, 1, 4096, 4096, 256) bf16 causal window=2048", causal=True,
         window=2048)
@@ -860,6 +991,7 @@ def run_lm() -> dict:
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     n_prefill = _build.launch_counts().get("flash_attention", 0)
+    simt_prefill = _build.launch_counts().get("flash_attention_simt", 0)
     saved = [(c.k.clone(), c.v.clone()) for c in state["layers"]]
     first = torch.argmax(lg_k[:, -1:], dim=-1).to(torch.int32)
     t0 = time.perf_counter()
@@ -871,8 +1003,11 @@ def run_lm() -> dict:
     require(n_prefill == cfg.n_layers,
             f"prefill launched the flash kernel {n_prefill} times, not "
             f"{cfg.n_layers}")
-    require(launches.get("flash_attention", 0) == n_prefill,
-            "the decode steps launched the flash kernel")
+    require(simt_prefill == 0, f"the bf16 prefill launched the CUDA-core "
+            f"flash kernel {simt_prefill} times")
+    require(launches.get("flash_attention", 0) == n_prefill
+            and launches.get("flash_attention_simt", 0) == 0,
+            "the decode steps launched a flash kernel")
     require(toks.shape == (LM_BATCH, LM_GEN) and bool(
         ((toks >= 0) & (toks < cfg.padded_vocab)).all()), "bad tokens")
     for lg in [lg_k] + lgs_k:
@@ -928,9 +1063,14 @@ def run_lm() -> dict:
     lg32 = {}
     for impl in ("pallas", "naive"):
         c = dataclasses.replace(cfg32, attn_impl=impl)
+        _build.reset_launch_counts()
         lg32[impl], _ = make_prefill(c)(
             params32, {"tokens": tokens},
             init_decode_state(c, LM_BATCH, max_len))
+        if impl == "pallas":
+            f32_launches = _build.launch_counts()
+    require(f32_launches == {"flash_attention_simt": cfg.n_layers},
+            f"the float32 prefill's launches: {f32_launches}")
     f32 = lm_compare(lg32["pallas"], lg32["naive"])
     require(f32["ratio"] <= LM_F32_TOL,
             f"float32 kernel path vs plain path prefill logits: {f32}")
@@ -954,6 +1094,9 @@ def run_lm() -> dict:
             1e3 * 2 * n_params / HBM_BYTES_PER_S,
         "peak_device_bytes_above_earlier_phases": peak - base_bytes,
         "flash_launches_prefill": n_prefill,
+        "flash_simt_launches_prefill": simt_prefill,
+        "flash_simt_launches_f32_prefill":
+            f32_launches["flash_attention_simt"],
         "flash_launches_decode": launches.get("flash_attention", 0)
         - n_prefill,
         "prefill_logits_vs_plain": kern[0],
@@ -967,7 +1110,8 @@ def run_lm() -> dict:
         "decode_argmax_agreement_vs_plain": agree,
     }
     print("lm serving path " + json.dumps(res))
-    return {"res": res, "launches": n_prefill}
+    return {"res": res, "launches": n_prefill,
+            "simt_launches": f32_launches["flash_attention_simt"]}
 
 
 def device_breakdown(prof, n: int):
@@ -996,69 +1140,92 @@ def _tensors(tree):
         yield tree
 
 
-def time_flash(launches: int, err: float) -> dict:
-    """The flash kernel at qwen2-1.5b's prefill shape (one layer of the
-    4 x 2048 prefill): device times of the kernel and its plain version,
-    and the time of F.scaled_dot_product_attention (a yardstick the port
-    never calls)."""
-    import torch
+def _sdpa(q, k, v):
+    """One F.scaled_dot_product_attention call on (B*H, S, D) q and
+    (B*Kv, S, D) k, v (causal GQA), the yardstick the port never calls,
+    and its name."""
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    bh, s, d = q.shape
+    b = LM_BATCH
+    q4, k4, v4 = (x.view(b, x.shape[0] // b, s, d) for x in (q, k, v))
+    try:
+        F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+                                       enable_gqa=True)
+        return (lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True, enable_gqa=True),
+            "F.scaled_dot_product_attention(is_causal=True, enable_gqa)")
+    except TypeError:
+        k4r, v4r = (x.repeat_interleave(bh // k.shape[0], 1)
+                    for x in (k4, v4))
+        return (lambda: F.scaled_dot_product_attention(q4, k4r, v4r,
+                                                       is_causal=True),
+                "F.scaled_dot_product_attention(is_causal=True), KV "
+                "repeated")
+
+
+def time_flash(launches: dict, err: dict) -> list:
+    """Both flash kernels at qwen2-1.5b's prefill shape (one layer of the
+    4 x 2048 prefill): the tensor-core kernel in bf16 (the serving
+    path), beside the CUDA-core kernel on the same bf16 inputs (the
+    kernel it replaced there), and the CUDA-core kernel in float32 (the
+    float32 prefill's route).  Kernel, replaced kernel and the yardstick
+    F.scaled_dot_product_attention (never called by the port) are timed
+    as in ``queued_ms``, with per-call and profiler figures beside."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import attention_ref
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
     q, k, v = qwen2_prefill_qkv(gen)
-    ms = device_ms(lambda: flash_attention_cuda(q, k, v, causal=True), 20)
-    per_call = call_ms(lambda: flash_attention_cuda(q, k, v, causal=True),
-                       20)
-    plain_ms = device_ms(lambda: attention_ref(q, k, v, causal=True), 5)
     bh, s, d = q.shape
-    b = LM_BATCH
-    q4, k4, v4 = (x.view(b, x.shape[0] // b, s, d) for x in (q, k, v))
-    library = "F.scaled_dot_product_attention(is_causal=True, enable_gqa)"
-    try:
-        F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
-                                       enable_gqa=True)
-        lib = lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=True, enable_gqa=True)
-    except TypeError:
-        library = "F.scaled_dot_product_attention(is_causal=True), KV repeated"
-        k4r, v4r = (x.repeat_interleave(bh // k.shape[0] , 1)
-                    for x in (k4, v4))
-        lib = lambda: F.scaled_dot_product_attention(q4, k4r, v4r,
-                                                     is_causal=True)
-    # the profiler misses part of this call's device work (it reported
-    # less time than the bound on an H100), so the yardstick is timed
-    # between CUDA events over back-to-back calls, each longer on the
-    # device than its launch on the host
-    library_ms = call_ms(lib, 20)
-    library_profiler_ms = device_ms(lib, 20)
-    lib_err = float((lib().reshape(q.shape).float()
-                     - flash_attention_cuda(q, k, v, causal=True).float())
-                    .abs().max())
-    require(lib_err <= FLASH_TOL["bfloat16"] * 4,
-            f"the yardstick computes another function: {lib_err}")
     # live (q, k) pairs of causal attention, 4 D flops each (QK^T, PV)
     flops = 4 * bh * d * s * (s + 1) / 2
-    nbytes = sum(x.numel() * x.element_size() for x in (q, k, v)) \
-        + q.numel() * q.element_size()
-    bound_ops = flops / BF16_OPS_PER_S * 1e3
-    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    return {"name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    rows = []
+    for route, dtype, rate in (("sm90", torch.bfloat16, BF16_OPS_PER_S),
+                               ("simt", torch.float32, F32_OPS_PER_S)):
+        x = [t.to(dtype) for t in (q, k, v)]
+        kern = lambda: fa._launch(route, *x, causal=True)
+        lib, library = _sdpa(*x)
+        # q, k, v read once, o written once
+        nbytes = sum(t.numel() * t.element_size() for t in (x[0], *x))
+        bound_ops = flops / rate * 1e3
+        bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        lib_err = float((lib().reshape(q.shape).float()
+                         - kern().float()).abs().max())
+        require(lib_err <= FLASH_TOL[str(dtype).removeprefix("torch.")] * 4,
+                f"the yardstick computes another function: {lib_err}")
+        row = {
+            "name": fa.ROUTE_KERNELS[route], "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/"
+                      + ("flash_attention_sm90.cu" if route == "sm90"
+                         else "flash_attention.cu"),
             "replaces": "src/repro/kernels/flash_attention.py:94",
-            "launches": launches, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(bound_ops, bound_bytes),
+            "launches": launches[route], "max_abs_err": err[route],
+            "ms": queued_ms(kern, 20), "call_ms": call_ms(kern, 20),
+            "profiler_ms": device_ms(kern, 20),
+            "plain_ms": device_ms(lambda: attention_ref(*x, causal=True), 5),
+            "bound_ms": max(bound_ops, bound_bytes),
             "bound_by": "operations" if bound_ops >= bound_bytes
             else "bytes",
-            "library_ms": library_ms, "call_ms": per_call,
-            "library_profiler_ms": library_profiler_ms,
+            "library_ms": queued_ms(lib, 20),
+            "library_call_ms": call_ms(lib, 20),
+            "library_profiler_ms": device_ms(lib, 20),
             "library_vs_kernel_max_abs_diff": lib_err,
-            "bound_bytes_ms": bound_bytes,
-            "bound_f32_cuda_core_ms": flops / F32_OPS_PER_S * 1e3,
-            "flops": flops, "library": library,
-            "shape": f"q {tuple(q.shape)}, k/v {tuple(k.shape)} bf16 "
-                     "causal (qwen2-1.5b prefill, one layer)"}
+            "bound_bytes_ms": bound_bytes, "flops": flops,
+            "library": library,
+            "ptxas": ptxas("flash_attention_sm90" if route == "sm90"
+                           else "flash_attention"),
+            "shape": f"q {tuple(q.shape)}, k/v {tuple(k.shape)} "
+                     f"{str(dtype).removeprefix('torch.')} causal "
+                     "(qwen2-1.5b prefill, one layer)"}
+        if route == "sm90":
+            old = lambda: fa._launch("simt", *x, causal=True)
+            row["replaced_kernel_ms"] = queued_ms(old, 10)
+            row["replaced_kernel_call_ms"] = call_ms(old, 10)
+            row["replaced_kernel_profiler_ms"] = device_ms(old, 10)
+            row["bound_f32_cuda_core_ms"] = flops / F32_OPS_PER_S * 1e3
+        rows.append(row)
+    return rows
 
 
 def gpu_line() -> str:
@@ -1119,7 +1286,11 @@ def main() -> None:
             tabs, spec, gen, f"{law} {grid}x{grid}x{N_PER_COLUMN}"))
     cap_main = reduced_case("gaussian", GRID, N_PER_COLUMN).engine_config(
         1, 1).spec().active_cap_local
-    compact_err = check_spike_compact(n_main, cap_main, gen)
+    cap_big = reduced_case("gaussian", 24, N_PER_COLUMN).engine_config(
+        1, 1).spec().active_cap_local
+    n_big = 24 * 24 * N_PER_COLUMN     # one shard of the paper's 24x24
+    compact_err = check_spike_compact([(n_main, cap_main), (n_big, cap_big)],
+                                      gen)
     flash_err = check_flash(gen)
 
     # 3. the static path
@@ -1183,8 +1354,11 @@ def main() -> None:
                          plastic_err, law)
         print(f"timing {json.dumps(k)}")
     kernels.append(k)
+    big = (torch.rand(n_big, device="cuda", generator=gen) < float(
+        runs["gaussian"]["spikes"].mean())).float()
     k = time_spike_compact(runs["gaussian"]["spikes"], n_main, cap_main,
-                           r_launches["spike_compact"], compact_err)
+                           r_launches["spike_compact"], compact_err,
+                           big=(big, n_big, cap_big))
     print(f"timing {json.dumps(k)}")
     kernels.append(k)
     print(f"timing {json.dumps(kernels[0])}")
@@ -1192,9 +1366,10 @@ def main() -> None:
     # 7. the LM serving path (qwen2-1.5b, full width), then the flash
     # kernel's timing at its prefill shape (not counted as launches)
     lm = run_lm()
-    k = time_flash(lm["launches"], flash_err)
-    print(f"timing {json.dumps(k)}")
-    kernels.append(k)
+    for k in time_flash({"sm90": lm["launches"],
+                         "simt": lm["simt_launches"]}, flash_err):
+        print(f"timing {json.dumps(k)}")
+        kernels.append(k)
     require("jax" not in sys.modules and not any(
         m == "repro" or m.startswith("repro.") for m in sys.modules),
         "the port pulled in jax or the JAX package")

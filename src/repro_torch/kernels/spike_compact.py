@@ -2,10 +2,18 @@
 
 Replaces the TPU kernel ``repro/kernels/spike_compact.py:
 spike_compact_pallas``.  The kernel (``csrc/spike_compact.cu``) is one
-block that loops over the spike mask with an exact int32 prefix scan:
-no index passes through a float.  It is bound by its launch, not by its
-bytes (4 B read per row and 4 B written per output slot, under 1 MB at
-79,360 rows).
+launch of a persistent grid that ranks the spiking rows of 4096-row
+tiles with warp ballots and finds each tile's offset by decoupled
+look-back over a per-device status array, exact int32 throughout: no
+index passes through a float.  Its bytes (4 B read per row, 4 B written
+per output slot) take well under a microsecond at 79,360 rows, so its
+time is latency: the launch and one chain of look-back reads (PERF.md
+gives the measured times).
+
+The status array is scratch that the wrapper allocates once per device
+(zeroed once, grown when a larger ``n_rows`` comes) and keeps; each call
+tags its words with a new epoch, so no clearing launch runs between
+calls.  Calls that share a device must run on one stream.
 
 The wrapper launches the kernel for CUDA tensors and takes the plain
 version (``ref.spike_compact_ref``: cumsum and scatter) for CPU tensors.
@@ -14,6 +22,7 @@ version (``ref.spike_compact_ref``: cumsum and scatter) for CPU tensors.
 from __future__ import annotations
 
 import ctypes
+from typing import Dict, NamedTuple
 
 import torch
 
@@ -23,14 +32,74 @@ from .ref import spike_compact_ref
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
+TILE_ROWS = 4096          # rows per tile (csrc/spike_compact.cu: kTileRows)
+EPOCHS = 1 << 30          # tags 1 .. EPOCHS - 1, then the array is cleared
 
-def _launcher():
+
+class Plan(NamedTuple):
+    tiles: int            # 4096-row tiles of the mask
+    grid: int             # blocks launched (persistent, all resident)
+    status_words: int     # 64-bit status words the call needs
+
+
+def plan(n_rows: int, max_blocks: int) -> Plan:
+    """Grid and scratch of one call over ``n_rows`` rows on a device that
+    holds ``max_blocks`` blocks of the kernel at once."""
+    if n_rows < 0 or max_blocks < 1:
+        raise ValueError(f"plan takes n_rows >= 0 and max_blocks >= 1; got "
+                         f"{n_rows}, {max_blocks}")
+    tiles = -(-n_rows // TILE_ROWS)
+    return Plan(tiles, max(1, min(tiles, max_blocks)), max(tiles, 1))
+
+
+class _Scratch:
+    """The per-device status array, its epoch counter and the device's
+    resident-block limit."""
+
+    def __init__(self, device: torch.device, max_blocks: int):
+        self.device = device
+        self.max_blocks = max_blocks
+        self.status = torch.zeros((0,), dtype=torch.int64, device=device)
+        self.epoch = 0
+
+    def next(self, words: int):
+        if self.status.numel() < words:
+            self.status = torch.zeros((words,), dtype=torch.int64,
+                                      device=self.device)
+        self.epoch += 1
+        if self.epoch >= EPOCHS:
+            self.status.zero_()
+            self.epoch = 1
+        return self.status, self.epoch
+
+
+_SCRATCH: Dict[torch.device, _Scratch] = {}
+
+
+def _lib():
     lib = _build.library("spike_compact")
-    fn = lib.spike_compact_launch
-    if fn.argtypes is None:
-        fn.argtypes = [_P, _I, _I, _P, _P, _P]
-        fn.restype = _I
-    return fn
+    if lib.spike_compact_launch.argtypes is None:
+        lib.spike_compact_launch.argtypes = [_P, _I, _I, _P, _P, _P, _I, _I,
+                                             _I, _I, _P]
+        lib.spike_compact_launch.restype = _I
+        lib.spike_compact_max_blocks.argtypes = [_I, ctypes.POINTER(_I)]
+        lib.spike_compact_max_blocks.restype = _I
+        lib.spike_compact_tile_rows.restype = _I
+        if lib.spike_compact_tile_rows() != TILE_ROWS:
+            raise RuntimeError("csrc/spike_compact.cu's tile differs from "
+                               "TILE_ROWS")
+    return lib
+
+
+def _scratch(device: torch.device) -> _Scratch:
+    sc = _SCRATCH.get(device)
+    if sc is None:
+        out = _I(0)
+        _build.check(_lib().spike_compact_max_blocks(device.index or 0,
+                                                     ctypes.byref(out)),
+                     "spike_compact (occupancy query)")
+        sc = _SCRATCH[device] = _Scratch(device, out.value)
+    return sc
 
 
 def _check(spikes: torch.Tensor, n_rows: int, active_cap: int) -> None:
@@ -50,13 +119,21 @@ def spike_compact_cuda(spikes: torch.Tensor, n_rows: int, active_cap: int):
     _check(spikes, n_rows, active_cap)
     if spikes.device.type != "cuda":
         raise ValueError("spike_compact_cuda takes a CUDA tensor")
-    idx = torch.empty((active_cap,), dtype=torch.int32, device=spikes.device)
-    count = torch.empty((1,), dtype=torch.int32, device=spikes.device)
-    err = _launcher()(spikes.data_ptr(), n_rows, active_cap, idx.data_ptr(),
-                      count.data_ptr(), _build.stream_ptr(spikes))
+    lib = _lib()
+    dev = spikes.device if spikes.device.index is not None else \
+        torch.device("cuda", torch.cuda.current_device())
+    sc = _scratch(dev)
+    p = plan(n_rows, sc.max_blocks)
+    status, epoch = sc.next(p.status_words)
+    out = torch.empty((active_cap + 1,), dtype=torch.int32, device=dev)
+    err = lib.spike_compact_launch(
+        spikes.data_ptr(), n_rows, active_cap, out.data_ptr(),
+        out.data_ptr() + 4 * active_cap, status.data_ptr(), status.numel(),
+        epoch, p.grid, int(spikes.data_ptr() % 16 == 0),
+        _build.stream_ptr(spikes))
     _build.check(err, "spike_compact")
     _build.count_launch("spike_compact")
-    return idx, count[0]
+    return out[:active_cap], out[active_cap]
 
 
 def spike_compact(spikes: torch.Tensor, n_rows: int, active_cap: int):

@@ -143,6 +143,55 @@ def test_cpu_attention_launches_no_kernel():
     assert "flash_attention" in _build.SOURCES
 
 
+@pytest.mark.parametrize("d", [8, 16, 32, 64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_route(dtype, d):
+    """bf16 at head_dim 64/128/256 takes the tensor-core kernel, every
+    other accepted case the CUDA-core kernel (float32 keeps f32)."""
+    from repro_torch.kernels.flash_attention import (ROUTE_KERNELS,
+                                                     SM90_HEAD_DIMS, _route)
+    want = "sm90" if dtype == torch.bfloat16 and d in SM90_HEAD_DIMS \
+        else "simt"
+    assert _route(dtype, d) == want
+    assert ROUTE_KERNELS[want] in ("flash_attention", "flash_attention_simt")
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float16, 64),
+                                     (torch.float64, 128),
+                                     (torch.bfloat16, 12),
+                                     (torch.bfloat16, 512),
+                                     (torch.float32, 0)])
+def test_flash_route_refuses(dtype, d):
+    from repro_torch.kernels.flash_attention import _route
+    with pytest.raises(ValueError, match="no flash-attention kernel"):
+        _route(dtype, d)
+    assert "flash_attention_sm90" in _build.SOURCES
+
+
+@pytest.mark.parametrize("d,sq,sk,causal,win,qoff", [
+    (64, 40, 40, True, None, 0), (128, 1, 33, True, None, 32),
+    (256, 37, 50, False, 9, 0)])
+def test_plain_attention_matches_reference_at_sm90_head_dims(d, sq, sk,
+                                                             causal, win,
+                                                             qoff):
+    """The tensor-core route's cases (bf16, head_dim 64/128/256): on the
+    CPU the wrapper's plain version against the reference's kernel in
+    interpret mode, GQA group 3."""
+    rng = np.random.default_rng(d + sq)
+    q, k, v = _qkv(rng, 3, 1, sq, sk, d)
+    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    tq, tk, tv = (torch.from_numpy(_f32(x)).to(torch.bfloat16)
+                  for x in (jq, jk, jv))
+    kw = dict(causal=causal, window=win, q_offset=qoff)
+    _build.reset_launch_counts()
+    got = ops.attention(tq, tk, tv, **kw)
+    assert _build.launch_counts() == {}
+    assert got.dtype == torch.bfloat16 and got.shape == (3, sq, d)
+    want = jflash(jq, jk, jv, block_q=32, block_k=32, interpret=True, **kw)
+    tol = TOL["bfloat16"]
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
+
+
 # ---------------------------------------------------------------------------
 # module level: apply_attention, reduced configs, float32
 # ---------------------------------------------------------------------------

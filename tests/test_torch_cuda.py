@@ -149,6 +149,50 @@ def test_spike_compact_kernel_matches_plain(cuda, dens):
         assert torch.equal(idx, ridx) and int(cnt) == int(rcnt)
 
 
+@pytest.mark.parametrize("n", [79_360, 714_240])
+@pytest.mark.parametrize("dens", [0.0, 0.01, 0.5, 1.0])
+def test_spike_compact_kernel_one_launch_bit_equal(cuda, dens, n):
+    """The multi-block kernel at the recorder's width and at one shard of
+    the paper's smallest grid (24x24x1240): one launch per call, idx and
+    count bit-equal to the plain version with cap above and below the
+    count."""
+    from repro_torch.kernels.spike_compact import spike_compact_cuda
+    g = torch.Generator(device=cuda).manual_seed(n + int(dens * 100))
+    spk = (torch.rand(n, device=cuda, generator=g) < dens).float()
+    count = int(spk.sum())
+    for cap in (0, max(count // 2, 1), count, count + 1000, n + 1):
+        _build.reset_launch_counts()
+        idx, cnt = spike_compact_cuda(spk, n, cap)
+        assert _build.launch_counts() == {"spike_compact": 1}
+        ridx, rcnt = ref.spike_compact_ref(spk, n, cap)
+        assert idx.dtype == cnt.dtype == torch.int32
+        assert torch.equal(idx, ridx) and int(cnt) == int(rcnt) == count
+
+
+def test_spike_compact_epoch_reuse(cuda):
+    """The status scratch is reused across calls with a new epoch each:
+    three calls in a row, then a call at another n, then the first input
+    again, give identical results."""
+    from repro_torch.kernels.spike_compact import spike_compact_cuda
+    g = torch.Generator(device=cuda).manual_seed(9)
+    a = (torch.rand(79_360, device=cuda, generator=g) < 0.2).float()
+    b = (torch.rand(714_240, device=cuda, generator=g) < 0.7).float()
+    want = ref.spike_compact_ref(a, 79_360, 20_000)
+    runs = [spike_compact_cuda(a, 79_360, 20_000) for _ in range(3)]
+    ib, cb = spike_compact_cuda(b, 714_240, 600_000)
+    runs.append(spike_compact_cuda(a, 79_360, 20_000))
+    rb = ref.spike_compact_ref(b, 714_240, 600_000)
+    torch.cuda.synchronize()
+    for idx, cnt in runs:
+        assert torch.equal(idx, want[0]) and int(cnt) == int(want[1])
+    assert torch.equal(ib, rb[0]) and int(cb) == int(rb[1])
+    # unaligned and short: a view one float in, n not a multiple of 4
+    c = torch.ones(5_003, device=cuda)[1:]
+    idx, cnt = spike_compact_cuda(c, 5_001, 4_000)
+    assert torch.equal(idx, ref.spike_compact_ref(c, 5_001, 4_000)[0])
+    assert int(cnt) == 5_001
+
+
 @pytest.mark.parametrize("law", ["gaussian", "exponential"])
 def test_static_float32_run_is_fixed_order(cuda, law):
     """A static float32 run at 4x4x100 on the card goes through the
@@ -255,20 +299,90 @@ def test_flash_kernel_fully_masked_rows_are_zero(cuda):
 
 
 def test_flash_wrapper_counts_launches_and_refuses(cuda):
+    """Launches are counted per route: float32 and bf16 at head_dim 32
+    take the CUDA-core kernel, bf16 at head_dim 64 the tensor-core one."""
     from repro_torch.kernels import ops
     q = torch.randn(4, 32, 64, device=cuda)
     k = torch.randn(2, 32, 64, device=cuda)
     _build.reset_launch_counts()
     ops.attention(q, k, k)
     ops.attention(q, k, k, causal=False)
-    assert _build.launch_counts() == {"flash_attention": 2}
+    assert _build.launch_counts() == {"flash_attention_simt": 2}
+    ops.attention(q.bfloat16(), k.bfloat16(), k.bfloat16())
+    ops.attention(q[..., :32].bfloat16().contiguous(),
+                  k[..., :32].bfloat16().contiguous(),
+                  k[..., :32].bfloat16().contiguous())
+    assert _build.launch_counts() == {"flash_attention_simt": 3,
+                                      "flash_attention": 1}
     for bad in (torch.randn(2, 8, 12, device=cuda),
                 torch.randn(2, 8, 512, device=cuda)):
         with pytest.raises(ValueError, match="head_dim"):
             ops.attention(bad, bad, bad)
     with pytest.raises(ValueError, match="device"):
         ops.attention(q, k.cpu(), k)
-    assert _build.launch_counts() == {"flash_attention": 2}
+    assert _build.launch_counts() == {"flash_attention_simt": 3,
+                                      "flash_attention": 1}
+
+
+# the tensor-core kernel's cases (bf16, head_dim 64/128/256): Sq = 1,
+# Sq and Sk off the 64/128 tiles, Sk below one tile, q_offset > 0, windows,
+# GQA groups 1, 6 and 8
+SM90_CASES = [
+    (4, 2, 64, 64, 64, True, None, 0),
+    (8, 2, 100, 100, 64, True, 48, 0),
+    (3, 3, 48, 16, 64, True, None, 0),
+    (2, 2, 37, 129, 128, False, None, 0),
+    (2, 1, 1, 77, 128, True, None, 76),
+    (12, 2, 1, 300, 128, False, None, 0),
+    (6, 1, 200, 200, 128, True, None, 0),
+    (4, 4, 129, 1000, 128, True, None, 871),
+    (2, 1, 513, 513, 64, True, 200, 0),
+    (8, 1, 130, 300, 256, True, 40, 0),
+    (2, 2, 300, 257, 256, False, None, 0),
+    (8, 1, 1, 40, 256, True, None, 39),
+]
+
+
+@pytest.mark.parametrize("bh,bhkv,sq,sk,d,causal,win,qoff", SM90_CASES)
+def test_flash_sm90_kernel_matches_plain(cuda, bh, bhkv, sq, sk, d, causal,
+                                         win, qoff):
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda).manual_seed(sq * 7 + sk + d)
+    q, k, v = (torch.randn(s, device=cuda, generator=g).bfloat16()
+               for s in ((bh, sq, d), (bhkv, sk, d), (bhkv, sk, d)))
+    kw = dict(causal=causal, window=win, q_offset=qoff)
+    _build.reset_launch_counts()
+    got = flash_attention_cuda(q, k, v, **kw)
+    want = ref.attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert _build.launch_counts() == {"flash_attention": 1}
+    assert got.dtype == torch.bfloat16 and got.shape == (bh, sq, d)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_sm90_fully_masked_rows_are_zero(cuda, d):
+    """Rows that see no key are exactly 0: the whole CTA masked (window
+    2 far behind), and rows masked while others of the CTA are live."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    g = torch.Generator(device=cuda).manual_seed(d)
+    q = torch.randn(2, 8, d, device=cuda, generator=g).bfloat16()
+    out = flash_attention_cuda(q, q, q, causal=False, window=2,
+                               q_offset=100)
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.zeros_like(out))
+    # keys 0..63, queries at 0..199 with window 100: rows 163+ see none
+    q = torch.randn(2, 200, d, device=cuda, generator=g).bfloat16()
+    k = torch.randn(2, 64, d, device=cuda, generator=g).bfloat16()
+    out = flash_attention_cuda(q, k, k, causal=True, window=100)
+    want = ref.attention_ref(q, k, k, causal=True, window=100)
+    torch.cuda.synchronize()
+    assert torch.equal(out[:, 163:], torch.zeros_like(out[:, 163:]))
+    assert float(out[:, :163].float().abs().amax()) > 0
+    torch.testing.assert_close(out.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
 
 
 def test_lm_prefill_goes_through_the_kernel(cuda):
@@ -290,10 +404,12 @@ def test_lm_prefill_goes_through_the_kernel(cuda):
         _build.reset_launch_counts()
         lg, state = tm.make_prefill(cfg)(params, {"tokens": tok[:, :69]},
                                          state)
-        n_prefill = _build.launch_counts().get("flash_attention", 0)
+        # float32 takes the CUDA-core kernel
+        n_prefill = _build.launch_counts().get("flash_attention_simt", 0)
         lg2, state = tm.make_serve_step(cfg)(params, state, tok[:, 69:], 69)
-        n_decode = _build.launch_counts().get("flash_attention", 0) \
+        n_decode = _build.launch_counts().get("flash_attention_simt", 0) \
             - n_prefill
+        assert "flash_attention" not in _build.launch_counts()
         out[impl] = (lg, lg2, n_prefill, n_decode)
     assert out["pallas"][2:] == (base.n_layers, 0)
     assert out["naive"][2:] == (0, 0)

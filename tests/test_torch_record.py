@@ -18,11 +18,13 @@ import torch
 from repro.core import engine as jeng
 from repro.core import grid as jgrid
 from repro.kernels import ops as jops
+from repro.kernels.synaptic_accum import compact_events as jcompact
 from repro.obs import record as jrec
 from repro_torch.core import engine as teng
 from repro_torch.core import grid as tgrid
 from repro_torch.kernels.ref import compact_events
-from repro_torch.kernels.spike_compact import spike_compact
+from repro_torch.kernels.spike_compact import (TILE_ROWS, Plan, plan,
+                                               spike_compact)
 from repro_torch.obs import record as trec
 
 from _torch_parity import LAWS, assert_bits_equal, configs, reference_drive
@@ -125,3 +127,64 @@ def test_recorder_spec_sizing_and_refusals():
     assert st["step"].shape == (r.capacity,) and int(st["count"]) == 0
     with pytest.raises(ValueError, match="float32"):
         spike_compact(torch.zeros(4, dtype=torch.int32), 4, 2)
+
+
+@pytest.mark.parametrize("n,tiles", [(0, 0), (1, 1), (3, 1), (4096, 1),
+                                     (4097, 2), (3 * 4096, 3),
+                                     (79_360, 20), (714_240, 175)])
+def test_spike_compact_plan_edges(n, tiles):
+    """Grid and scratch sizing of the compaction kernel: whole 4096-row
+    tiles, a persistent grid of at most ``max_blocks`` (and at least one
+    block, which writes the count and the sink tail), one status word per
+    tile."""
+    assert TILE_ROWS == 4096
+    for max_blocks in (1, 7, 132 * 8):
+        p = plan(n, max_blocks)
+        assert isinstance(p, Plan) and p.tiles == tiles
+        assert p.grid == max(1, min(tiles, max_blocks))
+        assert p.status_words == max(tiles, 1)
+    with pytest.raises(ValueError, match="plan"):
+        plan(-1, 4)
+    with pytest.raises(ValueError, match="plan"):
+        plan(n, 0)
+
+
+def _edge_case(case: str):
+    rng = np.random.default_rng(17)
+    if case == "cap0":
+        n = 5000
+        spk = (rng.random(n) < 0.3).astype(np.float32)
+        return spk, n, 0
+    if case == "cut_across_tile":
+        n = 3 * TILE_ROWS + 77
+        spk = (rng.random(n) < 0.5).astype(np.float32)
+        cap = int(spk[:TILE_ROWS].sum()) + 3   # the cap-th spike: tile 1
+        return spk, n, cap
+    if case == "all_spike_cap_below":
+        n = TILE_ROWS + 13
+        return np.ones(n, np.float32), n, n - 100
+    if case == "all_spike_cap_above":
+        n = TILE_ROWS + 13
+        return np.ones(n, np.float32), n, n + 5
+    # n not a multiple of 4, a spiking row past n that must not count
+    n = 1031
+    spk = (rng.random(n + 3) < 0.4).astype(np.float32)
+    spk[n:] = 1.0
+    return spk, n, 300
+
+
+@pytest.mark.parametrize("case", ["cap0", "cut_across_tile",
+                                  "all_spike_cap_below",
+                                  "all_spike_cap_above", "n_not_mult4"])
+def test_spike_compact_edges_match_reference(case):
+    """The plain version (the wrapper's CPU route) against the reference's
+    ``compact_events`` at the compaction kernel's edge cases."""
+    spk, n, cap = _edge_case(case)
+    jidx, jcnt = jcompact(jax.numpy.asarray(spk), n, cap)
+    idx, cnt = spike_compact(torch.from_numpy(spk), n, cap)
+    assert idx.shape == (cap,) and idx.dtype == torch.int32
+    assert_bits_equal(np.asarray(jidx).astype(np.int32), idx, "idx")
+    assert int(cnt) == int(jcnt) == int((spk[:n] > 0).sum())
+    live = np.flatnonzero(spk[:n] > 0)[:cap]
+    assert np.array_equal(idx.numpy()[:live.size], live)
+    assert (idx.numpy()[live.size:] == n).all()
