@@ -10,9 +10,12 @@ Phases, each of which exits non-zero on failure:
 2. kernel checks on the card, each kernel against its plain PyTorch
    version on the same inputs: the LIF update on random state
    (``spk``/``refrac`` exact, ``v``/``c`` within 1 ulp), event delivery
-   on real tables -- 4x4x1240 (int16 ids) and 8x8x1240 (int32 ids) --
-   at three spike densities, one above ``active_cap`` (ring exact, event
-   and drop counts equal), spike compaction at densities 0 to 1 at the
+   (the column kernel, through the tables' run descriptors, which are
+   built first and reported in bytes per synapse and build seconds, and
+   reckoned at one 24x24x1240 shard) on real tables -- 4x4x1240 (int16
+   ids) and 8x8x1240 (int32 ids) -- at three spike densities, one above
+   ``active_cap`` (ring exact, event and drop counts equal), spike
+   compaction at densities 0 to 1 at the
    main path's 79,360 rows and at one shard of the paper's 24x24x1240
    grid (714,240 rows): exact, one launch per call; and both flash-
    attention kernels (see 7);
@@ -40,7 +43,12 @@ Phases, each of which exits non-zero on failure:
    device time (profiler) and one PyTorch library call's where there
    is one; ptxas's registers and spills; and the least time the card
    could take (bytes over 3.35 TB/s, or operations over the card's
-   peak rate where they take longer);
+   peak rate where they take longer).  The column delivery kernel is
+   timed beside the warp-per-row kernel it replaced on the static path
+   (``replaced_kernel_ms``, the same inputs); both delivery kernels
+   report the bytes they actually move (``kernel_bytes``), and the
+   fixed-order one also the bound with its index walk counted
+   (``design_bound_ms``);
 7. the LM serving path (``init_model`` -> ``init_decode_state`` ->
    ``make_prefill`` -> ``make_serve_step``): qwen2-1.5b at its full
    width in bf16 with seeded random weights, a 4 x 2048-token prefill
@@ -63,6 +71,18 @@ just after it.  It prints the metrics, a ``{"kernels": [...]}`` line, the
 card's name and power limit, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 It needs one CUDA card and the repository checkout around it.
+
+    python3 chip_smoke.py --ab OTHER_SRC [--steps N]
+
+runs only an A/B of the static path's ms per step against another
+checkout's port (``OTHER_SRC``: its ``src`` directory, for example the
+parent commit unpacked with ``git archive`` into a directory that
+``.gitignore`` lists).  The trees run in turns, other, this, this,
+other, each in a process of its own that builds its kernels and the
+8x8x1240 tables of both laws, runs 20 warm-up steps and times ``N``
+steps (default 500) of ``engine.simulate`` on the host clock,
+CUDA-synchronised; one ``ab {...}`` line per run, then the card's name
+and power limit.
 """
 
 from __future__ import annotations
@@ -261,19 +281,69 @@ def check_lif(n: int, gen) -> dict:
     return {"max_abs_err": err, "ulp_diffs": n_diff}
 
 
+def column_runs(tabs, spec, label: str) -> dict:
+    """Build the tables' run descriptors (the column kernel's static
+    input) and report their bytes per synapse beside the tables' own,
+    and the build time."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runs = tabs.column_runs(spec.n_per_col, spec.n_exc_per_col, spec.d_ring)
+    torch.cuda.synchronize()
+    n_syn = tabs.stats["n_synapses"]
+    nbytes = sum(r["nbytes"] for r in runs)
+    res = {"tables": label, "build_s": time.perf_counter() - t0,
+           "bytes": nbytes, "bytes_per_synapse": nbytes / n_syn,
+           "table_bytes_per_synapse": tabs.stats["bytes_per_synapse"],
+           "pairs": [int(r["pair_src"].numel()) for r in runs],
+           "max_pairs_per_column": [r["max_pairs"] for r in runs],
+           "permuted": [r["perm"] is not None for r in runs]}
+    require(not any(res["permuted"]), f"{label}: build_tables output needed "
+            "the permuted descriptor")
+    print("column runs " + json.dumps(res))
+    return res
+
+
+def reckon_runs_bytes(law: str, grid: int) -> dict:
+    """The run descriptor's size at one shard of ``grid`` x ``grid`` x
+    1240, reckoned from shapes (no build): one pair per (target column,
+    stencil offset that lands in the grid) plus the local one, each
+    ``n_per_col`` int64 words; synapses from the connection
+    probabilities."""
+    from repro_torch.configs.snn import reduced_case
+    spec = reduced_case(law, grid, N_PER_COLUMN).engine_config(1, 1).spec()
+    n, n_exc = spec.n_per_col, spec.n_exc_per_col
+    pairs, syn = grid * grid, grid * grid * n * n * spec.p_local
+    for (dy, dx), p in zip(spec.law.stencil_offsets(),
+                           spec.law.offset_probs()):
+        inside = max(grid - abs(int(dy)), 0) * max(grid - abs(int(dx)), 0)
+        pairs += inside
+        syn += inside * n_exc * n * float(p)
+    nbytes = pairs * (n * 8 + 8)
+    return {"law": law, "grid": f"{grid}x{grid}x{N_PER_COLUMN}",
+            "pairs": pairs, "synapses": syn, "bytes": nbytes,
+            "bytes_per_synapse": nbytes / syn}
+
+
 def check_delivery(tabs, spec, gen, label: str) -> float:
     import torch
     from repro_torch.core.synapses import deliver_events
+    from repro_torch.kernels import _build
     from repro_torch.kernels.synaptic_accum import event_delivery_banded
     cap = spec.active_cap_local
     n = spec.n_local
+    runs = tabs.column_runs(spec.n_per_col, spec.n_exc_per_col, spec.d_ring)
     err = 0.0
     for dens in (0.01, 0.05, 0.9):
         spk = (torch.rand(n, device="cuda", generator=gen) < dens).float()
         ring0 = torch.randint(-200, 200, (8, n), device="cuda",
                               generator=gen).float() * 2.0 ** -9
+        before = _build.launch_counts().get("event_delivery", 0)
         rk, ek, dk = event_delivery_banded([(tabs.local, spk, cap)],
-                                           ring0.clone(), 3, 8)
+                                           ring0.clone(), 3, 8,
+                                           runs=runs[:1])
+        require(_build.launch_counts()["event_delivery"] == before + 1,
+                "event_delivery: not one launch of the column kernel")
         rp, ep, dp = deliver_events(tabs.local, spk, ring0.clone(), 3, 8,
                                     cap)
         torch.cuda.synchronize()
@@ -501,8 +571,10 @@ def run_plastic(law: str, tabs, build_s: float) -> dict:
     torch.cuda.synchronize()
     inv_s = time.perf_counter() - t0
     inv = aux["inv"]
+    tm_bytes = inv["tm"].numel() * inv["tm"].element_size()
     inv_bytes = (inv["slots"].numel() * inv["slots"].element_size()
-                 + inv["n_in"].numel() * inv["n_in"].element_size())
+                 + inv["n_in"].numel() * inv["n_in"].element_size()
+                 + tm_bytes)
     state = engine.init_sim_state(cfg)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -529,6 +601,9 @@ def run_plastic(law: str, tabs, build_s: float) -> dict:
         "steps": PLASTIC_STEPS, "host_build_s": build_s,
         "n_synapses": tabs.stats["n_synapses"],
         "inverse_index_host_s": inv_s, "inverse_index_bytes": inv_bytes,
+        "target_major_bytes": tm_bytes,
+        "inverse_index_bytes_per_synapse":
+            inv_bytes / tabs.stats["n_synapses"],
         "inverse_index_k_in": int(inv["slots"].shape[1]),
         "rate_hz": rate, "events_per_step": events / PLASTIC_STEPS,
         "dropped": float(fin["metrics"]["dropped"]),
@@ -567,7 +642,8 @@ def check_plastic_kernel(run: dict, law: str) -> float:
     def one(dev):
         tier = {k: v.clone().to(dev) for k, v in local.items()}
         inv = dict(aux["inv"], slots=aux["inv"]["slots"].to(dev),
-                   n_in=aux["inv"]["n_in"].to(dev))
+                   n_in=aux["inv"]["n_in"].to(dev),
+                   tm=aux["inv"]["tm"].to(dev))
         r, w, ev, dr = plastic_delivery_ltd(
             [(tier, spikes.to(dev), spec.active_cap_local)],
             [aux["masks"][0].to(dev)], x_post_d.to(dev), ring.clone().to(dev),
@@ -677,18 +753,26 @@ def time_lif(state, cfg, launches: int, err: float) -> dict:
 
 def time_delivery(tabs, spec, spikes, launches: int, err: float,
                   label: str) -> dict:
+    """The column kernel on one mid-run spike vector of the static path,
+    beside the warp-per-row kernel it replaced there (the legacy entry's
+    kernel) on the same rows, the plain version and ``index_add_``."""
     import torch
-    from repro_torch.kernels.ref import deliver_rows_ref
+    from repro_torch.kernels.ref import delivered_bits, deliver_rows_ref
     from repro_torch.kernels.synaptic_accum import (compact_events,
+                                                    deliver_columns_cuda,
                                                     deliver_rows_cuda)
     local = tabs.local
     n, cap = spec.n_local, spec.active_cap_local
+    runs = tabs.column_runs(spec.n_per_col, spec.n_exc_per_col,
+                            spec.d_ring)[0]
     idx, n_spk = compact_events(spikes, n, cap)
+    bits, _ = delivered_bits(spikes, n, cap)
     ring = torch.zeros((spec.d_ring, n), device="cuda")
     ev = torch.zeros((1,), dtype=torch.int32, device="cuda")
-    ms = device_ms(lambda: deliver_rows_cuda(local, idx, ring, 3, ev), 100)
-    per_call = call_ms(lambda: deliver_rows_cuda(local, idx, ring, 3, ev),
-                       100)
+    kern = lambda: deliver_columns_cuda(local, runs, bits, ring, 3, ev)
+    old = lambda: deliver_rows_cuda(local, idx, ring, 3, ev)
+    ms = device_ms(kern, 100)
+    per_call = call_ms(kern, 100)
     plain_ms = device_ms(lambda: deliver_rows_ref(local, idx, ring, 3, ev),
                          5)
     # the gathered stream of the real events, for the one-call yardstick
@@ -702,16 +786,28 @@ def time_delivery(tabs, spec, spikes, launches: int, err: float,
     w = local["w"][rows].float()[keep]
     library_ms = device_ms(lambda: ring.view(-1).index_add_(0, flat, w), 20)
     library_call = call_ms(lambda: ring.view(-1).index_add_(0, flat, w), 20)
-    queued = queued_ms(lambda: deliver_rows_cuda(local, idx, ring, 3, ev),
-                       100)
+    queued = queued_ms(kern, 100)
+    old_queued = queued_ms(old, 100)
     library_queued = queued_ms(lambda: ring.view(-1).index_add_(0, flat, w),
                                20)
     events = int(flat.numel())
     touched = int(torch.unique(flat).numel())
-    entry_b = local["tgt"].element_size() + local["w"].element_size() + 1
+    tgt_b, w_b = local["tgt"].element_size(), local["w"].element_size()
+    entry_b = tgt_b + w_b + 1
     nbytes = (events * entry_b + rows.numel() * 4 + cap * 4
               + touched * 8)
     bound = max(nbytes / HBM_BYTES_PER_S, events / F32_OPS_PER_S) * 1e3
+    # what the column kernel reads: the delivered rows' ids and weights
+    # (no delay byte), one 8-byte run word per delivered row of each pair,
+    # the bitmap words of each pair's group, the delivered rows' nnz; and
+    # the touched ring words, read and written once per split at most
+    g = runs["row_group"]
+    on_per_group = torch.bincount(rows // g, minlength=-(-n // g))
+    run_words = int(on_per_group[runs["pair_src"].long()].sum())
+    n_pairs = int(runs["pair_src"].numel())
+    kernel_bytes = (events * (tgt_b + w_b) + run_words * 8
+                    + n_pairs * (-(-g // 32)) * 4 + rows.numel() * 4
+                    + touched * 8)
     return {"name": "event_delivery", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/event_delivery.cu",
             "replaces": "src/repro/kernels/synaptic_accum.py:164",
@@ -720,9 +816,15 @@ def time_delivery(tabs, spec, spikes, launches: int, err: float,
             "library_ms": library_queued, "call_ms": per_call,
             "library_call_ms": library_call, "profiler_ms": ms,
             "library_profiler_ms": library_ms,
+            "replaced_kernel_ms": old_queued,
+            "replaced_kernel_call_ms": call_ms(old, 100),
+            "replaced_kernel_profiler_ms": device_ms(old, 100),
+            "kernel_bytes": kernel_bytes,
+            "kernel_bytes_ms": kernel_bytes / HBM_BYTES_PER_S * 1e3,
             "ptxas": ptxas("event_delivery"),
             "shape": f"{label}: {int(n_spk)} spiking rows, {events} events,"
-                     f" active_cap {cap}"}
+                     f" active_cap {cap}, {n_pairs} pairs, "
+                     f"{run_words} run words read"}
 
 
 def time_spike_compact(spikes, n: int, cap: int, launches: int,
@@ -765,9 +867,9 @@ def time_spike_compact(spikes, n: int, cap: int, launches: int,
 
 def time_plastic(run: dict, launches: int, err: float, law: str) -> dict:
     import torch
-    from repro_torch.kernels.plastic_step import (delivered_flags,
-                                                  plastic_delivery_ltd_cuda)
-    from repro_torch.kernels.ref import plastic_delivery_ltd_ref
+    from repro_torch.kernels.plastic_step import plastic_delivery_ltd_cuda
+    from repro_torch.kernels.ref import (delivered_bits,
+                                         plastic_delivery_ltd_ref)
     cfg, aux = run["cfg"], run["aux"]
     spec = cfg.spec()
     cap = spec.active_cap_local
@@ -778,35 +880,54 @@ def time_plastic(run: dict, launches: int, err: float, law: str) -> dict:
     inv = aux["inv"]
     slot = run["state"]["t"] % cfg.d_ring
     neg_a = -cfg.stdp.a_minus
-    flag, _ = delivered_flags(spikes, spec.n_local, cap)
+    bits, _ = delivered_bits(spikes, spec.n_local, cap)
+    ev = torch.zeros((1,), dtype=torch.int32, device="cuda")
+    n, d = spec.n_local, cfg.d_ring
 
     def kernel():
-        plastic_delivery_ltd_cuda(tier, flag, inv, 0, ring, slot, mask,
-                                  x_post_d, neg_a)
+        plastic_delivery_ltd_cuda(tier, bits, inv, 0, ring, slot, x_post_d,
+                                  neg_a, ev)
 
     ms = device_ms(kernel, 20)
     per_call = call_ms(kernel, 20)
     queued = queued_ms(kernel, 20)
     plain_ms = device_ms(lambda: plastic_delivery_ltd_ref(
         tier, spikes, cap, ring, slot, mask, x_post_d, neg_a), 3, warmup=1)
-    # the work of this step: every slot of the index is read; the
-    # delivered synapses' weight, delay and mask are gathered and the
-    # plastic ones written back; the ring is read and written once
-    rows = flag.bool()
+    # the function's own work in this step: the spikes and x_post read,
+    # the delivered synapses' entries (target, weight, delay, mask) read,
+    # the plastic ones' new weights written, the ring read and written
+    rows = torch.zeros(n + 1, dtype=torch.bool, device="cuda")
+    rows[:n] = ((bits[:, None] >> torch.arange(32, device="cuda")) & 1
+                ).view(-1)[:n] > 0
     delivered = int(local["nnz"][rows].sum())
     plastic = int(mask[rows].sum())
-    n, d = spec.n_local, cfg.d_ring
     slots_read = int(inv["n_in"].sum())
-    nbytes = (slots_read * 4 + n * 4 + flag.numel() + delivered * 9
-              + plastic * 4 + 2 * d * n * 4 + n * 4)
+    entry_b = local["tgt"].element_size() + 4 + 1 + 4
+    nbytes = (2 * n * 4 + delivered * entry_b + plastic * 4
+              + 2 * d * n * 4)
     ops = delivered + 3 * plastic
     bound = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
+    # PR 14's yardstick, which also counts the pull design's index walk:
+    # every slot of the index read, byte flags, the delivered weight,
+    # delay and mask gathered
+    design_bytes = (slots_read * 4 + n * 4 + (n + 1) + delivered * 9
+                    + plastic * 4 + 2 * d * n * 4 + n * 4)
+    # what the kernel moves: each slot and its tm byte, the delivered
+    # weights, the plastic ones written, the bitmap, ring, x_post, nnz
+    kernel_bytes = (slots_read * 5 + n * 4 + bits.numel() * 4
+                    + delivered * 4 + plastic * 4 + 2 * d * n * 4 + n * 4
+                    + int(rows.sum()) * 4)
     return {"name": "plastic_delivery_ltd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/plastic_delivery.cu",
             "replaces": "src/repro/kernels/plastic_step.py:172",
             "launches": launches, "max_abs_err": err, "ms": queued,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
             "library_ms": None, "call_ms": per_call, "profiler_ms": ms,
+            "design_bound_ms": max(design_bytes / HBM_BYTES_PER_S,
+                                   ops / F32_OPS_PER_S) * 1e3,
+            "kernel_bytes": kernel_bytes,
+            "kernel_bytes_ms": kernel_bytes / HBM_BYTES_PER_S * 1e3,
+            "target_major_bytes": inv["tm"].numel(),
             "ptxas": ptxas("plastic_delivery"),
             "shape": f"{law} {GRID}x{GRID}x{N_PER_COLUMN}: "
                      f"{int(rows.sum())} delivered rows, {delivered} "
@@ -1237,10 +1358,57 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def main() -> None:
+def ab_tree(src: str, label: str, steps: int) -> dict:
+    """One tree's static ms per step, both laws (in a child process)."""
     import torch
+    sys.path.insert(0, src)
+    from repro_torch.configs.snn import reduced_case
+    from repro_torch.core import engine
+    from repro_torch.kernels import _build
+    _build.build_all()
+    out = {"tree": label, "src": src, "steps": steps}
+    for law in LAWS:
+        cfg = reduced_case(law, GRID, N_PER_COLUMN).engine_config(1, 1)
+        tabs = engine.build_shard_tables(cfg)
+        state, _ = engine.simulate(engine.init_sim_state(cfg), tabs, cfg, 20)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fin, _ = engine.simulate(state, tabs, cfg, steps)
+        torch.cuda.synchronize()
+        out[f"{law}_ms_per_step"] = 1e3 * (time.perf_counter() - t0) / steps
+        out[f"{law}_events_per_step"] = (
+            float(fin["metrics"]["events"]) / (20 + steps))
+        del tabs, state, fin
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_ab(other_src: str, steps: int) -> None:
+    for src, label in ((other_src, "other"), (str(ROOT / "src"), "this"),
+                       (str(ROOT / "src"), "this"), (other_src, "other")):
+        res = subprocess.run(
+            [sys.executable, __file__, "--ab-child", src, label, "--steps",
+             str(steps)], capture_output=True, text=True, timeout=1200)
+        if res.returncode != 0:
+            fail(f"A/B: the {label} run failed:\n" + res.stderr[-3000:])
+        print("ab " + res.stdout.strip().splitlines()[-1], flush=True)
+    print(gpu_line())
+
+
+def main() -> None:
+    import argparse
+    import torch
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--ab", metavar="OTHER_SRC")
+    ap.add_argument("--ab-child", nargs=2, metavar=("SRC", "LABEL"),
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--steps", type=int, default=500)
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this needs a CUDA card")
+    if args.ab_child:   # before this tree's port is on the path
+        print(json.dumps(ab_tree(*args.ab_child, args.steps)), flush=True)
+        return
     sys.path.insert(0, str(ROOT / "src"))
     try:
         from repro_torch.configs.snn import reduced_case
@@ -1248,6 +1416,9 @@ def main() -> None:
         from repro_torch.kernels import _build
     except ImportError as e:
         fail(f"the port is not next to this script ({e})")
+    if args.ab:
+        run_ab(args.ab, args.steps)
+        return
     t_start = time.perf_counter()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
@@ -1272,6 +1443,16 @@ def main() -> None:
               f"{builds[(law, grid)]:.1f} s, "
               f"{tables[(law, grid)].stats['n_synapses']} synapses, "
               f"cap {st.cap_local}, {st.tgt_dtype} ids")
+
+    # the column kernel's run descriptors, built once per table set on
+    # the card, and their size reckoned at one 24x24x1240 shard
+    for (law, grid), tabs in tables.items():
+        column_runs(tabs, reduced_case(law, grid, N_PER_COLUMN)
+                    .engine_config(1, 1).spec(),
+                    f"{law} {grid}x{grid}x{N_PER_COLUMN}")
+    for law in LAWS:
+        print("column runs reckoned " + json.dumps(reckon_runs_bytes(law,
+                                                                     24)))
 
     # 2. kernels against their plain versions
     gen = torch.Generator(device="cuda")
@@ -1304,6 +1485,8 @@ def main() -> None:
     for name in ("lif_step", "event_delivery"):
         require(launches.get(name, 0) > 0,
                 f"kernel {name} was not launched on the static path")
+    require("event_delivery_rows" not in launches,
+            "the static path reached the legacy warp-per-row kernel")
 
     # 4. the plastic path: CPU parity at 4x4, then timed at 8x8
     for law in LAWS:

@@ -33,12 +33,14 @@ import torch
 
 from .. import resolve_device
 from ..kernels import ops as kops
+from ..kernels.plastic_step import bind_plastic_bits
 from .connectivity import (ConnectivityLaw, EXTERNAL_RATE_HZ,
                            EXTERNAL_SYNAPSES)
 from .grid import TileDecomposition
 from .neuron import LIFParams, init_state, lif_sfa_step
 from .stdp import (STDPParams, check_weight_invariant, init_stdp_state,
-                   plastic_masks, stdp_ltp_finalize, stdp_step)
+                   plastic_masks, stdp_ltp_finalize, stdp_step,
+                   target_major_meta)
 from .synapses import (SynapseTableSpec, SynapseTables, TierPlan,
                        build_tables, compress_tables, deliver_events,
                        deliver_gather_all, with_local_tier)
@@ -149,7 +151,8 @@ def deliver_event_tiers(tables, spikes, halo_band_spikes, spec, i_ring,
                         plan: Optional[List[TierPlan]] = None):
     """Event-driven delivery of the local tier + every halo band into
     ``i_ring`` (in place).  With ``use_kernels`` all tiers go to
-    ``kops.synaptic_accum_banded`` (bfloat16 weights, atomic adds) or,
+    ``kops.synaptic_accum_banded`` (bfloat16 weights, adds in any order,
+    through the tables' run descriptors on the card) or,
     for float32 weights, whose sums depend on their order, to the
     fixed-order ``kops.plastic_step_banded`` with LTD off, through the
     tables' inverse index; otherwise ``deliver_events`` runs per tier.
@@ -166,8 +169,11 @@ def deliver_event_tiers(tables, spikes, halo_band_spikes, spec, i_ring,
                 tiers, None, None, i_ring, slot, d_ring, 0.0,
                 inv=tables.inverse_index(), plan=plan)
         else:
+            runs = (tables.column_runs(spec.n_per_col, spec.n_exc_per_col,
+                                       d_ring)
+                    if i_ring.device.type == "cuda" else None)
             i_ring, ev, dr = kops.synaptic_accum_banded(
-                tiers, i_ring, slot, d_ring, plan=plan)
+                tiers, i_ring, slot, d_ring, plan=plan, runs=runs)
         return i_ring, ev.to(torch.float32), dr.to(torch.float32)
     i_ring, ev, dr = deliver_events(tables["local"], spikes, i_ring, slot,
                                     d_ring, plan[0].active_cap)
@@ -389,6 +395,13 @@ def _run_plastic(state: dict, tables, stdp_aux: dict, cfg: EngineConfig,
     traces = {"x_pre": stdp_aux["traces"]["x_pre"][:1],
               "x_post": stdp_aux["traces"]["x_post"]}
     tiers = [dict(tables["local"], w=tables["local"]["w"].clone())]
+    inv = stdp_aux["inv"]
+    if "tm" not in inv and cfg.use_kernels \
+            and state["i_ring"].device.type == "cuda":
+        # an index converted from the reference's arrays: the kernel's
+        # target-major delays and plastic bits, once per call
+        inv = dict(inv, tm=target_major_meta(
+            [tables["local"], *tables["halo"]], inv, stdp_aux["masks"]))
     out = torch.empty((n_steps,), dtype=torch.float32,
                       device=state["i_ring"].device)
     for k in range(n_steps):
@@ -397,7 +410,7 @@ def _run_plastic(state: dict, tables, stdp_aux: dict, cfg: EngineConfig,
                              drive=_drive_at(drive, k, state["t"]),
                              deliver=False)
         i_ring, tiers, traces, ev, dr = plastic_delivery_stdp(
-            tiers, masks, stdp_aux["inv"], traces, [spikes], spec,
+            tiers, masks, inv, traces, [spikes], spec,
             state["i_ring"], slot, cfg, plan)
         m = state["metrics"]
         state = dict(state, i_ring=i_ring,
@@ -410,18 +423,20 @@ def _run_plastic(state: dict, tables, stdp_aux: dict, cfg: EngineConfig,
 def init_plasticity(tables: SynapseTables, cfg: EngineConfig) -> dict:
     """Build the STDP auxiliaries: the inverse index over every tier the
     tables carry (``tables.inverse_index()``, host numpy, kept with the
-    tables), the plastic masks and zero traces, on the tables' device."""
+    tables) with these masks bound into its plastic bits, the plastic
+    masks and zero traces, on the tables' device."""
     tiers = tables.tiers()
     n_local = cfg.spec().n_local
     dev = tables["local"]["tgt"].device
     check_weight_invariant(tiers, cfg.stdp)
     if tables["local"]["tgt"].shape[0] - 1 != n_local:
         raise ValueError("the tables do not belong to this config")
-    return {
-        "inv": tables.inverse_index(),
-        "masks": plastic_masks(tiers),
-        "traces": init_stdp_state(tiers, n_local, device=dev),
-    }
+    inv, masks = tables.inverse_index(), plastic_masks(tiers)
+    for ti, mask in enumerate(masks):
+        # the kernel reads plastic bits from inv["tm"]: bind these masks
+        bind_plastic_bits(inv, ti, mask)
+    return {"inv": inv, "masks": masks,
+            "traces": init_stdp_state(tiers, n_local, device=dev)}
 
 
 def firing_rate_hz(state: dict, cfg: EngineConfig,

@@ -114,6 +114,35 @@ def build_inverse_index(tiers: Sequence[dict], n_targets: int,
             "clipped": clipped}
 
 
+def target_major_meta(tiers: Sequence[dict], inv: dict,
+                      masks: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The delay slot and plastic bit of every slot of the inverse index,
+    target-major like ``inv["slots"]``: int8 ``(n_targets, K_in)``
+    holding ``dslot`` in bits 0-6 and ``mask > 0`` in bit 7 (padding
+    slots 0).  Built with torch ops on the index's device.  The masks
+    must be exactly 0 or 1 (``plastic_masks``), so the fixed-order
+    kernel's LTD, ``w + dw_unit`` where the bit is set, is the
+    reference's ``w + dw_unit * mask`` bit for bit."""
+    slots = inv["slots"]
+    dev = slots.device
+    dslot = torch.cat([t["dslot"].reshape(-1).to(dev) for t in tiers]
+                      + [torch.zeros(1, dtype=torch.int8, device=dev)])
+    mask = torch.cat([m.reshape(-1).to(dev) for m in masks]
+                     + [torch.zeros(1, dtype=torch.float32, device=dev)])
+    if dslot.numel() != inv["total"] + 1 or mask.numel() != dslot.numel():
+        raise ValueError("the tiers or masks do not match the inverse "
+                         "index")
+    if bool(((dslot < 0) | (dslot > 127)).any()):
+        raise ValueError("delay slots must lie in 0..127 to share a byte "
+                         "with the plastic bit")
+    if bool(((mask != 0) & (mask != 1)).any()):
+        raise ValueError("plastic masks must be exactly 0 or 1")
+    idx = slots.long()
+    plastic = (mask[idx] > 0).to(torch.int16) << 7
+    return (dslot[idx].to(torch.int16) | plastic).to(torch.uint8).view(
+        torch.int8)
+
+
 def init_stdp_state(tiers: Sequence[dict], n_local: int,
                     device="cuda") -> dict:
     dev = resolve_device(device)

@@ -119,6 +119,7 @@ class SynapseTables:
         self.storage = storage
         self.stats = stats
         self._inv = None
+        self._runs = {}
 
     def __getitem__(self, key):
         if key in ("local", "halo", "stats"):
@@ -130,15 +131,40 @@ class SynapseTables:
 
     def inverse_index(self) -> dict:
         """The target-major inverse index over every tier
-        (``core.stdp.build_inverse_index``), on the tables' device.  Built
-        on the host at first use and kept with the tables: the
+        (``core.stdp.build_inverse_index``), on the tables' device, with
+        ``tm``, each slot's delay and plastic bit
+        (``core.stdp.target_major_meta`` with ``plastic_masks`` of these
+        tiers).  Built at first use and kept with the tables: the
         fixed-order delivery of float32 weights walks it every step."""
         if self._inv is None:
-            from .stdp import build_inverse_index
+            from .stdp import (build_inverse_index, plastic_masks,
+                               target_major_meta)
             dev = self.local["tgt"].device
-            self._inv = build_inverse_index(
-                self.tiers(), self.local["tgt"].shape[0] - 1, device=dev)
+            tiers = self.tiers()
+            inv = build_inverse_index(tiers, self.local["tgt"].shape[0] - 1,
+                                      device=dev)
+            inv["tm"] = target_major_meta(tiers, inv, plastic_masks(tiers))
+            self._inv = inv
         return self._inv
+
+    def column_runs(self, n_per_col: int, n_exc_per_col: int,
+                    d_ring: int) -> list:
+        """The run descriptor of every tier
+        (``kernels.synaptic_accum.build_column_runs``: the local tier's
+        rows grouped by source column, a halo band's by band column,
+        targets by column), on the tables' device.  Built with torch ops
+        at first use and kept with the tables: the column delivery
+        kernel walks it every step."""
+        key = (n_per_col, n_exc_per_col, d_ring)
+        if key not in self._runs:
+            from ..kernels.synaptic_accum import (build_column_runs,
+                                                  column_width)
+            width = column_width(n_per_col, d_ring)
+            n_local = self.local["tgt"].shape[0] - 1
+            groups = [n_per_col] + [n_exc_per_col] * len(self.halo)
+            self._runs[key] = [build_column_runs(t, g, width, n_local)
+                               for t, g in zip(self.tiers(), groups)]
+        return self._runs[key]
 
     def to(self, device) -> "SynapseTables":
         def move(t):

@@ -30,6 +30,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
 
+# the shared memory one block may use on sm_90 (dynamic, after opting in)
+SMEM_BYTES = 232_448
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LAUNCHES: Dict[str, int] = {}
 BUILD_LOG: Dict[str, str] = {}    # nvcc/ptxas output of each build

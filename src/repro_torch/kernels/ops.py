@@ -29,12 +29,15 @@ def lif_step(state: dict, i_total, params, active=None):
 
 
 def synaptic_accum_banded(tiers, i_ring, t_slot: int, d_ring: int,
-                          plan=None):
+                          plan=None, runs=None):
     """Local + halo-band delivery (one kernel launch per tier).
     ``tiers``: [(tables, spikes, active_cap)]; ``plan``: optional
     ``SynapseTableSpec.delivery_plan()`` the tables are validated
-    against.  Returns (ring, n_events, n_dropped) summed over tiers."""
-    return event_delivery_banded(tiers, i_ring, t_slot, d_ring, plan=plan)
+    against; ``runs``: the tiers' run descriptors
+    (``SynapseTables.column_runs``).  Returns (ring, n_events,
+    n_dropped) summed over tiers."""
+    return event_delivery_banded(tiers, i_ring, t_slot, d_ring, plan=plan,
+                                 runs=runs)
 
 
 def plastic_step_banded(tiers, masks, x_post_decayed, i_ring, t_slot: int,

@@ -81,6 +81,40 @@ def spike_compact_ref(spikes, n_rows: int, active_cap: int):
     return idx, n.to(torch.int32)
 
 
+def delivered_flags(spikes_src: torch.Tensor, n_rows: int, active_cap: int):
+    """The rows ``compact_events`` delivers, one byte per row (the sink
+    row last, always 0): 1 for the first ``active_cap`` spiking rows.
+    Returns (flag uint8 (n_rows + 1,), n_spikes int64 0-d)."""
+    spk = spikes_src[:n_rows] > 0
+    rank = torch.cumsum(spk, 0, dtype=torch.int32)
+    flag = torch.zeros((n_rows + 1,), dtype=torch.uint8,
+                       device=spikes_src.device)
+    flag[:n_rows] = spk & (rank <= active_cap)
+    return flag, spk.sum()
+
+
+_SHIFTS: dict = {}     # per device: 0..31, the bit of each row in its word
+
+
+def delivered_bits(spikes_src: torch.Tensor, n_rows: int, active_cap: int):
+    """``delivered_flags`` packed 32 rows to a word: bit ``r % 32`` of word
+    ``r // 32`` is row r's flag; the sink row's bit and the padding bits
+    are 0.  Eight launches, none waits for the device.  Returns (bits
+    int32 (ceil((n_rows + 1) / 32),), n_spikes 0-d int)."""
+    dev = spikes_src.device
+    spk = spikes_src[:n_rows] > 0
+    rank = torch.cumsum(spk, 0, dtype=torch.int32)
+    n_words = (n_rows + 32) // 32
+    flag = torch.nn.functional.pad(spk & (rank <= active_cap),
+                                   (0, n_words * 32 - n_rows))
+    if dev not in _SHIFTS:
+        _SHIFTS[dev] = torch.arange(32, dtype=torch.int32, device=dev)
+    # distinct powers of two: the int32 sum is their bitwise or
+    bits = (flag.to(torch.int32).view(n_words, 32) << _SHIFTS[dev]).sum(
+        1, dtype=torch.int32)
+    return bits, (rank[-1] if n_rows else rank.sum())
+
+
 # ---------------------------------------------------------------------------
 # Event-driven synaptic accumulation (kernels/synaptic_accum.py)
 # ---------------------------------------------------------------------------
@@ -108,6 +142,45 @@ def deliver_rows_ref(tables: dict, idx, ring, t_slot: int, events):
     synaptic_accum_ref(idx, t_slot, tables["tgt"], tables["w"],
                        tables["dslot"], ring)
     events += tables["nnz"][idx.long()].sum().to(torch.int32)
+    return ring
+
+
+def run_fields(runs: torch.Tensor):
+    """(start, length) of a run descriptor's int64 words ``start << 32 |
+    len`` (``synaptic_accum.build_column_runs``)."""
+    return runs >> 32, runs & 0xFFFFFFFF
+
+
+def deliver_runs_ref(runs: dict, flag, ring, t_slot: int, events):
+    """Plain version of the column-delivery kernel: delivery through the
+    tier's run descriptor (``synaptic_accum.build_column_runs``).  For
+    every pair (source group S -> target column, delay) and every
+    flagged row of S, the row's run ``[start, start + len)`` of the
+    descriptor's entry arrays is added into the ring at the pair's delay
+    slot; the flagged rows' ``nnz`` goes into ``events``.  ``flag``:
+    bool/uint8 (rows + 1,).  The adds come in another order than the
+    reference's, which is exact for bfloat16 weights only."""
+    d_ring, n_local = ring.shape
+    dev = ring.device
+    g = runs["row_group"]
+    n_rows = runs["tgt"].shape[0] - 1
+    rows = (runs["pair_src"].long()[:, None] * g
+            + torch.arange(g, device=dev)[None, :])
+    start, length = run_fields(runs["runs"])
+    flag = flag.bool()
+    on = (rows < n_rows) & flag[rows.clamp(max=n_rows)] & (length > 0)
+    p_i, g_i = on.nonzero(as_tuple=True)
+    lens = length[p_i, g_i]
+    rep = torch.repeat_interleave(torch.arange(lens.numel(), device=dev),
+                                  lens)
+    first = torch.cumsum(lens, 0) - lens
+    k = start[p_i, g_i][rep] + torch.arange(rep.numel(), device=dev) \
+        - first[rep]
+    r = rows[p_i, g_i][rep]
+    slot = (t_slot + runs["pair_dslot"].long()[p_i][rep]) % d_ring
+    ring.view(-1).index_add_(0, slot * n_local + runs["tgt"][r, k].long(),
+                             runs["w"][r, k].to(torch.float32))
+    events += runs["nnz"][:n_rows][flag[:n_rows]].sum().to(torch.int32)
     return ring
 
 

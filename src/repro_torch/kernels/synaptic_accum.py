@@ -1,32 +1,38 @@
-"""Event-driven synaptic delivery: compaction plus the CUDA delivery kernel.
+"""Event-driven synaptic delivery: the CUDA delivery kernels' wrappers.
 
 Replaces the TPU pipeline ``repro/kernels/synaptic_accum.py``
 (``event_delivery_banded`` -> ``_scatter_entries`` / ``_accum_kernel``).
 Per tier (the local table, then each halo fan-out band):
 
-  * **compaction** (``compact_events``, plain PyTorch): the ascending
-    indices of the first ``active_cap`` spiking rows, padded with the sink
-    row, by a fixed-size cumsum and scatter -- no ``torch.nonzero``, which
-    would synchronize the host every step;
-  * **delivery** (``csrc/event_delivery.cu``): one warp per compacted
-    row gathers the row's ``nnz`` entries and atomically adds each weight
-    into ``ring[(t_slot + dslot) % d_ring, tgt]``; the row's ``nnz`` goes
-    into the event counter.  Gather and scatter are one pass, so the
-    entry stream never lands in device memory (the TPU version
-    materialized it, lane-packed, for its one-hot MXU scatter).
+  * **delivered rows** (``ref.delivered_bits``, plain PyTorch): a bitmap
+    of the first ``active_cap`` spiking rows, the rows the reference's
+    compaction delivers, by a fixed-size cumsum -- no
+    ``torch.nonzero``, which would synchronize the host every step;
+  * **delivery** (``csrc/event_delivery.cu: deliver_columns_kernel``):
+    one block (or a few splits) per target column accumulates that
+    column's ring window in shared memory, walking the tier's **run
+    descriptor** (``build_column_runs``): for each (source group ->
+    target column, delay) pair and each row of the group, where the
+    row's entries for that column start and how many there are.  The
+    descriptor is static: it is built once per tier with torch ops on
+    the tables' device and kept with the tables
+    (``SynapseTables.column_runs``).
 
-Bound: memory traffic, ~7 B of table entries per synaptic event (int32
-ids; 5 B with int16) plus one ring word per touched target.  The atomic
-adds land in no fixed order, which is exact only for bfloat16 weights
-(every ring value a multiple of 2^-9 far below 2^15): the kernel refuses
-float32 weights, which take the fixed-order kernel of
-``kernels/plastic_step.py``.  Tiers are
-one launch each.  Drop semantics match the reference exactly: only the
-first ``active_cap`` spiking rows, in ascending order, are delivered, and
-``n_dropped = max(n_spikes - active_cap, 0)``.
+Bound: memory traffic, 6 B of table entries per synaptic event with
+int32 ids (4 B with int16), plus the ring.  The adds land in no fixed
+order, which is exact only for bfloat16 weights (every ring value a
+multiple of 2^-9 far below 2^15): the kernels refuse float32 weights,
+which take the fixed-order kernel of ``kernels/plastic_step.py``.
+Tiers are one launch each.  Drop semantics match the reference exactly:
+only the first ``active_cap`` spiking rows, in ascending order, are
+delivered, and ``n_dropped = max(n_spikes - active_cap, 0)``.
+
+The legacy ``synaptic_accum(idx, ...)`` entry, whose rows may come in
+any order and repeat, keeps the warp-per-row kernel
+(``deliver_rows_kernel``, one float atomic per event into the ring).
 
 The ring is updated in place (the JAX reference returns a new one).
-Wrappers launch the kernel for CUDA tensors and take the plain version
+Wrappers launch a kernel for CUDA tensors and take the plain version
 (``ref.deliver_rows_ref``: gather plus ``index_add_``) for CPU tensors.
 """
 
@@ -38,7 +44,8 @@ from typing import Sequence, Tuple
 import torch
 
 from . import _build
-from .ref import compact_events, deliver_rows_ref, synaptic_accum_ref
+from .ref import (compact_events, deliver_rows_ref, delivered_bits,
+                  synaptic_accum_ref)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,16 +54,149 @@ _TGT_BYTES = {torch.int16: 2, torch.int32: 4}
 _W_BYTES = {torch.bfloat16: 2, torch.float32: 4}
 # weights the atomic kernel may add in any order and still be exact
 _ORDER_FREE_W = (torch.bfloat16,)
+COLUMN_WARPS = 16       # warps of a column-kernel block (kColWarps)
+# shared memory the column kernel declares statically (kColStaticSmem):
+# what is left of a block's for the ring window
+COLUMN_STATIC_SMEM = 4608
 
 
-def _launcher():
+def _launcher(entry: str = "deliver_rows_launch"):
     lib = _build.library("event_delivery")
-    fn = lib.deliver_rows_launch
+    fn = getattr(lib, entry)
     if fn.argtypes is None:
-        fn.argtypes = [_P, _I, _P, _I, _P, _I, _P, _P, _I, _I, _P, _I, _I,
-                       _I, _P, _P]
+        fn.argtypes = (
+            [_P, _I, _P, _I, _P, _I, _P, _P, _I, _I, _P, _I, _I, _I, _P, _P]
+            if entry == "deliver_rows_launch" else
+            [_P, _I, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I,
+             _I, ctypes.c_float, _P, _I, _I, _I, _P, _P])
         fn.restype = _I
     return fn
+
+
+# ---------------------------------------------------------------------------
+# The run descriptor
+# ---------------------------------------------------------------------------
+
+def column_width(n_per_col: int, d_ring: int) -> int:
+    """Target-column width of the column kernel: ``n_per_col`` when its
+    ring window (``d_ring x width`` float32) fits the shared memory a
+    block has beside the kernel's static arrays, else the widest
+    multiple of 4 that fits."""
+    fit = _window_bytes() // (4 * d_ring)
+    return n_per_col if n_per_col <= fit else fit - fit % 4
+
+
+def _window_bytes() -> int:
+    """The dynamic shared memory a column-kernel block may hold."""
+    return _build.SMEM_BYTES - COLUMN_STATIC_SMEM
+
+
+def _window_scale(w: torch.Tensor, tgt: torch.Tensor, n_local: int):
+    """2^s such that every weight times 2^s is a whole number and every
+    target's summed |weight| times 2^s stays below 2^24, or 0.0 where no
+    such s exists.  With it the column kernel accumulates whole numbers
+    in an int32 window (native shared-memory atomics) that convert back
+    to float32 exactly; a bf16 weight ``m * 2^(e - 8)`` (frexp) needs
+    ``s >= 8 - e``."""
+    wa = w.to(torch.float32).abs()
+    nz = wa > 0
+    if not bool(nz.any()):
+        return 1.0
+    s = int((8 - torch.frexp(wa[nz]).exponent).max())
+    # repro-lint: ignore[dtype-bounds] a host-side bound, not stored
+    per_target = torch.zeros(n_local, dtype=torch.float64, device=w.device)
+    per_target.index_add_(0, tgt.long(), wa.double())
+    fits = -100 <= s <= 30 and float(per_target.max()) * 2.0 ** s < 2 ** 24
+    return 2.0 ** s if fits else 0.0
+
+
+def build_column_runs(tier: dict, row_group: int, col_width: int,
+                      n_local: int) -> dict:
+    """The run descriptor of one tier, built with torch ops on the
+    tier's device.
+
+    Rows are taken in groups of ``row_group`` (a source column: the
+    local tier's ``n_per_col`` rows, a halo band's ``n_exc_per_col``),
+    targets in columns of ``col_width``.  For every (source group S,
+    target column T, delay d) that holds an entry -- a *pair* -- and
+    every row r of S, ``runs[pair, r % row_group]`` (int64) packs the
+    start and length of r's entries for (T, d) as ``start << 32 | len``
+    (0 when r has none; ``ref.run_fields`` unpacks it).  Pairs are sorted by T (``pair_ptr``: T's pairs are
+    ``pair_ptr[T]:pair_ptr[T + 1]``), then S, then d.
+
+    That needs each row's entries for one (T, d) to be one contiguous
+    run, which ``build_tables`` gives (one block of draws per stencil
+    offset).  Tables that break it (made by hand, or a ``col_width``
+    that cuts columns) get a copy of their entries with each row stably
+    sorted by (T, d): ``perm`` (None otherwise) maps the copy's
+    positions to the tier's.  Returns a dict of tensors plus the ints
+    ``row_group``, ``col_width``, ``n_tcols``, ``max_pairs`` (the most
+    pairs of one column), ``nbytes`` (what the descriptor adds) and
+    ``scale`` (``_window_scale``: the kernel's int32 window, or 0.0 for
+    a float32 one)."""
+    tgt, w, dslot, nnz = tier["tgt"], tier["w"], tier["dslot"], tier["nnz"]
+    dev = tgt.device
+    n_rows, cap = tgt.shape[0] - 1, tgt.shape[1]
+    n_tcols = -(-n_local // col_width)
+    n_groups = max(-(-n_rows // row_group), 1)
+    k = torch.arange(cap, device=dev)
+    valid = k[None, :] < nnz[:n_rows, None]
+    # run key (T, d); invalid slots sort after every key
+    key = (torch.div(tgt[:n_rows].to(torch.int32), col_width,
+                     rounding_mode="floor") * 256
+           + (dslot[:n_rows].to(torch.int32) & 255))
+    key = torch.where(valid, key, torch.full_like(key, n_tcols * 256))
+
+    def run_starts(kk):
+        new = torch.ones_like(valid)
+        new[:, 1:] = kk[:, 1:] != kk[:, :-1]
+        return valid & new
+
+    starts = run_starts(key)
+    skey, order = torch.sort(key, dim=1, stable=True)
+    perm = None
+    if int(starts.sum()) != int(run_starts(skey).sum()):
+        # some (row, T, d) is split: deliver from a row-sorted copy
+        key, starts = skey, run_starts(skey)
+        sink = torch.arange(cap, device=dev)[None, :]
+        perm = torch.cat([order, sink]).to(torch.int32)
+        tgt = torch.gather(tgt, 1, perm.long())
+        w = torch.gather(w, 1, perm.long())
+    rr, kk = starts.nonzero(as_tuple=True)
+    same_row = torch.zeros_like(rr, dtype=torch.bool)
+    same_row[:-1] = rr[1:] == rr[:-1]
+    nxt = torch.zeros_like(kk)
+    nxt[:-1] = kk[1:]
+    length = torch.where(same_row, nxt, nnz[rr].long()) - kk
+    rkey = key[rr, kk].long()
+    tcol, dbyte = rkey // 256, rkey % 256
+    group = rr // row_group
+    pkey = (tcol * n_groups + group) * 256 + dbyte
+    upair, pid = torch.unique(pkey, return_inverse=True)
+    n_pairs = upair.numel()
+    p_tcol = upair // (n_groups * 256)
+    p_src = (upair // 256) % n_groups
+    p_d = upair % 256
+    p_d = torch.where(p_d > 127, p_d - 256, p_d)   # dslot is int8
+    per_col = torch.bincount(p_tcol, minlength=n_tcols)
+    pair_ptr = torch.zeros((n_tcols + 1,), dtype=torch.int32, device=dev)
+    pair_ptr[1:] = torch.cumsum(per_col, 0)
+    runs = torch.zeros((max(n_pairs, 1), row_group), dtype=torch.int64,
+                       device=dev)
+    runs[pid, rr % row_group] = (kk << 32) | length
+    out = {"pair_ptr": pair_ptr, "pair_src": p_src.to(torch.int32),
+           "pair_dslot": p_d.to(torch.int32), "runs": runs,
+           "tgt": tgt, "w": w, "nnz": nnz, "perm": perm,
+           # a row-sorted copy keeps each row's valid entries first
+           "scale": _window_scale(w[:n_rows][valid], tgt[:n_rows][valid],
+                                  n_local)}
+    nbytes = sum(out[name].numel() * out[name].element_size()
+                 for name in ("pair_ptr", "pair_src", "pair_dslot", "runs"))
+    if perm is not None:
+        nbytes += sum(x.numel() * x.element_size() for x in (perm, tgt, w))
+    return dict(out, row_group=row_group, col_width=col_width,
+                n_tcols=n_tcols, max_pairs=int(per_col.max()) if n_tcols
+                else 0, nbytes=nbytes)
 
 
 # ---------------------------------------------------------------------------
@@ -86,6 +226,76 @@ def _check_tier(tables: dict, ring: torch.Tensor):
             + ", ".join(f"{k} {v.dtype} {tuple(v.shape)} on {v.device}"
                         for k, v in tables.items())
             + f", ring {ring.dtype} {tuple(ring.shape)}")
+
+
+_SM_COUNT: dict = {}
+
+
+def _sm_count(dev: torch.device) -> int:
+    if dev not in _SM_COUNT:
+        _SM_COUNT[dev] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return _SM_COUNT[dev]
+
+
+def deliver_columns_cuda(tables: dict, runs: dict, bits: torch.Tensor,
+                         ring: torch.Tensor, t_slot: int,
+                         events) -> torch.Tensor:
+    """Launch the column kernel for one tier: the rows set in ``bits``
+    (int32, ``ref.delivered_bits``) through the tier's run descriptor
+    ``runs`` (``build_column_runs`` of these tables).  ``events``: int32
+    (1,) counter (or None)."""
+    _check_tier(tables, ring)
+    w = tables["w"]
+    if w.dtype not in _ORDER_FREE_W:
+        raise ValueError(
+            f"the column delivery kernel adds in no fixed order, which is "
+            f"exact only for bfloat16 weights; {w.dtype} weights take the "
+            "fixed-order kernel (kernels.plastic_step)")
+    d_ring, n_local = ring.shape
+    n_rows, cap = tables["tgt"].shape[0] - 1, tables["tgt"].shape[1]
+    width = runs["col_width"]
+    if 4 * d_ring * width > _window_bytes():
+        raise ValueError(
+            f"the ring window d_ring x col_width = {d_ring} x {width} "
+            f"words exceeds the {_window_bytes()} B of shared memory a "
+            f"block has beside the kernel's {COLUMN_STATIC_SMEM} B of "
+            "static arrays")
+    if (runs["nnz"].data_ptr() != tables["nnz"].data_ptr()
+            or runs["tgt"].shape != tables["tgt"].shape
+            or runs["n_tcols"] != -(-n_local // width)):
+        raise ValueError("the run descriptor was built for other tables "
+                         "or another ring width")
+    if (ring.device.type != "cuda" or bits.device != ring.device
+            or bits.dtype != torch.int32
+            or bits.shape != ((n_rows + 32) // 32,)):
+        raise ValueError("deliver_columns_cuda takes a CUDA ring and an "
+                         "int32 bitmap of ceil((rows + 1) / 32) words on "
+                         "its device")
+    if events is not None and (events.dtype != torch.int32
+                               or events.device != ring.device):
+        raise ValueError("events must be an int32 counter on the ring's "
+                         "device")
+    tgt = runs["tgt"]
+    n_tcols = runs["n_tcols"]
+    # enough blocks for a few waves, so that hot columns even out, and
+    # at least a round of items (one per warp) for each
+    items = runs["max_pairs"] * -(-runs["row_group"] // 32)
+    splits = max(1, min(-(-16 * _sm_count(ring.device) // n_tcols),
+                        -(-items // COLUMN_WARPS)))
+    err = _launcher("deliver_columns_launch")(
+        bits.data_ptr(), n_rows, tables["nnz"].data_ptr(), tgt.data_ptr(),
+        _TGT_BYTES[tgt.dtype], runs["w"].data_ptr(), _W_BYTES[w.dtype], cap,
+        runs["pair_ptr"].data_ptr(), runs["pair_src"].data_ptr(),
+        runs["pair_dslot"].data_ptr(), runs["runs"].data_ptr(),
+        runs["row_group"], width, n_tcols, splits, runs["scale"],
+        ring.data_ptr(),
+        n_local, d_ring, int(t_slot),
+        events.data_ptr() if events is not None else None,
+        _build.stream_ptr(ring))
+    _build.check(err, "event_delivery")
+    _build.count_launch("event_delivery")
+    return ring
 
 
 def deliver_rows_cuda(tables: dict, idx: torch.Tensor, ring: torch.Tensor,
@@ -118,20 +328,9 @@ def deliver_rows_cuda(tables: dict, idx: torch.Tensor, ring: torch.Tensor,
         tgt.shape[0] - 1, ring.data_ptr(), n_local, d_ring, int(t_slot),
         events.data_ptr() if events is not None else None,
         _build.stream_ptr(ring))
-    _build.check(err, "event_delivery")
-    _build.count_launch("event_delivery")
+    _build.check(err, "event_delivery_rows")
+    _build.count_launch("event_delivery_rows")
     return ring
-
-
-def deliver_rows(tables: dict, idx: torch.Tensor, ring: torch.Tensor,
-                 t_slot: int, events: torch.Tensor) -> torch.Tensor:
-    """Deliver one tier's compacted rows into ``ring`` (in place) and add
-    their synaptic events to ``events``.  CUDA tensors launch the kernel,
-    CPU tensors take the plain version."""
-    if _build.on_cuda(ring):
-        return deliver_rows_cuda(tables, idx, ring, t_slot, events)
-    _check_tier(tables, ring)
-    return deliver_rows_ref(tables, idx, ring, t_slot, events)
 
 
 # ---------------------------------------------------------------------------
@@ -140,14 +339,16 @@ def deliver_rows(tables: dict, idx: torch.Tensor, ring: torch.Tensor,
 
 def event_delivery_banded(tiers: Sequence[Tuple[dict, torch.Tensor, int]],
                           i_ring: torch.Tensor, t_slot: int, d_ring: int, *,
-                          plan=None):
+                          plan=None, runs=None):
     """Multi-tier delivery: the local table plus every halo fan-out band.
 
     ``tiers``: sequence of (tables, spikes_src, active_cap).  ``plan``:
     optional per-tier ``TierPlan`` sequence from
     ``SynapseTableSpec.delivery_plan()`` the tables are validated
-    against.  Returns (ring, n_events int32, n_dropped) summed over tiers;
-    the ring is updated in place.
+    against.  ``runs``: the tiers' run descriptors
+    (``SynapseTables.column_runs``), which a CUDA ring needs (the CPU's
+    plain version delivers without them).  Returns (ring, n_events int32, n_dropped) summed
+    over tiers; the ring is updated in place.
     """
     if i_ring.shape[0] != d_ring:
         raise ValueError(f"ring has {i_ring.shape[0]} slots, d_ring is "
@@ -155,6 +356,13 @@ def event_delivery_banded(tiers: Sequence[Tuple[dict, torch.Tensor, int]],
     if plan is not None and len(plan) != len(tiers):
         raise ValueError(f"delivery plan has {len(plan)} tiers, "
                          f"got {len(tiers)}")
+    cuda = _build.on_cuda(i_ring)
+    if cuda and runs is None:
+        raise ValueError("the column delivery kernel needs the tiers' run "
+                         "descriptors (SynapseTables.column_runs)")
+    if runs is not None and len(runs) != len(tiers):
+        raise ValueError(f"{len(runs)} run descriptors for {len(tiers)} "
+                         "tiers")
     events = torch.zeros((1,), dtype=torch.int32, device=i_ring.device)
     n_dropped = torch.zeros((), dtype=torch.int64, device=i_ring.device)
     for ti, (tables, spikes_src, active_cap) in enumerate(tiers):
@@ -167,18 +375,26 @@ def event_delivery_banded(tiers: Sequence[Tuple[dict, torch.Tensor, int]],
                     f"are rows={n_rows} cap={cap} active_cap={active_cap}, "
                     f"plan says rows={p.rows} cap={p.cap} "
                     f"active_cap={p.active_cap}")
-        idx, n_spk = compact_events(spikes_src, n_rows, active_cap)
-        deliver_rows(tables, idx, i_ring, t_slot, events)
+        if cuda:
+            bits, n_spk = delivered_bits(spikes_src, n_rows, active_cap)
+            deliver_columns_cuda(tables, runs[ti], bits, i_ring, t_slot,
+                                 events)
+        else:
+            _check_tier(tables, i_ring)
+            idx, n_spk = compact_events(spikes_src, n_rows, active_cap)
+            deliver_rows_ref(tables, idx, i_ring, t_slot, events)
         n_dropped = n_dropped + torch.clamp(n_spk - active_cap, min=0)
     return i_ring, events[0], n_dropped
 
 
 def event_delivery(tables: dict, spikes_src, i_ring, t_slot: int,
-                   d_ring: int, active_cap: int):
-    """Single-tier delivery.  Drop-in for ``core.synapses.deliver_events``:
-    returns (ring, n_events, n_dropped)."""
+                   d_ring: int, active_cap: int, runs=None):
+    """Single-tier delivery.  Drop-in for ``core.synapses.deliver_events``
+    on the CPU; a CUDA ring needs the tier's run descriptor ``runs``.
+    Returns (ring, n_events, n_dropped)."""
     return event_delivery_banded([(tables, spikes_src, active_cap)],
-                                 i_ring, t_slot, d_ring)
+                                 i_ring, t_slot, d_ring,
+                                 runs=None if runs is None else [runs])
 
 
 def synaptic_accum(idx, t_slot: int, tgt, w, dslot, ring):

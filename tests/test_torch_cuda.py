@@ -25,14 +25,15 @@ from repro_torch.kernels.synaptic_accum import event_delivery_banded
 pytestmark = pytest.mark.cuda
 
 
-def configs(law: str, grid: int = 4, n_per_col: int = 30, **kw):
+def configs(law: str, grid: int = 4, n_per_col: int = 30, tiles: int = 1,
+            **kw):
     """(None, port EngineConfig): the port's half of
     ``_torch_parity.configs``, so that this file needs no jax."""
     tl = getattr(tconn, f"{law}_law")()
     return None, teng.EngineConfig(
         decomp=tgrid.TileDecomposition(
-            tgrid.ColumnGrid(grid, grid, n_per_col), 1, 1, tl.radius),
-        law=tl, **kw)
+            tgrid.ColumnGrid(grid, grid, n_per_col), tiles, tiles,
+            tl.radius), law=tl, **kw)
 
 
 @pytest.fixture
@@ -64,16 +65,95 @@ def test_delivery_kernel_matches_plain(cuda, law):
     tabs = teng.build_shard_tables(tcfg, device=cuda)
     spec = tcfg.spec()
     g = torch.Generator(device=cuda).manual_seed(1)
+    runs = tabs.column_runs(spec.n_per_col, spec.n_exc_per_col, 8)[:1]
     for dens in (0.0, 0.05, 0.95):
         spk = (torch.rand(spec.n_local, device=cuda, generator=g)
                < dens).float()
         ring = torch.zeros((8, spec.n_local), device=cuda)
         rk, ek, dk = event_delivery_banded(
-            [(tabs.local, spk, spec.active_cap_local)], ring.clone(), 2, 8)
+            [(tabs.local, spk, spec.active_cap_local)], ring.clone(), 2, 8,
+            runs=runs)
         rp, ep, dp = deliver_events(tabs.local, spk, ring.clone(), 2, 8,
                                     spec.active_cap_local)
         assert torch.equal(rk, rp)
         assert int(ek) == int(ep) and int(dk) == int(dp)
+    # the card has one route, through the tables' descriptors
+    with pytest.raises(ValueError, match="run descriptors"):
+        event_delivery_banded([(tabs.local, spk, spec.active_cap_local)],
+                              ring, 2, 8)
+
+
+@pytest.mark.parametrize("tgt32", [False, True])
+@pytest.mark.parametrize("dens", [0.01, 0.05, 0.9])
+@pytest.mark.parametrize("law", ["gaussian", "exponential"])
+def test_column_delivery_matches_plain(cuda, law, dens, tgt32):
+    """The column kernel through the tables' run descriptors, every tier
+    of a 2x2 tiling (local tier plus halo bands, random band spikes), at
+    three densities with a small active_cap (drops), int16 and int32
+    ids: ring, events and dropped equal to the plain path's."""
+    from repro_torch.core.synapses import SynapseTables
+    _, tcfg = configs(law, grid=4, n_per_col=100, tiles=2)
+    spec = tcfg.spec()
+    tabs = teng.build_shard_tables(tcfg, 1, 0, device=cuda)
+    assert len(tabs.halo) >= 1 and tabs.local["tgt"].dtype == torch.int16
+    if tgt32:
+        tabs = SynapseTables(
+            dict(tabs.local, tgt=tabs.local["tgt"].to(torch.int32)),
+            [dict(t, tgt=t["tgt"].to(torch.int32)) for t in tabs.halo],
+            tabs.storage, stats=tabs.stats)
+    plan = spec.delivery_plan(tabs.storage)
+    g = torch.Generator(device=cuda).manual_seed(int(dens * 100) + tgt32)
+    spk = (torch.rand(spec.n_local, device=cuda, generator=g) < dens).float()
+    bands = [(torch.rand(p.rows, device=cuda, generator=g) < dens).float()
+             for p in plan[1:]]
+    # a small active_cap for the local tier: only the first rows deliver
+    small = [dataclasses.replace(plan[0], active_cap=max(
+        int(spk.sum()) // 2, 1))] + plan[1:]
+    ring = (torch.randint(-300, 300, (8, spec.n_local), device=cuda,
+                          generator=g).float() * 2.0 ** -9)
+    _build.reset_launch_counts()
+    rk, ek, dk = teng.deliver_event_tiers(tabs, spk, bands, spec,
+                                          ring.clone(), 5, 8, True,
+                                          plan=small)
+    assert _build.launch_counts() == {"event_delivery": len(plan)}
+    rp, ep, dp = teng.deliver_event_tiers(tabs, spk, bands, spec,
+                                          ring.clone(), 5, 8, False,
+                                          plan=small)
+    torch.cuda.synchronize()
+    assert torch.equal(rk.view(torch.int32), rp.view(torch.int32))
+    assert float(ek) == float(ep) > 0 and float(dk) == float(dp) > 0
+    assert all(r["perm"] is None
+               for r in tabs.column_runs(spec.n_per_col, spec.n_exc_per_col,
+                                         8))
+
+
+@pytest.mark.parametrize("law", ["gaussian", "exponential"])
+def test_column_delivery_float_window_matches_plain(cuda, law):
+    """The column kernel's float32 window (tables whose weights are on
+    no common grid take it; forced here on built tables) against the
+    plain version: ring, events and dropped equal."""
+    from repro_torch.kernels.ref import delivered_bits
+    from repro_torch.kernels.synaptic_accum import deliver_columns_cuda
+    _, tcfg = configs(law, grid=4, n_per_col=100)
+    spec = tcfg.spec()
+    tabs = teng.build_shard_tables(tcfg, device=cuda)
+    runs = tabs.column_runs(spec.n_per_col, spec.n_exc_per_col, 8)[0]
+    assert runs["scale"] > 0
+    g = torch.Generator(device=cuda).manual_seed(3)
+    for dens in (0.05, 0.9):
+        spk = (torch.rand(spec.n_local, device=cuda, generator=g)
+               < dens).float()
+        cap = int(spk.sum()) // 2 + 1
+        ring = (torch.randint(-300, 300, (8, spec.n_local), device=cuda,
+                              generator=g).float() * 2.0 ** -9)
+        bits, _ = delivered_bits(spk, spec.n_local, cap)
+        ek = torch.zeros(1, dtype=torch.int32, device=cuda)
+        rk = deliver_columns_cuda(tabs.local, dict(runs, scale=0.0), bits,
+                                  ring.clone(), 1, ek)
+        rp, ep, _ = deliver_events(tabs.local, spk, ring.clone(), 1, 8, cap)
+        torch.cuda.synchronize()
+        assert torch.equal(rk.view(torch.int32), rp.view(torch.int32))
+        assert int(ek) == int(ep) > 0
 
 
 def test_kernel_path_run_matches_plain_path(cuda):
@@ -122,7 +202,8 @@ def test_plastic_kernel_matches_cpu_plain(cuda, law, dens):
     def run(dev):
         tier = {k: v.clone().to(dev) for k, v in local.items()}
         inv = dict(aux["inv"], slots=aux["inv"]["slots"].to(dev),
-                   n_in=aux["inv"]["n_in"].to(dev))
+                   n_in=aux["inv"]["n_in"].to(dev),
+                   tm=aux["inv"]["tm"].to(dev))
         r, new_w, ev, dr = plastic_delivery_ltd(
             [(tier, spk.to(dev), spec.active_cap_local)],
             [aux["masks"][0].to(dev)], x_post.to(dev), ring.clone().to(dev),
@@ -134,6 +215,82 @@ def test_plastic_kernel_matches_cpu_plain(cuda, law, dens):
     assert torch.equal(rk.view(torch.int32), rp.view(torch.int32))
     assert torch.equal(wk.view(torch.int32), wp.view(torch.int32))
     assert (ek, dk) == (ep, dp)
+
+
+@pytest.mark.parametrize("law", ["gaussian", "exponential"])
+def test_plastic_kernel_follows_the_masks_passed(cuda, law):
+    """Masks other than those the index's plastic bits were built from
+    -- half the plastic synapses made static, then edited again in
+    place -- give the card the CPU plain path's weights and ring: the
+    kernel's plastic bits follow the masks passed."""
+    from repro_torch.kernels.plastic_step import plastic_delivery_ltd
+    tcfg = _plastic_cfg(law)
+    tabs = teng.build_shard_tables(tcfg, device="cpu")
+    aux = teng.init_plasticity(tabs, tcfg)
+    spec = tcfg.spec()
+    rng = np.random.default_rng(5)
+    spk = torch.tensor(rng.random(spec.n_local) < 0.5, dtype=torch.float32)
+    x_post = torch.tensor(rng.uniform(0, 3, spec.n_local),
+                          dtype=torch.float32)
+    ring = torch.tensor(rng.normal(0, 4, (8, spec.n_local)),
+                        dtype=torch.float32)
+    mask = aux["masks"][0] * torch.tensor(
+        rng.random(tuple(aux["masks"][0].shape)) < 0.5, dtype=torch.float32)
+    inv_d = dict(aux["inv"], **{k: aux["inv"][k].to(cuda)
+                                for k in ("slots", "n_in", "tm")})
+    mask_d = mask.to(cuda)
+
+    def run(dev, inv, m):
+        tier = {k: v.clone().to(dev) for k, v in tabs.local.items()}
+        r, new_w, ev, dr = plastic_delivery_ltd(
+            [(tier, spk.to(dev), spec.active_cap_local)], [m],
+            x_post.to(dev), ring.clone().to(dev), 3, 8, -tcfg.stdp.a_minus,
+            inv=inv)
+        return r.cpu(), new_w[0].cpu(), int(ev), int(dr)
+
+    for edit in range(2):
+        rk, wk, ek, dk = run(cuda, inv_d, mask_d)
+        rp, wp, ep, dp = run("cpu", aux["inv"], mask)
+        assert torch.equal(rk.view(torch.int32), rp.view(torch.int32))
+        assert torch.equal(wk.view(torch.int32), wp.view(torch.int32))
+        assert (ek, dk) == (ep, dp)
+        assert int((wk != tabs.local["w"]).sum()) > 0
+        # an in-place edit: every synapse of the first 20 rows static
+        mask[:20] = 0.0
+        mask_d[:20] = 0.0
+
+
+@pytest.mark.parametrize("law", ["gaussian", "exponential"])
+def test_fixed_order_delivery_without_ltd_matches_cpu_plain(cuda, law):
+    """The fixed-order kernel with ``mask=None`` (static float32 tables):
+    ring and counts equal to the plain version on CPU copies, weights
+    untouched."""
+    from repro_torch.kernels.plastic_step import plastic_delivery_ltd
+    _, tcfg = configs(law, grid=4, n_per_col=100, weight_dtype="float32")
+    tabs = teng.build_shard_tables(tcfg, device="cpu")
+    inv = tabs.inverse_index()
+    spec = tcfg.spec()
+    rng = np.random.default_rng(8)
+    spk = torch.tensor(rng.random(spec.n_local) < 0.6, dtype=torch.float32)
+    ring = torch.tensor(rng.normal(0, 4, (8, spec.n_local)),
+                        dtype=torch.float32)
+    cap = int(spk.sum()) - 50   # drops
+
+    def run(dev):
+        tier = {k: v.clone().to(dev) for k, v in tabs.local.items()}
+        inv_d = dict(inv, **{k: inv[k].to(dev) for k in ("slots", "n_in",
+                                                         "tm")})
+        r, new_w, ev, dr = plastic_delivery_ltd(
+            [(tier, spk.to(dev), cap)], None, None, ring.clone().to(dev), 6,
+            8, 0.0, inv=inv_d)
+        assert new_w is None
+        return r.cpu(), tier["w"].cpu(), int(ev), int(dr)
+
+    rk, wk, ek, dk = run(cuda)
+    rp, wp, ep, dp = run("cpu")
+    assert torch.equal(rk.view(torch.int32), rp.view(torch.int32))
+    assert torch.equal(wk, tabs.local["w"]) and torch.equal(wp, wk)
+    assert (ek, dk) == (ep, dp) and dk == 50
 
 
 @pytest.mark.parametrize("dens", [0.0, 0.01, 0.5, 1.0])

@@ -6,6 +6,9 @@ must equal the reference's ``deliver_events`` ring exactly, with equal
 ``n_events`` / ``n_dropped``, whatever order its scatter adds in.
 """
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,8 +20,15 @@ from repro.core import synapses as jsyn
 from repro.kernels import ref as jref
 from repro_torch.core import engine as teng
 from repro_torch.core import synapses as tsyn
+from repro_torch.core import connectivity as tconn
+from repro_torch.core import grid as tgrid
+from repro_torch import kernels as kernels_pkg
 from repro_torch.core.convert import tables_from_arrays
-from repro_torch.kernels.synaptic_accum import (compact_events,
+from repro_torch.kernels.ref import (deliver_rows_ref, deliver_runs_ref,
+                                     delivered_bits, delivered_flags,
+                                     run_fields)
+from repro_torch.kernels.synaptic_accum import (build_column_runs,
+                                                compact_events,
                                                 event_delivery,
                                                 event_delivery_banded,
                                                 synaptic_accum)
@@ -224,3 +234,262 @@ def test_converted_tables_equal_port_build(law):
     with pytest.raises(ValueError):
         tables_from_arrays(tier_arrays(jt)[0], [], jt.storage.meta(),
                            device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the column kernel's run descriptor and delivered-row bitmap
+# ---------------------------------------------------------------------------
+
+def _port_tables(law, tiles_y, tiles_x, ty, tx, grid=4, n_per_col=30):
+    tl = getattr(tconn, f"{law}_law")()
+    cfg = teng.EngineConfig(
+        decomp=tgrid.TileDecomposition(tgrid.ColumnGrid(grid, grid,
+                                                        n_per_col),
+                                       tiles_y, tiles_x, tl.radius), law=tl)
+    return cfg.spec(), teng.build_shard_tables(cfg, ty, tx, device="cpu")
+
+
+def _run_entries(desc):
+    """Every (pair, row, position) a descriptor names: the pair's target
+    column and delay, the row, and the position in the tier's own
+    arrays (through ``perm`` where the descriptor permuted them)."""
+    g = desc["row_group"]
+    start, length = run_fields(desc["runs"])
+    p_i, g_i = (length > 0).nonzero(as_tuple=True)
+    lens = length[p_i, g_i]
+    rep = torch.repeat_interleave(torch.arange(lens.numel()), lens)
+    k = (start[p_i, g_i][rep] + torch.arange(rep.numel())
+         - (torch.cumsum(lens, 0) - lens)[rep])
+    p = p_i[rep]
+    row = desc["pair_src"].long()[p] * g + g_i[rep]
+    if desc["perm"] is not None:
+        k = desc["perm"].long()[row, k]
+    n_tcols = desc["n_tcols"]
+    tcol = torch.repeat_interleave(torch.arange(n_tcols),
+                                   desc["pair_ptr"].diff().long())
+    return tcol[p], desc["pair_dslot"].long()[p], row, k
+
+
+def _assert_covers(tier, desc):
+    n_rows, cap = tier["tgt"].shape[0] - 1, tier["tgt"].shape[1]
+    tcol, d, row, k = _run_entries(desc)
+    assert bool((row < n_rows).all())
+    hits = torch.zeros((n_rows + 1) * cap, dtype=torch.int64)
+    hits.index_add_(0, row * cap + k, torch.ones_like(row))
+    valid = torch.arange(cap)[None, :] < tier["nnz"][:, None]
+    assert torch.equal(hits.view(n_rows + 1, cap), valid.long())
+    assert torch.equal(tier["tgt"][row, k].long() // desc["col_width"],
+                       tcol)
+    assert torch.equal(tier["dslot"][row, k].long(), d)
+    # the descriptor's own entry arrays hold the same values
+    if desc["perm"] is None:
+        assert desc["tgt"] is tier["tgt"] and desc["w"] is tier["w"]
+
+
+def _shuffled(tier, seed):
+    """A hand-made tier: each row's valid entries in random order with
+    random delay slots, so one (row, target column) is split into many
+    runs."""
+    g = torch.Generator().manual_seed(seed)
+    valid = torch.arange(tier["tgt"].shape[1])[None, :] < tier["nnz"][:, None]
+    keys = torch.where(valid, torch.rand(valid.shape, generator=g),
+                       torch.full(valid.shape, 2.0))
+    order = keys.argsort(1)
+    out = {k: torch.gather(v, 1, order) if v.dim() == 2 else v
+           for k, v in tier.items()}
+    d = torch.randint(0, 8, valid.shape, generator=g, dtype=torch.int8)
+    out["dslot"] = torch.where(valid, d, torch.zeros_like(d))
+    return out
+
+
+@pytest.mark.parametrize("tiling", [(1, 1, 0, 0), (1, 2, 0, 1),
+                                    (2, 2, 1, 0)])
+@pytest.mark.parametrize("law", LAWS)
+def test_column_runs_cover_every_entry_once(law, tiling):
+    """build_tables output: one run per (row, target column) in every
+    tier, halo bands included; every valid entry named exactly once,
+    with its target column and delay; delivery through the descriptor
+    equals the row delivery, tier by tier."""
+    spec, tt = _port_tables(law, *tiling)
+    if tiling[:2] != (1, 1):
+        assert len(tt.halo) > 0
+    runs = tt.column_runs(spec.n_per_col, spec.n_exc_per_col, 8)
+    assert runs is tt.column_runs(spec.n_per_col, spec.n_exc_per_col, 8)
+    rng = np.random.default_rng(sum(tiling))
+    for tier, desc in zip(tt.tiers(), runs):
+        assert desc["perm"] is None
+        _assert_covers(tier, desc)
+        n_rows = tier["tgt"].shape[0] - 1
+        spk = torch.from_numpy((rng.random(n_rows) < 0.3).astype(np.float32))
+        cap = max(n_rows // 4, 1)
+        ring = torch.from_numpy(_ring(rng, 8, spec.n_local))
+        ev_a = torch.zeros(1, dtype=torch.int32)
+        ev_b = torch.zeros(1, dtype=torch.int32)
+        idx, _ = compact_events(spk, n_rows, cap)
+        ra = deliver_rows_ref(tier, idx, ring.clone(), 2, ev_a)
+        rb = deliver_runs_ref(desc, delivered_flags(spk, n_rows, cap)[0],
+                              ring.clone(), 2, ev_b)
+        assert_bits_equal(ra, rb, "ring")
+        assert int(ev_a) == int(ev_b)
+
+
+@pytest.mark.parametrize("col_width", [30, 64, 7])
+def test_column_runs_of_split_rows(col_width):
+    """Hand-made tables whose (row, target column) entries are not one
+    run, and column widths that cut the network's columns: the
+    descriptor delivers from a row-sorted copy and still covers every
+    entry once."""
+    spec, tt = _port_tables("exponential", 1, 1, 0, 0)
+    tier = _shuffled(tt.local, col_width)
+    desc = build_column_runs(tier, spec.n_per_col, col_width, spec.n_local)
+    assert desc["perm"] is not None
+    _assert_covers(tier, desc)
+
+
+@pytest.mark.parametrize("hand_made", [False, True])
+@pytest.mark.parametrize("density,cap", DENSITIES)
+@pytest.mark.parametrize("law", LAWS)
+def test_delivery_through_runs_bit_identical(law, density, cap, hand_made):
+    """The descriptor's plain delivery against the reference's
+    ``deliver_events`` and the port's row delivery: ring, events and
+    the dropped count, on built and on hand-made (split-run) tables."""
+    jcfg, tcfg, jt, tt = _built(law)
+    spec = tcfg.spec()
+    cap = cap or spec.active_cap_local
+    rng = np.random.default_rng(int(density * 100) + 3 * hand_made)
+    n = spec.n_local
+    spk = (rng.random(n) < density).astype(np.float32)
+    ring = _ring(rng, 8, n)
+    tier = _shuffled(tt.local, 5) if hand_made else tt.local
+    jtab = {k: jnp.asarray(v.numpy()) for k, v in tier.items()
+            if k != "w"}
+    jtab["w"] = jnp.asarray(tier["w"].float().numpy()).astype(jnp.bfloat16)
+    rj, ej, dj = j_deliver_events(jtab, jnp.asarray(spk), jnp.asarray(ring),
+                                  5, 8, cap)
+    desc = build_column_runs(tier, spec.n_per_col, spec.n_per_col, n)
+    assert (desc["perm"] is not None) == hand_made
+    flag, n_spk = delivered_flags(torch.from_numpy(spk), n, cap)
+    ev = torch.zeros(1, dtype=torch.int32)
+    rt = deliver_runs_ref(desc, flag, torch.from_numpy(ring.copy()), 5, ev)
+    assert_bits_equal(rj, rt, "ring")
+    assert int(ev) == int(ej)
+    assert int(torch.clamp(n_spk - cap, min=0)) == int(dj)
+    idx, _ = compact_events(torch.from_numpy(spk), n, cap)
+    ev_rows = torch.zeros(1, dtype=torch.int32)
+    rr = deliver_rows_ref(tier, idx, torch.from_numpy(ring.copy()), 5,
+                          ev_rows)
+    assert_bits_equal(rr, rt, "ring vs row delivery")
+
+
+@pytest.mark.parametrize("n_rows,cap,density", [(50, 64, 0.3),
+                                                (200, 16, 0.5),
+                                                (100, 10, 0.0),
+                                                (95, 95, 1.0)])
+def test_delivered_bits_are_the_compacted_rows(n_rows, cap, density):
+    """Bit r % 32 of word r // 32 is set exactly for the rows
+    ``compact_events`` delivers; the sink row's and padding bits are
+    0."""
+    rng = np.random.default_rng(n_rows + 1)
+    spk = torch.from_numpy((rng.random(n_rows + 3) < density)
+                           .astype(np.float32))
+    bits, n_spk = delivered_bits(spk, n_rows, cap)
+    assert bits.dtype == torch.int32 and bits.shape == ((n_rows + 32) // 32,)
+    shift = torch.arange(32, dtype=torch.int32)
+    got = ((bits[:, None] >> shift) & 1).view(-1)
+    idx, n_c = compact_events(spk, n_rows, cap)
+    want = torch.zeros_like(got)
+    want[idx[idx < n_rows].long()] = 1
+    assert torch.equal(got, want)
+    assert int(n_spk) == int(n_c)
+    assert torch.equal(delivered_flags(spk, n_rows, cap)[0].long(),
+                       want[:n_rows + 1].long())
+
+
+def test_window_scale_of_built_and_off_grid_weights():
+    """Built bf16 tables: every weight is a multiple of 2^-9 and the
+    summed fan-in stays far below 2^24 / 2^9, so the column kernel's
+    window is int32 at scale 2^9.  Weights on no common grid within
+    range get scale 0.0: the float32 window."""
+    spec, tt = _port_tables("exponential", 1, 1, 0, 0)
+    desc = tt.column_runs(spec.n_per_col, spec.n_exc_per_col, 8)[0]
+    assert desc["scale"] == 512.0
+    w = tt.local["w"].clone()
+    w[0, 0] = 2.0 ** -40
+    w[1, 0] = 3.0e4
+    off = dict(tt.local, w=w)
+    assert build_column_runs(off, spec.n_per_col, spec.n_per_col,
+                             spec.n_local)["scale"] == 0.0
+
+
+def test_column_runs_beyond_16_bit_positions():
+    """A hand-made tier whose rows hold more than 65535 entries: the
+    descriptor keeps run starts past 2^16 (no refusal) and delivers
+    like the row delivery, with and without the permuted copy."""
+    rng = np.random.default_rng(9)
+    n_local, col_width, cap = 64, 16, 70_000
+    nnz = torch.tensor([cap, 65_600, 3, 0], dtype=torch.int32)
+    tgt = torch.from_numpy(rng.integers(0, n_local, (4, cap))
+                           .astype(np.int32))
+    dslot = torch.from_numpy(rng.integers(0, 8, (4, cap)).astype(np.int8))
+    w = torch.from_numpy(rng.integers(-64, 64, (4, cap)) * 2.0 ** -9).to(
+        torch.bfloat16)
+    valid = torch.arange(cap)[None, :] < nnz[:, None]
+    # each row's entries for one (target column, delay) made one run
+    key = torch.where(valid, (tgt // col_width) * 8 + dslot.long(),
+                      torch.full_like(tgt, 10 ** 6).long())
+    order = key.argsort(dim=1, stable=True)
+    tier = {"tgt": torch.where(valid, torch.gather(tgt, 1, order), 0),
+            "dslot": torch.where(valid, torch.gather(dslot, 1, order),
+                                 torch.zeros_like(dslot)),
+            "w": torch.where(valid, torch.gather(w, 1, order),
+                             torch.zeros_like(w)),
+            "nnz": nnz}
+    spk = torch.tensor([1.0, 1.0, 1.0])
+    for t, permuted in ((tier, False), (_shuffled(tier, 2), True)):
+        desc = build_column_runs(t, 2, col_width, n_local)
+        assert (desc["perm"] is not None) == permuted
+        assert int(run_fields(desc["runs"])[0].max()) > 0xFFFF
+        _assert_covers(t, desc)
+        ring = torch.zeros((8, n_local))
+        ev_a = torch.zeros(1, dtype=torch.int32)
+        ev_b = torch.zeros(1, dtype=torch.int32)
+        idx, _ = compact_events(spk, 3, 3)
+        ra = deliver_rows_ref(t, idx, ring.clone(), 4, ev_a)
+        rb = deliver_runs_ref(desc, delivered_flags(spk, 3, 3)[0],
+                              ring.clone(), 4, ev_b)
+        assert_bits_equal(ra, rb, "ring")
+        assert int(ev_a) == int(ev_b) == int(nnz.sum())
+
+
+def _cu_constant(source: str, name: str) -> int:
+    text = (Path(kernels_pkg.__file__).parent / "csrc" / source).read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+def test_static_shared_memory_reserves_match_the_sources():
+    """The wrappers size the dynamic shared memory (ring window, row
+    bitmap) to what a block has beside each kernel's static arrays: the
+    reserves they assume are the ones the CUDA sources declare."""
+    from repro_torch.kernels import plastic_step, synaptic_accum
+    assert (_cu_constant("event_delivery.cu", "kColStaticSmem")
+            == synaptic_accum.COLUMN_STATIC_SMEM)
+    assert (_cu_constant("event_delivery.cu", "kColThreads") // 32
+            == synaptic_accum.COLUMN_WARPS)
+    assert (_cu_constant("plastic_delivery.cu", "kStaticSmem")
+            == plastic_step.STATIC_SMEM)
+
+
+@pytest.mark.parametrize("n_per_col,d_ring", [(1240, 8), (1240, 64),
+                                              (1162, 50), (30, 32)])
+def test_column_width_leaves_room_for_static_arrays(n_per_col, d_ring):
+    """The window, d_ring x width float32, fits a block's shared memory
+    less the kernel's static arrays; a column that fits is kept whole,
+    one that does not is cut to a multiple of 4."""
+    from repro_torch.kernels import _build, synaptic_accum
+    room = _build.SMEM_BYTES - synaptic_accum.COLUMN_STATIC_SMEM
+    width = synaptic_accum.column_width(n_per_col, d_ring)
+    assert 4 * d_ring * width <= room
+    if 4 * d_ring * n_per_col <= room:
+        assert width == n_per_col
+    else:
+        assert width % 4 == 0 and 4 * d_ring * (width + 4) > room

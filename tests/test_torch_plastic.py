@@ -20,11 +20,17 @@ from repro.core import stdp as jstdp
 from repro_torch.core import engine as teng
 from repro_torch.core import stdp as tstdp
 from repro_torch.core.convert import plasticity_from_arrays, tables_from_arrays
-from repro_torch.kernels.plastic_step import plastic_delivery_ltd
+from repro_torch.kernels.plastic_step import (bind_plastic_bits, magic_div,
+                                              magic_u31, plastic_delivery_ltd)
 from repro_torch.kernels.synaptic_accum import deliver_rows_cuda
 
 from _torch_parity import (LAWS, assert_bits_equal, configs,
                            reference_drive, tier_arrays)
+
+try:
+    from hypothesis import given, settings, strategies as st
+except ImportError:                      # hermetic env
+    from _hypothesis_fallback import given, settings, strategies as st
 
 STEPS = 100
 
@@ -332,3 +338,107 @@ def test_atomic_delivery_refuses_float32_weights():
     with pytest.raises(ValueError, match="bfloat16"):
         deliver_rows_cuda(tt["local"], torch.zeros(4, dtype=torch.int32),
                           torch.zeros((8, n)), 0, None)
+
+
+# ---------------------------------------------------------------------------
+# the fixed-order kernel's static inputs: target-major delays and plastic
+# bits, and the 32-bit magic-number division of a slot by the row cap
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("tiles", [1, 2])
+@pytest.mark.parametrize("law", LAWS)
+def test_target_major_meta_is_the_gather_through_slots(law, tiles):
+    _, tcfg = plastic_configs(law, tiles=tiles)
+    tt = teng.build_shard_tables(tcfg, 0, tiles - 1, device="cpu")
+    inv = tt.inverse_index()
+    tiers = tt.tiers()
+    masks = tstdp.plastic_masks(tiers)
+    flat_d = torch.cat([t["dslot"].reshape(-1).long() for t in tiers])
+    flat_m = torch.cat([m.reshape(-1) for m in masks])
+    tm = inv["tm"]
+    assert tm.dtype == torch.int8 and tm.shape == inv["slots"].shape
+    valid = (torch.arange(tm.shape[1])[None, :] < inv["n_in"][:, None])
+    s = inv["slots"].long()[valid]
+    byte = tm.view(torch.uint8).long()
+    assert torch.equal(byte[valid] & 127, flat_d[s])
+    assert torch.equal(byte[valid] >> 7, (flat_m[s] > 0).long())
+    assert int(byte[~valid].abs().sum()) == 0
+    assert int((byte[valid] >> 7).sum()) > 0
+    # the kernel's LTD is w + dw_unit where the bit is set: exact only for
+    # masks of exactly 0 and 1
+    half = [m * 0.5 for m in masks]
+    with pytest.raises(ValueError, match="0 or 1"):
+        tstdp.target_major_meta(tiers, inv, half)
+    assert torch.equal(tstdp.target_major_meta(tiers, inv, masks), tm)
+
+
+@pytest.mark.parametrize("law", LAWS)
+def test_bind_plastic_bits_follows_the_masks_passed(law):
+    """Binding other masks rewrites bit 7 of the bound tier's slots to
+    them and leaves the delays and the other tiers' bits; the same
+    mask again is free, an in-place edit is bound again; masks other
+    than 0 or 1 are refused."""
+    _, tcfg = plastic_configs(law, tiles=2)
+    tt = teng.build_shard_tables(tcfg, 0, 1, device="cpu")
+    inv = tt.inverse_index()
+    tiers = tt.tiers()
+    assert len(tiers) > 1
+    masks = tstdp.plastic_masks(tiers)
+    g = torch.Generator().manual_seed(4)
+    mine = masks[0] * (torch.rand(masks[0].shape, generator=g) < 0.5)
+    tm0 = inv["tm"].clone()
+    bind_plastic_bits(inv, 0, mine)
+    want = tstdp.target_major_meta(tiers, inv, [mine] + masks[1:])
+    assert torch.equal(inv["tm"], want) and not torch.equal(want, tm0)
+    assert torch.equal(inv["tm"] & 127, tm0 & 127)
+    before = inv["tm"].clone()
+    mine.add_(0.0)                       # a new version, the same values
+    bind_plastic_bits(inv, 0, mine)
+    assert torch.equal(inv["tm"], before)
+    mine[: mine.shape[0] // 2] = 0.0
+    bind_plastic_bits(inv, 0, mine)
+    assert torch.equal(inv["tm"], tstdp.target_major_meta(
+        tiers, inv, [mine] + masks[1:]))
+    with pytest.raises(ValueError, match="0 or 1"):
+        bind_plastic_bits(inv, 1, masks[1] * 0.5)
+
+
+def _tier_caps():
+    caps = set()
+    for law in LAWS:
+        for tiles in (1, 2):
+            for kw in ({}, {"rate_cap_hz": 2.0}):
+                _, tcfg = plastic_configs(law, tiles=tiles, **kw)
+                spec = tcfg.spec()
+                caps.update(p.cap for p in spec.delivery_plan())
+            _, tcfg = configs(law, tiles=tiles)
+            tt = teng.build_shard_tables(tcfg, device="cpu")
+            caps.update(t["tgt"].shape[1] for t in tt.tiers())
+    return sorted(caps)
+
+
+def test_magic_division_over_the_tier_caps():
+    """The kernel's row = umulhi(2v, m) >> l equals v // cap for every
+    tier capacity of the test configurations, at the edges of each row
+    and of the int32 range, and at random slots."""
+    rng = np.random.default_rng(0)
+    top = 2 ** 31 - 1
+    for cap in _tier_caps() + [1, 2, 3, 7, 1240, 1391, 65535]:
+        m, l = magic_u31(cap)
+        assert m < 2 ** 32
+        edges = [0, 1, cap - 1, cap, cap + 1, 2 * cap - 1, top, top - 1,
+                 (top // cap) * cap, (top // cap) * cap - 1]
+        v = np.array([e for e in edges if 0 <= e <= top]
+                     + list(rng.integers(0, top, 2000)), dtype=np.uint64)
+        assert np.array_equal(magic_div(v, m, l), v // np.uint64(cap)), cap
+
+
+@settings(max_examples=300, deadline=None)
+@given(d=st.integers(1, 2 ** 31 - 1), v=st.integers(0, 2 ** 31 - 1))
+def test_magic_division_matches_floor_division(d, v):
+    m, l = magic_u31(d)
+    assert 0 < m < 2 ** 32 and 0 <= l <= 31
+    assert magic_div(v, m, l) == v // d
+    assert magic_div(2 ** 31 - 1, m, l) == (2 ** 31 - 1) // d
+    with pytest.raises(ValueError):
+        magic_u31(0)
