@@ -17,8 +17,12 @@ Phases, each of which exits non-zero on failure:
    ``active_cap`` (ring exact, event and drop counts equal), spike
    compaction at densities 0 to 1 at the
    main path's 79,360 rows and at one shard of the paper's 24x24x1240
-   grid (714,240 rows): exact, one launch per call; and both flash-
-   attention kernels (see 7);
+   grid (714,240 rows): exact, one launch per call; the three flash-
+   attention kernels and the TF32 route's pre-pass (see 7); and
+   dict-form tables (``{"local", "halo"}``) at 4x4x1240: delivered on
+   the card exactly as ``SynapseTables`` and the plain path deliver,
+   through the same run descriptors, and with ``dict(tier, w=2 w)``
+   exactly as the plain version (the descriptor rebound, not rebuilt);
 3. the static path, through the library API (``build_shard_tables`` ->
    ``init_sim_state`` -> ``simulate``), single shard, 8x8 columns of the
    paper's 1240 neurons, both connectivity laws: kernel-path steps
@@ -58,13 +62,16 @@ Phases, each of which exits non-zero on failure:
    held against the plain path (``attn_impl="naive"``) on the same
    weights and prompts, teacher-forced, beside a control (the chunked
    plain path against the plain path), then a float32 prefill of both
-   paths (the CUDA-core kernel, one launch per layer); prefill and
-   decode times, the decode loop's device idle share and peak memory;
-   then both flash kernels' timing at the prefill shape.  Phase 2
-   holds both flash kernels against their plain version at the
-   reference's kernel-test shapes, the tensor-core kernel's edge cases,
-   fully masked rows, qwen2's prefill shape and a head_dim-256
-   window.
+   paths (the 3xTF32 tensor-core kernel and its pre-pass, one launch
+   each per layer, none of the CUDA-core kernel); prefill and decode
+   times (bf16 and float32), the decode loop's device idle share and
+   peak memory; then the flash kernels' timing at the prefill shape:
+   each tensor-core kernel beside the CUDA-core kernel it replaced
+   there.  Phase 2 holds every flash kernel against its plain version
+   at the reference's kernel-test shapes, the tensor-core kernels' edge
+   cases in bf16 and float32, fully masked rows, qwen2's prefill shape
+   and a head_dim-256 window; the TF32 pre-pass bit for bit, and the
+   tf32 fragment layout the TF32 kernel assumes.
 
 Launch counts are zeroed just before each of phases 3-5 and 7 and read
 just after it.  It prints the metrics, a ``{"kernels": [...]}`` line, the
@@ -104,6 +111,7 @@ PARITY_GRID = 4                            # CPU parity of the plastic path
 RECORD_STEPS, SMALL_CAPACITY = 100, 1000
 LAWS = ("gaussian", "exponential")
 BF16_OPS_PER_S = 989e12            # H100 SXM bf16 dense tensor-core rate
+TF32_OPS_PER_S = 495e12            # H100 SXM TF32 dense tensor-core rate
 LM_ARCH = "qwen2-1.5b"             # served at full width, bf16
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 32
 # kernel path vs plain path: each logit's |difference| over (|plain
@@ -954,34 +962,39 @@ def qwen2_prefill_qkv(gen):
 
 
 def check_flash(gen) -> dict:
-    """Both flash kernels against their plain version on the card (TF32
-    off): the reference's kernel-test shapes in both dtypes, the
-    tensor-core kernel's edge cases (bf16, head_dim 64/128/256: Sq = 1,
-    ragged Sq/Sk, Sk below a tile, q_offset, windows, GQA groups 1, 6,
-    8), fully masked rows (exactly 0) on both routes, qwen2-1.5b's
-    prefill shape and a head_dim-256 sliding window over 4096 keys
-    (gemma's head dim, recurrentgemma's local attention).  Returns the
-    largest difference seen on each route (its tolerance's scale is
-    |plain| + 1)."""
+    """The three flash kernels against their plain version on the card
+    (TF32 off in the plain version): the reference's kernel-test shapes
+    in both dtypes (head_dim 8-32 on the CUDA-core kernel, 64 on the
+    tensor-core ones), the tensor-core kernels' edge cases in bf16 and in
+    float32 (head_dim 64/128/256: Sq = 1, ragged Sq/Sk, Sk below a tile,
+    q_offset, windows, GQA groups 1, 6, 8), fully masked rows (exactly
+    0) on every route, qwen2-1.5b's prefill shape in both dtypes and a
+    head_dim-256 sliding window over 4096 keys (gemma's head dim,
+    recurrentgemma's local attention).  The TF32 route's pre-pass is
+    held to its plain version bit for bit, and its fragment probe to the
+    layout the kernel assumes.  Returns the largest difference seen on
+    each route (its tolerance's scale is |plain| + 1), and the
+    pre-pass's ("tf32_split", 0.0)."""
     import torch
     from repro_torch.kernels import _build
-    from repro_torch.kernels.flash_attention import (ROUTE_KERNELS, _route,
-                                                     flash_attention_cuda)
-    from repro_torch.kernels.ref import attention_ref
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import attention_ref, tf32_split_ref
     torch.backends.cuda.matmul.allow_tf32 = False
-    worst = {r: 0.0 for r in ROUTE_KERNELS}
+    worst = {r: 0.0 for r in fa.ROUTE_KERNELS}
 
     def one(q, k, v, label, **kw):
-        route = _route(q.dtype, q.shape[2])
+        route = fa._route(q.dtype, q.shape[2])
         before = _build.launch_counts()
-        got = flash_attention_cuda(q, k, v, **kw)
+        got = fa.flash_attention_cuda(q, k, v, **kw)
         want = attention_ref(q, k, v, **kw)
         torch.cuda.synchronize()
         after = _build.launch_counts()
-        name = ROUTE_KERNELS[route]
-        require(after.get(name, 0) == before.get(name, 0) + 1 and sum(
-            after.values()) == sum(before.values()) + 1,
-            f"flash {label}: not one launch of {name}")
+        names = [fa.ROUTE_KERNELS[route]] + (
+            [fa.SPLIT_KERNEL] if route == "tf32" else [])
+        require(all(after.get(n, 0) == before.get(n, 0) + 1 for n in names)
+                and sum(after.values()) == sum(before.values())
+                + len(names), f"flash {label}: not one launch of each of "
+                f"{names}")
         tol = FLASH_TOL[str(q.dtype).removeprefix("torch.")]
         err = (got.float() - want.float()).abs()
         bad = int((err > tol + tol * want.float().abs()).sum())
@@ -997,6 +1010,23 @@ def check_flash(gen) -> dict:
     def rand(*shape):
         return torch.randn(shape, device="cuda", generator=gen)
 
+    layout = fa.tf32_fragment_layout()
+    torch.cuda.synchronize()
+    bad = fa.tf32_fragment_errors(layout.cpu())
+    require(bad == 0, f"the tf32 A fragment differs from the TF32 kernel's "
+            f"assumption at {bad} of 512 elements: {layout.tolist()}")
+    print("check tf32 fragment probe: the kernel's key order and register "
+          "map hold (0 of 512 elements differ)")
+    for shape in ((3, 77, 64), (8, LM_PROMPT, 128), (2, 130, 256)):
+        k, v = rand(*shape) * 10, rand(*shape)
+        got, want = fa.tf32_split_cuda(k, v), tf32_split_ref(k, v)
+        torch.cuda.synchronize()
+        require(all(a.shape == b.shape and torch.equal(
+            a.view(torch.int32), b.view(torch.int32))
+            for a, b in zip(got, want)),
+            f"tf32_split {shape}: not bit-equal to its plain version")
+        print(f"check tf32_split k/v {shape}: bit-equal to tf32_split_ref")
+
     for bh, bhkv, sq, sk, d, causal, win, qoff in FLASH_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = rand(bh, sq, d), rand(bhkv, sk, d), rand(bhkv, sk, d)
@@ -1005,30 +1035,95 @@ def check_flash(gen) -> dict:
                 f"q_offset={qoff} {dtype}", causal=causal, window=win,
                 q_offset=qoff)
     for bh, bhkv, sq, sk, d, causal, win, qoff in SM90_CASES:
-        q, k, v = rand(bh, sq, d), rand(bhkv, sk, d), rand(bhkv, sk, d)
-        one(q.bfloat16(), k.bfloat16(), v.bfloat16(),
-            f"{(bh, bhkv, sq, sk, d)} causal={causal} window={win} "
-            f"q_offset={qoff} bf16", causal=causal, window=win,
-            q_offset=qoff)
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = rand(bh, sq, d), rand(bhkv, sk, d), rand(bhkv, sk, d)
+            one(q.to(dtype), k.to(dtype), v.to(dtype),
+                f"{(bh, bhkv, sq, sk, d)} causal={causal} window={win} "
+                f"q_offset={qoff} {dtype}", causal=causal, window=win,
+                q_offset=qoff)
     for dtype, d in ((torch.float32, 8), (torch.bfloat16, 64),
-                     (torch.bfloat16, 128), (torch.bfloat16, 256)):
+                     (torch.bfloat16, 128), (torch.bfloat16, 256),
+                     (torch.float32, 64), (torch.float32, 128),
+                     (torch.float32, 256)):
         q = rand(2, 8, d).to(dtype)
-        out = flash_attention_cuda(q, q, q, causal=False, window=2,
-                                   q_offset=100)
+        out = fa.flash_attention_cuda(q, q, q, causal=False, window=2,
+                                      q_offset=100)
         torch.cuda.synchronize()
         require(torch.equal(out, torch.zeros_like(out)),
-                f"flash[{_route(dtype, d)}]: fully masked rows are not "
+                f"flash[{fa._route(dtype, d)}]: fully masked rows are not "
                 "exactly 0")
-        print(f"check flash_attention[{_route(dtype, d)}] fully masked "
+        print(f"check flash_attention[{fa._route(dtype, d)}] fully masked "
               f"(window=2, q_offset=100) {dtype} D={d}: exactly 0")
     q, k, v = qwen2_prefill_qkv(gen)
-    one(q, k, v, f"qwen2-1.5b prefill q {tuple(q.shape)} k/v "
-        f"{tuple(k.shape)} bf16 causal", causal=True)
+    for dtype in (torch.bfloat16, torch.float32):
+        one(q.to(dtype), k.to(dtype), v.to(dtype),
+            f"qwen2-1.5b prefill q {tuple(q.shape)} k/v {tuple(k.shape)} "
+            f"{dtype} causal", causal=True)
     q, k, v = rand(8, 4096, 256), rand(1, 4096, 256), rand(1, 4096, 256)
     one(q.bfloat16(), k.bfloat16(), v.bfloat16(),
         "(8, 1, 4096, 4096, 256) bf16 causal window=2048", causal=True,
         window=2048)
-    return worst
+    return dict(worst, tf32_split=0.0)
+
+
+def check_dict_tables(gen) -> None:
+    """Dict-form tables and new weights on the card: 4x4x1240 gaussian
+    bf16 tables, uncompressed (a dict's delivery plan comes from the
+    spec, as in the reference), delivered on a CUDA ring through
+    ``engine.deliver_event_tiers`` as ``SynapseTables`` and as a
+    ``{"local", "halo"}`` dict: rings, events and drops bit-equal to
+    each other and to the plain path, through the same run descriptors
+    (found on the tier tensors, none rebuilt).  Then the dict with
+    ``dict(tier, w=2 w)``: the descriptor is rebound to the new weights
+    (not rebuilt) and the ring equals the plain version's, its delivered
+    part twice the first one's."""
+    import torch
+    from repro_torch.configs.snn import reduced_case
+    from repro_torch.core import engine, synapses
+    cfg = reduced_case("gaussian", 4, N_PER_COLUMN).engine_config(1, 1)
+    spec, d_ring = cfg.spec(), cfg.d_ring
+    t0 = time.perf_counter()
+    tabs = engine.build_shard_tables(cfg, compress=False, device="cuda")
+    build_s = time.perf_counter() - t0
+    as_dict = {"local": tabs.local, "halo": list(tabs.halo)}
+    runs = tabs.column_runs(spec.n_per_col, spec.n_exc_per_col, d_ring)
+    builds = dict(synapses.BUILD_COUNTS)
+    spk = (torch.rand(spec.n_local, device="cuda", generator=gen)
+           < 0.1).float()
+    ring0 = (torch.randint(-300, 300, (d_ring, spec.n_local), device="cuda",
+                           generator=gen).float() * 2.0 ** -9)
+
+    def deliver(tables, kernels: bool):
+        ring, ev, dr = engine.deliver_event_tiers(
+            tables, spk, [], spec, ring0.clone(), 3, d_ring, kernels)
+        torch.cuda.synchronize()
+        return ring, float(ev), float(dr)
+
+    def same(a, b) -> bool:
+        return torch.equal(a[0].view(torch.int32),
+                           b[0].view(torch.int32)) and a[1:] == b[1:]
+
+    a, b, plain = deliver(tabs, True), deliver(as_dict, True), \
+        deliver(as_dict, False)
+    require(same(a, b) and same(a, plain) and a[1] > 0,
+            "dict-form tables deliver otherwise than SynapseTables or the "
+            "plain path on the card")
+    require(synapses.BUILD_COUNTS == builds and synapses.column_runs(
+        synapses.tier_list(as_dict), spec.n_per_col, spec.n_exc_per_col,
+        d_ring) is runs, "the dict form rebuilt the run descriptors")
+    w2 = tabs.local["w"] * 2
+    doubled = {"local": dict(tabs.local, w=w2), "halo": list(tabs.halo)}
+    c, c_plain = deliver(doubled, True), deliver(doubled, False)
+    require(same(c, c_plain) and torch.equal(c[0] - ring0,
+                                             2 * (a[0] - ring0)),
+            "dict(tier, w=2 w) delivered otherwise than the plain version")
+    require(synapses.BUILD_COUNTS == builds and runs[0]["w"] is w2,
+            "new weights rebuilt the descriptor instead of rebinding it")
+    print(f"check dict-form tables gaussian 4x4x{N_PER_COLUMN} "
+          f"(uncompressed, host build {build_s:.1f} s): SynapseTables, "
+          f"dict and plain path bit-equal ({int(a[1])} events); "
+          f"dict(tier, w=2 w) equals the plain version; descriptor reused "
+          f"and rebound, none rebuilt")
 
 
 def lm_compare(a, b) -> dict:
@@ -1178,23 +1273,35 @@ def run_lm() -> dict:
     del params, refs, state, saved
     torch.cuda.empty_cache()
 
-    # float32 at the same width: kernel path vs plain path, prefill
+    # float32 at the same width: kernel path vs plain path, prefill (the
+    # plain one first: it warms cuBLAS's float32 GEMMs)
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     params32 = init_model(cfg32, seed=0, device="cuda")
-    lg32 = {}
-    for impl in ("pallas", "naive"):
+    lg32, secs32 = {}, {}
+    for impl in ("naive", "pallas"):
         c = dataclasses.replace(cfg32, attn_impl=impl)
+        st = init_decode_state(c, LM_BATCH, max_len)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start_bytes = torch.cuda.memory_allocated()
         _build.reset_launch_counts()
-        lg32[impl], _ = make_prefill(c)(
-            params32, {"tokens": tokens},
-            init_decode_state(c, LM_BATCH, max_len))
+        t0 = time.perf_counter()
+        lg32[impl], _ = make_prefill(c)(params32, {"tokens": tokens}, st)
+        torch.cuda.synchronize()
+        secs32[impl] = time.perf_counter() - t0
         if impl == "pallas":
             f32_launches = _build.launch_counts()
-    require(f32_launches == {"flash_attention_simt": cfg.n_layers},
+            f32_peak = torch.cuda.max_memory_allocated() - start_bytes
+        del st
+    require(f32_launches == {"flash_attention_tf32": cfg.n_layers,
+                             "tf32_split": cfg.n_layers},
             f"the float32 prefill's launches: {f32_launches}")
     f32 = lm_compare(lg32["pallas"], lg32["naive"])
     require(f32["ratio"] <= LM_F32_TOL,
             f"float32 kernel path vs plain path prefill logits: {f32}")
+    # the TF32 route's split K and V^T (hi, lo), made and freed per layer
+    f32_scratch = (4 * LM_BATCH * cfg.n_kv_heads * LM_PROMPT
+                   * cfg.resolved_head_dim * 4)
     del params32, lg32
     torch.cuda.empty_cache()
 
@@ -1216,8 +1323,15 @@ def run_lm() -> dict:
         "peak_device_bytes_above_earlier_phases": peak - base_bytes,
         "flash_launches_prefill": n_prefill,
         "flash_simt_launches_prefill": simt_prefill,
+        "flash_tf32_launches_f32_prefill":
+            f32_launches["flash_attention_tf32"],
+        "tf32_split_launches_f32_prefill": f32_launches["tf32_split"],
         "flash_simt_launches_f32_prefill":
-            f32_launches["flash_attention_simt"],
+            f32_launches.get("flash_attention_simt", 0),
+        "f32_prefill_s": secs32["pallas"],
+        "f32_plain_prefill_s": secs32["naive"],
+        "f32_prefill_peak_bytes_above_caches": f32_peak,
+        "f32_prefill_split_scratch_bytes_per_layer": f32_scratch,
         "flash_launches_decode": launches.get("flash_attention", 0)
         - n_prefill,
         "prefill_logits_vs_plain": kern[0],
@@ -1231,8 +1345,13 @@ def run_lm() -> dict:
         "decode_argmax_agreement_vs_plain": agree,
     }
     print("lm serving path " + json.dumps(res))
-    return {"res": res, "launches": n_prefill,
-            "simt_launches": f32_launches["flash_attention_simt"]}
+    print(f"lm prefill seconds, 4 x {LM_PROMPT} tokens: bf16 {prefill_s:.4f}"
+          f" (flash_attention), float32 {secs32['pallas']:.4f} "
+          f"(flash_attention_tf32), float32 plain {secs32['naive']:.4f}")
+    return {"res": res, "launches": {
+        "sm90": n_prefill, "tf32": f32_launches["flash_attention_tf32"],
+        "tf32_split": f32_launches["tf32_split"],
+        "simt": simt_prefill + f32_launches.get("flash_attention_simt", 0)}}
 
 
 def device_breakdown(prof, n: int):
@@ -1285,31 +1404,42 @@ def _sdpa(q, k, v):
 
 
 def time_flash(launches: dict, err: dict) -> list:
-    """Both flash kernels at qwen2-1.5b's prefill shape (one layer of the
-    4 x 2048 prefill): the tensor-core kernel in bf16 (the serving
-    path), beside the CUDA-core kernel on the same bf16 inputs (the
-    kernel it replaced there), and the CUDA-core kernel in float32 (the
-    float32 prefill's route).  Kernel, replaced kernel and the yardstick
+    """The flash kernels at qwen2-1.5b's prefill shape (one layer of the
+    4 x 2048 prefill): the bf16 tensor-core kernel (the serving path),
+    the 3xTF32 kernel in float32 (the float32 prefill's route) and its
+    pre-pass, each tensor-core kernel beside the CUDA-core kernel on the
+    same inputs (``replaced_kernel_ms``: the kernel each replaced there),
+    and the CUDA-core kernel's own row in float32 (no longer on either
+    path).  Kernels, replaced kernel and the yardstick
     F.scaled_dot_product_attention (never called by the port) are timed
-    as in ``queued_ms``, with per-call and profiler figures beside."""
+    as in ``queued_ms``, with per-call and profiler figures beside.  The
+    TF32 kernel is timed on a split made once (``ms``), and with its
+    pre-pass (``route_ms``)."""
     import torch
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels.ref import attention_ref
+    from repro_torch.kernels.ref import attention_ref, tf32_split_ref
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
     q, k, v = qwen2_prefill_qkv(gen)
     bh, s, d = q.shape
     # live (q, k) pairs of causal attention, 4 D flops each (QK^T, PV)
     flops = 4 * bh * d * s * (s + 1) / 2
+    src = "src/repro_torch/kernels/csrc/"
+    sources = {"sm90": "flash_attention_sm90", "tf32": "flash_attention_tf32",
+               "simt": "flash_attention"}
     rows = []
-    for route, dtype, rate in (("sm90", torch.bfloat16, BF16_OPS_PER_S),
-                               ("simt", torch.float32, F32_OPS_PER_S)):
+    # (route, dtype, tensor-core products per flop, peak rate)
+    for route, dtype, products, rate in (
+            ("sm90", torch.bfloat16, 1, BF16_OPS_PER_S),
+            ("tf32", torch.float32, 3, TF32_OPS_PER_S),
+            ("simt", torch.float32, 1, F32_OPS_PER_S)):
         x = [t.to(dtype) for t in (q, k, v)]
-        kern = lambda: fa._launch(route, *x, causal=True)
+        split = fa.tf32_split_cuda(x[1], x[2]) if route == "tf32" else None
+        kern = lambda: fa._launch(route, *x, causal=True, split=split)
         lib, library = _sdpa(*x)
         # q, k, v read once, o written once
         nbytes = sum(t.numel() * t.element_size() for t in (x[0], *x))
-        bound_ops = flops / rate * 1e3
+        bound_ops = products * flops / rate * 1e3
         bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         lib_err = float((lib().reshape(q.shape).float()
                          - kern().float()).abs().max())
@@ -1317,9 +1447,7 @@ def time_flash(launches: dict, err: dict) -> list:
                 f"the yardstick computes another function: {lib_err}")
         row = {
             "name": fa.ROUTE_KERNELS[route], "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/"
-                      + ("flash_attention_sm90.cu" if route == "sm90"
-                         else "flash_attention.cu"),
+            "source": src + sources[route] + ".cu",
             "replaces": "src/repro/kernels/flash_attention.py:94",
             "launches": launches[route], "max_abs_err": err[route],
             "ms": queued_ms(kern, 20), "call_ms": call_ms(kern, 20),
@@ -1334,17 +1462,50 @@ def time_flash(launches: dict, err: dict) -> list:
             "library_vs_kernel_max_abs_diff": lib_err,
             "bound_bytes_ms": bound_bytes, "flops": flops,
             "library": library,
-            "ptxas": ptxas("flash_attention_sm90" if route == "sm90"
-                           else "flash_attention"),
+            "ptxas": [e for e in ptxas(sources[route])
+                      if "tf32_split" not in e["entry"]
+                      and "fragment_probe" not in e["entry"]],
             "shape": f"q {tuple(q.shape)}, k/v {tuple(k.shape)} "
                      f"{str(dtype).removeprefix('torch.')} causal "
                      "(qwen2-1.5b prefill, one layer)"}
-        if route == "sm90":
+        if route != "simt":
             old = lambda: fa._launch("simt", *x, causal=True)
+            row["replaced_kernel"] = "flash_attention_simt"
             row["replaced_kernel_ms"] = queued_ms(old, 10)
             row["replaced_kernel_call_ms"] = call_ms(old, 10)
             row["replaced_kernel_profiler_ms"] = device_ms(old, 10)
             row["bound_f32_cuda_core_ms"] = flops / F32_OPS_PER_S * 1e3
+        if route == "tf32":
+            whole = lambda: fa._launch("tf32", *x, causal=True)
+            row["bound_3xtf32_ms"] = bound_ops
+            row["route_ms"] = queued_ms(whole, 20)
+            row["route_call_ms"] = call_ms(whole, 20)
+            rows.append(row)
+            # the pre-pass: k, v read once, the four split planes written
+            one = lambda: fa.tf32_split_cuda(x[1], x[2])
+            split_bytes = (x[1].numel() + x[2].numel()) * 4 + sum(
+                t.numel() * 4 for t in split)
+            rows.append({
+                "name": fa.SPLIT_KERNEL, "route": "cuda",
+                "source": src + "flash_attention_tf32.cu",
+                "replaces": "src/repro/kernels/flash_attention.py:94",
+                "launches": launches["tf32_split"],
+                "max_abs_err": err["tf32_split"],
+                "ms": queued_ms(one, 20), "call_ms": call_ms(one, 20),
+                "profiler_ms": device_ms(one, 20),
+                "plain_ms": device_ms(lambda: tf32_split_ref(x[1], x[2]), 5),
+                "bound_ms": split_bytes / HBM_BYTES_PER_S * 1e3,
+                "bound_by": "bytes", "library_ms": None,
+                "bytes": split_bytes,
+                "ptxas": [e for e in ptxas(sources[route])
+                          if "tf32_split" in e["entry"]],
+                "shape": f"k/v {tuple(k.shape)} float32 -> split K and "
+                         f"V^T {tuple(split[0].shape)}, "
+                         f"{tuple(split[1].shape)}"})
+            continue
+        if route == "simt":
+            row["path_note"] = ("on no main path since the TF32 route took "
+                                "float32 at head_dim 64-256; head_dim 8-32")
         rows.append(row)
     return rows
 
@@ -1473,6 +1634,7 @@ def main() -> None:
     compact_err = check_spike_compact([(n_main, cap_main), (n_big, cap_big)],
                                       gen)
     flash_err = check_flash(gen)
+    check_dict_tables(gen)
 
     # 3. the static path
     torch.cuda.reset_peak_memory_stats()
@@ -1549,8 +1711,7 @@ def main() -> None:
     # 7. the LM serving path (qwen2-1.5b, full width), then the flash
     # kernel's timing at its prefill shape (not counted as launches)
     lm = run_lm()
-    for k in time_flash({"sm90": lm["launches"],
-                         "simt": lm["simt_launches"]}, flash_err):
+    for k in time_flash(lm["launches"], flash_err):
         print(f"timing {json.dumps(k)}")
         kernels.append(k)
     require("jax" not in sys.modules and not any(

@@ -42,8 +42,9 @@ from .stdp import (STDPParams, check_weight_invariant, init_stdp_state,
                    plastic_masks, stdp_ltp_finalize, stdp_step,
                    target_major_meta)
 from .synapses import (SynapseTableSpec, SynapseTables, TierPlan,
-                       build_tables, compress_tables, deliver_events,
-                       deliver_gather_all, with_local_tier)
+                       build_tables, column_runs, compress_tables,
+                       deliver_events, deliver_gather_all, inverse_index,
+                       tier_list, with_local_tier)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,10 +153,12 @@ def deliver_event_tiers(tables, spikes, halo_band_spikes, spec, i_ring,
     """Event-driven delivery of the local tier + every halo band into
     ``i_ring`` (in place).  With ``use_kernels`` all tiers go to
     ``kops.synaptic_accum_banded`` (bfloat16 weights, adds in any order,
-    through the tables' run descriptors on the card) or,
+    through the tiers' run descriptors on the card) or,
     for float32 weights, whose sums depend on their order, to the
     fixed-order ``kops.plastic_step_banded`` with LTD off, through the
-    tables' inverse index; otherwise ``deliver_events`` runs per tier.
+    tiers' inverse index; otherwise ``deliver_events`` runs per tier.
+    ``tables``: ``SynapseTables`` or a ``{"local": ..., "halo": [...]}``
+    dict (both reach the structures cached on the tier tensors).
     Returns (i_ring, events, dropped) as f32 scalars, summed as the
     reference sums them."""
     if plan is None:
@@ -167,10 +170,10 @@ def deliver_event_tiers(tables, spikes, halo_band_spikes, spec, i_ring,
         if tables["local"]["w"].dtype == torch.float32:
             i_ring, _, ev, dr = kops.plastic_step_banded(
                 tiers, None, None, i_ring, slot, d_ring, 0.0,
-                inv=tables.inverse_index(), plan=plan)
+                inv=inverse_index(tier_list(tables)), plan=plan)
         else:
-            runs = (tables.column_runs(spec.n_per_col, spec.n_exc_per_col,
-                                       d_ring)
+            runs = (column_runs(tier_list(tables), spec.n_per_col,
+                                spec.n_exc_per_col, d_ring)
                     if i_ring.device.type == "cuda" else None)
             i_ring, ev, dr = kops.synaptic_accum_banded(
                 tiers, i_ring, slot, d_ring, plan=plan, runs=runs)
@@ -401,7 +404,7 @@ def _run_plastic(state: dict, tables, stdp_aux: dict, cfg: EngineConfig,
         # an index converted from the reference's arrays: the kernel's
         # target-major delays and plastic bits, once per call
         inv = dict(inv, tm=target_major_meta(
-            [tables["local"], *tables["halo"]], inv, stdp_aux["masks"]))
+            tier_list(tables), inv, stdp_aux["masks"]))
     out = torch.empty((n_steps,), dtype=torch.float32,
                       device=state["i_ring"].device)
     for k in range(n_steps):
@@ -420,18 +423,19 @@ def _run_plastic(state: dict, tables, stdp_aux: dict, cfg: EngineConfig,
     return (state, with_local_tier(tables, tiers[0]), traces), out
 
 
-def init_plasticity(tables: SynapseTables, cfg: EngineConfig) -> dict:
+def init_plasticity(tables, cfg: EngineConfig) -> dict:
     """Build the STDP auxiliaries: the inverse index over every tier the
-    tables carry (``tables.inverse_index()``, host numpy, kept with the
-    tables) with these masks bound into its plastic bits, the plastic
-    masks and zero traces, on the tables' device."""
-    tiers = tables.tiers()
+    tables carry (``synapses.inverse_index``, host numpy, cached on the
+    tier tensors) with these masks bound into its plastic bits, the
+    plastic masks and zero traces, on the tables' device.  ``tables``:
+    ``SynapseTables`` or the dict form."""
+    tiers = tier_list(tables)
     n_local = cfg.spec().n_local
     dev = tables["local"]["tgt"].device
     check_weight_invariant(tiers, cfg.stdp)
     if tables["local"]["tgt"].shape[0] - 1 != n_local:
         raise ValueError("the tables do not belong to this config")
-    inv, masks = tables.inverse_index(), plastic_masks(tiers)
+    inv, masks = inverse_index(tiers), plastic_masks(tiers)
     for ti, mask in enumerate(masks):
         # the kernel reads plastic bits from inv["tm"]: bind these masks
         bind_plastic_bits(inv, ti, mask)

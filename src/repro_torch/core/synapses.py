@@ -29,15 +29,18 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Optional, Tuple
+import weakref
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .. import resolve_device
 from ..kernels.ref import compact_events, synaptic_accum_ref
+from ..kernels.synaptic_accum import build_column_runs, column_width
 from .connectivity import ConnectivityLaw, FRAC_EXCITATORY, P_LOCAL
 from .grid import TileDecomposition
+from .stdp import build_inverse_index, plastic_masks, target_major_meta
 
 MAX_HALO_BANDS = 8
 
@@ -110,7 +113,11 @@ class SynapseTables:
     """One shard's synapse tables: the ``local`` tier dict, the tuple of
     ``halo`` tier dicts (each ``{"tgt", "w", "dslot", "nnz"}``) and the
     ``storage`` descriptor.  ``stats`` is a host-side build report.
-    String indexing (``tables["local"]``) mirrors the reference."""
+    String indexing (``tables["local"]``) mirrors the reference, and the
+    ``{"local": ..., "halo": [...]}`` dict form is accepted wherever
+    these are.  The structures derived from the tiers (``inverse_index``,
+    ``column_runs``) are cached on the tier tensors, not on this
+    object."""
 
     def __init__(self, local: dict, halo, storage: TableStorage,
                  stats: Optional[dict] = None):
@@ -118,8 +125,6 @@ class SynapseTables:
         self.halo = tuple(halo)
         self.storage = storage
         self.stats = stats
-        self._inv = None
-        self._runs = {}
 
     def __getitem__(self, key):
         if key in ("local", "halo", "stats"):
@@ -130,41 +135,13 @@ class SynapseTables:
         return [self.local] + list(self.halo)
 
     def inverse_index(self) -> dict:
-        """The target-major inverse index over every tier
-        (``core.stdp.build_inverse_index``), on the tables' device, with
-        ``tm``, each slot's delay and plastic bit
-        (``core.stdp.target_major_meta`` with ``plastic_masks`` of these
-        tiers).  Built at first use and kept with the tables: the
-        fixed-order delivery of float32 weights walks it every step."""
-        if self._inv is None:
-            from .stdp import (build_inverse_index, plastic_masks,
-                               target_major_meta)
-            dev = self.local["tgt"].device
-            tiers = self.tiers()
-            inv = build_inverse_index(tiers, self.local["tgt"].shape[0] - 1,
-                                      device=dev)
-            inv["tm"] = target_major_meta(tiers, inv, plastic_masks(tiers))
-            self._inv = inv
-        return self._inv
+        """``inverse_index(self.tiers())``."""
+        return inverse_index(self.tiers())
 
     def column_runs(self, n_per_col: int, n_exc_per_col: int,
                     d_ring: int) -> list:
-        """The run descriptor of every tier
-        (``kernels.synaptic_accum.build_column_runs``: the local tier's
-        rows grouped by source column, a halo band's by band column,
-        targets by column), on the tables' device.  Built with torch ops
-        at first use and kept with the tables: the column delivery
-        kernel walks it every step."""
-        key = (n_per_col, n_exc_per_col, d_ring)
-        if key not in self._runs:
-            from ..kernels.synaptic_accum import (build_column_runs,
-                                                  column_width)
-            width = column_width(n_per_col, d_ring)
-            n_local = self.local["tgt"].shape[0] - 1
-            groups = [n_per_col] + [n_exc_per_col] * len(self.halo)
-            self._runs[key] = [build_column_runs(t, g, width, n_local)
-                               for t, g in zip(self.tiers(), groups)]
-        return self._runs[key]
+        """``column_runs(self.tiers(), ...)``."""
+        return column_runs(self.tiers(), n_per_col, n_exc_per_col, d_ring)
 
     def to(self, device) -> "SynapseTables":
         def move(t):
@@ -177,9 +154,118 @@ class SynapseTables:
                 f"storage={self.storage})")
 
 
+def tier_list(tables) -> List[dict]:
+    """The tiers of ``SynapseTables`` or of a ``{"local": ..., "halo":
+    [...]}`` dict, local first."""
+    return [tables["local"], *tables["halo"]]
+
+
+# --------------------------------------------------------------------------
+# Structures derived from the tiers, cached on the tier tensors
+# --------------------------------------------------------------------------
+
+# builds of each cached structure; tests read them to show that a
+# structure was found again rather than rebuilt
+BUILD_COUNTS = {"inverse_index": 0, "column_runs": 0}
+
+# id(tiers[0]["nnz"]) -> (weak reference to it, [(kind, args, stamp,
+# value)]).  Held weakly, so the entries die with their tables; the
+# values must not hold that tensor.  (A WeakKeyDictionary cannot hold
+# tensors: it compares keys with ``==``.)  An entry's stamp is a weak
+# reference and the ``_version`` of every tier's tgt, dslot and nnz:
+# entries match by identity and version, never by data_ptr (a freed
+# block can be reused).
+_DERIVED: dict = {}
+_STRUCTURE = ("tgt", "dslot", "nnz")
+
+
+def _entries(key: torch.Tensor) -> list:
+    slot = _DERIVED.get(id(key))
+    if slot is None or slot[0]() is not key:
+        def forget(ref, k=id(key)):
+            if _DERIVED.get(k, (None,))[0] is ref:
+                del _DERIVED[k]
+        slot = (weakref.ref(key, forget), [])
+        _DERIVED[id(key)] = slot
+    return slot[1]
+
+
+def _matches(stamp: list, deps: list, versions: bool = True) -> bool:
+    if len(stamp) != len(deps):
+        return False
+    for (ref, version), x in zip(stamp, deps):
+        if ref() is not x or (versions and x._version != version):
+            return False
+    return True
+
+
+def _derived(kind: str, tiers: Sequence[dict], args: tuple,
+             build: Callable[[], object]):
+    """``build()``'s structure of ``tiers``, built once for as long as
+    their tgt, dslot and nnz tensors live unchanged: any tables or dicts
+    holding those tensors (``dict(tier, w=...)``, ``with_local_tier``)
+    find it again.  An in-place edit of one of them makes a new one."""
+    deps = [t[name] for t in tiers for name in _STRUCTURE]
+    entries = _entries(deps[2])
+    for e_kind, e_args, stamp, value in entries:
+        if e_kind == kind and e_args == args and _matches(stamp, deps):
+            return value
+    # drop entries made stale by an edit or by a tensor that has died
+    entries[:] = [e for e in entries
+                  if all(ref() is not None for ref, _ in e[2])
+                  and not (e[0] == kind and e[1] == args
+                           and _matches(e[2], deps, versions=False))]
+    value = build()
+    BUILD_COUNTS[kind] += 1
+    entries.append((kind, args, [(weakref.ref(x), x._version) for x in deps],
+                    value))
+    return value
+
+
+def inverse_index(tiers: Sequence[dict]) -> dict:
+    """The target-major inverse index over ``tiers`` (local first;
+    ``core.stdp.build_inverse_index``), on their device, with ``tm``,
+    each slot's delay and plastic bit (``core.stdp.target_major_meta``
+    with ``plastic_masks`` of these tiers).  Built at first use and
+    cached on the tier tensors: it depends on tgt, dslot and nnz only,
+    so tiers with new weights (``dict(tier, w=...)``) share it.  Its
+    plastic bits follow the masks that ``bind_plastic_bits`` binds
+    (``init_plasticity``, the fixed-order kernel with LTD on); static
+    delivery does not read them."""
+    def build():
+        dev = tiers[0]["tgt"].device
+        inv = build_inverse_index(tiers, tiers[0]["tgt"].shape[0] - 1,
+                                  device=dev)
+        inv["tm"] = target_major_meta(tiers, inv, plastic_masks(tiers))
+        return inv
+    return _derived("inverse_index", list(tiers), (), build)
+
+
+def column_runs(tiers: Sequence[dict], n_per_col: int, n_exc_per_col: int,
+                d_ring: int) -> list:
+    """The run descriptor of every tier
+    (``kernels.synaptic_accum.build_column_runs``: the local tier's rows
+    grouped by source column, a halo band's by band column, targets by
+    column), on the tiers' device.  Built with torch ops at first use
+    and cached on the tier tensors: the column delivery kernel walks it
+    every step.  A descriptor follows the weights it is handed
+    (``bind_column_weights``)."""
+    tiers = list(tiers)
+    width = column_width(n_per_col, d_ring)
+    n_local = tiers[0]["tgt"].shape[0] - 1
+    groups = [n_per_col] + [n_exc_per_col] * (len(tiers) - 1)
+    return _derived("column_runs", tiers,
+                    (n_per_col, n_exc_per_col, width, n_local),
+                    lambda: [build_column_runs(t, g, width, n_local)
+                             for t, g in zip(tiers, groups)])
+
+
 def with_local_tier(tables, local_tier: dict):
     """``tables`` with its local tier replaced; accepts ``SynapseTables``
-    or a ``{"local": ..., "halo": [...]}`` dict."""
+    or a ``{"local": ..., "halo": [...]}`` dict.  Where the new tier
+    keeps the old one's tgt, dslot and nnz (new weights only), the
+    returned tables share the old ones' inverse index and run
+    descriptors (cached on those tensors)."""
     if isinstance(tables, SynapseTables):
         return SynapseTables(local_tier, tables.halo, tables.storage,
                              stats=tables.stats)

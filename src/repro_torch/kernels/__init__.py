@@ -2,10 +2,10 @@
 PyTorch version in ``ref.py`` and a wrapper that routes by tensor device:
 
   * lif_step        -- fused memory-bound LIF+SFA neuron update
-  * synaptic_accum  -- event delivery: cumsum compaction, then one warp
-                       per spiking row gathers the row and atomically
-                       adds its weights into the delay ring (bfloat16
-                       weights, where the order of the adds is exact)
+  * synaptic_accum  -- event delivery: one block per target column
+                       accumulates its ring window in shared memory over
+                       the tier's run descriptor (bfloat16 weights,
+                       where the order of the adds is exact)
   * plastic_step    -- fixed-order delivery fused with STDP's LTD: one
                        warp per target pulls its delivered synapses
                        through the inverse index in the reference's
@@ -13,7 +13,9 @@ PyTorch version in ``ref.py`` and a wrapper that routes by tensor device:
   * spike_compact   -- stream compaction of the spike vector by an int32
                        block prefix scan (the spike recorder)
   * flash_attention -- blocked online-softmax attention with causal and
-                       sliding-window masks and GQA (the LM prefill)
+                       sliding-window masks and GQA (the LM prefill):
+                       bf16 and 3xTF32 float32 on the tensor cores,
+                       head_dim 8-32 on the CUDA cores
 
 ``_build`` compiles the sources with ``nvcc`` at first use and counts
 every launch.

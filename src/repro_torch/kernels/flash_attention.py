@@ -1,7 +1,7 @@
 """Blocked online-softmax (flash) attention: the CUDA kernels' wrapper.
 
 Replaces the TPU kernel ``repro/kernels/flash_attention.py:
-flash_attention``.  Two kernels, one route each (``_route``):
+flash_attention``.  Three kernels, one route each (``_route``):
 
 * ``"sm90"`` -- bfloat16 q/k/v with head_dim 64, 128 or 256
   (``SM90_HEAD_DIMS``), the LM serving path's case:
@@ -9,16 +9,24 @@ flash_attention``.  Two kernels, one route each (``_route``):
   cores (``wgmma``, bf16 x bf16 -> f32, P rounded to bf16 for P V) with
   Q and a 2-stage K/V ring loaded by TMA; counted as
   ``flash_attention``;
-* ``"simt"`` -- float32 at every head_dim, and bfloat16 with head_dim 8,
-  16 or 32: ``csrc/flash_attention.cu`` computes in f32 on the CUDA
-  cores (float32 keeps its full precision; TF32 would not hold the
-  float32 tolerance); counted as ``flash_attention_simt``.
+* ``"tf32"`` -- float32 q/k/v with head_dim 64, 128 or 256
+  (``TF32_HEAD_DIMS``): ``csrc/flash_attention_tf32.cu`` runs both
+  products on the tensor cores as three TF32 products each (3xTF32:
+  ``hi hi + hi lo + lo hi`` with ``x = hi + lo``; one TF32 product
+  would not hold the float32 tolerance), after a pre-pass kernel that
+  splits K and V into hi and lo and writes V transposed
+  (``tf32_split_cuda``, counted as ``tf32_split``); counted as
+  ``flash_attention_tf32``;
+* ``"simt"`` -- head_dim 8, 16 or 32 in either dtype:
+  ``csrc/flash_attention.cu`` computes in f32 on the CUDA cores;
+  counted as ``flash_attention_simt``.
 
-Both run one block per (query head, tile of query rows), keep each
+All run one block per (query head, tile of query rows), keep each
 row's running max, sum and accumulator in float32 registers and skip key
 tiles that are fully masked.  They are bound by operations: 4 D flops
-per live (q, k) pair.  Ragged edges are masked in the kernels, so
-q/k/v are never padded.
+per live (q, k) pair (three times that on the TF32 route).  Ragged
+edges are masked in the kernels, so q/k/v are never padded (the TF32
+route's split scratch pads the keys with zeros).
 
 They take q ``(BH, Sq, D)`` and k, v ``(BH_kv, Sk, D)`` with ``BH %
 BH_kv == 0`` (GQA: query head ``bh`` reads kv head ``bh // (BH //
@@ -38,13 +46,21 @@ from typing import Optional
 import torch
 
 from . import _build
-from .ref import attention_ref
+from .ref import TF32_KEY_ORDER, TF32_KEY_PAD, attention_ref
 
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)
 SM90_HEAD_DIMS = (64, 128, 256)
+TF32_HEAD_DIMS = (64, 128, 256)
 INPUT_DTYPES = (torch.float32, torch.bfloat16)
 # launch-count name of each route's kernel
-ROUTE_KERNELS = {"sm90": "flash_attention", "simt": "flash_attention_simt"}
+ROUTE_KERNELS = {"sm90": "flash_attention", "tf32": "flash_attention_tf32",
+                 "simt": "flash_attention_simt"}
+SPLIT_KERNEL = "tf32_split"     # the TF32 route's pre-pass
+# the TF32 kernel's P V operand order (csrc/flash_attention_tf32.cu): slot
+# j of each group of 8 keys of the split V^T holds key TF32_KEY_ORDER[j]
+# (ref.py), and register r of P's tf32 A fragment holds accumulator
+# element TF32_P_REGS[r] of the thread's 4 in that group
+TF32_P_REGS = (0, 2, 1, 3)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -53,17 +69,36 @@ _F = ctypes.c_float
 
 def _route(dtype: torch.dtype, d: int) -> str:
     """The kernel that takes (dtype, head_dim): ``"sm90"`` (tensor
-    cores) for bfloat16 with D in ``SM90_HEAD_DIMS``, ``"simt"`` (CUDA
-    cores, f32) for every other case the wrapper accepts."""
+    cores, bf16) for bfloat16 with D in ``SM90_HEAD_DIMS``, ``"tf32"``
+    (tensor cores, 3xTF32) for float32 with D in ``TF32_HEAD_DIMS``,
+    ``"simt"`` (CUDA cores, f32) for every other case the wrapper
+    accepts."""
     if dtype not in INPUT_DTYPES or d not in HEAD_DIMS:
         raise ValueError(f"no flash-attention kernel takes {dtype} with "
                          f"head_dim {d}")
     if dtype == torch.bfloat16 and d in SM90_HEAD_DIMS:
         return "sm90"
+    if dtype == torch.float32 and d in TF32_HEAD_DIMS:
+        return "tf32"
     return "simt"
 
 
+def _tf32_lib():
+    lib = _build.library("flash_attention_tf32")
+    if lib.flash_attention_tf32_launch.argtypes is None:
+        lib.flash_attention_tf32_launch.argtypes = \
+            [_P] * 4 + [_I] * 10 + [_F, _P]
+        lib.flash_attention_tf32_launch.restype = _I
+        lib.tf32_split_launch.argtypes = [_P] * 4 + [_I] * 4 + [_P]
+        lib.tf32_split_launch.restype = _I
+        lib.tf32_fragment_probe_launch.argtypes = [_P, _P]
+        lib.tf32_fragment_probe_launch.restype = _I
+    return lib
+
+
 def _launcher(route: str):
+    if route == "tf32":
+        return _tf32_lib().flash_attention_tf32_launch
     if route == "sm90":
         fn = _build.library("flash_attention_sm90") \
             .flash_attention_sm90_launch
@@ -102,6 +137,68 @@ def _check(q, k, v, q_offset: int) -> None:
         raise ValueError(f"q_offset must be >= 0; got {q_offset}")
 
 
+def tf32_split_cuda(k: torch.Tensor, v: torch.Tensor):
+    """Launch the TF32 route's pre-pass on float32 k, v ``(BH_kv, Sk,
+    D)`` (CUDA, contiguous, D a multiple of 32): returns ``(k_split,
+    vt_split)``, ``(2, BH_kv, Sk_pad, D)`` and ``(2, BH_kv, D, Sk_pad)``
+    float32 (hi then lo, V transposed with each group of 8 keys in
+    ``TF32_KEY_ORDER``, keys past Sk zero; ``Sk_pad``: Sk rounded up to
+    a positive multiple of ``ref.TF32_KEY_PAD``).  Bit for bit
+    ``ref.tf32_split_ref``."""
+    if (k.device.type != "cuda" or v.device != k.device
+            or k.dtype != torch.float32 or v.dtype != torch.float32
+            or k.dim() != 3 or k.shape != v.shape or k.shape[2] % 32
+            or not (k.is_contiguous() and v.is_contiguous())):
+        raise ValueError("tf32_split_cuda takes contiguous float32 CUDA k, "
+                         "v of one shape (BH_kv, Sk, D), D a multiple of "
+                         f"32; got {k.dtype} {tuple(k.shape)} on "
+                         f"{k.device}, {v.dtype} {tuple(v.shape)}")
+    bh_kv, sk, d = k.shape
+    sk_pad = max(-(-sk // TF32_KEY_PAD), 1) * TF32_KEY_PAD
+    k_split = torch.empty((2, bh_kv, sk_pad, d), dtype=torch.float32,
+                          device=k.device)
+    vt_split = torch.empty((2, bh_kv, d, sk_pad), dtype=torch.float32,
+                           device=k.device)
+    err = _tf32_lib().tf32_split_launch(
+        k.data_ptr(), v.data_ptr(), k_split.data_ptr(), vt_split.data_ptr(),
+        bh_kv, sk, sk_pad, d, _build.stream_ptr(k))
+    _build.check(err, SPLIT_KERNEL)
+    _build.count_launch(SPLIT_KERNEL)
+    return k_split, vt_split
+
+
+def tf32_fragment_layout(device="cuda") -> torch.Tensor:
+    """Run the TF32 kernel's fragment probe on the card: a wgmma with
+    register A against the identity.  Returns the (64, 8) int64 map of
+    the tf32 A fragment: entry (row, k) is ``128 warp + 4 lane + r`` of
+    the thread and register that supply A's element (row, k).  Not
+    counted: it is no part of attention."""
+    out = torch.zeros((64, 8), dtype=torch.float32, device=device)
+    err = _tf32_lib().tf32_fragment_probe_launch(out.data_ptr(),
+                                                 _build.stream_ptr(out))
+    _build.check(err, "tf32_fragment_probe")
+    return out.round().long() - 1
+
+
+def tf32_fragment_errors(layout: torch.Tensor) -> int:
+    """The A-fragment elements where the TF32 kernel would put another P
+    value than the key order ``TF32_KEY_ORDER`` asks for, by the probe's
+    ``layout``: register r of thread (warp, lane) holds accumulator
+    element ``c = TF32_P_REGS[r]``, that is row ``16 warp + lane // 4 +
+    8 (c // 2)`` and key ``2 (lane % 4) + c % 2`` of its group, which
+    must be A's element (row, k) with key ``TF32_KEY_ORDER[k]``.  0 when
+    the kernel's layout assumptions hold."""
+    bad = 0
+    for row in range(64):
+        for k in range(8):
+            src = int(layout[row, k])
+            warp, lane, r = src // 128, (src % 128) // 4, src % 4
+            c = TF32_P_REGS[r]
+            bad += (16 * warp + lane // 4 + 8 * (c // 2),
+                    2 * (lane % 4) + c % 2) != (row, TF32_KEY_ORDER[k])
+    return bad
+
+
 def flash_attention_cuda(q, k, v, *, causal: bool = True,
                          window: Optional[int] = None,
                          scale: Optional[float] = None,
@@ -115,17 +212,20 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
 
 def _launch(route: str, q, k, v, *, causal: bool = True,
             window: Optional[int] = None, scale: Optional[float] = None,
-            q_offset: int = 0) -> torch.Tensor:
+            q_offset: int = 0, split=None) -> torch.Tensor:
     """Launch the kernel of ``route`` on checked inputs.  The CUDA-core
     kernel takes every case; chip_smoke.py times it beside the
-    tensor-core kernel at the same bf16 shape through this function."""
+    tensor-core kernels at their shapes through this function.
+    ``split``: the TF32 route's pre-pass output for these k, v
+    (``tf32_split_cuda``), made here when None; chip_smoke.py passes it
+    to time the attention kernel on its own."""
     if q.device.type != "cuda":
         raise ValueError("flash_attention_cuda takes CUDA tensors")
     for x in (q, k, v):
         if x.data_ptr() % 16:
             raise ValueError("attention takes 16-byte aligned q, k, v")
     if route not in ROUTE_KERNELS or (
-            route == "sm90" and _route(q.dtype, q.shape[2]) != "sm90"):
+            route != "simt" and _route(q.dtype, q.shape[2]) != route):
         raise ValueError(f"route {route!r} does not take {q.dtype} with "
                          f"head_dim {q.shape[2]}")
     bh, sq, d = q.shape
@@ -134,7 +234,26 @@ def _launch(route: str, q, k, v, *, causal: bool = True,
     out = torch.empty_like(q)
     mask = (int(bool(causal)), int(window is not None), int(window or 0),
             int(q_offset))
-    if route == "sm90":
+    if route == "tf32":
+        k_split, vt_split = split if split is not None \
+            else tf32_split_cuda(k, v)
+        sk_pad = k_split.shape[2]
+        if (k_split.shape != (2, bh_kv, sk_pad, d) or sk_pad < max(sk, 1)
+                or sk_pad % TF32_KEY_PAD
+                or vt_split.shape != (2, bh_kv, d, sk_pad)
+                or k_split.dtype != torch.float32
+                or vt_split.dtype != torch.float32
+                or k_split.device != q.device
+                or vt_split.device != q.device
+                or not (k_split.is_contiguous()
+                        and vt_split.is_contiguous())):
+            raise ValueError("split is not tf32_split_cuda's output for "
+                             "these k, v")
+        err = _launcher(route)(
+            q.data_ptr(), k_split.data_ptr(), vt_split.data_ptr(),
+            out.data_ptr(), bh, bh_kv, sq, sk, k_split.shape[2], d, *mask,
+            float(scale), _build.stream_ptr(q))
+    elif route == "sm90":
         err = _launcher(route)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh,
             bh_kv, sq, sk, d, *mask, float(scale), _build.stream_ptr(q))

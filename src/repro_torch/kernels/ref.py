@@ -157,7 +157,8 @@ def deliver_runs_ref(runs: dict, flag, ring, t_slot: int, events):
     every pair (source group S -> target column, delay) and every
     flagged row of S, the row's run ``[start, start + len)`` of the
     descriptor's entry arrays is added into the ring at the pair's delay
-    slot; the flagged rows' ``nnz`` goes into ``events``.  ``flag``:
+    slot; the flagged rows' run lengths (their ``nnz``: the runs cover
+    every valid entry once) go into ``events``.  ``flag``:
     bool/uint8 (rows + 1,).  The adds come in another order than the
     reference's, which is exact for bfloat16 weights only."""
     d_ring, n_local = ring.shape
@@ -180,7 +181,7 @@ def deliver_runs_ref(runs: dict, flag, ring, t_slot: int, events):
     slot = (t_slot + runs["pair_dslot"].long()[p_i][rep]) % d_ring
     ring.view(-1).index_add_(0, slot * n_local + runs["tgt"][r, k].long(),
                              runs["w"][r, k].to(torch.float32))
-    events += runs["nnz"][:n_rows][flag[:n_rows]].sum().to(torch.int32)
+    events += lens.sum().to(torch.int32)
     return ring
 
 
@@ -252,3 +253,51 @@ def attention_ref(q, k, v, *, causal=True, window=None, scale=None,
     p = torch.where(torch.isnan(p), torch.zeros_like(p), p)
     return torch.einsum("bqk,bkd->bqd", p,
                         vv.to(torch.float32)).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# The TF32 flash route's pre-pass (kernels/flash_attention.py)
+# ---------------------------------------------------------------------------
+
+# keys are padded with zeros to a multiple of this in the split scratch
+TF32_KEY_PAD = 64
+# slot j of each group of 8 keys of the split V^T holds key
+# TF32_KEY_ORDER[j] (the order of the TF32 kernel's P fragment)
+TF32_KEY_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` rounded to TF32's 10 mantissa bits, to nearest with
+    ties away from zero, on the bit pattern: add ``0x1000`` and clear
+    the low 13 bits (``cvt.rna.tf32.f32`` for finite values)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor):
+    """``(hi, lo)`` with ``hi = tf32(x)``, ``lo = tf32(x - hi)``: x = hi +
+    lo to about 2^-22 of x, each part exact in TF32."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
+def tf32_split_ref(k: torch.Tensor, v: torch.Tensor):
+    """Plain version of the TF32 route's pre-pass: float32 k, v ``(BH_kv,
+    Sk, D)`` -> ``(k_split, vt_split)``: ``k_split`` ``(2, BH_kv, Sk_pad,
+    D)`` holds ``tf32_split(k)`` (hi, lo), ``vt_split`` ``(2, BH_kv, D,
+    Sk_pad)`` the split of V transposed, slot j of each group of 8 keys
+    holding key ``TF32_KEY_ORDER[j]``; keys past Sk are 0 and Sk_pad is
+    Sk rounded up to a positive multiple of ``TF32_KEY_PAD``."""
+    bh_kv, sk, d = k.shape
+    sk_pad = max(-(-sk // TF32_KEY_PAD), 1) * TF32_KEY_PAD
+
+    def pad(x):
+        return torch.nn.functional.pad(x.to(torch.float32),
+                                       (0, 0, 0, sk_pad - sk))
+
+    order = torch.tensor(TF32_KEY_ORDER, device=k.device)
+    keys = (torch.arange(sk_pad, device=k.device) // 8 * 8).view(-1, 8)
+    vt = pad(v)[:, (keys + order).view(-1)].transpose(1, 2)
+    return (torch.stack(tf32_split(pad(k))),
+            torch.stack(tf32_split(vt.contiguous())))
+

@@ -39,6 +39,7 @@ Wrappers launch a kernel for CUDA tensors and take the plain version
 from __future__ import annotations
 
 import ctypes
+import weakref
 from typing import Sequence, Tuple
 
 import torch
@@ -92,22 +93,75 @@ def _window_bytes() -> int:
 
 
 def _window_scale(w: torch.Tensor, tgt: torch.Tensor, n_local: int):
-    """2^s such that every weight times 2^s is a whole number and every
-    target's summed |weight| times 2^s stays below 2^24, or 0.0 where no
-    such s exists.  With it the column kernel accumulates whole numbers
-    in an int32 window (native shared-memory atomics) that convert back
-    to float32 exactly; a bf16 weight ``m * 2^(e - 8)`` (frexp) needs
-    ``s >= 8 - e``."""
+    """2^s, the least such that every weight times 2^s is a whole number
+    (a bf16 weight ``m * 2^(e - 8)`` (frexp) needs ``s >= 8 - e``), or
+    0.0 where s falls outside -100..30 (weights on no common grid: the
+    float32 window).  With it the column kernel accumulates whole
+    numbers in an int32 window (native shared-memory atomics) that
+    convert back to float32 exactly.  Raises where a target's summed
+    |weight| times 2^s reaches 2^24: the int32 window would lose bits,
+    and so would float32 sums taken in no fixed order."""
     wa = w.to(torch.float32).abs()
     nz = wa > 0
     if not bool(nz.any()):
         return 1.0
     s = int((8 - torch.frexp(wa[nz]).exponent).max())
+    if not -100 <= s <= 30:
+        return 0.0
     # repro-lint: ignore[dtype-bounds] a host-side bound, not stored
     per_target = torch.zeros(n_local, dtype=torch.float64, device=w.device)
     per_target.index_add_(0, tgt.long(), wa.double())
-    fits = -100 <= s <= 30 and float(per_target.max()) * 2.0 ** s < 2 ** 24
-    return 2.0 ** s if fits else 0.0
+    top = float(per_target.max())
+    if top * 2.0 ** s >= 2 ** 24:
+        raise ValueError(
+            f"a target's summed |weight| {top} times 2^{s} reaches 2^24: "
+            "the column kernel's window (and float32 sums in no fixed "
+            "order) would not be exact")
+    return 2.0 ** s
+
+
+def _stamp(tensors) -> list:
+    """Weak references to ``tensors`` and their version counters."""
+    return [(weakref.ref(x), x._version) for x in tensors]
+
+
+def _stamped(stamp: list, tensors) -> bool:
+    """Whether ``tensors`` are the very tensors of ``stamp``, unedited."""
+    for (ref, version), x in zip(stamp, tensors):
+        if ref() is not x or x._version != version:
+            return False
+    return True
+
+
+def bind_column_weights(runs: dict, tier: dict) -> dict:
+    """Make the run descriptor ``runs`` deliver ``tier["w"]``, in place.
+
+    The descriptor's structure (``pair_ptr``, ``pair_src``,
+    ``pair_dslot``, ``runs``, ``tgt``, ``perm``) depends only on the
+    tier's tgt, dslot and nnz.  Its weight-dependent fields -- ``w``
+    (the tier's weights, or their row-sorted copy ``gather(w, 1, perm)``)
+    and ``scale`` (``_window_scale``) -- are bound to the weight tensor
+    they came from and its version counter: a replaced or in-place
+    edited ``w`` refreshes them with torch ops on its device, and
+    weights past the window limit raise as the build does.  Free when
+    nothing changed.  Returns ``runs``."""
+    w = tier["w"]
+    if _stamped(runs["w_of"], (w,)):
+        return runs
+    tgt, perm = runs["tgt"], runs["perm"]
+    if w.shape != tgt.shape or w.device != tgt.device:
+        raise ValueError(f"weights {tuple(w.shape)} on {w.device} do not "
+                         f"fit the descriptor's {tuple(tgt.shape)} entries "
+                         f"on {tgt.device}")
+    wr = w if perm is None else torch.gather(w, 1, perm.long())
+    n_rows, cap = tgt.shape[0] - 1, tgt.shape[1]
+    # a row-sorted copy keeps each row's valid entries first
+    valid = (torch.arange(cap, device=w.device)[None, :]
+             < tier["nnz"][:n_rows, None])
+    scale = _window_scale(wr[:n_rows][valid], tgt[:n_rows][valid],
+                          runs["n_local"])
+    runs.update(w=wr, scale=scale, w_of=_stamp((w,)))
+    return runs
 
 
 def build_column_runs(tier: dict, row_group: int, col_width: int,
@@ -186,17 +240,20 @@ def build_column_runs(tier: dict, row_group: int, col_width: int,
     runs[pid, rr % row_group] = (kk << 32) | length
     out = {"pair_ptr": pair_ptr, "pair_src": p_src.to(torch.int32),
            "pair_dslot": p_d.to(torch.int32), "runs": runs,
-           "tgt": tgt, "w": w, "nnz": nnz, "perm": perm,
+           "tgt": tgt, "w": w, "perm": perm,
            # a row-sorted copy keeps each row's valid entries first
            "scale": _window_scale(w[:n_rows][valid], tgt[:n_rows][valid],
-                                  n_local)}
+                                  n_local),
+           "of": _stamp((tier["tgt"], dslot, nnz)),
+           "w_of": _stamp((tier["w"],))}
     nbytes = sum(out[name].numel() * out[name].element_size()
                  for name in ("pair_ptr", "pair_src", "pair_dslot", "runs"))
     if perm is not None:
         nbytes += sum(x.numel() * x.element_size() for x in (perm, tgt, w))
     return dict(out, row_group=row_group, col_width=col_width,
-                n_tcols=n_tcols, max_pairs=int(per_col.max()) if n_tcols
-                else 0, nbytes=nbytes)
+                n_tcols=n_tcols, n_local=n_local,
+                max_pairs=int(per_col.max()) if n_tcols else 0,
+                nbytes=nbytes)
 
 
 # ---------------------------------------------------------------------------
@@ -243,8 +300,9 @@ def deliver_columns_cuda(tables: dict, runs: dict, bits: torch.Tensor,
                          events) -> torch.Tensor:
     """Launch the column kernel for one tier: the rows set in ``bits``
     (int32, ``ref.delivered_bits``) through the tier's run descriptor
-    ``runs`` (``build_column_runs`` of these tables).  ``events``: int32
-    (1,) counter (or None)."""
+    ``runs`` (``build_column_runs`` of these tables' tgt, dslot and nnz,
+    bound to their weights first: ``bind_column_weights``).  ``events``:
+    int32 (1,) counter (or None)."""
     _check_tier(tables, ring)
     w = tables["w"]
     if w.dtype not in _ORDER_FREE_W:
@@ -261,11 +319,11 @@ def deliver_columns_cuda(tables: dict, runs: dict, bits: torch.Tensor,
             f"words exceeds the {_window_bytes()} B of shared memory a "
             f"block has beside the kernel's {COLUMN_STATIC_SMEM} B of "
             "static arrays")
-    if (runs["nnz"].data_ptr() != tables["nnz"].data_ptr()
-            or runs["tgt"].shape != tables["tgt"].shape
-            or runs["n_tcols"] != -(-n_local // width)):
-        raise ValueError("the run descriptor was built for other tables "
-                         "or another ring width")
+    if (not _stamped(runs["of"], (tables["tgt"], tables["dslot"],
+                                  tables["nnz"]))
+            or runs["n_local"] != n_local):
+        raise ValueError("the run descriptor was built for other (or since "
+                         "edited) tables or another ring width")
     if (ring.device.type != "cuda" or bits.device != ring.device
             or bits.dtype != torch.int32
             or bits.shape != ((n_rows + 32) // 32,)):
@@ -276,6 +334,7 @@ def deliver_columns_cuda(tables: dict, runs: dict, bits: torch.Tensor,
                                or events.device != ring.device):
         raise ValueError("events must be an int32 counter on the ring's "
                          "device")
+    bind_column_weights(runs, tables)
     tgt = runs["tgt"]
     n_tcols = runs["n_tcols"]
     # enough blocks for a few waves, so that hot columns even out, and
@@ -346,7 +405,7 @@ def event_delivery_banded(tiers: Sequence[Tuple[dict, torch.Tensor, int]],
     optional per-tier ``TierPlan`` sequence from
     ``SynapseTableSpec.delivery_plan()`` the tables are validated
     against.  ``runs``: the tiers' run descriptors
-    (``SynapseTables.column_runs``), which a CUDA ring needs (the CPU's
+    (``core.synapses.column_runs``), which a CUDA ring needs (the CPU's
     plain version delivers without them).  Returns (ring, n_events int32, n_dropped) summed
     over tiers; the ring is updated in place.
     """
@@ -359,7 +418,7 @@ def event_delivery_banded(tiers: Sequence[Tuple[dict, torch.Tensor, int]],
     cuda = _build.on_cuda(i_ring)
     if cuda and runs is None:
         raise ValueError("the column delivery kernel needs the tiers' run "
-                         "descriptors (SynapseTables.column_runs)")
+                         "descriptors (core.synapses.column_runs)")
     if runs is not None and len(runs) != len(tiers):
         raise ValueError(f"{len(runs)} run descriptors for {len(tiers)} "
                          "tiers")

@@ -146,14 +146,134 @@ def test_cpu_attention_launches_no_kernel():
 @pytest.mark.parametrize("d", [8, 16, 32, 64, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_route(dtype, d):
-    """bf16 at head_dim 64/128/256 takes the tensor-core kernel, every
-    other accepted case the CUDA-core kernel (float32 keeps f32)."""
+    """At head_dim 64/128/256 bf16 takes the bf16 tensor-core kernel and
+    float32 the 3xTF32 tensor-core kernel; head_dim 8-32 takes the
+    CUDA-core kernel in both dtypes."""
     from repro_torch.kernels.flash_attention import (ROUTE_KERNELS,
-                                                     SM90_HEAD_DIMS, _route)
-    want = "sm90" if dtype == torch.bfloat16 and d in SM90_HEAD_DIMS \
-        else "simt"
+                                                     SM90_HEAD_DIMS,
+                                                     TF32_HEAD_DIMS, _route)
+    if dtype == torch.bfloat16 and d in SM90_HEAD_DIMS:
+        want = "sm90"
+    elif dtype == torch.float32 and d in TF32_HEAD_DIMS:
+        want = "tf32"
+    else:
+        want = "simt"
     assert _route(dtype, d) == want
-    assert ROUTE_KERNELS[want] in ("flash_attention", "flash_attention_simt")
+    assert ROUTE_KERNELS[want] in ("flash_attention", "flash_attention_tf32",
+                                   "flash_attention_simt")
+
+
+# ---------------------------------------------------------------------------
+# the TF32 route's arithmetic, emulated in plain torch
+# ---------------------------------------------------------------------------
+
+def _emulate_tf32(q, k, v, *, products, causal=True, window=None,
+                  q_offset=0):
+    """The TF32 kernel's arithmetic: K and V^T from the pre-pass's plain
+    version (``tref.tf32_split_ref``, V^T in its key order), Q and P
+    split by ``tref.tf32_split``, ``products`` TF32 products per matmul
+    (3: hi hi + hi lo + lo hi; 1: hi hi) summed exactly (float64) and
+    rounded to float32, P V over the permuted keys; softmax in float32."""
+    bh, sq, d = q.shape
+    bhkv, sk, _ = k.shape
+    group = bh // bhkv
+    k_split, vt_split = tref.tf32_split_ref(k, v)
+    sk_pad = k_split.shape[2]
+    perm = ((torch.arange(sk_pad) // 8 * 8).view(-1, 8)
+            + torch.tensor(tref.TF32_KEY_ORDER)).view(-1)
+    pairs = [(0, 0), (0, 1), (1, 0)][:products]
+
+    def mm(eq, a, b):
+        return sum(torch.einsum(eq, a[i].double(), b[j].double())
+                   for i, j in pairs).to(torch.float32)
+
+    kp = [x.repeat_interleave(group, 0) for x in k_split]
+    vp = [x.repeat_interleave(group, 0) for x in vt_split]
+    s = mm("bqd,bkd->bqk", tref.tf32_split(q), kp) / np.sqrt(d)
+    q_pos = q_offset + torch.arange(sq)[:, None]
+    k_pos = torch.arange(sk_pad)[None, :]
+    live = (k_pos < sk) & (q_pos >= 0)
+    if causal:
+        live &= k_pos <= q_pos
+    if window is not None:
+        live &= (q_pos - k_pos) < window
+    s = s.masked_fill(~live[None], float("-inf"))
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - torch.where(torch.isinf(m), torch.zeros_like(m), m))
+    l = p.sum(-1, keepdim=True)
+    o = mm("bqk,bdk->bqd", tref.tf32_split(p[..., perm].contiguous()), vp)
+    return torch.where(l > 0, o / l, torch.zeros_like(o))
+
+
+TF32_CASES = [                     # (bh, bh_kv, sq, sk, d, causal, window)
+    (4, 2, 96, 96, 64, True, None),
+    (4, 2, 96, 96, 64, True, 40),
+    (6, 2, 80, 100, 128, True, None),
+    (6, 2, 80, 100, 128, False, 33),
+]
+
+
+@pytest.mark.parametrize("bh,bhkv,sq,sk,d,causal,win", TF32_CASES)
+def test_3xtf32_emulation_holds_float32_tolerance(bh, bhkv, sq, sk, d,
+                                                  causal, win):
+    """Three TF32 products per matmul (the TF32 kernel's design) hold the
+    float32 tolerance against the reference's flash kernel, causal and
+    windowed, GQA."""
+    rng = np.random.default_rng(bh * 100 + d + (win or 0))
+    q, k, v = _qkv(rng, bh, bhkv, sq, sk, d)
+    kw = dict(causal=causal, window=win)
+    want = jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                  block_q=32, block_k=32, interpret=True, **kw)
+    got = _emulate_tf32(torch.from_numpy(q), torch.from_numpy(k),
+                        torch.from_numpy(v), products=3, **kw)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=TOL["float32"],
+                               atol=TOL["float32"])
+
+
+def test_one_tf32_product_misses_float32_tolerance():
+    """One TF32 product per matmul does not hold the float32 tolerance
+    (the reason the kernel takes three)."""
+    rng = np.random.default_rng(5)
+    q, k, v = _qkv(rng, 4, 2, 128, 128, 128)
+    want = _f32(jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                       block_q=32, block_k=32, interpret=True, causal=True))
+    one = _f32(_emulate_tf32(torch.from_numpy(q), torch.from_numpy(k),
+                             torch.from_numpy(v), products=1))
+    three = _f32(_emulate_tf32(torch.from_numpy(q), torch.from_numpy(k),
+                               torch.from_numpy(v), products=3))
+    tol = TOL["float32"]
+    assert not np.allclose(one, want, rtol=tol, atol=tol)
+    np.testing.assert_allclose(three, want, rtol=tol, atol=tol)
+    assert np.abs(one - want).max() > 10 * np.abs(three - want).max()
+
+
+@pytest.mark.parametrize("sk", [1, 64, 77, 130])
+def test_tf32_split_plain_version(sk):
+    """The pre-pass's plain version: hi and lo are TF32 values (low 13
+    bits 0) that sum to x within 2^-21 of it, rounded to nearest with
+    ties away from zero; V^T holds each group of 8 keys in
+    ``TF32_KEY_ORDER``; keys past Sk are 0; Sk_pad is a multiple of
+    ``TF32_KEY_PAD``."""
+    rng = np.random.default_rng(sk)
+    k = torch.from_numpy(rng.normal(size=(3, sk, 64)).astype(np.float32))
+    v = torch.from_numpy(rng.normal(size=(3, sk, 64)).astype(np.float32))
+    ks, vts = tref.tf32_split_ref(k, v)
+    pad = max(-(-sk // tref.TF32_KEY_PAD), 1) * tref.TF32_KEY_PAD
+    assert ks.shape == (2, 3, pad, 64) and vts.shape == (2, 3, 64, pad)
+    for x in (ks, vts):
+        assert not bool((x.view(torch.int32) & 0x1FFF).any())
+    err = (ks[0, :, :sk] + ks[1, :, :sk] - k).abs()
+    assert bool((err <= k.abs() * 2.0 ** -21).all())
+    assert not ks[:, :, sk:].any()
+    for j in range(pad):
+        key = j // 8 * 8 + tref.TF32_KEY_ORDER[j % 8]
+        want = tref.tf32_split(v[:, key]) if key < sk else (0, 0)
+        for part in range(2):
+            assert torch.equal(vts[part, :, :, j],
+                               torch.as_tensor(want[part]).expand(3, 64))
+    ties = torch.tensor([1 + 2.0 ** -11, -(1 + 2.0 ** -11), 1 + 2.0 ** -12])
+    assert tref.tf32_round(ties).tolist() == [1 + 2.0 ** -10,
+                                              -(1 + 2.0 ** -10), 1.0]
 
 
 @pytest.mark.parametrize("dtype,d", [(torch.float16, 64),

@@ -456,29 +456,33 @@ def test_flash_kernel_fully_masked_rows_are_zero(cuda):
 
 
 def test_flash_wrapper_counts_launches_and_refuses(cuda):
-    """Launches are counted per route: float32 and bf16 at head_dim 32
-    take the CUDA-core kernel, bf16 at head_dim 64 the tensor-core one."""
+    """Launches are counted per route: float32 at head_dim 64 takes the
+    3xTF32 kernel (and its pre-pass), bf16 at head_dim 64 the bf16
+    tensor-core one, both dtypes at head_dim 32 the CUDA-core kernel."""
     from repro_torch.kernels import ops
     q = torch.randn(4, 32, 64, device=cuda)
     k = torch.randn(2, 32, 64, device=cuda)
     _build.reset_launch_counts()
     ops.attention(q, k, k)
     ops.attention(q, k, k, causal=False)
-    assert _build.launch_counts() == {"flash_attention_simt": 2}
+    assert _build.launch_counts() == {"flash_attention_tf32": 2,
+                                      "tf32_split": 2}
     ops.attention(q.bfloat16(), k.bfloat16(), k.bfloat16())
     ops.attention(q[..., :32].bfloat16().contiguous(),
                   k[..., :32].bfloat16().contiguous(),
                   k[..., :32].bfloat16().contiguous())
-    assert _build.launch_counts() == {"flash_attention_simt": 3,
-                                      "flash_attention": 1}
+    ops.attention(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                  k[..., :32].contiguous())
+    want = {"flash_attention_tf32": 2, "tf32_split": 2,
+            "flash_attention_simt": 2, "flash_attention": 1}
+    assert _build.launch_counts() == want
     for bad in (torch.randn(2, 8, 12, device=cuda),
                 torch.randn(2, 8, 512, device=cuda)):
         with pytest.raises(ValueError, match="head_dim"):
             ops.attention(bad, bad, bad)
     with pytest.raises(ValueError, match="device"):
         ops.attention(q, k.cpu(), k)
-    assert _build.launch_counts() == {"flash_attention_simt": 3,
-                                      "flash_attention": 1}
+    assert _build.launch_counts() == want
 
 
 # the tensor-core kernel's cases (bf16, head_dim 64/128/256): Sq = 1,
@@ -582,3 +586,149 @@ def test_serve_batch_on_card(cuda):
                         device=cuda)
     assert out["tokens"].shape == (2, 4) and out["prefill_s"] > 0
     np.testing.assert_array_equal(out["tokens"], again["tokens"])
+
+
+# ---------------------------------------------------------------------------
+# the 3xTF32 route (float32, head_dim 64/128/256)
+# ---------------------------------------------------------------------------
+
+def test_tf32_fragment_layout_is_what_the_kernel_assumes(cuda):
+    """The probe's tf32 A fragment (a wgmma against the identity) puts
+    each P value where the kernel's key order and register map say."""
+    from repro_torch.kernels.flash_attention import (tf32_fragment_errors,
+                                                     tf32_fragment_layout)
+    layout = tf32_fragment_layout(cuda)
+    torch.cuda.synchronize()
+    assert sorted(layout.view(-1).tolist()) == list(range(512))
+    assert tf32_fragment_errors(layout.cpu()) == 0
+
+
+@pytest.mark.parametrize("sk,d", [(1, 64), (77, 64), (300, 128),
+                                  (2048, 128), (130, 256)])
+def test_tf32_split_kernel_bit_exact(cuda, sk, d):
+    from repro_torch.kernels.flash_attention import tf32_split_cuda
+    g = torch.Generator(device=cuda).manual_seed(sk + d)
+    k, v = (torch.randn((3, sk, d), device=cuda, generator=g) * 10
+            for _ in range(2))
+    _build.reset_launch_counts()
+    got = tf32_split_cuda(k, v)
+    want = ref.tf32_split_ref(k, v)
+    torch.cuda.synchronize()
+    assert _build.launch_counts() == {"tf32_split": 1}
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("bh,bhkv,sq,sk,d,causal,win,qoff", SM90_CASES)
+def test_flash_tf32_kernel_matches_plain(cuda, bh, bhkv, sq, sk, d, causal,
+                                         win, qoff):
+    """The 3xTF32 kernel at the bf16 kernel's edge cases, in float32,
+    within the float32 tolerance of the plain version (f32 products, TF32
+    off): one launch of it and one of its pre-pass each."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda).manual_seed(sq * 5 + sk + d)
+    q, k, v = (torch.randn(s, device=cuda, generator=g)
+               for s in ((bh, sq, d), (bhkv, sk, d), (bhkv, sk, d)))
+    kw = dict(causal=causal, window=win, q_offset=qoff)
+    _build.reset_launch_counts()
+    got = flash_attention_cuda(q, k, v, **kw)
+    want = ref.attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert _build.launch_counts() == {"flash_attention_tf32": 1,
+                                      "tf32_split": 1}
+    assert got.dtype == torch.float32 and got.shape == (bh, sq, d)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_tf32_fully_masked_rows_are_zero(cuda, d):
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    g = torch.Generator(device=cuda).manual_seed(d)
+    q = torch.randn(2, 8, d, device=cuda, generator=g)
+    out = flash_attention_cuda(q, q, q, causal=False, window=2,
+                               q_offset=100)
+    q = torch.randn(2, 200, d, device=cuda, generator=g)
+    k = torch.randn(2, 64, d, device=cuda, generator=g)
+    out2 = flash_attention_cuda(q, k, k, causal=True, window=100)
+    want = ref.attention_ref(q, k, k, causal=True, window=100)
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.zeros_like(out))
+    assert torch.equal(out2[:, 163:], torch.zeros_like(out2[:, 163:]))
+    torch.testing.assert_close(out2, want, rtol=2e-4, atol=2e-4)
+
+
+# ---------------------------------------------------------------------------
+# dict-form tables and weight binding on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("law", ["gaussian", "exponential"])
+def test_dict_form_delivery_on_the_card(cuda, law):
+    """bf16 tables in dict form deliver through the column kernel exactly
+    as the ``SynapseTables`` do, with the same run descriptors (found on
+    the tier tensors, not rebuilt); every tier of a 2x2 tiling."""
+    from repro_torch.core import synapses as tsyn
+    _, tcfg = configs(law, grid=4, n_per_col=100, tiles=2)
+    spec = tcfg.spec()
+    tabs = teng.build_shard_tables(tcfg, 1, 0, compress=False, device=cuda)
+    as_dict = {"local": tabs.local, "halo": list(tabs.halo)}
+    plan = spec.delivery_plan()
+    g = torch.Generator(device=cuda).manual_seed(11)
+    spk = (torch.rand(spec.n_local, device=cuda, generator=g) < 0.1).float()
+    bands = [(torch.rand(p.rows, device=cuda, generator=g) < 0.1).float()
+             for p in plan[1:]]
+    ring = torch.zeros((8, spec.n_local), device=cuda)
+    runs = tabs.column_runs(spec.n_per_col, spec.n_exc_per_col, 8)
+    builds = tsyn.BUILD_COUNTS["column_runs"]
+    out = []
+    for t in (tabs, as_dict, tabs):
+        _build.reset_launch_counts()
+        out.append(teng.deliver_event_tiers(t, spk, bands, spec,
+                                            ring.clone(), 3, 8, True))
+        assert _build.launch_counts() == {"event_delivery": len(plan)}
+    plain = teng.deliver_event_tiers(as_dict, spk, bands, spec,
+                                     ring.clone(), 3, 8, False)
+    torch.cuda.synchronize()
+    assert tsyn.BUILD_COUNTS["column_runs"] == builds
+    assert tsyn.column_runs(tsyn.tier_list(as_dict), spec.n_per_col,
+                            spec.n_exc_per_col, 8) is runs
+    for r, ev, dr in out:
+        assert torch.equal(r.view(torch.int32), plain[0].view(torch.int32))
+        assert float(ev) == float(plain[1]) > 0
+        assert float(dr) == float(plain[2])
+
+
+@pytest.mark.parametrize("law", ["gaussian", "exponential"])
+def test_column_delivery_follows_new_weights(cuda, law):
+    """A tier handed with replaced (``dict(tier, w=2 w)``) or in-place
+    edited weights delivers them, as the plain version does, through the
+    same descriptor; weights past the window limit raise."""
+    _, tcfg = configs(law, grid=4, n_per_col=100)
+    spec = tcfg.spec()
+    tabs = teng.build_shard_tables(tcfg, device=cuda)
+    cap = spec.active_cap_local
+    g = torch.Generator(device=cuda).manual_seed(5)
+    spk = (torch.rand(spec.n_local, device=cuda, generator=g) < 0.2).float()
+    runs = tabs.column_runs(spec.n_per_col, spec.n_exc_per_col, 8)[:1]
+
+    def both(tier):
+        ring = torch.zeros((8, spec.n_local), device=cuda)
+        rk, _, _ = event_delivery_banded([(tier, spk, cap)], ring.clone(), 4,
+                                         8, runs=runs)
+        rp, _, _ = deliver_events(tier, spk, ring.clone(), 4, 8, cap)
+        torch.cuda.synchronize()
+        assert torch.equal(rk.view(torch.int32), rp.view(torch.int32))
+        return rk
+
+    base = both(tabs.local)
+    doubled = both(dict(tabs.local, w=tabs.local["w"] * 2))
+    assert torch.equal(doubled, 2 * base) and float(base.abs().sum()) > 0
+    tier = dict(tabs.local, w=tabs.local["w"].clone())
+    tier["w"].neg_()
+    assert torch.equal(both(tier), -base)
+    tier["w"][0, 0] = 2.0 ** 15
+    with pytest.raises(ValueError, match="2\\^24"):
+        event_delivery_banded([(tier, spk, cap)],
+                              torch.zeros((8, spec.n_local), device=cuda),
+                              4, 8, runs=runs)

@@ -19,6 +19,7 @@ from repro.core import engine as jeng
 from repro.core import stdp as jstdp
 from repro_torch.core import engine as teng
 from repro_torch.core import stdp as tstdp
+from repro_torch.core import synapses as tsyn
 from repro_torch.core.convert import plasticity_from_arrays, tables_from_arrays
 from repro_torch.kernels.plastic_step import (bind_plastic_bits, magic_div,
                                               magic_u31, plastic_delivery_ltd)
@@ -319,6 +320,7 @@ def test_static_float32_run_bit_identical(law, use_kernels):
         s, jt, jcfg, steps, record_spikes=True))(js)
     tt = teng.build_shard_tables(tcfg, device="cpu")
     assert tt["local"]["w"].dtype == torch.float32
+    builds = tsyn.BUILD_COUNTS["inverse_index"]
     tfin, traster = teng.simulate(
         teng.init_sim_state(tcfg, device="cpu"), tt, tcfg, steps,
         record_spikes=True, drive=torch.from_numpy(drive), device="cpu")
@@ -327,7 +329,9 @@ def test_static_float32_run_bit_identical(law, use_kernels):
     assert_bits_equal(jfin["i_ring"], tfin["i_ring"], "i_ring")
     for k in ("spikes", "events", "dropped"):
         assert_bits_equal(jfin["metrics"][k], tfin["metrics"][k], k)
-    assert (tt._inv is not None) == use_kernels
+    # the kernel path builds the tables' inverse index once, the plain
+    # path never
+    assert tsyn.BUILD_COUNTS["inverse_index"] - builds == int(use_kernels)
 
 
 def test_atomic_delivery_refuses_float32_weights():
