@@ -17,7 +17,10 @@ Phases, each of which exits non-zero on failure:
    ``active_cap`` (ring exact, event and drop counts equal), spike
    compaction at densities 0 to 1 at the
    main path's 79,360 rows and at one shard of the paper's 24x24x1240
-   grid (714,240 rows): exact, one launch per call; the three flash-
+   grid (714,240 rows): exact, one launch per call; the fused step
+   head (``neuron_step``) at the same two sizes, at spike densities 0,
+   mid-run and above ``active_cap``, in place and not (v, c, refrac,
+   spk, ring, bitmap and count exact); the three flash-
    attention kernels and the TF32 route's pre-pass (see 7); and
    dict-form tables (``{"local", "halo"}``) at 4x4x1240: delivered on
    the card exactly as ``SynapseTables`` and the plain path deliver,
@@ -26,8 +29,11 @@ Phases, each of which exits non-zero on failure:
 3. the static path, through the library API (``build_shard_tables`` ->
    ``init_sim_state`` -> ``simulate``), single shard, 8x8 columns of the
    paper's 1240 neurons, both connectivity laws: kernel-path steps
-   against plain-path steps from the same seed (rasters and rings
-   identical), then timed kernel-path steps;
+   (the fused step head, replays of the captured ``d_ring``-step CUDA
+   graph after 8 eager steps, an eager tail: 100 steps) against
+   plain-path steps from the same seed (rasters, rings and metrics
+   identical), then timed kernel-path steps (500, which must show
+   ``(500 - 8) // 8`` graph replays) and a profile of 400 more;
 4. the plastic path (``init_plasticity`` -> ``simulate(plasticity=)``),
    both laws: 30 kernel-path steps on the card against 30 plain-path
    steps on the CPU at 4x4x1240 with the card's drive injected (rasters,
@@ -47,7 +53,9 @@ Phases, each of which exits non-zero on failure:
    device time (profiler) and one PyTorch library call's where there
    is one; ptxas's registers and spills; and the least time the card
    could take (bytes over 3.35 TB/s, or operations over the card's
-   peak rate where they take longer).  The column delivery kernel is
+   peak rate where they take longer).  The step-head kernel is timed
+   beside the LIF kernel it replaced on the engine's path
+   (``replaced_kernel_ms``, the same state).  The column delivery kernel is
    timed beside the warp-per-row kernel it replaced on the static path
    (``replaced_kernel_ms``, the same inputs); both delivery kernels
    report the bytes they actually move (``kernel_bytes``), and the
@@ -67,14 +75,16 @@ Phases, each of which exits non-zero on failure:
    times (bf16 and float32), the decode loop's device idle share and
    peak memory; then the flash kernels' timing at the prefill shape:
    each tensor-core kernel beside the CUDA-core kernel it replaced
-   there.  Phase 2 holds every flash kernel against its plain version
+   there, and the CUDA-core kernel where it is still the route (head_dim
+   32 and 16, bf16 and float32) beside the library call.  Phase 2 holds every flash kernel against its plain version
    at the reference's kernel-test shapes, the tensor-core kernels' edge
    cases in bf16 and float32, fully masked rows, qwen2's prefill shape
    and a head_dim-256 window; the TF32 pre-pass bit for bit, and the
    tf32 fragment layout the TF32 kernel assumes.
 
 Launch counts are zeroed just before each of phases 3-5 and 7 and read
-just after it.  It prints the metrics, a ``{"kernels": [...]}`` line, the
+just after it; a replay of the captured static step counts as
+``step_graph`` and as one launch of each kernel the graph holds.  It prints the metrics, a ``{"kernels": [...]}`` line, the
 card's name and power limit, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 It needs one CUDA card and the repository checkout around it.
@@ -88,8 +98,9 @@ parent commit unpacked with ``git archive`` into a directory that
 other, each in a process of its own that builds its kernels and the
 8x8x1240 tables of both laws, runs 20 warm-up steps and times ``N``
 steps (default 500) of ``engine.simulate`` on the host clock,
-CUDA-synchronised; one ``ab {...}`` line per run, then the card's name
-and power limit.
+CUDA-synchronised, then profiles ``N`` more for the device's idle
+share; one ``ab {...}`` line per run (with the metrics, which must not
+differ between trees), then the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -106,6 +117,7 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12              # H100 SXM float32 rate outside the MXU
 GRID, N_PER_COLUMN = 8, 1240       # the main path's network
 PARITY_STEPS, TIMED_STEPS = 100, 500       # static path
+PROFILE_STEPS = 400        # static profile: 8 eager steps, 49 replays
 PLASTIC_PARITY_STEPS, PLASTIC_STEPS = 30, 200
 PARITY_GRID = 4                            # CPU parity of the plastic path
 RECORD_STEPS, SMALL_CAPACITY = 100, 1000
@@ -289,6 +301,65 @@ def check_lif(n: int, gen) -> dict:
     return {"max_abs_err": err, "ulp_diffs": n_diff}
 
 
+def check_neuron_step(sizes, gen) -> float:
+    """The step-head kernel against its plain version at each (n, cap)
+    of ``sizes``: spike densities 0, mid-run and above ``active_cap``,
+    in place (as the engine calls it) and into new tensors, with
+    neurons exactly at threshold as in ``check_lif``; v, c, refrac,
+    spk, the ring, the bitmap and the count exact, one launch a call."""
+    import torch
+    from repro_torch.core.neuron import LIFParams
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels.neuron_step import neuron_step_cuda
+    kw = LIFParams().kernel_args()
+    for n, cap in sizes:
+        v0 = torch.rand(n, device="cuda", generator=gen) * 35.0 - 10.0
+        c = torch.rand(n, device="cuda", generator=gen) * 5.0
+        a = torch.rand(n, device="cuda", generator=gen) < 0.95
+        drive = torch.poisson(torch.full((n,), 1.62, device="cuda"),
+                              generator=gen) * 0.5
+        # (label, ring offset mV, refractory share)
+        for label, shift, refr in (("zero", -80.0, 0.67),
+                                   ("mid-run", 3.0, 0.67),
+                                   ("above cap", 40.0, 0.0)):
+            ring = torch.randint(-4000, 4000, (8, n), device="cuda",
+                                 generator=gen).float() * 2.0 ** -9 + shift
+            r = ((torch.rand(n, device="cuda", generator=gen) < refr)
+                 .int() * torch.randint(1, 3, (n,), device="cuda",
+                                        generator=gen, dtype=torch.int32))
+            v = v0.clone()
+            if label != "zero":     # v_int == theta exactly must spike
+                v[:64], c[:64], r[:64], a[:64] = 0.0, 0.0, 0, True
+                ring[6, :64], drive[:64] = kw["theta"], 0.0
+            for inplace in (True, False):
+                rk, rp = ring.clone(), ring.clone()
+                st = (v.clone(), c.clone(), r.clone())
+                before = _build.launch_counts().get("neuron_step", 0)
+                got = neuron_step_cuda(rk, 6, drive, *st, a,
+                                       active_cap=cap,
+                                       out=st if inplace else None, **kw)
+                want = ref.neuron_step_ref(rp, 6, drive, v, c, r, a,
+                                           active_cap=cap, **kw)
+                torch.cuda.synchronize()
+                require(_build.launch_counts()["neuron_step"] == before + 1,
+                        "neuron_step: not one launch per call")
+                for what, x, y in zip(("v", "c", "refrac", "spk", "bits",
+                                       "count"), got, want):
+                    require(x.dtype == y.dtype and torch.equal(x, y),
+                            f"neuron_step n={n} {label}: {what} differs "
+                            "from plain")
+                require(torch.equal(rk, rp) and not bool(rk[6].any()),
+                        f"neuron_step n={n} {label}: ring differs")
+            count = int(want[5])
+            require((count == 0) == (label == "zero")
+                    and (count > cap) == (label == "above cap"),
+                    f"neuron_step n={n} {label}: {count} spikes, cap {cap}")
+            print(f"check neuron_step n={n} cap={cap} {label}: {count} "
+                  f"spikes, v/c/refrac/spk/ring/bitmap/count exact, in "
+                  "place and not")
+    return 0.0
+
+
 def column_runs(tabs, spec, label: str) -> dict:
     """Build the tables' run descriptors (the column kernel's static
     input) and report their bytes per synapse beside the tables' own,
@@ -404,6 +475,7 @@ def run_law(law: str, tabs, build_s: float) -> dict:
     import torch
     from repro_torch.configs.snn import reduced_case
     from repro_torch.core import engine
+    from repro_torch.kernels import _build
     cfg = reduced_case(law, GRID, N_PER_COLUMN).engine_config(1, 1)
     plain = dataclasses.replace(cfg, use_kernels=False)
 
@@ -424,11 +496,16 @@ def run_law(law: str, tabs, build_s: float) -> dict:
     v_diff = int((fin_k["neuron"]["v"] != fin_p["neuron"]["v"]).sum())
 
     state = engine.init_sim_state(cfg)
+    before = _build.launch_counts().get("step_graph", 0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fin, counts = engine.simulate(state, tabs, cfg, TIMED_STEPS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    replays = _build.launch_counts().get("step_graph", 0) - before
+    require(replays == (TIMED_STEPS - cfg.d_ring) // cfg.d_ring,
+            f"{law}: {replays} replays of the captured step in "
+            f"{TIMED_STEPS} steps")
     v = fin["neuron"]["v"]
     require(counts.shape == (TIMED_STEPS,)
             and v.shape == (cfg.spec().n_local,),
@@ -448,12 +525,13 @@ def run_law(law: str, tabs, build_s: float) -> dict:
         "dropped": float(fin["metrics"]["dropped"]),
         "ms_per_step": 1e3 * wall / TIMED_STEPS,
         "s_per_synaptic_event": wall / max(events, 1.0),
+        "step_graph_replays": replays,
         "parity_steps": PARITY_STEPS,
         "parity_spikes": float(raster_k.sum()),
         "parity_v_values_differing": v_diff,
     }
     print("static path " + json.dumps(res))
-    profile_steps(fin, tabs, cfg, law)
+    profile_steps(fin, tabs, cfg, law, n_steps=PROFILE_STEPS)
     # a mid-run spike vector: the delivery kernel's main-path input
     steps = raster_k[PARITY_STEPS // 2:]
     med = int(steps.sum(1).argsort()[steps.shape[0] // 2])
@@ -683,6 +761,7 @@ def run_recorded(law: str, tabs) -> dict:
     import torch
     from repro_torch.configs.snn import reduced_case
     from repro_torch.core import engine
+    from repro_torch.kernels import _build
     from repro_torch.obs.record import recorder_spec, tile_gid_map
     cfg = reduced_case(law, GRID, N_PER_COLUMN).engine_config(1, 1)
     state = engine.init_sim_state(cfg)
@@ -695,6 +774,7 @@ def run_recorded(law: str, tabs) -> dict:
     for label, capacity in (("default", None), ("small", SMALL_CAPACITY)):
         rspec = recorder_spec(cfg, RECORD_STEPS, capacity=capacity)
         state = engine.init_sim_state(cfg)
+        replays = _build.launch_counts().get("step_graph", 0)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fin, raster, rec = engine.simulate(
@@ -702,6 +782,8 @@ def run_recorded(law: str, tabs) -> dict:
             recorder=rspec)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        require(_build.launch_counts().get("step_graph", 0) == replays,
+                f"recorder {label}: a recorded run replayed a graph")
         n_spk = int(raster.sum())
         count, dropped = int(rec["count"]), int(rec["dropped"])
         require(count + dropped == n_spk,
@@ -756,7 +838,61 @@ def time_lif(state, cfg, launches: int, err: float) -> dict:
             "launches": launches, "max_abs_err": err, "ms": queued,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
             "library_ms": None, "call_ms": per_call, "profiler_ms": ms,
-            "shape": f"n={n}", "ptxas": ptxas("lif_step")}
+            "shape": f"n={n}", "ptxas": ptxas("lif_step"),
+            "path_note": "on no main path since neuron_step took the "
+                         "engine's step head; the counterpart of the "
+                         "reference's kops.lif_step, checked in phase 2"}
+
+
+def time_neuron_step(state, cfg, launches: int, err: float) -> dict:
+    """The step-head kernel on a mid-run state of the static path, as
+    the engine calls it (in place, with the local tier's bitmap), beside
+    the LIF kernel it replaced there (``replaced_kernel_ms``: the same
+    state, its input ``ring[slot] + drive`` made once) and the plain
+    version."""
+    import torch
+    from repro_torch.core import engine
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.lif_step import lif_step_cuda
+    from repro_torch.kernels.neuron_step import n_words, neuron_step_cuda
+    nrn = state["neuron"]
+    n = nrn["v"].shape[0]
+    cap = cfg.spec().active_cap_local
+    kw = cfg.lif.kernel_args()
+    st = tuple(nrn[k].clone() for k in ("v", "c", "refrac"))
+    ring = state["i_ring"].clone()
+    drive = engine.external_drive(state["rng"], n, cfg)
+    active = state["active"]
+    kern = lambda: neuron_step_cuda(ring, 3, drive, *st, active,
+                                    active_cap=cap, out=st, **kw)
+    i_total = state["i_ring"][3] + drive
+    old = lambda: lif_step_cuda(*st, i_total, active, **kw)
+    # read: ring word, drive, v, c (f32), refrac (i32), active (1 B);
+    # written: v, c, refrac, spk, the zeroed ring word, the bitmap words
+    # and the count
+    nbytes = n * 21 + n * 20 + n_words(n) * 4 + 4
+    ops = 8 * n
+    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ops = ops / F32_OPS_PER_S * 1e3
+    return {"name": "neuron_step", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/neuron_step.cu",
+            "replaces": "src/repro/kernels/lif_step.py:47",
+            "launches": launches, "max_abs_err": err,
+            "ms": queued_ms(kern, 200), "plain_ms": device_ms(
+                lambda: ref.neuron_step_ref(ring, 3, drive, *st, active,
+                                            active_cap=cap, **kw), 50),
+            "bound_ms": max(bound_bytes, bound_ops),
+            "bound_by": "bytes" if bound_bytes >= bound_ops
+            else "operations",
+            "library_ms": None, "call_ms": call_ms(kern, 200),
+            "profiler_ms": device_ms(kern, 200), "bytes": nbytes,
+            "replaced_kernel": "lif_step",
+            "replaced_kernel_ms": queued_ms(old, 200),
+            "replaced_kernel_call_ms": call_ms(old, 200),
+            "ptxas": ptxas("neuron_step"),
+            "shape": f"n={n}, active_cap {cap}, "
+                     f"{int(nrn['refrac'].eq(cfg.lif.refrac_steps).sum())}"
+                     " spikes in the state's last step"}
 
 
 def time_delivery(tabs, spec, spikes, launches: int, err: float,
@@ -1506,8 +1642,44 @@ def time_flash(launches: dict, err: dict) -> list:
         if route == "simt":
             row["path_note"] = ("on no main path since the TF32 route took "
                                 "float32 at head_dim 64-256; head_dim 8-32")
+            row["at_small_head_dims"] = time_flash_small(gen)
         rows.append(row)
     return rows
+
+
+def time_flash_small(gen) -> list:
+    """The CUDA-core kernel where it is still the route (head_dim 32 and
+    16, bf16 and float32) beside F.scaled_dot_product_attention on the
+    same inputs: qwen2-1.5b's prefill shape with the head narrowed (q
+    48 x 2048 x D, k/v 8 x 2048 x D, causal).  Device time as in
+    ``queued_ms``, with the CUDA cores' f32 bound."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    out = []
+    for d in (32, 16):
+        q, k, v = (torch.randn((bh, 2048, d), device="cuda", generator=gen)
+                   for bh in (48, 8, 8))
+        flops = 4 * 48 * d * 2048 * 2049 / 2
+        for dtype in (torch.bfloat16, torch.float32):
+            x = [t.to(dtype) for t in (q, k, v)]
+            require(fa._route(dtype, d) == "simt",
+                    f"head_dim {d} {dtype} no longer takes the CUDA cores")
+            kern = lambda: fa._launch("simt", *x, causal=True)
+            lib, library = _sdpa(*x)
+            diff = float((lib().reshape(q.shape).float()
+                          - kern().float()).abs().max())
+            require(diff <= FLASH_TOL[str(dtype).removeprefix("torch.")] * 4,
+                    f"head_dim {d}: the yardstick computes another "
+                    f"function: {diff}")
+            nbytes = sum(t.numel() * t.element_size() for t in (x[0], *x))
+            out.append({
+                "head_dim": d, "dtype": str(dtype).removeprefix("torch."),
+                "ms": queued_ms(kern, 20), "library_ms": queued_ms(lib, 20),
+                "library": library, "library_vs_kernel_max_abs_diff": diff,
+                "bound_ms": max(flops / F32_OPS_PER_S,
+                                nbytes / HBM_BYTES_PER_S) * 1e3,
+                "shape": f"q (48, 2048, {d}), k/v (8, 2048, {d}) causal"})
+    return out
 
 
 def gpu_line() -> str:
@@ -1522,6 +1694,7 @@ def gpu_line() -> str:
 def ab_tree(src: str, label: str, steps: int) -> dict:
     """One tree's static ms per step, both laws (in a child process)."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
     sys.path.insert(0, src)
     from repro_torch.configs.snn import reduced_case
     from repro_torch.core import engine
@@ -1537,8 +1710,20 @@ def ab_tree(src: str, label: str, steps: int) -> dict:
         fin, _ = engine.simulate(state, tabs, cfg, steps)
         torch.cuda.synchronize()
         out[f"{law}_ms_per_step"] = 1e3 * (time.perf_counter() - t0) / steps
-        out[f"{law}_events_per_step"] = (
-            float(fin["metrics"]["events"]) / (20 + steps))
+        for k in ("spikes", "events", "dropped"):
+            out[f"{law}_{k}"] = float(fin["metrics"][k])
+        # the device's idle share over as many more steps, profiled
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine.simulate(fin, tabs, cfg, steps)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        busy, _ = device_breakdown(prof, steps)
+        out[f"{law}_profiled_ms_per_step"] = wall_us / steps / 1e3
+        out[f"{law}_device_busy_ms_per_step"] = busy / steps / 1e3
+        out[f"{law}_device_idle_share"] = 1.0 - busy / wall_us
         del tabs, state, fin
         torch.cuda.empty_cache()
     return out
@@ -1633,6 +1818,8 @@ def main() -> None:
     n_big = 24 * 24 * N_PER_COLUMN     # one shard of the paper's 24x24
     compact_err = check_spike_compact([(n_main, cap_main), (n_big, cap_big)],
                                       gen)
+    head_err = check_neuron_step([(n_main, cap_main), (n_big, cap_big)],
+                                 gen)
     flash_err = check_flash(gen)
     check_dict_tables(gen)
 
@@ -1644,9 +1831,11 @@ def main() -> None:
     launches = _build.launch_counts()
     print(f"static path launches: {json.dumps(launches)}; "
           f"max_memory_allocated {torch.cuda.max_memory_allocated()} B")
-    for name in ("lif_step", "event_delivery"):
+    for name in ("neuron_step", "event_delivery", "step_graph"):
         require(launches.get(name, 0) > 0,
                 f"kernel {name} was not launched on the static path")
+    require("lif_step" not in launches,
+            "the static path reached the unfused LIF kernel")
     require("event_delivery_rows" not in launches,
             "the static path reached the legacy warp-per-row kernel")
 
@@ -1665,7 +1854,7 @@ def main() -> None:
     p_launches = _build.launch_counts()
     print(f"plastic path launches: {json.dumps(p_launches)}; "
           f"max_memory_allocated {torch.cuda.max_memory_allocated()} B")
-    for name in ("lif_step", "plastic_delivery_ltd"):
+    for name in ("neuron_step", "plastic_delivery_ltd"):
         require(p_launches.get(name, 0) > 0,
                 f"kernel {name} was not launched on the plastic path")
     require("event_delivery" not in p_launches,
@@ -1679,14 +1868,21 @@ def main() -> None:
     r_launches = _build.launch_counts()
     print(f"recorded path launches: {json.dumps(r_launches)}; "
           f"max_memory_allocated {torch.cuda.max_memory_allocated()} B")
-    for name in ("lif_step", "event_delivery", "spike_compact"):
+    for name in ("neuron_step", "event_delivery", "spike_compact"):
         require(r_launches.get(name, 0) > 0,
                 f"kernel {name} was not launched on the recorded path")
+    require("step_graph" not in p_launches,
+            "a plastic run replayed a graph")
 
     # 6. timing at the paths' shapes (not counted as launches)
     last = LAWS[-1]
     kernels = [time_lif(runs[last]["state"], runs[last]["cfg"],
-                        launches["lif_step"], lif["max_abs_err"])]
+                        launches.get("lif_step", 0), lif["max_abs_err"])]
+    for law in LAWS:
+        k = time_neuron_step(runs[law]["state"], runs[law]["cfg"],
+                             launches["neuron_step"], head_err)
+        print(f"timing {law} {json.dumps(k)}")
+    kernels.append(k)
     for law in LAWS:
         spec = runs[law]["cfg"].spec()
         k = time_delivery(tables[(law, GRID)], spec, runs[law]["spikes"],

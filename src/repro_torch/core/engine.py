@@ -13,9 +13,13 @@ simulates one tile of the column grid.  Step structure (dt = 1 ms):
 State is a dict of tensors plus the step counter ``t`` (a Python int,
 so ring slots never wait on the device) and the drive's
 ``torch.Generator``.  ``simulate`` is a Python loop over ``step``; the
-ring is updated in place.  Plastic runs (``simulate(plasticity=)``)
-replace step 4 by ``plastic_delivery_stdp``: delivery and STDP on a
-working copy of the local tier's float32 weights.
+ring is updated in place.  On the kernel path steps 1-3 are one launch
+(``kops.neuron_step``), and a static run on the card replays one
+captured CUDA graph of ``d_ring`` steps (``_StepGraph``), the
+counterpart of the reference's jitted ``lax.scan``.  Plastic runs
+(``simulate(plasticity=)``) replace step 4 by ``plastic_delivery_stdp``:
+delivery and STDP on a working copy of the local tier's float32
+weights.
 
 The external drive is drawn with ``torch.poisson`` on the state's
 generator, which cannot reproduce ``jax.random.poisson``: for parity
@@ -32,8 +36,10 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..kernels import _build
 from ..kernels import ops as kops
 from ..kernels.plastic_step import bind_plastic_bits
+from ..kernels.synaptic_accum import bind_column_weights
 from .connectivity import (ConnectivityLaw, EXTERNAL_RATE_HZ,
                            EXTERNAL_SYNAPSES)
 from .grid import TileDecomposition
@@ -137,23 +143,33 @@ def build_shard_tables(cfg: EngineConfig, tile_y: int = 0, tile_x: int = 0,
     return tabs.to(dev)
 
 
+# (device, n, rate) -> the drive's constant rate vector, made once: a
+# captured step reads it at a fixed address, so entries are never dropped
+_RATES: dict = {}
+
+
 def external_drive(gen: torch.Generator, n_local: int,
                    cfg: EngineConfig) -> torch.Tensor:
     """Poisson thalamo-cortical drive (mV): ext_synapses firing at
     ext_rate, drawn on ``gen``'s device."""
     lam = cfg.ext_synapses * cfg.ext_rate_hz * 1e-3 * cfg.lif.dt_ms
-    rate = torch.full((n_local,), lam, dtype=torch.float32,
-                      device=gen.device)
-    return torch.poisson(rate, generator=gen) * cfg.lif.j_ext_mv
+    key = (gen.device, n_local, lam)
+    if key not in _RATES:
+        _RATES[key] = torch.full((n_local,), lam, dtype=torch.float32,
+                                 device=gen.device)
+    return torch.poisson(_RATES[key], generator=gen) * cfg.lif.j_ext_mv
 
 
 def deliver_event_tiers(tables, spikes, halo_band_spikes, spec, i_ring,
                         slot: int, d_ring: int, use_kernels: bool,
-                        plan: Optional[List[TierPlan]] = None):
+                        plan: Optional[List[TierPlan]] = None,
+                        local_bits=None):
     """Event-driven delivery of the local tier + every halo band into
     ``i_ring`` (in place).  With ``use_kernels`` all tiers go to
     ``kops.synaptic_accum_banded`` (bfloat16 weights, adds in any order,
-    through the tiers' run descriptors on the card) or,
+    through the tiers' run descriptors on the card; ``local_bits``, the
+    local tier's (bitmap, count) from ``kops.neuron_step``, spares it
+    the bitmap) or,
     for float32 weights, whose sums depend on their order, to the
     fixed-order ``kops.plastic_step_banded`` with LTD off, through the
     tiers' inverse index; otherwise ``deliver_events`` runs per tier.
@@ -176,7 +192,8 @@ def deliver_event_tiers(tables, spikes, halo_band_spikes, spec, i_ring,
                                 spec.n_exc_per_col, d_ring)
                     if i_ring.device.type == "cuda" else None)
             i_ring, ev, dr = kops.synaptic_accum_banded(
-                tiers, i_ring, slot, d_ring, plan=plan, runs=runs)
+                tiers, i_ring, slot, d_ring, plan=plan, runs=runs,
+                local_bits=local_bits)
         return i_ring, ev.to(torch.float32), dr.to(torch.float32)
     i_ring, ev, dr = deliver_events(tables["local"], spikes, i_ring, slot,
                                     d_ring, plan[0].active_cap)
@@ -202,39 +219,58 @@ def step(state: dict, tables, cfg: EngineConfig,
     ``state["rng"]``.  ``plan``: the tables' delivery plan (computed
     when None).  ``deliver=False`` stops after the LIF update and the
     ring-slot consume: the plastic loop delivers together with STDP
-    (``plastic_delivery_stdp``).  Returns (new_state, local_spikes); the
-    ring tensor is updated in place and carried over.
+    (``plastic_delivery_stdp``).  With ``cfg.use_kernels`` steps 1-3
+    are one kernel (``kops.neuron_step``), which also writes the local
+    tier's delivered-row bitmap for step 4.  Returns (new_state,
+    local_spikes); the ring tensor is updated in place and carried over.
     """
+    new_state, spikes, _ = _step(state, tables, cfg, halo_band_spikes,
+                                 drive, plan, deliver)
+    return new_state, spikes
+
+
+def _step(state: dict, tables, cfg: EngineConfig,
+          halo_band_spikes: Optional[list] = None,
+          drive: Optional[torch.Tensor] = None,
+          plan: Optional[List[TierPlan]] = None, deliver: bool = True,
+          inplace: bool = False):
+    """``step``, also returning the step's spike count (f32 0-d).
+    ``inplace`` (kernel path): the new neuron state and metrics are
+    written into ``state``'s own tensors, whose addresses a captured
+    graph holds."""
     spec = cfg.spec()
     n_local = spec.n_local
-    if plan is None and cfg.mode == "event" and deliver:
+    event = cfg.mode == "event" and deliver
+    if plan is None and event:
         plan = spec.delivery_plan(getattr(tables, "storage", None))
     slot = state["t"] % cfg.d_ring
     if drive is None:
         drive = external_drive(state["rng"], n_local, cfg)
 
     i_ring = state["i_ring"]
-    i_now = i_ring[slot] + drive
+    local_bits = None
     if cfg.use_kernels:
-        neuron, spikes = kops.lif_step(state["neuron"], i_now, cfg.lif,
-                                       state["active"])
+        neuron, spikes, bits, count = kops.neuron_step(
+            state["neuron"], i_ring, slot, drive, cfg.lif, state["active"],
+            active_cap=plan[0].active_cap if event else None,
+            inplace=inplace)
+        n_spk = count.to(torch.float32)
+        if bits is not None:
+            local_bits = (bits, count)
     else:
-        neuron, spikes = lif_sfa_step(state["neuron"], i_now, cfg.lif,
-                                      state["active"])
-    i_ring[slot] = 0.0
+        neuron, spikes = lif_sfa_step(state["neuron"], i_ring[slot] + drive,
+                                      cfg.lif, state["active"])
+        i_ring[slot] = 0.0
+        n_spk = spikes.sum()
 
     halo_band_spikes = halo_band_spikes or []
-    m = state["metrics"]
-    n_spk = spikes.sum()
     if not deliver:
-        metrics = dict(m, spikes=m["spikes"] + n_spk)
+        adds = {"spikes": n_spk}
     elif cfg.mode == "event":
         i_ring, ev, dr = deliver_event_tiers(
             tables, spikes, halo_band_spikes, spec, i_ring, slot,
-            cfg.d_ring, cfg.use_kernels, plan=plan)
-        metrics = {"spikes": m["spikes"] + n_spk,
-                   "events": m["events"] + ev,
-                   "dropped": m["dropped"] + dr}
+            cfg.d_ring, cfg.use_kernels, plan=plan, local_bits=local_bits)
+        adds = {"spikes": n_spk, "events": ev, "dropped": dr}
     elif cfg.mode == "gather_all":
         local = tables["local"]
         i_ring = deliver_gather_all(local, spikes, i_ring, slot, cfg.d_ring)
@@ -242,17 +278,22 @@ def step(state: dict, tables, cfg: EngineConfig,
         for tab, spk in zip(tables["halo"], halo_band_spikes):
             i_ring = deliver_gather_all(tab, spk, i_ring, slot, cfg.d_ring)
             ev = ev + (tab["nnz"][:-1].to(torch.float32) * spk).sum()
-        metrics = {"spikes": m["spikes"] + n_spk,
-                   "events": m["events"] + ev,
-                   "dropped": m["dropped"]}
+        adds = {"spikes": n_spk, "events": ev}
     else:
         raise ValueError(f"unknown mode {cfg.mode}")
 
+    m = state["metrics"]
+    if inplace:
+        for k, x in adds.items():
+            m[k].add_(x)
+        metrics = m
+    else:
+        metrics = {k: m[k] + adds[k] if k in adds else m[k] for k in m}
     new_state = {
         "neuron": neuron, "i_ring": i_ring, "t": state["t"] + 1,
         "rng": state["rng"], "active": state["active"], "metrics": metrics,
     }
-    return new_state, spikes
+    return new_state, spikes, n_spk
 
 
 def plastic_delivery_stdp(tiers, masks, inv, traces, spike_tiers, spec,
@@ -342,6 +383,17 @@ def simulate(state: dict, tables, cfg: EngineConfig, n_steps: int,
     (mV); a callable ``drive(t) -> (n_local,)`` is called with the
     absolute step ``t``.  ``device`` must be where ``state`` and
     ``tables`` live (default ``"cuda"``, which raises without CUDA).
+
+    On a CUDA ring with ``cfg.use_kernels`` and ``mode="event"``, a
+    static run whose drive is None or a tensor (``record_spikes`` or
+    not) runs as replays of one CUDA graph of ``d_ring`` consecutive
+    steps (``_StepGraph``): the first ``d_ring`` steps run eagerly, then
+    every full block of ``d_ring`` steps is one replay, and a tail of
+    fewer steps runs eagerly; the results are the eager steps' bit for
+    bit.  A capture that fails raises.  Runs with a recorder, a
+    callable drive or plasticity, the plain path (``use_kernels``
+    unset) and ``mode="gather_all"`` step eagerly, one ``step`` at a
+    time (through the same fused step head on the kernel path).
     """
     dev = resolve_device(device)
     _check_device(state, tables, dev)
@@ -366,14 +418,125 @@ def simulate(state: dict, tables, cfg: EngineConfig, n_steps: int,
                                   tile_gid_map)
         gids = torch.from_numpy(tile_gid_map(cfg.decomp, 0, 0)).to(dev)
         rec = init_recorder_state(recorder, device=dev)
+    if (dev.type == "cuda" and cfg.use_kernels and cfg.mode == "event"
+            and rec is None and (drive is None
+                                 or isinstance(drive, torch.Tensor))):
+        loop = _StepGraph(state, tables, cfg, plan, record_spikes, drive)
+        k, d = 0, cfg.d_ring
+        while k < n_steps:
+            if d <= k <= n_steps - d:
+                loop.replay(k, out[k:k + d])
+                k += d
+            else:
+                loop.eager(k, out[k])
+                k += 1
+        return loop.state, out
     for k in range(n_steps):
         t = state["t"]
-        state, spikes = step(state, tables, cfg,
-                             drive=_drive_at(drive, k, t), plan=plan)
+        state, spikes, n_spk = _step(state, tables, cfg,
+                                     drive=_drive_at(drive, k, t), plan=plan)
         if rec is not None:
             rec = record_step(rec, spikes, gids, t, recorder)
-        out[k] = spikes if record_spikes else spikes.sum()
+        out[k] = spikes if record_spikes else n_spk
     return (state, out) if rec is None else (state, out, rec)
+
+
+class _StepGraph:
+    """The static loop on a CUDA ring, ``d_ring`` steps at a time.
+
+    The slot sequence repeats every ``d_ring`` steps, so one CUDA graph
+    of ``d_ring`` consecutive steps serves every block.  It works on
+    copies of the caller's neuron state and metrics, updated in place
+    (the ring is updated in place on every path), so every replay reads
+    and writes the same tensors.  ``eager`` runs one step; ``replay``
+    runs a block as one replay, after capturing the graph at the first
+    one.  The drive is drawn inside the graph on the state's generator
+    (registered with the graph: replays draw what eager steps would) or
+    copied from the injected drive into a static buffer; per-step
+    counts or raster rows come out of a static buffer, one copy per
+    block.  A graph holds the tables' tensors and the run descriptors'
+    weights as they were at capture: before each replay the tiers'
+    tensors are checked by identity and version, and a change rebinds
+    the descriptors and captures again.  Each replay counts as
+    ``step_graph`` and as a launch of each kernel it holds."""
+
+    def __init__(self, state, tables, cfg: EngineConfig, plan,
+                 record_spikes: bool, drive: Optional[torch.Tensor]):
+        self.state = dict(
+            state, neuron={k: x.clone() for k, x in state["neuron"].items()},
+            metrics={k: x.clone() for k, x in state["metrics"].items()})
+        self.tables, self.cfg, self.plan = tables, cfg, plan
+        self.record, self.drive = record_spikes, drive
+        d, n = cfg.d_ring, cfg.spec().n_local
+        dev = state["i_ring"].device
+        self.drive_buf = (torch.empty((d, n), dtype=torch.float32,
+                                      device=dev)
+                          if drive is not None else None)
+        self.out_buf = torch.empty((d, n) if record_spikes else (d,),
+                                   dtype=torch.float32, device=dev)
+        self.graph = self.tally = self.stamp = None
+        self.stream = torch.cuda.Stream(device=dev)
+
+    def _one(self, drive, dst) -> None:
+        self.state, spikes, n_spk = _step(self.state, self.tables, self.cfg,
+                                          drive=drive, plan=self.plan,
+                                          inplace=True)
+        dst.copy_(spikes if self.record else n_spk)
+
+    def eager(self, k: int, dst) -> None:
+        self._one(None if self.drive is None else self.drive[k], dst)
+
+    def _tier_tensors(self) -> list:
+        return [t[name] for t in tier_list(self.tables)
+                for name in ("tgt", "dslot", "nnz", "w")]
+
+    def _unchanged(self) -> bool:
+        now = self._tier_tensors()
+        return len(now) == len(self.stamp) and all(
+            x is y and x._version == v for (x, v), y in zip(self.stamp, now))
+
+    def _capture(self) -> None:
+        tiers = tier_list(self.tables)
+        spec = self.cfg.spec()
+        if tiers[0]["w"].dtype == torch.float32:
+            inverse_index(tiers)
+        else:   # bind the descriptors eagerly: binding reads the device
+            for runs, tier in zip(column_runs(tiers, spec.n_per_col,
+                                              spec.n_exc_per_col,
+                                              self.cfg.d_ring), tiers):
+                bind_column_weights(runs, tier)
+        self.stamp = [(x, x._version) for x in self._tier_tensors()]
+        self.graph = None       # a stale graph's memory goes first
+        graph = torch.cuda.CUDAGraph()
+        if self.drive is None:
+            graph.register_generator_state(self.state["rng"])
+        t0 = self.state["t"]
+        # captured on a side stream (the default stream cannot be), with
+        # none of torch.cuda.graph's collection and cache emptying
+        main = torch.cuda.current_stream(self.out_buf.device)
+        self.stream.wait_stream(main)
+        with _build.capture_tally() as tally, torch.cuda.stream(self.stream):
+            graph.capture_begin()
+            try:
+                for j in range(self.cfg.d_ring):
+                    self._one(None if self.drive_buf is None
+                              else self.drive_buf[j], self.out_buf[j])
+            finally:
+                graph.capture_end()
+        main.wait_stream(self.stream)
+        self.state["t"] = t0
+        self.graph, self.tally = graph, tally
+
+    def replay(self, k: int, dst) -> None:
+        if self.graph is None or not self._unchanged():
+            self._capture()
+        d = self.cfg.d_ring
+        if self.drive_buf is not None:
+            self.drive_buf.copy_(self.drive[k:k + d])
+        self.graph.replay()
+        _build.count_replay("step_graph", self.tally)
+        dst.copy_(self.out_buf)
+        self.state["t"] += d
 
 
 def _run_plastic(state: dict, tables, stdp_aux: dict, cfg: EngineConfig,
@@ -409,9 +572,9 @@ def _run_plastic(state: dict, tables, stdp_aux: dict, cfg: EngineConfig,
                       device=state["i_ring"].device)
     for k in range(n_steps):
         slot = state["t"] % cfg.d_ring
-        state, spikes = step(state, tables, cfg,
-                             drive=_drive_at(drive, k, state["t"]),
-                             deliver=False)
+        state, spikes, n_spk = _step(state, tables, cfg,
+                                     drive=_drive_at(drive, k, state["t"]),
+                                     deliver=False)
         i_ring, tiers, traces, ev, dr = plastic_delivery_stdp(
             tiers, masks, inv, traces, [spikes], spec,
             state["i_ring"], slot, cfg, plan)
@@ -419,7 +582,7 @@ def _run_plastic(state: dict, tables, stdp_aux: dict, cfg: EngineConfig,
         state = dict(state, i_ring=i_ring,
                      metrics=dict(m, events=m["events"] + ev,
                                   dropped=m["dropped"] + dr))
-        out[k] = spikes.sum()
+        out[k] = n_spk
     return (state, with_local_tier(tables, tiers[0]), traces), out
 
 

@@ -1,6 +1,9 @@
 """Hand-written CUDA kernels for Hopper (``csrc/``), each with a plain
 PyTorch version in ``ref.py`` and a wrapper that routes by tensor device:
 
+  * neuron_step     -- the step's head in one launch: ring slot + drive,
+                       LIF+SFA, slot zeroing, the delivered-row bitmap
+                       and the spike count (the engine's path)
   * lif_step        -- fused memory-bound LIF+SFA neuron update
   * synaptic_accum  -- event delivery: one block per target column
                        accumulates its ring window in shared memory over

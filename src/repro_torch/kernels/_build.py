@@ -8,11 +8,15 @@ ctypes.  The build happens at first use; ``build_all`` starts one
 ``nvcc`` per source, all at once.  Nothing is compiled at import time.
 
 Every wrapper counts its launches here (``count_launch``), so a run can
-show that its main path went through the kernels.
+show that its main path went through the kernels.  While a CUDA graph is
+captured (``capture_tally``) the wrappers' counts go to the graph's
+tally instead, and each replay adds that tally (``count_replay``): the
+counts stay the kernels' launches on the device.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -24,7 +28,7 @@ from typing import Dict, Optional
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("lif_step", "event_delivery", "plastic_delivery",
+SOURCES = ("lif_step", "neuron_step", "event_delivery", "plastic_delivery",
            "spike_compact", "flash_attention", "flash_attention_sm90",
            "flash_attention_tf32")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -36,6 +40,7 @@ SMEM_BYTES = 232_448
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LAUNCHES: Dict[str, int] = {}
+_TALLY: Optional[Dict[str, int]] = None   # set while a graph is captured
 BUILD_LOG: Dict[str, str] = {}    # nvcc/ptxas output of each build
 
 
@@ -125,7 +130,28 @@ def stream_ptr(x: torch.Tensor) -> int:
 
 
 def count_launch(name: str) -> None:
-    _LAUNCHES[name] = _LAUNCHES.get(name, 0) + 1
+    counts = _TALLY if _TALLY is not None else _LAUNCHES
+    counts[name] = counts.get(name, 0) + 1
+
+
+@contextlib.contextmanager
+def capture_tally():
+    """Within the block, launches are counted into the dict it yields
+    (the kernels a CUDA graph captures), not as launches."""
+    global _TALLY
+    _TALLY = {}
+    try:
+        yield _TALLY
+    finally:
+        _TALLY = None
+
+
+def count_replay(name: str, tally: Dict[str, int]) -> None:
+    """One replay of the graph ``name``: count it, and the kernels of its
+    ``capture_tally`` as launched once more each."""
+    count_launch(name)
+    for kernel, n in tally.items():
+        _LAUNCHES[kernel] = _LAUNCHES.get(kernel, 0) + n
 
 
 def launch_counts() -> Dict[str, int]:

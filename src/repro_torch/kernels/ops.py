@@ -14,6 +14,7 @@ import torch
 
 from .flash_attention import flash_attention
 from .lif_step import lif_step as _lif_step
+from .neuron_step import neuron_step as _neuron_step
 from .plastic_step import plastic_delivery_ltd
 from .spike_compact import spike_compact as _spike_compact
 from .synaptic_accum import event_delivery_banded
@@ -28,16 +29,32 @@ def lif_step(state: dict, i_total, params, active=None):
     return {"v": v, "c": c, "refrac": r}, spk
 
 
+def neuron_step(state: dict, i_ring, slot: int, drive, params, active,
+                active_cap=None, inplace: bool = False):
+    """The step's head in one kernel: ``i_ring[slot] + drive``, the
+    LIF+SFA update of ``core.neuron.lif_sfa_step``, ``i_ring[slot] = 0``
+    and, with ``active_cap``, the local tier's delivered-row bitmap.
+    ``inplace`` writes the new state into ``state``'s tensors.  Returns
+    (new state, spikes f32, bits int32 or None, count int32 0-d)."""
+    v, c, r, spk, bits, count = _neuron_step(
+        i_ring, slot, drive, state["v"], state["c"], state["refrac"],
+        active, active_cap=active_cap,
+        out=(state["v"], state["c"], state["refrac"]) if inplace else None,
+        **params.kernel_args())
+    return {"v": v, "c": c, "refrac": r}, spk, bits, count
+
+
 def synaptic_accum_banded(tiers, i_ring, t_slot: int, d_ring: int,
-                          plan=None, runs=None):
+                          plan=None, runs=None, local_bits=None):
     """Local + halo-band delivery (one kernel launch per tier).
     ``tiers``: [(tables, spikes, active_cap)]; ``plan``: optional
     ``SynapseTableSpec.delivery_plan()`` the tables are validated
     against; ``runs``: the tiers' run descriptors
-    (``SynapseTables.column_runs``).  Returns (ring, n_events,
+    (``SynapseTables.column_runs``); ``local_bits``: the local tier's
+    (bitmap, count) from ``neuron_step``.  Returns (ring, n_events,
     n_dropped) summed over tiers."""
     return event_delivery_banded(tiers, i_ring, t_slot, d_ring, plan=plan,
-                                 runs=runs)
+                                 runs=runs, local_bits=local_bits)
 
 
 def plastic_step_banded(tiers, masks, x_post_decayed, i_ring, t_slot: int,

@@ -116,6 +116,28 @@ def delivered_bits(spikes_src: torch.Tensor, n_rows: int, active_cap: int):
 
 
 # ---------------------------------------------------------------------------
+# The step's head (kernels/neuron_step.py)
+# ---------------------------------------------------------------------------
+
+def neuron_step_ref(ring, slot: int, drive, v, c, refrac, active, *,
+                    active_cap=None, **params):
+    """Plain version of the step-head kernel, the engine's step head
+    composed of its plain pieces in the reference's order: ``i =
+    ring[slot] + drive``, ``lif_step_ref``, ``ring[slot] = 0`` (in
+    place), then with ``active_cap`` the delivered-row bitmap
+    (``delivered_bits``).  Returns (v', c', refrac', spk f32, bits int32
+    or None, count int32 0-d)."""
+    i_total = ring[slot] + drive
+    v, c, refrac, spk = lif_step_ref(v, c, refrac, i_total, active,
+                                     **params)
+    ring[slot] = 0.0
+    if active_cap is None:
+        return v, c, refrac, spk, None, (spk > 0).sum(dtype=torch.int32)
+    bits, count = delivered_bits(spk, spk.shape[0], active_cap)
+    return v, c, refrac, spk, bits, count.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
 # Event-driven synaptic accumulation (kernels/synaptic_accum.py)
 # ---------------------------------------------------------------------------
 

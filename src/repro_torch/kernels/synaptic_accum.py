@@ -4,10 +4,12 @@ Replaces the TPU pipeline ``repro/kernels/synaptic_accum.py``
 (``event_delivery_banded`` -> ``_scatter_entries`` / ``_accum_kernel``).
 Per tier (the local table, then each halo fan-out band):
 
-  * **delivered rows** (``ref.delivered_bits``, plain PyTorch): a bitmap
-    of the first ``active_cap`` spiking rows, the rows the reference's
-    compaction delivers, by a fixed-size cumsum -- no
-    ``torch.nonzero``, which would synchronize the host every step;
+  * **delivered rows**: a bitmap of the first ``active_cap`` spiking
+    rows, the rows the reference's compaction delivers.  The engine's
+    step hands the local tier's in (``local_bits``), written by the
+    step-head kernel (``kernels/neuron_step.py``); other tiers get it
+    from ``ref.delivered_bits`` (plain PyTorch, a fixed-size cumsum --
+    no ``torch.nonzero``, which would synchronize the host every step);
   * **delivery** (``csrc/event_delivery.cu: deliver_columns_kernel``):
     one block (or a few splits) per target column accumulates that
     column's ring window in shared memory, walking the tier's **run
@@ -398,7 +400,7 @@ def deliver_rows_cuda(tables: dict, idx: torch.Tensor, ring: torch.Tensor,
 
 def event_delivery_banded(tiers: Sequence[Tuple[dict, torch.Tensor, int]],
                           i_ring: torch.Tensor, t_slot: int, d_ring: int, *,
-                          plan=None, runs=None):
+                          plan=None, runs=None, local_bits=None):
     """Multi-tier delivery: the local table plus every halo fan-out band.
 
     ``tiers``: sequence of (tables, spikes_src, active_cap).  ``plan``:
@@ -406,8 +408,11 @@ def event_delivery_banded(tiers: Sequence[Tuple[dict, torch.Tensor, int]],
     ``SynapseTableSpec.delivery_plan()`` the tables are validated
     against.  ``runs``: the tiers' run descriptors
     (``core.synapses.column_runs``), which a CUDA ring needs (the CPU's
-    plain version delivers without them).  Returns (ring, n_events int32, n_dropped) summed
-    over tiers; the ring is updated in place.
+    plain version delivers without them).  ``local_bits``: the first
+    tier's (bitmap, spike count), as ``neuron_step`` writes them; a
+    CUDA ring then takes them in place of ``delivered_bits`` (the CPU's
+    plain version compacts the spikes itself).  Returns (ring, n_events
+    int32, n_dropped) summed over tiers; the ring is updated in place.
     """
     if i_ring.shape[0] != d_ring:
         raise ValueError(f"ring has {i_ring.shape[0]} slots, d_ring is "
@@ -435,7 +440,9 @@ def event_delivery_banded(tiers: Sequence[Tuple[dict, torch.Tensor, int]],
                     f"plan says rows={p.rows} cap={p.cap} "
                     f"active_cap={p.active_cap}")
         if cuda:
-            bits, n_spk = delivered_bits(spikes_src, n_rows, active_cap)
+            bits, n_spk = (local_bits if ti == 0 and local_bits is not None
+                           else delivered_bits(spikes_src, n_rows,
+                                               active_cap))
             deliver_columns_cuda(tables, runs[ti], bits, i_ring, t_slot,
                                  events)
         else:

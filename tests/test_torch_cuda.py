@@ -17,7 +17,7 @@ from repro_torch.core import connectivity as tconn
 from repro_torch.core import engine as teng
 from repro_torch.core import grid as tgrid
 from repro_torch.core.neuron import LIFParams
-from repro_torch.core.synapses import deliver_events
+from repro_torch.core.synapses import deliver_events, with_local_tier
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.lif_step import lif_step_cuda
 from repro_torch.kernels.synaptic_accum import event_delivery_banded
@@ -162,12 +162,188 @@ def test_kernel_path_run_matches_plain_path(cuda):
     _build.reset_launch_counts()
     fk, rk = teng.simulate(teng.init_sim_state(tcfg, device=cuda), tabs,
                            tcfg, 50, record_spikes=True, device=cuda)
-    assert _build.launch_counts() == {"lif_step": 50, "event_delivery": 50}
+    # 8 eager steps, 5 replays of the captured 8-step graph, a 2-step tail
+    assert _build.launch_counts() == {"neuron_step": 50,
+                                      "event_delivery": 50, "step_graph": 5}
     plain = dataclasses.replace(tcfg, use_kernels=False)
     fp, rp = teng.simulate(teng.init_sim_state(plain, device=cuda), tabs,
                            plain, 50, record_spikes=True, device=cuda)
     assert torch.equal(rk, rp)
     assert torch.equal(fk["i_ring"], fp["i_ring"])
+
+
+# ---------------------------------------------------------------------------
+# the fused step head and the captured static step
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [5_003, 79_360, 714_240])
+def test_neuron_step_kernel_matches_plain(cuda, n):
+    """The step-head kernel against its plain version, every output
+    exact: at spike densities 0, mid-run and above ``active_cap``, with
+    neurons exactly at threshold, in place and not, and with no bitmap;
+    one launch per call; n not a multiple of 32 too."""
+    from repro_torch.kernels.neuron_step import neuron_step_cuda
+    kw = LIFParams().kernel_args()
+    g = torch.Generator(device=cuda).manual_seed(n)
+    v0 = torch.rand(n, device=cuda, generator=g) * 25.0 - 5.0
+    c = torch.rand(n, device=cuda, generator=g) * 5.0
+    r = torch.randint(0, 3, (n,), device=cuda, generator=g,
+                      dtype=torch.int32)
+    a = torch.rand(n, device=cuda, generator=g) < 0.95
+    drive = (torch.poisson(torch.full((n,), 1.62, device=cuda),
+                           generator=g) * 0.5)
+    # (ring offset, active_cap, neurons at threshold): no spike, mid-run
+    # density, nothing delivered, and more spikes than active_cap
+    for shift, cap, edge in ((-60.0, 1000, False), (0.0, n, True),
+                             (0.0, 0, True), (15.0, n // 10, True)):
+        ring = (torch.randint(-4000, 4000, (8, n), device=cuda,
+                              generator=g).float() * 2.0 ** -9 + shift)
+        v, drv = v0.clone(), drive.clone()
+        if edge:     # v_int == theta exactly (v = c = 0, i = theta)
+            ring[5, :64], v[:64], drv[:64] = kw["theta"], 0.0, 0.0
+            c[:64], r[:64], a[:64] = 0.0, 0, True
+        for inplace in (False, True):
+            rk, rp = ring.clone(), ring.clone()
+            st = (v.clone(), c.clone(), r.clone())
+            _build.reset_launch_counts()
+            got = neuron_step_cuda(rk, 5, drv, *st, a, active_cap=cap,
+                                   out=st if inplace else None, **kw)
+            assert _build.launch_counts() == {"neuron_step": 1}
+            want = ref.neuron_step_ref(rp, 5, drv, v, c, r, a,
+                                       active_cap=cap, **kw)
+            torch.cuda.synchronize()
+            for x, y in zip(got, want):
+                assert x.dtype == y.dtype and torch.equal(x, y)
+            assert torch.equal(rk, rp) and not rk[5].any()
+            assert bool(got[3][:64].all()) == edge
+        if not edge:
+            assert int(want[5]) == 0
+        nobits = neuron_step_cuda(ring.clone(), 5, drv, v, c, r, a,
+                                  active_cap=None, **kw)
+        assert nobits[4] is None and int(nobits[5]) == int(want[5])
+    assert int(want[5]) > n // 10   # the last density is above the cap
+
+
+def _run_steps(state, tabs, cfg, n_steps, drive=None):
+    """``n_steps`` eager ``engine.step`` calls (nothing captured)."""
+    rows = []
+    for k in range(n_steps):
+        state, spk = teng.step(state, tabs, cfg,
+                               drive=None if drive is None else drive[k])
+        rows.append(spk)
+    return state, torch.stack(rows)
+
+
+@pytest.mark.parametrize("drawn", [False, True])
+@pytest.mark.parametrize("law", ["gaussian", "exponential"])
+def test_captured_run_matches_eager_steps(cuda, law, drawn):
+    """29 steps at 4x4x1240: 8 eager, two replays of the captured 8-step
+    graph and a 5-step tail, then 19 more from step 29 (the graph starts
+    mid-ring), against one eager ``step`` at a time from the same seed:
+    raster, counts, state, ring, metrics and the drive generator's state
+    are bit-equal, with the drive drawn inside the graph and injected."""
+    _, tcfg = configs(law, grid=4, n_per_col=1240)
+    tabs = teng.build_shard_tables(tcfg, device=cuda)
+    n = tcfg.spec().n_local
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    drive = (None if drawn else
+             torch.stack([teng.external_drive(gen, n, tcfg)
+                          for _ in range(48)]))
+    sc, se = (teng.init_sim_state(tcfg, device=cuda) for _ in range(2))
+    _build.reset_launch_counts()
+    sc, raster = teng.simulate(sc, tabs, tcfg, 29, record_spikes=True,
+                               drive=None if drawn else drive[:29],
+                               device=cuda)
+    sc, counts = teng.simulate(sc, tabs, tcfg, 19,
+                               drive=None if drawn else drive[29:],
+                               device=cuda)
+    assert _build.launch_counts() == {"neuron_step": 48,
+                                      "event_delivery": 48, "step_graph": 3}
+    se, rows = _run_steps(se, tabs, tcfg, 48, drive)
+    torch.cuda.synchronize()
+    assert float(rows.sum()) > 0
+    assert torch.equal(raster, rows[:29])
+    assert torch.equal(counts, rows[29:].sum(1))
+    assert sc["t"] == se["t"] == 48
+    for k in ("v", "c", "refrac"):
+        assert torch.equal(sc["neuron"][k], se["neuron"][k])
+    assert torch.equal(sc["i_ring"], se["i_ring"])
+    for k in ("spikes", "events", "dropped"):
+        assert torch.equal(sc["metrics"][k], se["metrics"][k])
+    assert torch.equal(teng.external_drive(sc["rng"], n, tcfg),
+                       teng.external_drive(se["rng"], n, tcfg))
+
+
+def test_captured_run_leaves_the_callers_state(cuda):
+    """The captured loop works on copies of the neuron state and the
+    metrics: the caller's tensors keep their values."""
+    _, tcfg = configs("gaussian", grid=4, n_per_col=100)
+    tabs = teng.build_shard_tables(tcfg, device=cuda)
+    state = teng.init_sim_state(tcfg, device=cuda)
+    before = {k: x.clone() for k, x in state["neuron"].items()}
+    fin, _ = teng.simulate(state, tabs, tcfg, 24, device=cuda)
+    for k, x in before.items():
+        assert torch.equal(state["neuron"][k], x)
+        assert not torch.equal(fin["neuron"][k], x) or k == "refrac"
+    assert float(state["metrics"]["spikes"]) == 0.0
+    assert float(fin["metrics"]["spikes"]) > 0
+
+
+@pytest.mark.parametrize("law", ["gaussian", "exponential"])
+def test_captured_run_follows_edited_weights(cuda, law):
+    """Weights edited in place and replaced between captured runs:
+    each run delivers the weights it is handed (its descriptors rebound,
+    its graph captured anew), as the plain path does."""
+    _, tcfg = configs(law, grid=4, n_per_col=100)
+    tabs = teng.build_shard_tables(tcfg, device=cuda)
+    plain = dataclasses.replace(tcfg, use_kernels=False)
+    n = tcfg.spec().n_local
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    drive = torch.stack([teng.external_drive(gen, n, tcfg)
+                         for _ in range(24)])
+
+    def both(tables):
+        _build.reset_launch_counts()
+        fk, rk = teng.simulate(teng.init_sim_state(tcfg, device=cuda),
+                               tables, tcfg, 24, record_spikes=True,
+                               drive=drive, device=cuda)
+        assert _build.launch_counts()["step_graph"] == 2
+        fp, rp = teng.simulate(teng.init_sim_state(plain, device=cuda),
+                               tables, plain, 24, record_spikes=True,
+                               drive=drive, device=cuda)
+        torch.cuda.synchronize()
+        assert torch.equal(rk, rp)
+        assert torch.equal(fk["i_ring"].view(torch.int32),
+                           fp["i_ring"].view(torch.int32))
+        return fk["i_ring"].clone()
+
+    base = both(tabs)
+    tabs.local["w"].mul_(0.5)           # in place: exact in bf16
+    halved = both(tabs)
+    replaced = both(with_local_tier(
+        tabs, dict(tabs.local, w=tabs.local["w"] * 4)))
+    assert not torch.equal(base, halved)
+    assert not torch.equal(halved, replaced)
+
+
+def test_recorded_run_is_not_captured(cuda):
+    """A recorded run steps eagerly (no graph) through the fused head,
+    and its raster is the captured run's from the same seed."""
+    from repro_torch.obs.record import recorder_spec
+    _, tcfg = configs("exponential", grid=4, n_per_col=1240)
+    tabs = teng.build_shard_tables(tcfg, device=cuda)
+    _build.reset_launch_counts()
+    _, raster, rec = teng.simulate(
+        teng.init_sim_state(tcfg, device=cuda), tabs, tcfg, 40,
+        record_spikes=True, recorder=recorder_spec(tcfg, 40), device=cuda)
+    assert _build.launch_counts() == {"neuron_step": 40,
+                                      "event_delivery": 40,
+                                      "spike_compact": 40}
+    _, captured = teng.simulate(teng.init_sim_state(tcfg, device=cuda),
+                                tabs, tcfg, 40, record_spikes=True,
+                                device=cuda)
+    assert torch.equal(raster, captured)
+    assert int(rec["count"]) == int(raster.sum()) > 0
 
 
 def _plastic_cfg(law, n_per_col=100, **kw):
@@ -370,6 +546,7 @@ def test_static_float32_run_is_fixed_order(cuda, law):
                                     drive=drive.to(cuda), device=cuda)
         counts = _build.launch_counts()
         assert counts.get("plastic_delivery_ltd") == 60
+        assert counts.get("step_graph") == 6
         assert "event_delivery" not in counts
         runs.append((fin["i_ring"].cpu(), raster.cpu()))
     plain = dataclasses.replace(tcfg, use_kernels=False)
@@ -397,7 +574,7 @@ def test_plastic_run_matches_cpu_plain_path(cuda, law):
         teng.init_sim_state(tcfg, device=cuda), tabs, tcfg, 40,
         drive=drive.to(cuda), device=cuda,
         plasticity=teng.init_plasticity(tabs, tcfg))
-    assert _build.launch_counts() == {"lif_step": 40,
+    assert _build.launch_counts() == {"neuron_step": 40,
                                       "plastic_delivery_ltd": 40}
     plain = dataclasses.replace(tcfg, use_kernels=False)
     (sp, tp, rp), pp = teng.simulate(
