@@ -45,6 +45,24 @@ Phases, each of which exits non-zero on failure:
    default capacity (no drops; the events are the raster's spikes) and a
    small one (drops counted), each timed beside the same steps with the
    recorder off;
+5b. the multi-shard path (``dist_engine.build_dist_tables`` ->
+   ``init_dist_state`` -> ``make_sim_fn``): 8x8x1240 in 2x2 tiles on
+   the card, both laws: 100 captured steps (one CUDA graph of
+   ``d_ring`` steps of all four tiles) against 100 eager one-step calls
+   and 100 plain-path steps from the same seed (per-step spikes, every
+   tile's state, ring and metrics identical, no derived structure
+   rebuilt after the first step), recorded kernel-path and plain-path
+   runs (the global raster as (step, gid) events, identical), then 500
+   timed steps (which must show ``(500 - 8) // 8`` replays and fire
+   within ``rel=0.35`` of the single shard's rate), a profile of 400
+   more and of the graph's replays alone (device operations per step,
+   the exchange's gathers), and the device bytes per shard beside
+   ``metrics.shard_memory_bytes``; then the plastic multi-shard path at
+   4x4x1240 in 2x2 tiles: 30 recorded kernel-path steps on the card
+   against 30 plain-path steps on the CPU (both laws' at once) with
+   the card's drive injected (raster, every tier's weights, traces,
+   ring and state identical; every halo band with a source inside the
+   slab must have learned);
 6. timing of each kernel at its path's shapes: its device time per
    call (``ms``: CUDA events around back-to-back calls enqueued while
    the stream is held, ``queued_ms``), beside torch.profiler's figure
@@ -82,10 +100,13 @@ Phases, each of which exits non-zero on failure:
    and a head_dim-256 window; the TF32 pre-pass bit for bit, and the
    tf32 fragment layout the TF32 kernel assumes.
 
-Launch counts are zeroed just before each of phases 3-5 and 7 and read
-just after it; a replay of the captured static step counts as
-``step_graph`` and as one launch of each kernel the graph holds.  It prints the metrics, a ``{"kernels": [...]}`` line, the
-card's name and power limit, and as its last line
+Launch counts are zeroed just before each of phases 3-5, 5b and 7 and
+read just after it (the ``{"kernels"}`` line gives each kernel's
+launches on phase 3's or its own path, and on 5b's); a replay of a
+captured static step counts as ``step_graph`` and as one launch of
+each kernel the graph holds.  It prints the metrics, a
+``{"kernels": [...]}`` line, the card's name and power limit, and as
+its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 It needs one CUDA card and the repository checkout around it.
 
@@ -121,6 +142,12 @@ PROFILE_STEPS = 400        # static profile: 8 eager steps, 49 replays
 PLASTIC_PARITY_STEPS, PLASTIC_STEPS = 30, 200
 PARITY_GRID = 4                            # CPU parity of the plastic path
 RECORD_STEPS, SMALL_CAPACITY = 100, 1000
+MS_TILES = 2                       # the multi-shard path: 2x2 tiles
+MS_PARITY_STEPS, MS_TIMED_STEPS, MS_PROFILE_STEPS = 100, 500, 400
+# the plastic leg at 4x4x1240 in 2x2 tiles: the slab first fires in
+# bulk after step 20 (20 steps changed 9 weights, none in a halo tier);
+# its CPU plain paths (both laws side by side) are most of its time
+MS_PROFILE_REPLAYS, MS_RECORD_STEPS, MS_PLASTIC_STEPS = 20, 50, 30
 LAWS = ("gaussian", "exponential")
 BF16_OPS_PER_S = 989e12            # H100 SXM bf16 dense tensor-core rate
 TF32_OPS_PER_S = 495e12            # H100 SXM TF32 dense tensor-core rate
@@ -535,7 +562,8 @@ def run_law(law: str, tabs, build_s: float) -> dict:
     # a mid-run spike vector: the delivery kernel's main-path input
     steps = raster_k[PARITY_STEPS // 2:]
     med = int(steps.sum(1).argsort()[steps.shape[0] // 2])
-    return {"cfg": cfg, "state": fin_k, "spikes": steps[med].clone()}
+    return {"cfg": cfg, "state": fin_k, "spikes": steps[med].clone(),
+            "rate_hz": rate, "ms_per_step": res["ms_per_step"]}
 
 
 def profile_steps(state, tabs, cfg, law: str, n_steps: int = 50,
@@ -810,6 +838,367 @@ def run_recorded(law: str, tabs) -> dict:
     print(f"recorded path {law} {GRID}x{GRID}x{N_PER_COLUMN} "
           f"{RECORD_STEPS} steps " + json.dumps(out))
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: the multi-shard path (2x2 tiles on one card)
+# ---------------------------------------------------------------------------
+
+def ms_cfg(law: str, grid: int, **kw):
+    from repro_torch.configs.snn import reduced_case
+    from repro_torch.core.dist_engine import DistConfig
+    return DistConfig(engine=reduced_case(law, grid, N_PER_COLUMN)
+                      .engine_config(MS_TILES, MS_TILES, **kw))
+
+
+def ms_diff(a: dict, b: dict) -> list:
+    """The fields of two stacked states that differ (bits), each with
+    the tiles (row-major) where it differs."""
+    pairs = [(k, a["neuron"][k], b["neuron"][k]) for k in a["neuron"]]
+    pairs += [("i_ring", a["i_ring"], b["i_ring"])]
+    pairs += [(k, a["metrics"][k], b["metrics"][k]) for k in a["metrics"]]
+    if "plastic" in a:
+        pa, pb = a["plastic"], b["plastic"]
+        pairs += [(f"w{i}", x, y) for i, (x, y) in enumerate(zip(pa["w"],
+                                                                 pb["w"]))]
+        pairs += [("x_pre", pa["x_pre"][0], pb["x_pre"][0]),
+                  ("x_post", pa["x_post"], pb["x_post"])]
+    out = []
+    for name, x, y in pairs:
+        if not bits_equal(x, y):
+            x, y = x.cpu(), y.cpu()
+            tiles = [i for i in range(MS_TILES ** 2)
+                     if not bits_equal(x.flatten(0, 1)[i],
+                                       y.flatten(0, 1)[i])]
+            out.append(f"{name} (tiles {tiles})")
+    if not (a["t"] == b["t"]).all():
+        out.append("t")
+    return out
+
+
+def ms_recorded(cfg, tables, steps: int, device: str, drive=None,
+                plastic=None) -> tuple:
+    """A recorded multi-shard run (eager) at the default capacity: the
+    global raster as (step, gid) events.  ``plastic``: (carry, inverse
+    index slots, folded tables)."""
+    import torch
+    from repro_torch.core import dist_engine as de
+    from repro_torch.obs.record import recorder_spec, stacked_gid_maps
+    state = de.init_dist_state(cfg, device=device)
+    inputs = de.SimInputs(tables=tables, drive=drive, gids=torch.from_numpy(
+        stacked_gid_maps(cfg.engine.decomp)).to(device))
+    if plastic is not None:
+        state["plastic"], inputs.inv_slots, inputs.tables = plastic
+    sim = de.make_sim_fn(cfg, steps, recorder=recorder_spec(cfg.engine,
+                                                            steps),
+                         storage=tables.storage, device=device)
+    state, per, rec = sim(state, inputs)
+    require(sim.graph_loop is None, "a recorded run replayed a graph")
+    return state, per, rec, sim
+
+
+def ms_memory(cfg, tables, stats: dict) -> dict:
+    """Device bytes per shard the static multi-shard run holds: the
+    stacked tables, the run descriptors, the state; beside the port's
+    ``shard_memory_bytes`` (the reference's count)."""
+    from repro_torch.core import metrics
+    from repro_torch.core.dist_engine import tile_tables
+    from repro_torch.core.synapses import column_runs, tier_list
+    spec = cfg.engine.spec()
+    n = MS_TILES ** 2
+    runs = sum(r["nbytes"] for v in tile_tables(tables)
+               for r in column_runs(tier_list(v), spec.n_per_col,
+                                    spec.n_exc_per_col, spec.d_ring)) / n
+    tab = sum(x.numel() * x.element_size() for t in tables.tiers()
+              for x in t.values()) / n
+    state = spec.n_local * (12 + 1 + 4 * spec.d_ring)
+    syn = stats["n_synapses"] / n
+    model = metrics.shard_memory_bytes(spec, tables.storage)
+    return {"tables_bytes_per_shard": tab, "run_descriptor_bytes_per_shard":
+            runs, "state_bytes_per_shard": state,
+            "synapses_per_shard": syn,
+            "bytes_per_synapse_with_descriptor": (tab + runs + state) / syn,
+            "shard_memory_bytes": model,
+            "shard_memory_bytes_per_realized_synapse": model["total"] / syn,
+            "bytes_per_synapse_model": metrics.bytes_per_synapse(
+                spec, tables.storage),
+            "expected_synapses_interior_shard": spec.expected_synapses()}
+
+
+def run_multishard(law: str, single: dict) -> dict:
+    """The static multi-shard path at 8x8x1240 in 2x2 tiles: captured,
+    eager and plain runs from the same seed, recorded kernel and plain
+    runs (the global raster), the timed run, its profile and the
+    exchange's device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import dist_engine as de
+    from repro_torch.core import synapses
+    from repro_torch.kernels import _build
+    cfg = ms_cfg(law, GRID)
+    label = (f"multi-shard {law} {GRID}x{GRID}x{N_PER_COLUMN} "
+             f"{MS_TILES}x{MS_TILES}")
+    t0 = time.perf_counter()
+    tables, stats = de.build_dist_tables(cfg)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    inputs = de.SimInputs(tables=tables)
+    steps, d = MS_PARITY_STEPS, cfg.engine.d_ring
+
+    def replays():
+        return _build.launch_counts().get("step_graph", 0)
+
+    stage = {"host_build": build_s}
+    t_stage = time.perf_counter()
+
+    def lap(name):
+        nonlocal t_stage
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        stage[name] = now - t_stage
+        t_stage = now
+
+    # captured, eager (one step a call) and plain, from the same seed
+    r0 = replays()
+    sim = de.make_sim_fn(cfg, steps, storage=tables.storage)
+    cap_state, cap_per = sim(de.init_dist_state(cfg), inputs)
+    require(replays() - r0 == (steps - d) // d,
+            f"{label}: {replays() - r0} replays in {steps} steps")
+    builds = dict(synapses.BUILD_COUNTS)
+    one = de.make_sim_fn(cfg, 1, storage=tables.storage)
+    eag_state = de.init_dist_state(cfg)
+    eag_per = torch.cat([one(eag_state, inputs)[1] for _ in range(steps)],
+                        dim=2)
+    require(one.graph_loop is None and replays() - r0 == (steps - d) // d,
+            f"{label}: the one-step calls replayed a graph")
+    plain = de.DistConfig(engine=dataclasses.replace(cfg.engine,
+                                                     use_kernels=False))
+    pl_state, pl_per = de.make_sim_fn(plain, steps, storage=tables.storage)(
+        de.init_dist_state(plain), inputs)
+    torch.cuda.synchronize()
+    for other, st, per in (("eager", eag_state, eag_per),
+                           ("plain", pl_state, pl_per)):
+        require(torch.equal(cap_per, per), f"{label}: per-step spikes of "
+                f"the captured run differ from the {other} run")
+        diff = ms_diff(cap_state, st)
+        require(not diff, f"{label}: the captured run differs from the "
+                f"{other} run in {diff}")
+    require(dict(synapses.BUILD_COUNTS) == builds, f"{label}: derived "
+            f"structures rebuilt after the first step: {builds} -> "
+            f"{dict(synapses.BUILD_COUNTS)}")
+    lap("captured_eager_plain")
+    # the global raster: recorded kernel path against the plain path
+    rk_state, rk_per, rec_k, _ = ms_recorded(cfg, tables, MS_RECORD_STEPS,
+                                             "cuda")
+    _, _, rec_p, _ = ms_recorded(plain, tables, MS_RECORD_STEPS, "cuda")
+    for k in rec_k:
+        require(torch.equal(rec_k[k], rec_p[k]), f"{label}: recorder {k} "
+                "differs between the kernel and plain paths")
+    n_spk = rk_state["metrics"]["spikes"].to(torch.int32)
+    require(torch.equal(rec_k["dropped"], torch.zeros_like(n_spk))
+            and torch.equal(rec_k["count"], n_spk),
+            f"{label}: the recorder missed spikes at its default capacity")
+    require(torch.equal(rk_per, cap_per[..., :MS_RECORD_STEPS]),
+            f"{label}: recording changed the spikes")
+    lap("recorded")
+
+    # the timed run
+    state = de.init_dist_state(cfg)
+    timed = de.make_sim_fn(cfg, MS_TIMED_STEPS, storage=tables.storage)
+    c0 = _build.launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, per = timed(state, inputs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c1 = _build.launch_counts()
+    per_step = {k: (v - c0.get(k, 0)) / MS_TIMED_STEPS
+                for k, v in c1.items() if v != c0.get(k, 0)}
+    n_replays = c1.get("step_graph", 0) - c0.get("step_graph", 0)
+    require(n_replays == (MS_TIMED_STEPS - d) // d,
+            f"{label}: {n_replays} replays in {MS_TIMED_STEPS} steps")
+    v = state["neuron"]["v"]
+    require(per.shape == (MS_TILES, MS_TILES, MS_TIMED_STEPS) and bool(
+        torch.isfinite(v).all() & torch.isfinite(state["neuron"]["c"])
+        .all()), f"{label}: unexpected shapes or non-finite state")
+    n_active = float(state["active"].sum())
+    spikes = float(state["metrics"]["spikes"].sum())
+    events = float(state["metrics"]["events"].sum())
+    rate = spikes / max(n_active, 1.0) / (MS_TIMED_STEPS * 1e-3)
+    rel = abs(rate - single["rate_hz"]) / single["rate_hz"]
+    require(rel <= 0.35, f"{label}: rate {rate} Hz against the single "
+            f"shard's {single['rate_hz']} Hz (rel {rel:.3f} > 0.35)")
+    lap("timed")
+
+    # profile: the idle share of a 400-step run, then the graph's replays
+    # alone (device operations per step = graph nodes; the gathers)
+    prof_sim = de.make_sim_fn(cfg, MS_PROFILE_STEPS, storage=tables.storage)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prof_sim(state, inputs)
+        torch.cuda.synchronize()
+        prof_wall_us = (time.perf_counter() - t0) * 1e6
+    busy, top = device_breakdown(prof, MS_PROFILE_STEPS)
+    graph = prof_sim.graph_loop.graph
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(MS_PROFILE_REPLAYS):
+            graph.replay()
+        torch.cuda.synchronize()
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    n_graph_steps = MS_PROFILE_REPLAYS * d
+    # the exchange: the bands' gathers (the step's only index kernels)
+    gather_us = sum(e.time_range.elapsed_us() for e in dev_events
+                    if "index" in e.name or "gather" in e.name.lower())
+    replay_busy_us = sum(e.time_range.elapsed_us() for e in dev_events)
+    res = {
+        "law": law, "grid": f"{GRID}x{GRID}x{N_PER_COLUMN}",
+        "tiles": f"{MS_TILES}x{MS_TILES}", "halo_bands": len(tables.halo),
+        "host_build_s": build_s,
+        "n_synapses": stats["n_synapses"], "steps": MS_TIMED_STEPS,
+        "rate_hz": rate, "single_shard_rate_hz": single["rate_hz"],
+        "rate_rel_diff": rel, "events_per_step": events / MS_TIMED_STEPS,
+        "dropped": float(state["metrics"]["dropped"].sum()),
+        "ms_per_step": 1e3 * wall / MS_TIMED_STEPS,
+        "single_shard_ms_per_step": single["ms_per_step"],
+        "s_per_synaptic_event": wall / max(events, 1.0),
+        "step_graph_replays": n_replays, "launches_per_step": per_step,
+        "profile_steps": MS_PROFILE_STEPS,
+        "profiled_wall_ms_per_step": prof_wall_us / MS_PROFILE_STEPS / 1e3,
+        "device_busy_ms_per_step": busy / MS_PROFILE_STEPS / 1e3,
+        "device_idle_share": 1.0 - busy / prof_wall_us,
+        "idle_share_unprofiled_wall": 1.0 - busy / MS_PROFILE_STEPS / 1e3
+        / (1e3 * wall / MS_TIMED_STEPS),
+        "top_kernels_ms_per_step": top,
+        "graph_device_ops_per_step": len(dev_events) / n_graph_steps,
+        "graph_busy_ms_per_step": replay_busy_us / n_graph_steps / 1e3,
+        "exchange_gathers_ms_per_step": gather_us / n_graph_steps / 1e3,
+        "parity_steps": steps, "parity_spikes": float(cap_per.sum()),
+        "recorded_steps": MS_RECORD_STEPS,
+        "recorded_events": int(rec_k["count"].sum()),
+    }
+    lap("profile_and_exchange_timing")
+    res["stage_s"] = stage
+    print(f"{label} path " + json.dumps(res))
+    mem = ms_memory(cfg, tables, stats)
+    print(f"{label} memory " + json.dumps(mem))
+    res["memory"] = mem
+    return res
+
+
+def ms_plastic_card(law: str) -> dict:
+    """The plastic multi-shard path at 4x4x1240 in 2x2 tiles: the host
+    build and inverse index, a drive drawn on the card, and the
+    kernel-path run on the card (recorded: the global raster)."""
+    import torch
+    from repro_torch.core import dist_engine as de
+    from repro_torch.core import engine
+    from repro_torch.core.stdp import STDPParams
+    cfg = ms_cfg(law, PARITY_GRID, stdp=STDPParams())
+    t0 = time.perf_counter()
+    cpu_tabs, stats = de.build_dist_tables(cfg, device="cpu")
+    slots, aux = de.build_dist_inverse_index(cfg, cpu_tabs)
+    build_s = time.perf_counter() - t0
+    n = cfg.engine.spec().n_local
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(77)
+    drive = torch.stack([torch.stack([engine.external_drive(
+        gen, n, cfg.engine) for _ in range(MS_TILES ** 2)])
+        for _ in range(MS_PLASTIC_STEPS)]).view(
+            MS_PLASTIC_STEPS, MS_TILES, MS_TILES, n)
+    tabs = cpu_tabs.to("cuda")
+    t0 = time.perf_counter()
+    card = ms_recorded(cfg, tabs, MS_PLASTIC_STEPS, "cuda", drive,
+                       ms_carry(cfg, tabs, slots.cuda()))
+    torch.cuda.synchronize()
+    return {"law": law, "cfg": cfg, "cpu_tabs": cpu_tabs, "stats": stats,
+            "slots": slots, "clipped": aux["clipped"], "drive": drive.cpu(),
+            "build_s": build_s, "card": card,
+            "card_s": time.perf_counter() - t0}
+
+
+def ms_carry(cfg, tables, slots) -> tuple:
+    from repro_torch.core import dist_engine as de
+    return (de.init_dist_plastic_state(cfg, tables), slots,
+            de.fold_plastic_tables(tables))
+
+
+def ms_plastic_cpu(ctx: dict) -> tuple:
+    """The plain path of ``ms_plastic_card``'s run on the CPU."""
+    from repro_torch.core import dist_engine as de
+    cfg = ctx["cfg"]
+    plain = de.DistConfig(engine=dataclasses.replace(cfg.engine,
+                                                     use_kernels=False))
+    t0 = time.perf_counter()
+    run = ms_recorded(plain, ctx["cpu_tabs"], MS_PLASTIC_STEPS, "cpu",
+                      ctx["drive"], ms_carry(plain, ctx["cpu_tabs"],
+                                             ctx["slots"]))
+    return run, time.perf_counter() - t0
+
+
+def ms_plastic_parity() -> list:
+    """Both laws' plastic multi-shard legs: the card's first, then the
+    CPU plain paths side by side (one thread each: their LTP scatters
+    run on one core), then the comparison."""
+    from concurrent.futures import ThreadPoolExecutor
+    ctxs = [ms_plastic_card(law) for law in LAWS]
+    with ThreadPoolExecutor(len(ctxs)) as pool:
+        cpu = list(pool.map(ms_plastic_cpu, ctxs))
+    return [ms_plastic_check(ctx, *c) for ctx, c in zip(ctxs, cpu)]
+
+
+def ms_plastic_check(ctx: dict, cpu_run: tuple, cpu_s: float) -> dict:
+    """The card's kernel path against the CPU plain path, bit for bit."""
+    import torch
+    law, stats, slots = ctx["law"], ctx["stats"], ctx["slots"]
+    label = (f"multi-shard plastic {law} {PARITY_GRID}x{PARITY_GRID}x"
+             f"{N_PER_COLUMN} {MS_TILES}x{MS_TILES}")
+    require(ctx["clipped"] == 0, f"{label}: the inverse index clipped")
+    sk, pk, rk, sim = ctx["card"]
+    sp, pp, rp, _ = cpu_run
+    require(torch.equal(pk.cpu(), pp), f"{label}: per-step spikes differ")
+    for k in rk:
+        require(torch.equal(rk[k].cpu(), rp[k]),
+                f"{label}: raster ({k}) differs")
+    diff = ms_diff(sk, sp)
+    require(not diff, f"{label}: the card's kernel path differs from the "
+            f"CPU plain path in {diff}")
+    changed = [int((w.cpu() != t["w"]).sum()) for w, t in
+               zip(sk["plastic"]["w"], ctx["cpu_tabs"].tiers())]
+    # a band whose sources all lie outside the 4x4 slab (the exponential
+    # law's bands beyond two columns) reads only the sink: it cannot learn
+    sink = MS_TILES ** 2 * sim.n_local
+    sources = [int((m != sink).sum()) for m in sim.maps]
+    require(changed[0] > 0 and all(c > 0 for c, n in zip(changed[1:], sources)
+                                   if n), f"{label}: weights changed per "
+            f"tier {changed}, in-slab sources per band {sources}")
+    n_tiles = MS_TILES ** 2
+    pl = sk["plastic"]
+    carry_bytes = sum(x.numel() * x.element_size()
+                      for x in pl["w"] + pl["x_pre"] + [pl["x_post"]])
+    slot_bytes = slots.numel() * slots.element_size()
+    tm_bytes = sum(i["tm"].numel() for i in sim.tiles.inv)
+    mask_bytes = sum(x.numel() * x.element_size()
+                     for t in sim.tiles.masks for x in t)
+    res = {"law": law, "grid": f"{PARITY_GRID}x{PARITY_GRID}x{N_PER_COLUMN}",
+           "tiles": f"{MS_TILES}x{MS_TILES}", "steps": MS_PLASTIC_STEPS,
+           "spikes": float(pk.sum()), "weights_changed_per_tier": changed,
+           "in_slab_sources_per_band": sources,
+           "host_build_s": ctx["build_s"], "card_s": ctx["card_s"],
+           "cpu_plain_s": cpu_s, "n_synapses": stats["n_synapses"],
+           "carry_bytes_per_shard": carry_bytes / n_tiles,
+           "inverse_index_slots_bytes_per_shard": slot_bytes / n_tiles,
+           "target_major_bytes_per_shard": tm_bytes / n_tiles,
+           "float32_mask_bytes_per_shard": mask_bytes / n_tiles,
+           "bytes_per_synapse_carry_index_tm_masks": (
+               carry_bytes + slot_bytes + tm_bytes + mask_bytes)
+               / stats["n_synapses"]}
+    print(f"{label} parity (card kernel path == CPU plain path: raster, "
+          "every tier's w, traces, ring, v, c, refrac, metrics) "
+          + json.dumps(res))
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -1874,6 +2263,26 @@ def main() -> None:
     require("step_graph" not in p_launches,
             "a plastic run replayed a graph")
 
+    # 5b. the multi-shard path: 2x2 tiles, static (both laws, with the
+    # recorded runs) and the plastic parity at 4x4
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    for law in LAWS:
+        run_multishard(law, runs[law])
+    ms_plastic_parity()
+    ms_launches = _build.launch_counts()
+    print(f"multi-shard path launches: {json.dumps(ms_launches)}; "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated()} B; "
+          f"{time.perf_counter() - t0:.1f} s")
+    for name in ("neuron_step", "event_delivery", "step_graph",
+                 "spike_compact", "plastic_delivery_ltd"):
+        require(ms_launches.get(name, 0) > 0,
+                f"kernel {name} was not launched on the multi-shard path")
+    require("lif_step" not in ms_launches
+            and "event_delivery_rows" not in ms_launches,
+            "the multi-shard path reached a replaced kernel")
+
     # 6. timing at the paths' shapes (not counted as launches)
     last = LAWS[-1]
     kernels = [time_lif(runs[last]["state"], runs[last]["cfg"],
@@ -1913,6 +2322,8 @@ def main() -> None:
     require("jax" not in sys.modules and not any(
         m == "repro" or m.startswith("repro.") for m in sys.modules),
         "the port pulled in jax or the JAX package")
+    for k in kernels:
+        k["multi_shard_launches"] = ms_launches.get(k["name"], 0)
     print(json.dumps({"kernels": kernels}))
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(gpu_line())

@@ -1,0 +1,675 @@
+"""Multi-shard DPSNN engine on one device: stacked tiles + halo exchange.
+
+The port of ``repro.core.dist_engine`` in its single-device form.  One
+tile owns a ``tile_h x tile_w`` rectangle of cortical columns; every
+state and table tensor carries two leading *tile* axes ``(TY, TX)``,
+and every tile lives on the same device (the reference shards the tile
+axes over a TPU mesh).  Step structure, all tiles (dt = 1 ms):
+
+  1. per tile: read ring slot t, add the external Poisson drive (drawn
+     on the tile's own generator), LIF+SFA update, zero the slot -- the
+     step head (``kops.neuron_step`` on the kernel path);
+  2. halo exchange of the excitatory spikes and the halo bands' source
+     vectors: ``exchange_halo_2d`` followed by each band's gather is
+     one precomputed index map per band over the stacked spike vector
+     (``band_gather_maps``), so each band is one gather for every tile;
+  3. per tile: event-driven delivery of the local tier and every halo
+     band (``engine.deliver_event_tiers``: the column kernel for
+     bfloat16 weights, the fixed-order kernel for float32); plastic
+     runs exchange the local pre-trace the same way and go through
+     ``engine.plastic_delivery_stdp`` with every tier's weights in the
+     carry.
+
+The state is updated in place (the port's counterpart of the
+reference's donated state).  ``state["t"]`` is a host-side ``(TY, TX)``
+int32 numpy array and ``state["rng"]`` the row-major list of the tiles'
+``torch.Generator``s.  A static event-mode run on a CUDA device with
+``use_kernels`` replays one CUDA graph of ``d_ring`` steps of all tiles
+(``engine.GraphLoop``); plastic, recorded and plain runs step eagerly.
+The drive is drawn with ``torch.poisson``, which cannot reproduce
+``jax.random.poisson``: parity runs inject the reference's drive
+(``SimInputs.drive``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..kernels.ref import delivered_bits
+from .engine import (EngineConfig, GraphLoop, bind_tier_structures,
+                     deliver_event_tiers, deliver_gather_all_tiers,
+                     init_sim_state, plastic_delivery_stdp, step_head)
+from .halo import exchange_halo_2d, pack_bits, unpack_bits
+from .stdp import (build_inverse_index, check_weight_invariant,
+                   plastic_masks, stdp_step, target_major_meta)
+from .synapses import (SynapseTables, TableStorage, build_tables,
+                       compress_tables, materialized_table_bytes, tier_list,
+                       tile_views)
+
+
+@dataclasses.dataclass
+class SimInputs:
+    """The sim function's second argument: synapse ``tables`` always
+    (stacked ``SynapseTables`` or the ``{"local", "halo"}`` dict form);
+    ``inv_slots`` (the stacked target-major inverse index,
+    ``build_dist_inverse_index``) when the engine is plastic; ``gids``
+    (the stacked global-neuron-id maps, ``obs.record.stacked_gid_maps``)
+    when a recorder is attached; ``drive``, an injected ``(n_steps, TY,
+    TX, n_local)`` drive in mV, or None to draw it on each tile's
+    generator."""
+    tables: Any
+    inv_slots: Any = None
+    gids: Any = None
+    drive: Any = None
+
+
+@dataclasses.dataclass(frozen=True)
+class DistConfig:
+    """Distribution settings layered on an EngineConfig: the exchange's
+    ``halo_mode`` ("strip" | "block") and wire format (``pack_spikes``: a
+    1-bit payload, ``halo.pack_bits``), as ``band_gather_maps`` composes
+    them into the bands' gather maps.  Every setting gives the same
+    regions, so the same maps and the same run."""
+
+    engine: EngineConfig
+    halo_mode: str = "strip"
+    pack_spikes: bool = True
+
+    @property
+    def tiles(self) -> Tuple[int, int]:
+        d = self.engine.decomp
+        return d.tiles_y, d.tiles_x
+
+
+# ---------------------------------------------------------------------------
+# Stacked state / tables
+# ---------------------------------------------------------------------------
+
+def init_dist_state(cfg: DistConfig, device="cuda") -> dict:
+    """Every tile's ``engine.init_sim_state(e, y, x, seed_offset=y*TX+x)``
+    stacked into ``(TY, TX, ...)`` tensors on ``device``; ``t`` a ``(TY,
+    TX)`` int32 numpy array, ``rng`` the tiles' generators (row-major),
+    the metrics ``(TY, TX)`` float32."""
+    dev = resolve_device(device)
+    ty, tx = cfg.tiles
+    e = cfg.engine
+    tiles = [init_sim_state(e, y, x, seed_offset=y * tx + x, device=dev)
+             for y in range(ty) for x in range(tx)]
+
+    def stack(get):
+        x = torch.stack([get(s) for s in tiles])
+        return x.view((ty, tx) + tuple(x.shape[1:]))
+
+    return {
+        "neuron": {k: stack(lambda s, k=k: s["neuron"][k])
+                   for k in tiles[0]["neuron"]},
+        "i_ring": stack(lambda s: s["i_ring"]),
+        "t": np.zeros((ty, tx), np.int32),
+        "rng": [s["rng"] for s in tiles],
+        "active": stack(lambda s: s["active"]),
+        "metrics": {k: stack(lambda s, k=k: s["metrics"][k])
+                    for k in tiles[0]["metrics"]},
+    }
+
+
+def _stack_tiers(tiers: List[dict], ty: int, tx: int) -> dict:
+    out = {}
+    for k in tiers[0]:
+        x = torch.stack([t[k] for t in tiers])
+        out[k] = x.view((ty, tx) + tuple(x.shape[1:]))
+    return out
+
+
+def build_dist_tables(cfg: DistConfig, compress: bool = True,
+                      device="cuda") -> Tuple[SynapseTables, dict]:
+    """Materialize every tile's synapse tables (host-side numpy, the
+    reference's draws) stacked on ``(TY, TX)``, placed on ``device``.
+
+    Tiles are built at the analytic caps (identical shapes), stacked,
+    then compressed *jointly* (``compress_tables`` on the stack): the
+    realized caps are maxima across tiles, so every tile has one
+    storage descriptor and one delivery plan, as in the reference.
+    Tiles are built by as many host threads as there are tiles and
+    cores (each tile draws from its own seed, so the tables do not
+    depend on the count)."""
+    dev = resolve_device(device)
+    ty, tx = cfg.tiles
+    e = cfg.engine
+    spec = e.spec()
+
+    def build(yx):
+        return build_tables(spec, *yx, j_exc=e.lif.j_exc_mv,
+                            j_inh=e.lif.j_inh_mv, seed=e.seed, device="cpu")
+
+    tiles = [(y, x) for y in range(ty) for x in range(tx)]
+    with ThreadPoolExecutor(min(len(tiles), os.cpu_count() or 1)) as pool:
+        tabs = list(pool.map(build, tiles))
+    stats = {"n_synapses": int(sum(t.stats["n_synapses"] for t in tabs)),
+             "clipped": int(sum(t.stats["clipped"] for t in tabs))}
+    out = SynapseTables(
+        _stack_tiers([t.local for t in tabs], ty, tx),
+        [_stack_tiers([t.halo[b] for t in tabs], ty, tx)
+         for b in range(len(tabs[0].halo))],
+        tabs[0].storage, stats=dict(stats))
+    del tabs
+    if compress:
+        out = compress_tables(out)
+    stats["table_bytes_per_shard"] = materialized_table_bytes(out, ty * tx)
+    return out.to(dev), stats
+
+
+def tile_tables(tables) -> List[dict]:
+    """Each tile's ``{"local": ..., "halo": [...]}`` tables as views of
+    the stacked ``tables`` (row-major).  The structures derived from the
+    tiers (``synapses.inverse_index``, ``column_runs``) are cached on the
+    view tensors, so the views are made once: ``SynapseTables`` keep
+    theirs (``SynapseTables.tile_views``), and a run keeps those of
+    dict-form tables for as long as it is handed the same tensors.
+    Views share their stacked tensor's version counter, so an in-place
+    edit of one tile's tensor rebinds every tile's structures (correct,
+    and costly)."""
+    if isinstance(tables, SynapseTables):
+        return tables.tile_views()
+    return tile_views(tables)
+
+
+def init_dist_plastic_state(cfg: DistConfig, tables) -> dict:
+    """Fresh plastic carry: every tier's weights copied from the stacked
+    build tables (copies, never views), traces at zero.  ``tables`` must
+    carry the *build weights* (float), not the folded int8 masks
+    (``fold_plastic_tables``).  The pre-trace is local-tier only: halo
+    replicas are exchanged each step, never carried."""
+    ty, tx = cfg.tiles
+    n_local = cfg.engine.spec().n_local
+    tiers = tier_list(tables)
+    if any(t["w"].dtype == torch.int8 for t in tiers):
+        raise ValueError(
+            "init_dist_plastic_state needs the build-weight tables "
+            "(float w); got int8-folded mask tables -- pass the tables "
+            "taken before fold_plastic_tables")
+    check_weight_invariant(tiers, cfg.engine.stdp)
+    dev = tiers[0]["w"].device
+    pre_rows = tiers[0]["tgt"].shape[-2]
+    return {
+        "w": [t["w"].clone() for t in tiers],
+        "x_pre": [torch.zeros((ty, tx, pre_rows), dtype=torch.float32,
+                              device=dev)],
+        "x_post": torch.zeros((ty, tx, n_local), dtype=torch.float32,
+                              device=dev),
+    }
+
+
+def fold_plastic_tables(tables: SynapseTables) -> SynapseTables:
+    """Fold the static tables' weights down to the int8 plastic mask
+    (``w > 0``: excitatory-at-build = plastic).  Plastic runs read live
+    weights only from the carry (``init_dist_plastic_state``), so the
+    tables keep 1 B per synapse for the mask."""
+    def fold(t):
+        return dict(t, w=(t["w"] > 0).to(torch.int8))
+    return SynapseTables(fold(tables["local"]),
+                         [fold(t) for t in tables["halo"]],
+                         tables.storage, stats=tables.stats)
+
+
+def build_dist_inverse_index(cfg: DistConfig, tables):
+    """Per-tile target-major inverse indices (``stdp.build_inverse_index``,
+    host numpy), stacked on ``(TY, TX)`` on the tables' device.
+
+    Each tile's index maps a local (target) neuron to the virtual flat
+    slots of its incoming synapses across *all* tiers, local and halo.
+    In-degree padding differs per tile, so slots are padded to the max
+    with the ``total`` sentinel.  Returns ``(slots, aux)``: ``slots``
+    (TY, TX, n_local, K) int32, ``aux`` the tier geometry (``bases``,
+    ``sizes``, ``total``, the same on every tile) and ``clipped`` (summed
+    over tiles)."""
+    ty, tx = cfg.tiles
+    n_local = cfg.engine.spec().n_local
+    dev = tables["local"]["tgt"].device
+    invs = [build_inverse_index(tier_list(v), n_local, device="cpu")
+            for v in tile_tables(tables)]
+    aux = {"bases": invs[0]["bases"], "sizes": invs[0]["sizes"],
+           "total": invs[0]["total"],
+           "clipped": int(sum(i["clipped"] for i in invs))}
+    k_max = max(int(i["slots"].shape[1]) for i in invs)
+    stacked = torch.full((ty * tx, n_local, k_max), aux["total"],
+                         dtype=torch.int32)
+    for i, inv in enumerate(invs):
+        stacked[i, :, :inv["slots"].shape[1]] = inv["slots"]
+    return stacked.view(ty, tx, n_local, k_max).to(dev), aux
+
+
+# ---------------------------------------------------------------------------
+# The exchange as gathers
+# ---------------------------------------------------------------------------
+
+def _exchange(cfg: DistConfig, ids: torch.Tensor) -> torch.Tensor:
+    """``exchange_halo_2d`` of an integer payload ``(TY, TX, tile_h,
+    tile_w, n_exc)`` in ``cfg.halo_mode``, moved as ``cfg.pack_spikes``
+    says: packed, each bit plane of the ids goes through ``pack_bits``,
+    the exchange and ``unpack_bits`` as a spike block would."""
+    d = cfg.engine.decomp
+    if not cfg.pack_spikes:
+        return exchange_halo_2d(ids, radius=d.radius, mode=cfg.halo_mode)
+    out = torch.zeros((), dtype=torch.int64)
+    for b in range(int(ids.max()).bit_length()):
+        plane = exchange_halo_2d(pack_bits((ids >> b) & 1),
+                                 radius=d.radius, mode=cfg.halo_mode)
+        out = out + (unpack_bits(plane, ids.shape[-1]).to(torch.int64) << b)
+    return out
+
+
+def band_gather_maps(cfg: DistConfig, stride: int, sink_column: bool = False,
+                     device="cuda") -> List[torch.Tensor]:
+    """Per halo band, the ``(TY*TX, rows_b)`` int64 map from each tile's
+    band rows to a flat source vector: tile i's local neuron j at ``i *
+    stride + j``, and one zero sink at ``TY*TX*stride`` (the vector's
+    last element) for sources outside the slab.  Gathering a stacked
+    excitatory-source vector through it equals ``exchange_halo_2d``
+    (with ``cfg.halo_mode``) followed by the band's
+    ``band_positions_exc`` gather, bit for bit: the map is made by
+    exchanging each source's position (``+1``, so that the exchange's
+    zero fill marks the sink), in ``cfg``'s mode and wire format
+    (``_exchange``).  ``sink_column`` appends one column of the sink to
+    every row (the reference's per-band zero sink of the pre-trace)."""
+    dev = resolve_device(device)
+    e = cfg.engine
+    spec = e.spec()
+    d = e.decomp
+    ty, tx = cfg.tiles
+    n_per, n_exc = spec.n_per_col, spec.n_exc_per_col
+    sink = ty * tx * stride
+    col = np.arange(d.tile_cols)[:, None] * n_per + np.arange(n_exc)[None, :]
+    tile = np.arange(ty * tx)[:, None, None] * stride
+    ids = torch.from_numpy((tile + col[None] + 1).reshape(
+        ty, tx, d.tile_h, d.tile_w, n_exc))
+    region = _exchange(cfg, ids).reshape(ty * tx, -1)
+    maps = []
+    for band in spec.halo_bands():
+        m = region[:, torch.from_numpy(spec.band_positions_exc(band))] - 1
+        m = torch.where(m < 0, torch.full_like(m, sink), m)
+        if sink_column:
+            m = torch.cat([m, torch.full((ty * tx, 1), sink,
+                                         dtype=m.dtype)], dim=1)
+        maps.append(m.to(dev))
+    return maps
+
+
+# ---------------------------------------------------------------------------
+# The multi-shard step / run
+# ---------------------------------------------------------------------------
+
+class _Tiles:
+    """What a run reads per tile, made once per set of stacked tensors:
+    the table views (``tile_tables``), the plastic masks, the inverse
+    indices built from ``SimInputs.inv_slots``."""
+
+    def __init__(self, tables, inv_slots, sim: "_DistSim"):
+        self.key = _identity(tables, inv_slots)
+        self.tables = tile_tables(tables)
+        self.masks = self.inv = None
+        if sim.plastic:
+            self.masks = [plastic_masks(tier_list(v)) for v in self.tables]
+            self.inv = [sim.tile_inverse_index(v, m, slots)
+                        for v, m, slots in zip(self.tables, self.masks,
+                                               inv_slots.flatten(0, 1))]
+
+    def tier_tensors(self) -> list:
+        return [t[name] for v in self.tables for t in tier_list(v)
+                for name in ("tgt", "dslot", "nnz", "w")]
+
+
+def _identity(tables, inv_slots) -> list:
+    return [t[k] for t in tier_list(tables) for k in sorted(t)] + [inv_slots]
+
+
+def _same(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(x is y for x, y in zip(a, b))
+
+
+class _DistSim:
+    """``make_sim_fn``'s function: ``sim(state, inputs)``."""
+
+    def __init__(self, cfg: DistConfig, n_steps: int, record_rate: bool,
+                 recorder, storage: Optional[TableStorage], dev):
+        e = cfg.engine
+        self.cfg, self.e, self.n_steps = cfg, e, n_steps
+        self.record_rate, self.recorder, self.dev = record_rate, recorder, dev
+        self.spec = spec = e.spec()
+        ty, tx = cfg.tiles
+        self.n_tiles = ty * tx
+        self.n_local = spec.n_local
+        self.event = e.mode == "event"
+        if not self.event and e.mode != "gather_all":
+            raise ValueError(f"unknown mode {e.mode}")
+        bands = spec.halo_bands()
+        self.plan = spec.delivery_plan(storage)
+        self.plastic = e.stdp is not None
+        self.maps = band_gather_maps(cfg, self.n_local, device=dev)
+        self.pre_maps = None
+        if self.plastic:
+            self.pre_maps = band_gather_maps(cfg, self.n_local + 1,
+                                             sink_column=True, device=dev)
+            self.pre_caps = [spec.active_cap_local] + [
+                spec.active_cap_band(b) for b in bands]
+        self.zero = torch.zeros((1,), dtype=torch.float32, device=dev)
+        self.tiles: Optional[_Tiles] = None
+        # the last call's captured loop (None where it stepped eagerly)
+        self.graph_loop: Optional[GraphLoop] = None
+
+    # ---- per-tile inputs ------------------------------------------------
+    def tile_inverse_index(self, tables: dict, masks: list,
+                           slots: torch.Tensor) -> dict:
+        """A tile's inverse index from its rows of the stacked slots."""
+        tiers = tier_list(tables)
+        sizes = np.array([int(np.prod(tuple(t["tgt"].shape)))
+                          for t in tiers], dtype=np.int64)
+        bases = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(
+            np.int64)
+        total = int(bases[-1] + sizes[-1])
+        inv = {"slots": slots, "n_in": (slots != total).sum(
+            1, dtype=torch.int32), "bases": bases, "sizes": sizes,
+            "total": total, "clipped": 0}
+        if self.e.use_kernels and slots.device.type == "cuda":
+            inv["tm"] = target_major_meta(tiers, inv, masks)
+        return inv
+
+    def _tiles_for(self, inputs: SimInputs) -> _Tiles:
+        if self.plastic and inputs.inv_slots is None:
+            raise ValueError("a plastic engine needs SimInputs.inv_slots "
+                             "(build_dist_inverse_index)")
+        if self.tiles is None or not _same(
+                self.tiles.key, _identity(inputs.tables, inputs.inv_slots)):
+            self.tiles = _Tiles(inputs.tables, inputs.inv_slots, self)
+        return self.tiles
+
+    # ---- one step of every tile, in place -------------------------------
+    def step(self, st: dict, tiles: _Tiles, drive, dst, rec=None) -> None:
+        """One step of all tiles.  ``st``: the run's per-tile views
+        (``_views``); ``drive``: (n_tiles, n_local) or None; ``dst``: the
+        (n_tiles,) per-step spike counts, or None."""
+        e, spec, plan = self.e, self.spec, self.plan
+        t = int(st["t"][0])
+        slot = t % e.d_ring
+        # the local tier's bitmap from the head, where the column or
+        # fixed-order delivery of a static run reads it
+        cap = plan[0].active_cap if self.event and not self.plastic \
+            else None
+        spikes, n_spk, local_bits = [], [], []
+        for i in range(self.n_tiles):
+            _, spk, bits, count = step_head(
+                st["neuron"][i], st["ring"][i], slot,
+                None if drive is None else drive[i], st["rng"][i], e,
+                st["active"][i], active_cap=cap, inplace=True)
+            spikes.append(spk)
+            n_spk.append(count)
+            local_bits.append(bits)
+
+        # the halo exchange: one gather per band for every tile
+        src = torch.cat(spikes + [self.zero])
+        band_spk = [src[m] for m in self.maps]
+        band_bits = None
+        if (self.event and e.use_kernels and not self.plastic
+                and src.device.type == "cuda"
+                and tiles.tables[0]["local"]["w"].dtype != torch.float32):
+            band_bits = [delivered_bits(b, p.rows, p.active_cap)
+                         for b, p in zip(band_spk, plan[1:])]
+        if self.plastic:
+            pl = st["plastic"]
+            xpre_src = torch.cat([st["x_pre_flat"], self.zero])
+            xpre_bands = [xpre_src[m] for m in self.pre_maps]
+
+        evs, drs = [], []
+        for i in range(self.n_tiles):
+            tabs = tiles.tables[i]
+            ring = st["ring"][i]
+            halo = [b[i] for b in band_spk]
+            if self.plastic:
+                tiers = [dict(tier, w=w[i]) for tier, w in
+                         zip(tier_list(tabs), pl["w"])]
+                traces = {"x_pre": [pl["x_pre"][i]]
+                          + [b[i] for b in xpre_bands],
+                          "x_post": pl["x_post"][i]}
+                spk_tiers = [spikes[i]] + halo
+                if self.event:
+                    ring, new_tiers, traces, ev, dr = plastic_delivery_stdp(
+                        tiers, tiles.masks[i], tiles.inv[i], traces,
+                        spk_tiers, spec, ring, slot, e, plan,
+                        fused_post=True)
+                else:
+                    _, ev = deliver_gather_all_tiers(
+                        {"local": tiers[0], "halo": tiers[1:]}, spikes[i],
+                        halo, ring, slot, e.d_ring)
+                    dr = torch.zeros((), dtype=torch.float32,
+                                     device=ring.device)
+                    new_tiers, traces = stdp_step(
+                        tiers, tiles.masks[i], tiles.inv[i], traces,
+                        spk_tiers, spikes[i], e.stdp, self.pre_caps,
+                        spec.active_cap_local, fused_post=True)
+                for w, nt in zip(pl["w"], new_tiers):
+                    if nt["w"] is not w[i]:
+                        w[i].copy_(nt["w"])
+                pl["x_pre"][i].copy_(traces["x_pre"][0])
+                pl["x_post"][i].copy_(traces["x_post"])
+            elif self.event:
+                bits = [local_bits[i]] + (
+                    [(b[i], c[i]) for b, c in band_bits] if band_bits
+                    else [None] * len(halo))
+                ring, ev, dr = deliver_event_tiers(
+                    tabs, spikes[i], halo, spec, ring, slot, e.d_ring,
+                    e.use_kernels, plan=plan, tier_bits=bits)
+            else:
+                _, ev = deliver_gather_all_tiers(tabs, spikes[i], halo, ring,
+                                                 slot, e.d_ring)
+                dr = None
+            evs.append(ev)
+            drs.append(dr)
+            if rec is not None:
+                from ..obs.record import record_step
+                record_step(rec[i], spikes[i], st["gids"][i], t,
+                            self.recorder)
+
+        counts = torch.stack(n_spk).to(torch.float32)
+        m = st["metrics"]
+        m["spikes"].add_(counts)
+        m["events"].add_(torch.stack(evs))
+        if drs[0] is not None:
+            m["dropped"].add_(torch.stack(drs))
+        if dst is not None:
+            dst.copy_(counts)
+        st["state"]["t"] = st["state"]["t"] + 1
+        st["t"] = st["state"]["t"].reshape(-1)
+
+    # ---- the run --------------------------------------------------------
+    def _views(self, state: dict, inputs: SimInputs) -> dict:
+        """The stacked state's per-tile views (flattened tile axis)."""
+        flat = lambda x: x.flatten(0, 1)     # noqa: E731
+        st = {
+            "state": state,
+            "t": state["t"].reshape(-1),
+            "ring": flat(state["i_ring"]).unbind(0),
+            "neuron": [dict(zip(state["neuron"], vs)) for vs in zip(
+                *[flat(x).unbind(0) for x in state["neuron"].values()])],
+            "active": flat(state["active"]).unbind(0),
+            "rng": state["rng"],
+            "metrics": {k: x.view(-1) for k, x in state["metrics"].items()},
+        }
+        if self.plastic:
+            pl = state["plastic"]
+            st["plastic"] = {"w": [flat(w).unbind(0) for w in pl["w"]],
+                             "x_pre": flat(pl["x_pre"][0]).unbind(0),
+                             "x_post": flat(pl["x_post"]).unbind(0)}
+            st["x_pre_flat"] = pl["x_pre"][0].view(-1)
+        if self.recorder is not None:
+            st["gids"] = flat(inputs.gids).unbind(0)
+        return st
+
+    def __call__(self, state: dict, inputs: SimInputs):
+        _check_state(state, inputs, self)
+        tiles = self._tiles_for(inputs)
+        st = self._views(state, inputs)
+        ty, tx = self.cfg.tiles
+        n, n_steps = self.n_tiles, self.n_steps
+        drive = inputs.drive
+        if drive is not None:
+            if tuple(drive.shape) != (n_steps, ty, tx, self.n_local):
+                raise ValueError(
+                    f"drive has shape {tuple(drive.shape)}, expected "
+                    f"{(n_steps, ty, tx, self.n_local)}")
+            drive = drive.reshape(n_steps, n, self.n_local)
+        out = torch.empty((n_steps, n), dtype=torch.float32, device=self.dev)
+        rec_state = recs = None
+        if self.recorder is not None:
+            from ..obs.record import init_recorder_state
+            rec_state = init_recorder_state(self.recorder, device=self.dev,
+                                            tiles=(ty, tx))
+            recs = [{k: v.flatten(0, 1)[i] if v.dim() > 2 else
+                     v.view(-1)[i] for k, v in rec_state.items()}
+                    for i in range(n)]
+        self.graph_loop = None
+        if (self.dev.type == "cuda" and self.e.use_kernels and self.event
+                and not self.plastic and recs is None
+                and n_steps >= 2 * self.e.d_ring):
+            self.graph_loop = _DistStepGraph(self, st, tiles, drive)
+            self.graph_loop.run(n_steps, out)
+        else:
+            for k in range(n_steps):
+                self.step(st, tiles, None if drive is None else drive[k],
+                          out[k], recs)
+        per_step = (out.t().reshape(ty, tx, n_steps).contiguous()
+                    if self.record_rate else None)
+        if self.recorder is not None:
+            return state, per_step, rec_state
+        return state, per_step
+
+
+def _check_state(state: dict, inputs: SimInputs, sim: _DistSim) -> None:
+    have = {state["i_ring"].device, inputs.tables["local"]["tgt"].device}
+    if any(d.type != sim.dev.type for d in have):
+        raise ValueError(
+            f"make_sim_fn(device={str(sim.dev)!r}) but the state/tables "
+            f"live on {sorted(str(d) for d in have)}; build them with the "
+            "same device=")
+    ty, tx = sim.cfg.tiles
+    if tuple(state["i_ring"].shape[:2]) != (ty, tx) or \
+            len(state["rng"]) != ty * tx:
+        raise ValueError(f"the state is not stacked on {ty}x{tx} tiles")
+    t = state["t"]
+    if not (t == t.flat[0]).all():
+        raise ValueError("the tiles' step counters differ")
+    if sim.plastic and "plastic" not in state:
+        raise ValueError("a plastic engine needs state['plastic'] "
+                         "(init_dist_plastic_state)")
+    if sim.recorder is not None and inputs.gids is None:
+        raise ValueError("a recorder needs SimInputs.gids "
+                         "(obs.record.stacked_gid_maps)")
+
+
+class _DistStepGraph(GraphLoop):
+    """The static multi-shard loop on a CUDA device: one graph holds
+    ``d_ring`` steps of every tile (heads, exchange, band gathers,
+    deliveries), with every tile's generator registered."""
+
+    def __init__(self, sim: _DistSim, st: dict, tiles: _Tiles, drive):
+        super().__init__(st["state"], sim.e.d_ring, sim.dev, drive,
+                         (sim.n_tiles, sim.n_local), (sim.n_tiles,))
+        self.sim, self.st, self.tiles = sim, st, tiles
+
+    def _one(self, drive, dst) -> None:
+        self.st["t"] = self.state["t"].reshape(-1)
+        self.sim.step(self.st, self.tiles, drive, dst)
+
+    def _tier_tensors(self) -> list:
+        return self.tiles.tier_tensors()
+
+    def _bind(self) -> None:
+        for v in self.tiles.tables:
+            bind_tier_structures(tier_list(v), self.sim.spec,
+                                 self.sim.e.d_ring)
+
+    def _generators(self) -> list:
+        return list(self.state["rng"])
+
+
+def make_sim_fn(cfg: DistConfig, n_steps: int, record_rate: bool = True,
+                recorder=None, storage: Optional[TableStorage] = None,
+                device="cuda"):
+    """The multi-shard simulation function of ``n_steps`` steps.
+
+    Returns ``sim(state, inputs) -> (state, per_step (TY, TX, n_steps)
+    float32[, recorder_state])``, ``inputs`` a ``SimInputs``.  The state
+    is updated in place and returned (the counterpart of the reference's
+    donation); each call continues where the last stopped (``t`` rides
+    in the state).  ``storage``: the tables' storage descriptor
+    (``tables.storage`` for compressed tables), which sizes the delivery
+    plan.  ``record_rate=False`` returns None for ``per_step``.
+
+    ``recorder``: an ``obs.record.RecorderSpec``; ``inputs.gids`` must
+    then hold ``stacked_gid_maps`` and the return grows each tile's
+    freshly zeroed ``(step, gid)`` event buffer, ``count`` and
+    ``dropped``, stacked on ``(TY, TX)``.  Recording is a pure observer.
+
+    Plastic engines (``cfg.engine.stdp``): ``state["plastic"]`` carries
+    every tier's live weights and the pre/post traces
+    (``init_dist_plastic_state``), ``inputs.tables`` the structure and
+    int8 plastic mask (``fold_plastic_tables``), ``inputs.inv_slots`` the
+    stacked inverse index (``build_dist_inverse_index``).  Each tile's
+    halo pre-traces are the owners' local pre-traces at the start of the
+    step, exchanged like the spikes, with a zero sink per band.
+
+    On a CUDA ``device`` with ``use_kernels``, a static event-mode run
+    without a recorder of at least ``2 * d_ring`` steps replays one CUDA
+    graph of ``d_ring`` steps of all tiles after ``d_ring`` eager steps,
+    then steps an eager tail (``engine.GraphLoop``); other runs step
+    eagerly."""
+    return _DistSim(cfg, n_steps, record_rate, recorder, storage,
+                    resolve_device(device))
+
+
+def simulate(cfg: DistConfig, n_steps: int, timed: bool = False,
+             device="cuda") -> dict:
+    """Build, run, report (static engines).  ``timed=True`` runs a
+    second segment of ``n_steps`` after the first and reports its host
+    wall time (``elapsed_s``, CUDA-synchronised) and events."""
+    if cfg.engine.stdp is not None:
+        raise ValueError("simulate() is the static convenience driver; "
+                         "drive plastic runs through make_sim_fn")
+    dev = resolve_device(device)
+    state = init_dist_state(cfg, device=dev)
+    tables, stats = build_dist_tables(cfg, device=dev)
+    sim = make_sim_fn(cfg, n_steps, storage=tables.storage, device=dev)
+    inputs = SimInputs(tables=tables)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    state, per_step = sim(state, inputs)
+    elapsed = before = None
+    if timed:
+        sync()
+        before = float(state["metrics"]["events"].sum())
+        t0 = time.perf_counter()
+        state, per_step = sim(state, inputs)
+        sync()
+        elapsed = time.perf_counter() - t0
+    n_active = float(state["active"].sum())
+    spikes = float(state["metrics"]["spikes"].sum())
+    sim_sec = n_steps * (2 if timed else 1) * cfg.engine.lif.dt_ms * 1e-3
+    out = {
+        "state": state, "per_step_spikes": per_step, "stats": stats,
+        "rate_hz": spikes / max(n_active, 1.0) / max(sim_sec, 1e-9),
+        "events": float(state["metrics"]["events"].sum()),
+        "dropped": float(state["metrics"]["dropped"].sum()),
+    }
+    if timed:
+        out["elapsed_s"] = elapsed
+        out["events_timed"] = out["events"] - before
+    return out

@@ -163,13 +163,13 @@ def external_drive(gen: torch.Generator, n_local: int,
 def deliver_event_tiers(tables, spikes, halo_band_spikes, spec, i_ring,
                         slot: int, d_ring: int, use_kernels: bool,
                         plan: Optional[List[TierPlan]] = None,
-                        local_bits=None):
+                        tier_bits=None):
     """Event-driven delivery of the local tier + every halo band into
     ``i_ring`` (in place).  With ``use_kernels`` all tiers go to
     ``kops.synaptic_accum_banded`` (bfloat16 weights, adds in any order,
-    through the tiers' run descriptors on the card; ``local_bits``, the
-    local tier's (bitmap, count) from ``kops.neuron_step``, spares it
-    the bitmap) or,
+    through the tiers' run descriptors on the card; ``tier_bits``, per
+    tier its (bitmap, count) or None -- the local tier's from
+    ``kops.neuron_step`` -- spares it those bitmaps) or,
     for float32 weights, whose sums depend on their order, to the
     fixed-order ``kops.plastic_step_banded`` with LTD off, through the
     tiers' inverse index; otherwise ``deliver_events`` runs per tier.
@@ -193,7 +193,7 @@ def deliver_event_tiers(tables, spikes, halo_band_spikes, spec, i_ring,
                     if i_ring.device.type == "cuda" else None)
             i_ring, ev, dr = kops.synaptic_accum_banded(
                 tiers, i_ring, slot, d_ring, plan=plan, runs=runs,
-                local_bits=local_bits)
+                tier_bits=tier_bits)
         return i_ring, ev.to(torch.float32), dr.to(torch.float32)
     i_ring, ev, dr = deliver_events(tables["local"], spikes, i_ring, slot,
                                     d_ring, plan[0].active_cap)
@@ -205,6 +205,48 @@ def deliver_event_tiers(tables, spikes, halo_band_spikes, spec, i_ring,
         ev = ev + ev_b.to(torch.float32)
         dr = dr + dr_b.to(torch.float32)
     return i_ring, ev, dr
+
+
+def step_head(neuron: dict, i_ring, slot: int, drive, gen, cfg: EngineConfig,
+              active, active_cap: Optional[int] = None,
+              inplace: bool = False):
+    """Steps 1-3 of a step: read ring slot ``slot``, add the external
+    drive (``drive``, or drawn on ``gen`` when None), LIF+SFA update,
+    zero the slot (``i_ring`` in place).  With ``cfg.use_kernels`` this
+    is one kernel (``kops.neuron_step``), which with ``active_cap`` also
+    writes the local tier's delivered-row bitmap.  ``inplace``: the new
+    neuron state is written into ``neuron``'s own tensors.  Returns
+    (neuron, spikes, bits, count): ``bits`` the local tier's (bitmap,
+    count) or None, ``count`` the spike count (0-d)."""
+    if drive is None:
+        drive = external_drive(gen, active.shape[0], cfg)
+    if cfg.use_kernels:
+        neuron, spikes, bits, count = kops.neuron_step(
+            neuron, i_ring, slot, drive, cfg.lif, active,
+            active_cap=active_cap, inplace=inplace)
+        return neuron, spikes, None if bits is None else (bits, count), count
+    new, spikes = lif_sfa_step(neuron, i_ring[slot] + drive, cfg.lif, active)
+    i_ring[slot] = 0.0
+    if inplace:
+        for k, x in new.items():
+            neuron[k].copy_(x)
+        new = neuron
+    return new, spikes, None, spikes.sum()
+
+
+def deliver_gather_all_tiers(tables, spikes, halo_band_spikes, i_ring,
+                             slot: int, d_ring: int):
+    """Time-driven delivery (``mode="gather_all"``) of the local tier and
+    every halo band into ``i_ring`` (in place).  Returns (i_ring,
+    events), the events an f32 scalar summed as the reference sums
+    them."""
+    local = tables["local"]
+    i_ring = deliver_gather_all(local, spikes, i_ring, slot, d_ring)
+    ev = (local["nnz"][:spikes.shape[0]].to(torch.float32) * spikes).sum()
+    for tab, spk in zip(tables["halo"], halo_band_spikes):
+        i_ring = deliver_gather_all(tab, spk, i_ring, slot, d_ring)
+        ev = ev + (tab["nnz"][:-1].to(torch.float32) * spk).sum()
+    return i_ring, ev
 
 
 def step(state: dict, tables, cfg: EngineConfig,
@@ -239,45 +281,31 @@ def _step(state: dict, tables, cfg: EngineConfig,
     written into ``state``'s own tensors, whose addresses a captured
     graph holds."""
     spec = cfg.spec()
-    n_local = spec.n_local
     event = cfg.mode == "event" and deliver
     if plan is None and event:
         plan = spec.delivery_plan(getattr(tables, "storage", None))
     slot = state["t"] % cfg.d_ring
-    if drive is None:
-        drive = external_drive(state["rng"], n_local, cfg)
-
     i_ring = state["i_ring"]
-    local_bits = None
-    if cfg.use_kernels:
-        neuron, spikes, bits, count = kops.neuron_step(
-            state["neuron"], i_ring, slot, drive, cfg.lif, state["active"],
-            active_cap=plan[0].active_cap if event else None,
-            inplace=inplace)
-        n_spk = count.to(torch.float32)
-        if bits is not None:
-            local_bits = (bits, count)
-    else:
-        neuron, spikes = lif_sfa_step(state["neuron"], i_ring[slot] + drive,
-                                      cfg.lif, state["active"])
-        i_ring[slot] = 0.0
-        n_spk = spikes.sum()
-
     halo_band_spikes = halo_band_spikes or []
+    neuron, spikes, bits, count = step_head(
+        state["neuron"], i_ring, slot, drive, state["rng"], cfg,
+        state["active"], active_cap=plan[0].active_cap if event else None,
+        inplace=inplace)
+    n_spk = count.to(torch.float32)
+    tier_bits = (None if bits is None
+                 else [bits] + [None] * len(halo_band_spikes))
+
     if not deliver:
         adds = {"spikes": n_spk}
     elif cfg.mode == "event":
         i_ring, ev, dr = deliver_event_tiers(
             tables, spikes, halo_band_spikes, spec, i_ring, slot,
-            cfg.d_ring, cfg.use_kernels, plan=plan, local_bits=local_bits)
+            cfg.d_ring, cfg.use_kernels, plan=plan, tier_bits=tier_bits)
         adds = {"spikes": n_spk, "events": ev, "dropped": dr}
     elif cfg.mode == "gather_all":
-        local = tables["local"]
-        i_ring = deliver_gather_all(local, spikes, i_ring, slot, cfg.d_ring)
-        ev = (local["nnz"][:n_local].to(torch.float32) * spikes).sum()
-        for tab, spk in zip(tables["halo"], halo_band_spikes):
-            i_ring = deliver_gather_all(tab, spk, i_ring, slot, cfg.d_ring)
-            ev = ev + (tab["nnz"][:-1].to(torch.float32) * spk).sum()
+        i_ring, ev = deliver_gather_all_tiers(tables, spikes,
+                                              halo_band_spikes, i_ring,
+                                              slot, cfg.d_ring)
         adds = {"spikes": n_spk, "events": ev}
     else:
         raise ValueError(f"unknown mode {cfg.mode}")
@@ -297,7 +325,8 @@ def _step(state: dict, tables, cfg: EngineConfig,
 
 
 def plastic_delivery_stdp(tiers, masks, inv, traces, spike_tiers, spec,
-                          i_ring, slot: int, cfg: EngineConfig, plan):
+                          i_ring, slot: int, cfg: EngineConfig, plan,
+                          fused_post: bool = False):
     """One plastic update: event delivery + STDP over ``tiers``.
 
     With ``cfg.use_kernels`` one fixed-order launch per tier delivers
@@ -307,8 +336,11 @@ def plastic_delivery_stdp(tiers, masks, inv, traces, spike_tiers, spec,
     two-pass reference: ``deliver_event_tiers`` then ``stdp_step``.
     Both are bit-identical to the reference on the CPU.  ``tiers`` carry
     the live weights (updated in place on the kernel path); ``traces``
-    is ``{"x_pre": [per tier], "x_post"}``.  Returns (i_ring, new_tiers,
-    new_traces, events, dropped) with events/dropped as f32 scalars.
+    is ``{"x_pre": [per tier], "x_post"}``; ``fused_post`` picks the post
+    trace's rounding (``stdp.post_trace``: the reference's sharded scan
+    rounds it once, its single-shard scan twice).  Returns (i_ring,
+    new_tiers, new_traces, events, dropped) with events/dropped as f32
+    scalars.
     """
     p = cfg.stdp
     spikes_local = spike_tiers[0]
@@ -324,8 +356,8 @@ def plastic_delivery_stdp(tiers, masks, inv, traces, spike_tiers, spec,
             -p.a_minus, inv=inv, plan=plan)
         new_tiers = [dict(t, w=w) for t, w in zip(tiers, new_w)]
         new_tiers, new_traces = stdp_ltp_finalize(
-            new_tiers, masks, inv, x_pre_d, x_post_d, spike_tiers,
-            spikes_local, p, post_cap)
+            new_tiers, masks, inv, x_pre_d, traces["x_post"], spike_tiers,
+            spikes_local, p, post_cap, fused_post)
         return (i_ring, new_tiers, new_traces, ev.to(torch.float32),
                 dr.to(torch.float32))
     tabs = {"local": tiers[0], "halo": list(tiers[1:])}
@@ -334,7 +366,7 @@ def plastic_delivery_stdp(tiers, masks, inv, traces, spike_tiers, spec,
         cfg.d_ring, False, plan=plan)
     new_tiers, new_traces = stdp_step(
         tiers, masks, inv, traces, spike_tiers, spikes_local, p,
-        [tp.active_cap for tp in plan], post_cap)
+        [tp.active_cap for tp in plan], post_cap, fused_post)
     return i_ring, new_tiers, new_traces, ev, dr
 
 
@@ -422,14 +454,7 @@ def simulate(state: dict, tables, cfg: EngineConfig, n_steps: int,
             and rec is None and (drive is None
                                  or isinstance(drive, torch.Tensor))):
         loop = _StepGraph(state, tables, cfg, plan, record_spikes, drive)
-        k, d = 0, cfg.d_ring
-        while k < n_steps:
-            if d <= k <= n_steps - d:
-                loop.replay(k, out[k:k + d])
-                k += d
-            else:
-                loop.eager(k, out[k])
-                k += 1
+        loop.run(n_steps, out)
         return loop.state, out
     for k in range(n_steps):
         t = state["t"]
@@ -441,54 +466,78 @@ def simulate(state: dict, tables, cfg: EngineConfig, n_steps: int,
     return (state, out) if rec is None else (state, out, rec)
 
 
-class _StepGraph:
-    """The static loop on a CUDA ring, ``d_ring`` steps at a time.
+def bind_tier_structures(tiers: list, spec, d_ring: int) -> None:
+    """Make the derived structures the kernel path reads for ``tiers``
+    ready, eagerly (binding reads the device, so it must precede a
+    capture): the inverse index for float32 weights, else the run
+    descriptors, bound to the tiers' weights."""
+    if tiers[0]["w"].dtype == torch.float32:
+        inverse_index(tiers)
+        return
+    for runs, tier in zip(column_runs(tiers, spec.n_per_col,
+                                      spec.n_exc_per_col, d_ring), tiers):
+        bind_column_weights(runs, tier)
+
+
+class GraphLoop:
+    """A static loop on a CUDA ring, ``d_ring`` steps at a time.
 
     The slot sequence repeats every ``d_ring`` steps, so one CUDA graph
-    of ``d_ring`` consecutive steps serves every block.  It works on
-    copies of the caller's neuron state and metrics, updated in place
-    (the ring is updated in place on every path), so every replay reads
-    and writes the same tensors.  ``eager`` runs one step; ``replay``
-    runs a block as one replay, after capturing the graph at the first
-    one.  The drive is drawn inside the graph on the state's generator
-    (registered with the graph: replays draw what eager steps would) or
-    copied from the injected drive into a static buffer; per-step
-    counts or raster rows come out of a static buffer, one copy per
-    block.  A graph holds the tables' tensors and the run descriptors'
-    weights as they were at capture: before each replay the tiers'
-    tensors are checked by identity and version, and a change rebinds
-    the descriptors and captures again.  Each replay counts as
-    ``step_graph`` and as a launch of each kernel it holds."""
+    of ``d_ring`` consecutive steps serves every block.  A subclass
+    steps ``self.state`` in place (``_one``: one step, its output
+    copied to ``dst``), so every replay reads and writes the same
+    tensors, and names what a capture depends on: the tier tensors
+    (``_tier_tensors``), their eager binding (``_bind``) and the drive
+    generators (``_generators``).  ``run`` drives ``n_steps``: the first
+    ``d_ring`` steps eagerly, then one replay per full block (captured
+    at the first), then an eager tail.  The drive is drawn inside the
+    graph on the generators (registered with the graph: replays draw
+    what eager steps would) or copied from the injected drive into a
+    static buffer; outputs come out of a static buffer, one copy per
+    block.  A graph holds the tier tensors and the run descriptors'
+    weights as they were at capture: before each replay the tier tensors
+    are checked by identity and version, and a change rebinds and
+    captures again.  Each replay counts as ``step_graph`` and as a
+    launch of each kernel it holds.  ``state["t"]`` is an int or a
+    numpy array, advanced by rebinding (never in place)."""
 
-    def __init__(self, state, tables, cfg: EngineConfig, plan,
-                 record_spikes: bool, drive: Optional[torch.Tensor]):
-        self.state = dict(
-            state, neuron={k: x.clone() for k, x in state["neuron"].items()},
-            metrics={k: x.clone() for k, x in state["metrics"].items()})
-        self.tables, self.cfg, self.plan = tables, cfg, plan
-        self.record, self.drive = record_spikes, drive
-        d, n = cfg.d_ring, cfg.spec().n_local
-        dev = state["i_ring"].device
-        self.drive_buf = (torch.empty((d, n), dtype=torch.float32,
-                                      device=dev)
+    def __init__(self, state: dict, d_ring: int, dev: torch.device,
+                 drive: Optional[torch.Tensor], drive_shape: tuple,
+                 out_shape: tuple):
+        self.state, self.d = state, d_ring
+        self.drive = drive
+        self.drive_buf = (torch.empty((d_ring,) + drive_shape,
+                                      dtype=torch.float32, device=dev)
                           if drive is not None else None)
-        self.out_buf = torch.empty((d, n) if record_spikes else (d,),
+        self.out_buf = torch.empty((d_ring,) + out_shape,
                                    dtype=torch.float32, device=dev)
         self.graph = self.tally = self.stamp = None
         self.stream = torch.cuda.Stream(device=dev)
 
     def _one(self, drive, dst) -> None:
-        self.state, spikes, n_spk = _step(self.state, self.tables, self.cfg,
-                                          drive=drive, plan=self.plan,
-                                          inplace=True)
-        dst.copy_(spikes if self.record else n_spk)
+        raise NotImplementedError
+
+    def _tier_tensors(self) -> list:
+        raise NotImplementedError
+
+    def _bind(self) -> None:
+        raise NotImplementedError
+
+    def _generators(self) -> list:
+        raise NotImplementedError
+
+    def run(self, n_steps: int, out: torch.Tensor) -> None:
+        k, d = 0, self.d
+        while k < n_steps:
+            if d <= k <= n_steps - d:
+                self.replay(k, out[k:k + d])
+                k += d
+            else:
+                self.eager(k, out[k])
+                k += 1
 
     def eager(self, k: int, dst) -> None:
         self._one(None if self.drive is None else self.drive[k], dst)
-
-    def _tier_tensors(self) -> list:
-        return [t[name] for t in tier_list(self.tables)
-                for name in ("tgt", "dslot", "nnz", "w")]
 
     def _unchanged(self) -> bool:
         now = self._tier_tensors()
@@ -496,20 +545,13 @@ class _StepGraph:
             x is y and x._version == v for (x, v), y in zip(self.stamp, now))
 
     def _capture(self) -> None:
-        tiers = tier_list(self.tables)
-        spec = self.cfg.spec()
-        if tiers[0]["w"].dtype == torch.float32:
-            inverse_index(tiers)
-        else:   # bind the descriptors eagerly: binding reads the device
-            for runs, tier in zip(column_runs(tiers, spec.n_per_col,
-                                              spec.n_exc_per_col,
-                                              self.cfg.d_ring), tiers):
-                bind_column_weights(runs, tier)
+        self._bind()
         self.stamp = [(x, x._version) for x in self._tier_tensors()]
         self.graph = None       # a stale graph's memory goes first
         graph = torch.cuda.CUDAGraph()
         if self.drive is None:
-            graph.register_generator_state(self.state["rng"])
+            for gen in self._generators():
+                graph.register_generator_state(gen)
         t0 = self.state["t"]
         # captured on a side stream (the default stream cannot be), with
         # none of torch.cuda.graph's collection and cache emptying
@@ -518,7 +560,7 @@ class _StepGraph:
         with _build.capture_tally() as tally, torch.cuda.stream(self.stream):
             graph.capture_begin()
             try:
-                for j in range(self.cfg.d_ring):
+                for j in range(self.d):
                     self._one(None if self.drive_buf is None
                               else self.drive_buf[j], self.out_buf[j])
             finally:
@@ -530,13 +572,49 @@ class _StepGraph:
     def replay(self, k: int, dst) -> None:
         if self.graph is None or not self._unchanged():
             self._capture()
-        d = self.cfg.d_ring
+        d = self.d
         if self.drive_buf is not None:
             self.drive_buf.copy_(self.drive[k:k + d])
         self.graph.replay()
         _build.count_replay("step_graph", self.tally)
         dst.copy_(self.out_buf)
-        self.state["t"] += d
+        self.state["t"] = self.state["t"] + d
+
+
+class _StepGraph(GraphLoop):
+    """The single-shard static loop on a CUDA ring (``GraphLoop``).  It
+    works on copies of the caller's neuron state and metrics, updated in
+    place (the ring is updated in place on every path); per-step counts
+    or raster rows are its outputs."""
+
+    def __init__(self, state, tables, cfg: EngineConfig, plan,
+                 record_spikes: bool, drive: Optional[torch.Tensor]):
+        n = cfg.spec().n_local
+        super().__init__(
+            dict(state,
+                 neuron={k: x.clone() for k, x in state["neuron"].items()},
+                 metrics={k: x.clone() for k, x in state["metrics"].items()}),
+            cfg.d_ring, state["i_ring"].device, drive, (n,),
+            (n,) if record_spikes else ())
+        self.tables, self.cfg, self.plan = tables, cfg, plan
+        self.record = record_spikes
+
+    def _one(self, drive, dst) -> None:
+        self.state, spikes, n_spk = _step(self.state, self.tables, self.cfg,
+                                          drive=drive, plan=self.plan,
+                                          inplace=True)
+        dst.copy_(spikes if self.record else n_spk)
+
+    def _tier_tensors(self) -> list:
+        return [t[name] for t in tier_list(self.tables)
+                for name in ("tgt", "dslot", "nnz", "w")]
+
+    def _bind(self) -> None:
+        bind_tier_structures(tier_list(self.tables), self.cfg.spec(),
+                             self.cfg.d_ring)
+
+    def _generators(self) -> list:
+        return [self.state["rng"]]
 
 
 def _run_plastic(state: dict, tables, stdp_aux: dict, cfg: EngineConfig,

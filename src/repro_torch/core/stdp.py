@@ -16,7 +16,8 @@ Only excitatory synapses are plastic (mask fixed at build time).  Weights
 clamp to [0, w_max].  Weights are float32 (``EngineConfig.spec`` forces
 it), so the order of every float sum is part of the result: each
 multiply and add here is a separate float32 operation, as XLA computes
-them in the reference (no fused multiply-add), and every scatter-add is
+them in the reference (no fused multiply-add; the one exception is the
+post trace of a sharded run, ``post_trace``), and every scatter-add is
 ``index_add_``, which is sequential on the CPU.
 """
 
@@ -30,7 +31,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..kernels.ref import compact_events
+from ..kernels.ref import _fma, compact_events
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,6 +56,21 @@ def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
     """The Python float ``x`` as a float32 scalar on ``like``'s device:
     the reference's weak-typed constants round to float32 first."""
     return torch.tensor(x, dtype=torch.float32, device=like.device)
+
+
+def post_trace(x_post: torch.Tensor, spikes: torch.Tensor,
+               params: STDPParams, fused: bool) -> torch.Tensor:
+    """The post trace carried to the next step, ``x_post * decay_minus +
+    spikes``, rounded as the reference rounds it: its single-shard scan
+    rounds the decay and the increment apart (``fused=False``); in its
+    sharded scan (``shard_map``) XLA:CPU fuses the two into one
+    multiply-add, rounded once (``fused=True``; the decay rounded to
+    float32 first, as the reference's constants are).  The pre trace is
+    rounded twice in both, and LTD and LTP read the decayed post trace
+    rounded on its own in both."""
+    if fused:
+        return _fma(x_post, float(np.float32(params.decay_minus)), spikes)
+    return x_post * params.decay_minus + spikes
 
 
 def _tier_sizes(tiers: Sequence[dict]) -> Tuple[np.ndarray, np.ndarray]:
@@ -176,10 +192,12 @@ def check_weight_invariant(tiers: Sequence[dict], params: STDPParams):
 def stdp_step(tiers: Sequence[dict], masks: Sequence[torch.Tensor],
               inv: dict, state: dict, spike_tiers: Sequence[torch.Tensor],
               spikes_local: torch.Tensor, params: STDPParams,
-              pre_caps: Sequence[int], post_cap: int):
+              pre_caps: Sequence[int], post_cap: int,
+              fused_post: bool = False):
     """One STDP update, the plain two-pass form: the LTD phase here, then
-    ``stdp_ltp_finalize``.  Returns (new_tiers, new_state); the input
-    tiers are not modified."""
+    ``stdp_ltp_finalize``.  ``fused_post``: the post trace's rounding
+    (``post_trace``).  Returns (new_tiers, new_state); the input tiers
+    are not modified."""
     p = params
     new_tiers = [dict(t) for t in tiers]
     x_pre = [xp * p.decay_plus for xp in state["x_pre"]]
@@ -197,8 +215,9 @@ def stdp_step(tiers: Sequence[dict], masks: Sequence[torch.Tensor],
         new_tiers[i]["w"] = torch.clamp(torch.where(mask > 0, w, w_old),
                                         max=p.w_max)
 
-    return stdp_ltp_finalize(new_tiers, masks, inv, x_pre, x_post,
-                             spike_tiers, spikes_local, params, post_cap)
+    return stdp_ltp_finalize(new_tiers, masks, inv, x_pre, state["x_post"],
+                             spike_tiers, spikes_local, params, post_cap,
+                             fused_post)
 
 
 def stdp_ltp_finalize(tiers: Sequence[dict], masks: Sequence[torch.Tensor],
@@ -206,10 +225,12 @@ def stdp_ltp_finalize(tiers: Sequence[dict], masks: Sequence[torch.Tensor],
                       x_post: torch.Tensor,
                       spike_tiers: Sequence[torch.Tensor],
                       spikes_local: torch.Tensor, params: STDPParams,
-                      post_cap: int):
+                      post_cap: int, fused_post: bool = False):
     """LTP + final clamp + trace increments on post-LTD tiers.
 
-    ``x_pre`` / ``x_post`` are the *decayed* traces.  Shared by the
+    ``x_pre`` are the *decayed* pre traces, ``x_post`` the post trace
+    the step started with (LTD read its decayed value), advanced here by
+    ``post_trace(..., fused_post)``.  Shared by the
     two-pass path and the kernel path (which applies LTD inside the
     delivery launch).  Plain PyTorch on every device: its scatter indices
     are unique apart from lanes that add +0.0, so the order of the adds
@@ -221,6 +242,13 @@ def stdp_ltp_finalize(tiers: Sequence[dict], masks: Sequence[torch.Tensor],
     n_local = spikes_local.shape[0]
     tgts, _ = compact_events(spikes_local, n_local, post_cap)
     tgts = tgts.long()
+    # only lanes that add a nonzero change need walking: on the CPU the
+    # walk keeps just those (the live rows, and below each tier's own
+    # lanes); on the card it stays padded, as selecting them would sync
+    # the host.  The weights come out the same either way.
+    compact = tgts.device.type == "cpu"
+    if compact:
+        tgts = tgts[tgts < n_local]
     safe = torch.clamp(tgts, max=n_local - 1)
     live = (tgts < n_local)[:, None]
     vslots = torch.where(live, inv["slots"][safe].long(),
@@ -230,17 +258,24 @@ def stdp_ltp_finalize(tiers: Sequence[dict], masks: Sequence[torch.Tensor],
         base, size = int(inv["bases"][i]), int(inv["sizes"][i])
         cap = t["tgt"].shape[1]
         sel = (vslots >= base) & (vslots < base + size)
-        # lanes outside the tier add +0.0.  The reference sends them all
-        # to w[0, 0]; here each goes to a weight of its own, since adding
-        # +0.0 changes no weight (none is ever -0.0) and one shared
-        # address would serialize the atomics of a CUDA ``index_add_``
-        spread = torch.arange(vslots.numel(), device=vslots.device)
-        spread = (spread % t["w"].numel()).view_as(vslots)
-        local_v = torch.where(sel, vslots - base, spread)
-        rows, ks = local_v // cap, local_v % cap
-        dw = torch.where(
-            sel, (_f32(p.a_plus, x_post) * x_pre[i][rows]) * mask[rows, ks],
-            torch.zeros((), dtype=torch.float32, device=x_post.device))
+        if compact:
+            local_v = vslots[sel] - base
+            rows, ks = local_v // cap, local_v % cap
+            dw = (_f32(p.a_plus, x_post) * x_pre[i][rows]) * mask[rows, ks]
+        else:
+            # lanes outside the tier add +0.0.  The reference sends them
+            # all to w[0, 0]; here each goes to a weight of its own, since
+            # adding +0.0 changes no weight (none is ever -0.0) and one
+            # shared address would serialize the atomics of a CUDA
+            # ``index_add_``
+            spread = torch.arange(vslots.numel(), device=vslots.device)
+            spread = (spread % t["w"].numel()).view_as(vslots)
+            local_v = torch.where(sel, vslots - base, spread)
+            rows, ks = local_v // cap, local_v % cap
+            dw = torch.where(
+                sel,
+                (_f32(p.a_plus, x_post) * x_pre[i][rows]) * mask[rows, ks],
+                torch.zeros((), dtype=torch.float32, device=x_post.device))
         w = new_tiers[i]["w"]
         w.view(-1).index_add_(0, local_v.reshape(-1), dw.reshape(-1))
         w.clamp_(max=p.w_max)
@@ -252,5 +287,6 @@ def stdp_ltp_finalize(tiers: Sequence[dict], masks: Sequence[torch.Tensor],
 
     for xp, spk in zip(x_pre, spike_tiers):
         xp[:spk.shape[0]] += spk
-    new_state = {"x_pre": list(x_pre), "x_post": x_post + spikes_local}
+    new_state = {"x_pre": list(x_pre),
+                 "x_post": post_trace(x_post, spikes_local, p, fused_post)}
     return new_tiers, new_state

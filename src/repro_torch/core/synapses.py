@@ -125,6 +125,7 @@ class SynapseTables:
         self.halo = tuple(halo)
         self.storage = storage
         self.stats = stats
+        self._views = None      # (stacked tensors, their tile views)
 
     def __getitem__(self, key):
         if key in ("local", "halo", "stats"):
@@ -143,6 +144,22 @@ class SynapseTables:
         """``column_runs(self.tiers(), ...)``."""
         return column_runs(self.tiers(), n_per_col, n_exc_per_col, d_ring)
 
+    def tile_views(self) -> List[dict]:
+        """Each tile's ``{"local": ..., "halo": [...]}`` tiers as views of
+        tables stacked on ``(TY, TX)`` leading axes, row-major.  Made at
+        first use and kept with the tables (remade if a tier tensor is
+        replaced), so the structures cached on the view tensors
+        (``inverse_index``, ``column_runs``) are found again by every
+        later step and run."""
+        stacked = [t[k] for t in self.tiers() for k in sorted(t)]
+        cached = self._views
+        if cached is not None and len(cached[0]) == len(stacked) and all(
+                x is y for x, y in zip(cached[0], stacked)):
+            return cached[1]
+        views = tile_views(self)
+        self._views = (stacked, views)
+        return views
+
     def to(self, device) -> "SynapseTables":
         def move(t):
             return {k: v.to(device) for k, v in t.items()}
@@ -152,6 +169,21 @@ class SynapseTables:
     def __repr__(self):
         return (f"SynapseTables(tiers={1 + len(self.halo)}, "
                 f"storage={self.storage})")
+
+
+def tile_views(tables) -> List[dict]:
+    """Each tile's ``{"local": ..., "halo": [...]}`` tiers as new views of
+    tables stacked on ``(TY, TX)`` (``SynapseTables`` or the dict form),
+    row-major."""
+    local = tables["local"]
+    ty, tx = local["nnz"].shape[:2]
+
+    def view(tier, y, x):
+        return {k: v[y, x] for k, v in tier.items()}
+
+    return [{"local": view(local, y, x),
+             "halo": [view(t, y, x) for t in tables["halo"]]}
+            for y in range(ty) for x in range(tx)]
 
 
 def tier_list(tables) -> List[dict]:
@@ -272,17 +304,22 @@ def with_local_tier(tables, local_tier: dict):
     return dict(tables, local=local_tier)
 
 
-def materialized_table_bytes(tables: SynapseTables) -> int:
-    """Exact bytes of the materialized table arrays."""
-    return sum(v.numel() * v.element_size()
-               for tier in tables.tiers() for v in tier.values())
+def materialized_table_bytes(tables: SynapseTables,
+                             n_shards: int = 1) -> int:
+    """Exact per-shard bytes of the materialized table arrays (tables
+    may be per-shard or stacked over ``n_shards`` leading entries)."""
+    total = sum(v.numel() * v.element_size()
+                for tier in tables.tiers() for v in tier.values())
+    return total // max(n_shards, 1)
 
 
 def compress_tables(tables: SynapseTables) -> SynapseTables:
     """Truncate each tier's all-padding trailing columns.
 
     Columns past the realized max nnz hold only (0, 0.0, 0) padding, so
-    dropping them is value-exact.
+    dropping them is value-exact.  Works on per-shard and on stacked
+    (leading shard axes) tables; the cap is the max over every shard, so
+    the compressed storage descriptor is the same on every shard.
     """
     def realized_cap(tier, cap):
         nnz = tier["nnz"]
@@ -303,9 +340,13 @@ def compress_tables(tables: SynapseTables) -> SynapseTables:
                         [cut(t, c) for t, c in zip(tables.halo, caps_h)],
                         new_storage, stats=tables.stats)
     if out.stats is not None:
-        tb = materialized_table_bytes(out)
+        n_shards = 1
+        nnz = out.local["nnz"]
+        if nnz.dim() > 1:                      # stacked over shards
+            n_shards = int(np.prod(tuple(nnz.shape[:-1])))
+        tb = materialized_table_bytes(out, n_shards)
         out.stats = dict(out.stats, table_bytes=tb,
-                         bytes_per_synapse=tb / max(
+                         bytes_per_synapse=tb * n_shards / max(
                              out.stats.get("n_synapses", 0), 1))
     return out
 
@@ -461,6 +502,45 @@ class SynapseTableSpec:
         for b, cap in zip(self.halo_bands(), st.halo_caps):
             plan.append(tier(cap, self.active_cap_band(b), b["rows"]))
         return plan
+
+    def band_caps(self) -> List[int]:
+        """Row capacity of each halo fan-out band."""
+        return [b["cap"] for b in self.halo_bands()]
+
+    # ---- index maps (static numpy constants) ---------------------------
+    def local_positions_in_region(self) -> np.ndarray:
+        """(n_local,) region-neuron index of each local neuron."""
+        d = self.decomp
+        r = d.radius
+        ly, lx = np.mgrid[0:d.tile_h, 0:d.tile_w]
+        rcol = (ly + r) * d.region_w + (lx + r)
+        base = rcol.ravel() * self.n_per_col
+        return (base[:, None] + np.arange(self.n_per_col)[None, :]).ravel()
+
+    def band_positions_in_region(self, band: dict) -> np.ndarray:
+        """(rows_b,) region-neuron index of each band (excitatory) source."""
+        base = band["cols"] * self.n_per_col
+        return (base[:, None] + np.arange(self.n_exc_per_col)[None, :]).ravel()
+
+    def band_positions_exc(self, band: dict) -> np.ndarray:
+        """(rows_b,) index of each band source in the *excitatory-only*
+        region layout ``(region_cols, n_exc)`` -- the layout the halo
+        exchange produces (only excitatory spikes travel laterally)."""
+        base = band["cols"] * self.n_exc_per_col
+        return (base[:, None] + np.arange(self.n_exc_per_col)[None, :]).ravel()
+
+    def expected_synapses(self) -> float:
+        """Expected number of synapses stored in this shard's tables
+        (interior shard; analytic bytes per synapse at full scale)."""
+        d = self.decomp
+        fan = self._remote_fanout_map()
+        r = d.radius
+        local_remote = fan[r:r + d.tile_h, r:r + d.tile_w].sum()
+        halo_remote = sum(fan.ravel()[b["cols"]].sum()
+                          for b in self.halo_bands())
+        local_syn = self.n_local * self.p_local * self.n_per_col
+        return float(local_syn
+                     + (local_remote + halo_remote) * self.n_exc_per_col)
 
     def table_bytes(self, storage: Optional[TableStorage] = None) -> int:
         """Bytes of the tables at the descriptor's capacities."""

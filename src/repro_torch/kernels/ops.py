@@ -45,16 +45,16 @@ def neuron_step(state: dict, i_ring, slot: int, drive, params, active,
 
 
 def synaptic_accum_banded(tiers, i_ring, t_slot: int, d_ring: int,
-                          plan=None, runs=None, local_bits=None):
+                          plan=None, runs=None, tier_bits=None):
     """Local + halo-band delivery (one kernel launch per tier).
     ``tiers``: [(tables, spikes, active_cap)]; ``plan``: optional
     ``SynapseTableSpec.delivery_plan()`` the tables are validated
     against; ``runs``: the tiers' run descriptors
-    (``SynapseTables.column_runs``); ``local_bits``: the local tier's
-    (bitmap, count) from ``neuron_step``.  Returns (ring, n_events,
-    n_dropped) summed over tiers."""
+    (``SynapseTables.column_runs``); ``tier_bits``: per tier its
+    (bitmap, count), from ``neuron_step`` or ``ref.delivered_bits``,
+    or None.  Returns (ring, n_events, n_dropped) summed over tiers."""
     return event_delivery_banded(tiers, i_ring, t_slot, d_ring, plan=plan,
-                                 runs=runs, local_bits=local_bits)
+                                 runs=runs, tier_bits=tier_bits)
 
 
 def plastic_step_banded(tiers, masks, x_post_decayed, i_ring, t_slot: int,

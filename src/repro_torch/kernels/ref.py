@@ -99,20 +99,30 @@ _SHIFTS: dict = {}     # per device: 0..31, the bit of each row in its word
 def delivered_bits(spikes_src: torch.Tensor, n_rows: int, active_cap: int):
     """``delivered_flags`` packed 32 rows to a word: bit ``r % 32`` of word
     ``r // 32`` is row r's flag; the sink row's bit and the padding bits
-    are 0.  Eight launches, none waits for the device.  Returns (bits
-    int32 (ceil((n_rows + 1) / 32),), n_spikes 0-d int)."""
+    are 0.  Eight launches, none waits for the device.  ``spikes_src``
+    may carry leading axes (one row of spikes per tile): each is packed
+    on its own, in the same launches.  Returns (bits int32 (...,
+    ceil((n_rows + 1) / 32)), n_spikes int (...))."""
     dev = spikes_src.device
-    spk = spikes_src[:n_rows] > 0
-    rank = torch.cumsum(spk, 0, dtype=torch.int32)
+    spk = spikes_src[..., :n_rows] > 0
+    if spk.dim() > 1 and n_rows:
+        # one scan over the rows end to end, less the count before each
+        # row: a scan along a few long rows at once runs a block a row
+        flat = torch.cumsum(spk.reshape(-1), 0, dtype=torch.int32).view(
+            -1, n_rows)
+        before = torch.nn.functional.pad(flat[:-1, -1], (1, 0))
+        rank = (flat - before[:, None]).view(spk.shape)
+    else:
+        rank = torch.cumsum(spk, -1, dtype=torch.int32)
     n_words = (n_rows + 32) // 32
     flag = torch.nn.functional.pad(spk & (rank <= active_cap),
                                    (0, n_words * 32 - n_rows))
     if dev not in _SHIFTS:
         _SHIFTS[dev] = torch.arange(32, dtype=torch.int32, device=dev)
     # distinct powers of two: the int32 sum is their bitwise or
-    bits = (flag.to(torch.int32).view(n_words, 32) << _SHIFTS[dev]).sum(
-        1, dtype=torch.int32)
-    return bits, (rank[-1] if n_rows else rank.sum())
+    bits = (flag.to(torch.int32).view(flag.shape[:-1] + (n_words, 32))
+            << _SHIFTS[dev]).sum(-1, dtype=torch.int32)
+    return bits, (rank[..., -1] if n_rows else rank.sum(-1))
 
 
 # ---------------------------------------------------------------------------

@@ -6,10 +6,12 @@ Per tier (the local table, then each halo fan-out band):
 
   * **delivered rows**: a bitmap of the first ``active_cap`` spiking
     rows, the rows the reference's compaction delivers.  The engine's
-    step hands the local tier's in (``local_bits``), written by the
-    step-head kernel (``kernels/neuron_step.py``); other tiers get it
-    from ``ref.delivered_bits`` (plain PyTorch, a fixed-size cumsum --
-    no ``torch.nonzero``, which would synchronize the host every step);
+    step hands the local tier's in (``tier_bits``), written by the
+    step-head kernel (``kernels/neuron_step.py``); the multi-shard step
+    hands the halo bands' in, packed for every tile at once; other
+    tiers get it from ``ref.delivered_bits`` (plain PyTorch, a
+    fixed-size cumsum -- no ``torch.nonzero``, which would synchronize
+    the host every step);
   * **delivery** (``csrc/event_delivery.cu: deliver_columns_kernel``):
     one block (or a few splits) per target column accumulates that
     column's ring window in shared memory, walking the tier's **run
@@ -400,7 +402,7 @@ def deliver_rows_cuda(tables: dict, idx: torch.Tensor, ring: torch.Tensor,
 
 def event_delivery_banded(tiers: Sequence[Tuple[dict, torch.Tensor, int]],
                           i_ring: torch.Tensor, t_slot: int, d_ring: int, *,
-                          plan=None, runs=None, local_bits=None):
+                          plan=None, runs=None, tier_bits=None):
     """Multi-tier delivery: the local table plus every halo fan-out band.
 
     ``tiers``: sequence of (tables, spikes_src, active_cap).  ``plan``:
@@ -408,10 +410,11 @@ def event_delivery_banded(tiers: Sequence[Tuple[dict, torch.Tensor, int]],
     ``SynapseTableSpec.delivery_plan()`` the tables are validated
     against.  ``runs``: the tiers' run descriptors
     (``core.synapses.column_runs``), which a CUDA ring needs (the CPU's
-    plain version delivers without them).  ``local_bits``: the first
-    tier's (bitmap, spike count), as ``neuron_step`` writes them; a
-    CUDA ring then takes them in place of ``delivered_bits`` (the CPU's
-    plain version compacts the spikes itself).  Returns (ring, n_events
+    plain version delivers without them).  ``tier_bits``: per tier, its
+    (bitmap, spike count) as ``neuron_step`` writes them for the local
+    tier and ``delivered_bits`` for the halo bands, or None; a CUDA ring
+    takes a given pair in place of ``delivered_bits`` (the CPU's plain
+    version compacts the spikes itself).  Returns (ring, n_events
     int32, n_dropped) summed over tiers; the ring is updated in place.
     """
     if i_ring.shape[0] != d_ring:
@@ -428,7 +431,7 @@ def event_delivery_banded(tiers: Sequence[Tuple[dict, torch.Tensor, int]],
         raise ValueError(f"{len(runs)} run descriptors for {len(tiers)} "
                          "tiers")
     events = torch.zeros((1,), dtype=torch.int32, device=i_ring.device)
-    n_dropped = torch.zeros((), dtype=torch.int64, device=i_ring.device)
+    counts = []
     for ti, (tables, spikes_src, active_cap) in enumerate(tiers):
         n_rows, cap = tables["tgt"].shape[0] - 1, tables["tgt"].shape[1]
         if plan is not None:
@@ -440,7 +443,8 @@ def event_delivery_banded(tiers: Sequence[Tuple[dict, torch.Tensor, int]],
                     f"plan says rows={p.rows} cap={p.cap} "
                     f"active_cap={p.active_cap}")
         if cuda:
-            bits, n_spk = (local_bits if ti == 0 and local_bits is not None
+            given = tier_bits[ti] if tier_bits is not None else None
+            bits, n_spk = (given if given is not None
                            else delivered_bits(spikes_src, n_rows,
                                                active_cap))
             deliver_columns_cuda(tables, runs[ti], bits, i_ring, t_slot,
@@ -449,8 +453,24 @@ def event_delivery_banded(tiers: Sequence[Tuple[dict, torch.Tensor, int]],
             _check_tier(tables, i_ring)
             idx, n_spk = compact_events(spikes_src, n_rows, active_cap)
             deliver_rows_ref(tables, idx, i_ring, t_slot, events)
-        n_dropped = n_dropped + torch.clamp(n_spk - active_cap, min=0)
+        counts.append(n_spk.to(torch.int32))
+    # the drops of every tier in four launches, not three a tier
+    caps = _caps(tuple(c for _, _, c in tiers), i_ring.device)
+    n_dropped = torch.clamp(torch.stack(counts) - caps, min=0).sum(
+        dtype=torch.int64)
     return i_ring, events[0], n_dropped
+
+
+_CAPS: dict = {}
+
+
+def _caps(caps: tuple, dev: torch.device) -> torch.Tensor:
+    """The tiers' ``active_cap``s as an int32 tensor on ``dev``, made
+    once (a captured step reads it at a fixed address)."""
+    key = (caps, dev)
+    if key not in _CAPS:
+        _CAPS[key] = torch.tensor(caps, dtype=torch.int32, device=dev)
+    return _CAPS[key]
 
 
 def event_delivery(tables: dict, spikes_src, i_ring, t_slot: int,

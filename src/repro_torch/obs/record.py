@@ -61,13 +61,16 @@ def recorder_spec(engine_cfg, segment_steps: int,
                         use_kernels=bool(engine_cfg.use_kernels))
 
 
-def init_recorder_state(rspec: RecorderSpec, device="cuda") -> dict:
-    """Empty recorder (one shard): int32 ``step``/``gid`` buffers of
-    ``capacity`` zeros, and int32 ``count``/``dropped`` scalars."""
+def init_recorder_state(rspec: RecorderSpec, device="cuda",
+                        tiles: tuple = ()) -> dict:
+    """Empty recorder: int32 ``step``/``gid`` buffers of ``capacity``
+    zeros, and int32 ``count``/``dropped`` scalars, for one shard or,
+    with ``tiles=(TY, TX)``, stacked for every tile of a tiling."""
     dev = resolve_device(device)
 
     def zeros(*shape):
-        return torch.zeros(shape, dtype=torch.int32, device=dev)
+        return torch.zeros(tuple(tiles) + shape, dtype=torch.int32,
+                           device=dev)
     return {"step": zeros(rspec.capacity), "gid": zeros(rspec.capacity),
             "count": zeros(), "dropped": zeros()}
 
@@ -81,6 +84,15 @@ def tile_gid_map(decomp: TileDecomposition, tile_y: int,
     gnid = gid_col[:, None] * n_per + np.arange(n_per)[None, :]
     gnid = np.where(gid_col[:, None] >= 0, gnid, -1).ravel()
     return np.concatenate([gnid, [-1]]).astype(np.int32)
+
+
+def stacked_gid_maps(decomp: TileDecomposition) -> np.ndarray:
+    """(TY, TX, n_local + 1) int32: every tile's gid map, stacked like
+    the multi-shard state and tables."""
+    return np.stack([
+        np.stack([tile_gid_map(decomp, y, x)
+                  for x in range(decomp.tiles_x)])
+        for y in range(decomp.tiles_y)])
 
 
 def record_step(rec: dict, spikes: torch.Tensor, gids: torch.Tensor, t: int,

@@ -909,3 +909,107 @@ def test_column_delivery_follows_new_weights(cuda, law):
         event_delivery_banded([(tier, spk, cap)],
                               torch.zeros((8, spec.n_local), device=cuda),
                               4, 8, runs=runs)
+
+
+# ---------------------------------------------------------------------------
+# the multi-shard engine (2x2 tiles on one card)
+# ---------------------------------------------------------------------------
+
+def _dist_config(law, use_kernels=True, **kw):
+    from repro_torch.core import dist_engine as tde
+    tl = getattr(tconn, f"{law}_law")()
+    return tde.DistConfig(engine=teng.EngineConfig(
+        decomp=tgrid.TileDecomposition(tgrid.ColumnGrid(4, 4, 100), 2, 2,
+                                       tl.radius),
+        law=tl, cap_headroom=1.0, ext_rate_hz=20.0,
+        use_kernels=use_kernels, **kw))
+
+
+def _dist_same(a, b):
+    for k in a["neuron"]:
+        assert torch.equal(a["neuron"][k], b["neuron"][k]), k
+    assert torch.equal(a["i_ring"], b["i_ring"])
+    for k in a["metrics"]:
+        assert torch.equal(a["metrics"][k], b["metrics"][k]), k
+    assert (a["t"] == b["t"]).all()
+
+
+@pytest.mark.parametrize("law", ["gaussian", "exponential"])
+def test_multishard_captured_equals_eager_and_plain(cuda, law):
+    """4x4x100 in 2x2 tiles: one call of 40 steps (8 eager, 4 replays of
+    the captured 8-step block of all tiles), 40 one-step calls and the
+    plain path, from the same seed (each tile's drive drawn on its own
+    generator, inside the graph on the first): identical, tile by tile;
+    no derived structure is rebuilt after the first step."""
+    from repro_torch.core import dist_engine as tde
+    from repro_torch.core import synapses as tsyn
+    cfg = _dist_config(law)
+    tables, _ = tde.build_dist_tables(cfg, device=cuda)
+    inputs = tde.SimInputs(tables=tables)
+    n = 40
+    _build.reset_launch_counts()
+    sim = tde.make_sim_fn(cfg, n, storage=tables.storage, device=cuda)
+    cap, cap_per = sim(tde.init_dist_state(cfg, device=cuda), inputs)
+    counts = _build.launch_counts()
+    assert counts["step_graph"] == (n - 8) // 8
+    assert counts["neuron_step"] == 4 * n
+    assert counts["event_delivery"] == 4 * n * (1 + len(tables.halo))
+    assert float(cap["metrics"]["dropped"].sum()) > 0
+    builds = dict(tsyn.BUILD_COUNTS)
+    one = tde.make_sim_fn(cfg, 1, storage=tables.storage, device=cuda)
+    eag = tde.init_dist_state(cfg, device=cuda)
+    eag_per = torch.cat([one(eag, inputs)[1] for _ in range(n)], dim=2)
+    assert one.graph_loop is None
+    plain = tde.DistConfig(engine=dataclasses.replace(cfg.engine,
+                                                      use_kernels=False))
+    pl, pl_per = tde.make_sim_fn(plain, n, storage=tables.storage,
+                                 device=cuda)(
+        tde.init_dist_state(plain, device=cuda), inputs)
+    assert dict(tsyn.BUILD_COUNTS) == builds
+    assert float(cap_per.sum()) > 0
+    for st, per in ((eag, eag_per), (pl, pl_per)):
+        assert torch.equal(cap_per, per)
+        _dist_same(cap, st)
+
+
+@pytest.mark.parametrize("law", ["gaussian", "exponential"])
+def test_multishard_plastic_card_equals_cpu_plain(cuda, law):
+    """The plastic multi-shard kernel path on the card against the plain
+    path on the CPU, the card's drive injected: every tier's weights,
+    the traces and the state identical."""
+    from repro_torch.core import dist_engine as tde
+    from repro_torch.core.stdp import STDPParams
+    cfg = _dist_config(law, stdp=STDPParams())
+    plain = tde.DistConfig(engine=dataclasses.replace(cfg.engine,
+                                                      use_kernels=False))
+    cpu_tabs, _ = tde.build_dist_tables(cfg, device="cpu")
+    slots, _ = tde.build_dist_inverse_index(cfg, cpu_tabs)
+    n_local, steps = cfg.engine.spec().n_local, 20
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(5)
+    drive = torch.stack([teng.external_drive(gen, n_local, cfg.engine)
+                         for _ in range(steps * 4)]).view(steps, 2, 2,
+                                                          n_local)
+    runs = []
+    for c, dev, tabs, sl, drv in (
+            (cfg, cuda, cpu_tabs.to(cuda), slots.to(cuda), drive),
+            (plain, "cpu", cpu_tabs, slots, drive.cpu())):
+        state = tde.init_dist_state(c, device=dev)
+        state["plastic"] = tde.init_dist_plastic_state(c, tabs)
+        sim = tde.make_sim_fn(c, steps, storage=tabs.storage, device=dev)
+        runs.append(sim(state, tde.SimInputs(
+            tables=tde.fold_plastic_tables(tabs), inv_slots=sl,
+            drive=drv)))
+    (sk, pk), (sp, pp) = runs
+    assert float(pp.sum()) > 0 and torch.equal(pk.cpu(), pp)
+    for k in sp["neuron"]:
+        assert torch.equal(sk["neuron"][k].cpu(), sp["neuron"][k]), k
+    assert torch.equal(sk["i_ring"].cpu(), sp["i_ring"])
+    for k in sp["metrics"]:
+        assert torch.equal(sk["metrics"][k].cpu(), sp["metrics"][k]), k
+    for a, b in zip(sk["plastic"]["w"] + sk["plastic"]["x_pre"]
+                    + [sk["plastic"]["x_post"]],
+                    sp["plastic"]["w"] + sp["plastic"]["x_pre"]
+                    + [sp["plastic"]["x_post"]]):
+        assert torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
+    assert (sp["plastic"]["w"][0] != cpu_tabs.local["w"]).any()

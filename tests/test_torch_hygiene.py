@@ -166,3 +166,35 @@ def test_package_rules_cover_the_lm_modules():
           "repro_torch.kernels.flash_attention"}
     assert lm <= set(MODULES), lm - set(MODULES)
     assert (_build.CSRC / "flash_attention.cu").exists()
+
+
+def test_package_rules_cover_the_multishard_modules():
+    """The import, source-name and lint checks above walk the
+    multi-shard engine's modules too."""
+    ms = {"repro_torch.core.halo", "repro_torch.core.dist_engine",
+          "repro_torch.core.metrics"}
+    assert ms <= set(MODULES), ms - set(MODULES)
+
+
+def test_multishard_entry_points_raise_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: nothing to refuse")
+    import dataclasses
+    from repro_torch.core import dist_engine as tde
+    from repro_torch.core import metrics as tmetrics
+    _, tcfg = configs("gaussian", grid=2, n_per_col=10)
+    cfg = tde.DistConfig(engine=dataclasses.replace(
+        tcfg, decomp=dataclasses.replace(tcfg.decomp, tiles_y=2)))
+    for call in (lambda: tde.init_dist_state(cfg),
+                 lambda: tde.build_dist_tables(cfg),
+                 lambda: tde.make_sim_fn(cfg, 2),
+                 lambda: tde.simulate(cfg, 2),
+                 lambda: tde.band_gather_maps(cfg, 10),
+                 lambda: tmetrics.time_fn(lambda: None)):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+    tables, _ = tde.build_dist_tables(cfg, device="cpu")
+    sim = tde.make_sim_fn(cfg, 2, storage=tables.storage, device="cpu")
+    with pytest.raises(ValueError, match="device"):
+        sim(tde.init_dist_state(cfg, device="cpu"),
+            tde.SimInputs(tables=tables.to("meta")))
