@@ -63,6 +63,26 @@ Phases, each of which exits non-zero on failure:
    the card's drive injected (raster, every tier's weights, traces,
    ring and state identical; every halo band with a source inside the
    slab must have learned);
+5c. the segmented driver (``runtime.SimDriver``, the path of
+   ``python -m repro_torch.launch.sim``), 8x8x1240 in 2x2 tiles,
+   gaussian, 400 steps in segments of 50, a checkpoint after every
+   segment: a straight captured run against 4 segments + preempt + a
+   fresh driver's resume (every tensor, ``t`` and each generator's
+   state identical, totals equal, one CUDA graph capture per driver),
+   timed beside ``make_sim_fn`` alone on the same tables (a fresh
+   400-step call, a second call, 8 calls of 50 steps), with its steady
+   state (from the second segment on) split into segment compute, the
+   gaps between segments and the last checkpoint's wait; the same
+   recorded (spool files byte for byte, no recorder drops, one event
+   per spike); the preempted run resumed on 1x2 tiles with a retile
+   (totals carried, rate within ``rel=0.35`` of the single shard's);
+   the plastic driver at 4x4x1240 in 2x2 tiles, one 60-step segment
+   against 30 + preempt + resume + 30 (weights, traces, state and
+   generators identical); it prints the checkpoint's snapshot, copy
+   and write times, the restore time, the spool drain per segment and
+   how the writer's device-to-host copies overlap segment compute (a
+   Chrome trace of the straight run goes to
+   ``build/segmented/straight_trace.json``);
 6. timing of each kernel at its path's shapes: its device time per
    call (``ms``: CUDA events around back-to-back calls enqueued while
    the stream is held, ``queued_ms``), beside torch.profiler's figure
@@ -100,9 +120,9 @@ Phases, each of which exits non-zero on failure:
    and a head_dim-256 window; the TF32 pre-pass bit for bit, and the
    tf32 fragment layout the TF32 kernel assumes.
 
-Launch counts are zeroed just before each of phases 3-5, 5b and 7 and
-read just after it (the ``{"kernels"}`` line gives each kernel's
-launches on phase 3's or its own path, and on 5b's); a replay of a
+Launch counts are zeroed just before each of phases 3-5, 5b, 5c (after
+its ``make_sim_fn`` baselines) and 7 and read just after it (the ``{"kernels"}`` line gives each kernel's
+launches on phase 3's or its own path, on 5b's and on 5c's); a replay of a
 captured static step counts as ``step_graph`` and as one launch of
 each kernel the graph holds.  It prints the metrics, a
 ``{"kernels": [...]}`` line, the card's name and power limit, and as
@@ -120,12 +140,17 @@ other, each in a process of its own that builds its kernels and the
 8x8x1240 tables of both laws, runs 20 warm-up steps and times ``N``
 steps (default 500) of ``engine.simulate`` on the host clock,
 CUDA-synchronised, then profiles ``N`` more for the device's idle
-share; one ``ab {...}`` line per run (with the metrics, which must not
-differ between trees), then the card's name and power limit.
+share; then it builds phase 5b's exponential 8x8x1240 tables in 2x2
+tiles and times three fresh ``make_sim_fn`` calls of 500 steps as phase
+5b's timed run does (8 eager steps, a capture, replays), and profiles a
+fourth of 400 steps for the idle share.  One ``ab {...}`` line per run
+(with the metrics, which must not differ between trees), then the
+card's name and power limit.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -148,6 +173,9 @@ MS_PARITY_STEPS, MS_TIMED_STEPS, MS_PROFILE_STEPS = 100, 500, 400
 # bulk after step 20 (20 steps changed 9 weights, none in a halo tier);
 # its CPU plain paths (both laws side by side) are most of its time
 MS_PROFILE_REPLAYS, MS_RECORD_STEPS, MS_PLASTIC_STEPS = 20, 50, 30
+# the segmented driver: 400 steps in segments of 50 (each a ring phase 2
+# slots on from the last), preempted after 4; its plastic leg 60 steps
+SEG_TOTAL, SEG_STEPS, SEG_PREEMPT, SEG_PLASTIC_STEPS = 400, 50, 4, 60
 LAWS = ("gaussian", "exponential")
 BF16_OPS_PER_S = 989e12            # H100 SXM bf16 dense tensor-core rate
 TF32_OPS_PER_S = 495e12            # H100 SXM TF32 dense tensor-core rate
@@ -1202,6 +1230,339 @@ def ms_plastic_check(ctx: dict, cpu_run: tuple, cpu_s: float) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 5c: the segmented driver (checkpoints, resume, spool, retile)
+# ---------------------------------------------------------------------------
+
+def seg_leaves(state) -> list:
+    """Every leaf of a stacked state as the checkpoint store sees it
+    (tensors, ``t``, each generator's state bytes), on the host."""
+    from repro_torch.tree import tree_flatten
+    from repro_torch.core.dist_engine import state_tree
+    import numpy as np
+    out = []
+    for x in tree_flatten(state_tree(state))[0]:
+        x = x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
+        out.append(x.view(np.uint8) if x.dtype.kind in "fiub" and x.ndim
+                   else x)
+    return out
+
+
+def seg_same(a, b, label: str) -> None:
+    la, lb = seg_leaves(a), seg_leaves(b)
+    same = len(la) == len(lb) and all(
+        x.shape == y.shape and (x == y).all() for x, y in zip(la, lb))
+    require(same, f"{label}: the states differ (tensors, t or generator "
+            "states)")
+
+
+def seg_spool(run: Path) -> dict:
+    d = run / "spool"
+    return {p.name: p.read_bytes() for p in sorted(d.iterdir())}
+
+
+def seg_overlap(tel) -> dict:
+    """How the writer thread's device-to-host copies overlap the main
+    thread's segment compute: spans that overlap and the overlapped
+    seconds."""
+    comp = [(s["t0"], s["t0"] + s["dur"]) for s in
+            tel.spans("segment.compute")]
+    n, secs = 0, 0.0
+    for s in tel.spans("ckpt.d2h"):
+        a, b = s["t0"], s["t0"] + s["dur"]
+        ov = sum(max(0.0, min(b, y) - max(a, x)) for x, y in comp)
+        n += ov > 0
+        secs += ov
+    return {"d2h_spans": len(tel.spans("ckpt.d2h")),
+            "d2h_overlapping_compute": n, "overlap_s": secs}
+
+
+def seg_steady(tel, t_end: float) -> dict:
+    """The driver's steady state: the run from the second segment's
+    start to ``t_end`` (the run's return, after its last checkpoint's
+    write) per step, and that window split into the segments (their
+    compute alone, then with the totals' reads), the gaps between them
+    (a checkpoint's snapshot and meta) and the end (the last
+    checkpoint, its wait)."""
+    segs = tel.spans("segment")[1:]
+    comp = tel.spans("segment.compute")[1:]
+    n = len(segs) * SEG_STEPS
+    ends = [sp["t0"] + sp["dur"] for sp in segs]
+    gaps = [b["t0"] - a for a, b in zip(ends, segs[1:])]
+    return {
+        "driver_steady_ms_per_step": 1e3 * (t_end - segs[0]["t0"]) / n,
+        "steady_compute_ms_per_step": 1e3 * sum(
+            sp["dur"] for sp in comp) / n,
+        "steady_segment_ms_per_step": 1e3 * sum(
+            sp["dur"] for sp in segs) / n,
+        "steady_between_segments_ms": 1e3 * sum(gaps) / len(gaps),
+        "steady_end_ms": 1e3 * (t_end - ends[-1]),
+    }
+
+
+def seg_mean(tel, name: str) -> float:
+    spans = tel.spans(name)
+    return sum(s["dur"] for s in spans) / max(len(spans), 1)
+
+
+@contextlib.contextmanager
+def seg_shared_builds():
+    """While open, the drivers of this process build each table set and
+    plastic inverse index once: ``SimDriver``'s builds are memoised by
+    config and device (every driver of phase 5c builds the same model,
+    and the host build costs about 0.3 us a synapse)."""
+    from unittest import mock
+    from repro_torch.runtime import sim_driver as sd
+    tables, slots = {}, {}
+    build_tables, build_index = sd.build_dist_tables, \
+        sd.build_dist_inverse_index
+
+    def shared_tables(cfg, device="cuda"):
+        key = (repr(cfg), str(device))
+        if key not in tables:
+            tables[key] = build_tables(cfg, device=device)
+        return tables[key]
+
+    def shared_index(cfg, host):
+        key = (repr(cfg), id(host))
+        if key not in slots:
+            slots[key] = (host, build_index(cfg, host))
+        return slots[key][1]
+
+    with mock.patch.object(sd, "build_dist_tables", shared_tables), \
+            mock.patch.object(sd, "build_dist_inverse_index", shared_index):
+        yield
+
+
+def run_segmented(single_rate_hz: float) -> dict:
+    """Phase 5c: the segmented driver (``runtime.SimDriver``) at
+    8x8x1240 in 2x2 tiles, gaussian, 400 steps in segments of 50, a
+    checkpoint after every segment: a straight captured run against 4
+    segments + preempt + a fresh driver's resume (one capture each,
+    identical state), the same recorded (identical spool files), a
+    retile of the preempted run onto 1x2 tiles, and the plastic driver
+    at 4x4x1240 in 2x2 tiles (one 60-step segment against 30 + preempt +
+    resume + 30).  ``make_sim_fn`` alone is timed first on the same
+    tables; the launch counts are zeroed after it, so the counts read
+    after this phase are the drivers' alone."""
+    with seg_shared_builds():
+        return _run_segmented(single_rate_hz)
+
+
+def _run_segmented(single_rate_hz: float) -> dict:
+    import shutil
+    import torch
+    from repro_torch.checkpoint.store import checkpoint_meta
+    from repro_torch.core import dist_engine as de
+    from repro_torch.core.stdp import STDPParams
+    from repro_torch.kernels import _build
+    from repro_torch.obs.telemetry import Telemetry
+    from repro_torch.perf.trace import write_chrome_trace
+    from repro_torch.runtime import DriverConfig, SimDriver
+    t_phase = time.perf_counter()
+    stage = {}
+    t_stage = t_phase
+
+    def lap(name):
+        nonlocal t_stage
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        stage[name] = now - t_stage
+        t_stage = now
+
+    root = ROOT / "build" / "segmented"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    cfg = ms_cfg("gaussian", GRID)
+    label = (f"segmented gaussian {GRID}x{GRID}x{N_PER_COLUMN} "
+             f"{MS_TILES}x{MS_TILES}")
+
+    def driver(name, dist=None, seg=SEG_STEPS, tel=None, **kw):
+        return SimDriver(DriverConfig(ckpt_dir=str(root / name),
+                                      ckpt_every=1, keep=2,
+                                      handle_sigterm=False),
+                         dist or cfg, "cuda", segment_steps=seg,
+                         **({"telemetry": tel} if tel else {}), **kw)
+
+    def timed_run(drv, steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = drv.run(steps)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    straight = driver("straight", tel=Telemetry())
+    build_s = time.perf_counter() - t0
+    # make_sim_fn alone on the same tables: one fresh 400-step call
+    # (8 eager steps, a capture, replays), a second on the same sim, and
+    # 8 calls of a 50-step sim on one state after its first (the
+    # driver's segments without the driver: replays, the ring's phase
+    # rolls and 2 eager steps a call)
+    sim = de.make_sim_fn(cfg, SEG_TOTAL, record_rate=False,
+                         storage=straight.storage)
+    inputs = de.SimInputs(tables=straight.tables)
+    st = de.init_dist_state(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim(st, inputs)
+    torch.cuda.synchronize()
+    sim_first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sim(st, inputs)
+    torch.cuda.synchronize()
+    sim_again_s = time.perf_counter() - t0
+    require(sim.captures == 1, f"{label}: make_sim_fn captured "
+            f"{sim.captures} times in two calls")
+    sim = de.make_sim_fn(cfg, SEG_STEPS, record_rate=False,
+                         storage=straight.storage)
+    sim(st, inputs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(SEG_TOTAL // SEG_STEPS):
+        sim(st, inputs)
+    torch.cuda.synchronize()
+    sim_segments_s = time.perf_counter() - t0
+    require(sim.captures == 1, f"{label}: the 50-step sim captured "
+            f"{sim.captures} times")
+    del st, sim
+    lap("build_and_make_sim_fn")
+    _build.reset_launch_counts()    # from here on, the drivers' launches
+
+
+    # captured: straight against 4 segments + preempt + resume
+    out_a, wall_a = timed_run(straight, SEG_TOTAL)
+    tel = straight.tel
+    t_end = tel.now()
+    first = driver("resumed", preempt_after_segments=SEG_PREEMPT)
+    out_b = first.run(SEG_TOTAL)
+    require(out_b["preempted"] and out_b["final_step"] == SEG_STEPS
+            * SEG_PREEMPT, f"{label}: the preempted driver stopped at "
+            f"{out_b['final_step']}")
+    shutil.copytree(root / "resumed", root / "retiled")
+    tel_c = Telemetry()
+    resumed = driver("resumed", tel=tel_c)
+    out_c, wall_c = timed_run(resumed, SEG_TOTAL)
+    seg_same(out_a["state"], out_c["state"], f"{label} straight vs resumed")
+    totals = straight.metric_totals(out_a["state"])
+    require(totals == resumed.metric_totals(out_c["state"]),
+            f"{label}: metric totals differ after the resume")
+    caps = [straight.captures(), first.captures(), resumed.captures()]
+    require(caps == [1, 1, 1], f"{label}: captures per driver {caps}")
+    trace = write_chrome_trace(tel, str(root / "straight_trace.json"))
+    overlap = seg_overlap(tel)
+    steady = seg_steady(tel, t_end)
+    lap("captured")
+
+    # recorded (eager): the spool files byte for byte
+    rec_a = driver("rec_straight", record_events=True, tel=Telemetry())
+    out_ra = rec_a.run(SEG_TOTAL)
+    driver("rec_resumed", record_events=True,
+           preempt_after_segments=SEG_PREEMPT).run(SEG_TOTAL)
+    rec_c = driver("rec_resumed", record_events=True)
+    out_rc = rec_c.run(SEG_TOTAL)
+    seg_same(out_ra["state"], out_rc["state"],
+             f"{label} recorded straight vs resumed")
+    seg_same(out_a["state"], out_ra["state"],
+             f"{label} recorded vs captured")
+    spool_a, spool_c = (seg_spool(root / n) for n in ("rec_straight",
+                                                      "rec_resumed"))
+    require(spool_a == spool_c, f"{label}: the spool files differ")
+    require(rec_a.recorder_dropped == rec_c.recorder_dropped == 0,
+            f"{label}: the recorder dropped {rec_a.recorder_dropped} / "
+            f"{rec_c.recorder_dropped} events at its default capacity")
+    n_events = sum(len(v) for k, v in spool_a.items()
+                   if k.endswith(".spk")) // 8
+    require(n_events == totals["spikes"] == rec_c.spike_counts(
+        SEG_TOTAL).sum(), f"{label}: {n_events} spooled events against "
+        f"{totals['spikes']} spikes")
+    lap("recorded")
+
+    # retile: the preempted run resumed on 1x2 tiles
+    cfg12 = de.DistConfig(engine=dataclasses.replace(
+        cfg.engine, decomp=dataclasses.replace(cfg.engine.decomp,
+                                               tiles_y=1, tiles_x=2)))
+    t0 = time.perf_counter()
+    tel_r = Telemetry()
+    retiled = driver("retiled", dist=cfg12, allow_retile=True, tel=tel_r)
+    retile_build_s = time.perf_counter() - t0
+    out_r = retiled.run(SEG_TOTAL)
+    rt = retiled.metric_totals(out_r["state"])
+    rate = retiled.firing_rate_hz(out_r["state"])
+    rel = abs(rate - single_rate_hz) / single_rate_hz
+    base = checkpoint_meta(str(root / "retiled"), SEG_TOTAL)["metric_base"]
+    require(out_r["final_step"] == SEG_TOTAL and base["spikes"] > 0
+            and rt["spikes"] > base["spikes"] and rel <= 0.35,
+            f"{label}: the 1x2 retile reached {out_r['final_step']}, "
+            f"base {base}, totals {rt}, rate {rate} Hz against the single "
+            f"shard's {single_rate_hz} Hz (rel {rel:.3f})")
+    lap("retile")
+
+    # plastic: one 60-step segment against 30 + preempt + resume + 30
+    pcfg = ms_cfg("gaussian", PARITY_GRID, stdp=STDPParams())
+    t0 = time.perf_counter()
+    p_one = driver("plastic_one", dist=pcfg, seg=SEG_PLASTIC_STEPS)
+    plastic_build_s = time.perf_counter() - t0
+    out_p1 = p_one.run(SEG_PLASTIC_STEPS)
+    driver("plastic_two", dist=pcfg, seg=SEG_PLASTIC_STEPS // 2,
+           preempt_after_segments=1).run(SEG_PLASTIC_STEPS)
+    p_two = driver("plastic_two", dist=pcfg, seg=SEG_PLASTIC_STEPS // 2)
+    out_p2 = p_two.run(SEG_PLASTIC_STEPS)
+    seg_same(out_p1["state"], out_p2["state"], f"{label} plastic "
+             f"{PARITY_GRID}x{PARITY_GRID}: one segment vs resumed")
+    summary = p_one.plastic_summary(out_p1["state"])
+    require(summary["w_l1_delta"] > 0, f"{label}: the plastic run learned "
+            f"nothing ({summary})")
+    lap("plastic")
+
+    res = {
+        "card": gpu_line(),
+        "law": "gaussian", "grid": f"{GRID}x{GRID}x{N_PER_COLUMN}",
+        "tiles": f"{MS_TILES}x{MS_TILES}", "steps": SEG_TOTAL,
+        "segment_steps": SEG_STEPS, "checkpoint_every_segments": 1,
+        "driver_build_s": build_s,
+        "driver_ms_per_step": 1e3 * wall_a / SEG_TOTAL,
+        "make_sim_fn_ms_per_step": 1e3 * sim_first_s / SEG_TOTAL,
+        "make_sim_fn_second_call_ms_per_step": 1e3 * sim_again_s
+        / SEG_TOTAL,
+        "make_sim_fn_50_step_calls_ms_per_step": 1e3 * sim_segments_s
+        / SEG_TOTAL,
+        **steady,
+        "segment_ms": [1e3 * sp["dur"] for sp in tel.spans("segment")],
+        "resumed_driver_ms_per_step": 1e3 * wall_c / (SEG_TOTAL - SEG_STEPS
+                                                      * SEG_PREEMPT),
+        "captures_per_driver": caps,
+        "ckpt_snapshot_ms": 1e3 * seg_mean(tel, "ckpt.snapshot"),
+        "ckpt_d2h_s": seg_mean(tel, "ckpt.d2h"),
+        "ckpt_write_s": seg_mean(tel, "ckpt.write"),
+        "ckpt_d2h_plus_write_s": seg_mean(tel, "ckpt.d2h")
+        + seg_mean(tel, "ckpt.write"),
+        "checkpoint_bytes": sum(
+            p.stat().st_size for p in (root / "straight").glob(
+                f"step_{SEG_TOTAL:08d}/leaf_*.npy")),
+        "restore_s": seg_mean(tel_c, "restore.load"),
+        "retile_restore_s": seg_mean(tel_r, "restore.retile"),
+        "spool_drain_ms_per_segment": 1e3 * seg_mean(
+            rec_a.tel, "segment.spool_drain"),
+        "d2h_overlap": overlap, "chrome_trace": str(Path(trace).relative_to(
+            ROOT)),
+        "totals": totals, "spooled_events": n_events,
+        "recorder_dropped": rec_a.recorder_dropped,
+        "retile": {"tiles": "1x2", "build_s": retile_build_s,
+                   "metric_base": base, "totals": rt, "rate_hz": rate,
+                   "single_shard_rate_hz": single_rate_hz,
+                   "rate_rel_diff": rel},
+        "plastic": {"grid": f"{PARITY_GRID}x{PARITY_GRID}x{N_PER_COLUMN}",
+                    "steps": SEG_PLASTIC_STEPS, "build_s": plastic_build_s,
+                    **summary},
+    }
+    res["stage_s"] = stage
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"{label} driver " + json.dumps(res))
+    shutil.rmtree(root / "retiled", ignore_errors=True)
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phase 6: timing at the paths' shapes
 # ---------------------------------------------------------------------------
 
@@ -2081,7 +2442,8 @@ def gpu_line() -> str:
 
 
 def ab_tree(src: str, label: str, steps: int) -> dict:
-    """One tree's static ms per step, both laws (in a child process)."""
+    """One tree's static ms per step, both laws, and phase 5b's
+    multi-shard exponential timed run (in a child process)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     sys.path.insert(0, src)
@@ -2115,6 +2477,29 @@ def ab_tree(src: str, label: str, steps: int) -> dict:
         out[f"{law}_device_idle_share"] = 1.0 - busy / wall_us
         del tabs, state, fin
         torch.cuda.empty_cache()
+    from repro_torch.core import dist_engine as de
+    cfg = ms_cfg("exponential", GRID)
+    tables, _ = de.build_dist_tables(cfg)
+    inputs = de.SimInputs(tables=tables)
+    walls = []
+    for n in (MS_TIMED_STEPS,) * 3 + (MS_PROFILE_STEPS,):
+        sim = de.make_sim_fn(cfg, n, storage=tables.storage)
+        st = de.init_dist_state(cfg)
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        with prof if len(walls) == 3 else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fin, _ = sim(st, inputs)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    ms = "multishard_exponential"
+    out[f"{ms}_ms_per_step"] = [1e3 * w / MS_TIMED_STEPS for w in walls[:3]]
+    busy, _ = device_breakdown(prof, MS_PROFILE_STEPS)
+    out[f"{ms}_profiled_ms_per_step"] = 1e3 * walls[3] / MS_PROFILE_STEPS
+    out[f"{ms}_device_busy_ms_per_step"] = busy / MS_PROFILE_STEPS / 1e3
+    out[f"{ms}_device_idle_share"] = 1.0 - busy / (walls[3] * 1e6)
+    out[f"{ms}_spikes"] = float(fin["metrics"]["spikes"].sum())
     return out
 
 
@@ -2283,6 +2668,16 @@ def main() -> None:
             and "event_delivery_rows" not in ms_launches,
             "the multi-shard path reached a replaced kernel")
 
+    # 5c. the segmented driver: checkpoints, resume, spool, retile (it
+    # zeroes the counts itself, after timing make_sim_fn alone)
+    run_segmented(runs["gaussian"]["rate_hz"])
+    seg_launches = _build.launch_counts()
+    print(f"segmented driver launches: {json.dumps(seg_launches)}")
+    for name in ("neuron_step", "event_delivery", "step_graph",
+                 "spike_compact", "plastic_delivery_ltd"):
+        require(seg_launches.get(name, 0) > 0,
+                f"kernel {name} was not launched on the segmented path")
+
     # 6. timing at the paths' shapes (not counted as launches)
     last = LAWS[-1]
     kernels = [time_lif(runs[last]["state"], runs[last]["cfg"],
@@ -2324,6 +2719,7 @@ def main() -> None:
         "the port pulled in jax or the JAX package")
     for k in kernels:
         k["multi_shard_launches"] = ms_launches.get(k["name"], 0)
+        k["segmented_launches"] = seg_launches.get(k["name"], 0)
     print(json.dumps({"kernels": kernels}))
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(gpu_line())

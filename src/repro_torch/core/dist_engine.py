@@ -44,6 +44,7 @@ import torch
 
 from .. import resolve_device
 from ..kernels.ref import delivered_bits
+from ..tree import tree_flatten
 from .engine import (EngineConfig, GraphLoop, bind_tier_structures,
                      deliver_event_tiers, deliver_gather_all_tiers,
                      init_sim_state, plastic_delivery_stdp, step_head)
@@ -77,11 +78,21 @@ class DistConfig:
     ``halo_mode`` ("strip" | "block") and wire format (``pack_spikes``: a
     1-bit payload, ``halo.pack_bits``), as ``band_gather_maps`` composes
     them into the bands' gather maps.  Every setting gives the same
-    regions, so the same maps and the same run."""
+    regions, so the same maps and the same run.  ``ensemble_seeds``
+    raises: ensembles are not ported yet."""
 
     engine: EngineConfig
     halo_mode: str = "strip"
     pack_spikes: bool = True
+    # the reference's ensemble axis; not ported yet (ROADMAP item 8)
+    ensemble_seeds: Optional[Tuple[int, ...]] = None
+
+    def __post_init__(self):
+        if self.ensemble_seeds is not None:
+            raise NotImplementedError(
+                "ensemble_seeds: the port has no ensemble axis yet "
+                "(ROADMAP.md item 8); run each member as a solo run "
+                "with its own state_seed")
 
     @property
     def tiles(self) -> Tuple[int, int]:
@@ -118,6 +129,85 @@ def init_dist_state(cfg: DistConfig, device="cuda") -> dict:
         "metrics": {k: stack(lambda s, k=k: s["metrics"][k])
                     for k in tiles[0]["metrics"]},
     }
+
+
+def state_like(cfg: DistConfig, storage: Optional[TableStorage] = None,
+               device="cuda") -> dict:
+    """A stacked state of zeros in the checkpoint's shapes and dtypes,
+    with fresh (unseeded) generators: the state half of the reference's
+    ``abstract_dist_inputs``, which ``load_state`` fills.  ``storage``:
+    the tables' storage descriptor (sizes the plastic weight tiers;
+    None for the spec's analytic caps).  Plastic engines grow the
+    ``plastic`` carry: every tier's float32 weights ``(TY, TX, rows + 1,
+    cap)``, the local pre-trace, the post-trace."""
+    dev = resolve_device(device)
+    ty, tx = cfg.tiles
+    e = cfg.engine
+    spec = e.spec()
+    n = spec.n_local
+    f32 = torch.float32
+
+    def z(shape, dtype=f32):
+        return torch.zeros((ty, tx) + shape, dtype=dtype, device=dev)
+
+    state = {
+        "neuron": {"v": z((n,)), "c": z((n,)),
+                   "refrac": z((n,), torch.int32)},
+        "i_ring": z((e.d_ring, n)),
+        "t": np.zeros((ty, tx), np.int32),
+        "rng": [torch.Generator(device=dev) for _ in range(ty * tx)],
+        "active": z((n,), torch.bool),
+        "metrics": {k: z(()) for k in ("spikes", "events", "dropped")},
+    }
+    if e.stdp is not None:
+        plan = spec.delivery_plan(storage)
+        state["plastic"] = {"w": [z((p.rows + 1, p.cap)) for p in plan],
+                            "x_pre": [z((n + 1,))], "x_post": z((n,))}
+    return state
+
+
+def state_tree(state: dict) -> dict:
+    """The stacked state as the leaves the checkpoint store writes: its
+    tensors (the live ones, not copies), ``t`` as the host array, and
+    each tile's generator as its ``get_state()`` bytes (row-major)."""
+    tree = {k: v for k, v in state.items() if k not in ("t", "rng")}
+    tree["t"] = np.asarray(state["t"], dtype=np.int32)
+    tree["rng"] = [g.get_state() for g in state["rng"]]
+    return tree
+
+
+def load_state(state: dict, tree: dict) -> dict:
+    """Load ``tree`` (``state_tree``'s form; host or device leaves) into
+    ``state`` in place and return it: each tensor copied into the live
+    tensor (a captured graph keeps reading those), ``t`` rebound, each
+    generator's state set in place (``set_state`` of its bytes, or
+    ``manual_seed`` where the entry is an int seed, as
+    ``core.retile.retile_state`` gives), so a graph that registered the
+    generators draws on from there.  Structure, shapes and dtypes must
+    match."""
+    def body(x):
+        return {k: v for k, v in x.items() if k not in ("t", "rng")}
+
+    dst, dst_def = tree_flatten(body(state))
+    src, src_def = tree_flatten(body(tree))
+    t = np.array(tree["t"], dtype=np.int32)
+    if (dst_def != src_def or t.shape != np.shape(state["t"])
+            or len(tree["rng"]) != len(state["rng"])):
+        raise ValueError("the checkpoint's structure is not the state's")
+    for d, x in zip(dst, src):
+        x = torch.as_tensor(x)
+        if x.shape != d.shape or x.dtype != d.dtype:
+            raise ValueError(f"a checkpoint leaf is {x.dtype} "
+                             f"{tuple(x.shape)}, the state's {d.dtype} "
+                             f"{tuple(d.shape)}")
+        d.copy_(x)
+    state["t"] = t
+    for g, x in zip(state["rng"], tree["rng"]):
+        if isinstance(x, (int, np.integer)):
+            g.manual_seed(int(x))
+        else:
+            g.set_state(torch.as_tensor(x).cpu())
+    return state
 
 
 def _stack_tiers(tiers: List[dict], ty: int, tx: int) -> dict:
@@ -361,8 +451,10 @@ class _DistSim:
                 spec.active_cap_band(b) for b in bands]
         self.zero = torch.zeros((1,), dtype=torch.float32, device=dev)
         self.tiles: Optional[_Tiles] = None
-        # the last call's captured loop (None where it stepped eagerly)
+        # the captured loop, kept across calls while it serves them
+        # (``_DistStepGraph.serves``); None where the sim steps eagerly
         self.graph_loop: Optional[GraphLoop] = None
+        self.captures = 0           # CUDA graph captures, all calls
 
     # ---- per-tile inputs ------------------------------------------------
     def tile_inverse_index(self, tables: dict, masks: list,
@@ -533,12 +625,21 @@ class _DistSim:
             recs = [{k: v.flatten(0, 1)[i] if v.dim() > 2 else
                      v.view(-1)[i] for k, v in rec_state.items()}
                     for i in range(n)]
-        self.graph_loop = None
+        loop = None
         if (self.dev.type == "cuda" and self.e.use_kernels and self.event
-                and not self.plastic and recs is None
-                and n_steps >= 2 * self.e.d_ring):
-            self.graph_loop = _DistStepGraph(self, st, tiles, drive)
-            self.graph_loop.run(n_steps, out)
+                and not self.plastic and recs is None):
+            loop = self.graph_loop
+            if loop is not None and loop.serves(st, tiles, drive):
+                loop.rebind(st, drive)
+            elif n_steps >= 2 * self.e.d_ring:
+                loop = _DistStepGraph(self, st, tiles, drive)
+            else:
+                loop = None
+        self.graph_loop = loop
+        if loop is not None:
+            before = loop.captures
+            loop.run(n_steps, out)
+            self.captures += loop.captures - before
         else:
             for k in range(n_steps):
                 self.step(st, tiles, None if drive is None else drive[k],
@@ -548,6 +649,12 @@ class _DistSim:
         if self.recorder is not None:
             return state, per_step, rec_state
         return state, per_step
+
+
+def _state_key(state: dict) -> list:
+    """The objects a captured step holds of ``state``: its tensors and
+    its generators."""
+    return tree_flatten({k: v for k, v in state.items() if k != "t"})[0]
 
 
 def _check_state(state: dict, inputs: SimInputs, sim: _DistSim) -> None:
@@ -575,12 +682,27 @@ def _check_state(state: dict, inputs: SimInputs, sim: _DistSim) -> None:
 class _DistStepGraph(GraphLoop):
     """The static multi-shard loop on a CUDA device: one graph holds
     ``d_ring`` steps of every tile (heads, exchange, band gathers,
-    deliveries), with every tile's generator registered."""
+    deliveries), with every tile's generator registered.  The sim keeps
+    it across calls while they hand it the same state tensors,
+    generators and tables (``serves``), so a segmented run captures
+    once."""
 
     def __init__(self, sim: _DistSim, st: dict, tiles: _Tiles, drive):
         super().__init__(st["state"], sim.e.d_ring, sim.dev, drive,
                          (sim.n_tiles, sim.n_local), (sim.n_tiles,))
         self.sim, self.st, self.tiles = sim, st, tiles
+        self.key = _state_key(st["state"])
+
+    def serves(self, st: dict, tiles: _Tiles, drive) -> bool:
+        """Whether this loop's graph reads and writes the tensors of the
+        call: the same state tensors and generators, the same tables,
+        and a drive of the same kind (drawn or injected)."""
+        return (tiles is self.tiles and (drive is None) == (
+            self.drive_buf is None) and _same(self.key,
+                                              _state_key(st["state"])))
+
+    def rebind(self, st: dict, drive) -> None:
+        self.st, self.state, self.drive = st, st["state"], drive
 
     def _one(self, drive, dst) -> None:
         self.st["t"] = self.state["t"].reshape(-1)

@@ -488,17 +488,26 @@ class GraphLoop:
     copied to ``dst``), so every replay reads and writes the same
     tensors, and names what a capture depends on: the tier tensors
     (``_tier_tensors``), their eager binding (``_bind``) and the drive
-    generators (``_generators``).  ``run`` drives ``n_steps``: the first
-    ``d_ring`` steps eagerly, then one replay per full block (captured
-    at the first), then an eager tail.  The drive is drawn inside the
-    graph on the generators (registered with the graph: replays draw
-    what eager steps would) or copied from the injected drive into a
-    static buffer; outputs come out of a static buffer, one copy per
-    block.  A graph holds the tier tensors and the run descriptors'
-    weights as they were at capture: before each replay the tier tensors
-    are checked by identity and version, and a change rebinds and
-    captures again.  Each replay counts as ``step_graph`` and as a
-    launch of each kernel it holds.  ``state["t"]`` is an int or a
+    generators (``_generators``).  ``run`` drives ``n_steps``: before
+    the first capture ``d_ring`` eager steps, then one replay per full
+    block (captured at the first), then an eager tail.  A loop kept
+    across runs (``dist_engine``'s sim) replays from a run's first
+    step.  The graph holds the ring slots of the phase it was captured
+    at (``phase``: the first captured step's ``t % d_ring``); a block
+    that starts at another phase rolls the ring along its slot axis so
+    that slot ``phase`` holds the current step's slot, replays, and
+    rolls it back.  Every step reads and writes slots relative to its
+    own, so this is the same arithmetic on the same values, bit for
+    bit.  The drive is drawn inside the graph on the generators
+    (registered with the graph: replays draw what eager steps would,
+    and a ``set_state`` on the same generator objects carries over) or
+    copied from the injected drive into a static buffer; outputs come
+    out of a static buffer, one copy per block.  A graph holds the tier
+    tensors and the run descriptors' weights as they were at capture:
+    before each replay the tier tensors are checked by identity and
+    version, and a change rebinds and captures again (``captures``
+    counts the captures).  Each replay counts as ``step_graph`` and as
+    a launch of each kernel it holds.  ``state["t"]`` is an int or a
     numpy array, advanced by rebinding (never in place)."""
 
     def __init__(self, state: dict, d_ring: int, dev: torch.device,
@@ -512,6 +521,7 @@ class GraphLoop:
         self.out_buf = torch.empty((d_ring,) + out_shape,
                                    dtype=torch.float32, device=dev)
         self.graph = self.tally = self.stamp = None
+        self.phase, self.captures = 0, 0
         self.stream = torch.cuda.Stream(device=dev)
 
     def _one(self, drive, dst) -> None:
@@ -529,9 +539,10 @@ class GraphLoop:
     def run(self, n_steps: int, out: torch.Tensor) -> None:
         k, d = 0, self.d
         while k < n_steps:
-            if d <= k <= n_steps - d:
-                self.replay(k, out[k:k + d])
-                k += d
+            blocks = (n_steps - k) // d
+            if blocks and (self.graph is not None or k >= d):
+                self.replay(k, blocks, out[k:k + blocks * d])
+                k += blocks * d
             else:
                 self.eager(k, out[k])
                 k += 1
@@ -568,17 +579,31 @@ class GraphLoop:
         main.wait_stream(self.stream)
         self.state["t"] = t0
         self.graph, self.tally = graph, tally
+        self.phase = self._slot()
+        self.captures += 1
 
-    def replay(self, k: int, dst) -> None:
+    def _slot(self) -> int:
+        return int(np.asarray(self.state["t"]).flat[0]) % self.d
+
+    def replay(self, k: int, blocks: int, dst) -> None:
+        """``blocks`` replays from the run's step ``k``, their outputs
+        into ``dst``."""
         if self.graph is None or not self._unchanged():
             self._capture()
         d = self.d
-        if self.drive_buf is not None:
-            self.drive_buf.copy_(self.drive[k:k + d])
-        self.graph.replay()
-        _build.count_replay("step_graph", self.tally)
-        dst.copy_(self.out_buf)
-        self.state["t"] = self.state["t"] + d
+        shift = (self.phase - self._slot()) % d
+        ring = self.state["i_ring"]
+        if shift:
+            ring.copy_(torch.roll(ring, shift, dims=-2))
+        for b in range(blocks):
+            if self.drive_buf is not None:
+                self.drive_buf.copy_(self.drive[k + b * d:k + (b + 1) * d])
+            self.graph.replay()
+            _build.count_replay("step_graph", self.tally)
+            dst[b * d:(b + 1) * d].copy_(self.out_buf)
+            self.state["t"] = self.state["t"] + d
+        if shift:
+            ring.copy_(torch.roll(ring, -shift, dims=-2))
 
 
 class _StepGraph(GraphLoop):

@@ -1,1 +1,3 @@
-"""Entry points of the port: LM batch serving (``launch.serve``)."""
+"""Entry points of the port: LM batch serving (``launch.serve``), the
+segmented simulation launcher (``launch.sim``) and the spool analysis
+(``launch.analyze``)."""

@@ -1013,3 +1013,77 @@ def test_multishard_plastic_card_equals_cpu_plain(cuda, law):
                     + [sp["plastic"]["x_post"]]):
         assert torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
     assert (sp["plastic"]["w"][0] != cpu_tabs.local["w"]).any()
+
+
+# ---------------------------------------------------------------------------
+# segmented runs: one captured graph per sim, resume on the card
+# ---------------------------------------------------------------------------
+
+def _gen_states(state):
+    return [g.get_state() for g in state["rng"]]
+
+
+def test_multishard_graph_kept_across_calls(cuda):
+    """A sim called again on the same state replays the graph it
+    captured: 8 segments of 50 steps (each a ring phase 2 slots on from
+    the last, 50 mod 8) capture once and equal one 400-step call bit
+    for bit, the generators' states included; two segments equal 100
+    one-step eager calls."""
+    from repro_torch.core import dist_engine as tde
+    cfg = _dist_config("gaussian")
+    tables, _ = tde.build_dist_tables(cfg, device=cuda)
+    inputs = tde.SimInputs(tables=tables)
+    seg = tde.make_sim_fn(cfg, 50, storage=tables.storage, device=cuda)
+    st = tde.init_dist_state(cfg, device=cuda)
+    _build.reset_launch_counts()
+    pers = [seg(st, inputs)[1] for _ in range(8)]
+    assert seg.captures == 1 and seg.graph_loop is not None
+    # 8 eager steps, then 5 + 7 * 6 replays: the first segment's block
+    # starts at step 8, every later one at its own first step
+    assert _build.launch_counts()["step_graph"] == 5 + 7 * 6
+    straight = tde.make_sim_fn(cfg, 400, storage=tables.storage,
+                               device=cuda)
+    st2 = tde.init_dist_state(cfg, device=cuda)
+    per2 = straight(st2, inputs)[1]
+    assert float(per2.sum()) > 0
+    assert torch.equal(torch.cat(pers, dim=2), per2)
+    _dist_same(st, st2)
+    assert all(torch.equal(a, b) for a, b in zip(_gen_states(st),
+                                                  _gen_states(st2)))
+    one = tde.make_sim_fn(cfg, 1, storage=tables.storage, device=cuda)
+    st3 = tde.init_dist_state(cfg, device=cuda)
+    eager = torch.cat([one(st3, inputs)[1] for _ in range(100)], dim=2)
+    assert torch.equal(torch.cat(pers[:2], dim=2), eager)
+    # a new state is a new graph: the old one does not serve it
+    seg(tde.init_dist_state(cfg, device=cuda), inputs)
+    assert seg.captures == 2
+
+
+def test_sim_driver_resume_bit_identical_on_card(cuda, tmp_path):
+    """The segmented driver on the card: 4 segments of 50 straight, and
+    2 + preempt + a fresh driver's 2: one capture per driver, the same
+    state and generator states, the checkpoints' async copies taken on
+    the writer's own stream."""
+    from repro_torch.core import dist_engine as tde
+    from repro_torch.runtime import DriverConfig, SimDriver
+    cfg = _dist_config("exponential")
+
+    def driver(d, **kw):
+        return SimDriver(DriverConfig(ckpt_dir=str(d), backoff_s=0.01,
+                                      handle_sigterm=False), cfg, cuda,
+                         segment_steps=50, **kw)
+
+    a = driver(tmp_path / "a")
+    out_a = a.run(200)
+    assert a.captures() == 1
+    b1 = driver(tmp_path / "b", preempt_after_segments=2)
+    assert b1.run(200)["final_step"] == 100 and b1.captures() == 1
+    b2 = driver(tmp_path / "b")
+    out_b = b2.run(200)
+    assert b2.captures() == 1 and out_b["final_step"] == 200
+    _dist_same(out_a["state"], out_b["state"])
+    assert all(torch.equal(x, y) for x, y in zip(
+        _gen_states(out_a["state"]), _gen_states(out_b["state"])))
+    assert a.metric_totals(out_a["state"]) == \
+        b2.metric_totals(out_b["state"])
+    assert tde.state_tree(out_b["state"])["i_ring"].device.type == "cuda"

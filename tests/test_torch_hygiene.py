@@ -198,3 +198,42 @@ def test_multishard_entry_points_raise_without_cuda():
     with pytest.raises(ValueError, match="device"):
         sim(tde.init_dist_state(cfg, device="cpu"),
             tde.SimInputs(tables=tables.to("meta")))
+
+
+def test_package_rules_cover_the_segmented_run_modules():
+    """The import, source-name and lint checks above walk the segmented
+    run's modules too: checkpoints, runtime, telemetry, spool, analysis,
+    retile, trace export and the launchers."""
+    seg = {"repro_torch.checkpoint.store", "repro_torch.runtime.driver",
+           "repro_torch.runtime.sim_driver", "repro_torch.runtime.jobs",
+           "repro_torch.obs.telemetry", "repro_torch.obs.spool",
+           "repro_torch.obs.analysis", "repro_torch.core.retile",
+           "repro_torch.perf.trace", "repro_torch.launch.sim",
+           "repro_torch.launch.analyze"}
+    assert seg <= set(MODULES), seg - set(MODULES)
+
+
+def test_segmented_run_entry_points_raise_without_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: nothing to refuse")
+    import dataclasses
+    from repro_torch.core import dist_engine as tde
+    from repro_torch.launch import sim
+    from repro_torch.runtime import (DriverConfig, SimDriver, SimJobSpec,
+                                     TrainDriver, build_sim_driver)
+    _, tcfg = configs("gaussian", grid=2, n_per_col=10)
+    cfg = tde.DistConfig(engine=dataclasses.replace(
+        tcfg, decomp=dataclasses.replace(tcfg.decomp, tiles_y=2)))
+    dcfg = DriverConfig(ckpt_dir=str(tmp_path / "d"), handle_sigterm=False)
+    spec = SimJobSpec(ckpt_dir=str(tmp_path / "j"), grid=2,
+                      n_per_column=10)
+    for call in (lambda: tde.state_like(cfg),
+                 lambda: SimDriver(dcfg, cfg, "cuda", segment_steps=2),
+                 lambda: build_sim_driver(spec),
+                 lambda: TrainDriver(dcfg, lambda s, b: (s, {}),
+                                     lambda step: None, lambda: {}),
+                 lambda: sim.main(["--grid", "2", "--neurons-per-column",
+                                   "10", "--ckpt-dir",
+                                   str(tmp_path / "c")])):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
