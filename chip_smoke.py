@@ -41,18 +41,23 @@ Phases, each of which exits non-zero on failure:
    8x8x1240; from its mid-run state, one step of the fixed-order
    delivery + LTD kernel against its plain version on CPU copies (ring,
    weights and counts exact);
-5. the recorded path (``simulate(recorder=)``), static 8x8x1240: the
-   default capacity (no drops; the events are the raster's spikes) and a
-   small one (drops counted), each timed beside the same steps with the
-   recorder off;
+5. the recorded path (``simulate(recorder=)``), static 8x8x1240,
+   captured (the recorder's appends inside the graph, which must show
+   ``(100 - 8) // 8`` replays): the default capacity (no drops; the
+   events are the raster's spikes) and a small one (drops counted),
+   each equal to the eager steps recorded one at a time (raster, state,
+   recorder bit for bit) and timed beside them and beside the same
+   steps with the recorder off; then one 1000-step recorded call, its
+   capture amortized;
 5b. the multi-shard path (``dist_engine.build_dist_tables`` ->
    ``init_dist_state`` -> ``make_sim_fn``): 8x8x1240 in 2x2 tiles on
    the card, both laws: 100 captured steps (one CUDA graph of
    ``d_ring`` steps of all four tiles) against 100 eager one-step calls
    and 100 plain-path steps from the same seed (per-step spikes, every
    tile's state, ring and metrics identical, no derived structure
-   rebuilt after the first step), recorded kernel-path and plain-path
-   runs (the global raster as (step, gid) events, identical), then 500
+   rebuilt after the first step), a recorded kernel-path run (captured)
+   against the plain path and against 50 one-step eager calls (the
+   global raster as (step, gid) events, identical), then 500
    timed steps (which must show ``(500 - 8) // 8`` replays and fire
    within ``rel=0.35`` of the single shard's rate), a profile of 400
    more and of the graph's replays alone (device operations per step,
@@ -73,8 +78,10 @@ Phases, each of which exits non-zero on failure:
    400-step call, a second call, 8 calls of 50 steps), with its steady
    state (from the second segment on) split into segment compute, the
    gaps between segments and the last checkpoint's wait; the same
-   recorded (spool files byte for byte, no recorder drops, one event
-   per spike); the preempted run resumed on 1x2 tiles with a retile
+   recorded and captured (spool files byte for byte, no recorder drops,
+   one event per spike, one capture per driver), against an eager
+   recorded driver of 10-step segments (state and spool logs
+   identical); the preempted run resumed on 1x2 tiles with a retile
    (totals carried, rate within ``rel=0.35`` of the single shard's);
    the plastic driver at 4x4x1240 in 2x2 tiles, one 60-step segment
    against 30 + preempt + resume + 30 (weights, traces, state and
@@ -83,6 +90,25 @@ Phases, each of which exits non-zero on failure:
    how the writer's device-to-host copies overlap segment compute (a
    Chrome trace of the straight run goes to
    ``build/segmented/straight_trace.json``);
+5d. ensembles and the job service: the same 2x2 8x8x1240 gaussian slab
+   as a 3-member ensemble (``DistConfig.ensemble_seeds``; member 0 is
+   phase 5c's solo state seed), recorded and captured, 400 steps in
+   segments of 50, a checkpoint a segment, on phase 5c's table build:
+   straight against 4 segments + preempt + resume (every member's
+   tensors, ``t``, generator states and spool files identical, one
+   capture per driver), member 0's spool logs byte for byte phase 5c's
+   solo recorded driver's, a retile of the ensemble refused, the
+   steady ms per step beside the solo recorded driver's times 3, and
+   the captured ensemble step's graph nodes (a profile of its replays);
+   the plastic ensemble at 4x4x1240 in 2x2 tiles, 2 members, 60 steps,
+   member 0's weight digest equal to phase 5c's plastic driver's; then
+   the job service (``examples/ensemble_service.py``) at 4x4x1240 in
+   2x2 tiles, exponential: a solo reference driver, a ``SimJobServer``
+   on loopback, two 3-member jobs of different seeds (one sim function
+   in the cache, one capture per job), two HTTP clients streaming the
+   first at different paces (each sees every event once), the members'
+   ``launch.analyze`` reports, member 0's spool against the solo's, and
+   each job's wall time split into build, run and drain;
 6. timing of each kernel at its path's shapes: its device time per
    call (``ms``: CUDA events around back-to-back calls enqueued while
    the stream is held, ``queued_ms``), beside torch.profiler's figure
@@ -121,10 +147,10 @@ Phases, each of which exits non-zero on failure:
    tf32 fragment layout the TF32 kernel assumes.
 
 Launch counts are zeroed just before each of phases 3-5, 5b, 5c (after
-its ``make_sim_fn`` baselines) and 7 and read just after it (the ``{"kernels"}`` line gives each kernel's
-launches on phase 3's or its own path, on 5b's and on 5c's); a replay of a
-captured static step counts as ``step_graph`` and as one launch of
-each kernel the graph holds.  It prints the metrics, a
+its ``make_sim_fn`` baselines), 5d and 7 and read just after it (the ``{"kernels"}`` line gives each kernel's
+launches on phase 3's or its own path, on 5b's, 5c's and 5d's); a replay of a
+captured static or recorded step counts as ``step_graph`` and as one
+launch of each kernel the graph holds.  It prints the metrics, a
 ``{"kernels": [...]}`` line, the card's name and power limit, and as
 its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -143,7 +169,9 @@ CUDA-synchronised, then profiles ``N`` more for the device's idle
 share; then it builds phase 5b's exponential 8x8x1240 tables in 2x2
 tiles and times three fresh ``make_sim_fn`` calls of 500 steps as phase
 5b's timed run does (8 eager steps, a capture, replays), and profiles a
-fourth of 400 steps for the idle share.  One ``ab {...}`` line per run
+fourth of 400 steps for the idle share; then phase 5c's gaussian 2x2
+driver, unrecorded and recorded, each 400 steps in segments of 50 with
+a checkpoint a segment: its steady ms per step and captures.  One ``ab {...}`` line per run
 (with the metrics, which must not differ between trees), then the
 card's name and power limit.
 """
@@ -167,6 +195,8 @@ PROFILE_STEPS = 400        # static profile: 8 eager steps, 49 replays
 PLASTIC_PARITY_STEPS, PLASTIC_STEPS = 30, 200
 PARITY_GRID = 4                            # CPU parity of the plastic path
 RECORD_STEPS, SMALL_CAPACITY = 100, 1000
+# a recorded call captures its graph: 1000 steps amortize the capture
+RECORD_LONG_STEPS = 1000
 MS_TILES = 2                       # the multi-shard path: 2x2 tiles
 MS_PARITY_STEPS, MS_TIMED_STEPS, MS_PROFILE_STEPS = 100, 500, 400
 # the plastic leg at 4x4x1240 in 2x2 tiles: the slab first fires in
@@ -176,6 +206,12 @@ MS_PROFILE_REPLAYS, MS_RECORD_STEPS, MS_PLASTIC_STEPS = 20, 50, 30
 # the segmented driver: 400 steps in segments of 50 (each a ring phase 2
 # slots on from the last), preempted after 4; its plastic leg 60 steps
 SEG_TOTAL, SEG_STEPS, SEG_PREEMPT, SEG_PLASTIC_STEPS = 400, 50, 4, 60
+SEG_EAGER_STEPS = 10       # below 2 * d_ring: a driver that steps eagerly
+# phase 5d: ensembles.  Member 0 of each is phase 5c's solo state seed,
+# so its spool and weight digest must be 5c's; the service leg runs the
+# example (two 3-member jobs) at 4x4x1240 in 2x2 tiles, segments of 20
+ENS_SEEDS, ENS_PLASTIC_SEEDS = (0, 1, 2), (0, 1)
+SERVICE_STEPS, SERVICE_SEG = 60, 20
 LAWS = ("gaussian", "exponential")
 BF16_OPS_PER_S = 989e12            # H100 SXM bf16 dense tensor-core rate
 TF32_OPS_PER_S = 495e12            # H100 SXM TF32 dense tensor-core rate
@@ -812,6 +848,28 @@ def check_plastic_kernel(run: dict, law: str) -> float:
 # phase 5: the recorded path
 # ---------------------------------------------------------------------------
 
+def eager_recorded(cfg, tabs, rspec, steps: int) -> tuple:
+    """``steps`` eager ``engine.step`` calls from ``cfg``'s seed, each
+    step's spikes appended to a fresh recorder with the host step (the
+    recorded path as it ran before its capture): the final state, the
+    raster, the recorder and the host seconds."""
+    import torch
+    from repro_torch.core import engine
+    from repro_torch.obs.record import (init_recorder_state, record_step,
+                                        tile_gid_map)
+    gids = torch.from_numpy(tile_gid_map(cfg.decomp, 0, 0)).cuda()
+    rec = init_recorder_state(rspec)
+    state, rows = engine.init_sim_state(cfg), []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(steps):
+        state, spk = engine.step(state, tabs, cfg)
+        record_step(rec, spk, gids, k, rspec)
+        rows.append(spk)
+    torch.cuda.synchronize()
+    return state, torch.stack(rows), rec, time.perf_counter() - t0
+
+
 def run_recorded(law: str, tabs) -> dict:
     import numpy as np
     import torch
@@ -827,6 +885,7 @@ def run_recorded(law: str, tabs) -> dict:
     torch.cuda.synchronize()
     out = {"off": {"ms_per_step":
                    1e3 * (time.perf_counter() - t0) / RECORD_STEPS}}
+    d = cfg.d_ring
     for label, capacity in (("default", None), ("small", SMALL_CAPACITY)):
         rspec = recorder_spec(cfg, RECORD_STEPS, capacity=capacity)
         state = engine.init_sim_state(cfg)
@@ -838,8 +897,10 @@ def run_recorded(law: str, tabs) -> dict:
             recorder=rspec)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        require(_build.launch_counts().get("step_graph", 0) == replays,
-                f"recorder {label}: a recorded run replayed a graph")
+        n_replays = _build.launch_counts().get("step_graph", 0) - replays
+        require(n_replays == (RECORD_STEPS - d) // d,
+                f"recorder {label}: {n_replays} replays in {RECORD_STEPS} "
+                "recorded steps")
         n_spk = int(raster.sum())
         count, dropped = int(rec["count"]), int(rec["dropped"])
         require(count + dropped == n_spk,
@@ -859,10 +920,40 @@ def run_recorded(law: str, tabs) -> dict:
             require(count == capacity and dropped > 0,
                     f"recorder small capacity: count {count}, dropped "
                     f"{dropped}")
+        # the captured run against the eager steps, bit for bit
+        est, eraster, erec, ewall = eager_recorded(cfg, tabs, rspec,
+                                                   RECORD_STEPS)
+        require(torch.equal(eraster, raster) and all(
+            torch.equal(est["neuron"][k], fin["neuron"][k])
+            for k in fin["neuron"]) and torch.equal(
+            est["i_ring"], fin["i_ring"]) and all(
+            torch.equal(erec[k], rec[k]) for k in rec),
+            f"recorder {label}: the captured run differs from the eager "
+            "steps (raster, state or recorder)")
         out[label] = {"capacity": rspec.capacity, "count": count,
                       "dropped": dropped, "spikes": n_spk,
                       "buffer_bytes": int(np.int64(rspec.capacity) * 8),
-                      "ms_per_step": 1e3 * wall / RECORD_STEPS}
+                      "step_graph_replays": n_replays,
+                      "ms_per_step": 1e3 * wall / RECORD_STEPS,
+                      "eager_ms_per_step": 1e3 * ewall / RECORD_STEPS}
+    # a long captured call: its capture amortized over 1000 steps
+    rspec = recorder_spec(cfg, RECORD_LONG_STEPS)
+    replays = _build.launch_counts().get("step_graph", 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fin, per, rec = engine.simulate(engine.init_sim_state(cfg), tabs, cfg,
+                                    RECORD_LONG_STEPS, recorder=rspec)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_replays = _build.launch_counts().get("step_graph", 0) - replays
+    require(n_replays == (RECORD_LONG_STEPS - d) // d
+            and int(rec["count"]) == int(per.sum())
+            and int(rec["dropped"]) == 0,
+            f"recorder long: {n_replays} replays, {int(rec['count'])} "
+            f"events for {int(per.sum())} spikes")
+    out["long"] = {"steps": RECORD_LONG_STEPS, "step_graph_replays":
+                   n_replays, "events": int(rec["count"]),
+                   "ms_per_step": 1e3 * wall / RECORD_LONG_STEPS}
     print(f"recorded path {law} {GRID}x{GRID}x{N_PER_COLUMN} "
           f"{RECORD_STEPS} steps " + json.dumps(out))
     return out
@@ -921,8 +1012,16 @@ def ms_recorded(cfg, tables, steps: int, device: str, drive=None,
                                                             steps),
                          storage=tables.storage, device=device)
     state, per, rec = sim(state, inputs)
-    require(sim.graph_loop is None, "a recorded run replayed a graph")
     return state, per, rec, sim
+
+
+def ms_events(rec) -> list:
+    """Each tile's recorded events as ``step << 32 | gid`` (int64),
+    row-major."""
+    steps = rec["step"].flatten(0, 1).long()
+    gids = rec["gid"].flatten(0, 1).long()
+    counts = rec["count"].reshape(-1).tolist()
+    return [(s[:c] << 32) | g[:c] for s, g, c in zip(steps, gids, counts)]
 
 
 def ms_memory(cfg, tables, stats: dict) -> dict:
@@ -1015,13 +1114,32 @@ def run_multishard(law: str, single: dict) -> dict:
             f"structures rebuilt after the first step: {builds} -> "
             f"{dict(synapses.BUILD_COUNTS)}")
     lap("captured_eager_plain")
-    # the global raster: recorded kernel path against the plain path
-    rk_state, rk_per, rec_k, _ = ms_recorded(cfg, tables, MS_RECORD_STEPS,
-                                             "cuda")
+    # the global raster: the recorded kernel path (captured) against the
+    # plain path and against one-step eager calls (events concatenated)
+    r0 = replays()
+    rk_state, rk_per, rec_k, rsim = ms_recorded(cfg, tables,
+                                                MS_RECORD_STEPS, "cuda")
+    rec_replays = replays() - r0
+    require(rsim.captures == 1 and rec_replays == (MS_RECORD_STEPS - d)
+            // d, f"{label}: the recorded run replayed {rec_replays} times")
     _, _, rec_p, _ = ms_recorded(plain, tables, MS_RECORD_STEPS, "cuda")
     for k in rec_k:
         require(torch.equal(rec_k[k], rec_p[k]), f"{label}: recorder {k} "
                 "differs between the kernel and plain paths")
+    from repro_torch.obs.record import recorder_spec, stacked_gid_maps
+    one_rec = de.make_sim_fn(cfg, 1, recorder=recorder_spec(cfg.engine, 1),
+                             storage=tables.storage)
+    rin = de.SimInputs(tables=tables, gids=torch.from_numpy(
+        stacked_gid_maps(cfg.engine.decomp)).cuda())
+    re_state = de.init_dist_state(cfg)
+    parts = [ms_events(one_rec(re_state, rin)[2])
+             for _ in range(MS_RECORD_STEPS)]
+    eager_events = [torch.cat(p) for p in zip(*parts)]
+    require(all(torch.equal(a, b) for a, b in zip(ms_events(rec_k),
+                                                   eager_events))
+            and not ms_diff(rk_state, re_state),
+            f"{label}: the captured recorded run differs from the eager "
+            "one-step calls")
     n_spk = rk_state["metrics"]["spikes"].to(torch.int32)
     require(torch.equal(rec_k["dropped"], torch.zeros_like(n_spk))
             and torch.equal(rec_k["count"], n_spk),
@@ -1106,6 +1224,7 @@ def run_multishard(law: str, single: dict) -> dict:
         "parity_steps": steps, "parity_spikes": float(cap_per.sum()),
         "recorded_steps": MS_RECORD_STEPS,
         "recorded_events": int(rec_k["count"].sum()),
+        "recorded_step_graph_replays": rec_replays,
     }
     lap("profile_and_exchange_timing")
     res["stage_s"] = stage
@@ -1255,9 +1374,13 @@ def seg_same(a, b, label: str) -> None:
             "states)")
 
 
-def seg_spool(run: Path) -> dict:
+def seg_spool(run: Path, spk_only: bool = False) -> dict:
+    """Every file of a run's spool (member streams included) by relative
+    path; only the ``.spk`` logs with ``spk_only``."""
     d = run / "spool"
-    return {p.name: p.read_bytes() for p in sorted(d.iterdir())}
+    return {str(p.relative_to(d)): p.read_bytes()
+            for p in sorted(d.rglob("*")) if p.is_file()
+            and (not spk_only or p.suffix == ".spk")}
 
 
 def seg_overlap(tel) -> dict:
@@ -1316,14 +1439,17 @@ def seg_shared_builds():
     build_tables, build_index = sd.build_dist_tables, \
         sd.build_dist_inverse_index
 
+    def model(cfg) -> str:          # an ensemble's tables are its solo's
+        return repr(dataclasses.replace(cfg, ensemble_seeds=None))
+
     def shared_tables(cfg, device="cuda"):
-        key = (repr(cfg), str(device))
+        key = (model(cfg), str(device))
         if key not in tables:
             tables[key] = build_tables(cfg, device=device)
         return tables[key]
 
     def shared_index(cfg, host):
-        key = (repr(cfg), id(host))
+        key = (model(cfg), id(host))
         if key not in slots:
             slots[key] = (host, build_index(cfg, host))
         return slots[key][1]
@@ -1343,12 +1469,11 @@ def run_segmented(single_rate_hz: float) -> dict:
     at 4x4x1240 in 2x2 tiles (one 60-step segment against 30 + preempt +
     resume + 30).  ``make_sim_fn`` alone is timed first on the same
     tables; the launch counts are zeroed after it, so the counts read
-    after this phase are the drivers' alone."""
-    with seg_shared_builds():
-        return _run_segmented(single_rate_hz)
-
-
-def _run_segmented(single_rate_hz: float) -> dict:
+    after this phase are the drivers' alone.  The recorded drivers
+    capture too (the recorder's appends inside the graph): their spool
+    equals an eager driver's (segments of 10 steps, too short to
+    capture), whose steady state is timed beside theirs.  Run it inside
+    ``seg_shared_builds``."""
     import shutil
     import torch
     from repro_torch.checkpoint.store import checkpoint_meta
@@ -1453,13 +1578,18 @@ def _run_segmented(single_rate_hz: float) -> dict:
     steady = seg_steady(tel, t_end)
     lap("captured")
 
-    # recorded (eager): the spool files byte for byte
+    # recorded (captured): the spool files byte for byte
     rec_a = driver("rec_straight", record_events=True, tel=Telemetry())
-    out_ra = rec_a.run(SEG_TOTAL)
-    driver("rec_resumed", record_events=True,
-           preempt_after_segments=SEG_PREEMPT).run(SEG_TOTAL)
+    out_ra, wall_ra = timed_run(rec_a, SEG_TOTAL)
+    rec_steady = seg_steady(rec_a.tel, rec_a.tel.now())
+    rec_b = driver("rec_resumed", record_events=True,
+                   preempt_after_segments=SEG_PREEMPT)
+    rec_b.run(SEG_TOTAL)
     rec_c = driver("rec_resumed", record_events=True)
     out_rc = rec_c.run(SEG_TOTAL)
+    rec_caps = [rec_a.captures(), rec_b.captures(), rec_c.captures()]
+    require(rec_caps == [1, 1, 1], f"{label}: recorded captures per "
+            f"driver {rec_caps}")
     seg_same(out_ra["state"], out_rc["state"],
              f"{label} recorded straight vs resumed")
     seg_same(out_a["state"], out_ra["state"],
@@ -1475,6 +1605,18 @@ def _run_segmented(single_rate_hz: float) -> dict:
     require(n_events == totals["spikes"] == rec_c.spike_counts(
         SEG_TOTAL).sum(), f"{label}: {n_events} spooled events against "
         f"{totals['spikes']} spikes")
+    # the same recorded run stepped eagerly: segments too short to capture
+    rec_e = driver("rec_eager", record_events=True, seg=SEG_EAGER_STEPS,
+                   tel=Telemetry())
+    out_re, wall_re = timed_run(rec_e, SEG_TOTAL)
+    require(rec_e.captures() == 0, f"{label}: the eager recorded driver "
+            "captured a graph")
+    diff = ms_diff(out_ra["state"], out_re["state"])
+    require(not diff, f"{label}: the captured recorded driver's state "
+            f"differs from the eager one's in {diff}")
+    require(seg_spool(root / "rec_straight", True) == seg_spool(
+        root / "rec_eager", True), f"{label}: the captured recorded "
+            "driver's spool logs differ from the eager one's")
     lap("recorded")
 
     # retile: the preempted run resumed on 1x2 tiles
@@ -1543,6 +1685,13 @@ def _run_segmented(single_rate_hz: float) -> dict:
         "retile_restore_s": seg_mean(tel_r, "restore.retile"),
         "spool_drain_ms_per_segment": 1e3 * seg_mean(
             rec_a.tel, "segment.spool_drain"),
+        "recorded_captures_per_driver": rec_caps,
+        "recorded_driver_ms_per_step": 1e3 * wall_ra / SEG_TOTAL,
+        "recorded_driver_steady_ms_per_step":
+            rec_steady["driver_steady_ms_per_step"],
+        "recorded_eager_driver_ms_per_step": 1e3 * wall_re / SEG_TOTAL,
+        "recorded_eager_segment_steps": SEG_EAGER_STEPS,
+        "recorded_driver_steady": rec_steady,
         "d2h_overlap": overlap, "chrome_trace": str(Path(trace).relative_to(
             ROOT)),
         "totals": totals, "spooled_events": n_events,
@@ -1559,6 +1708,207 @@ def _run_segmented(single_rate_hz: float) -> dict:
     res["phase_s"] = time.perf_counter() - t_phase
     print(f"{label} driver " + json.dumps(res))
     shutil.rmtree(root / "retiled", ignore_errors=True)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 5d: ensembles and the job service
+# ---------------------------------------------------------------------------
+
+def ens_graph_profile(sim, members: int) -> dict:
+    """A profile of ``MS_PROFILE_REPLAYS`` replays of a sim's captured
+    graph alone: device operations (graph nodes) and busy ms per step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    graph, d = sim.graph_loop.graph, sim.e.d_ring
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(MS_PROFILE_REPLAYS):
+            graph.replay()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    n = MS_PROFILE_REPLAYS * d
+    return {"graph_device_ops_per_step": len(dev) / n,
+            "graph_device_ops_per_step_per_member": len(dev) / n / members,
+            "graph_busy_ms_per_step": sum(e.time_range.elapsed_us()
+                                          for e in dev) / n / 1e3}
+
+
+def run_ensembles(seg: dict) -> dict:
+    """Phase 5d's drivers (inside ``seg_shared_builds``, after phase 5c,
+    whose builds and runs they reuse): the 8x8x1240 gaussian slab in 2x2
+    tiles as a 3-member ensemble, recorded and captured, 400 steps in
+    segments of 50 with a checkpoint a segment, straight against 4
+    segments + preempt + resume (every member's tensors, ``t``,
+    generator states and spool files identical; one capture per
+    driver); member 0's spool logs against phase 5c's solo recorded
+    driver's, byte for byte; a retile of the ensemble refused; the
+    captured ensemble step's graph nodes; then the plastic ensemble at
+    4x4x1240 in 2x2 tiles, 2 members, 60 steps, member 0's weight
+    digest against phase 5c's plastic driver's."""
+    import shutil
+    import torch
+    from repro_torch.core.stdp import STDPParams
+    from repro_torch.obs.telemetry import Telemetry
+    from repro_torch.runtime import DriverConfig, SimDriver
+    t_phase = time.perf_counter()
+    root = ROOT / "build" / "segmented"
+    cfg = ms_cfg("gaussian", GRID)
+    require(cfg.engine.state_seed_value == ENS_SEEDS[0],
+            "phase 5d: member 0 must carry phase 5c's state seed")
+    ecfg = dataclasses.replace(cfg, ensemble_seeds=ENS_SEEDS)
+    m = len(ENS_SEEDS)
+    label = (f"ensemble gaussian {GRID}x{GRID}x{N_PER_COLUMN} "
+             f"{MS_TILES}x{MS_TILES} M={m}")
+
+    def driver(name, dist, seg=SEG_STEPS, tel=None, **kw):
+        return SimDriver(DriverConfig(ckpt_dir=str(root / name),
+                                      ckpt_every=1, keep=2,
+                                      handle_sigterm=False),
+                         dist, "cuda", segment_steps=seg,
+                         **({"telemetry": tel} if tel else {}), **kw)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    straight = driver("ens_straight", ecfg, record_events=True,
+                      tel=Telemetry())
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out_a = straight.run(SEG_TOTAL)
+    torch.cuda.synchronize()
+    wall_a = time.perf_counter() - t0
+    steady = seg_steady(straight.tel, straight.tel.now())
+    first = driver("ens_resumed", ecfg, record_events=True,
+                   preempt_after_segments=SEG_PREEMPT)
+    out_b = first.run(SEG_TOTAL)
+    require(out_b["preempted"] and out_b["final_step"] == SEG_STEPS
+            * SEG_PREEMPT, f"{label}: the preempted driver stopped at "
+            f"{out_b['final_step']}")
+    shutil.copytree(root / "ens_resumed", root / "ens_retile")
+    resumed = driver("ens_resumed", ecfg, record_events=True)
+    out_c = resumed.run(SEG_TOTAL)
+    seg_same(out_a["state"], out_c["state"], f"{label} straight vs resumed")
+    caps = [straight.captures(), first.captures(), resumed.captures()]
+    require(caps == [1, 1, 1], f"{label}: captures per driver {caps}")
+    spool_a = seg_spool(root / "ens_straight")
+    require(spool_a == seg_spool(root / "ens_resumed"),
+            f"{label}: the member spools differ after the resume")
+    require(straight.recorder_dropped == resumed.recorder_dropped == 0,
+            f"{label}: the recorder dropped events")
+    totals = straight.metric_totals(out_a["state"])
+    n_events = sum(len(v) for k, v in spool_a.items()
+                   if k.endswith(".spk")) // 8
+    require(n_events == totals["spikes"], f"{label}: {n_events} spooled "
+            f"events against {totals['spikes']} spikes")
+    # member 0 is phase 5c's solo run: its spool logs byte for byte
+    solo = seg_spool(root / "rec_straight", True)
+    member = [{k.split("/", 1)[1]: v for k, v in spool_a.items()
+               if k.startswith(f"member_{i:03d}/") and k.endswith(".spk")}
+              for i in range(m)]
+    require(member[0] == solo and member[1] != solo,
+            f"{label}: member 0's spool is not phase 5c's solo spool (or "
+            "member 1's is)")
+    counts = [straight.spike_counts(SEG_TOTAL, member=i) for i in range(m)]
+    # a retile of the ensemble is refused
+    cfg12 = dataclasses.replace(ecfg, engine=dataclasses.replace(
+        cfg.engine, decomp=dataclasses.replace(cfg.engine.decomp,
+                                               tiles_y=1, tiles_x=2)))
+    refused = None
+    try:        # unrecorded: a spool refuses another tiling's capacity
+        driver("ens_retile", cfg12, allow_retile=True).run(SEG_TOTAL)
+    except ValueError as e:
+        refused = str(e)
+    require(refused is not None and "member axis" in refused,
+            f"{label}: the retile of the ensemble was not refused "
+            f"({refused})")
+    shutil.rmtree(root / "ens_retile", ignore_errors=True)
+    prof = ens_graph_profile(straight._sim, m)
+
+    # the plastic ensemble: member 0 learns what phase 5c's driver did
+    pcfg = ms_cfg("gaussian", PARITY_GRID, stdp=STDPParams())
+    require(pcfg.engine.state_seed_value == ENS_PLASTIC_SEEDS[0],
+            "phase 5d: plastic member 0 must carry phase 5c's seed")
+    t0 = time.perf_counter()
+    pe = driver("ens_plastic", dataclasses.replace(
+        pcfg, ensemble_seeds=ENS_PLASTIC_SEEDS), seg=SEG_PLASTIC_STEPS)
+    out_p = pe.run(SEG_PLASTIC_STEPS)
+    torch.cuda.synchronize()
+    plastic_s = time.perf_counter() - t0
+    sums = [pe.plastic_summary(out_p["state"], member=i)
+            for i in range(len(ENS_PLASTIC_SEEDS))]
+    require(sums[0]["weight_checksum"] == seg["plastic"]["weight_checksum"]
+            and sums[1]["weight_checksum"] != sums[0]["weight_checksum"],
+            f"{label}: plastic member 0's digest {sums[0]} is not phase "
+            f"5c's {seg['plastic']['weight_checksum']} (or member 1's is)")
+
+    solo_steady = seg["recorded_driver_steady_ms_per_step"]
+    res = {
+        "card": gpu_line(), "members": m, "seeds": list(ENS_SEEDS),
+        "grid": f"{GRID}x{GRID}x{N_PER_COLUMN}",
+        "tiles": f"{MS_TILES}x{MS_TILES}", "steps": SEG_TOTAL,
+        "segment_steps": SEG_STEPS, "recorded": True,
+        "driver_build_s": build_s,
+        "driver_ms_per_step": 1e3 * wall_a / SEG_TOTAL,
+        "driver_steady_ms_per_step": steady["driver_steady_ms_per_step"],
+        "steady_compute_ms_per_step": steady["steady_compute_ms_per_step"],
+        "solo_recorded_driver_steady_ms_per_step": solo_steady,
+        "solo_recorded_driver_steady_times_members": solo_steady * m,
+        "solo_driver_steady_ms_per_step": seg["driver_steady_ms_per_step"],
+        "captures_per_driver": caps, **prof,
+        "spooled_events": n_events, "totals": totals,
+        "member_spikes": [float(c.sum()) for c in counts],
+        "member0_spool_is_solo": True, "retile_refused": refused,
+        "plastic": {"grid": f"{PARITY_GRID}x{PARITY_GRID}x{N_PER_COLUMN}",
+                    "members": len(ENS_PLASTIC_SEEDS),
+                    "steps": SEG_PLASTIC_STEPS, "s": plastic_s,
+                    "member_checksums": [s["weight_checksum"][:16]
+                                         for s in sums],
+                    "member0_is_solo": True},
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    print(f"{label} driver " + json.dumps(res))
+    return res
+
+
+def run_service() -> dict:
+    """Phase 5d's service leg: ``examples/ensemble_service.run`` on the
+    card at 4x4x1240 in 2x2 tiles, exponential (a solo reference driver,
+    then a ``SimJobServer`` on loopback with two 3-member jobs of
+    different seeds, two HTTP clients streaming the first at different
+    paces, ``launch.analyze`` of its members, member 0's spool against
+    the solo's), 60 steps in segments of 20: the sim cache holds one
+    function and each job captures once.  Its table builds are its own
+    (not phase 5c's memo), so each job's wall time splits into a real
+    build, the run and the spool drain."""
+    import shutil
+    from repro_torch.examples import ensemble_service
+    work = ROOT / "build" / "service"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    label = (f"service exponential {PARITY_GRID}x{PARITY_GRID}x"
+             f"{N_PER_COLUMN} {MS_TILES}x{MS_TILES}")
+    t0 = time.perf_counter()
+    out = ensemble_service.run(str(work), device="cuda", grid=PARITY_GRID,
+                               npc=N_PER_COLUMN, tiles=(MS_TILES, MS_TILES),
+                               t_steps=SERVICE_STEPS, seg=SERVICE_SEG,
+                               report_path=str(work / "analysis.json"))
+    caps = [j["captures"] for j in out["jobs"]]
+    require(caps == [1, 1] and out["server_compiled_steps_after_2_jobs"]
+            == 1, f"{label}: captures per job {caps}, sim cache "
+            f"{out['server_compiled_steps_after_2_jobs']}")
+    res = {"card": gpu_line(), "steps": SERVICE_STEPS,
+           "segment_steps": SERVICE_SEG, "members": len(out["seeds"]),
+           "captures_per_job": caps,
+           "sim_cache_after_2_jobs": out["server_compiled_steps_after_2_jobs"],
+           "spooled_events": out["spooled_events"],
+           "clients": {k: {"total": v["total"], "polls": v["polls"]}
+                       for k, v in out["clients"].items()},
+           "member_reports": out["member_reports"],
+           "job_wall_s": [j["wall"] for j in out["jobs"]],
+           "job_rate_hz": [j["rate_hz"] for j in out["jobs"]],
+           "member0_spool_is_solo": out["member0_matches_solo"],
+           "phase_s": time.perf_counter() - t0}
+    print(f"{label} job server " + json.dumps(res))
     return res
 
 
@@ -2500,6 +2850,33 @@ def ab_tree(src: str, label: str, steps: int) -> dict:
     out[f"{ms}_device_busy_ms_per_step"] = busy / MS_PROFILE_STEPS / 1e3
     out[f"{ms}_device_idle_share"] = 1.0 - busy / (walls[3] * 1e6)
     out[f"{ms}_spikes"] = float(fin["metrics"]["spikes"].sum())
+    out.update(ab_drivers(label))
+    return out
+
+
+def ab_drivers(label: str) -> dict:
+    """Phase 5c's drivers on the tree on the path: the 2x2 8x8x1240
+    gaussian slab, 400 steps in segments of 50, a checkpoint a segment,
+    unrecorded and recorded: each one's steady ms per step (from its
+    second segment to its return) and its captures."""
+    import shutil
+    from repro_torch.obs.telemetry import Telemetry
+    from repro_torch.runtime import DriverConfig, SimDriver
+    root = ROOT / "build" / "ab_drivers" / label
+    shutil.rmtree(root, ignore_errors=True)
+    cfg, out = ms_cfg("gaussian", GRID), {}
+    for name, rec in (("driver", False), ("recorded_driver", True)):
+        drv = SimDriver(DriverConfig(ckpt_dir=str(root / name), ckpt_every=1,
+                                     keep=2, handle_sigterm=False),
+                        cfg, "cuda", segment_steps=SEG_STEPS,
+                        record_events=rec, telemetry=Telemetry())
+        drv.run(SEG_TOTAL)
+        steady = seg_steady(drv.tel, drv.tel.now())
+        out[f"{name}_steady_ms_per_step"] = steady["driver_steady_ms_per_step"]
+        out[f"{name}_steady_compute_ms_per_step"] = \
+            steady["steady_compute_ms_per_step"]
+        out[f"{name}_captures"] = drv.captures()
+    shutil.rmtree(root, ignore_errors=True)
     return out
 
 
@@ -2669,14 +3046,28 @@ def main() -> None:
             "the multi-shard path reached a replaced kernel")
 
     # 5c. the segmented driver: checkpoints, resume, spool, retile (it
-    # zeroes the counts itself, after timing make_sim_fn alone)
-    run_segmented(runs["gaussian"]["rate_hz"])
-    seg_launches = _build.launch_counts()
-    print(f"segmented driver launches: {json.dumps(seg_launches)}")
+    # zeroes the counts itself, after timing make_sim_fn alone); 5d.
+    # ensembles through the same drivers (their table builds shared),
+    # then the job service on builds of its own
+    with seg_shared_builds():
+        seg = run_segmented(runs["gaussian"]["rate_hz"])
+        seg_launches = _build.launch_counts()
+        print(f"segmented driver launches: {json.dumps(seg_launches)}")
+        for name in ("neuron_step", "event_delivery", "step_graph",
+                     "spike_compact", "plastic_delivery_ltd"):
+            require(seg_launches.get(name, 0) > 0,
+                    f"kernel {name} was not launched on the segmented path")
+        t0 = time.perf_counter()
+        _build.reset_launch_counts()
+        run_ensembles(seg)
+    run_service()
+    ens_launches = _build.launch_counts()
+    print(f"ensemble and service launches: {json.dumps(ens_launches)}; "
+          f"{time.perf_counter() - t0:.1f} s")
     for name in ("neuron_step", "event_delivery", "step_graph",
                  "spike_compact", "plastic_delivery_ltd"):
-        require(seg_launches.get(name, 0) > 0,
-                f"kernel {name} was not launched on the segmented path")
+        require(ens_launches.get(name, 0) > 0,
+                f"kernel {name} was not launched on the ensemble path")
 
     # 6. timing at the paths' shapes (not counted as launches)
     last = LAWS[-1]
@@ -2720,6 +3111,7 @@ def main() -> None:
     for k in kernels:
         k["multi_shard_launches"] = ms_launches.get(k["name"], 0)
         k["segmented_launches"] = seg_launches.get(k["name"], 0)
+        k["ensemble_launches"] = ens_launches.get(k["name"], 0)
     print(json.dumps({"kernels": kernels}))
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(gpu_line())

@@ -23,12 +23,17 @@ axes over a TPU mesh).  Step structure, all tiles (dt = 1 ms):
 The state is updated in place (the port's counterpart of the
 reference's donated state).  ``state["t"]`` is a host-side ``(TY, TX)``
 int32 numpy array and ``state["rng"]`` the row-major list of the tiles'
-``torch.Generator``s.  A static event-mode run on a CUDA device with
-``use_kernels`` replays one CUDA graph of ``d_ring`` steps of all tiles
-(``engine.GraphLoop``); plastic, recorded and plain runs step eagerly.
-The drive is drawn with ``torch.poisson``, which cannot reproduce
-``jax.random.poisson``: parity runs inject the reference's drive
-(``SimInputs.drive``).
+``torch.Generator``s.  An ensemble (``DistConfig.ensemble_seeds``, M
+members) puts the member axis after the tile axes, ``(TY, TX, M, ...)``,
+``t`` included, with the generators in (y, x, m) order; each (tile,
+member) instance steps through the same per-tile launches, on the
+tile's tables, and the exchange gathers each band once for every
+instance.  A static event-mode run on a CUDA device with
+``use_kernels``, recorded or not, replays one CUDA graph of ``d_ring``
+steps of every instance (``engine.GraphLoop``); plastic and plain runs
+step eagerly.  The drive is drawn with ``torch.poisson``, which cannot
+reproduce ``jax.random.poisson``: parity runs inject the reference's
+drive (``SimInputs.drive``).
 """
 
 from __future__ import annotations
@@ -64,8 +69,9 @@ class SimInputs:
     ``build_dist_inverse_index``) when the engine is plastic; ``gids``
     (the stacked global-neuron-id maps, ``obs.record.stacked_gid_maps``)
     when a recorder is attached; ``drive``, an injected ``(n_steps, TY,
-    TX, n_local)`` drive in mV, or None to draw it on each tile's
-    generator."""
+    TX, n_local)`` drive in mV (``(n_steps, TY, TX, M, n_local)`` for an
+    ensemble), or None to draw it on each instance's generator.  All
+    but the drive are member-free: the members share one realization."""
     tables: Any
     inv_slots: Any = None
     gids: Any = None
@@ -78,26 +84,44 @@ class DistConfig:
     ``halo_mode`` ("strip" | "block") and wire format (``pack_spikes``: a
     1-bit payload, ``halo.pack_bits``), as ``band_gather_maps`` composes
     them into the bands' gather maps.  Every setting gives the same
-    regions, so the same maps and the same run.  ``ensemble_seeds``
-    raises: ensembles are not ported yet."""
+    regions, so the same maps and the same run.
+
+    ``ensemble_seeds``: member state seeds of an ensemble run.  When
+    set, every state leaf grows a member axis at position 2, ``(TY, TX,
+    M, ...)``, and member m is bit for bit the solo run with
+    ``engine.state_seed = ensemble_seeds[m]``: one table realization
+    (``engine.seed``), one sim function, M realizations."""
 
     engine: EngineConfig
     halo_mode: str = "strip"
     pack_spikes: bool = True
-    # the reference's ensemble axis; not ported yet (ROADMAP item 8)
     ensemble_seeds: Optional[Tuple[int, ...]] = None
 
     def __post_init__(self):
         if self.ensemble_seeds is not None:
-            raise NotImplementedError(
-                "ensemble_seeds: the port has no ensemble axis yet "
-                "(ROADMAP.md item 8); run each member as a solo run "
-                "with its own state_seed")
+            seeds = tuple(int(s) for s in self.ensemble_seeds)
+            if not seeds:
+                raise ValueError("ensemble_seeds must be a non-empty "
+                                 "tuple (or None for a solo run)")
+            object.__setattr__(self, "ensemble_seeds", seeds)
 
     @property
     def tiles(self) -> Tuple[int, int]:
         d = self.engine.decomp
         return d.tiles_y, d.tiles_x
+
+    @property
+    def n_members(self) -> Optional[int]:
+        """Ensemble width M, or None for a solo run."""
+        if self.ensemble_seeds is None:
+            return None
+        return len(self.ensemble_seeds)
+
+    @property
+    def lead(self) -> Tuple[int, ...]:
+        """The state's leading axes: ``(TY, TX)``, or ``(TY, TX, M)``."""
+        m = self.n_members
+        return self.tiles + (() if m is None else (m,))
 
 
 # ---------------------------------------------------------------------------
@@ -108,26 +132,32 @@ def init_dist_state(cfg: DistConfig, device="cuda") -> dict:
     """Every tile's ``engine.init_sim_state(e, y, x, seed_offset=y*TX+x)``
     stacked into ``(TY, TX, ...)`` tensors on ``device``; ``t`` a ``(TY,
     TX)`` int32 numpy array, ``rng`` the tiles' generators (row-major),
-    the metrics ``(TY, TX)`` float32."""
+    the metrics ``(TY, TX)`` float32.  An ensemble stacks one such state
+    per member seed on axis 2, ``(TY, TX, M, ...)`` (``t`` too), its
+    generators in (y, x, m) order, each seeded as the solo run with
+    ``state_seed=seeds[m]`` seeds that tile."""
     dev = resolve_device(device)
     ty, tx = cfg.tiles
-    e = cfg.engine
-    tiles = [init_sim_state(e, y, x, seed_offset=y * tx + x, device=dev)
-             for y in range(ty) for x in range(tx)]
+    engines = ([cfg.engine] if cfg.ensemble_seeds is None else
+               [dataclasses.replace(cfg.engine, state_seed=s)
+                for s in cfg.ensemble_seeds])
+    insts = [init_sim_state(e, y, x, seed_offset=y * tx + x, device=dev)
+             for y in range(ty) for x in range(tx) for e in engines]
+    lead = cfg.lead
 
     def stack(get):
-        x = torch.stack([get(s) for s in tiles])
-        return x.view((ty, tx) + tuple(x.shape[1:]))
+        x = torch.stack([get(s) for s in insts])
+        return x.view(lead + tuple(x.shape[1:]))
 
     return {
         "neuron": {k: stack(lambda s, k=k: s["neuron"][k])
-                   for k in tiles[0]["neuron"]},
+                   for k in insts[0]["neuron"]},
         "i_ring": stack(lambda s: s["i_ring"]),
-        "t": np.zeros((ty, tx), np.int32),
-        "rng": [s["rng"] for s in tiles],
+        "t": np.zeros(lead, np.int32),
+        "rng": [s["rng"] for s in insts],
         "active": stack(lambda s: s["active"]),
         "metrics": {k: stack(lambda s, k=k: s["metrics"][k])
-                    for k in tiles[0]["metrics"]},
+                    for k in insts[0]["metrics"]},
     }
 
 
@@ -139,23 +169,25 @@ def state_like(cfg: DistConfig, storage: Optional[TableStorage] = None,
     the tables' storage descriptor (sizes the plastic weight tiers;
     None for the spec's analytic caps).  Plastic engines grow the
     ``plastic`` carry: every tier's float32 weights ``(TY, TX, rows + 1,
-    cap)``, the local pre-trace, the post-trace."""
+    cap)``, the local pre-trace, the post-trace.  An ensemble's leaves
+    lead with ``(TY, TX, M)``."""
     dev = resolve_device(device)
-    ty, tx = cfg.tiles
+    lead = cfg.lead
     e = cfg.engine
     spec = e.spec()
     n = spec.n_local
     f32 = torch.float32
 
     def z(shape, dtype=f32):
-        return torch.zeros((ty, tx) + shape, dtype=dtype, device=dev)
+        return torch.zeros(lead + shape, dtype=dtype, device=dev)
 
     state = {
         "neuron": {"v": z((n,)), "c": z((n,)),
                    "refrac": z((n,), torch.int32)},
         "i_ring": z((e.d_ring, n)),
-        "t": np.zeros((ty, tx), np.int32),
-        "rng": [torch.Generator(device=dev) for _ in range(ty * tx)],
+        "t": np.zeros(lead, np.int32),
+        "rng": [torch.Generator(device=dev)
+                for _ in range(int(np.prod(lead)))],
         "active": z((n,), torch.bool),
         "metrics": {k: z(()) for k in ("spikes", "events", "dropped")},
     }
@@ -276,8 +308,12 @@ def init_dist_plastic_state(cfg: DistConfig, tables) -> dict:
     build tables (copies, never views), traces at zero.  ``tables`` must
     carry the *build weights* (float), not the folded int8 masks
     (``fold_plastic_tables``).  The pre-trace is local-tier only: halo
-    replicas are exchanged each step, never carried."""
-    ty, tx = cfg.tiles
+    replicas are exchanged each step, never carried.  An ensemble gives
+    every member its own copy of the weights and traces, on axis 2: the
+    members start from the one build realization and diverge through
+    their own STDP."""
+    lead = cfg.lead
+    m = cfg.n_members
     n_local = cfg.engine.spec().n_local
     tiers = tier_list(tables)
     if any(t["w"].dtype == torch.int8 for t in tiers):
@@ -288,11 +324,17 @@ def init_dist_plastic_state(cfg: DistConfig, tables) -> dict:
     check_weight_invariant(tiers, cfg.engine.stdp)
     dev = tiers[0]["w"].device
     pre_rows = tiers[0]["tgt"].shape[-2]
+
+    def weights(w):
+        if m is None:
+            return w.clone()
+        return w.unsqueeze(2).expand(lead + tuple(w.shape[2:])).clone()
+
     return {
-        "w": [t["w"].clone() for t in tiers],
-        "x_pre": [torch.zeros((ty, tx, pre_rows), dtype=torch.float32,
+        "w": [weights(t["w"]) for t in tiers],
+        "x_pre": [torch.zeros(lead + (pre_rows,), dtype=torch.float32,
                               device=dev)],
-        "x_post": torch.zeros((ty, tx, n_local), dtype=torch.float32,
+        "x_post": torch.zeros(lead + (n_local,), dtype=torch.float32,
                               device=dev),
     }
 
@@ -368,12 +410,19 @@ def band_gather_maps(cfg: DistConfig, stride: int, sink_column: bool = False,
     exchanging each source's position (``+1``, so that the exchange's
     zero fill marks the sink), in ``cfg``'s mode and wire format
     (``_exchange``).  ``sink_column`` appends one column of the sink to
-    every row (the reference's per-band zero sink of the pre-trace)."""
+    every row (the reference's per-band zero sink of the pre-trace).
+
+    For an ensemble of M members the rows are the ``TY*TX*M`` (tile,
+    member) instances in (y, x, m) order, and the flat source holds
+    instance ``i*M + m``'s neuron j at ``(i*M + m) * stride + j`` (the
+    sink at its end): member m's bands gather member m's sources, and
+    each band is still one gather for every instance."""
     dev = resolve_device(device)
     e = cfg.engine
     spec = e.spec()
     d = e.decomp
     ty, tx = cfg.tiles
+    members = cfg.n_members or 1
     n_per, n_exc = spec.n_per_col, spec.n_exc_per_col
     sink = ty * tx * stride
     col = np.arange(d.tile_cols)[:, None] * n_per + np.arange(n_exc)[None, :]
@@ -388,6 +437,12 @@ def band_gather_maps(cfg: DistConfig, stride: int, sink_column: bool = False,
         if sink_column:
             m = torch.cat([m, torch.full((ty * tx, 1), sink,
                                          dtype=m.dtype)], dim=1)
+        if members > 1:
+            mem = torch.arange(members).view(1, members, 1)
+            inst = (m // stride).unsqueeze(1) * members + mem
+            m = torch.where(m.unsqueeze(1) == sink, sink * members,
+                            inst * stride + (m % stride).unsqueeze(1))
+            m = m.reshape(ty * tx * members, -1)
         maps.append(m.to(dev))
     return maps
 
@@ -425,7 +480,10 @@ def _same(a: list, b: list) -> bool:
 
 
 class _DistSim:
-    """``make_sim_fn``'s function: ``sim(state, inputs)``."""
+    """``make_sim_fn``'s function: ``sim(state, inputs)``.  It steps
+    ``n_inst`` instances: the tiles, or for an ensemble every (tile,
+    member) pair in (y, x, m) order, instance ``i`` on tile ``i //
+    members``'s tables."""
 
     def __init__(self, cfg: DistConfig, n_steps: int, record_rate: bool,
                  recorder, storage: Optional[TableStorage], dev):
@@ -435,6 +493,8 @@ class _DistSim:
         self.spec = spec = e.spec()
         ty, tx = cfg.tiles
         self.n_tiles = ty * tx
+        self.members = cfg.n_members or 1
+        self.n_inst = self.n_tiles * self.members
         self.n_local = spec.n_local
         self.event = e.mode == "event"
         if not self.event and e.mode != "gather_all":
@@ -451,6 +511,10 @@ class _DistSim:
                 spec.active_cap_band(b) for b in bands]
         self.zero = torch.zeros((1,), dtype=torch.float32, device=dev)
         self.tiles: Optional[_Tiles] = None
+        # the resident recorder (``obs.record.resident_recorder``) and the
+        # device step counter its appends read
+        self.recorders: dict = {}
+        self.t_dev = torch.zeros((), dtype=torch.int32, device=dev)
         # the captured loop, kept across calls while it serves them
         # (``_DistStepGraph.serves``); None where the sim steps eagerly
         self.graph_loop: Optional[GraphLoop] = None
@@ -482,20 +546,24 @@ class _DistSim:
             self.tiles = _Tiles(inputs.tables, inputs.inv_slots, self)
         return self.tiles
 
-    # ---- one step of every tile, in place -------------------------------
-    def step(self, st: dict, tiles: _Tiles, drive, dst, rec=None) -> None:
-        """One step of all tiles.  ``st``: the run's per-tile views
-        (``_views``); ``drive``: (n_tiles, n_local) or None; ``dst``: the
-        (n_tiles,) per-step spike counts, or None."""
+    # ---- one step of every instance, in place ---------------------------
+    def step(self, st: dict, tiles: _Tiles, drive, dst) -> None:
+        """One step of all instances.  ``st``: the run's per-instance
+        views (``_views``; with a recorder, ``st["recs"]`` the instances'
+        recorders, which append with the step read from ``t_dev``,
+        advanced here); ``drive``: (n_inst, n_local) or None; ``dst``:
+        the (n_inst,) per-step spike counts, or None."""
         e, spec, plan = self.e, self.spec, self.plan
+        rec = st.get("recs")
         t = int(st["t"][0])
         slot = t % e.d_ring
+        per = self.members
         # the local tier's bitmap from the head, where the column or
         # fixed-order delivery of a static run reads it
         cap = plan[0].active_cap if self.event and not self.plastic \
             else None
         spikes, n_spk, local_bits = [], [], []
-        for i in range(self.n_tiles):
+        for i in range(self.n_inst):
             _, spk, bits, count = step_head(
                 st["neuron"][i], st["ring"][i], slot,
                 None if drive is None else drive[i], st["rng"][i], e,
@@ -504,7 +572,7 @@ class _DistSim:
             n_spk.append(count)
             local_bits.append(bits)
 
-        # the halo exchange: one gather per band for every tile
+        # the halo exchange: one gather per band for every instance
         src = torch.cat(spikes + [self.zero])
         band_spk = [src[m] for m in self.maps]
         band_bits = None
@@ -519,8 +587,9 @@ class _DistSim:
             xpre_bands = [xpre_src[m] for m in self.pre_maps]
 
         evs, drs = [], []
-        for i in range(self.n_tiles):
-            tabs = tiles.tables[i]
+        for i in range(self.n_inst):
+            tile = i // per
+            tabs = tiles.tables[tile]
             ring = st["ring"][i]
             halo = [b[i] for b in band_spk]
             if self.plastic:
@@ -532,7 +601,7 @@ class _DistSim:
                 spk_tiers = [spikes[i]] + halo
                 if self.event:
                     ring, new_tiers, traces, ev, dr = plastic_delivery_stdp(
-                        tiers, tiles.masks[i], tiles.inv[i], traces,
+                        tiers, tiles.masks[tile], tiles.inv[tile], traces,
                         spk_tiers, spec, ring, slot, e, plan,
                         fused_post=True)
                 else:
@@ -542,7 +611,7 @@ class _DistSim:
                     dr = torch.zeros((), dtype=torch.float32,
                                      device=ring.device)
                     new_tiers, traces = stdp_step(
-                        tiers, tiles.masks[i], tiles.inv[i], traces,
+                        tiers, tiles.masks[tile], tiles.inv[tile], traces,
                         spk_tiers, spikes[i], e.stdp, self.pre_caps,
                         spec.active_cap_local, fused_post=True)
                 for w, nt in zip(pl["w"], new_tiers):
@@ -565,8 +634,10 @@ class _DistSim:
             drs.append(dr)
             if rec is not None:
                 from ..obs.record import record_step
-                record_step(rec[i], spikes[i], st["gids"][i], t,
+                record_step(rec[i], spikes[i], st["gids"][i], self.t_dev,
                             self.recorder)
+        if rec is not None:
+            self.t_dev.add_(1)
 
         counts = torch.stack(n_spk).to(torch.float32)
         m = st["metrics"]
@@ -580,9 +651,11 @@ class _DistSim:
         st["t"] = st["state"]["t"].reshape(-1)
 
     # ---- the run --------------------------------------------------------
-    def _views(self, state: dict, inputs: SimInputs) -> dict:
-        """The stacked state's per-tile views (flattened tile axis)."""
-        flat = lambda x: x.flatten(0, 1)     # noqa: E731
+    def _views(self, state: dict, inputs: SimInputs, recs) -> dict:
+        """The stacked state's per-instance views (flattened leading
+        axes)."""
+        k = len(self.cfg.lead)
+        flat = lambda x: x.flatten(0, k - 1)     # noqa: E731
         st = {
             "state": state,
             "t": state["t"].reshape(-1),
@@ -600,34 +673,36 @@ class _DistSim:
                              "x_post": flat(pl["x_post"]).unbind(0)}
             st["x_pre_flat"] = pl["x_pre"][0].view(-1)
         if self.recorder is not None:
-            st["gids"] = flat(inputs.gids).unbind(0)
+            st["gids"] = [g for g in inputs.gids.flatten(0, 1).unbind(0)
+                          for _ in range(self.members)]
+            st["recs"] = recs
         return st
 
     def __call__(self, state: dict, inputs: SimInputs):
         _check_state(state, inputs, self)
         tiles = self._tiles_for(inputs)
-        st = self._views(state, inputs)
-        ty, tx = self.cfg.tiles
-        n, n_steps = self.n_tiles, self.n_steps
-        drive = inputs.drive
-        if drive is not None:
-            if tuple(drive.shape) != (n_steps, ty, tx, self.n_local):
-                raise ValueError(
-                    f"drive has shape {tuple(drive.shape)}, expected "
-                    f"{(n_steps, ty, tx, self.n_local)}")
-            drive = drive.reshape(n_steps, n, self.n_local)
-        out = torch.empty((n_steps, n), dtype=torch.float32, device=self.dev)
+        lead = self.cfg.lead
+        n, n_steps = self.n_inst, self.n_steps
         rec_state = recs = None
         if self.recorder is not None:
-            from ..obs.record import init_recorder_state
-            rec_state = init_recorder_state(self.recorder, device=self.dev,
-                                            tiles=(ty, tx))
-            recs = [{k: v.flatten(0, 1)[i] if v.dim() > 2 else
-                     v.view(-1)[i] for k, v in rec_state.items()}
-                    for i in range(n)]
+            from ..obs.record import resident_recorder
+            rec_state = resident_recorder(self.recorders, self.recorder,
+                                          self.dev, lead)
+            recs = [{k: v.reshape((n,) + tuple(v.shape[len(lead):]))[i]
+                     for k, v in rec_state.items()} for i in range(n)]
+            self.t_dev.fill_(int(state["t"].flat[0]))
+        st = self._views(state, inputs, recs)
+        drive = inputs.drive
+        if drive is not None:
+            if tuple(drive.shape) != (n_steps,) + lead + (self.n_local,):
+                raise ValueError(
+                    f"drive has shape {tuple(drive.shape)}, expected "
+                    f"{(n_steps,) + lead + (self.n_local,)}")
+            drive = drive.reshape(n_steps, n, self.n_local)
+        out = torch.empty((n_steps, n), dtype=torch.float32, device=self.dev)
         loop = None
         if (self.dev.type == "cuda" and self.e.use_kernels and self.event
-                and not self.plastic and recs is None):
+                and not self.plastic):
             loop = self.graph_loop
             if loop is not None and loop.serves(st, tiles, drive):
                 loop.rebind(st, drive)
@@ -643,8 +718,8 @@ class _DistSim:
         else:
             for k in range(n_steps):
                 self.step(st, tiles, None if drive is None else drive[k],
-                          out[k], recs)
-        per_step = (out.t().reshape(ty, tx, n_steps).contiguous()
+                          out[k])
+        per_step = (out.t().reshape(lead + (n_steps,)).contiguous()
                     if self.record_rate else None)
         if self.recorder is not None:
             return state, per_step, rec_state
@@ -664,10 +739,11 @@ def _check_state(state: dict, inputs: SimInputs, sim: _DistSim) -> None:
             f"make_sim_fn(device={str(sim.dev)!r}) but the state/tables "
             f"live on {sorted(str(d) for d in have)}; build them with the "
             "same device=")
-    ty, tx = sim.cfg.tiles
-    if tuple(state["i_ring"].shape[:2]) != (ty, tx) or \
-            len(state["rng"]) != ty * tx:
-        raise ValueError(f"the state is not stacked on {ty}x{tx} tiles")
+    lead = sim.cfg.lead
+    if tuple(state["i_ring"].shape[:-2]) != lead or \
+            len(state["rng"]) != sim.n_inst:
+        what = "tiles" if len(lead) == 2 else "tiles and members"
+        raise ValueError(f"the state is not stacked on {lead} {what}")
     t = state["t"]
     if not (t == t.flat[0]).all():
         raise ValueError("the tiles' step counters differ")
@@ -681,15 +757,16 @@ def _check_state(state: dict, inputs: SimInputs, sim: _DistSim) -> None:
 
 class _DistStepGraph(GraphLoop):
     """The static multi-shard loop on a CUDA device: one graph holds
-    ``d_ring`` steps of every tile (heads, exchange, band gathers,
-    deliveries), with every tile's generator registered.  The sim keeps
-    it across calls while they hand it the same state tensors,
-    generators and tables (``serves``), so a segmented run captures
-    once."""
+    ``d_ring`` steps of every instance (heads, exchange, band gathers,
+    deliveries, recorder appends), with every instance's generator
+    registered.  The sim keeps it across calls while they hand it the
+    same state tensors, generators and tables (``serves``), so a
+    segmented run captures once; its resident recorder is zeroed in
+    place before each call."""
 
     def __init__(self, sim: _DistSim, st: dict, tiles: _Tiles, drive):
         super().__init__(st["state"], sim.e.d_ring, sim.dev, drive,
-                         (sim.n_tiles, sim.n_local), (sim.n_tiles,))
+                         (sim.n_inst, sim.n_local), (sim.n_inst,))
         self.sim, self.st, self.tiles = sim, st, tiles
         self.key = _state_key(st["state"])
 
@@ -697,9 +774,8 @@ class _DistStepGraph(GraphLoop):
         """Whether this loop's graph reads and writes the tensors of the
         call: the same state tensors and generators, the same tables,
         and a drive of the same kind (drawn or injected)."""
-        return (tiles is self.tiles and (drive is None) == (
-            self.drive_buf is None) and _same(self.key,
-                                              _state_key(st["state"])))
+        return (tiles is self.tiles and (drive is not None) == self.injected
+                and _same(self.key, _state_key(st["state"])))
 
     def rebind(self, st: dict, drive) -> None:
         self.st, self.state, self.drive = st, st["state"], drive
@@ -735,8 +811,15 @@ def make_sim_fn(cfg: DistConfig, n_steps: int, record_rate: bool = True,
 
     ``recorder``: an ``obs.record.RecorderSpec``; ``inputs.gids`` must
     then hold ``stacked_gid_maps`` and the return grows each tile's
-    freshly zeroed ``(step, gid)`` event buffer, ``count`` and
-    ``dropped``, stacked on ``(TY, TX)``.  Recording is a pure observer.
+    ``(step, gid)`` event buffer, ``count`` and ``dropped``, stacked on
+    ``(TY, TX)``.  Recording is a pure observer.  The buffers are the
+    sim's resident recorder, zeroed in place at the start of every
+    call: a caller reads (or copies) them before its next call.
+
+    Ensembles (``cfg.ensemble_seeds``, M members): the state leads with
+    ``(TY, TX, M)`` (``init_dist_state``), ``per_step`` is ``(TY, TX, M,
+    n_steps)`` and every recorder leaf gains the member axis after the
+    tile axes; the tables, inverse index and gid maps stay member-free.
 
     Plastic engines (``cfg.engine.stdp``): ``state["plastic"]`` carries
     every tier's live weights and the pre/post traces
@@ -747,10 +830,10 @@ def make_sim_fn(cfg: DistConfig, n_steps: int, record_rate: bool = True,
     step, exchanged like the spikes, with a zero sink per band.
 
     On a CUDA ``device`` with ``use_kernels``, a static event-mode run
-    without a recorder of at least ``2 * d_ring`` steps replays one CUDA
-    graph of ``d_ring`` steps of all tiles after ``d_ring`` eager steps,
-    then steps an eager tail (``engine.GraphLoop``); other runs step
-    eagerly."""
+    (recorded or not) of at least ``2 * d_ring`` steps replays one CUDA
+    graph of ``d_ring`` steps of all instances after ``d_ring`` eager
+    steps, then steps an eager tail (``engine.GraphLoop``); plastic and
+    shorter runs step eagerly."""
     return _DistSim(cfg, n_steps, record_rate, recorder, storage,
                     resolve_device(device))
 

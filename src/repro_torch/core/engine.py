@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import gc
 from typing import Callable, List, Optional, Union
 
 import numpy as np
@@ -383,6 +384,61 @@ def _check_device(state: dict, tables, dev: torch.device) -> None:
             "device=")
 
 
+def init_ensemble_state(cfg: EngineConfig, seeds, device="cuda") -> dict:
+    """Stack ``len(seeds)`` member states on a leading ensemble axis.
+
+    Member ``m`` is ``init_sim_state`` of the same config with
+    ``state_seed=seeds[m]``: every member shares the table realization
+    (``cfg.seed``) and draws its own membrane init and drive, so
+    ``simulate(..., ensemble=M)`` over this state reproduces each
+    member's solo run bit for bit.  Tensor leaves are ``(M, ...)``;
+    ``rng`` is the list of the members' generators and ``t`` the one
+    step all members share."""
+    seeds = tuple(int(s) for s in seeds)
+    if not seeds:
+        raise ValueError("ensemble needs at least one member seed")
+    members = [init_sim_state(dataclasses.replace(cfg, state_seed=s),
+                              device=device) for s in seeds]
+
+    def stack(get):
+        return torch.stack([get(m) for m in members])
+
+    return {
+        "neuron": {k: stack(lambda m, k=k: m["neuron"][k])
+                   for k in members[0]["neuron"]},
+        "i_ring": stack(lambda m: m["i_ring"]),
+        "t": 0,
+        "rng": [m["rng"] for m in members],
+        "active": stack(lambda m: m["active"]),
+        "metrics": {k: stack(lambda m, k=k: m["metrics"][k])
+                    for k in members[0]["metrics"]},
+    }
+
+
+def _check_members(state: dict, m: int) -> None:
+    """An ensemble state of ``m`` members: every tensor leaf and the
+    generator list lead with ``m``."""
+    lead = {x.shape[0] if x.dim() else None
+            for x in [state["i_ring"], state["active"]]
+            + list(state["neuron"].values())
+            + list(state["metrics"].values())}
+    rng = state["rng"]
+    lead.add(len(rng) if isinstance(rng, (list, tuple)) else None)
+    if lead != {m}:
+        raise ValueError(
+            f"ensemble={m} but state leading axes are "
+            f"{sorted(lead, key=str)}; build the state with "
+            "init_ensemble_state(cfg, seeds)")
+
+
+def _member(state: dict, i: int) -> dict:
+    """Member ``i`` of an ensemble state: views of its rows."""
+    return {"neuron": {k: x[i] for k, x in state["neuron"].items()},
+            "i_ring": state["i_ring"][i], "t": state["t"],
+            "rng": state["rng"][i], "active": state["active"][i],
+            "metrics": {k: x[i] for k, x in state["metrics"].items()}}
+
+
 def _drive_at(drive: DriveSource, k: int, t: int):
     """Step k's injected drive (None: draw it from the state's rng)."""
     if isinstance(drive, torch.Tensor):
@@ -395,7 +451,7 @@ def _drive_at(drive: DriveSource, k: int, t: int):
 def simulate(state: dict, tables, cfg: EngineConfig, n_steps: int,
              record_spikes: bool = False, drive: DriveSource = None,
              device="cuda", plasticity: Optional[dict] = None,
-             recorder=None):
+             recorder=None, ensemble: Optional[int] = None):
     """Run ``n_steps`` of single-shard simulation (no halo sources).
 
       - static (``plasticity=None``): returns ``(state, out)``; ``out``
@@ -404,66 +460,99 @@ def simulate(state: dict, tables, cfg: EngineConfig, n_steps: int,
       - ``recorder``: an ``obs.record.RecorderSpec`` (static runs only);
         every spike is also appended as a ``(sim_step, global_neuron_id)``
         event to a bounded buffer, and the return becomes ``(state, out,
-        recorder_state)``.  Recording is a pure observer.
+        recorder_state)``.  Recording is a pure observer.  The buffer is
+        resident (``obs.record.resident_recorder``): the next call with
+        the same spec zeroes and refills it.
       - ``plasticity=init_plasticity(tables, cfg)``: STDP each step;
         returns ``((state, tables, traces), per_step_spike_counts)``.
         The local tier's weights are cloned once on entry, so the
         caller's ``tables`` are never changed.
+      - ``ensemble=M``: ``state`` is ``init_ensemble_state``'s, M
+        members sharing ``tables``; every return leaf grows a leading
+        member axis (``out`` ``(M, n_steps[, n_local])``, the recorder's
+        buffers, the plastic tables and traces: the local tier's weights
+        per member, the other leaves expanded views), as the reference's
+        vmap returns them.  Member m is bit for bit the solo run with
+        ``state_seed=seeds[m]``.  A state whose leading axes are not M
+        raises.
 
     ``drive``: None draws the Poisson drive from ``state["rng"]``; a
-    tensor ``(n_steps, n_local)`` gives step k of this call its row k
-    (mV); a callable ``drive(t) -> (n_local,)`` is called with the
-    absolute step ``t``.  ``device`` must be where ``state`` and
-    ``tables`` live (default ``"cuda"``, which raises without CUDA).
+    tensor ``(n_steps, n_local)`` (``(n_steps, M, n_local)`` for an
+    ensemble) gives step k of this call its row k (mV); a callable
+    ``drive(t)`` is called with the absolute step ``t`` and returns one
+    step's rows.  ``device`` must be where ``state`` and ``tables`` live
+    (default ``"cuda"``, which raises without CUDA).
 
+    The neuron state and metrics are stepped in place on copies (the
+    caller's tensors keep their values); the ring is updated in place.
     On a CUDA ring with ``cfg.use_kernels`` and ``mode="event"``, a
-    static run whose drive is None or a tensor (``record_spikes`` or
-    not) runs as replays of one CUDA graph of ``d_ring`` consecutive
-    steps (``_StepGraph``): the first ``d_ring`` steps run eagerly, then
-    every full block of ``d_ring`` steps is one replay, and a tail of
-    fewer steps runs eagerly; the results are the eager steps' bit for
-    bit.  A capture that fails raises.  Runs with a recorder, a
-    callable drive or plasticity, the plain path (``use_kernels``
-    unset) and ``mode="gather_all"`` step eagerly, one ``step`` at a
-    time (through the same fused step head on the kernel path).
+    static run whose drive is None or a tensor (``record_spikes``,
+    ``recorder`` and ``ensemble`` or not) runs as replays of one CUDA
+    graph of ``d_ring`` consecutive steps of every member
+    (``_StepGraph``): the first ``d_ring`` steps run eagerly, then every
+    full block of ``d_ring`` steps is one replay, and a tail of fewer
+    steps runs eagerly; the results are the eager steps' bit for bit.
+    A capture that fails raises.  Runs with a callable drive or
+    plasticity, the plain path (``use_kernels`` unset) and
+    ``mode="gather_all"`` step eagerly, one ``step`` at a time (through
+    the same fused step head on the kernel path).
     """
     dev = resolve_device(device)
     _check_device(state, tables, dev)
     spec = cfg.spec()
     n_local = spec.n_local
+    m = None if ensemble is None else int(ensemble)
+    if m is not None:
+        _check_members(state, m)
+    lead = () if m is None else (m,)
     if isinstance(drive, torch.Tensor) and \
-            tuple(drive.shape) != (n_steps, n_local):
+            tuple(drive.shape) != (n_steps,) + lead + (n_local,):
         raise ValueError(f"drive has shape {tuple(drive.shape)}, expected "
-                         f"{(n_steps, n_local)}")
+                         f"{(n_steps,) + lead + (n_local,)}")
     if plasticity is not None:
         if recorder is not None or record_spikes:
             raise ValueError("plastic runs do not support recorder/"
                              "record_spikes (use the distributed driver)")
-        return _run_plastic(state, tables, plasticity, cfg, n_steps, drive)
-    plan = (spec.delivery_plan(getattr(tables, "storage", None))
-            if cfg.mode == "event" else None)
-    shape = (n_steps, n_local) if record_spikes else (n_steps,)
-    out = torch.empty(shape, dtype=torch.float32, device=dev)
-    rec = None
-    if recorder is not None:
-        from ..obs.record import (init_recorder_state, record_step,
-                                  tile_gid_map)
-        gids = torch.from_numpy(tile_gid_map(cfg.decomp, 0, 0)).to(dev)
-        rec = init_recorder_state(recorder, device=dev)
-    if (dev.type == "cuda" and cfg.use_kernels and cfg.mode == "event"
-            and rec is None and (drive is None
-                                 or isinstance(drive, torch.Tensor))):
-        loop = _StepGraph(state, tables, cfg, plan, record_spikes, drive)
+        if m is None:
+            return _run_plastic(state, tables, plasticity, cfg, n_steps,
+                                drive)
+        return _run_plastic_members(state, tables, plasticity, cfg,
+                                    n_steps, drive, m)
+    solo = m is None
+    if solo:       # one member: the solo state with a member axis of 1
+        ens = {"neuron": {k: x[None] for k, x in state["neuron"].items()},
+               "i_ring": state["i_ring"][None], "t": state["t"],
+               "rng": [state["rng"]], "active": state["active"][None],
+               "metrics": {k: x[None] for k, x in state["metrics"].items()}}
+        if isinstance(drive, torch.Tensor):
+            drive = drive[:, None]
+        elif drive is not None:
+            drive = (lambda f: lambda t: f(t)[None])(drive)
+    else:
+        ens = state
+    loop = _StepGraph(ens, tables, cfg, record_spikes, drive, recorder, dev)
+    width = len(loop.views)
+    out = torch.empty((n_steps, width) + ((n_local,) if record_spikes
+                                          else ()),
+                      dtype=torch.float32, device=dev)
+    if loop.captured:
         loop.run(n_steps, out)
-        return loop.state, out
-    for k in range(n_steps):
-        t = state["t"]
-        state, spikes, n_spk = _step(state, tables, cfg,
-                                     drive=_drive_at(drive, k, t), plan=plan)
-        if rec is not None:
-            rec = record_step(rec, spikes, gids, t, recorder)
-        out[k] = spikes if record_spikes else n_spk
-    return (state, out) if rec is None else (state, out, rec)
+    else:
+        for k in range(n_steps):
+            loop.eager(k, out[k])
+    fin = loop.state
+    if solo:
+        out = out[:, 0]
+        fin = {"neuron": {k: x[0] for k, x in fin["neuron"].items()},
+               "i_ring": state["i_ring"], "t": fin["t"],
+               "rng": state["rng"], "active": state["active"],
+               "metrics": {k: x[0] for k, x in fin["metrics"].items()}}
+        rec = None if loop.rec is None else {
+            k: x[0] for k, x in loop.rec.items()}
+    else:
+        out = out.transpose(0, 1).contiguous()
+        rec = loop.rec
+    return (fin, out) if rec is None else (fin, out, rec)
 
 
 def bind_tier_structures(tiers: list, spec, d_ring: int) -> None:
@@ -513,16 +602,13 @@ class GraphLoop:
     def __init__(self, state: dict, d_ring: int, dev: torch.device,
                  drive: Optional[torch.Tensor], drive_shape: tuple,
                  out_shape: tuple):
-        self.state, self.d = state, d_ring
+        self.state, self.d, self.dev = state, d_ring, dev
         self.drive = drive
-        self.drive_buf = (torch.empty((d_ring,) + drive_shape,
-                                      dtype=torch.float32, device=dev)
-                          if drive is not None else None)
-        self.out_buf = torch.empty((d_ring,) + out_shape,
-                                   dtype=torch.float32, device=dev)
+        self.injected = drive is not None
+        self.drive_shape, self.out_shape = drive_shape, out_shape
+        self.drive_buf = self.out_buf = self.stream = None
         self.graph = self.tally = self.stamp = None
         self.phase, self.captures = 0, 0
-        self.stream = torch.cuda.Stream(device=dev)
 
     def _one(self, drive, dst) -> None:
         raise NotImplementedError
@@ -548,7 +634,7 @@ class GraphLoop:
                 k += 1
 
     def eager(self, k: int, dst) -> None:
-        self._one(None if self.drive is None else self.drive[k], dst)
+        self._one(_drive_at(self.drive, k, self.state["t"]), dst)
 
     def _unchanged(self) -> bool:
         now = self._tier_tensors()
@@ -559,23 +645,43 @@ class GraphLoop:
         self._bind()
         self.stamp = [(x, x._version) for x in self._tier_tensors()]
         self.graph = None       # a stale graph's memory goes first
+        if self.out_buf is None:
+            self.out_buf = torch.empty((self.d,) + self.out_shape,
+                                       dtype=torch.float32, device=self.dev)
+            if self.injected:
+                self.drive_buf = torch.empty((self.d,) + self.drive_shape,
+                                             dtype=torch.float32,
+                                             device=self.dev)
+            self.stream = torch.cuda.Stream(device=self.dev)
         graph = torch.cuda.CUDAGraph()
-        if self.drive is None:
+        if not self.injected:
             for gen in self._generators():
                 graph.register_generator_state(gen)
         t0 = self.state["t"]
         # captured on a side stream (the default stream cannot be), with
-        # none of torch.cuda.graph's collection and cache emptying
-        main = torch.cuda.current_stream(self.out_buf.device)
+        # none of torch.cuda.graph's collection and cache emptying; a
+        # capture ignores other threads' CUDA calls (a checkpoint
+        # writer's copies, a job server's other threads).  The garbage
+        # collector is held off meanwhile: a collection in any thread
+        # could destroy an unreachable graph (a sim and its loop form a
+        # cycle), which a capture does not permit and which fails it
+        main = torch.cuda.current_stream(self.dev)
         self.stream.wait_stream(main)
-        with _build.capture_tally() as tally, torch.cuda.stream(self.stream):
-            graph.capture_begin()
-            try:
-                for j in range(self.d):
-                    self._one(None if self.drive_buf is None
-                              else self.drive_buf[j], self.out_buf[j])
-            finally:
-                graph.capture_end()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with _build.capture_tally() as tally, \
+                    torch.cuda.stream(self.stream):
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    for j in range(self.d):
+                        self._one(None if self.drive_buf is None
+                                  else self.drive_buf[j], self.out_buf[j])
+                finally:
+                    graph.capture_end()
+        finally:
+            if collecting:
+                gc.enable()
         main.wait_stream(self.stream)
         self.state["t"] = t0
         self.graph, self.tally = graph, tally
@@ -607,28 +713,66 @@ class GraphLoop:
 
 
 class _StepGraph(GraphLoop):
-    """The single-shard static loop on a CUDA ring (``GraphLoop``).  It
-    works on copies of the caller's neuron state and metrics, updated in
-    place (the ring is updated in place on every path); per-step counts
-    or raster rows are its outputs."""
+    """The single-shard static loop over the members of an ensemble
+    state (a solo run is one member): every member's step, its recorder
+    append and its output, in place on copies of the neuron state and
+    metrics (the ring is updated in place on every path).  On a CUDA
+    ring with the kernels in event mode and a drive that is drawn or a
+    tensor (``captured``) ``run`` replays one graph of ``d_ring`` steps
+    of all members (``GraphLoop``); otherwise ``simulate`` steps it
+    eagerly.  A recorded step appends to the resident recorder with the
+    step read from a device counter, which each step advances, so a
+    replay records its own steps."""
 
-    def __init__(self, state, tables, cfg: EngineConfig, plan,
-                 record_spikes: bool, drive: Optional[torch.Tensor]):
+    def __init__(self, state: dict, tables, cfg: EngineConfig,
+                 record_spikes: bool, drive, recorder, dev: torch.device):
         n = cfg.spec().n_local
+        m = len(state["rng"])
         super().__init__(
             dict(state,
                  neuron={k: x.clone() for k, x in state["neuron"].items()},
                  metrics={k: x.clone() for k, x in state["metrics"].items()}),
-            cfg.d_ring, state["i_ring"].device, drive, (n,),
-            (n,) if record_spikes else ())
-        self.tables, self.cfg, self.plan = tables, cfg, plan
+            cfg.d_ring, dev, drive if isinstance(drive, torch.Tensor)
+            else None, (m, n), (m, n) if record_spikes else (m,))
+        self.drive = drive
+        self.tables, self.cfg = tables, cfg
+        self.plan = (cfg.spec().delivery_plan(getattr(tables, "storage",
+                                                      None))
+                     if cfg.mode == "event" else None)
         self.record = record_spikes
+        self.captured = (dev.type == "cuda" and cfg.use_kernels
+                         and cfg.mode == "event"
+                         and (drive is None
+                              or isinstance(drive, torch.Tensor)))
+        self.views = [_member(self.state, i) for i in range(m)]
+        self.recorder = recorder
+        self.rec = self.recs = None
+        if recorder is not None:
+            from ..obs.record import resident_recorder, tile_gid_map
+            self.gids = torch.from_numpy(tile_gid_map(cfg.decomp, 0,
+                                                      0)).to(dev)
+            self.rec = resident_recorder(_RECORDERS, recorder, dev, (m,))
+            self.recs = [{k: x[i] for k, x in self.rec.items()}
+                         for i in range(m)]
+            self.t_dev = torch.full((), state["t"], dtype=torch.int32,
+                                    device=dev)
 
     def _one(self, drive, dst) -> None:
-        self.state, spikes, n_spk = _step(self.state, self.tables, self.cfg,
-                                          drive=drive, plan=self.plan,
-                                          inplace=True)
-        dst.copy_(spikes if self.record else n_spk)
+        t = self.state["t"]
+        for i, view in enumerate(self.views):
+            view["t"] = t
+            _, spikes, n_spk = _step(view, self.tables, self.cfg,
+                                     drive=None if drive is None
+                                     else drive[i], plan=self.plan,
+                                     inplace=True)
+            if self.rec is not None:
+                from ..obs.record import record_step
+                record_step(self.recs[i], spikes, self.gids, self.t_dev,
+                            self.recorder)
+            dst[i].copy_(spikes if self.record else n_spk)
+        if self.rec is not None:
+            self.t_dev.add_(1)
+        self.state["t"] = t + 1
 
     def _tier_tensors(self) -> list:
         return [t[name] for t in tier_list(self.tables)
@@ -639,7 +783,59 @@ class _StepGraph(GraphLoop):
                              self.cfg.d_ring)
 
     def _generators(self) -> list:
-        return [self.state["rng"]]
+        return list(self.state["rng"])
+
+
+# (spec, device, leading axes) -> the single-shard engine's resident
+# recorder (``obs.record.resident_recorder``)
+_RECORDERS: dict = {}
+
+
+def _run_plastic_members(state: dict, tables, stdp_aux: dict,
+                         cfg: EngineConfig, n_steps: int, drive, m: int):
+    """The plastic loop of an ensemble: each member's solo plastic run in
+    turn, on its rows of the state (the ring in place), stacked on a
+    leading member axis: the state, the per-step counts, the traces,
+    and the tables (the local tier's weights per member; every other
+    leaf an expanded view of the shared realization)."""
+    runs = []
+    for i in range(m):
+        if isinstance(drive, torch.Tensor):
+            d = drive[:, i]
+        elif drive is not None:
+            d = (lambda f, i: lambda t: f(t)[i])(drive, i)
+        else:
+            d = None
+        runs.append(_run_plastic(_member(state, i), tables, stdp_aux, cfg,
+                                 n_steps, d))
+
+    def stack(xs):
+        return torch.stack(list(xs))
+
+    fins = [r[0][0] for r in runs]
+    fin = {"neuron": {k: stack(f["neuron"][k] for f in fins)
+                      for k in fins[0]["neuron"]},
+           "i_ring": state["i_ring"], "t": fins[0]["t"],
+           "rng": state["rng"], "active": state["active"],
+           "metrics": {k: stack(f["metrics"][k] for f in fins)
+                       for k in fins[0]["metrics"]}}
+
+    def lift(tier, w=None):
+        return {k: w if k == "w" and w is not None
+                else x.expand((m,) + tuple(x.shape)) for k, x in tier.items()}
+
+    local = lift(tables["local"], stack(r[0][1]["local"]["w"]
+                                        for r in runs))
+    halo = [lift(t) for t in tables["halo"]]
+    if isinstance(tables, SynapseTables):
+        ens_tables = SynapseTables(local, halo, tables.storage,
+                                   stats=tables.stats)
+    else:
+        ens_tables = dict(tables, local=local, halo=halo)
+    traces = {"x_pre": [stack(r[0][2]["x_pre"][j] for r in runs)
+                        for j in range(len(runs[0][0][2]["x_pre"]))],
+              "x_post": stack(r[0][2]["x_post"] for r in runs)}
+    return (fin, ens_tables, traces), stack(r[1] for r in runs)
 
 
 def _run_plastic(state: dict, tables, stdp_aux: dict, cfg: EngineConfig,

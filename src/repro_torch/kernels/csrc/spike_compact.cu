@@ -28,9 +28,14 @@
 //     array of 64-bit words (epoch:30 | flag:2 | value:32), flag A = the
 //     tile's own count, P = the inclusive prefix: warp 0 publishes A,
 //     reads up to 32 predecessors at once, sums back to the nearest P and
-//     publishes P.  The epoch is a per-call tag from the wrapper, so words
-//     of earlier calls read as not yet published and the array needs no
-//     clearing launch between calls;
+//     publishes P.  The epoch is a per-call tag held on the device, in the
+//     status array's header (word 0; word 1 counts the blocks done): every
+//     block reads it at its start, and the call's last block to finish
+//     advances it, so words of earlier calls read as not yet published
+//     and the array needs no clearing launch between calls.  A call
+//     replayed from a CUDA graph tags its words afresh, as an eager call
+//     does.  At the last epoch the last block clears the tile words and
+//     starts again at epoch 1;
 //   * once the last tile's P is published, every block reads the total
 //     and fills its share of the sink tail [min(total, cap), cap).  The
 //     wait is safe because every block of the grid is resident at once.
@@ -48,6 +53,8 @@ constexpr int kTileRows = kWarps * kWarpRows;    // 4096
 constexpr unsigned kFull = 0xffffffffu;
 constexpr uint32_t kFlagA = 1;  // the tile's own count
 constexpr uint32_t kFlagP = 2;  // the inclusive prefix through the tile
+constexpr int kHeader = 2;      // status words before the tiles' words
+constexpr uint32_t kEpochs = 1u << 30;  // tags 1 .. kEpochs - 1
 
 typedef unsigned long long u64;
 
@@ -78,8 +85,8 @@ __device__ __forceinline__ uint64_t global_ns() {
 
 // the word of tile k once it is published in this call: spin until then.
 // A wait of more than 4 s is a fault (a grid larger than the card holds
-// at once, or a status word of this epoch left from an earlier call) and
-// traps: an error, not a hang
+// at once, or a header not advanced by the previous call) and traps: an
+// error, not a hang
 __device__ __forceinline__ u64 wait_status(const u64* status, int k,
                                            uint32_t epoch, uint32_t need) {
   uint64_t t0 = 0;
@@ -109,10 +116,18 @@ __device__ __forceinline__ uint32_t live4(const float* __restrict__ spikes,
 __global__ void __launch_bounds__(kThreads) spike_compact_kernel(
     const float* __restrict__ spikes, int n_rows, int cap, int n_tiles,
     int vec, int32_t* __restrict__ idx, int32_t* __restrict__ count,
-    u64* __restrict__ status, uint32_t epoch) {
+    u64* __restrict__ header, int status_len) {
   __shared__ int warp_base[kWarps];
   __shared__ int tile_base;
+  __shared__ uint32_t s_epoch;
+  __shared__ int s_last;
+  u64* __restrict__ status = header + kHeader;
   const int tid = threadIdx.x;
+  // this call's epoch: no block advances it before every block of the
+  // call has read it (the advance waits for all blocks to be done)
+  if (tid == 0) s_epoch = (uint32_t)ld_acquire(header);
+  __syncthreads();
+  const uint32_t epoch = s_epoch;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const unsigned below = (1u << lane) - 1u;
@@ -209,6 +224,25 @@ __global__ void __launch_bounds__(kThreads) spike_compact_kernel(
        i += gridDim.x * kThreads)
     idx[i] = n_rows;
   if (blockIdx.x == 0 && tid == 0) *count = total;
+
+  // the last block done advances the epoch for the next call on the
+  // stream (and, at the last epoch, clears the tile words first)
+  __syncthreads();
+  if (tid == 0) {
+    __threadfence();
+    s_last = atomicAdd(header + 1, 1ull) == (u64)(gridDim.x - 1);
+  }
+  __syncthreads();
+  if (!s_last) return;
+  const bool wrap = epoch + 1 >= kEpochs;
+  if (wrap)
+    for (int i = tid; i < status_len; i += kThreads) status[i] = 0;
+  __syncthreads();
+  if (tid == 0) {
+    header[1] = 0;
+    __threadfence();
+    st_release(header, wrap ? 1ull : (u64)(epoch + 1));
+  }
 }
 
 }  // namespace
@@ -228,20 +262,24 @@ extern "C" int spike_compact_max_blocks(int device, int* out) {
   return 0;
 }
 
+extern "C" int spike_compact_header_words() { return kHeader; }
+
 // spikes: float32 (>= n_rows,), 16-byte aligned if vec; idx: int32 (cap,);
-// count: int32 (1,); status: (status_len,) 64-bit words, status_len >=
-// the tiles of n_rows, holding no word of this epoch; grid: blocks, at
-// least 1 and at most spike_compact_max_blocks.
+// count: int32 (1,); status: (kHeader + status_len) 64-bit words: the
+// header (the epoch, 1 .. 2^30 - 1, then the blocks done, 0) and
+// status_len >= the tiles of n_rows words, none of them tagged with a
+// later epoch than the header's (all zero at first); grid: blocks, at
+// least 1 and at most spike_compact_max_blocks.  Calls that share a
+// status array must run in stream order.
 extern "C" int spike_compact_launch(const void* spikes, int n_rows, int cap,
                                     void* idx, void* count, void* status,
-                                    int status_len, int epoch, int grid,
-                                    int vec, void* stream) {
+                                    int status_len, int grid, int vec,
+                                    void* stream) {
   const int n_tiles = (int)(((long long)n_rows + kTileRows - 1) / kTileRows);
-  if (n_rows < 0 || cap < 0 || grid < 1 || status_len < n_tiles ||
-      epoch < 1 || epoch >= (1 << 30))
+  if (n_rows < 0 || cap < 0 || grid < 1 || status_len < n_tiles)
     return (int)cudaErrorInvalidValue;
   spike_compact_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)spikes, n_rows, cap, n_tiles, vec, (int32_t*)idx,
-      (int32_t*)count, (u64*)status, (uint32_t)epoch);
+      (int32_t*)count, (u64*)status, status_len);
   return (int)cudaGetLastError();
 }

@@ -11,9 +11,14 @@ time is latency: the launch and one chain of look-back reads (PERF.md
 gives the measured times).
 
 The status array is scratch that the wrapper allocates once per device
-(zeroed once, grown when a larger ``n_rows`` comes) and keeps; each call
-tags its words with a new epoch, so no clearing launch runs between
-calls.  Calls that share a device must run on one stream.
+(zeroed once, replaced by a larger one when a larger ``n_rows`` comes)
+and keeps.  Its first two words are a header the kernel keeps: the
+epoch that tags this call's words, and a count of the blocks done; the
+call's last block advances the epoch.  So no clearing launch runs
+between calls, and a call captured in a CUDA graph tags its words
+afresh at every replay.  Calls that share a device must run on one
+stream.  A replaced array is kept alive, since a graph captured before
+may still replay a call on it.
 
 The wrapper launches the kernel for CUDA tensors and takes the plain
 version (``ref.spike_compact_ref``: cumsum and scatter) for CPU tensors.
@@ -34,6 +39,7 @@ _I = ctypes.c_int
 
 TILE_ROWS = 4096          # rows per tile (csrc/spike_compact.cu: kTileRows)
 EPOCHS = 1 << 30          # tags 1 .. EPOCHS - 1, then the array is cleared
+HEADER_WORDS = 2          # the epoch, the blocks done (csrc: kHeader)
 
 
 class Plan(NamedTuple):
@@ -52,25 +58,30 @@ def plan(n_rows: int, max_blocks: int) -> Plan:
     return Plan(tiles, max(1, min(tiles, max_blocks)), max(tiles, 1))
 
 
+def new_status(words: int, device) -> torch.Tensor:
+    """A status array of ``words`` tile words behind its header: epoch 1,
+    no block done, every tile word zero."""
+    status = torch.zeros((HEADER_WORDS + words,), dtype=torch.int64,
+                         device=device)
+    status[0] = 1
+    return status
+
+
 class _Scratch:
-    """The per-device status array, its epoch counter and the device's
-    resident-block limit."""
+    """The per-device status array (with its epoch header) and the
+    device's resident-block limit."""
 
     def __init__(self, device: torch.device, max_blocks: int):
         self.device = device
         self.max_blocks = max_blocks
-        self.status = torch.zeros((0,), dtype=torch.int64, device=device)
-        self.epoch = 0
+        self.status = new_status(0, device)
+        self.retired: list = []
 
-    def next(self, words: int):
-        if self.status.numel() < words:
-            self.status = torch.zeros((words,), dtype=torch.int64,
-                                      device=self.device)
-        self.epoch += 1
-        if self.epoch >= EPOCHS:
-            self.status.zero_()
-            self.epoch = 1
-        return self.status, self.epoch
+    def get(self, words: int) -> torch.Tensor:
+        if self.status.numel() - HEADER_WORDS < words:
+            self.retired.append(self.status)
+            self.status = new_status(words, self.device)
+        return self.status
 
 
 _SCRATCH: Dict[torch.device, _Scratch] = {}
@@ -80,14 +91,15 @@ def _lib():
     lib = _build.library("spike_compact")
     if lib.spike_compact_launch.argtypes is None:
         lib.spike_compact_launch.argtypes = [_P, _I, _I, _P, _P, _P, _I, _I,
-                                             _I, _I, _P]
+                                             _I, _P]
         lib.spike_compact_launch.restype = _I
         lib.spike_compact_max_blocks.argtypes = [_I, ctypes.POINTER(_I)]
         lib.spike_compact_max_blocks.restype = _I
         lib.spike_compact_tile_rows.restype = _I
-        if lib.spike_compact_tile_rows() != TILE_ROWS:
-            raise RuntimeError("csrc/spike_compact.cu's tile differs from "
-                               "TILE_ROWS")
+        if lib.spike_compact_tile_rows() != TILE_ROWS or \
+                lib.spike_compact_header_words() != HEADER_WORDS:
+            raise RuntimeError("csrc/spike_compact.cu's tile or header "
+                               "differs from TILE_ROWS / HEADER_WORDS")
     return lib
 
 
@@ -124,13 +136,13 @@ def spike_compact_cuda(spikes: torch.Tensor, n_rows: int, active_cap: int):
         torch.device("cuda", torch.cuda.current_device())
     sc = _scratch(dev)
     p = plan(n_rows, sc.max_blocks)
-    status, epoch = sc.next(p.status_words)
+    status = sc.get(p.status_words)
     out = torch.empty((active_cap + 1,), dtype=torch.int32, device=dev)
     err = lib.spike_compact_launch(
         spikes.data_ptr(), n_rows, active_cap, out.data_ptr(),
-        out.data_ptr() + 4 * active_cap, status.data_ptr(), status.numel(),
-        epoch, p.grid, int(spikes.data_ptr() % 16 == 0),
-        _build.stream_ptr(spikes))
+        out.data_ptr() + 4 * active_cap, status.data_ptr(),
+        status.numel() - HEADER_WORDS, p.grid,
+        int(spikes.data_ptr() % 16 == 0), _build.stream_ptr(spikes))
     _build.check(err, "spike_compact")
     _build.count_launch("spike_compact")
     return out[:active_cap], out[active_cap]

@@ -19,7 +19,7 @@ Gaussian vs exponential comparison (labels are free-form)::
         --run gauss=/tmp/snn_gauss --run expo=/tmp/snn_expo \\
         --out results/law_comparison.json
 
-A spool with member streams (an ensemble run of the reference)
+A spool with member streams (an ensemble run)
 expands into one labeled report per member stream --
 ``label/member_000``, ... -- plus the member-vs-member comparison
 table; ``--member M`` restricts to one member.

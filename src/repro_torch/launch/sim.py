@@ -25,8 +25,11 @@ different tiling::
     PYTHONPATH=src python -m repro_torch.launch.analyze --run RUN
 
 Flags mirror the reference's and parse into the same typed
-:class:`repro_torch.runtime.SimJobSpec`.  ``--seeds`` (ensembles)
-raises: the port has no ensemble axis yet.  ``--sanitize`` turns on
+:class:`repro_torch.runtime.SimJobSpec`.  ``--seeds 0,1,2`` runs an
+ensemble: member m as if ``--state-seed seeds[m]``, every member through
+one sim function, each spooled to its own ``member_{m:03d}/`` stream;
+the payload carries ``ensemble_seeds`` and each member's learned-weight
+digest.  ``--sanitize`` turns on
 the async writers' owning-thread assertions; the reference's JAX debug
 flags (``jax_debug_nans``, ``jax_check_tracer_leaks``) have no torch
 meaning and are left out.  ``--trace-dir`` takes a ``torch.profiler``
@@ -133,9 +136,10 @@ def main(argv=None):
                          "--seed); lets two runs share one network "
                          "realization under different dynamics")
     ap.add_argument("--seeds", default=None,
-                    help="comma-separated member state seeds of an "
-                         "ensemble (the reference's flag; refused: "
-                         "ensembles are not ported yet)")
+                    help="comma-separated member state seeds: run an "
+                         "ensemble, every member through one sim "
+                         "function (mutually exclusive with "
+                         "--state-seed)")
     ap.add_argument("--resume", action="store_true",
                     help="continue from the latest checkpoint")
     ap.add_argument("--retile", action="store_true",
@@ -204,11 +208,19 @@ def main(argv=None):
     t = int(np.max(out["state"]["t"]))
     rate = driver.firing_rate_hz(out["state"])
     totals = driver.metric_totals(out["state"])
-    plastic = (driver.plastic_summary(out["state"]) if driver.plastic
-               else None)
+    plastic = plastic_members = None
+    if driver.plastic:
+        if driver.n_members is None:
+            plastic = driver.plastic_summary(out["state"])
+        else:
+            plastic_members = [driver.plastic_summary(out["state"], member=m)
+                               for m in range(driver.n_members)]
+            plastic = plastic_members[0]
     extra = (f" plastic_checksum={plastic['weight_checksum'][:12]} "
              f"w_l1_delta={plastic['w_l1_delta']:.4f}"
              if plastic else "")
+    if driver.n_members is not None:
+        extra += f" members={driver.n_members}"
     print(f"final_step={t} preempted={out['preempted']} "
           f"rate_hz={rate:.2f} "
           f"synapses={driver.table_stats['n_synapses']} "
@@ -228,6 +240,12 @@ def main(argv=None):
                    "dropped_events": totals["dropped"],
                    "captures": driver.captures(),
                    "metrics": out["metrics"]}
+        if driver.n_members is not None:
+            payload["ensemble_seeds"] = list(driver.dist_cfg.ensemble_seeds)
+        if plastic_members is not None:
+            # per-member learned-weight digests: member m's equals the
+            # solo run's with state seed seeds[m]
+            payload["plastic_members"] = plastic_members
         if driver.spool is not None:
             payload["recording"] = {
                 "spooled_events": sum(driver.spool.offsets().values()),

@@ -14,7 +14,12 @@ with it on or off.  Neuron identity is the tiling-invariant global
 neuron id ``global_column_id * n_per_column + within_column``.
 
 Unlike the reference, which returns new buffers, ``record_step`` updates
-the recorder state in place; nothing waits for the device.
+the recorder state in place and takes the step as a device tensor, so
+nothing waits for the device and a recorded step can be captured in a
+CUDA graph.  The engines keep one resident recorder per run shape
+(``resident_recorder``), zeroed in place at the start of each call: a
+returned recorder holds its call's events until the next call of the
+same shape overwrites them.
 """
 
 from __future__ import annotations
@@ -75,6 +80,24 @@ def init_recorder_state(rspec: RecorderSpec, device="cuda",
             "count": zeros(), "dropped": zeros()}
 
 
+def resident_recorder(cache: dict, rspec: RecorderSpec, device,
+                      lead: tuple = ()) -> dict:
+    """The recorder ``cache`` keeps for ``(rspec, device, lead)``, made by
+    ``init_recorder_state`` at first use (``lead``: the leading axes,
+    e.g. tiles and members) and zeroed in place at every later one, so
+    its tensors keep their addresses (a captured graph writes them)."""
+    dev = resolve_device(device)
+    key = (rspec, dev, tuple(lead))
+    rec = cache.get(key)
+    if rec is None:
+        rec = cache[key] = init_recorder_state(rspec, device=dev,
+                                               tiles=tuple(lead))
+    else:
+        for x in rec.values():
+            x.zero_()
+    return rec
+
+
 def tile_gid_map(decomp: TileDecomposition, tile_y: int,
                  tile_x: int) -> np.ndarray:
     """(n_local + 1,) global neuron id of each local slot; -1 for slots
@@ -95,13 +118,15 @@ def stacked_gid_maps(decomp: TileDecomposition) -> np.ndarray:
         for y in range(decomp.tiles_y)])
 
 
-def record_step(rec: dict, spikes: torch.Tensor, gids: torch.Tensor, t: int,
+def record_step(rec: dict, spikes: torch.Tensor, gids: torch.Tensor, t,
                 rspec: RecorderSpec) -> dict:
     """Append this step's spikes to the buffer, in place.
 
     ``spikes``: (n_rows,) spike vector (> 0 == spiked); ``gids``: the
     (n_rows + 1,) int32 global-id map (sink slot last); ``t``: the
-    absolute step the spikes belong to.  The appended entries land on
+    absolute step the spikes belong to, a 0-d int32 tensor on the
+    spikes' device (the engines' device step counter; an int is taken
+    too, outside a captured graph).  The appended entries land on
     slots past ``count``, which still hold their initial zeros, so the
     write is an integer ``index_add_`` (exact in any order): lanes that
     append nothing add 0 to a slot of their own instead of being
@@ -119,13 +144,15 @@ def record_step(rec: dict, spikes: torch.Tensor, gids: torch.Tensor, t: int,
     take = torch.clamp(n_spk, max=rspec.active_cap)
     room = torch.clamp(rspec.capacity - count, min=0)
     appended = torch.minimum(take, room)
-    ar = torch.arange(rspec.active_cap, dtype=torch.int32,
-                      device=spikes.device)
+    dev = spikes.device
+    if not isinstance(t, torch.Tensor):
+        t = torch.tensor(int(t), dtype=torch.int32, device=dev)
+    ar = torch.arange(rspec.active_cap, dtype=torch.int32, device=dev)
     live = ar < appended
     pos = torch.where(live, count + ar, ar % rspec.capacity).long()
-    zero = torch.zeros((), dtype=torch.int32, device=spikes.device)
-    rec["step"].index_add_(0, pos, torch.where(
-        live, torch.full_like(ar, int(t)), zero))
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    rec["step"].index_add_(0, pos, torch.where(live, t.to(torch.int32),
+                                               zero))
     rec["gid"].index_add_(0, pos, torch.where(live, gids[idx.long()], zero))
     rec["count"] += appended
     rec["dropped"] += n_spk - appended

@@ -1,9 +1,9 @@
 """Typed simulation jobs: a frozen spec, a JSON wire format, a builder.
 
 The port of ``repro.runtime.jobs``' ``SimJobSpec`` and
-``build_sim_driver`` (the job server, ``launch.serve --arch sim``, is
-not ported yet: ROADMAP.md item 8).  The CLI launcher
-(``launch.sim``) describes a run with one frozen :class:`SimJobSpec`:
+``build_sim_driver``.  The CLI launcher (``launch.sim``) and the job
+server (``launch.serve --arch sim``) describe a run with one frozen
+:class:`SimJobSpec`:
 everything that shapes the simulation (model geometry, law, seeds,
 schedule, observability) lives in the spec; everything operational
 (device, telemetry sink, sim-function cache) is passed to
@@ -19,8 +19,9 @@ schedule, observability) lives in the spec; everything operational
   must never drift across a resume are enforced individually by the
   driver's ``refuse_meta_drift`` check.
 
-* **Ensembles** (``seeds``) validate as in the reference, and
-  ``build_sim_driver`` refuses them: the port has no ensemble axis yet.
+* **Ensembles** (``seeds``): member m runs as if ``state_seed=seeds[m]``,
+  every member through the one sim function; jobs that differ only in
+  seeds share it through a common ``sim_cache``.
 """
 
 from __future__ import annotations
@@ -162,19 +163,14 @@ def build_sim_driver(spec: SimJobSpec, device="cuda",
     ``sim_cache`` dict across calls to share sim functions between jobs
     that differ only in seeds (see ``sim_fingerprint``).
 
-    Raises :class:`JobError` for specs that must not run: an ensemble
-    (not ported yet), a fresh job aimed at an occupied checkpoint
-    directory, or ``resume=True`` with nothing to resume.
+    Raises :class:`JobError` for specs that must not run: a fresh job
+    aimed at an occupied checkpoint directory, or ``resume=True`` with
+    nothing to resume.
     """
     from ..checkpoint.store import latest_step
     from .driver import DriverConfig
     from .sim_driver import SimDriver
 
-    if spec.seeds is not None:
-        raise JobError(
-            f"seeds={list(spec.seeds)}: ensembles are not ported yet "
-            "(ROADMAP.md item 8); run each member as a solo job with "
-            "its own state_seed")
     tiles = spec.tiles or (1, 1)
     last = latest_step(spec.ckpt_dir)
     if last is not None and not spec.resume:

@@ -23,8 +23,10 @@ gives the multi-shard engine the same operational envelope:
     device, so a tiling is the stacked ``(TY, TX)`` layout;
   * **spike recording** (``record_events=True``): the device-side
     recorder (``obs.record``) streams every spike as a ``(step, global
-    neuron id)`` event into a bounded per-segment buffer (a freshly
-    zeroed one each segment), which the host spooler (``obs.spool``)
+    neuron id)`` event into a bounded per-segment buffer (the sim's
+    resident recorder, zeroed in place at the start of each segment: the
+    drain copies a segment's events to the host before the next segment
+    overwrites them), which the host spooler (``obs.spool``)
     drains asynchronously into sharded append-only logs under
     ``<ckpt_dir>/spool``.  Per-shard spool offsets ride in every
     checkpoint manifest, and every restore truncates the logs back to
@@ -41,8 +43,14 @@ gives the multi-shard engine the same operational envelope:
     re-sampled.  The checkpoint meta records the STDP parameters and
     ``born_tiles``, the tiling the realization was sampled on.
 
-Ensembles (the reference's ``ensemble_seeds``) are not ported yet: the
-port's ``DistConfig`` refuses them.
+  * **ensembles** (``dist_cfg.ensemble_seeds`` set): the driver runs M
+    member realizations through the one sim function (state stacked on
+    a member axis, see ``core.dist_engine``), drains each member's
+    recorder rows into its own ``member_{m:03d}/`` spool stream, and
+    carries the member seeds in the checkpoint meta, so preempt->resume
+    restores every member's carry and spool frontier exactly once.
+    Elastic retiling of ensembles is refused (resume on the checkpointed
+    tiling).
 
 The tiling, grid, seed and connectivity law of the saved state ride
 inside each checkpoint's manifest (atomic with the checkpoint), so a
@@ -95,12 +103,17 @@ def sim_fingerprint(dist_cfg: DistConfig, segment_steps: int, recorder,
 
     Everything that shapes the sim function is in the key; everything
     that only changes *values* is normalized out -- the seed (tables
-    are data, not structure) and the state seed.  Two jobs differing
-    only in seeds therefore share one sim function when constructed
-    with the same ``sim_cache`` dict.
+    are data, not structure), the member seeds (only the ensemble width
+    M is a shape) and the state seed.  Two jobs differing only in seeds
+    therefore share one sim function when constructed with the same
+    ``sim_cache`` dict (the job server's contract).
     """
     e = dataclasses.replace(dist_cfg.engine, seed=0, state_seed=None)
-    dc = dataclasses.replace(dist_cfg, engine=e)
+    seeds = dist_cfg.ensemble_seeds
+    dc = dataclasses.replace(
+        dist_cfg, engine=e,
+        ensemble_seeds=None if seeds is None
+        else tuple(range(len(seeds))))
     return (repr(dc), int(segment_steps), repr(recorder),
             repr(storage.meta() if storage is not None else None))
 
@@ -137,7 +150,8 @@ class SimDriver(FaultTolerantLoop):
     start are not read); each segment passes its rows as
     ``SimInputs.drive``.  For parity runs against the reference only.
     ``sim_cache``: a caller-owned dict mapping ``sim_fingerprint`` keys
-    to sim functions.
+    to sim functions.  An ensemble's ``drive`` is ``(n_steps, TY, TX,
+    M, n_local)``.
     """
 
     def __init__(self, cfg: DriverConfig, dist_cfg: DistConfig, device,
@@ -163,6 +177,7 @@ class SimDriver(FaultTolerantLoop):
         self._segments_done = 0
         e = dist_cfg.engine
         self.plastic = e.stdp is not None
+        self.n_members = dist_cfg.n_members
         self._job_meta = job_meta
         self._drive = drive
         self._state: Optional[dict] = None     # the live state
@@ -232,6 +247,7 @@ class SimDriver(FaultTolerantLoop):
         self.recorder = None
         self.spool = None
         self.recorder_dropped = 0
+        self.drain_s = 0.0          # host seconds spent draining recorders
         self._gids = None
         if record_events:
             from ..obs.record import recorder_spec, stacked_gid_maps
@@ -245,11 +261,16 @@ class SimDriver(FaultTolerantLoop):
                       "law": e.law.kind, "seed": e.seed,
                       "dt_ms": e.lif.dt_ms,
                       "n_neurons": d.grid.n_neurons,
-                      "recorder_capacity": self.recorder.capacity,
-                      "state_seed": e.state_seed_value}
+                      "recorder_capacity": self.recorder.capacity}
+            if self.n_members is None:
+                # the member streams carry their own state_seed; a solo
+                # spool records it at the top, so an ensemble member's
+                # stream compares header for header
+                header["state_seed"] = e.state_seed_value
             self.spool = SpikeSpooler(
                 os.path.join(cfg.ckpt_dir, "spool"), dist_cfg.tiles,
-                header=header, telemetry=telemetry)
+                header=header, telemetry=telemetry,
+                members=dist_cfg.ensemble_seeds)
         # the driver never consumes the per-step spike output (the
         # spool is the per-step record), so it is not returned
         self._sim_key = sim_fingerprint(dist_cfg, segment_steps,
@@ -263,6 +284,8 @@ class SimDriver(FaultTolerantLoop):
                                     storage=self.storage, device=dev)
             if sim_cache is not None:
                 sim_cache[self._sim_key] = self._sim
+        # a shared sim counts every job's captures: this driver's start
+        self._captures0 = self._sim.captures
         self._sim_inputs = SimInputs(tables=self.tables,
                                      inv_slots=self._inv_slots,
                                      gids=self._gids)
@@ -283,7 +306,8 @@ class SimDriver(FaultTolerantLoop):
                 "segment_steps": self.step_size,
                 "stdp": (dataclasses.asdict(e.stdp)
                          if self.plastic else None),
-                "ensemble_seeds": None,
+                "ensemble_seeds": (None if self.n_members is None
+                                   else list(self.dist_cfg.ensemble_seeds)),
                 # repro-lint: ignore[meta-drift] report-only: full job
                 # provenance (the typed SimJobSpec); identity fields are
                 # refused individually above
@@ -390,6 +414,13 @@ class SimDriver(FaultTolerantLoop):
                     self._like(self.dist_cfg, self.storage), device="cpu")
                 state = self._install(host)
         else:
+            if self.n_members is not None:
+                raise ValueError(
+                    f"checkpoint tiling {old_tiles} != configured "
+                    f"{(d.tiles_y, d.tiles_x)} on an ensemble run: "
+                    "elastic retiling of the stacked member axis is not "
+                    "supported yet -- resume ensembles on the tiling "
+                    "they were checkpointed under")
             if not self.allow_retile:
                 raise ValueError(
                     f"checkpoint tiling {old_tiles} != configured "
@@ -477,8 +508,10 @@ class SimDriver(FaultTolerantLoop):
                 block_until_ready(state)
         d_rec_dropped = 0
         if self.recorder is not None:
+            t_drain = time.perf_counter()
             with self.tel.span("segment.spool_drain", step=step):
                 d_rec_dropped = self._drain_recorder(out[2], step)
+            self.drain_s += time.perf_counter() - t_drain
         self._segments_done += 1
         if self._preempt_after is not None \
                 and self._segments_done >= self._preempt_after:
@@ -517,15 +550,23 @@ class SimDriver(FaultTolerantLoop):
         return state, metrics
 
     def _drain_recorder(self, rec, step=None) -> int:
-        """Spool one segment's event buffers (all shards); returns the
-        segment's recorder-overflow drop count."""
+        """Spool one segment's event buffers (all shards, all ensemble
+        members), copied to the host before the next segment reuses
+        them; returns the segment's recorder-overflow drop count."""
         rec_h = {k: v.cpu().numpy() for k, v in rec.items()}
         ty, tx = self.dist_cfg.tiles
         for y in range(ty):
             for x in range(tx):
-                cnt = int(rec_h["count"][y, x])
-                self.spool.append(y, x, rec_h["step"][y, x, :cnt],
-                                  rec_h["gid"][y, x, :cnt])
+                if self.n_members is None:
+                    cnt = int(rec_h["count"][y, x])
+                    self.spool.append(y, x, rec_h["step"][y, x, :cnt],
+                                      rec_h["gid"][y, x, :cnt])
+                    continue
+                for m in range(self.n_members):
+                    cnt = int(rec_h["count"][y, x, m])
+                    self.spool.append(
+                        y, x, rec_h["step"][y, x, m, :cnt],
+                        rec_h["gid"][y, x, m, :cnt], member=m)
         seg_dropped = int(np.sum(rec_h["dropped"]))
         if seg_dropped:
             self.recorder_dropped += seg_dropped
@@ -557,7 +598,15 @@ class SimDriver(FaultTolerantLoop):
         return self.metric_totals(state)["spikes"] \
             / max(n_active, 1.0) / max(sim_sec, 1e-9)
 
-    def spike_counts(self, n_steps: Optional[int] = None) -> np.ndarray:
+    def _check_member(self, what: str, member: Optional[int]) -> None:
+        if (member is None) != (self.n_members is None):
+            raise ValueError(
+                f"{what}(member={member!r}) on a driver with "
+                f"n_members={self.n_members!r}: pass a member index "
+                "exactly when the run is an ensemble")
+
+    def spike_counts(self, n_steps: Optional[int] = None,
+                     member: Optional[int] = None) -> np.ndarray:
         """Global per-step spike counts, read back from the spooled
         spike logs (sim step order; the exactly-once truncation
         contract guarantees replayed segments appear once).  Covers the
@@ -567,14 +616,19 @@ class SimDriver(FaultTolerantLoop):
         ``n_steps`` fixes the returned length (steps past the last
         spike would otherwise be trimmed).  Requires
         ``record_events=True``: the spool *is* the per-step record.
+        Ensemble runs read one member's stream -- pass ``member``.
         """
         if self.spool is None:
             raise ValueError(
                 "spike_counts() reads the spike spool; construct the "
                 "driver with record_events=True")
-        from ..obs.spool import RECORD_DTYPE, shard_events
+        from ..obs.spool import RECORD_DTYPE, member_name, shard_events
+        self._check_member("spike_counts", member)
         self.spool.wait()
-        shards = list(shard_events(self.spool.directory).values())
+        d = self.spool.directory
+        if member is not None:
+            d = os.path.join(d, member_name(member))
+        shards = list(shard_events(d).values())
         ev = (np.concatenate(shards) if shards
               else np.empty(0, RECORD_DTYPE))
         if n_steps is None:
@@ -582,7 +636,7 @@ class SimDriver(FaultTolerantLoop):
         return np.bincount(ev["step"], minlength=n_steps)[:n_steps] \
             .astype(np.float32)
 
-    def plastic_summary(self, state) -> dict:
+    def plastic_summary(self, state, member: Optional[int] = None) -> dict:
         """Tiling-invariant digest of the live plastic tables.
 
         ``weight_checksum`` hashes every synapse's ``(pre_gid,
@@ -590,17 +644,23 @@ class SimDriver(FaultTolerantLoop):
         order, so two runs agree iff their learned weights are
         bit-identical per global synapse -- whatever tilings either
         went through.  Drift stats compare against the birth weights.
+        Ensemble runs digest one member's carried weights -- pass
+        ``member``.
         """
         if not self.plastic:
             raise ValueError("plastic_summary() needs a plastic engine "
                              "(EngineConfig.stdp set)")
+        self._check_member("plastic_summary", member)
         e = self.dist_cfg.engine
         d, spec = e.decomp, e.spec()
         pl = state["plastic"]
         host = self._tables_host
+
+        def pick(w):
+            return w if member is None else w[:, :, member]
         live_tabs = {
-            "local": dict(host["local"], w=pl["w"][0]),
-            "halo": [dict(t, w=pw) for t, pw in
+            "local": dict(host["local"], w=pick(pl["w"][0])),
+            "halo": [dict(t, w=pick(pw)) for t, pw in
                      zip(host["halo"], pl["w"][1:])],
         }
         live = gather_synapse_stream(live_tabs, d, spec)
@@ -628,11 +688,13 @@ class SimDriver(FaultTolerantLoop):
         }
 
     def captures(self) -> int:
-        """CUDA graph captures of this driver's sim function so far (the
-        counterpart of the reference's compiled-program count): 1 for
-        an uninterrupted static run on the card, 0 where it steps
-        eagerly."""
-        return self._sim.captures
+        """CUDA graph captures of this driver's sim function in this
+        driver's runs (the counterpart of the reference's
+        compiled-program count): 1 for an uninterrupted static run on
+        the card, recorded or not, 0 where it steps eagerly.  A sim
+        shared through ``sim_cache`` captures once per job: each job's
+        state is new to the graph."""
+        return self._sim.captures - self._captures0
 
     def run(self, n_steps: int):
         out = super().run(n_steps)

@@ -326,24 +326,89 @@ def test_captured_run_follows_edited_weights(cuda, law):
     assert not torch.equal(halved, replaced)
 
 
-def test_recorded_run_is_not_captured(cuda):
-    """A recorded run steps eagerly (no graph) through the fused head,
-    and its raster is the captured run's from the same seed."""
-    from repro_torch.obs.record import recorder_spec
+def test_recorded_run_is_captured(cuda):
+    """A recorded run replays the captured graph (the recorder's appends
+    inside it) and equals the eager steps bit for bit: raster, state and
+    recorder buffers; its raster is the unrecorded run's."""
+    from repro_torch.obs.record import (init_recorder_state, record_step,
+                                        recorder_spec, tile_gid_map)
     _, tcfg = configs("exponential", grid=4, n_per_col=1240)
     tabs = teng.build_shard_tables(tcfg, device=cuda)
+    rspec = recorder_spec(tcfg, 40)
     _build.reset_launch_counts()
-    _, raster, rec = teng.simulate(
+    fin, raster, rec = teng.simulate(
         teng.init_sim_state(tcfg, device=cuda), tabs, tcfg, 40,
-        record_spikes=True, recorder=recorder_spec(tcfg, 40), device=cuda)
+        record_spikes=True, recorder=rspec, device=cuda)
     assert _build.launch_counts() == {"neuron_step": 40,
                                       "event_delivery": 40,
-                                      "spike_compact": 40}
+                                      "spike_compact": 40, "step_graph": 4}
     _, captured = teng.simulate(teng.init_sim_state(tcfg, device=cuda),
                                 tabs, tcfg, 40, record_spikes=True,
                                 device=cuda)
     assert torch.equal(raster, captured)
     assert int(rec["count"]) == int(raster.sum()) > 0
+    # the eager steps, recorded into a fresh recorder with host steps
+    gids = torch.from_numpy(tile_gid_map(tcfg.decomp, 0, 0)).to(cuda)
+    eager_rec = init_recorder_state(rspec, device=cuda)
+    st, rows = teng.init_sim_state(tcfg, device=cuda), []
+    for k in range(40):
+        st, spk = teng.step(st, tabs, tcfg)
+        record_step(eager_rec, spk, gids, k, rspec)
+        rows.append(spk)
+    assert torch.equal(torch.stack(rows), raster)
+    for k in ("v", "c", "refrac"):
+        assert torch.equal(st["neuron"][k], fin["neuron"][k])
+    assert torch.equal(st["i_ring"], fin["i_ring"])
+    for k in rec:
+        assert torch.equal(rec[k], eager_rec[k]), k
+
+
+def test_compaction_graph_replayed_over_new_spikes(cuda):
+    """One captured compaction, replayed twice over different spike
+    vectors (and after eager calls between): every replay tags its
+    status words with a fresh device epoch, so its look-back never takes
+    a word of the previous replay, and each result is the plain
+    version's bit for bit."""
+    from repro_torch.kernels.spike_compact import spike_compact_cuda
+    g = torch.Generator(device=cuda).manual_seed(11)
+    n, cap = 79_360, 30_000
+    buf = torch.zeros(n, device=cuda)
+    spike_compact_cuda(buf, n, cap)          # sizes the status scratch
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        idx, cnt = spike_compact_cuda(buf, n, cap)
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    for dens in (0.3, 0.05, 0.6):
+        buf.copy_((torch.rand(n, device=cuda, generator=g) < dens).float())
+        graph.replay()
+        want = ref.spike_compact_ref(buf, n, cap)
+        assert torch.equal(idx, want[0]) and int(cnt) == int(want[1])
+        e_idx, e_cnt = spike_compact_cuda(buf, n, cap)
+        assert torch.equal(e_idx, idx) and int(e_cnt) == int(cnt)
+
+
+def test_compaction_epoch_wraps_on_the_device(cuda):
+    """At the last epoch the call's last block clears the tile words and
+    restarts at epoch 1: the calls around the wrap stay exact."""
+    from repro_torch.kernels import spike_compact as sc
+    g = torch.Generator(device=cuda).manual_seed(12)
+    n, cap = 200_000, 150_000
+    spk = (torch.rand(n, device=cuda, generator=g) < 0.4).float()
+    want = ref.spike_compact_ref(spk, n, cap)
+    sc.spike_compact_cuda(spk, n, cap)
+    scratch = sc._SCRATCH[spk.device if spk.device.index is not None
+                          else torch.device("cuda", 0)]
+    status = scratch.get(0)
+    status[0] = sc.EPOCHS - 2
+    for _ in range(4):
+        idx, cnt = sc.spike_compact_cuda(spk, n, cap)
+        assert torch.equal(idx, want[0]) and int(cnt) == int(want[1])
+    assert int(status[0]) == 3 and int(status[1]) == 0
 
 
 def _plastic_cfg(law, n_per_col=100, **kw):
@@ -1087,3 +1152,139 @@ def test_sim_driver_resume_bit_identical_on_card(cuda, tmp_path):
     assert a.metric_totals(out_a["state"]) == \
         b2.metric_totals(out_b["state"])
     assert tde.state_tree(out_b["state"])["i_ring"].device.type == "cuda"
+
+
+# ---------------------------------------------------------------------------
+# ensembles and the job service: captured recorded runs on the card
+# ---------------------------------------------------------------------------
+
+def _events(rec, lead: int) -> list:
+    """Each instance's recorded events as ``step << 32 | gid`` (int64),
+    the instances flattened over the ``lead`` leading axes."""
+    steps = rec["step"].flatten(0, lead - 1).long()
+    gids = rec["gid"].flatten(0, lead - 1).long()
+    counts = rec["count"].reshape(-1).tolist()
+    return [(s[:c] << 32) | g[:c] for s, g, c in zip(steps, gids, counts)]
+
+
+def test_multishard_recorded_captured_equals_eager(cuda):
+    """4x4x100 in 2x2 tiles, recorded: one 40-step call (8 eager steps,
+    4 replays with the recorder's appends inside the graph) against 40
+    one-step eager calls, whose events concatenate, and the plain path:
+    the same per-tile events, state and counts."""
+    from repro_torch.core import dist_engine as tde
+    from repro_torch.obs.record import recorder_spec, stacked_gid_maps
+    cfg = _dist_config("exponential")
+    tables, _ = tde.build_dist_tables(cfg, device=cuda)
+    gids = torch.from_numpy(stacked_gid_maps(cfg.engine.decomp)).to(cuda)
+    inputs = tde.SimInputs(tables=tables, gids=gids)
+    n = 40
+    _build.reset_launch_counts()
+    sim = tde.make_sim_fn(cfg, n, recorder=recorder_spec(cfg.engine, n),
+                          storage=tables.storage, device=cuda)
+    cap, cap_per, rec = sim(tde.init_dist_state(cfg, device=cuda), inputs)
+    assert _build.launch_counts()["step_graph"] == (n - 8) // 8
+    assert sim.captures == 1
+    cap_events = _events(rec, 2)
+    one = tde.make_sim_fn(cfg, 1, recorder=recorder_spec(cfg.engine, 1),
+                          storage=tables.storage, device=cuda)
+    eag = tde.init_dist_state(cfg, device=cuda)
+    parts = []
+    for _ in range(n):
+        parts.append(_events(one(eag, inputs)[2], 2))
+    eag_events = [torch.cat(p) for p in zip(*parts)]
+    plain = tde.DistConfig(engine=dataclasses.replace(cfg.engine,
+                                                      use_kernels=False))
+    pl, _, pl_rec = tde.make_sim_fn(
+        plain, n, recorder=recorder_spec(plain.engine, n),
+        storage=tables.storage, device=cuda)(
+        tde.init_dist_state(plain, device=cuda), inputs)
+    # above active_cap the recorder drops, and counts it
+    assert sum(int(e.numel()) for e in cap_events) + int(
+        rec["dropped"].sum()) == int(cap["metrics"]["spikes"].sum()) > 0
+    for other in (eag_events, _events(pl_rec, 2)):
+        assert all(torch.equal(a, b) for a, b in zip(cap_events, other))
+    _dist_same(cap, eag)
+    _dist_same(cap, pl)
+
+
+def test_ensembles_captured_equal_solo_runs(cuda):
+    """Captured ensembles on the card: single-shard (3 members at
+    4x4x1240) and 2x2 ``make_sim_fn`` (2 members at 4x4x100, recorded),
+    each member equal to its captured solo run bit for bit (drive drawn
+    inside the graph on each member's generator)."""
+    from repro_torch.core import dist_engine as tde
+    from repro_torch.obs.record import recorder_spec, stacked_gid_maps
+    seeds = (0, 5, 9)
+    _, tcfg = configs("gaussian", grid=4, n_per_col=1240)
+    tabs = teng.build_shard_tables(tcfg, device=cuda)
+    _build.reset_launch_counts()
+    ens, raster = teng.simulate(
+        teng.init_ensemble_state(tcfg, seeds, device=cuda), tabs, tcfg, 24,
+        record_spikes=True, ensemble=3, device=cuda)
+    assert _build.launch_counts()["step_graph"] == 2
+    for m, s in enumerate(seeds):
+        c = dataclasses.replace(tcfg, state_seed=s)
+        solo, rs = teng.simulate(teng.init_sim_state(c, device=cuda), tabs,
+                                 c, 24, record_spikes=True, device=cuda)
+        assert torch.equal(raster[m], rs)
+        assert torch.equal(ens["neuron"]["v"][m], solo["neuron"]["v"])
+    assert float(raster.sum()) > 0
+    cfg = dataclasses.replace(_dist_config("gaussian"),
+                              ensemble_seeds=seeds[:2])
+    tables, _ = tde.build_dist_tables(cfg, device=cuda)
+    inputs = tde.SimInputs(tables=tables, gids=torch.from_numpy(
+        stacked_gid_maps(cfg.engine.decomp)).to(cuda))
+
+    def run(c):
+        sim = tde.make_sim_fn(c, 40, recorder=recorder_spec(c.engine, 40),
+                              storage=tables.storage, device=cuda)
+        st, per, rec = sim(tde.init_dist_state(c, device=cuda), inputs)
+        assert sim.captures == 1
+        return st, per, {k: v.clone() for k, v in rec.items()}
+
+    es, ep, er = run(cfg)
+    for m, s in enumerate(seeds[:2]):
+        ss, sp, sr = run(tde.DistConfig(engine=dataclasses.replace(
+            cfg.engine, state_seed=s)))
+        assert torch.equal(ep[:, :, m], sp)
+        assert torch.equal(es["i_ring"][:, :, m], ss["i_ring"])
+        for k in sr:
+            assert torch.equal(er[k][:, :, m], sr[k]), k
+
+
+def test_job_server_captures_once_per_job(cuda, tmp_path):
+    """The service on the card (the example at 4x4x100 in 2x2 tiles, 40
+    steps in segments of 20): two 3-member jobs share one sim function,
+    each captures its graph once, both streams see every event, and
+    member 0's spool is the solo run's."""
+    from repro_torch.examples import ensemble_service
+    out = ensemble_service.run(str(tmp_path), device=cuda, grid=4, npc=100,
+                               tiles=(2, 2), t_steps=40, seg=20,
+                               report_path=str(tmp_path / "a.json"))
+    assert [j["captures"] for j in out["jobs"]] == [1, 1]
+    assert out["server_compiled_steps_after_2_jobs"] == 1
+    assert out["member0_matches_solo"] and out["spooled_events"] > 0
+
+
+def test_capture_holds_off_the_garbage_collector(cuda, monkeypatch):
+    """A collection during a capture could destroy an unreachable graph
+    (a sim and its kept loop form a cycle), which a capture does not
+    permit: the collector is off while the graph's steps are captured,
+    on while eager steps run, and on again after."""
+    import gc
+    _, tcfg = configs("gaussian", grid=4, n_per_col=100)
+    tabs = teng.build_shard_tables(tcfg, device=cuda)
+    seen = []
+    one = teng._StepGraph._one
+
+    def spy(self, drive, dst):
+        seen.append(gc.isenabled())
+        return one(self, drive, dst)
+
+    monkeypatch.setattr(teng._StepGraph, "_one", spy)
+    assert gc.isenabled()
+    teng.simulate(teng.init_sim_state(tcfg, device=cuda), tabs, tcfg, 16,
+                  device=cuda)
+    assert seen == [True] * 8 + [False] * 8
+    assert gc.isenabled()

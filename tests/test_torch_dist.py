@@ -57,6 +57,22 @@ CASES.update({
     "exponential_2x2_recorded_small": ("exponential", 2, 2,
                                        "recorded_small"),
 })
+# the ensembles' reference runs (tests/test_torch_ensemble.py): member
+# seeds; single-shard ``simulate(..., ensemble=M)`` and 2x2
+# ``make_sim_fn`` with ``ensemble_seeds``, name -> (law, kind); and one
+# recorded ensemble ``SimDriver`` (seed 3, 4x4x20 in 2x1 tiles, 40
+# steps in segments of 10)
+ENSEMBLE = {
+    "seeds": [0, 7, 13],
+    "single": {"ens1_gaussian_static": ["gaussian", "static"],
+               "ens1_exponential_recorded": ["exponential", "recorded"],
+               "ens1_exponential_plastic": ["exponential", "plastic"]},
+    "dist": {"ens_gaussian_2x2": ["gaussian", "static"],
+             "ens_exponential_2x2_recorded": ["exponential", "recorded"],
+             "ens_exponential_2x2_plastic": ["exponential", "plastic"]},
+    "driver": {"grid": 4, "npc": 20, "seed": 3, "tiles": [2, 1],
+               "steps": 40, "seg": 10},
+}
 
 REFERENCE = r"""
 import json, sys
@@ -159,6 +175,138 @@ for name, (law, ty, tx, kind) in cases.items():
             save[f"rec_{k}"] = np.asarray(v)
     np.savez(f"{out_dir}/{name}.npz", **save)
     print(name, float(np.asarray(per).sum()), flush=True)
+
+# ensembles: each member's drive drawn from its own keys as the solo
+# step draws it (the member axis after the tile axes)
+ens = json.loads(sys.argv[7])
+seeds = tuple(ens["seeds"])
+
+
+def member_drives(cfg, keys, n_local):
+    return np.stack([drives(cfg, keys[:, :, m], n_local)
+                     for m in range(keys.shape[2])], axis=3)
+
+
+def save_state(save, state):
+    for k in ("v", "c", "refrac"):
+        save[f"neuron_{k}"] = raw(state["neuron"][k])
+    save["i_ring"] = raw(state["i_ring"])
+    save["t"] = np.asarray(state["t"])
+    for k in ("spikes", "events", "dropped"):
+        save[f"metrics_{k}"] = raw(state["metrics"][k])
+
+
+for name, (law, kind) in ens["single"].items():
+    lw = getattr(connectivity, f"{law}_law")()
+    kw = dict(use_kernels=False, cap_headroom=1.0, ext_rate_hz=20.0)
+    if kind == "plastic":
+        kw["stdp"] = STDPParams()
+    e = jeng.EngineConfig(decomp=jgrid.TileDecomposition(
+        jgrid.ColumnGrid(grid, grid, n_per_col), 1, 1, lw.radius),
+        law=lw, **kw)
+    n_local = e.spec().n_local
+    tabs = jeng.build_shard_tables(e)
+    state = jeng.init_ensemble_state(e, seeds)
+    m = len(seeds)
+    save = {"drive": member_drives(e, np.asarray(state["rng"])[None, None],
+                                   n_local)[:, 0, 0]}
+    if kind == "plastic":
+        aux = jeng.init_plasticity(tabs, e)
+        (st, tb, tr), per = jax.jit(lambda s: jeng.simulate(
+            s, tabs, e, steps, plasticity=aux, ensemble=m))(state)
+        save["plastic_w_0"] = raw(tb["local"]["w"])
+        save["plastic_x_pre"] = raw(tr["x_pre"][0])
+        save["plastic_x_post"] = raw(tr["x_post"])
+    elif kind == "recorded":
+        rspec = recorder_spec(e, steps)
+        st, per, rec = jax.jit(lambda s: jeng.simulate(
+            s, tabs, e, steps, recorder=rspec, ensemble=m))(state)
+        for k, v in rec.items():
+            save[f"rec_{k}"] = np.asarray(v)
+    else:
+        st, per = jax.jit(lambda s: jeng.simulate(
+            s, tabs, e, steps, record_spikes=True, ensemble=m))(state)
+    save["per_step"] = raw(per)
+    save_state(save, st)
+    np.savez(f"{out_dir}/{name}.npz", **save)
+    print(name, float(np.asarray(per).sum()), flush=True)
+
+for name, (law, kind) in ens["dist"].items():
+    lw = getattr(connectivity, f"{law}_law")()
+    kw = dict(use_kernels=False, cap_headroom=1.0, ext_rate_hz=20.0)
+    if kind == "plastic":
+        kw["stdp"] = STDPParams()
+    e = jeng.EngineConfig(decomp=jgrid.TileDecomposition(
+        jgrid.ColumnGrid(grid, grid, n_per_col), 2, 2, lw.radius),
+        law=lw, **kw)
+    cfg = de.DistConfig(engine=e, ensemble_seeds=seeds)
+    mesh = Mesh(np.array(jax.devices()[:4]).reshape(2, 2),
+                ("data", "model"))
+    n_local = e.spec().n_local
+    state = de.init_dist_state(cfg)
+    tables = de.build_dist_tables(cfg)[0]
+    inputs = de.SimInputs(tables=tables)
+    save = {"drive": member_drives(e, np.asarray(state["rng"]), n_local)}
+    recorder = None
+    if kind == "plastic":
+        host = jax.tree.map(np.asarray, tables)
+        state["plastic"] = de.init_dist_plastic_state(cfg, host)
+        slots, _ = de.build_dist_inverse_index(cfg, host)
+        tables = de.fold_plastic_tables(tables)
+        inputs = de.SimInputs(tables=tables, inv_slots=jax.device_put(
+            np.asarray(slots), NamedSharding(mesh, cfg.pspec(2))))
+    if kind == "recorded":
+        recorder = recorder_spec(e, steps)
+        inputs = de.SimInputs(tables=tables, gids=jax.device_put(
+            np.asarray(stacked_gid_maps(e.decomp)),
+            NamedSharding(mesh, cfg.pspec(1))))
+    ss, ts = de.dist_shardings(cfg, mesh, tables.storage)
+    host = lambda tree: jax.tree.map(np.asarray, tree)  # noqa: E731
+    state = jax.device_put(host(state), ss)
+    inputs.tables = jax.device_put(host(tables), ts)
+    sim = de.make_sim_fn(cfg, mesh, steps, recorder=recorder,
+                         storage=tables.storage)
+    out = sim(state, inputs)
+    st, per = out[0], out[1]
+    save["per_step"] = raw(per)
+    save_state(save, st)
+    if kind == "plastic":
+        pl = st["plastic"]
+        for ti, w in enumerate(pl["w"]):
+            save[f"plastic_w_{ti}"] = raw(w)
+        save["plastic_x_pre"] = raw(pl["x_pre"][0])
+        save["plastic_x_post"] = raw(pl["x_post"])
+    if recorder is not None:
+        for k, v in out[2].items():
+            save[f"rec_{k}"] = np.asarray(v)
+    np.savez(f"{out_dir}/{name}.npz", **save)
+    print(name, float(np.asarray(per).sum()), flush=True)
+
+# the ensemble SimDriver: recorded, in segments, its spool on disk
+from repro.parallel.compat import make_mesh
+from repro.runtime import DriverConfig, SimDriver
+drv_kw = ens["driver"]
+lw = connectivity.gaussian_law()
+ty, tx = drv_kw["tiles"]
+e = jeng.EngineConfig(decomp=jgrid.TileDecomposition(
+    jgrid.ColumnGrid(drv_kw["grid"], drv_kw["grid"], drv_kw["npc"]), ty, tx,
+    lw.radius), law=lw, seed=drv_kw["seed"], use_kernels=False,
+    cap_headroom=1.0, ext_rate_hz=20.0)
+cfg = de.DistConfig(engine=e, ensemble_seeds=seeds)
+drive = member_drives(e, np.asarray(de.init_dist_state(cfg)["rng"]),
+                      e.spec().n_local)[:drv_kw["steps"]]
+drv = SimDriver(DriverConfig(ckpt_dir=f"{out_dir}/ensemble_driver",
+                             ckpt_every=1, keep=100, backoff_s=0.01,
+                             handle_sigterm=False),
+                cfg, make_mesh((ty, tx), ("data", "model")),
+                segment_steps=drv_kw["seg"], record_events=True)
+st = drv.run(drv_kw["steps"])["state"]
+save = {"drive": drive,
+        "counts": np.stack([drv.spike_counts(drv_kw["steps"], member=m)
+                            for m in range(len(seeds))])}
+save_state(save, st)
+np.savez(f"{out_dir}/ensemble_driver.npz", **save)
+print("ensemble_driver", float(save["counts"].sum()), flush=True)
 """
 
 
@@ -178,7 +326,9 @@ def reference_runs(tmp_path_factory):
     """Every case's reference run, in one 4-device subprocess, once per
     test session: its files go to the session's shared base directory
     (the parent of each xdist worker's), and a lock lets one process run
-    it while any other waits and then reads the files."""
+    it while any other waits and then reads the files.  The ensembles'
+    runs come with them (``ENSEMBLE``; ``"ensemble_driver"`` also names
+    the reference driver's checkpoint directory, its spool inside)."""
     base = tmp_path_factory.getbasetemp()
     if os.environ.get("PYTEST_XDIST_WORKER"):
         base = base.parent
@@ -194,12 +344,16 @@ def reference_runs(tmp_path_factory):
             proc = subprocess.run(
                 [sys.executable, "-c", REFERENCE, str(out), str(STEPS),
                  str(GRID), str(N_PER_COL), str(SMALL_CAPACITY),
-                 json.dumps(CASES)],
+                 json.dumps(CASES), json.dumps(ENSEMBLE)],
                 env=env, capture_output=True, text=True, timeout=600)
             assert proc.returncode == 0, \
                 proc.stdout + proc.stderr[-4000:]
             (out / "done").write_text("")
-    return {name: dict(np.load(out / f"{name}.npz")) for name in CASES}
+    names = list(CASES) + list(ENSEMBLE["single"]) + list(ENSEMBLE["dist"])
+    runs = {name: dict(np.load(out / f"{name}.npz")) for name in names}
+    runs["ensemble_driver"] = dict(np.load(out / "ensemble_driver.npz"),
+                                   dir=out / "ensemble_driver")
+    return runs
 
 
 def port_config(law, ty, tx, kind, use_kernels=True):

@@ -437,8 +437,11 @@ def test_checkpoint_meta_rides_inside_checkpoint(tmp_path):
 def test_rejects_nonpositive_segment_and_ensembles(tmp_path):
     with pytest.raises(ValueError, match="segment_steps"):
         driver(tmp_path, seg=0)
-    with pytest.raises(NotImplementedError, match="ensemble"):
-        dataclasses.replace(dist_cfg(), ensemble_seeds=(0, 1))
+    # ensembles construct (an empty member list is refused)
+    ens = dataclasses.replace(dist_cfg(), ensemble_seeds=(0, 1))
+    assert ens.n_members == 2 and ens.lead == (1, 1, 2)
+    with pytest.raises(ValueError, match="non-empty"):
+        dataclasses.replace(dist_cfg(), ensemble_seeds=())
 
 
 def test_retile_round_trip_carries_totals(tmp_path):
@@ -574,8 +577,10 @@ def test_job_spec_round_trip_and_validation(tmp_path):
         SimJobSpec(ckpt_dir="x", seeds=(1,), state_seed=2)
     with pytest.raises(ValueError, match="unknown job spec fields"):
         SimJobSpec.from_json(json.dumps({"ckpt_dir": "x", "mesh": 1}))
-    with pytest.raises(JobError, match="ensembles are not ported"):
-        build_sim_driver(spec, device="cpu")
+    # an ensemble spec builds: two members on 2x1 tiles, a member spool
+    drv = build_sim_driver(spec, device="cpu")
+    assert drv.n_members == 2 and drv.dist_cfg.ensemble_seeds == (0, 1)
+    assert drv.dist_cfg.tiles == (2, 1) and drv.spool.members == (0, 1)
 
 
 def test_build_sim_driver_refuses_bad_resume_targets(tmp_path):
@@ -595,7 +600,7 @@ def test_build_sim_driver_refuses_bad_resume_targets(tmp_path):
 
 def test_sim_and_analyze_launchers(tmp_path, capsys):
     """The CLI: a recorded run preempted on 2x1, resumed on 1x2 with
-    --retile, then analyzed; --seeds is refused."""
+    --retile, then analyzed; --seeds runs an ensemble."""
     from repro_torch.launch import analyze, sim
     from repro_torch.obs.telemetry import get_default, set_default
     run = str(tmp_path / "run")
@@ -626,9 +631,15 @@ def test_sim_and_analyze_launchers(tmp_path, capsys):
     assert rep["runs"]["r"]["n_events"] > 0
     assert rep["telemetry"]["r"]["segments"]["n"] == 1
     assert "final_step=30" in capsys.readouterr().out
-    with pytest.raises(SystemExit, match="ensembles"):
-        sim.main(args + ["--seeds", "0,1", "--ckpt-dir",
-                         str(tmp_path / "ens")])
+    out = sim.main(args + ["--seeds", "0,1", "--ckpt-dir",
+                           str(tmp_path / "ens"), "--metrics-out",
+                           str(tmp_path / "e.json")])
+    assert out["final_step"] == 30 and out["state"]["t"].shape == (1, 1, 2)
+    with open(tmp_path / "e.json") as f:
+        e = json.load(f)
+    assert e["ensemble_seeds"] == [0, 1]
+    assert e["recording"]["spooled_events"] > 0
+    assert "members=2" in capsys.readouterr().out
 
 
 # ---------------------------------------------------------------------------
