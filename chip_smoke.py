@@ -143,11 +143,28 @@ Phases, each of which exits non-zero on failure:
    32 and 16, bf16 and float32) beside the library call.  Phase 2 holds every flash kernel against its plain version
    at the reference's kernel-test shapes, the tensor-core kernels' edge
    cases in bf16 and float32, fully masked rows, qwen2's prefill shape
-   and a head_dim-256 window; the TF32 pre-pass bit for bit, and the
-   tf32 fragment layout the TF32 kernel assumes.
+   and a head_dim-256 window, each also with the row statistic
+   (``return_lse``: the same output, L = m + log l against the plain
+   logsumexp, +1e30 on fully masked rows); the TF32 pre-pass bit for
+   bit, and the tf32 fragment layout the TF32 kernel assumes;
+8. LM training (``models.model.make_train_step``, ``optim.adamw``,
+   ``data.LMBatchPipeline``): qwen2-1.5b at full width in bf16 with
+   per-layer checkpointing, ``attn_impl="pallas"``, batch 4 x 2048:
+   one step's loss and per-leaf gradients through the flash kernel's
+   forward (``models.attention._Flash``) against the plain chunked
+   route, with the plain naive route as the control; 5 steps (two
+   flash launches per layer and step: the forward and its recompute),
+   finite and falling losses; s per step, tokens/s, 6 N T over the step
+   time against the bf16 peak, peak memory and a profiled sixth step's
+   shares (flash forward, plain attention backward, optimizer); then
+   ``launch.train.build_trainer`` at qwen2-1.5b and qwen3-8b reduced,
+   40 steps straight against 25 + preempt + resume, bit for bit under
+   ``torch.use_deterministic_algorithms(True)`` (in a child process,
+   with ``CUBLAS_WORKSPACE_CONFIG`` set).  Phase 5 also times
+   the copy a recorded call hands back (``obs.record.copy_recorder``).
 
 Launch counts are zeroed just before each of phases 3-5, 5b, 5c (after
-its ``make_sim_fn`` baselines), 5d and 7 and read just after it (the ``{"kernels"}`` line gives each kernel's
+its ``make_sim_fn`` baselines), 5d, 7 and 8 and read just after it (the ``{"kernels"}`` line gives each kernel's
 launches on phase 3's or its own path, on 5b's, 5c's and 5d's); a replay of a
 captured static or recorded step counts as ``step_graph`` and as one
 launch of each kernel the graph holds.  It prints the metrics, a
@@ -225,8 +242,23 @@ LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 32
 # H100, so bf16 is held to 0.2 and to at most twice that control's
 # difference (+0.01).  In float32 the same two differ by 2e-5.
 LM_BF16_TOL, LM_F32_TOL = 0.2, 1e-4
+# phase 8, training at full width: 5 steps of 4 x 2048 tokens; the
+# kernel route's loss and per-leaf gradients against the plain chunked
+# route's, targets 2e-3 and 3e-2 (the kernel rounds P to bf16 before
+# P V, the plain route does not: about one bf16 step of each layer's
+# attention output, carried through 28 layers and their backward); a
+# miss fails only beyond twice the plain routes' own difference + 0.01
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 5
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 2e-3, 3e-2
+# the train driver at reduced width: straight against preempt + resume
+DRIVER_ARCHS = ("qwen2-1.5b", "qwen3-8b")
+DRIVER_BATCH, DRIVER_SEQ, DRIVER_STEPS, DRIVER_PREEMPT = 8, 128, 40, 25
 # the flash kernel against its plain version (tests/test_kernels.py)
 FLASH_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+# its row statistic L = m + log l against the plain logsumexp, times
+# |L| + 1: float32 scores in another order and base-2 exponents (1e-5),
+# bf16 operands on the sm90 route and the CUDA-core one (2e-3)
+LSE_TOL = {"float32": 1e-5, "bfloat16": 2e-3}
 FLASH_CASES = [                    # (bh, bh_kv, sq, sk, d, causal, window,
     (4, 2, 64, 64, 32, True, None, 0),          # q_offset, dtype)
     (8, 2, 100, 100, 64, True, 48, 0),
@@ -954,6 +986,21 @@ def run_recorded(law: str, tabs) -> dict:
     out["long"] = {"steps": RECORD_LONG_STEPS, "step_graph_replays":
                    n_replays, "events": int(rec["count"]),
                    "ms_per_step": 1e3 * wall / RECORD_LONG_STEPS}
+    # a recorded call hands back a copy of its resident recorder, made
+    # after the run, outside the graph (obs.record.copy_recorder): its
+    # device time for this call's buffer and for a segment of phase
+    # 5c's recorded driver (2x2 tiles, SEG_STEPS steps), which drains
+    # the resident buffers itself and makes no copy
+    from repro_torch.obs.record import copy_recorder, init_recorder_state
+    seg_spec = recorder_spec(ms_cfg("gaussian", GRID).engine, SEG_STEPS)
+    seg_rec = init_recorder_state(seg_spec, tiles=(MS_TILES, MS_TILES))
+    out["copy"] = {
+        "ms": queued_ms(lambda: copy_recorder(rec), 20),
+        "bytes": sum(x.numel() * 4 for x in rec.values()),
+        "segment_2x2_ms": queued_ms(lambda: copy_recorder(seg_rec), 20),
+        "segment_2x2_bytes": sum(x.numel() * 4 for x in seg_rec.values()),
+        "segment_steps": SEG_STEPS}
+    out["copy"]["share_of_long_call"] = out["copy"]["ms"] / (1e3 * wall)
     print(f"recorded path {law} {GRID}x{GRID}x{N_PER_COLUMN} "
           f"{RECORD_STEPS} steps " + json.dumps(out))
     return out
@@ -2217,6 +2264,31 @@ def check_flash(gen) -> dict:
     from repro_torch.kernels.ref import attention_ref, tf32_split_ref
     torch.backends.cuda.matmul.allow_tf32 = False
     worst = {r: 0.0 for r in fa.ROUTE_KERNELS}
+    worst_lse = {r: 0.0 for r in fa.ROUTE_KERNELS}
+
+    def check_lse(q, k, v, out, label, **kw):
+        """The route's row statistic (``return_lse``): the same output,
+        L within LSE_TOL of |L| + 1, +1e30 exactly on dead rows."""
+        route = fa._route(q.dtype, q.shape[2])
+        got_o, got_l = fa.flash_attention_cuda(q, k, v, return_lse=True,
+                                               **kw)
+        _, want_l = attention_ref(q, k, v, return_lse=True, **kw)
+        torch.cuda.synchronize()
+        require(torch.equal(got_o, out), f"flash {label}: the output with "
+                "the row statistic differs from the one without")
+        dead = want_l == 1e30
+        require(torch.equal(got_l == 1e30, dead),
+                f"flash {label} ({route}): dead rows' statistic not +1e30")
+        tol = LSE_TOL[str(q.dtype).removeprefix("torch.")]
+        err = (got_l - want_l).abs()[~dead]
+        bad = int((err > tol * (1 + want_l[~dead].abs())).sum())
+        require(bad == 0, f"flash {label} ({route}): {bad} row statistics "
+                f"beyond {tol}")
+        e = float(err.max()) if err.numel() else 0.0
+        worst_lse[route] = max(worst_lse[route], e)
+        print(f"check flash_attention[{route}] lse {label}: max_abs_err "
+              f"{e:.3g} (tol {tol} x (|L| + 1)), {int(dead.sum())} dead "
+              "rows at +1e30")
 
     def one(q, k, v, label, **kw):
         route = fa._route(q.dtype, q.shape[2])
@@ -2242,6 +2314,7 @@ def check_flash(gen) -> dict:
         print(f"check flash_attention[{route}] {label}: max_abs_err "
               f"{float(err.max()):.3g} (tol {tol}), max |plain| "
               f"{float(want.float().abs().max()):.3g}")
+        check_lse(q, k, v, got, label, **kw)
 
     def rand(*shape):
         return torch.randn(shape, device="cuda", generator=gen)
@@ -2290,6 +2363,8 @@ def check_flash(gen) -> dict:
                 "exactly 0")
         print(f"check flash_attention[{fa._route(dtype, d)}] fully masked "
               f"(window=2, q_offset=100) {dtype} D={d}: exactly 0")
+        check_lse(q, q, q, out, f"fully masked {dtype} D={d}",
+                  causal=False, window=2, q_offset=100)
     q, k, v = qwen2_prefill_qkv(gen)
     for dtype in (torch.bfloat16, torch.float32):
         one(q.to(dtype), k.to(dtype), v.to(dtype),
@@ -2299,7 +2374,8 @@ def check_flash(gen) -> dict:
     one(q.bfloat16(), k.bfloat16(), v.bfloat16(),
         "(8, 1, 4096, 4096, 256) bf16 causal window=2048", causal=True,
         window=2048)
-    return dict(worst, tf32_split=0.0)
+    return dict(worst, tf32_split=0.0,
+                lse={r: worst_lse[r] for r in fa.ROUTE_KERNELS})
 
 
 def check_dict_tables(gen) -> None:
@@ -2590,6 +2666,283 @@ def run_lm() -> dict:
         "simt": simt_prefill + f32_launches.get("flash_attention_simt", 0)}}
 
 
+# ---------------------------------------------------------------------------
+# phase 8: LM training (qwen2-1.5b at full width, then the train driver)
+# ---------------------------------------------------------------------------
+
+def _range_device_ms(prof, name: str) -> float:
+    """Device time of the kernels that the PyTorch ops inside the
+    profiler range ``name`` (its ``record_function``) launched, summed
+    over its occurrences: the host-side entry of the range, whose
+    children's kernels the profiler attributes to it.  (A kernel
+    launched through ctypes, as the port's are, is not attributed to a
+    PyTorch op: time those by name.)"""
+    import torch
+    for e in prof.key_averages():
+        if e.key == name and e.device_type == torch.autograd.DeviceType.CPU:
+            return getattr(e, "device_time_total",
+                           getattr(e, "cuda_time_total", 0.0)) / 1e3
+    return 0.0
+
+
+def run_train() -> dict:
+    """qwen2-1.5b at its full published width in bf16 (``cfg.remat`` as
+    configured: each layer checkpointed), ``attn_impl="pallas"``: params
+    from ``init_model(seed=0)``, batch 4 x 2048 from the port's
+    ``LMBatchPipeline``, AdamW under ``warmup_cosine(3e-4, 2, 5)``.
+    First one step's loss and per-leaf gradients on the kernel route
+    against the plain chunked route (same params, same batch), then 5
+    steps of ``make_train_step`` (launch counts zeroed just before,
+    read just after; finite losses and grad norms, step 5's loss below
+    step 1's), then a 6th step under ``torch.profiler`` for the shares
+    of the flash forward, the plain attention backward and the
+    optimizer."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import LMBatchPipeline
+    from repro_torch.kernels import _build
+    from repro_torch.models import model as M
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.transformer import init_model
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.tree import tree_flatten
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(LM_ARCH), attn_impl="pallas")
+    require((cfg.n_layers, cfg.d_model, cfg.dtype, cfg.remat)
+            == (28, 1536, "bfloat16", True),
+            "qwen2-1.5b is not at its full width with remat")
+    base_bytes = torch.cuda.memory_allocated()
+    params = init_model(cfg, seed=0, device="cuda")
+    n_params = sum(t.numel() for t in tree_flatten(params)[0])
+    pipe = LMBatchPipeline(cfg, ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH,
+                                            "train"), seed=0)
+
+    def batch(i):
+        return {k: torch.from_numpy(v).cuda()
+                for k, v in pipe.batch(i).items()}
+
+    # the kernel route against the plain chunked route: one step's loss
+    # and per-leaf gradients, same params and batch; the plain naive
+    # route against the chunked one is the control (two plain versions
+    # that differ in summation order and in where they round to bf16)
+    b0 = batch(0)
+    grads = {}
+    for impl in ("pallas", "chunked", "naive"):
+        c = dataclasses.replace(cfg, attn_impl=impl)
+        loss_i, _, g_i = M._grads_of(params, c, b0)
+        grads[impl] = (float(loss_i), tree_flatten(g_i)[0])
+        torch.cuda.synchronize()
+
+    def versus(x: str, y: str) -> dict:
+        errs = [float((a.float() - b.float()).norm()
+                      / b.float().norm().clamp_min(1e-30))
+                for a, b in zip(grads[x][1], grads[y][1])]
+        return {"loss_rel_diff": abs(grads[x][0] / grads[y][0] - 1.0),
+                "worst_leaf_rel_norm_err": max(errs),
+                "median_leaf_rel_norm_err": float(np.median(errs))}
+    kern_cmp, ctrl_cmp = versus("pallas", "chunked"), versus("naive",
+                                                              "chunked")
+    kern_cmp["losses"] = [grads["pallas"][0], grads["chunked"][0]]
+    kern_cmp["targets_met"] = (
+        kern_cmp["loss_rel_diff"] <= TRAIN_LOSS_TOL
+        and kern_cmp["worst_leaf_rel_norm_err"] <= TRAIN_GRAD_TOL)
+    del grads
+    torch.cuda.empty_cache()
+    print(f"train kernel vs plain route, one step: {json.dumps(kern_cmp)}"
+          f" (targets: loss <= {TRAIN_LOSS_TOL}, worst leaf <= "
+          f"{TRAIN_GRAD_TOL}); control, naive vs chunked: "
+          f"{json.dumps(ctrl_cmp)}")
+    for key, target in (("loss_rel_diff", TRAIN_LOSS_TOL),
+                        ("worst_leaf_rel_norm_err", TRAIN_GRAD_TOL)):
+        require(kern_cmp[key] <= max(target, 2 * ctrl_cmp[key] + 0.01),
+                f"the kernel route's {key} {kern_cmp[key]} misses both "
+                f"its target {target} and twice the control's "
+                f"{ctrl_cmp[key]} + 0.01")
+
+    # five steps of the train step, counted and timed
+    opt = adamw(warmup_cosine(3e-4, 2, 5))
+    opt_state = opt.init(params)
+    step = M.make_train_step(cfg, opt)
+    batches = [batch(i) for i in range(TRAIN_STEPS + 1)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    outs, secs = [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, opt_state, out = step(params, opt_state, batches[i])
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        outs.append({k: float(v) for k, v in out.items()})
+    launches = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    per_step = 2 * cfg.n_layers       # forward + the recompute
+    require(launches == {"flash_attention": TRAIN_STEPS * per_step},
+            f"training launches {launches}, expected flash_attention "
+            f"{TRAIN_STEPS * per_step} (forward and recompute per layer)")
+    require(all(np.isfinite(o["loss"]) and np.isfinite(o["grad_norm"])
+                for o in outs), f"non-finite loss or grad norm: {outs}")
+    require(outs[-1]["loss"] < outs[0]["loss"],
+            f"step {TRAIN_STEPS}'s loss is not below step 1's: {outs}")
+
+    # a sixth step under the profiler: where the step's time goes
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(params, opt_state, batches[TRAIN_STEPS])
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    busy_us, top = device_breakdown(prof, 1)
+    flash_fwd_kernel_ms = sum(
+        e.time_range.elapsed_us() for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and "flash_attention_sm90" in e.name) / 1e3
+    ranges = {name: _range_device_ms(prof, name) for name in (
+        "flash_attention_forward", "flash_attention_backward",
+        "optimizer_update")}
+    steady = float(np.mean(secs[1:]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = 6 * n_params * tokens
+    res = {
+        "arch": LM_ARCH, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "dtype": cfg.dtype, "params": n_params, "remat": cfg.remat,
+        "attn_impl": cfg.attn_impl, "batch": TRAIN_BATCH,
+        "seq": TRAIN_SEQ, "optimizer": "adamw(warmup_cosine(3e-4, 2, 5))",
+        "losses": [o["loss"] for o in outs],
+        "grad_norms": [o["grad_norm"] for o in outs],
+        "tokens_per_step": tokens, "step_s": secs,
+        "first_step_s": secs[0], "steady_s_per_step": steady,
+        "tokens_per_s": tokens / steady,
+        "peak_device_bytes": peak,
+        "peak_device_bytes_above_earlier_phases": peak - base_bytes,
+        "flash_launches": launches.get("flash_attention", 0),
+        "flash_launches_per_step": per_step,
+        "six_n_t_flops_per_step": flops,
+        "model_flops_per_s": flops / steady,
+        "mfu_6nt_vs_bf16_peak": flops / steady / BF16_OPS_PER_S,
+        "profiled_step_ms": prof_ms,
+        "profiled_device_busy_ms": busy_us / 1e3,
+        "profiled_device_idle_share": 1.0 - busy_us / 1e3 / prof_ms,
+        "flash_forward_kernel_ms": flash_fwd_kernel_ms,
+        "range_device_ms": ranges,
+        # shares of the profiled step's wall time and of its device busy
+        # time: the flash kernels (by name), the forward range's PyTorch
+        # ops (the heads' layout copies), the plain attention backward
+        # and the optimizer (by range)
+        "share_of_step": {
+            basis: {"flash_forward_kernels": flash_fwd_kernel_ms / total,
+                    "flash_forward_layout_ops":
+                        ranges["flash_attention_forward"] / total,
+                    "plain_attention_backward":
+                        ranges["flash_attention_backward"] / total,
+                    "optimizer": ranges["optimizer_update"] / total}
+            for basis, total in (("wall", prof_ms),
+                                 ("device_busy", max(busy_us / 1e3, 1e-9)))},
+        "top_kernels_ms": top,
+        "kernel_vs_plain_route": kern_cmp,
+        "control_naive_vs_chunked": ctrl_cmp,
+    }
+    print("lm training path " + json.dumps(res))
+    print(f"lm training: {steady:.4f} s per step, "
+          f"{tokens / steady:.0f} tokens/s, 6NT/step-time "
+          f"{flops / steady / 1e12:.1f} TFLOP/s = "
+          f"{100 * flops / steady / BF16_OPS_PER_S:.2f} % of the bf16 "
+          f"dense peak, peak {peak / 2 ** 30:.2f} GiB ({gpu_line()})")
+    del params, opt_state, batches
+    torch.cuda.empty_cache()
+    return {"res": res, "launches": launches}
+
+
+def run_train_driver() -> dict:
+    """The train driver's resume on the card (``train_driver_checks``),
+    in a child process of this script: deterministic algorithms need
+    ``CUBLAS_WORKSPACE_CONFIG`` before the first cuBLAS call, and a
+    small fixed cuBLAS workspace would slow this process's other
+    phases."""
+    import os
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    proc = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()),
+         "--train-driver-child"], env=env, capture_output=True, text=True,
+        timeout=600)
+    print(proc.stdout, end="")
+    require(proc.returncode == 0, f"the train driver check failed "
+            f"(rc {proc.returncode}): {proc.stderr[-3000:]}")
+    line = [ln for ln in proc.stdout.splitlines()
+            if ln.startswith("lm train driver ")]
+    require(len(line) == 1, "the train driver check printed no result")
+    return json.loads(line[0].removeprefix("lm train driver "))
+
+
+def train_driver_checks() -> dict:
+    """``launch.train.build_trainer`` on the card at qwen2-1.5b and
+    qwen3-8b reduced (their configs' plain chunked attention, as the
+    reference's launcher): 40 steps with a checkpoint every 10, straight,
+    and preempted after step 25 then resumed by a fresh driver: the
+    final parameters, AdamW state and the 40 losses equal bit for bit.
+    Runs under ``torch.use_deterministic_algorithms(True)`` (the caller
+    sets ``CUBLAS_WORKSPACE_CONFIG``): the embedding gather's backward
+    accumulates with atomics otherwise."""
+    import tempfile
+    import torch
+    from repro_torch.launch.train import build_trainer
+    from repro_torch.tree import tree_flatten
+    torch.use_deterministic_algorithms(True)
+    out = {}
+    try:
+        for arch in DRIVER_ARCHS:
+            with tempfile.TemporaryDirectory() as tmp:
+                t0 = time.perf_counter()
+                straight = build_trainer(
+                    arch, DRIVER_BATCH, DRIVER_SEQ, DRIVER_STEPS,
+                    f"{tmp}/straight", ckpt_every=10)[0].run(DRIVER_STEPS)
+                straight_s = time.perf_counter() - t0
+                holder = {}
+
+                def preempt(step):
+                    if step == DRIVER_PREEMPT - 1:
+                        holder["driver"].preempted = True
+                holder["driver"] = build_trainer(
+                    arch, DRIVER_BATCH, DRIVER_SEQ, DRIVER_STEPS,
+                    f"{tmp}/resumed", ckpt_every=10, fault_hook=preempt)[0]
+                first = holder["driver"].run(DRIVER_STEPS)
+                second = build_trainer(
+                    arch, DRIVER_BATCH, DRIVER_SEQ, DRIVER_STEPS,
+                    f"{tmp}/resumed", ckpt_every=10)[0].run(DRIVER_STEPS)
+            torch.cuda.synchronize()
+            losses = [m["loss"] for m in straight["metrics"]]
+            resumed = [m["loss"] for m in first["metrics"]
+                       + second["metrics"]]
+            same = all(torch.equal(a, b) for a, b in zip(
+                tree_flatten(straight["state"])[0],
+                tree_flatten(second["state"])[0]))
+            require(first["preempted"]
+                    and first["final_step"] == DRIVER_PREEMPT
+                    and second["final_step"] == DRIVER_STEPS,
+                    f"{arch}: preempted at {first['final_step']}, resumed "
+                    f"to {second['final_step']}")
+            require(same and losses == resumed,
+                    f"{arch}: the resumed run differs from the straight "
+                    "one")
+            require(losses[-1] < losses[0], f"{arch}: the loss did not "
+                    f"decrease: {losses[0]} -> {losses[-1]}")
+            out[arch] = {"steps": DRIVER_STEPS, "preempt_at": DRIVER_PREEMPT,
+                         "batch": DRIVER_BATCH, "seq": DRIVER_SEQ,
+                         "bit_identical": True, "loss_first": losses[0],
+                         "loss_last": losses[-1],
+                         "straight_s": straight_s,
+                         "median_step_s": sorted(
+                             m["dt"] for m in straight["metrics"])[
+                             DRIVER_STEPS // 2]}
+    finally:
+        torch.use_deterministic_algorithms(False)
+    print("lm train driver " + json.dumps(out))
+    return out
+
+
 def device_breakdown(prof, n: int):
     """(device busy us, top kernels [[name, ms per unit]]) of a profile
     over ``n`` units of work, summed by full kernel name (printed as
@@ -2597,7 +2950,10 @@ def device_breakdown(prof, n: int):
     import torch
     by_kernel = {}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        # a record_function range also shows as a device-side span
+        # (gpu_user_annotation): not a kernel, so not busy time
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and not getattr(e, "is_user_annotation", False):
             by_kernel[e.name] = (by_kernel.get(e.name, 0.0)
                                  + e.time_range.elapsed_us())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
@@ -2639,7 +2995,7 @@ def _sdpa(q, k, v):
                 "repeated")
 
 
-def time_flash(launches: dict, err: dict) -> list:
+def time_flash(launches: dict, err: dict, train: dict) -> list:
     """The flash kernels at qwen2-1.5b's prefill shape (one layer of the
     4 x 2048 prefill): the bf16 tensor-core kernel (the serving path),
     the 3xTF32 kernel in float32 (the float32 prefill's route) and its
@@ -2650,7 +3006,10 @@ def time_flash(launches: dict, err: dict) -> list:
     F.scaled_dot_product_attention (never called by the port) are timed
     as in ``queued_ms``, with per-call and profiler figures beside.  The
     TF32 kernel is timed on a split made once (``ms``), and with its
-    pre-pass (``route_ms``)."""
+    pre-pass (``route_ms``).  Each route is also timed writing the row
+    statistic (``ms_with_lse``, the training forward's call), beside its
+    launches in phase 8's five training steps (``train_launches``;
+    ``train``: phase 8's counts)."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import attention_ref, tf32_split_ref
@@ -2672,6 +3031,8 @@ def time_flash(launches: dict, err: dict) -> list:
         x = [t.to(dtype) for t in (q, k, v)]
         split = fa.tf32_split_cuda(x[1], x[2]) if route == "tf32" else None
         kern = lambda: fa._launch(route, *x, causal=True, split=split)
+        with_lse = lambda: fa._launch(route, *x, causal=True, split=split,
+                                      return_lse=True)
         lib, library = _sdpa(*x)
         # q, k, v read once, o written once
         nbytes = sum(t.numel() * t.element_size() for t in (x[0], *x))
@@ -2686,7 +3047,10 @@ def time_flash(launches: dict, err: dict) -> list:
             "source": src + sources[route] + ".cu",
             "replaces": "src/repro/kernels/flash_attention.py:94",
             "launches": launches[route], "max_abs_err": err[route],
+            "lse_max_abs_err": err["lse"][route],
+            "train_launches": train.get(fa.ROUTE_KERNELS[route], 0),
             "ms": queued_ms(kern, 20), "call_ms": call_ms(kern, 20),
+            "ms_with_lse": queued_ms(with_lse, 20),
             "profiler_ms": device_ms(kern, 20),
             "plain_ms": device_ms(lambda: attention_ref(*x, causal=True), 5),
             "bound_ms": max(bound_ops, bound_bytes),
@@ -2727,6 +3091,7 @@ def time_flash(launches: dict, err: dict) -> list:
                 "replaces": "src/repro/kernels/flash_attention.py:94",
                 "launches": launches["tf32_split"],
                 "max_abs_err": err["tf32_split"],
+                "train_launches": train.get(fa.SPLIT_KERNEL, 0),
                 "ms": queued_ms(one, 20), "call_ms": call_ms(one, 20),
                 "profiler_ms": device_ms(one, 20),
                 "plain_ms": device_ms(lambda: tf32_split_ref(x[1], x[2]), 5),
@@ -2900,6 +3265,8 @@ def main() -> None:
     ap.add_argument("--ab-child", nargs=2, metavar=("SRC", "LABEL"),
                     help=argparse.SUPPRESS)
     ap.add_argument("--steps", type=int, default=500)
+    ap.add_argument("--train-driver-child", action="store_true",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this needs a CUDA card")
@@ -2913,6 +3280,9 @@ def main() -> None:
         from repro_torch.kernels import _build
     except ImportError as e:
         fail(f"the port is not next to this script ({e})")
+    if args.train_driver_child:
+        train_driver_checks()
+        return
     if args.ab:
         run_ab(args.ab, args.steps)
         return
@@ -3102,7 +3472,13 @@ def main() -> None:
     # 7. the LM serving path (qwen2-1.5b, full width), then the flash
     # kernel's timing at its prefill shape (not counted as launches)
     lm = run_lm()
-    for k in time_flash(lm["launches"], flash_err):
+
+    # 8. LM training: qwen2-1.5b at full width through the flash kernel's
+    # forward (counts zeroed and read inside), then the train driver at
+    # reduced width (no kernel: the reduced configs' chunked attention)
+    train = run_train()
+    run_train_driver()
+    for k in time_flash(lm["launches"], flash_err, train["launches"]):
         print(f"timing {json.dumps(k)}")
         kernels.append(k)
     require("jax" not in sys.modules and not any(

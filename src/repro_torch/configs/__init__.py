@@ -1,18 +1,25 @@
 """Configurations of the port: the paper's SNN cases (``configs.snn``)
-and the LM architectures ported so far (``get_config``/``get_reduced``).
+and the LM architectures ported so far (``get_config``/``get_reduced``),
+with the shape cells each runs (``shape_cells``/``all_cells``).
 """
 
 from __future__ import annotations
 
-from ..models.config import ModelConfig
-from . import gemma_2b, qwen2_1_5b, snn
+from ..models.config import SHAPES, ModelConfig
+from . import gemma_2b, qwen2_1_5b, qwen2_5_3b, qwen3_8b, snn
 
 _MODULES = {
     "qwen2-1.5b": qwen2_1_5b,
+    "qwen3-8b": qwen3_8b,
     "gemma-2b": gemma_2b,
+    "qwen2.5-3b": qwen2_5_3b,
 }
 
 ARCH_NAMES = tuple(_MODULES)
+
+# sub-quadratic archs run the long_500k cell (none is ported yet); pure
+# full-attention archs skip it
+LONG_CONTEXT_ARCHS = ("recurrentgemma-9b", "falcon-mamba-7b")
 
 
 def _module(name: str):
@@ -33,3 +40,20 @@ def get_config(name: str) -> ModelConfig:
 def get_reduced(name: str) -> ModelConfig:
     """The reduced (test-size) configuration of a ported architecture."""
     return _module(name).reduced()
+
+
+def shape_cells(arch: str):
+    """The shape cells a ported architecture runs (the reference's
+    skips applied)."""
+    _module(arch)
+    cells = ["train_4k", "prefill_32k", "decode_32k"]
+    if arch in LONG_CONTEXT_ARCHS:
+        cells.append("long_500k")
+    return [SHAPES[c] for c in cells]
+
+
+def all_cells():
+    """Every (arch, shape) cell of the ported architectures."""
+    for a in ARCH_NAMES:
+        for s in shape_cells(a):
+            yield a, s

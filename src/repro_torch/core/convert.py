@@ -5,7 +5,8 @@ The counterpart of loading weights: ``tables_from_arrays``,
 reference's synapse tables (bfloat16 or float32 weights), simulation
 state and STDP auxiliaries as numpy arrays (``np.asarray`` of each leaf)
 and return the port's; ``model_params_from_arrays`` does the same for
-the parameters of an LM.  bfloat16 arrays (ml_dtypes' ``bfloat16``) are reinterpreted
+the parameters of an LM (and any tree of their structure: gradients,
+moments), ``adamw_state_from_arrays`` for AdamW's state.  bfloat16 arrays (ml_dtypes' ``bfloat16``) are reinterpreted
 bit for bit, so neither ml_dtypes nor jax is needed here.
 """
 
@@ -117,17 +118,21 @@ def plasticity_from_arrays(aux: dict, device="cuda") -> dict:
     }
 
 
-def model_params_from_arrays(cfg, tree: dict, device="cuda") -> dict:
+def model_params_from_arrays(cfg, tree: dict, device="cuda",
+                             dtype: Optional[str] = None) -> dict:
     """The port's LM parameters (``models.transformer`` layout) from the
     reference's parameter tree as numpy arrays
-    (``jax.tree.map(np.asarray, params)``), in ``cfg.dtype``.
+    (``jax.tree.map(np.asarray, params)``), in ``dtype`` (default
+    ``cfg.dtype``).  Any tree of the parameters' structure crosses the
+    same way: gradients (``jax.grad``'s), AdamW's ``m`` and ``v``
+    (``dtype="float32"``).
 
     The reference stacks the layers of pattern position ``pos`` in
     ``blocks[pos]`` with a leading period axis and keeps the remainder
     layers in ``rest``: period ``i`` of ``blocks[pos]`` is layer
     ``i * len(cfg.pattern) + pos``, and ``rest`` follows."""
     dev = resolve_device(device)
-    dtype = torch_dtype(cfg.dtype)
+    dtype = torch_dtype(dtype or cfg.dtype)
 
     def conv(node):
         if isinstance(node, dict):
@@ -152,3 +157,13 @@ def model_params_from_arrays(cfg, tree: dict, device="cuda") -> dict:
                          f"config has {cfg.n_layers}")
     return {"embed": conv(tree["embed"]), "ln_f": conv(tree["ln_f"]),
             "layers": [layers[i] for i in range(cfg.n_layers)]}
+
+
+def adamw_state_from_arrays(cfg, state: dict, device="cuda") -> dict:
+    """The port's AdamW state (``optim.adamw``) from the reference's, as
+    numpy arrays: ``m`` and ``v`` in the parameters' layout in float32,
+    ``step`` an int32 0-d tensor."""
+    dev = resolve_device(device)
+    return {"m": model_params_from_arrays(cfg, state["m"], dev, "float32"),
+            "v": model_params_from_arrays(cfg, state["v"], dev, "float32"),
+            "step": _tensor(state["step"], torch.int32, dev)}

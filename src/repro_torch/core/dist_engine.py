@@ -486,10 +486,12 @@ class _DistSim:
     members``'s tables."""
 
     def __init__(self, cfg: DistConfig, n_steps: int, record_rate: bool,
-                 recorder, storage: Optional[TableStorage], dev):
+                 recorder, storage: Optional[TableStorage], dev,
+                 recorder_copy: bool = True):
         e = cfg.engine
         self.cfg, self.e, self.n_steps = cfg, e, n_steps
         self.record_rate, self.recorder, self.dev = record_rate, recorder, dev
+        self.recorder_copy = recorder_copy
         self.spec = spec = e.spec()
         ty, tx = cfg.tiles
         self.n_tiles = ty * tx
@@ -722,6 +724,9 @@ class _DistSim:
         per_step = (out.t().reshape(lead + (n_steps,)).contiguous()
                     if self.record_rate else None)
         if self.recorder is not None:
+            if self.recorder_copy:
+                from ..obs.record import copy_recorder
+                rec_state = copy_recorder(rec_state)
             return state, per_step, rec_state
         return state, per_step
 
@@ -798,7 +803,7 @@ class _DistStepGraph(GraphLoop):
 
 def make_sim_fn(cfg: DistConfig, n_steps: int, record_rate: bool = True,
                 recorder=None, storage: Optional[TableStorage] = None,
-                device="cuda"):
+                device="cuda", recorder_copy: bool = True):
     """The multi-shard simulation function of ``n_steps`` steps.
 
     Returns ``sim(state, inputs) -> (state, per_step (TY, TX, n_steps)
@@ -812,9 +817,13 @@ def make_sim_fn(cfg: DistConfig, n_steps: int, record_rate: bool = True,
     ``recorder``: an ``obs.record.RecorderSpec``; ``inputs.gids`` must
     then hold ``stacked_gid_maps`` and the return grows each tile's
     ``(step, gid)`` event buffer, ``count`` and ``dropped``, stacked on
-    ``(TY, TX)``.  Recording is a pure observer.  The buffers are the
-    sim's resident recorder, zeroed in place at the start of every
-    call: a caller reads (or copies) them before its next call.
+    ``(TY, TX)``.  Recording is a pure observer.  The steps append to
+    the sim's resident recorder, zeroed in place at the start of every
+    call, and the call returns a copy of it (``obs.record.
+    copy_recorder``, after the run, outside any graph).  With
+    ``recorder_copy=False`` it returns the resident buffers themselves,
+    which the next call overwrites: only for a caller that drains them
+    first (``runtime.SimDriver``).
 
     Ensembles (``cfg.ensemble_seeds``, M members): the state leads with
     ``(TY, TX, M)`` (``init_dist_state``), ``per_step`` is ``(TY, TX, M,
@@ -835,7 +844,7 @@ def make_sim_fn(cfg: DistConfig, n_steps: int, record_rate: bool = True,
     steps, then steps an eager tail (``engine.GraphLoop``); plastic and
     shorter runs step eagerly."""
     return _DistSim(cfg, n_steps, record_rate, recorder, storage,
-                    resolve_device(device))
+                    resolve_device(device), recorder_copy)
 
 
 def simulate(cfg: DistConfig, n_steps: int, timed: bool = False,

@@ -460,9 +460,11 @@ def simulate(state: dict, tables, cfg: EngineConfig, n_steps: int,
       - ``recorder``: an ``obs.record.RecorderSpec`` (static runs only);
         every spike is also appended as a ``(sim_step, global_neuron_id)``
         event to a bounded buffer, and the return becomes ``(state, out,
-        recorder_state)``.  Recording is a pure observer.  The buffer is
-        resident (``obs.record.resident_recorder``): the next call with
-        the same spec zeroes and refills it.
+        recorder_state)``.  Recording is a pure observer.  The steps
+        append to a resident buffer (``obs.record.resident_recorder``),
+        which the next call with the same spec zeroes and refills; the
+        call returns a copy of it (``obs.record.copy_recorder``), made
+        after the run, outside any captured graph.
       - ``plasticity=init_plasticity(tables, cfg)``: STDP each step;
         returns ``((state, tables, traces), per_step_spike_counts)``.
         The local tier's weights are cloned once on entry, so the
@@ -552,7 +554,10 @@ def simulate(state: dict, tables, cfg: EngineConfig, n_steps: int,
     else:
         out = out.transpose(0, 1).contiguous()
         rec = loop.rec
-    return (fin, out) if rec is None else (fin, out, rec)
+    if rec is None:
+        return fin, out
+    from ..obs.record import copy_recorder
+    return fin, out, copy_recorder(rec)
 
 
 def bind_tier_structures(tiers: list, spec, d_ring: int) -> None:

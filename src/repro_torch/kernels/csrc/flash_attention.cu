@@ -26,6 +26,10 @@
 // masked scores NEG_INF = -1e30 and p = 0 on masked pairs, m/l/acc in
 // f32, output acc / l where l > 0 and 0 where a row saw no key, rounded
 // to q's dtype.  GQA: query head bh reads kv head bh / (BH / BH_kv).
+// With an lse pointer the epilogue also writes each row's statistic
+// L = m + log l (float32, +1e30 where a row saw no key), the residual of
+// the training backward (models/attention.py: _Flash), from the m and l
+// it already holds: one float per row, no second pass.
 //
 // Bound: the live (q, k) pairs cost 4 D flops each (QK^T and PV); at
 // qwen2-1.5b's prefill (BH 48, S 2048, D 128) that is 5.2e10 flops per
@@ -100,8 +104,9 @@ __device__ void stage(float* dst, int ld, const T* src, int row0, int n) {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, T* __restrict__ o, int sq, int sk, int group,
-    int causal, int has_window, int window, int q_offset, float scale) {
+    const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+    int sq, int sk, int group, int causal, int has_window, int window,
+    int q_offset, float scale) {
   constexpr int kQStride = D;
   constexpr int kKStride = D + 4;
   constexpr int kVStride = D;
@@ -280,6 +285,9 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
     if (!rvalid[i]) continue;
     T* orow = o + ((size_t)bh * sq + w_row0 + rg + 4 * i) * D;
     const bool seen = l[i] > 0.f;
+    if (lse != nullptr && kg == 0)
+      lse[(size_t)bh * sq + w_row0 + rg + 4 * i] =
+          seen ? m[i] + logf(l[i]) : -kNegInf;
 #pragma unroll
     for (int ch = 0; ch < kChunks; ++ch)
 #pragma unroll
@@ -291,9 +299,9 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int bh,
-           int sq, int sk, int group, int causal, int has_window, int window,
-           int q_offset, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int bh, int sq, int sk, int group, int causal, int has_window,
+           int window, int q_offset, float scale, cudaStream_t stream) {
   const int smem = smem_floats<D>() * (int)sizeof(float);
   auto kern = flash_attention_kernel<T, D>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -301,33 +309,34 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(bh, (sq + kRows - 1) / kRows);
   kern<<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, sq, sk, group, causal,
-      has_window, window, q_offset, scale);
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, sq, sk, group,
+      causal, has_window, window, q_offset, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch(int d, const void* q, const void* k, const void* v, void* o,
-             int bh, int sq, int sk, int group, int causal, int has_window,
-             int window, int q_offset, float scale, cudaStream_t stream) {
+             float* lse, int bh, int sq, int sk, int group, int causal,
+             int has_window, int window, int q_offset, float scale,
+             cudaStream_t stream) {
   switch (d) {
     case 8:
-      return launch<T, 8>(q, k, v, o, bh, sq, sk, group, causal, has_window,
-                          window, q_offset, scale, stream);
+      return launch<T, 8>(q, k, v, o, lse, bh, sq, sk, group, causal,
+                          has_window, window, q_offset, scale, stream);
     case 16:
-      return launch<T, 16>(q, k, v, o, bh, sq, sk, group, causal, has_window,
-                           window, q_offset, scale, stream);
+      return launch<T, 16>(q, k, v, o, lse, bh, sq, sk, group, causal,
+                           has_window, window, q_offset, scale, stream);
     case 32:
-      return launch<T, 32>(q, k, v, o, bh, sq, sk, group, causal, has_window,
-                           window, q_offset, scale, stream);
+      return launch<T, 32>(q, k, v, o, lse, bh, sq, sk, group, causal,
+                           has_window, window, q_offset, scale, stream);
     case 64:
-      return launch<T, 64>(q, k, v, o, bh, sq, sk, group, causal, has_window,
-                           window, q_offset, scale, stream);
+      return launch<T, 64>(q, k, v, o, lse, bh, sq, sk, group, causal,
+                           has_window, window, q_offset, scale, stream);
     case 128:
-      return launch<T, 128>(q, k, v, o, bh, sq, sk, group, causal,
+      return launch<T, 128>(q, k, v, o, lse, bh, sq, sk, group, causal,
                             has_window, window, q_offset, scale, stream);
     case 256:
-      return launch<T, 256>(q, k, v, o, bh, sq, sk, group, causal,
+      return launch<T, 256>(q, k, v, o, lse, bh, sq, sk, group, causal,
                             has_window, window, q_offset, scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
@@ -337,9 +346,11 @@ int dispatch(int d, const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // q: (bh, sq, d); k, v: (bh_kv, sk, d); o: (bh, sq, d); all contiguous,
-// 16-byte aligned, float32 (is_bf16 = 0) or bfloat16 (is_bf16 = 1).
+// 16-byte aligned, float32 (is_bf16 = 0) or bfloat16 (is_bf16 = 1);
+// lse: (bh, sq) float32, or null for no row statistic.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int bh,
+                                      const void* v, void* o, void* lse,
+                                      int bh,
                                       int bh_kv, int sq, int sk, int d,
                                       int is_bf16, int causal,
                                       int has_window, int window,
@@ -352,8 +363,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   const int group = bh / bh_kv;
   cudaStream_t st = (cudaStream_t)stream;
   if (is_bf16)
-    return dispatch<__nv_bfloat16>(d, q, k, v, o, bh, sq, sk, group, causal,
-                                   has_window, window, q_offset, scale, st);
-  return dispatch<float>(d, q, k, v, o, bh, sq, sk, group, causal,
-                         has_window, window, q_offset, scale, st);
+    return dispatch<__nv_bfloat16>(d, q, k, v, o, (float*)lse, bh, sq, sk,
+                                   group, causal, has_window, window,
+                                   q_offset, scale, st);
+  return dispatch<float>(d, q, k, v, o, (float*)lse, bh, sq, sk, group,
+                         causal, has_window, window, q_offset, scale, st);
 }

@@ -37,7 +37,11 @@
 //     a second wgmma against V in shared memory (MN-major, transposed
 //     B); O stays in f32 registers;
 //   * the epilogue writes acc / l rounded to bf16, and 0 for rows whose
-//     l is 0 (every key masked).
+//     l is 0 (every key masked); with an lse pointer it also writes each
+//     row's statistic L = m + log l in natural units (m ln 2 + ln l from
+//     the base-2 m it holds; +1e30 where l is 0), the residual of the
+//     training backward (models/attention.py: _Flash): one float per
+//     row from the lane that holds column 0 of it, no second pass.
 //
 // Arithmetic against _kernel (f32 QK^T and PV from widened inputs):
 // bf16 x bf16 products are exact in f32, so S differs only in summation
@@ -68,6 +72,7 @@ constexpr int kThreads = 256;
 constexpr int kPanel = 64;    // bf16 columns in one 128-byte swizzled row
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int D>
 struct Cfg {
@@ -363,8 +368,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_sm90_kernel(
     const __grid_constant__ CUtensorMap q_map,
     const __grid_constant__ CUtensorMap k_map,
     const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ o,
-    int sq, int sk, int group, int causal, int has_window, int window,
-    int q_offset, float scale_log2) {
+    float* __restrict__ lse, int sq, int sk, int group, int causal,
+    int has_window, int window, int q_offset, float scale_log2) {
   using C = Cfg<D>;
   constexpr int kKeys = C::kKeys;
   constexpr int kPanels = C::kPanels;
@@ -413,6 +418,9 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_sm90_kernel(
         reinterpret_cast<__nv_bfloat162*>(o + ((size_t)bh * sq + q0) * D);
     const __nv_bfloat162 zero = __floats2bfloat162_rn(0.f, 0.f);
     for (int i = tid; i < rows * D / 2; i += kThreads) out[i] = zero;
+    if (lse != nullptr)
+      for (int i = tid; i < rows; i += kThreads)
+        lse[(size_t)bh * sq + q0 + i] = -kNegInf;
     return;
   }
 
@@ -569,11 +577,15 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_sm90_kernel(
     mbar_arrive(empty_bar(s));
   }
 
-  // epilogue: l summed over the 4 lanes of a row, acc / l in bf16
+  // epilogue: l summed over the 4 lanes of a row, the row statistic,
+  // acc / l in bf16
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    if (lse != nullptr && rvalid[h] && (lane & 3) == 0)
+      lse[(size_t)bh * sq + w_row0 + r_in + 8 * h] =
+          l[h] > 0.f ? m[h] * kLn2 + logf(l[h]) : -kNegInf;
     l[h] = l[h] > 0.f ? 1.f / l[h] : 0.f;
   }
 #pragma unroll
@@ -637,9 +649,10 @@ int make_map(CUtensorMap* map, const void* ptr, int d, int rows, int heads,
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int bh,
-           int bh_kv, int sq, int sk, int group, int causal, int has_window,
-           int window, int q_offset, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int bh, int bh_kv, int sq, int sk, int group, int causal,
+           int has_window, int window, int q_offset, float scale,
+           cudaStream_t stream) {
   using C = Cfg<D>;
   CUtensorMap qm, km, vm;
   int err = make_map(&qm, q, D, sq, bh, kRows);
@@ -655,18 +668,20 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh,
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((sq + kRows - 1) / kRows, bh);
   kern<<<grid, kThreads, C::kSmem, stream>>>(
-      qm, km, vm, (__nv_bfloat16*)o, sq, sk, group, causal, has_window,
-      window, q_offset, scale * kLog2e);
+      qm, km, vm, (__nv_bfloat16*)o, lse, sq, sk, group, causal,
+      has_window, window, q_offset, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q: (bh, sq, d); k, v: (bh_kv, sk, d); o: (bh, sq, d); all contiguous,
-// 16-byte aligned bfloat16, d in {64, 128, 256}.
+// 16-byte aligned bfloat16, d in {64, 128, 256}; lse: (bh, sq) float32,
+// or null for no row statistic.
 extern "C" int flash_attention_sm90_launch(const void* q, const void* k,
-                                           const void* v, void* o, int bh,
-                                           int bh_kv, int sq, int sk, int d,
+                                           const void* v, void* o,
+                                           void* lse, int bh, int bh_kv,
+                                           int sq, int sk, int d,
                                            int causal, int has_window,
                                            int window, int q_offset,
                                            float scale, void* stream) {
@@ -676,15 +691,16 @@ extern "C" int flash_attention_sm90_launch(const void* q, const void* k,
   if (bh == 0 || sq == 0) return 0;
   const int group = bh / bh_kv;
   cudaStream_t st = (cudaStream_t)stream;
+  float* l = (float*)lse;
   switch (d) {
     case 64:
-      return launch<64>(q, k, v, o, bh, bh_kv, sq, sk, group, causal,
+      return launch<64>(q, k, v, o, l, bh, bh_kv, sq, sk, group, causal,
                         has_window, window, q_offset, scale, st);
     case 128:
-      return launch<128>(q, k, v, o, bh, bh_kv, sq, sk, group, causal,
+      return launch<128>(q, k, v, o, l, bh, bh_kv, sq, sk, group, causal,
                          has_window, window, q_offset, scale, st);
     case 256:
-      return launch<256>(q, k, v, o, bh, bh_kv, sq, sk, group, causal,
+      return launch<256>(q, k, v, o, l, bh, bh_kv, sq, sk, group, causal,
                          has_window, window, q_offset, scale, st);
     default:
       return (int)cudaErrorInvalidValue;

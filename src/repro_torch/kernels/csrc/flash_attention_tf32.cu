@@ -50,7 +50,11 @@
 //     than shuffle, P's key 2t goes to slot t and key 2t + 1 to slot
 //     t + 4, and the pre-pass stores V^T's keys in that same order
 //     (key_order): a permutation of P V's summation index;
-//   * the epilogue writes acc / l as f32, and 0 for rows whose l is 0.
+//   * the epilogue writes acc / l as f32, and 0 for rows whose l is 0;
+//     with an lse pointer it also writes each row's statistic
+//     L = m + log l in natural units (m ln 2 + ln l; +1e30 where l is 0),
+//     the residual of the training backward (models/attention.py:
+//     _Flash), one float per row, no second pass.
 //
 // Shared memory (one stage of K and of V; hi and lo double each operand):
 //
@@ -76,6 +80,7 @@ namespace {
 constexpr int kPanel = 32;    // f32 columns in one 128-byte swizzled row
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 // V^T's key order within each group of 8 keys: slot j holds key
 // key_order(j) = 0, 2, 4, 6, 1, 3, 5, 7 (ref.py: TF32_KEY_ORDER)
 __host__ __device__ constexpr int key_order(int j) {
@@ -423,7 +428,8 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
     flash_attention_tf32_kernel(const __grid_constant__ CUtensorMap q_map,
                                 const __grid_constant__ CUtensorMap k_map,
                                 const __grid_constant__ CUtensorMap v_map,
-                                float* __restrict__ o, int sq, int sk,
+                                float* __restrict__ o,
+                                float* __restrict__ lse, int sq, int sk,
                                 int bh_kv, int group, int causal,
                                 int has_window, int window, int q_offset,
                                 float scale_log2) {
@@ -469,6 +475,9 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
     float4* out = reinterpret_cast<float4*>(o + ((size_t)bh * sq + q0) * D);
     for (int i = tid; i < rows * D / 4; i += C::kThreads)
       out[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (lse != nullptr)
+      for (int i = tid; i < rows; i += C::kThreads)
+        lse[(size_t)bh * sq + q0 + i] = -kNegInf;
     return;
   }
 
@@ -674,11 +683,15 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
     mbar_arrive(v_empty);
   }
 
-  // epilogue: l summed over the 4 lanes of a row, acc / l in f32
+  // epilogue: l summed over the 4 lanes of a row, the row statistic,
+  // acc / l in f32
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    if (lse != nullptr && rvalid[h] && (lane & 3) == 0)
+      lse[(size_t)bh * sq + w_row0 + r_in + 8 * h] =
+          l[h] > 0.f ? m[h] * kLn2 + logf(l[h]) : -kNegInf;
     l[h] = l[h] > 0.f ? 1.f / l[h] : 0.f;
   }
 #pragma unroll
@@ -820,9 +833,9 @@ int make_map(CUtensorMap* map, const void* ptr, int cols, int rows,
 
 template <int D>
 int launch(const void* q, const void* k_split, const void* vt_split, void* o,
-           int bh, int bh_kv, int sq, int sk, int sk_pad, int group,
-           int causal, int has_window, int window, int q_offset, float scale,
-           cudaStream_t stream) {
+           float* lse, int bh, int bh_kv, int sq, int sk, int sk_pad,
+           int group, int causal, int has_window, int window, int q_offset,
+           float scale, cudaStream_t stream) {
   using C = Cfg<D>;
   CUtensorMap qm, km, vm;
   int err = make_map(&qm, q, D, sq, bh, kPanel, C::kRows);
@@ -837,8 +850,8 @@ int launch(const void* q, const void* k_split, const void* vt_split, void* o,
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((sq + C::kRows - 1) / C::kRows, bh);
   kern<<<grid, C::kThreads, C::kSmem, stream>>>(
-      qm, km, vm, (float*)o, sq, sk, bh_kv, group, causal, has_window,
-      window, q_offset, scale * kLog2e);
+      qm, km, vm, (float*)o, lse, sq, sk, bh_kv, group, causal,
+      has_window, window, q_offset, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
@@ -847,12 +860,14 @@ int launch(const void* q, const void* k_split, const void* vt_split, void* o,
 // q: (bh, sq, d) float32; k_split: (2, bh_kv, sk_pad, d) and vt_split:
 // (2, bh_kv, d, sk_pad), tf32_split_launch's output; o: (bh, sq, d)
 // float32; all contiguous and 16-byte aligned, d in {64, 128, 256},
-// sk_pad a positive multiple of 64 and >= sk.
+// sk_pad a positive multiple of 64 and >= sk; lse: (bh, sq) float32, or
+// null for no row statistic.
 extern "C" int flash_attention_tf32_launch(const void* q, const void* k_split,
                                            const void* vt_split, void* o,
-                                           int bh, int bh_kv, int sq, int sk,
-                                           int sk_pad, int d, int causal,
-                                           int has_window, int window,
+                                           void* lse, int bh, int bh_kv,
+                                           int sq, int sk, int sk_pad, int d,
+                                           int causal, int has_window,
+                                           int window,
                                            int q_offset, float scale,
                                            void* stream) {
   if (bh < 0 || bh_kv <= 0 || bh % bh_kv != 0 || sq < 0 || sk < 0 ||
@@ -862,19 +877,20 @@ extern "C" int flash_attention_tf32_launch(const void* q, const void* k_split,
   if (bh == 0 || sq == 0) return 0;
   const int group = bh / bh_kv;
   cudaStream_t st = (cudaStream_t)stream;
+  float* l = (float*)lse;
   switch (d) {
     case 64:
-      return launch<64>(q, k_split, vt_split, o, bh, bh_kv, sq, sk, sk_pad,
-                        group, causal, has_window, window, q_offset, scale,
-                        st);
+      return launch<64>(q, k_split, vt_split, o, l, bh, bh_kv, sq, sk,
+                        sk_pad, group, causal, has_window, window, q_offset,
+                        scale, st);
     case 128:
-      return launch<128>(q, k_split, vt_split, o, bh, bh_kv, sq, sk, sk_pad,
-                         group, causal, has_window, window, q_offset, scale,
-                         st);
+      return launch<128>(q, k_split, vt_split, o, l, bh, bh_kv, sq, sk,
+                         sk_pad, group, causal, has_window, window, q_offset,
+                         scale, st);
     case 256:
-      return launch<256>(q, k_split, vt_split, o, bh, bh_kv, sq, sk, sk_pad,
-                         group, causal, has_window, window, q_offset, scale,
-                         st);
+      return launch<256>(q, k_split, vt_split, o, l, bh, bh_kv, sq, sk,
+                         sk_pad, group, causal, has_window, window, q_offset,
+                         scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

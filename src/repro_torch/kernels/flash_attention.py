@@ -32,6 +32,12 @@ They take q ``(BH, Sq, D)`` and k, v ``(BH_kv, Sk, D)`` with ``BH %
 BH_kv == 0`` (GQA: query head ``bh`` reads kv head ``bh // (BH //
 BH_kv)``), all contiguous, float32 or bfloat16, D in ``HEAD_DIMS``; the
 output is ``(BH, Sq, D)`` in q's dtype and fully masked rows are 0.
+With ``return_lse`` each kernel also writes every row's statistic
+``L = m + log l`` (float32 ``(BH, Sq)`` in natural units, ``+1e30`` on
+a fully masked row), the residual of the training backward
+(``models.attention._Flash``), from the m and l its epilogue already
+holds: one float per row and no second pass.  Without it the kernels
+write no statistic, and serving launches what it launched before.
 
 The wrapper launches a kernel for CUDA tensors and takes the plain
 version (``ref.attention_ref``) for CPU tensors.
@@ -87,7 +93,7 @@ def _tf32_lib():
     lib = _build.library("flash_attention_tf32")
     if lib.flash_attention_tf32_launch.argtypes is None:
         lib.flash_attention_tf32_launch.argtypes = \
-            [_P] * 4 + [_I] * 10 + [_F, _P]
+            [_P] * 5 + [_I] * 10 + [_F, _P]
         lib.flash_attention_tf32_launch.restype = _I
         lib.tf32_split_launch.argtypes = [_P] * 4 + [_I] * 4 + [_P]
         lib.tf32_split_launch.restype = _I
@@ -103,12 +109,12 @@ def _launcher(route: str):
         fn = _build.library("flash_attention_sm90") \
             .flash_attention_sm90_launch
         if fn.argtypes is None:
-            fn.argtypes = [_P] * 4 + [_I] * 9 + [_F, _P]
+            fn.argtypes = [_P] * 5 + [_I] * 9 + [_F, _P]
             fn.restype = _I
         return fn
     fn = _build.library("flash_attention").flash_attention_launch
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 4 + [_I] * 10 + [_F, _P]
+        fn.argtypes = [_P] * 5 + [_I] * 10 + [_F, _P]
         fn.restype = _I
     return fn
 
@@ -202,23 +208,26 @@ def tf32_fragment_errors(layout: torch.Tensor) -> int:
 def flash_attention_cuda(q, k, v, *, causal: bool = True,
                          window: Optional[int] = None,
                          scale: Optional[float] = None,
-                         q_offset: int = 0) -> torch.Tensor:
+                         q_offset: int = 0, return_lse: bool = False):
     """Launch the kernel of ``_route(q.dtype, D)``.  Returns a new (BH,
-    Sq, D) tensor."""
+    Sq, D) tensor, and with ``return_lse`` also the rows' ``(BH, Sq)``
+    float32 statistic."""
     _check(q, k, v, q_offset)
     return _launch(_route(q.dtype, q.shape[2]), q, k, v, causal=causal,
-                   window=window, scale=scale, q_offset=q_offset)
+                   window=window, scale=scale, q_offset=q_offset,
+                   return_lse=return_lse)
 
 
 def _launch(route: str, q, k, v, *, causal: bool = True,
             window: Optional[int] = None, scale: Optional[float] = None,
-            q_offset: int = 0, split=None) -> torch.Tensor:
+            q_offset: int = 0, split=None, return_lse: bool = False):
     """Launch the kernel of ``route`` on checked inputs.  The CUDA-core
     kernel takes every case; chip_smoke.py times it beside the
     tensor-core kernels at their shapes through this function.
     ``split``: the TF32 route's pre-pass output for these k, v
     (``tf32_split_cuda``), made here when None; chip_smoke.py passes it
-    to time the attention kernel on its own."""
+    to time the attention kernel on its own.  ``return_lse``: also write
+    and return the rows' statistic (see the module docstring)."""
     if q.device.type != "cuda":
         raise ValueError("flash_attention_cuda takes CUDA tensors")
     for x in (q, k, v):
@@ -232,6 +241,9 @@ def _launch(route: str, q, k, v, *, causal: bool = True,
     bh_kv, sk, _ = k.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     out = torch.empty_like(q)
+    lse = (torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    lse_ptr = None if lse is None else lse.data_ptr()
     mask = (int(bool(causal)), int(window is not None), int(window or 0),
             int(q_offset))
     if route == "tf32":
@@ -251,31 +263,36 @@ def _launch(route: str, q, k, v, *, causal: bool = True,
                              "these k, v")
         err = _launcher(route)(
             q.data_ptr(), k_split.data_ptr(), vt_split.data_ptr(),
-            out.data_ptr(), bh, bh_kv, sq, sk, k_split.shape[2], d, *mask,
+            out.data_ptr(), lse_ptr, bh, bh_kv, sq, sk, k_split.shape[2], d,
+            *mask,
             float(scale), _build.stream_ptr(q))
     elif route == "sm90":
         err = _launcher(route)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh,
-            bh_kv, sq, sk, d, *mask, float(scale), _build.stream_ptr(q))
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse_ptr, bh, bh_kv, sq, sk, d, *mask, float(scale),
+            _build.stream_ptr(q))
     else:
         err = _launcher(route)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh,
-            bh_kv, sq, sk, d, int(q.dtype == torch.bfloat16), *mask,
-            float(scale), _build.stream_ptr(q))
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse_ptr, bh, bh_kv, sq, sk, d, int(q.dtype == torch.bfloat16),
+            *mask, float(scale), _build.stream_ptr(q))
     _build.check(err, ROUTE_KERNELS[route])
     _build.count_launch(ROUTE_KERNELS[route])
-    return out
+    return out if lse is None else (out, lse)
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None,
                     scale: Optional[float] = None,
-                    q_offset: int = 0) -> torch.Tensor:
-    """Masked GQA attention (see the module docstring).  CUDA tensors
-    launch the kernel, CPU tensors take the plain version."""
+                    q_offset: int = 0, return_lse: bool = False):
+    """Masked GQA attention (see the module docstring); with
+    ``return_lse``, ``(out, lse)``.  CUDA tensors launch the kernel, CPU
+    tensors take the plain version."""
     if _build.on_cuda(q):
         return flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                    scale=scale, q_offset=q_offset)
+                                    scale=scale, q_offset=q_offset,
+                                    return_lse=return_lse)
     _check(q, k, v, q_offset)
     return attention_ref(q, k, v, causal=causal, window=window,
-                         scale=scale, q_offset=q_offset)
+                         scale=scale, q_offset=q_offset,
+                         return_lse=return_lse)

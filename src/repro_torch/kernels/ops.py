@@ -78,9 +78,12 @@ def spike_compact(spikes, n_rows: int, active_cap: int):
 
 
 def attention(q, k, v, *, causal: bool = True, window=None, scale=None,
-              q_offset: int = 0):
+              q_offset: int = 0, return_lse: bool = False):
     """Masked multi-head attention with GQA: q (BH, Sq, D), k, v
     (BH_kv, Sk, D), BH % BH_kv == 0.  Returns (BH, Sq, D) in q's dtype;
-    rows that see no key are 0."""
+    rows that see no key are 0.  ``return_lse``: also the rows' float32
+    ``(BH, Sq)`` statistic ``m + log l`` (+1e30 on a row that saw no
+    key), the training backward's residual."""
     return flash_attention(q, k, v, causal=causal, window=window,
-                           scale=scale, q_offset=q_offset)
+                           scale=scale, q_offset=q_offset,
+                           return_lse=return_lse)

@@ -255,7 +255,7 @@ def plastic_delivery_ltd_ref(tables: dict, spikes_src, active_cap: int,
 # ---------------------------------------------------------------------------
 
 def attention_ref(q, k, v, *, causal=True, window=None, scale=None,
-                  q_offset: int = 0):
+                  q_offset: int = 0, return_lse: bool = False):
     """Masked multi-head attention, the plain version of the flash kernel.
 
     q: (BH, Sq, D); k, v: (BH_kv, Sk, D) with BH % BH_kv == 0 (GQA:
@@ -263,7 +263,10 @@ def attention_ref(q, k, v, *, causal=True, window=None, scale=None,
     repeated, the scores are a float32 einsum, masked with ``-inf``
     (``window``: keys with ``q_pos - k_pos >= window`` are masked;
     ``q_offset``: the absolute position of ``q[:, 0]``), softmaxed, and
-    fully masked rows give 0.  Returns (BH, Sq, D) in q's dtype.
+    fully masked rows give 0.  Returns (BH, Sq, D) in q's dtype; with
+    ``return_lse`` also each row's statistic ``L = logsumexp`` of its
+    scaled, masked scores, ``(BH, Sq)`` float32, ``+1e30`` on a fully
+    masked row (as the reference's ``_flash_fwd_impl`` writes it).
     """
     bh, sq, d = q.shape
     bh_kv, sk = k.shape[0], k.shape[1]
@@ -283,8 +286,12 @@ def attention_ref(q, k, v, *, causal=True, window=None, scale=None,
     s = s.masked_fill(~mask[None], float("-inf"))
     p = torch.softmax(s, dim=-1)
     p = torch.where(torch.isnan(p), torch.zeros_like(p), p)
-    return torch.einsum("bqk,bkd->bqd", p,
-                        vv.to(torch.float32)).to(q.dtype)
+    out = torch.einsum("bqk,bkd->bqd", p, vv.to(torch.float32)).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.logsumexp(s, dim=-1)
+    return out, torch.where(mask.any(-1)[None], lse,
+                            torch.full_like(lse, 1e30))
 
 
 # ---------------------------------------------------------------------------

@@ -244,7 +244,7 @@ class SimJobServer:
             "totals": driver.metric_totals(state),
             "n_synapses": int(driver.table_stats["n_synapses"]),
             "members": driver.n_members,
-            "compiled_steps": self.compiled_steps(),
+            "compiled_steps": driver.compiled_step_cache_size(),
             "server_compiled_steps": self.compiled_steps(),
             "captures": driver.captures(),
             "wall": wall,

@@ -3,6 +3,11 @@
 version or the chunked online softmax, and decode over a KV cache
 (ring-buffered for sliding windows).
 
+Training goes through ``_Flash``, the counterpart of the reference's
+flash ``custom_vjp``: its forward is the flash kernel (``"pallas"``) or
+the plain chunked forward (``"chunked"``), both with the row statistic
+``L = m + log l``, and its backward the plain chunked flash backward.
+
 Layouts are the reference's: activations (B, S, H, D), caches
 (B, S_cache, Kv, D), projections ``wq`` (d, H, D), ``wk``/``wv``
 (d, Kv, D), ``wo`` (H, D, d).  GQA never repeats KV: the query heads of
@@ -26,6 +31,7 @@ import math
 from typing import Optional
 
 import torch
+from torch.profiler import record_function
 
 from .. import resolve_device
 from ..kernels import ops, ref
@@ -100,45 +106,53 @@ def _chunk_mask(q_pos, k_pos, k_valid, causal, window):
     return mask
 
 
-def chunked_attention(q, k, v, *, causal, window, scale, q_offset=0,
-                      chunk_q=1024, chunk_k=1024, k_valid=None):
-    """Online-softmax attention over (chunk_q, chunk_k) score blocks, the
-    forward of the reference's chunked path in plain PyTorch (its
-    flash-style backward comes with training).
+def _live(q_first: int, q_last: int, k_first: int, k_last: int, k_valid,
+          causal, window) -> bool:
+    """Whether any (q, k) pair of a chunk pair can be unmasked (the flash
+    kernel's liveness test).  A dead pair adds exactly nothing to any
+    accumulator, so skipping it changes no value."""
+    if k_first >= k_valid:
+        return False
+    if causal and k_first > q_last:
+        return False
+    return not (window is not None and q_first - k_last >= window)
 
-    q: (B, Sq, H, D); k, v: (B, Sk, Kv, D).  Matches the flash kernel and
-    ``kernels.ref.attention_ref``.
-    """
-    b, sq, h, dh = q.shape
-    sk, kvh = k.shape[1], k.shape[2]
-    chunk_q = min(chunk_q, sq)
-    chunk_k = min(chunk_k, sk)
-    pad_q, pad_k = -sq % chunk_q, -sk % chunk_k
-    if pad_q:
-        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pad_q))
-    if pad_k:
-        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad_k))
-        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad_k))
-    k_valid = sk if k_valid is None else k_valid
-    dev = q.device
-    f32 = torch.float32
 
-    qg = _grouped(q, kvh)                        # (B, Kv, g, Sq', D)
-    kg = k.permute(0, 2, 1, 3).to(f32)           # (B, Kv, Sk', D)
-    vg = v.permute(0, 2, 1, 3).to(f32)
-    g = qg.shape[2]
-    chunks = []
-    for qi in range((sq + pad_q) // chunk_q):
-        qc = qg[:, :, :, qi * chunk_q:(qi + 1) * chunk_q].to(f32)
-        q_pos = q_offset + qi * chunk_q + torch.arange(chunk_q, device=dev)
-        m = torch.full((b, kvh, g, chunk_q, 1), NEG_INF, dtype=f32,
-                       device=dev)
-        l = torch.zeros((b, kvh, g, chunk_q, 1), dtype=f32, device=dev)
-        acc = torch.zeros((b, kvh, g, chunk_q, dh), dtype=f32, device=dev)
-        for ki in range((sk + pad_k) // chunk_k):
-            kc = kg[:, :, ki * chunk_k:(ki + 1) * chunk_k]
-            vc = vg[:, :, ki * chunk_k:(ki + 1) * chunk_k]
-            k_pos = ki * chunk_k + torch.arange(chunk_k, device=dev)
+def _pad_to(x, dim: int, multiple: int, value: float = 0.0):
+    pad = -x.shape[dim] % multiple
+    if not pad:
+        return x
+    widths = [0, 0] * (x.dim() - 1 - dim) + [0, pad]
+    return torch.nn.functional.pad(x, widths, value=value)
+
+
+def _flash_fwd_impl(qg, kg, vg, cfgt):
+    """The chunked online-softmax forward.  qg: (B, Kv, G, Sq, D); kg,
+    vg: (B, Kv, Sk, D), padded to whole chunks.  Returns (out in q's
+    dtype, L) with ``L = m + log l`` the (B, Kv, G, Sq) row statistic
+    (``+1e30`` on a row that saw no key), in float32 (float64 for
+    float64 inputs)."""
+    causal, window, scale, q_offset, cq, ck, k_valid = cfgt
+    b, kvh, g, sq, dh = qg.shape
+    sk = kg.shape[2]
+    dev = qg.device
+    acc_t = torch.promote_types(qg.dtype, torch.float32)
+    kf, vf = kg.to(acc_t), vg.to(acc_t)
+    chunks, lses = [], []
+    for qi in range(sq // cq):
+        qc = qg[:, :, :, qi * cq:(qi + 1) * cq].to(acc_t)
+        q_first = q_offset + qi * cq
+        q_pos = q_first + torch.arange(cq, device=dev)
+        m = torch.full((b, kvh, g, cq, 1), NEG_INF, dtype=acc_t, device=dev)
+        l = torch.zeros((b, kvh, g, cq, 1), dtype=acc_t, device=dev)
+        acc = torch.zeros((b, kvh, g, cq, dh), dtype=acc_t, device=dev)
+        for ki in range(sk // ck):
+            if not _live(q_first, q_first + cq - 1, ki * ck,
+                         (ki + 1) * ck - 1, k_valid, causal, window):
+                continue
+            kc = kf[:, :, ki * ck:(ki + 1) * ck]
+            vc = vf[:, :, ki * ck:(ki + 1) * ck]
+            k_pos = ki * ck + torch.arange(ck, device=dev)
             s = torch.einsum("bkgqd,bksd->bkgqs", qc, kc) * scale
             mask = _chunk_mask(q_pos, k_pos, k_valid, causal, window)
             s = torch.where(mask, s, torch.full_like(s, NEG_INF))
@@ -149,10 +163,57 @@ def chunked_attention(q, k, v, *, causal, window, scale, q_offset=0,
             acc = acc * alpha + torch.einsum("bkgqs,bksd->bkgqd", p, vc)
             m = m_new
         safe = torch.where(l > 0, l, torch.ones_like(l))
-        chunks.append((acc / safe * (l > 0)).to(q.dtype))
-    og = torch.cat(chunks, dim=3)                # (B, Kv, g, Sq', D)
-    out = og.permute(0, 3, 1, 2, 4).reshape(b, sq + pad_q, h, dh)
-    return out[:, :sq]
+        chunks.append((acc / safe * (l > 0)).to(qg.dtype))
+        lses.append(torch.where(l[..., 0] > 0,
+                                m[..., 0] + torch.log(safe[..., 0]),
+                                torch.full_like(m[..., 0], -NEG_INF)))
+    return torch.cat(chunks, dim=3), torch.cat(lses, dim=3)
+
+
+def _flash_bwd(qg, kg, vg, out, lse, dout, cfgt):
+    """The flash backward: recompute s and p chunk pair by chunk pair
+    from the row statistic, never an (Sq, Sk) matrix; float32
+    accumulators (float64 for float64 inputs).  Layouts as
+    ``_flash_fwd_impl``, all padded to whole chunks.  GQA: dk and dv sum
+    over the group inside each chunk pair's product (the reference
+    repeats KV and sums the group in the repeat's transpose), an order
+    of summation of its own.  Returns (dq, dk, dv) in their inputs'
+    dtypes."""
+    causal, window, scale, q_offset, cq, ck, k_valid = cfgt
+    b, kvh, g, sq, dh = qg.shape
+    sk = kg.shape[2]
+    dev = qg.device
+    acc_t = torch.promote_types(qg.dtype, torch.float32)
+    kf, vf = kg.to(acc_t), vg.to(acc_t)
+    delta = (dout.to(acc_t) * out.to(acc_t)).sum(dim=-1)   # (B,Kv,G,Sq)
+    dq = torch.zeros((b, kvh, g, sq, dh), dtype=acc_t, device=dev)
+    dk = torch.zeros((b, kvh, sk, dh), dtype=acc_t, device=dev)
+    dv = torch.zeros_like(dk)
+    for qi in range(sq // cq):
+        rows = slice(qi * cq, (qi + 1) * cq)
+        qc = qg[:, :, :, rows].to(acc_t)
+        doc = dout[:, :, :, rows].to(acc_t)
+        lc, dc = lse[:, :, :, rows], delta[:, :, :, rows]
+        q_first = q_offset + qi * cq
+        q_pos = q_first + torch.arange(cq, device=dev)
+        dqc = dq[:, :, :, rows]
+        for ki in range(sk // ck):
+            if not _live(q_first, q_first + cq - 1, ki * ck,
+                         (ki + 1) * ck - 1, k_valid, causal, window):
+                continue
+            keys = slice(ki * ck, (ki + 1) * ck)
+            kc, vc = kf[:, :, keys], vf[:, :, keys]
+            k_pos = ki * ck + torch.arange(ck, device=dev)
+            s = torch.einsum("bkgqd,bksd->bkgqs", qc, kc) * scale
+            mask = _chunk_mask(q_pos, k_pos, k_valid, causal, window)
+            p = torch.exp(torch.where(mask, s, torch.full_like(s, NEG_INF))
+                          - lc[..., None]) * mask
+            dv[:, :, keys] += torch.einsum("bkgqs,bkgqd->bksd", p, doc)
+            dp = torch.einsum("bkgqd,bksd->bkgqs", doc, vc)
+            ds = p * (dp - dc[..., None]) * scale
+            dqc += torch.einsum("bkgqs,bksd->bkgqd", ds, kc)
+            dk[:, :, keys] += torch.einsum("bkgqs,bkgqd->bksd", ds, qc)
+    return dq.to(qg.dtype), dk.to(kg.dtype), dv.to(vg.dtype)
 
 
 def _flat_heads(x):
@@ -161,27 +222,117 @@ def _flat_heads(x):
     return x.permute(0, 2, 1, 3).reshape(b * n, s, dh).contiguous()
 
 
+class _Flash(torch.autograd.Function):
+    """Flash attention under autograd: the counterpart of the reference's
+    ``jax.custom_vjp`` (``_flash_fwd`` / ``_flash_bwd``).
+
+    ``apply(q, k, v, cfgt, kernel)`` with q (B, Sq, H, D), k, v (B, Sk,
+    Kv, D) returns (B, Sq, H, D).  ``forward`` returns ``out`` and saves
+    ``(q, k, v, out, L)``: with ``kernel`` the flash kernel writes both
+    (``ops.attention(..., return_lse=True)``: on a CUDA tensor it
+    launches the route's kernel or raises, on a CPU tensor it takes the
+    plain version); otherwise the plain chunked forward
+    (``_flash_fwd_impl``, the reference's own route) does.  ``backward``
+    is ``_flash_bwd`` in plain PyTorch on every route, as the
+    reference's is plain JAX.  KV is never repeated.  ``cfgt``:
+    ``(causal, window, scale, q_offset, chunk_q, chunk_k, k_valid)``;
+    the chunks pad the chunked forward and the backward only.  The two
+    passes run in ``torch.profiler`` ranges (``flash_attention_forward``,
+    ``flash_attention_backward``) that a profile attributes device time
+    to; without a profiler a range costs a host call and nothing on the
+    device."""
+
+    @staticmethod
+    @record_function("flash_attention_forward")
+    def forward(ctx, q, k, v, cfgt, kernel: bool):
+        causal, window, scale, q_offset, cq, ck, k_valid = cfgt
+        b, sq, h, dh = q.shape
+        sk, kvh = k.shape[1], k.shape[2]
+        if kernel:
+            if k_valid != sk:
+                raise ValueError("the flash kernel takes no k_valid")
+            of, lf = ops.attention(_flat_heads(q), _flat_heads(k),
+                                   _flat_heads(v), causal=causal,
+                                   window=window, scale=scale,
+                                   q_offset=q_offset, return_lse=True)
+            og = of.view(b, kvh, h // kvh, sq, dh)
+            lse = lf.view(b, kvh, h // kvh, sq)
+        else:
+            og, lse = _flash_fwd_impl(
+                _pad_to(_grouped(q, kvh), 3, cq),
+                _pad_to(k.permute(0, 2, 1, 3), 2, ck),
+                _pad_to(v.permute(0, 2, 1, 3), 2, ck), cfgt)
+            og, lse = og[:, :, :, :sq], lse[:, :, :, :sq]
+        ctx.save_for_backward(q, k, v, og, lse)
+        ctx.cfgt = cfgt
+        return og.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dh)
+
+    @staticmethod
+    @record_function("flash_attention_backward")
+    def backward(ctx, dout):
+        q, k, v, og, lse = ctx.saved_tensors
+        cfgt = ctx.cfgt
+        cq, ck = cfgt[4], cfgt[5]
+        b, sq, h, dh = q.shape
+        sk, kvh = k.shape[1], k.shape[2]
+        # padded query rows have zero dout, so they add nothing; their
+        # statistic pads with 0 (finite: exp(s - 0) of a zero q row is 1)
+        dq, dk, dv = _flash_bwd(
+            _pad_to(_grouped(q, kvh), 3, cq),
+            _pad_to(k.permute(0, 2, 1, 3), 2, ck),
+            _pad_to(v.permute(0, 2, 1, 3), 2, ck),
+            _pad_to(og, 3, cq), _pad_to(lse, 3, cq),
+            _pad_to(_grouped(dout, kvh), 3, cq), cfgt)
+        dq = dq[:, :, :, :sq].permute(0, 3, 1, 2, 4).reshape(b, sq, h, dh)
+        dk = dk[:, :, :sk].permute(0, 2, 1, 3)
+        dv = dv[:, :, :sk].permute(0, 2, 1, 3)
+        return dq, dk, dv, None, None
+
+
+def chunked_attention(q, k, v, *, causal, window, scale, q_offset=0,
+                      chunk_q=1024, chunk_k=1024, k_valid=None,
+                      kernel: bool = False):
+    """Online-softmax attention, O(chunk^2) memory in both directions
+    (``_Flash``: the backward recomputes each chunk pair).
+
+    q: (B, Sq, H, D); k, v: (B, Sk, Kv, D).  Matches the flash kernel and
+    ``kernels.ref.attention_ref``.  ``kernel``: the forward is the flash
+    kernel (``k_valid`` must then be None), else the plain chunked
+    forward.
+    """
+    sk = k.shape[1]
+    cfgt = (causal, window, scale, q_offset, min(chunk_q, q.shape[1]),
+            min(chunk_k, sk), sk if k_valid is None else k_valid)
+    return _Flash.apply(q, k, v, cfgt, kernel)
+
+
 def _full_attention(q, k, v, cfg: ModelConfig, *, causal, window,
                     q_offset=0, k_valid=None):
-    """Dispatch on ``cfg.attn_impl`` for the prefill path: ``"pallas"``
-    is the flash kernel (``ops.attention``), ``"naive"`` its plain
-    version, ``"chunked"`` the plain chunked online softmax.  KV stays
-    un-repeated in every route."""
+    """Dispatch on ``cfg.attn_impl`` for the prefill / train path:
+    ``"pallas"`` is the flash kernel, ``"naive"`` its plain version
+    under plain autograd, ``"chunked"`` the plain chunked online softmax
+    with the flash backward (``_Flash``).  Where a gradient is wanted,
+    ``"pallas"`` runs ``_Flash`` with the kernel's forward (which also
+    writes the row statistic); without one it is the serving path's
+    kernel call.  KV stays un-repeated in every route."""
     scale = 1.0 / math.sqrt(q.shape[-1])
-    if cfg.attn_impl in ("pallas", "naive"):
-        fn = ops.attention if cfg.attn_impl == "pallas" \
-            else ref.attention_ref
+    impl = cfg.attn_impl
+    if impl not in ("pallas", "naive", "chunked"):
+        raise ValueError(f"unknown attn_impl {impl!r}")
+    grad = torch.is_grad_enabled() and (
+        q.requires_grad or k.requires_grad or v.requires_grad)
+    if impl == "naive" or (impl == "pallas" and not grad):
+        fn = ops.attention if impl == "pallas" else ref.attention_ref
         b, sq, h, dh = q.shape
         of = fn(_flat_heads(q), _flat_heads(k), _flat_heads(v),
                 causal=causal, window=window, scale=scale,
                 q_offset=q_offset)
         return of.reshape(b, h, sq, dh).permute(0, 2, 1, 3)
-    if cfg.attn_impl != "chunked":
-        raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
     return chunked_attention(q, k, v, causal=causal, window=window,
                              scale=scale, q_offset=q_offset,
                              chunk_q=cfg.attn_chunk_q,
-                             chunk_k=cfg.attn_chunk_k, k_valid=k_valid)
+                             chunk_k=cfg.attn_chunk_k, k_valid=k_valid,
+                             kernel=impl == "pallas")
 
 
 def _decode_attention(q, cache: KVCache, cur_len: int, window):

@@ -1,17 +1,146 @@
-"""Public serving API of the LM stack (the port of the serving half of
-``repro.models.model``): ``make_prefill``, ``make_serve_step`` and
-``lm_logits``.  The loss and the train steps come with training.
+"""Public model API of the LM stack (the port of ``repro.models.model``):
+the chunked loss, the train and eval steps, prefill and decode.
 
 The reference's functions take sharding ``rules``; one card has none,
 so these take the config alone.  Nothing is jitted: the returned
-functions run eagerly.
+functions run eagerly.  The train step updates the parameters and the
+optimizer state in place (the counterpart of the reference's donated
+buffers) and returns them.
 """
 
 from __future__ import annotations
 
+from typing import Dict
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from ..tree import tree_flatten, tree_unflatten
 from .config import ModelConfig
 from .transformer import forward, logits as lm_logits
 
+
+# ---------------------------------------------------------------------------
+# Loss (chunked over the sequence: never the (B, S, V) logits at once)
+# ---------------------------------------------------------------------------
+
+def _chunk_nll(table, xc, lc):
+    """Summed cross-entropy of one chunk: ``xc`` (B, C, d) hidden,
+    ``lc`` (B, C) labels (-1 = masked); the chunk's (B, C, Vpad) logits
+    in float32 live only here."""
+    lg = lm_logits({"embed": {"table": table}}, xc).to(torch.float32)
+    lse = torch.logsumexp(lg, dim=-1)
+    valid = lc >= 0
+    lab = torch.where(valid, lc, torch.zeros_like(lc)).long()
+    picked = torch.gather(lg, -1, lab[..., None])[..., 0]
+    return torch.where(valid, lse - picked, torch.zeros_like(lse)).sum()
+
+
+def chunked_xent(p, cfg: ModelConfig, x, labels):
+    """x: (B, S, d) final hidden; labels: (B, S) integer, -1 = masked.
+
+    Returns (sum_nll float32, n_valid int32), chunk by chunk of
+    ``cfg.loss_chunk`` positions.  Under autograd each chunk runs under
+    ``torch.utils.checkpoint``: the backward recomputes that chunk's
+    logits instead of keeping all of them (the reference's
+    ``jax.checkpoint`` scan body)."""
+    b, s, _ = x.shape
+    chunk = min(cfg.loss_chunk, s)
+    table = p["embed"]["table"]
+    grad = torch.is_grad_enabled()
+    nll = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, s, chunk):
+        xc, lc = x[:, c0:c0 + chunk], labels[:, c0:c0 + chunk]
+        nll = nll + (checkpoint(_chunk_nll, table, xc, lc,
+                                use_reentrant=False)
+                     if grad else _chunk_nll(table, xc, lc))
+    n = (labels >= 0).sum(dtype=torch.int32)
+    return nll, n
+
+
+def loss_fn(params, cfg: ModelConfig, batch: Dict):
+    """(mean next-token loss over the valid labels, {"nll", "tokens"})."""
+    x, _ = forward(params, cfg, batch)
+    nll, n = chunked_xent(params, cfg, x, batch["labels"])
+    loss = nll / torch.clamp(n, min=1)
+    return loss, {"nll": nll, "tokens": n}
+
+
+# ---------------------------------------------------------------------------
+# Train / eval steps
+# ---------------------------------------------------------------------------
+
+def _grads_of(params, cfg: ModelConfig, batch: Dict):
+    """(loss, metrics, grads): the loss's gradient with respect to every
+    parameter leaf, as a tree of the parameters' structure.  The leaves
+    require grad only inside this call, so the parameters stay plain
+    tensors for serving."""
+    leaves, treedef = tree_flatten(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    try:
+        with torch.enable_grad():
+            loss, metrics = loss_fn(params, cfg, batch)
+            grads = torch.autograd.grad(loss, leaves)
+    finally:
+        for t in leaves:
+            t.requires_grad_(False)
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+            tree_unflatten(treedef, list(grads)))
+
+
+def make_train_step(cfg: ModelConfig, optimizer, microbatches: int = 1):
+    """Returns ``step(params, opt_state, batch) -> (params, opt_state,
+    out)``, ``out = {"loss", "grad_norm", "nll", "tokens"}``.
+
+    ``optimizer``: an ``optim.Optimizer``.  ``microbatches > 1`` splits
+    the batch along its first axis and accumulates the gradients in the
+    parameters' dtype (the reference's ``zeros_like(params)`` carry),
+    then divides by their number; the loss is the microbatches' mean and
+    ``nll`` / ``tokens`` the last microbatch's, as the reference reports
+    them.  The parameters and the state are updated in place."""
+
+    def step(params, opt_state, batch):
+        if microbatches > 1:
+            parts = [{k: v.reshape((microbatches, v.shape[0] // microbatches)
+                                   + tuple(v.shape[1:]))[i]
+                      for k, v in batch.items()}
+                     for i in range(microbatches)]
+            gsum = None
+            lsum = torch.zeros((), dtype=torch.float32,
+                               device=batch["tokens"].device)
+            for part in parts:
+                loss_i, metrics, g = _grads_of(params, cfg, part)
+                g_leaves, treedef = tree_flatten(g)
+                gsum = g_leaves if gsum is None else [
+                    a + x for a, x in zip(gsum, g_leaves)]
+                lsum = lsum + loss_i
+            grads = tree_unflatten(treedef, [a / microbatches
+                                             for a in gsum])
+            loss = lsum / microbatches
+        else:
+            loss, metrics, grads = _grads_of(params, cfg, batch)
+        params, opt_state, gnorm = optimizer.update(params, grads,
+                                                    opt_state)
+        return params, opt_state, {"loss": loss, "grad_norm": gnorm,
+                                   **metrics}
+
+    return step
+
+
+def make_eval_step(cfg: ModelConfig):
+    """``step(params, batch) -> (loss, metrics)``, without gradients."""
+
+    def step(params, batch):
+        with torch.no_grad():
+            return loss_fn(params, cfg, batch)
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
 
 def make_prefill(cfg: ModelConfig):
     """prefill(params, batch, state) -> (last-position logits (B, 1, V),

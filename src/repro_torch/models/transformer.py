@@ -5,7 +5,8 @@ Parameters are plain dicts: ``{"embed": {"table"}, "ln_f": {"scale"},
 "layers": [block, ...]}``, one dict per layer in layer order (the
 reference stacks the layers of each pattern position and drives them
 with ``lax.scan``; here a Python loop runs them).  The decode state is
-``{"layers": [KVCache, ...]}``.
+``{"layers": [KVCache, ...]}``; a training forward returns
+``{"layers": [None, ...]}``.
 
 An ``"attn"`` block is pre-norm attention plus a pre-norm gated MLP.
 The other block kinds and the encoder/frontend families are not ported
@@ -17,6 +18,7 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from .attention import KVCache, apply_attention, init_attention, init_cache
@@ -110,13 +112,23 @@ def init_model(cfg: ModelConfig, seed: int = 0, device="cuda") -> Dict:
     }
 
 
+def _block_out(lp, cfg: ModelConfig, kind: str, x, positions, window):
+    """One training block's output (no cache), the checkpointed unit."""
+    return apply_block(lp, cfg, kind, x, positions, window=window)[0]
+
+
 def forward(p, cfg: ModelConfig, batch: Dict, *, state=None,
             cache_pos: Optional[int] = None):
     """Full forward.  Returns (final-norm hidden (B, S, d), new_state).
 
     ``batch["tokens"]``: (B, S) integer.  ``state``/``cache_pos`` (an
     int) enable prefill into and decode from the KV caches of
-    ``init_decode_state``."""
+    ``init_decode_state``.  Training (no ``state``, grad enabled) with
+    ``cfg.remat`` runs each layer under ``torch.utils.checkpoint``
+    (non-reentrant): the backward recomputes the layer from its input,
+    so only the layers' inputs stay alive (the reference's
+    ``jax.checkpoint``; its sqrt(L) grouping exists for ``lax.scan``,
+    which the port's loop does not have)."""
     _require_dense(cfg)
     tokens = batch["tokens"]
     x = apply_embedding(p["embed"], tokens, scale=cfg.embed_scale)
@@ -124,9 +136,15 @@ def forward(p, cfg: ModelConfig, batch: Dict, *, state=None,
     if cache_pos is not None:
         positions = positions + cache_pos
     states = state["layers"] if state else [None] * len(p["layers"])
+    remat = cfg.remat and state is None and torch.is_grad_enabled()
     new_states = []
     for lp, kind, st in zip(p["layers"], cfg.layer_kinds, states):
         win = cfg.window if kind in ("attn", "moe") else None
+        if remat:
+            x = checkpoint(_block_out, lp, cfg, kind, x, positions, win,
+                           use_reentrant=False)
+            new_states.append(None)
+            continue
         x, ns = apply_block(lp, cfg, kind, x, positions, state=st,
                             cache_pos=cache_pos, window=win)
         new_states.append(ns)

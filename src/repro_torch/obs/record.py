@@ -17,9 +17,12 @@ Unlike the reference, which returns new buffers, ``record_step`` updates
 the recorder state in place and takes the step as a device tensor, so
 nothing waits for the device and a recorded step can be captured in a
 CUDA graph.  The engines keep one resident recorder per run shape
-(``resident_recorder``), zeroed in place at the start of each call: a
-returned recorder holds its call's events until the next call of the
-same shape overwrites them.
+(``resident_recorder``), zeroed in place at the start of each call, and
+hand back a copy of it (``copy_recorder``), so a returned recorder is
+the call's own, as the reference's fresh buffers are.  Only a caller
+that drains the buffers before its next call (``runtime.SimDriver``)
+takes the resident buffers themselves (``make_sim_fn(...,
+recorder_copy=False)``).
 """
 
 from __future__ import annotations
@@ -96,6 +99,14 @@ def resident_recorder(cache: dict, rspec: RecorderSpec, device,
         for x in rec.values():
             x.zero_()
     return rec
+
+
+def copy_recorder(rec: dict) -> dict:
+    """A copy of a recorder's buffers and counters on their device (one
+    copy of ``8 B x capacity`` for the ``step`` and ``gid`` buffers plus
+    the two scalars, times the leading axes): what a recorded call hands
+    back while its resident recorder stays with the engine."""
+    return {k: x.clone() for k, x in rec.items()}
 
 
 def tile_gid_map(decomp: TileDecomposition, tile_y: int,

@@ -1,0 +1,169 @@
+"""AdamW and Adafactor over parameter trees (nested dicts and lists of
+tensors), the port of ``repro.optim.optimizers``.
+
+The update rules, defaults and dtypes are the reference's: the global
+gradient norm accumulated in float32, clipping that keeps each
+gradient's dtype, float32 moments, AdamW's bias-corrected step with
+decoupled weight decay, and Adafactor's factored second moments over the
+last two axes of every leaf with two or more, with relative-scale update
+clipping.  Unlike the reference, ``update`` writes the new parameters
+and state into their tensors in place (under ``torch.no_grad``) and
+returns them.  The reference stacks the layers of an LM along a leading
+axis, so its Adafactor factors a per-layer 1-D leaf (a norm scale)
+across the layers; the port keeps one tree node per layer and gives such
+a leaf full second moments.  The reference's ``state_specs`` /
+``abstract_state`` are mesh tooling and have no counterpart on one card.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+from torch.profiler import record_function
+
+from ..tree import tree_flatten, tree_flatten_up_to, tree_unflatten
+
+MOMENT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, accumulated in float32
+    (float64 for float64 leaves)."""
+    leaves = tree_flatten(tree)[0]
+    acc = torch.promote_types(leaves[0].dtype, torch.float32)
+    sq = [torch.linalg.vector_norm(x, dtype=acc).square() for x in leaves]
+    return torch.sqrt(torch.stack(sq).sum())
+
+
+@dataclasses.dataclass(frozen=True)
+class Optimizer:
+    init: Callable          # params -> opt_state
+    _update: Callable       # (params, grads, state) -> (params, state, gnorm)
+
+    def update(self, params, grads, state):
+        """One step: ``(params, state, grad_norm)``, the parameters and
+        the state updated in place (in the ``torch.profiler`` range
+        ``optimizer_update``)."""
+        with torch.no_grad(), record_function("optimizer_update"):
+            return self._update(params, grads, state)
+
+
+def _clipped(grads: list, max_norm: float):
+    """The leaves scaled to a global norm of at most ``max_norm`` (each
+    in its own dtype), and the norm before clipping."""
+    g = global_norm(grads)
+    scale = torch.clamp(max_norm / (g + 1e-9), max=1.0)
+    return [x * scale.to(x.dtype) for x in grads], g
+
+
+def _mean_sq(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """mean(x^2) over one axis, accumulated in float32."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    return torch.square(x.to(acc)).sum(dim=dim) / x.shape[dim]
+
+
+def _zero_step(params) -> torch.Tensor:
+    leaves = tree_flatten(params)[0]
+    return torch.zeros((), dtype=torch.int32, device=leaves[0].device)
+
+
+def adamw(lr: Callable, *, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
+          clip_norm: float = 1.0, moment_dtype="float32") -> Optimizer:
+    """AdamW.  State ``{"m", "v"}`` (trees like the parameters, in
+    ``moment_dtype``) and ``"step"`` (int32, 0-d, on the parameters'
+    device); ``lr(step)`` is read at the incremented step."""
+    mdt = MOMENT_DTYPES[moment_dtype]
+
+    def init(params):
+        leaves, treedef = tree_flatten(params)
+
+        def zeros():
+            return tree_unflatten(treedef, [torch.zeros_like(p, dtype=mdt)
+                                            for p in leaves])
+        return {"m": zeros(), "v": zeros(), "step": _zero_step(params)}
+
+    def update(params, grads, state):
+        flat_p, _ = tree_flatten(params)
+        flat_g, gnorm = _clipped(tree_flatten(grads)[0], clip_norm)
+        flat_m = tree_flatten(state["m"])[0]
+        flat_v = tree_flatten(state["v"])[0]
+        state["step"] += 1
+        step = state["step"]
+        lr_t = lr(step)
+        s = step.to(torch.float32)
+        c1 = 1.0 - torch.pow(b1, s)
+        c2 = 1.0 - torch.pow(b2, s)
+        for p, g, m, v in zip(flat_p, flat_g, flat_m, flat_v):
+            # the moments update in float32 from the (clipped) gradient
+            # widened once: what XLA computes inside its fusion of the
+            # reference's bf16 expressions
+            acc = torch.promote_types(p.dtype, torch.float32)
+            g32 = g.to(acc)
+            m32 = b1 * m.to(acc) + (1 - b1) * g32
+            v32 = b2 * v.to(acc) + (1 - b2) * torch.square(g32)
+            upd = (m32 / c1) / (torch.sqrt(v32 / c2) + eps)
+            upd = upd + weight_decay * p.to(acc)
+            p.copy_(p.to(acc) - lr_t * upd)
+            m.copy_(m32)
+            v.copy_(v32)
+        return params, state, gnorm
+
+    return Optimizer(init=init, _update=update)
+
+
+def adafactor(lr: Callable, *, decay=0.8, eps=1e-30, clip_norm: float = 1.0,
+              weight_decay: float = 0.0) -> Optimizer:
+    """Adafactor: factored second moments ``{"row", "col"}`` over the
+    last two axes of leaves with two or more, ``{"full"}`` for the
+    others, float32; ``"step"`` as AdamW's.  Full-size intermediates keep
+    the gradient's dtype, as the reference's do."""
+
+    def init(params):
+        leaves, treedef = tree_flatten(params)
+
+        def moments(p):
+            z = dict(dtype=torch.float32, device=p.device)
+            if p.dim() >= 2:
+                return {"row": torch.zeros(p.shape[:-1], **z),
+                        "col": torch.zeros(p.shape[:-2] + p.shape[-1:],
+                                           **z)}
+            return {"full": torch.zeros(p.shape, **z)}
+        return {"v": tree_unflatten(treedef, [moments(p) for p in leaves]),
+                "step": _zero_step(params)}
+
+    def update(params, grads, state):
+        flat_p, treedef = tree_flatten(params)
+        flat_g, gnorm = _clipped(tree_flatten(grads)[0], clip_norm)
+        flat_v = tree_flatten_up_to(treedef, state["v"])
+        state["step"] += 1
+        step = state["step"]
+        lr_t = lr(step)
+        beta = 1.0 - (step.to(torch.float32) + 1.0) ** (-decay)
+        for p, g, v in zip(flat_p, flat_g, flat_v):
+            if p.dim() >= 2:
+                row = beta * v["row"] + (1 - beta) * (_mean_sq(g, -1) + eps)
+                col = beta * v["col"] + (1 - beta) * (_mean_sq(g, -2) + eps)
+                rinv = torch.rsqrt(row + eps)
+                cinv = torch.rsqrt(
+                    col / (row.mean(dim=-1, keepdim=True) + eps) + eps)
+                u = (g * rinv.to(g.dtype)[..., None]) \
+                    * cinv.to(g.dtype)[..., None, :]
+                v["row"].copy_(row)
+                v["col"].copy_(col)
+            else:
+                full = beta * v["full"] + (1 - beta) * (
+                    torch.square(g.to(torch.float32)) + eps)
+                u = (g.to(torch.float32)
+                     * torch.rsqrt(full + eps)).to(g.dtype)
+                v["full"].copy_(full)
+            acc = torch.promote_types(u.dtype, torch.float32)
+            sq = torch.square(u.to(acc)).sum()
+            rms = torch.sqrt(sq / float(u.numel()) + 1e-12)
+            u = u * (lr_t / torch.clamp(rms, min=1.0)).to(u.dtype)
+            dec = (1.0 - lr_t * weight_decay).to(p.dtype)
+            p.copy_(p * dec - u.to(p.dtype))
+        return params, state, gnorm
+
+    return Optimizer(init=init, _update=update)

@@ -278,10 +278,13 @@ class SimDriver(FaultTolerantLoop):
         self._sim = None if sim_cache is None else sim_cache.get(
             self._sim_key)
         if self._sim is None:
+            # the segment's recorder is drained before the next segment
+            # runs (``_step_once``), so it takes the resident buffers
             self._sim = make_sim_fn(dist_cfg, segment_steps,
                                     record_rate=False,
                                     recorder=self.recorder,
-                                    storage=self.storage, device=dev)
+                                    storage=self.storage, device=dev,
+                                    recorder_copy=False)
             if sim_cache is not None:
                 sim_cache[self._sim_key] = self._sim
         # a shared sim counts every job's captures: this driver's start
@@ -686,6 +689,14 @@ class SimDriver(FaultTolerantLoop):
             "w_sum": float(w.sum()),
             "w_l1_delta": float(np.abs(w - birth["w"])[mask].sum()),
         }
+
+    def compiled_step_cache_size(self) -> int:
+        """Sim functions this driver ran segments through: its one
+        ``make_sim_fn`` (own or shared through ``sim_cache``) once a
+        segment ran, else 0.  The counterpart of the reference's count
+        of compiled programs of its segment function, which a job
+        reports as its ``compiled_steps``."""
+        return int(self._segments_done > 0)
 
     def captures(self) -> int:
         """CUDA graph captures of this driver's sim function in this

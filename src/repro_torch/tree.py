@@ -42,3 +42,23 @@ def tree_unflatten(treedef: tuple, leaves) -> Any:
             return tuple(build(v) for v in d[1])
         return None if kind == "none" else next(it)
     return build(treedef)
+
+
+def tree_flatten_up_to(treedef: tuple, tree) -> List[Any]:
+    """The subtrees of ``tree`` at the leaf positions of ``treedef`` (a
+    tree whose structure extends ``treedef``'s, such as a per-leaf state
+    dict for every parameter), in ``treedef``'s leaf order."""
+    out: List[Any] = []
+
+    def walk(d, node):
+        kind = d[0]
+        if kind == "leaf":
+            out.append(node)
+        elif kind == "dict":
+            for k, sub in d[1]:
+                walk(sub, node[k])
+        elif kind in ("list", "tuple"):
+            for sub, x in zip(d[1], node):
+                walk(sub, x)
+    walk(treedef, tree)
+    return out

@@ -1288,3 +1288,94 @@ def test_capture_holds_off_the_garbage_collector(cuda, monkeypatch):
                   device=cuda)
     assert seen == [True] * 8 + [False] * 8
     assert gc.isenabled()
+
+
+# ---------------------------------------------------------------------------
+# LM training: the row statistic and the flash autograd Function
+# ---------------------------------------------------------------------------
+
+# (bh, bh_kv, sq, sk, d, causal, window, q_offset, dtype): each route,
+# ragged edges, GQA, windows and fully masked rows (the q_offset-18
+# window-5 case leaves rows 6+ without a key)
+LSE_CASES = [
+    (4, 2, 100, 100, 8, True, None, 0, torch.float32),       # simt
+    (4, 2, 12, 20, 16, True, 5, 18, torch.bfloat16),         # simt, dead
+    (6, 2, 300, 300, 128, True, None, 0, torch.bfloat16),    # sm90
+    (4, 4, 12, 20, 64, True, 5, 18, torch.bfloat16),         # sm90, dead
+    (2, 1, 130, 300, 256, True, 40, 0, torch.bfloat16),      # sm90
+    (6, 2, 300, 300, 128, True, None, 0, torch.float32),     # tf32
+    (4, 4, 12, 20, 64, True, 5, 18, torch.float32),          # tf32, dead
+    (2, 2, 37, 129, 256, False, None, 0, torch.float32),     # tf32
+]
+
+
+@pytest.mark.parametrize("bh,bhkv,sq,sk,d,causal,win,qoff,dtype", LSE_CASES)
+def test_flash_row_statistic_matches_plain(cuda, bh, bhkv, sq, sk, d,
+                                           causal, win, qoff, dtype):
+    """Each route's ``return_lse`` against the plain version's: within
+    1e-5 of ``|L| + 1`` in float32 (the kernels' base-2 exponent and
+    ``log`` against ``logsumexp``), 2e-3 in bf16 (the sm90 route's
+    scores from bf16 operands in another order), +1e30 exactly on a
+    fully masked row; the output is the one without the statistic."""
+    from repro_torch.kernels.flash_attention import (_route,
+                                                     flash_attention_cuda)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda).manual_seed(sq * 3 + d)
+    q, k, v = (torch.randn(s, device=cuda, generator=g).to(dtype)
+               for s in ((bh, sq, d), (bhkv, sk, d), (bhkv, sk, d)))
+    kw = dict(causal=causal, window=win, q_offset=qoff)
+    _build.reset_launch_counts()
+    out, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    plain = flash_attention_cuda(q, k, v, **kw)
+    want_o, want_l = ref.attention_ref(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    route = _route(dtype, d)
+    assert _build.launch_counts()[
+        {"sm90": "flash_attention", "tf32": "flash_attention_tf32",
+         "simt": "flash_attention_simt"}[route]] == 2
+    assert lse.dtype == torch.float32 and lse.shape == (bh, sq)
+    assert torch.equal(out, plain)
+    dead = want_l == 1e30
+    assert torch.equal(lse == 1e30, dead)
+    tol = 1e-5 if dtype == torch.float32 else 2e-3
+    live = ~dead
+    torch.testing.assert_close(lse[live], want_l[live], rtol=tol, atol=tol)
+    if qoff:
+        assert bool(dead.any())
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 128),
+                                     (torch.float32, 64),
+                                     (torch.float32, 16)])
+def test_flash_function_on_kernel_matches_plain_route(cuda, dtype, d):
+    """``_Flash`` with the kernel's forward on the card against the plain
+    chunked route on CPU copies: output and dq, dk, dv (GQA, causal,
+    Sq/Sk ragged against the chunks).  float32 within 1e-4 of each
+    tensor's largest value; bf16 within 3e-2 (one bf16 step of the
+    forward's P and output, carried through the backward).  One kernel
+    launch per forward."""
+    from repro_torch.models.attention import chunked_attention
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cpu").manual_seed(d)
+    b, s, h, kv = 2, 300, 6, 2
+    q, k, v, w = (torch.randn(shape, generator=g).to(dtype)
+                  for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d),
+                                (b, s, h, d)))
+    kw = dict(causal=True, window=None, scale=d ** -0.5, chunk_q=128,
+              chunk_k=128)
+    res = {}
+    for dev, kernel in ((cuda, True), (torch.device("cpu"), False)):
+        x = [t.to(dev).requires_grad_() for t in (q, k, v)]
+        _build.reset_launch_counts()
+        out = chunked_attention(*x, kernel=kernel, **kw)
+        (out.float() * w.to(dev).float()).sum().backward()
+        if kernel:
+            torch.cuda.synchronize()
+            assert sum(_build.launch_counts().values()) >= 1
+        res[kernel] = [t.detach().float().cpu()
+                       for t in [out] + [t.grad for t in x]]
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    for name, got, want in zip(("out", "dq", "dk", "dv"), res[True],
+                               res[False]):
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) <= tol * scale, name

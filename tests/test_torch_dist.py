@@ -488,6 +488,36 @@ def test_recorded_run_bit_identical(reference_runs, name, use_kernels):
     assert_bits_equal(ref_static["per_step"], out[1], "per-step spikes")
 
 
+def test_returned_recorder_survives_a_later_call():
+    """A 2x2 recorded ``make_sim_fn`` hands back a copy of its resident
+    recorder: a later call of the same sim (an equal ``RecorderSpec``)
+    from another ``state_seed`` leaves it unchanged.  With
+    ``recorder_copy=False`` (the segmented driver, which drains at once)
+    the call returns the resident buffers, which that later call
+    refills."""
+    cfg = port_config("exponential", 2, 2, "recorded")
+    other = tde.DistConfig(engine=dataclasses.replace(
+        cfg.engine, state_seed=cfg.engine.state_seed_value + 17))
+    tables, _ = tde.build_dist_tables(cfg, device="cpu")
+    recorder = trec.recorder_spec(cfg.engine, STEPS // 2)
+    inputs = tde.SimInputs(tables=tables, gids=torch.from_numpy(
+        trec.stacked_gid_maps(cfg.engine.decomp)))
+    for copy in (True, False):
+        sim = tde.make_sim_fn(cfg, STEPS // 2, recorder=recorder,
+                              storage=tables.storage, device="cpu",
+                              recorder_copy=copy)
+        first = sim(tde.init_dist_state(cfg, device="cpu"), inputs)[2]
+        kept = {k: x.clone() for k, x in first.items()}
+        second = sim(tde.init_dist_state(other, device="cpu"), inputs)[2]
+        assert int(kept["count"].sum()) > 0
+        assert not torch.equal(kept["gid"], second["gid"])
+        if copy:
+            for k in kept:
+                assert_bits_equal(kept[k], first[k], f"first call's {k}")
+        else:
+            assert all(first[k] is second[k] for k in first)
+
+
 def test_drive_mismatch_and_missing_inputs_refused(reference_runs):
     ref = reference_runs["gaussian_2x2"]
     cfg = port_config("gaussian", 2, 2, "static")

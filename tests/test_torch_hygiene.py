@@ -168,6 +168,17 @@ def test_package_rules_cover_the_lm_modules():
     assert (_build.CSRC / "flash_attention.cu").exists()
 
 
+def test_package_rules_cover_the_training_modules():
+    """The import, source-name and lint checks above walk the LM
+    training slice's modules too."""
+    train = {"repro_torch.optim.optimizers", "repro_torch.optim.schedules",
+             "repro_torch.data.pipeline", "repro_torch.launch.train",
+             "repro_torch.configs.qwen2_5_3b", "repro_torch.configs.qwen3_8b",
+             "repro_torch.examples.train_lm",
+             "repro_torch.examples.fault_tolerance_demo"}
+    assert train <= set(MODULES), train - set(MODULES)
+
+
 def test_package_rules_cover_the_multishard_modules():
     """The import, source-name and lint checks above walk the
     multi-shard engine's modules too."""

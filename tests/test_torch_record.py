@@ -188,3 +188,27 @@ def test_spike_compact_edges_match_reference(case):
     live = np.flatnonzero(spk[:n] > 0)[:cap]
     assert np.array_equal(idx.numpy()[:live.size], live)
     assert (idx.numpy()[live.size:] == n).all()
+
+
+@pytest.mark.parametrize("law", LAWS)
+def test_returned_recorder_survives_a_later_call(law):
+    """A recorder a call returned is that call's own, as the reference's
+    fresh buffers are: a later call with an equal ``RecorderSpec`` from
+    another ``state_seed`` leaves it unchanged (the engine's resident
+    buffers are zeroed and refilled, the returned copy is not)."""
+    _, tcfg = configs(law, grid=4, n_per_col=30)
+    tabs = teng.build_shard_tables(tcfg, device="cpu")
+    rspec = trec.recorder_spec(tcfg, STEPS)
+    _, _, first = teng.simulate(teng.init_sim_state(tcfg, device="cpu"),
+                                tabs, tcfg, STEPS, device="cpu",
+                                recorder=rspec)
+    kept = {k: x.clone() for k, x in first.items()}
+    other = dataclasses.replace(tcfg, state_seed=tcfg.seed + 17)
+    assert trec.recorder_spec(other, STEPS) == rspec
+    _, _, second = teng.simulate(teng.init_sim_state(other, device="cpu"),
+                                 tabs, other, STEPS, device="cpu",
+                                 recorder=rspec)
+    for k in kept:
+        assert_bits_equal(kept[k], first[k], f"first call's {k}")
+    assert int(first["count"]) > 0
+    assert not torch.equal(first["gid"], second["gid"])

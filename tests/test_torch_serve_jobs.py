@@ -13,6 +13,9 @@ import urllib.request
 import pytest
 import torch
 
+from repro.launch.serve import SimJobServer as JSimJobServer
+from repro.runtime import SimJobSpec as JSimJobSpec
+from repro_torch.launch.serve import SimJobServer
 from repro_torch.runtime import JobError, SimJobSpec, build_sim_driver
 
 GRID, NPC = 4, 20
@@ -150,6 +153,31 @@ def test_server_runs_ensemble_with_concurrent_streams(server, tmp_path):
 
     st, r = _get(base, "/v1/sim/jobs")
     assert st == 200 and len(r["jobs"]) >= 2
+
+
+def test_compiled_steps_per_job_match_the_reference(tmp_path):
+    """Two jobs of different grids on one server: each job reports its
+    own driver's sim-function count as ``compiled_steps`` and the
+    server's cache beside it, the same sequence on both packages'
+    servers ((1, 1), then (1, 2))."""
+    seen = {}
+    for name, server, spec_cls in (
+            ("reference", JSimJobServer(), JSimJobSpec),
+            ("port", SimJobServer(device="cpu"), SimJobSpec)):
+        try:
+            seq = []
+            for grid in (4, 3):
+                job = server.wait(server.submit(spec_cls(
+                    ckpt_dir=str(tmp_path / f"{name}{grid}"), grid=grid,
+                    n_per_column=10, law="gaussian", t_steps=10,
+                    segment_steps=10)), timeout=300)
+                assert job.status == "done", job.error
+                seq.append((job.result["compiled_steps"],
+                            job.result["server_compiled_steps"]))
+            seen[name] = seq
+        finally:
+            server.shutdown()
+    assert seen["port"] == seen["reference"] == [(1, 1), (1, 2)]
 
 
 def test_server_rejects_bad_requests(server, tmp_path):
