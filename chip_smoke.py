@@ -50,18 +50,19 @@ Phases, each of which exits non-zero on failure:
    steps with the recorder off; then one 1000-step recorded call, its
    capture amortized;
 5b. the multi-shard path (``dist_engine.build_dist_tables`` ->
-   ``init_dist_state`` -> ``make_sim_fn``): 8x8x1240 in 2x2 tiles on
-   the card, both laws: 100 captured steps (one CUDA graph of
-   ``d_ring`` steps of all four tiles) against 100 eager one-step calls
-   and 100 plain-path steps from the same seed (per-step spikes, every
+   ``init_dist_state`` -> ``make_sim_fn``) in 2x2 tiles on the card,
+   both laws: at 4x4x1240, 48 captured steps (one CUDA graph of
+   ``d_ring`` steps of all four tiles) against 48 eager one-step calls
+   and 48 plain-path steps from the same seed (per-step spikes, every
    tile's state, ring and metrics identical, no derived structure
    rebuilt after the first step), a recorded kernel-path run (captured)
-   against the plain path and against 50 one-step eager calls (the
-   global raster as (step, gid) events, identical), then 500
-   timed steps (which must show ``(500 - 8) // 8`` replays and fire
-   within ``rel=0.35`` of the single shard's rate), a profile of 400
-   more and of the graph's replays alone (device operations per step,
-   the exchange's gathers), and the device bytes per shard beside
+   against the plain path and against 32 one-step eager calls (the
+   global raster as (step, gid) events, identical); then at 8x8x1240
+   (the table build shared with 5c and 5d) 500 timed steps (which must
+   show ``(500 - 8) // 8`` replays and fire within ``rel=0.35`` of the
+   single shard's rate), a profile of 400 more and of the graph's
+   replays alone (device operations per step, the exchange's gathers),
+   and the device bytes per shard beside
    ``metrics.shard_memory_bytes``; then the plastic multi-shard path at
    4x4x1240 in 2x2 tiles: 30 recorded kernel-path steps on the card
    against 30 plain-path steps on the CPU (both laws' at once) with
@@ -161,15 +162,34 @@ Phases, each of which exits non-zero on failure:
    40 steps straight against 25 + preempt + resume, bit for bit under
    ``torch.use_deterministic_algorithms(True)`` (in a child process,
    with ``CUBLAS_WORKSPACE_CONFIG`` set).  Phase 5 also times
-   the copy a recorded call hands back (``obs.record.copy_recorder``).
+   the copy a recorded call hands back (``obs.record.copy_recorder``);
+9. the MoE, mamba and RG-LRU families at their published full widths
+   in bf16 with seeded random weights, each freed before the next:
+   granite-moe-1b-a400m (batch 4, 2048-token prompts), recurrentgemma-9b
+   (batch 2, 3072-token prompts: past its 2048 window, so the mask
+   bites in prefill and the ring cache wraps in decode) and
+   falcon-mamba-7b (batch 4, 2048); each with its parameter count
+   (``param_count()`` + ``param_count_gap()``), the kernel path's
+   prefill (one tensor-core flash launch per attention layer: 24 / 12 /
+   0) and 32 greedy decode steps (no launch), the plain path's prefill
+   and decode teacher-forced on the kernel path's tokens (logits within
+   ``FAMILY_TOL`` of the largest; granite's prefill also reports the
+   share of assignments its MoE capacity dropped; MoE routes are
+   teacher-forced too), for the recurrent two a prefill in two parts
+   (1024 tokens, then the rest from that state) against the one-shot
+   prefill (the same bound), prefill s and tokens/s, decode ms
+   per token and the decode loop's idle share, peak memory; then
+   reduced kimi-k2 (head_dim 8) and qwen2.5-3b (12, padded to 16) in
+   float32 on the card against the same run on the CPU.
 
 Launch counts are zeroed just before each of phases 3-5, 5b, 5c (after
-its ``make_sim_fn`` baselines), 5d, 7 and 8 and read just after it (the ``{"kernels"}`` line gives each kernel's
-launches on phase 3's or its own path, on 5b's, 5c's and 5d's); a replay of a
-captured static or recorded step counts as ``step_graph`` and as one
-launch of each kernel the graph holds.  It prints the metrics, a
-``{"kernels": [...]}`` line, the card's name and power limit, and as
-its last line
+its ``make_sim_fn`` baselines), 5d, 7, 8 and each model of 9 and read
+just after it (the ``{"kernels"}`` line gives each kernel's launches on
+phase 3's or its own path, on 5b's, 5c's and 5d's, and the flash rows
+per model of phase 9); a replay of a captured static or recorded step
+counts as ``step_graph`` and as one launch of each kernel the graph
+holds.  It prints the metrics, each phase's seconds, a ``{"kernels":
+[...]}`` line, the card's name and power limit, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 It needs one CUDA card and the repository checkout around it.
 
@@ -215,11 +235,13 @@ RECORD_STEPS, SMALL_CAPACITY = 100, 1000
 # a recorded call captures its graph: 1000 steps amortize the capture
 RECORD_LONG_STEPS = 1000
 MS_TILES = 2                       # the multi-shard path: 2x2 tiles
-MS_PARITY_STEPS, MS_TIMED_STEPS, MS_PROFILE_STEPS = 100, 500, 400
+# the parity legs (captured / eager / plain, recorded) run at 4x4x1240,
+# the timed and profiled runs at 8x8x1240
+MS_PARITY_STEPS, MS_TIMED_STEPS, MS_PROFILE_STEPS = 48, 500, 400
 # the plastic leg at 4x4x1240 in 2x2 tiles: the slab first fires in
 # bulk after step 20 (20 steps changed 9 weights, none in a halo tier);
 # its CPU plain paths (both laws side by side) are most of its time
-MS_PROFILE_REPLAYS, MS_RECORD_STEPS, MS_PLASTIC_STEPS = 20, 50, 30
+MS_PROFILE_REPLAYS, MS_RECORD_STEPS, MS_PLASTIC_STEPS = 20, 32, 30
 # the segmented driver: 400 steps in segments of 50 (each a ring phase 2
 # slots on from the last), preempted after 4; its plastic leg 60 steps
 SEG_TOTAL, SEG_STEPS, SEG_PREEMPT, SEG_PLASTIC_STEPS = 400, 50, 4, 60
@@ -253,6 +275,24 @@ TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 2e-3, 3e-2
 # the train driver at reduced width: straight against preempt + resume
 DRIVER_ARCHS = ("qwen2-1.5b", "qwen3-8b")
 DRIVER_BATCH, DRIVER_SEQ, DRIVER_STEPS, DRIVER_PREEMPT = 8, 128, 40, 25
+# phase 9: full-width models of the new families, each served in turn:
+# (arch, batch, prompt, greedy steps, the split of the two-part prefill;
+# None for MoE, whose routed batch sets its capacity ranks).
+# recurrentgemma's 3072-token prompts pass its 2048 window: the mask
+# bites in prefill, the ring cache wraps in decode, and its two-part
+# prefill (1024 + 2048) attends across the parts
+FAMILIES = [("granite-moe-1b-a400m", 4, 2048, 32, None),
+            ("recurrentgemma-9b", 2, 3072, 32, 1024),
+            ("falcon-mamba-7b", 4, 2048, 32, 1024)]
+# kernel path vs plain path (teacher-forced), and the two-part prefill vs
+# the one-shot one: max |diff| over the largest |logit|, bf16
+FAMILY_TOL = 2e-2
+# decode steps profiled for the idle share (device events only)
+FAMILY_PROFILE_STEPS = 8
+# reduced configs on the card (float32, the CUDA-core flash kernel; the
+# 12-wide head padded to 16) against the same run on the CPU
+REDUCED_ON_CARD = ("kimi-k2-1t-a32b", "qwen2.5-3b")
+REDUCED_TOL = 1e-4
 # the flash kernel against its plain version (tests/test_kernels.py)
 FLASH_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 # its row statistic L = m + log l against the plain logsumexp, times
@@ -276,6 +316,12 @@ SM90_CASES = [                     # the tensor-core kernel's edges (bf16)
     (2, 1, 513, 513, 64, True, 200, 0),
     (8, 1, 130, 300, 256, True, 40, 0),
     (2, 2, 300, 257, 256, False, None, 0),
+]
+PAD_CASES = [                      # head widths the wrapper pads: kimi-k2's
+    (8, 1, 300, 300, 112, True, None, 0),       # 112 (-> 128) and reduced
+    (4, 2, 129, 257, 112, True, 40, 128),       # qwen2.5-3b's 12 (-> 16)
+    (6, 2, 200, 200, 12, True, None, 0),
+    (2, 2, 37, 77, 12, False, None, 0),
 ]
 
 
@@ -1100,29 +1146,22 @@ def ms_memory(cfg, tables, stats: dict) -> dict:
 
 
 def run_multishard(law: str, single: dict) -> dict:
-    """The static multi-shard path at 8x8x1240 in 2x2 tiles: captured,
-    eager and plain runs from the same seed, recorded kernel and plain
-    runs (the global raster), the timed run, its profile and the
-    exchange's device time."""
+    """The static multi-shard path in 2x2 tiles: captured, eager and
+    plain runs from the same seed and recorded kernel and plain runs
+    (the global raster) at 4x4x1240 (the parity legs), then at 8x8x1240
+    the timed run, its profile and the exchange's device time.  The
+    8x8x1240 tables come from ``runtime.sim_driver.build_dist_tables``:
+    inside ``seg_shared_builds`` phase 5c's gaussian drivers find them
+    built."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import dist_engine as de
     from repro_torch.core import synapses
     from repro_torch.kernels import _build
-    cfg = ms_cfg(law, GRID)
+    from repro_torch.runtime import sim_driver as sd
     label = (f"multi-shard {law} {GRID}x{GRID}x{N_PER_COLUMN} "
              f"{MS_TILES}x{MS_TILES}")
-    t0 = time.perf_counter()
-    tables, stats = de.build_dist_tables(cfg)
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
-    inputs = de.SimInputs(tables=tables)
-    steps, d = MS_PARITY_STEPS, cfg.engine.d_ring
-
-    def replays():
-        return _build.launch_counts().get("step_graph", 0)
-
-    stage = {"host_build": build_s}
+    stage = {}
     t_stage = time.perf_counter()
 
     def lap(name):
@@ -1132,19 +1171,31 @@ def run_multishard(law: str, single: dict) -> dict:
         stage[name] = now - t_stage
         t_stage = now
 
+    def replays():
+        return _build.launch_counts().get("step_graph", 0)
+
+    # the parity legs at 4x4x1240
+    cfg = ms_cfg(law, PARITY_GRID)
+    plabel = (f"multi-shard {law} {PARITY_GRID}x{PARITY_GRID}x"
+              f"{N_PER_COLUMN} {MS_TILES}x{MS_TILES}")
+    tables, _ = de.build_dist_tables(cfg)
+    lap("parity_host_build")
+    inputs = de.SimInputs(tables=tables)
+    steps, d = MS_PARITY_STEPS, cfg.engine.d_ring
+
     # captured, eager (one step a call) and plain, from the same seed
     r0 = replays()
     sim = de.make_sim_fn(cfg, steps, storage=tables.storage)
     cap_state, cap_per = sim(de.init_dist_state(cfg), inputs)
     require(replays() - r0 == (steps - d) // d,
-            f"{label}: {replays() - r0} replays in {steps} steps")
+            f"{plabel}: {replays() - r0} replays in {steps} steps")
     builds = dict(synapses.BUILD_COUNTS)
     one = de.make_sim_fn(cfg, 1, storage=tables.storage)
     eag_state = de.init_dist_state(cfg)
     eag_per = torch.cat([one(eag_state, inputs)[1] for _ in range(steps)],
                         dim=2)
     require(one.graph_loop is None and replays() - r0 == (steps - d) // d,
-            f"{label}: the one-step calls replayed a graph")
+            f"{plabel}: the one-step calls replayed a graph")
     plain = de.DistConfig(engine=dataclasses.replace(cfg.engine,
                                                      use_kernels=False))
     pl_state, pl_per = de.make_sim_fn(plain, steps, storage=tables.storage)(
@@ -1152,12 +1203,12 @@ def run_multishard(law: str, single: dict) -> dict:
     torch.cuda.synchronize()
     for other, st, per in (("eager", eag_state, eag_per),
                            ("plain", pl_state, pl_per)):
-        require(torch.equal(cap_per, per), f"{label}: per-step spikes of "
+        require(torch.equal(cap_per, per), f"{plabel}: per-step spikes of "
                 f"the captured run differ from the {other} run")
         diff = ms_diff(cap_state, st)
-        require(not diff, f"{label}: the captured run differs from the "
+        require(not diff, f"{plabel}: the captured run differs from the "
                 f"{other} run in {diff}")
-    require(dict(synapses.BUILD_COUNTS) == builds, f"{label}: derived "
+    require(dict(synapses.BUILD_COUNTS) == builds, f"{plabel}: derived "
             f"structures rebuilt after the first step: {builds} -> "
             f"{dict(synapses.BUILD_COUNTS)}")
     lap("captured_eager_plain")
@@ -1168,10 +1219,10 @@ def run_multishard(law: str, single: dict) -> dict:
                                                 MS_RECORD_STEPS, "cuda")
     rec_replays = replays() - r0
     require(rsim.captures == 1 and rec_replays == (MS_RECORD_STEPS - d)
-            // d, f"{label}: the recorded run replayed {rec_replays} times")
+            // d, f"{plabel}: the recorded run replayed {rec_replays} times")
     _, _, rec_p, _ = ms_recorded(plain, tables, MS_RECORD_STEPS, "cuda")
     for k in rec_k:
-        require(torch.equal(rec_k[k], rec_p[k]), f"{label}: recorder {k} "
+        require(torch.equal(rec_k[k], rec_p[k]), f"{plabel}: recorder {k} "
                 "differs between the kernel and plain paths")
     from repro_torch.obs.record import recorder_spec, stacked_gid_maps
     one_rec = de.make_sim_fn(cfg, 1, recorder=recorder_spec(cfg.engine, 1),
@@ -1185,17 +1236,34 @@ def run_multishard(law: str, single: dict) -> dict:
     require(all(torch.equal(a, b) for a, b in zip(ms_events(rec_k),
                                                    eager_events))
             and not ms_diff(rk_state, re_state),
-            f"{label}: the captured recorded run differs from the eager "
+            f"{plabel}: the captured recorded run differs from the eager "
             "one-step calls")
     n_spk = rk_state["metrics"]["spikes"].to(torch.int32)
     require(torch.equal(rec_k["dropped"], torch.zeros_like(n_spk))
             and torch.equal(rec_k["count"], n_spk),
-            f"{label}: the recorder missed spikes at its default capacity")
+            f"{plabel}: the recorder missed spikes at its default capacity")
     require(torch.equal(rk_per, cap_per[..., :MS_RECORD_STEPS]),
-            f"{label}: recording changed the spikes")
+            f"{plabel}: recording changed the spikes")
+    require(float(cap_per.sum()) > 0, f"{plabel}: no spike in the parity "
+            "legs")
+    parity_spikes, recorded_events = float(cap_per.sum()), int(
+        rec_k["count"].sum())
     lap("recorded")
 
-    # the timed run
+    # the timed run at 8x8x1240
+    cfg = ms_cfg(law, GRID)
+    d = cfg.engine.d_ring
+    t0 = time.perf_counter()
+    tables, stats = sd.build_dist_tables(cfg, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    inputs = de.SimInputs(tables=tables)
+    lap("host_build")
+    # a short run first: the tables' run descriptors are built on first
+    # use, and the timed run must not carry them
+    de.make_sim_fn(cfg, 2 * d, storage=tables.storage)(
+        de.init_dist_state(cfg), inputs)
+    lap("warm_up")
     state = de.init_dist_state(cfg)
     timed = de.make_sim_fn(cfg, MS_TIMED_STEPS, storage=tables.storage)
     c0 = _build.launch_counts()
@@ -1268,9 +1336,10 @@ def run_multishard(law: str, single: dict) -> dict:
         "graph_device_ops_per_step": len(dev_events) / n_graph_steps,
         "graph_busy_ms_per_step": replay_busy_us / n_graph_steps / 1e3,
         "exchange_gathers_ms_per_step": gather_us / n_graph_steps / 1e3,
-        "parity_steps": steps, "parity_spikes": float(cap_per.sum()),
+        "parity_grid": f"{PARITY_GRID}x{PARITY_GRID}x{N_PER_COLUMN}",
+        "parity_steps": steps, "parity_spikes": parity_spikes,
         "recorded_steps": MS_RECORD_STEPS,
-        "recorded_events": int(rec_k["count"].sum()),
+        "recorded_events": recorded_events,
         "recorded_step_graph_replays": rec_replays,
     }
     lap("profile_and_exchange_timing")
@@ -2350,6 +2419,14 @@ def check_flash(gen) -> dict:
                 f"{(bh, bhkv, sq, sk, d)} causal={causal} window={win} "
                 f"q_offset={qoff} {dtype}", causal=causal, window=win,
                 q_offset=qoff)
+    for bh, bhkv, sq, sk, d, causal, win, qoff in PAD_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = rand(bh, sq, d), rand(bhkv, sk, d), rand(bhkv, sk, d)
+            one(q.to(dtype), k.to(dtype), v.to(dtype),
+                f"{(bh, bhkv, sq, sk, d)} causal={causal} window={win} "
+                f"q_offset={qoff} {dtype} (padded to "
+                f"{fa.padded_head_dim(fa._route(dtype, d), d)})",
+                causal=causal, window=win, q_offset=qoff)
     for dtype, d in ((torch.float32, 8), (torch.bfloat16, 64),
                      (torch.bfloat16, 128), (torch.bfloat16, 256),
                      (torch.float32, 64), (torch.float32, 128),
@@ -2448,8 +2525,9 @@ def lm_compare(a, b) -> dict:
             "ratio": float((d / (b.abs() + std)).max())}
 
 
-def decode(params, cfg, state, first_tok, steps: int, forced=None):
-    """``steps`` greedy decode steps from ``first_tok`` at LM_PROMPT (or
+def decode(params, cfg, state, first_tok, steps: int, forced=None,
+           start: int = LM_PROMPT):
+    """``steps`` greedy decode steps from ``first_tok`` at ``start`` (or
     teacher-forced on ``forced``: (B, steps) tokens).  Returns the tokens
     fed, the logits of every step and the state."""
     import torch
@@ -2460,7 +2538,7 @@ def decode(params, cfg, state, first_tok, steps: int, forced=None):
         if forced is not None:
             tok = forced[:, i:i + 1]
         toks.append(tok)
-        lg, state = step(params, state, tok, LM_PROMPT + i)
+        lg, state = step(params, state, tok, start + i)
         lgs.append(lg)
         tok = torch.argmax(lg[:, -1:], dim=-1).to(torch.int32)
     return torch.cat(toks, dim=1), lgs, state
@@ -2943,6 +3021,368 @@ def train_driver_checks() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the MoE, mamba and RG-LRU families at full width, and the
+# padded head widths on reduced configs
+# ---------------------------------------------------------------------------
+
+def clone_state(state):
+    """A copy of a decode state (KV caches and recurrent states)."""
+    if isinstance(state, dict):
+        return {k: clone_state(v) for k, v in state.items()}
+    if isinstance(state, list):
+        return [clone_state(v) for v in state]
+    if dataclasses.is_dataclass(state):
+        return dataclasses.replace(state, k=state.k.clone(),
+                                   v=state.v.clone())
+    return state.clone()
+
+
+def logit_gap(a, b) -> float:
+    """max |a - b| over the largest |b| (b the reference)."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max()) / float(b.abs().max())
+
+
+@contextlib.contextmanager
+def route_tape(tape: list, replay: bool):
+    """MoE routing on a tape: record each ``moe._route`` call's experts
+    (``replay=False``), or route each call to the next recorded experts,
+    their weights the caller's own probabilities there, renormalised
+    (``replay=True``; the plain path teacher-forced on the kernel path's
+    routes as on its tokens)."""
+    from unittest import mock
+    from repro_torch.models import moe
+    route, pos = moe._route, [0]
+
+    def record(probs, k):
+        top_w, top_e = route(probs, k)
+        tape.append(top_e)
+        return top_w, top_e
+
+    def forced(probs, k):
+        require(pos[0] < len(tape), "the route tape ran out")
+        top_e = tape[pos[0]]
+        pos[0] += 1
+        require(top_e.shape == (probs.shape[0], k), "the route tape's "
+                f"experts {tuple(top_e.shape)} do not fit {probs.shape}")
+        top_w = probs.gather(-1, top_e)
+        return top_w / top_w.sum(dim=-1, keepdim=True), top_e
+
+    with mock.patch.object(moe, "_route", forced if replay else record):
+        yield
+    require(not replay or pos[0] == len(tape), f"the plain path routed "
+            f"{pos[0]} times, the kernel path {len(tape)}")
+
+
+def serve_family(arch: str, batch: int, prompt: int, gen: int,
+                 split) -> dict:
+    """One full-width model of a new family in bf16 (seeded random
+    weights from ``init_model``): its parameter count; the kernel path's
+    prefill (after one warm-up prefill) and ``gen`` greedy decode steps,
+    counted and timed (the counts zeroed just before and read just
+    after), the decode loop's idle share (profiled, from a copy of the
+    prefill's state); with attention, the plain path (``attn_impl=
+    "naive"``, through ``forward``, which also returns the MoE aux
+    values) teacher-forced on the kernel path's tokens; then, unless
+    ``split`` is None, a prefill of the first ``split`` tokens and one
+    of the rest from its state (``cache_pos=split``) against the
+    one-shot prefill.  Every logit gap
+    is a share of the largest reference logit.
+
+    MoE routing is discrete: a difference of one bf16 rounding in a
+    token's router input can change its top-k experts, and the changes
+    compound over the layers (the share of the prefill's tokens that
+    reach another expert set, first and last layer, is reported), as
+    they do between two plain paths.  So for a MoE model the plain path
+    is teacher-forced on the kernel path's routes too (``route_tape``),
+    and that gap is the one held to ``FAMILY_TOL``; the unforced gap,
+    and a control of two plain paths (chunked against naive), are
+    reported beside it."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models import transformer as tt
+    from repro_torch.models.model import make_prefill
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_model = time.perf_counter()
+    base_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config(arch), attn_impl="pallas")
+    require(cfg.dtype == "bfloat16", f"{arch} is not bf16")
+    n_attn = sum(k in ("attn", "moe") for k in cfg.layer_kinds)
+    t0 = time.perf_counter()
+    params = tt.init_model(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _tensors(params))
+    gap = tt.param_count_gap(cfg)
+    require(n_params == cfg.param_count() + gap, f"{arch}: {n_params} "
+            f"parameters, the config counts {cfg.param_count()} + "
+            f"{gap} (param_count_gap)")
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (batch, prompt)).astype(np.int32)
+    tokens = torch.from_numpy(prompts).cuda()
+    max_len = prompt + gen
+    res = {"arch": arch, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "kinds": {k: cfg.layer_kinds.count(k)
+                     for k in sorted(set(cfg.layer_kinds))},
+           "head_dim": cfg.resolved_head_dim, "window": cfg.window,
+           "dtype": cfg.dtype, "params": n_params,
+           "param_count": cfg.param_count(), "param_count_gap": gap,
+           "init_s": init_s, "batch": batch, "prompt_len": prompt,
+           "gen": gen}
+
+    stage, stage_peak = {}, {}
+    t_stage = [time.perf_counter()]
+
+    def lap(name):
+        """Seconds and peak bytes (above the phase's base) of a stage."""
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        stage[name] = now - t_stage[0]
+        stage_peak[name] = torch.cuda.max_memory_allocated() - base_bytes
+        torch.cuda.reset_peak_memory_stats()
+        t_stage[0] = now
+
+    # the kernel path: a warm-up prefill, then prefill and greedy decode
+    # (counted, timed; a MoE model's routes recorded)
+    prefill = make_prefill(cfg)
+    prefill(params, {"tokens": tokens},
+            tt.init_decode_state(cfg, batch, max_len))
+    lap("warm_up_prefill")
+    state = tt.init_decode_state(cfg, batch, max_len)
+    tape = []
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    with route_tape(tape, replay=False):
+        t0 = time.perf_counter()
+        lg_k, state = prefill(params, {"tokens": tokens}, state)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        pre_counts = _build.launch_counts()
+        saved = clone_state(state)
+        first = torch.argmax(lg_k[:, -1:], dim=-1).to(torch.int32)
+        t0 = time.perf_counter()
+        toks, lgs_k, _ = decode(params, cfg, state, first, gen,
+                                start=prompt)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    n_flash = pre_counts.get("flash_attention", 0)
+    require(pre_counts == ({"flash_attention": n_attn} if n_attn else {}),
+            f"{arch}: the prefill's launches {pre_counts}, not one "
+            f"flash_attention per attention layer ({n_attn})")
+    require(counts == pre_counts, f"{arch}: the decode steps launched "
+            f"{counts} after the prefill's {pre_counts}")
+    require(toks.shape == (batch, gen) and bool(
+        ((toks >= 0) & (toks < cfg.padded_vocab)).all()), f"{arch}: bad "
+        "tokens")
+    kern = [lg_k] + lgs_k
+    for lg in kern:
+        require(lg.shape == (batch, 1, cfg.padded_vocab)
+                and bool(torch.isfinite(lg).all()),
+                f"{arch}: non-finite or misshapen logits")
+
+    lap("kernel_path")
+
+    # the decode loop's device idle share over its first steps, from the
+    # prefill's state (device events only: the host's op events would
+    # cost more to collect than the loop itself)
+    n_prof = min(FAMILY_PROFILE_STEPS, gen)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, lgs_prof, _ = decode(params, cfg, clone_state(saved), first,
+                                n_prof, forced=toks, start=prompt)
+        torch.cuda.synchronize()
+        prof_us = (time.perf_counter() - t0) * 1e6
+    busy_us, decode_top = device_breakdown(prof, n_prof)
+    require(all(torch.equal(a, b) for a, b in zip(lgs_prof, lgs_k)),
+            f"{arch}: a repeated decode from the same state gave other "
+            "logits")
+    del lgs_prof, prof, saved
+    lap("decode_profile")
+
+    def plain(impl: str, forced_routes: bool, routes=None):
+        """The plain path's prefill and decode logits, teacher-forced on
+        the kernel path's tokens (and routes), and its prefill's aux;
+        ``routes``: a list that records the plain path's own routes."""
+        c = dataclasses.replace(cfg, attn_impl=impl)
+        st = tt.init_decode_state(c, batch, max_len)
+        with route_tape(tape, replay=True) if forced_routes \
+                else route_tape(routes if routes is not None else [],
+                                replay=False):
+            x, st, aux = tt.forward(params, c, {"tokens": tokens},
+                                    state=st, cache_pos=0)
+            lgs = [tt.logits(params, x[:, -1:])]
+            lgs += decode(params, c, st, first, gen, forced=toks,
+                          start=prompt)[1]
+        return lgs, aux
+
+    if n_attn:
+        ref, aux = plain("naive", forced_routes=cfg.is_moe)
+        gaps = [logit_gap(a, b) for a, b in zip(kern, ref)]
+        tag = "_routes_forced" if cfg.is_moe else ""
+        res[f"prefill_logit_gap_vs_plain{tag}"] = gaps[0]
+        res[f"decode_logit_gap_vs_plain{tag}_worst"] = max(gaps[1:])
+        require(max(gaps) <= FAMILY_TOL, f"{arch}: kernel path vs plain "
+                f"path logits differ by {max(gaps)} of the largest logit "
+                f"(> {FAMILY_TOL})")
+        res["decode_argmax_agreement_vs_plain"] = float(
+            (torch.cat([torch.argmax(a, -1) for a in lgs_k], 1)
+             == torch.cat([torch.argmax(b, -1) for b in ref[1:]], 1))
+            .float().mean())
+        if cfg.is_moe:
+            res["prefill_frac_dropped_mean_over_layers"] = float(
+                aux["frac_dropped"]) / cfg.n_layers
+            res["prefill_load_balance_mean_over_layers"] = float(
+                aux["load_balance"]) / cfg.n_layers
+            own = []
+            free, _ = plain("naive", forced_routes=False, routes=own)
+            ctrl, _ = plain("chunked", forced_routes=False)
+            res["logit_gap_vs_plain_unforced_worst"] = max(
+                logit_gap(a, b) for a, b in zip(kern, free))
+            res["control_chunked_vs_plain_unforced_worst"] = max(
+                logit_gap(a, b) for a, b in zip(ctrl, free))
+            # the prefill's tokens (share) whose expert set differs
+            # between the kernel path and the unforced plain path, by layer
+            moved = [float((a.sort(-1).values != b.sort(-1).values)
+                           .any(-1).float().mean())
+                     for a, b in zip(tape[:cfg.n_layers], own)]
+            res["prefill_tokens_rerouted_unforced_first_last_layer"] = [
+                moved[0], moved[-1]]
+            del free, ctrl, own
+        del ref, aux
+    del tape
+    lap("plain_paths")
+
+    # the prefill in two parts against the one-shot prefill (not for
+    # MoE: each routed batch has its own capacity ranks, so the parts
+    # drop other assignments than the whole)
+    if split:
+        st2 = tt.init_decode_state(cfg, batch, max_len)
+        _, st2 = prefill(params, {"tokens": tokens[:, :split]}, st2)
+        x, st2, _ = tt.forward(params, cfg, {"tokens": tokens[:, split:]},
+                               state=st2, cache_pos=split)
+        res["split_prefill"] = [split, prompt - split]
+        res["split_prefill_logit_gap"] = logit_gap(
+            tt.logits(params, x[:, -1:]), lg_k)
+        require(res["split_prefill_logit_gap"] <= FAMILY_TOL,
+                f"{arch}: the prefill in two parts ({split} + "
+                f"{prompt - split}) differs from the one-shot prefill by "
+                f"{res['split_prefill_logit_gap']} of the largest logit")
+        del st2, x
+        lap("split_prefill")
+    peak = max(stage_peak.values())
+    res.update({
+        "prefill_s": prefill_s,
+        "prefill_tokens_per_s": batch * prompt / prefill_s,
+        "decode_ms_per_token": 1e3 * decode_s / gen,
+        "decode_device_idle_share": 1.0 - busy_us / prof_us,
+        "decode_profiled_steps": n_prof,
+        "decode_profiled_ms_per_token": prof_us / n_prof / 1e3,
+        "decode_device_busy_ms_per_token": busy_us / n_prof / 1e3,
+        "decode_top_kernels_ms_per_token": decode_top,
+        "decode_weight_bound_ms_per_token":
+            1e3 * 2 * n_params / HBM_BYTES_PER_S,
+        "peak_device_bytes_above_earlier_phases": peak,
+        "flash_launches_prefill": n_flash,
+        "flash_launches_decode": counts.get("flash_attention", 0) - n_flash,
+        "tolerance": f"max |diff| <= {FAMILY_TOL} x max |reference logit|",
+        "stage_s": stage, "stage_peak_bytes": stage_peak,
+        "model_s": time.perf_counter() - t_model,
+    })
+    del params, state, lg_k, lgs_k, kern
+    torch.cuda.empty_cache()
+    print(f"lm family {arch} " + json.dumps(res), flush=True)
+    print(f"lm family {arch}: prefill {batch} x {prompt} {prefill_s:.4f} s "
+          f"({batch * prompt / prefill_s:.0f} tok/s), decode "
+          f"{1e3 * decode_s / gen:.2f} ms/token, idle "
+          f"{1.0 - busy_us / prof_us:.3f} ({n_prof} steps profiled), "
+          f"flash {n_flash} per prefill, "
+          f"peak {peak / 2 ** 30:.2f} GiB", flush=True)
+    return res
+
+
+def run_families() -> dict:
+    """Phase 9: each full-width model of ``FAMILIES`` in turn (each freed
+    before the next), then ``run_reduced_on_card``.  Returns the flash
+    launches per model and route."""
+    out = {}
+    for arch, batch, prompt, gen, split in FAMILIES:
+        out[arch] = serve_family(arch, batch, prompt, gen, split)
+    return {"sm90": {a: r["flash_launches_prefill"]
+                     for a, r in out.items()},
+            "simt": run_reduced_on_card()}
+
+
+def run_reduced_on_card() -> dict:
+    """Reduced configs whose heads the kernels are not built for, or that
+    only reduced configs reach (``REDUCED_ON_CARD``: kimi-k2's 8,
+    qwen2.5-3b's 12, padded to 16), in float32 through the kernel path
+    on the card against the same weights and tokens on the CPU (where
+    the wrapper is the plain version): a prefill and 8 greedy decode
+    steps, the CPU teacher-forced on the card's tokens.  Returns each
+    config's flash launches (the CUDA-core kernel)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels import _build
+    from repro_torch.models import transformer as tt
+    from repro_torch.models.model import make_prefill, make_serve_step
+    from repro_torch.tree import tree_flatten, tree_unflatten
+    torch.backends.cuda.matmul.allow_tf32 = False
+    launches = {}
+    for arch in REDUCED_ON_CARD:
+        cfg = dataclasses.replace(get_reduced(arch), attn_impl="pallas")
+        n_attn = sum(k in ("attn", "moe") for k in cfg.layer_kinds)
+        leaves, treedef = tree_flatten(tt.init_model(cfg, seed=0,
+                                                     device="cpu"))
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            params = tree_unflatten(treedef, [t.to(dev) for t in leaves])
+            tok = torch.from_numpy(np.random.default_rng(1).integers(
+                0, cfg.vocab_size, (2, 40)).astype(np.int32)).to(dev)
+            state = tt.init_decode_state(cfg, 2, 48, device=dev)
+            _build.reset_launch_counts()
+            lg, state = make_prefill(cfg)(params, {"tokens": tok}, state)
+            n_pre = _build.launch_counts()
+            step = make_serve_step(cfg)
+            lgs, toks = [lg], runs.get("cuda", {}).get("toks")
+            fed = []
+            for i in range(8):
+                t = (toks[i].to(dev) if toks is not None else
+                     torch.argmax(lgs[-1][:, -1:], -1).to(torch.int32))
+                fed.append(t)
+                lg, state = step(params, state, t, 40 + i)
+                lgs.append(lg)
+            runs[dev] = {"lgs": [x.cpu() for x in lgs], "toks": fed,
+                         "prefill": n_pre, "all": _build.launch_counts()}
+        card, cpu = runs["cuda"], runs["cpu"]
+        want = {"flash_attention_simt": n_attn}
+        require(card["prefill"] == want and card["all"] == want,
+                f"{arch} reduced: the card's launches {card['all']} "
+                f"(prefill {card['prefill']}), not {want}")
+        require(cpu["all"] == {}, f"{arch} reduced: the CPU launched "
+                f"{cpu['all']}")
+        gap = max(logit_gap(a, b) for a, b in zip(card["lgs"], cpu["lgs"]))
+        require(gap <= REDUCED_TOL, f"{arch} reduced: card vs CPU logits "
+                f"differ by {gap} of the largest logit")
+        launches[cfg.name] = n_attn
+        print(f"lm reduced on card {cfg.name} " + json.dumps({
+            "head_dim": cfg.resolved_head_dim, "dtype": cfg.dtype,
+            "padded_head_dim": (16 if cfg.resolved_head_dim == 12
+                                else cfg.resolved_head_dim),
+            "flash_simt_launches_prefill": n_attn,
+            "flash_launches_decode": 0,
+            "logit_gap_card_vs_cpu_worst": gap,
+            "tolerance": f"<= {REDUCED_TOL} x max |CPU logit|"}))
+    return launches
+
+
 def device_breakdown(prof, n: int):
     """(device busy us, top kernels [[name, ms per unit]]) of a profile
     over ``n`` units of work, summed by full kernel name (printed as
@@ -2995,7 +3435,8 @@ def _sdpa(q, k, v):
                 "repeated")
 
 
-def time_flash(launches: dict, err: dict, train: dict) -> list:
+def time_flash(launches: dict, err: dict, train: dict,
+               families: dict) -> list:
     """The flash kernels at qwen2-1.5b's prefill shape (one layer of the
     4 x 2048 prefill): the bf16 tensor-core kernel (the serving path),
     the 3xTF32 kernel in float32 (the float32 prefill's route) and its
@@ -3009,7 +3450,8 @@ def time_flash(launches: dict, err: dict, train: dict) -> list:
     pre-pass (``route_ms``).  Each route is also timed writing the row
     statistic (``ms_with_lse``, the training forward's call), beside its
     launches in phase 8's five training steps (``train_launches``;
-    ``train``: phase 8's counts)."""
+    ``train``: phase 8's counts) and in phase 9's prefills
+    (``family_launches``: ``families``' counts per route and model)."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import attention_ref, tf32_split_ref
@@ -3049,6 +3491,7 @@ def time_flash(launches: dict, err: dict, train: dict) -> list:
             "launches": launches[route], "max_abs_err": err[route],
             "lse_max_abs_err": err["lse"][route],
             "train_launches": train.get(fa.ROUTE_KERNELS[route], 0),
+            "family_launches": families.get(route, {}),
             "ms": queued_ms(kern, 20), "call_ms": call_ms(kern, 20),
             "ms_with_lse": queued_ms(with_lse, 20),
             "profiler_ms": device_ms(kern, 20),
@@ -3092,6 +3535,7 @@ def time_flash(launches: dict, err: dict, train: dict) -> list:
                 "launches": launches["tf32_split"],
                 "max_abs_err": err["tf32_split"],
                 "train_launches": train.get(fa.SPLIT_KERNEL, 0),
+                "family_launches": {},
                 "ms": queued_ms(one, 20), "call_ms": call_ms(one, 20),
                 "profiler_ms": device_ms(one, 20),
                 "plain_ms": device_ms(lambda: tf32_split_ref(x[1], x[2]), 5),
@@ -3289,6 +3733,14 @@ def main() -> None:
     t_start = time.perf_counter()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
+    phase_s, t_phase = {}, [t_start]
+
+    def phase(name: str) -> None:
+        """Record and print the seconds since the last phase ended."""
+        now = time.perf_counter()
+        phase_s[name] = now - t_phase[0]
+        t_phase[0] = now
+        print(f"phase {name}: {phase_s[name]:.1f} s", flush=True)
 
     # 1. build
     t0 = time.perf_counter()
@@ -3297,6 +3749,7 @@ def main() -> None:
     for name, log in sorted(_build.BUILD_LOG.items()):
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
         print(f"build {name}: " + " | ".join(regs))
+    phase("1")
 
     # host builds of every static table set (numpy, the reference's draws)
     tables, builds = {}, {}
@@ -3343,6 +3796,7 @@ def main() -> None:
                                  gen)
     flash_err = check_flash(gen)
     check_dict_tables(gen)
+    phase("2 (with the host table builds)")
 
     # 3. the static path
     torch.cuda.reset_peak_memory_stats()
@@ -3359,6 +3813,7 @@ def main() -> None:
             "the static path reached the unfused LIF kernel")
     require("event_delivery_rows" not in launches,
             "the static path reached the legacy warp-per-row kernel")
+    phase("3")
 
     # 4. the plastic path: CPU parity at 4x4, then timed at 8x8
     for law in LAWS:
@@ -3381,6 +3836,7 @@ def main() -> None:
     require("event_delivery" not in p_launches,
             "float32 weights reached the atomic delivery kernel")
     plastic_err = max(check_plastic_kernel(pruns[law], law) for law in LAWS)
+    phase("4")
 
     # 5. the recorded path
     torch.cuda.reset_peak_memory_stats()
@@ -3395,31 +3851,33 @@ def main() -> None:
     require("step_graph" not in p_launches,
             "a plastic run replayed a graph")
 
-    # 5b. the multi-shard path: 2x2 tiles, static (both laws, with the
-    # recorded runs) and the plastic parity at 4x4
-    torch.cuda.reset_peak_memory_stats()
-    _build.reset_launch_counts()
-    t0 = time.perf_counter()
-    for law in LAWS:
-        run_multishard(law, runs[law])
-    ms_plastic_parity()
-    ms_launches = _build.launch_counts()
-    print(f"multi-shard path launches: {json.dumps(ms_launches)}; "
-          f"max_memory_allocated {torch.cuda.max_memory_allocated()} B; "
-          f"{time.perf_counter() - t0:.1f} s")
-    for name in ("neuron_step", "event_delivery", "step_graph",
-                 "spike_compact", "plastic_delivery_ltd"):
-        require(ms_launches.get(name, 0) > 0,
-                f"kernel {name} was not launched on the multi-shard path")
-    require("lif_step" not in ms_launches
-            and "event_delivery_rows" not in ms_launches,
-            "the multi-shard path reached a replaced kernel")
+    phase("5")
 
-    # 5c. the segmented driver: checkpoints, resume, spool, retile (it
-    # zeroes the counts itself, after timing make_sim_fn alone); 5d.
-    # ensembles through the same drivers (their table builds shared),
-    # then the job service on builds of its own
+    # 5b. the multi-shard path: 2x2 tiles, static (both laws, with the
+    # recorded runs) and the plastic parity at 4x4; its 8x8x1240 table
+    # builds are shared with 5c and 5d (``seg_shared_builds``)
     with seg_shared_builds():
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        for law in LAWS:
+            run_multishard(law, runs[law])
+        ms_plastic_parity()
+        ms_launches = _build.launch_counts()
+        print(f"multi-shard path launches: {json.dumps(ms_launches)}; "
+              f"max_memory_allocated {torch.cuda.max_memory_allocated()} B")
+        for name in ("neuron_step", "event_delivery", "step_graph",
+                     "spike_compact", "plastic_delivery_ltd"):
+            require(ms_launches.get(name, 0) > 0,
+                    f"kernel {name} was not launched on the multi-shard path")
+        require("lif_step" not in ms_launches
+                and "event_delivery_rows" not in ms_launches,
+                "the multi-shard path reached a replaced kernel")
+        phase("5b")
+
+        # 5c. the segmented driver: checkpoints, resume, spool, retile (it
+        # zeroes the counts itself, after timing make_sim_fn alone); 5d.
+        # ensembles through the same drivers (their table builds shared),
+        # then the job service on builds of its own
         seg = run_segmented(runs["gaussian"]["rate_hz"])
         seg_launches = _build.launch_counts()
         print(f"segmented driver launches: {json.dumps(seg_launches)}")
@@ -3427,13 +3885,13 @@ def main() -> None:
                      "spike_compact", "plastic_delivery_ltd"):
             require(seg_launches.get(name, 0) > 0,
                     f"kernel {name} was not launched on the segmented path")
-        t0 = time.perf_counter()
+        phase("5c")
         _build.reset_launch_counts()
         run_ensembles(seg)
     run_service()
     ens_launches = _build.launch_counts()
-    print(f"ensemble and service launches: {json.dumps(ens_launches)}; "
-          f"{time.perf_counter() - t0:.1f} s")
+    print(f"ensemble and service launches: {json.dumps(ens_launches)}")
+    phase("5d")
     for name in ("neuron_step", "event_delivery", "step_graph",
                  "spike_compact", "plastic_delivery_ltd"):
         require(ens_launches.get(name, 0) > 0,
@@ -3469,18 +3927,30 @@ def main() -> None:
     kernels.append(k)
     print(f"timing {json.dumps(kernels[0])}")
 
+    phase("6")
+
     # 7. the LM serving path (qwen2-1.5b, full width), then the flash
     # kernel's timing at its prefill shape (not counted as launches)
     lm = run_lm()
+    phase("7")
 
     # 8. LM training: qwen2-1.5b at full width through the flash kernel's
     # forward (counts zeroed and read inside), then the train driver at
     # reduced width (no kernel: the reduced configs' chunked attention)
     train = run_train()
     run_train_driver()
-    for k in time_flash(lm["launches"], flash_err, train["launches"]):
+    phase("8")
+
+    # 9. the MoE, mamba and RG-LRU families at full width (counts zeroed
+    # and read inside, per model), then reduced kimi-k2 and qwen2.5-3b
+    # on the card against the CPU
+    families = run_families()
+    phase("9")
+    for k in time_flash(lm["launches"], flash_err, train["launches"],
+                        families):
         print(f"timing {json.dumps(k)}")
         kernels.append(k)
+    phase("flash timing")
     require("jax" not in sys.modules and not any(
         m == "repro" or m.startswith("repro.") for m in sys.modules),
         "the port pulled in jax or the JAX package")
@@ -3489,6 +3959,7 @@ def main() -> None:
         k["segmented_launches"] = seg_launches.get(k["name"], 0)
         k["ensemble_launches"] = ens_launches.get(k["name"], 0)
     print(json.dumps({"kernels": kernels}))
+    print("phase seconds " + json.dumps(phase_s))
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

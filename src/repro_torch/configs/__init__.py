@@ -6,19 +6,24 @@ with the shape cells each runs (``shape_cells``/``all_cells``).
 from __future__ import annotations
 
 from ..models.config import SHAPES, ModelConfig
-from . import gemma_2b, qwen2_1_5b, qwen2_5_3b, qwen3_8b, snn
+from . import (falcon_mamba_7b, gemma_2b, granite_moe_1b, kimi_k2_1t,
+               qwen2_1_5b, qwen2_5_3b, qwen3_8b, recurrentgemma_9b, snn)
 
 _MODULES = {
+    "recurrentgemma-9b": recurrentgemma_9b,
+    "falcon-mamba-7b": falcon_mamba_7b,
     "qwen2-1.5b": qwen2_1_5b,
     "qwen3-8b": qwen3_8b,
     "gemma-2b": gemma_2b,
     "qwen2.5-3b": qwen2_5_3b,
+    "granite-moe-1b-a400m": granite_moe_1b,
+    "kimi-k2-1t-a32b": kimi_k2_1t,
 }
 
 ARCH_NAMES = tuple(_MODULES)
 
-# sub-quadratic archs run the long_500k cell (none is ported yet); pure
-# full-attention archs skip it
+# sub-quadratic archs run the long_500k cell; pure full-attention archs
+# skip it
 LONG_CONTEXT_ARCHS = ("recurrentgemma-9b", "falcon-mamba-7b")
 
 

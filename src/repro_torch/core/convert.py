@@ -118,26 +118,38 @@ def plasticity_from_arrays(aux: dict, device="cuda") -> dict:
     }
 
 
+# the leaves the reference keeps in float32 whatever the model's dtype:
+# the MoE router, the mamba block's dt_bias, a_log and d_skip, the RG-LRU
+# block's gate biases and decay parameter
+FLOAT32_LEAVES = ("router", "dt_bias", "a_log", "d_skip", "b_a", "b_x",
+                  "lam")
+
+
 def model_params_from_arrays(cfg, tree: dict, device="cuda",
                              dtype: Optional[str] = None) -> dict:
     """The port's LM parameters (``models.transformer`` layout) from the
     reference's parameter tree as numpy arrays
     (``jax.tree.map(np.asarray, params)``), in ``dtype`` (default
-    ``cfg.dtype``).  Any tree of the parameters' structure crosses the
-    same way: gradients (``jax.grad``'s), AdamW's ``m`` and ``v``
-    (``dtype="float32"``).
+    ``cfg.dtype``, and float32 for the leaves the reference keeps in
+    float32, ``FLOAT32_LEAVES``).  Any tree of the parameters' structure
+    crosses the same way: gradients (``jax.grad``'s), AdamW's ``m`` and
+    ``v`` (``dtype="float32"``).
 
     The reference stacks the layers of pattern position ``pos`` in
     ``blocks[pos]`` with a leading period axis and keeps the remainder
     layers in ``rest``: period ``i`` of ``blocks[pos]`` is layer
-    ``i * len(cfg.pattern) + pos``, and ``rest`` follows."""
+    ``i * len(cfg.pattern) + pos``, and ``rest`` follows (recurrentgemma:
+    12 periods of (rglru, rglru, attn), then its 2 remainder rglru
+    layers)."""
     dev = resolve_device(device)
-    dtype = torch_dtype(dtype or cfg.dtype)
+    base_dtype = torch_dtype(dtype or cfg.dtype)
+    keep_f32 = dtype is None
 
-    def conv(node):
+    def conv(node, name=""):
         if isinstance(node, dict):
-            return {k: conv(v) for k, v in node.items()}
-        return _tensor(node, dtype, dev)
+            return {k: conv(v, k) for k, v in node.items()}
+        f32 = keep_f32 and name in FLOAT32_LEAVES
+        return _tensor(node, torch.float32 if f32 else base_dtype, dev)
 
     def take(node, i):
         if isinstance(node, dict):

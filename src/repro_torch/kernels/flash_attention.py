@@ -17,7 +17,8 @@ flash_attention``.  Three kernels, one route each (``_route``):
   splits K and V into hi and lo and writes V transposed
   (``tf32_split_cuda``, counted as ``tf32_split``); counted as
   ``flash_attention_tf32``;
-* ``"simt"`` -- head_dim 8, 16 or 32 in either dtype:
+* ``"simt"`` -- head_dim 8, 16 or 32 (``SIMT_HEAD_DIMS``) in either
+  dtype:
   ``csrc/flash_attention.cu`` computes in f32 on the CUDA cores;
   counted as ``flash_attention_simt``.
 
@@ -30,8 +31,16 @@ route's split scratch pads the keys with zeros).
 
 They take q ``(BH, Sq, D)`` and k, v ``(BH_kv, Sk, D)`` with ``BH %
 BH_kv == 0`` (GQA: query head ``bh`` reads kv head ``bh // (BH //
-BH_kv)``), all contiguous, float32 or bfloat16, D in ``HEAD_DIMS``; the
+BH_kv)``), all contiguous, float32 or bfloat16, ``1 <= D <= 256``; the
 output is ``(BH, Sq, D)`` in q's dtype and fully masked rows are 0.
+The kernels are built for the widths ``HEAD_DIMS``: a head of another
+width is zero-padded on its last axis to the smallest width of its
+route that holds it (``padded_head_dim``: 112 -> 128 on the tensor-core
+routes, 12 -> 16 on the CUDA cores), with the scale of the true width,
+and the output is sliced back (``with_padded_head``).  Zero columns add
+exactly 0 to every q.k and give zero output columns, so the result and
+the row statistic are those of the unpadded function; the reference's
+kernel takes any D the same way (it pads only the sequence).
 With ``return_lse`` each kernel also writes every row's statistic
 ``L = m + log l`` (float32 ``(BH, Sq)`` in natural units, ``+1e30`` on
 a fully masked row), the residual of the training backward
@@ -54,9 +63,12 @@ import torch
 from . import _build
 from .ref import TF32_KEY_ORDER, TF32_KEY_PAD, attention_ref
 
-HEAD_DIMS = (8, 16, 32, 64, 128, 256)
+SIMT_HEAD_DIMS = (8, 16, 32)
 SM90_HEAD_DIMS = (64, 128, 256)
 TF32_HEAD_DIMS = (64, 128, 256)
+# the widths the kernels are built for; the wrapper takes 1..MAX_HEAD_DIM
+HEAD_DIMS = SIMT_HEAD_DIMS + SM90_HEAD_DIMS
+MAX_HEAD_DIM = 256
 INPUT_DTYPES = (torch.float32, torch.bfloat16)
 # launch-count name of each route's kernel
 ROUTE_KERNELS = {"sm90": "flash_attention", "tf32": "flash_attention_tf32",
@@ -75,18 +87,48 @@ _F = ctypes.c_float
 
 def _route(dtype: torch.dtype, d: int) -> str:
     """The kernel that takes (dtype, head_dim): ``"sm90"`` (tensor
-    cores, bf16) for bfloat16 with D in ``SM90_HEAD_DIMS``, ``"tf32"``
-    (tensor cores, 3xTF32) for float32 with D in ``TF32_HEAD_DIMS``,
-    ``"simt"`` (CUDA cores, f32) for every other case the wrapper
-    accepts."""
-    if dtype not in INPUT_DTYPES or d not in HEAD_DIMS:
+    cores, bf16) for bfloat16 with D above 32, ``"tf32"`` (tensor cores,
+    3xTF32) for float32 with D above 32, ``"simt"`` (CUDA cores, f32)
+    for D up to 32 in either dtype; D runs from 1 to ``MAX_HEAD_DIM``
+    (a width the route's kernels are not built for is padded,
+    ``padded_head_dim``)."""
+    if dtype not in INPUT_DTYPES or not 1 <= d <= MAX_HEAD_DIM:
         raise ValueError(f"no flash-attention kernel takes {dtype} with "
                          f"head_dim {d}")
-    if dtype == torch.bfloat16 and d in SM90_HEAD_DIMS:
-        return "sm90"
-    if dtype == torch.float32 and d in TF32_HEAD_DIMS:
-        return "tf32"
-    return "simt"
+    if d <= SIMT_HEAD_DIMS[-1]:
+        return "simt"
+    return "sm90" if dtype == torch.bfloat16 else "tf32"
+
+
+def padded_head_dim(route: str, d: int) -> int:
+    """The smallest width the kernel of ``route`` is built for that holds
+    head_dim ``d`` (``d`` itself when it is one)."""
+    widths = {"simt": HEAD_DIMS, "sm90": SM90_HEAD_DIMS,
+              "tf32": TF32_HEAD_DIMS}[route]
+    for w in widths:
+        if w >= d:
+            return w
+    raise ValueError(f"route {route!r} takes no head_dim {d}")
+
+
+def with_padded_head(fn, route: str, q, k, v, *, scale=None, **kw):
+    """``fn(q, k, v, scale=..., **kw)`` on q, k, v zero-padded on their
+    last axis to ``padded_head_dim(route, D)``, with the scale of the
+    true width (``1/sqrt(D)`` unless given), the output sliced back to
+    D.  ``fn`` returns the output, or ``(output, statistic)`` with
+    ``return_lse``; the statistic needs no slicing.  Zero columns add
+    exactly 0 to every q.k, so the result is ``fn``'s on the unpadded
+    inputs (up to its rounding)."""
+    d = q.shape[-1]
+    dp = padded_head_dim(route, d)
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    if dp == d:
+        return fn(q, k, v, scale=scale, **kw)
+    pad = [torch.nn.functional.pad(x, (0, dp - d)) for x in (q, k, v)]
+    res = fn(*pad, scale=scale, **kw)
+    if isinstance(res, tuple):
+        return (res[0][..., :d].contiguous(),) + tuple(res[1:])
+    return res[..., :d].contiguous()
 
 
 def _tf32_lib():
@@ -128,8 +170,8 @@ def _check(q, k, v, q_offset: int) -> None:
             f"attention takes q (BH, Sq, D) and k, v (BH_kv, Sk, D) with "
             f"BH % BH_kv == 0; got {tuple(q.shape)}, {tuple(k.shape)}, "
             f"{tuple(v.shape)}")
-    if q.shape[2] not in HEAD_DIMS:
-        raise ValueError(f"attention takes head_dim in {HEAD_DIMS}; got "
+    if not 1 <= q.shape[2] <= MAX_HEAD_DIM:
+        raise ValueError(f"attention takes head_dim 1..{MAX_HEAD_DIM}; got "
                          f"{q.shape[2]}")
     if q.dtype not in INPUT_DTYPES or not k.dtype == v.dtype == q.dtype:
         raise ValueError(f"attention takes float32 or bfloat16 q, k, v of "
@@ -209,13 +251,18 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
                          window: Optional[int] = None,
                          scale: Optional[float] = None,
                          q_offset: int = 0, return_lse: bool = False):
-    """Launch the kernel of ``_route(q.dtype, D)``.  Returns a new (BH,
-    Sq, D) tensor, and with ``return_lse`` also the rows' ``(BH, Sq)``
-    float32 statistic."""
+    """Launch the kernel of ``_route(q.dtype, D)``, on q, k, v padded to
+    the route's width where D is not one (``with_padded_head``).
+    Returns a new (BH, Sq, D) tensor, and with ``return_lse`` also the
+    rows' ``(BH, Sq)`` float32 statistic."""
     _check(q, k, v, q_offset)
-    return _launch(_route(q.dtype, q.shape[2]), q, k, v, causal=causal,
-                   window=window, scale=scale, q_offset=q_offset,
-                   return_lse=return_lse)
+    route = _route(q.dtype, q.shape[2])
+
+    def launch(q, k, v, **kw):
+        return _launch(route, q, k, v, **kw)
+    return with_padded_head(launch, route, q, k, v, causal=causal,
+                            window=window, scale=scale, q_offset=q_offset,
+                            return_lse=return_lse)
 
 
 def _launch(route: str, q, k, v, *, causal: bool = True,
@@ -233,7 +280,7 @@ def _launch(route: str, q, k, v, *, causal: bool = True,
     for x in (q, k, v):
         if x.data_ptr() % 16:
             raise ValueError("attention takes 16-byte aligned q, k, v")
-    if route not in ROUTE_KERNELS or (
+    if route not in ROUTE_KERNELS or q.shape[2] not in HEAD_DIMS or (
             route != "simt" and _route(q.dtype, q.shape[2]) != route):
         raise ValueError(f"route {route!r} does not take {q.dtype} with "
                          f"head_dim {q.shape[2]}")

@@ -3,8 +3,10 @@ job service (the port of ``repro.launch.serve``).
 
 Two arch families behind one entry point:
 
-* ``--arch <model>`` (``qwen2-1.5b``, ``gemma-2b``): a batched prefill,
-  then greedy decode, of the architecture's reduced configuration::
+* ``--arch <model>`` (any of ``configs.ARCH_NAMES``: the dense qwen2 /
+  qwen3 / gemma models, granite-moe-1b-a400m, kimi-k2-1t-a32b,
+  falcon-mamba-7b, recurrentgemma-9b): a batched prefill, then greedy
+  decode, of the architecture's reduced configuration::
 
       PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \\
           --batch 4 --prompt-len 32 --gen 16

@@ -335,6 +335,25 @@ def _full_attention(q, k, v, cfg: ModelConfig, *, causal, window,
                              kernel=impl == "pallas")
 
 
+def _cached_prefix(cache: KVCache, cache_pos: int, k, v):
+    """The keys and values a prefill at ``cache_pos > 0`` attends over:
+    the cached positions before ``cache_pos`` (a ring holds the last
+    ``W`` of them), in position order, then the prompt's own.  Returns
+    (k, v, q_offset): the prompt's first position relative to the first
+    key, so causal and window masks see the true distances."""
+    w_cache = cache.k.shape[1]
+    if cache.ring:
+        n_prev = min(cache_pos, w_cache)
+        slots = (cache_pos - n_prev
+                 + torch.arange(n_prev, device=k.device)) % w_cache
+        k_prev, v_prev = cache.k[:, slots], cache.v[:, slots]
+    else:
+        n_prev = cache_pos
+        k_prev, v_prev = cache.k[:, :cache_pos], cache.v[:, :cache_pos]
+    return (torch.cat([k_prev, k], dim=1), torch.cat([v_prev, v], dim=1),
+            n_prev)
+
+
 def _decode_attention(q, cache: KVCache, cur_len: int, window):
     """One-token attention over the cache.  q: (B, 1, H, D)."""
     b, _, h, dh = q.shape
@@ -368,7 +387,11 @@ def apply_attention(p, cfg: ModelConfig, x, positions, *, causal=True,
       * cache None:        full attention over ``x`` (train / prefill);
       * cache, S > 1:      prefill: full attention over the prompt, then
                            its keys/values (the last window of them for a
-                           ring cache) are written at ``cache_pos``;
+                           ring cache) are written at ``cache_pos``; at
+                           ``cache_pos > 0`` the prompt continues the
+                           cache and attends over its keys too
+                           (``_cached_prefix``; the reference's prefill
+                           always starts at 0);
       * cache, S == 1:     decode: the token's key/value is written at
                            ``cache_pos`` and it attends over the cache.
     The cache is written in place.
@@ -385,7 +408,12 @@ def apply_attention(p, cfg: ModelConfig, x, positions, *, causal=True,
     if cache is None:
         out = _full_attention(q, k, v, cfg, causal=causal, window=window)
     elif s_q > 1:
-        out = _full_attention(q, k, v, cfg, causal=causal, window=window)
+        if cache_pos:
+            kc, vc, q_off = _cached_prefix(cache, cache_pos, k, v)
+            out = _full_attention(q, kc, vc, cfg, causal=causal,
+                                  window=window, q_offset=q_off)
+        else:
+            out = _full_attention(q, k, v, cfg, causal=causal, window=window)
         w_cache = cache.k.shape[1]
         if cache.ring:
             take = min(w_cache, s_q)

@@ -15,7 +15,7 @@ The reference's quirks are carried across as they are:
 
 The reference's ``init_*`` functions also return logical sharding
 names; one card has no mesh, so the port's return the parameters only.
-The conv and sinusoidal helpers belong to families not ported yet.
+``sinusoidal_positions`` belongs to the encoder family, not ported yet.
 """
 
 from __future__ import annotations
@@ -132,3 +132,34 @@ def apply_rope(x, positions, theta: float):
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Causal temporal conv (the mamba and RG-LRU blocks' front)
+# ---------------------------------------------------------------------------
+
+def init_conv1d(gen, channels: int, k: int, dtype) -> dict:
+    return {"w": _normal(gen, (k, channels), 1.0 / math.sqrt(k), dtype),
+            "b": torch.zeros((channels,), dtype=dtype, device=gen.device)}
+
+
+def apply_conv1d(p, x, state=None):
+    """Depthwise causal conv along the sequence.  x: (B, S, C).
+
+    ``state``: the (B, k-1, C) carry of the trailing inputs (decode and
+    continued prefill); returns ``(y, new_state)`` when given, else y.
+    The k taps are summed in the reference's order (tap 0 first, then
+    the bias), in the parameters' dtype."""
+    k = p["w"].shape[0]
+    s = x.shape[1]
+    if state is not None:
+        window = torch.cat([state, x], dim=1)              # (B, k-1+S, C)
+        new_state = window[:, window.shape[1] - (k - 1):, :]
+    else:
+        window = F.pad(x, (0, 0, k - 1, 0))
+        new_state = None
+    y = window[:, 0:s, :] * p["w"][0]
+    for i in range(1, k):
+        y = y + window[:, i:i + s, :] * p["w"][i]
+    y = y + p["b"]
+    return (y, new_state) if state is not None else y

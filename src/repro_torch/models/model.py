@@ -59,11 +59,17 @@ def chunked_xent(p, cfg: ModelConfig, x, labels):
 
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict):
-    """(mean next-token loss over the valid labels, {"nll", "tokens"})."""
-    x, _ = forward(params, cfg, batch)
+    """(loss, metrics): the mean next-token loss over the valid labels,
+    plus ``router_aux_coef * load_balance + 1e-4 * router_z`` for a MoE
+    config (the aux values summed over the layers, as the reference adds
+    them); ``metrics`` = ``{"nll", "tokens"}`` and the aux values."""
+    x, _, aux = forward(params, cfg, batch)
     nll, n = chunked_xent(params, cfg, x, batch["labels"])
     loss = nll / torch.clamp(n, min=1)
-    return loss, {"nll": nll, "tokens": n}
+    if cfg.is_moe:
+        loss = loss + cfg.router_aux_coef * aux["load_balance"] \
+            + 1e-4 * aux["router_z"]
+    return loss, {"nll": nll, "tokens": n, **aux}
 
 
 # ---------------------------------------------------------------------------
@@ -91,7 +97,8 @@ def _grads_of(params, cfg: ModelConfig, batch: Dict):
 
 def make_train_step(cfg: ModelConfig, optimizer, microbatches: int = 1):
     """Returns ``step(params, opt_state, batch) -> (params, opt_state,
-    out)``, ``out = {"loss", "grad_norm", "nll", "tokens"}``.
+    out)``, ``out = {"loss", "grad_norm", "nll", "tokens"}`` and the
+    aux values of ``loss_fn``.
 
     ``optimizer``: an ``optim.Optimizer``.  ``microbatches > 1`` splits
     the batch along its first axis and accumulates the gradients in the
@@ -146,11 +153,12 @@ def make_prefill(cfg: ModelConfig):
     """prefill(params, batch, state) -> (last-position logits (B, 1, V),
     state).
 
-    Runs the full forward on the prompt while writing the KV caches, so
-    decode continues from ``pos = prompt_len``."""
+    Runs the full forward on the prompt while writing the KV caches and
+    recurrent states, so decode continues from ``pos = prompt_len``."""
 
     def prefill(params, batch, state):
-        x, new_state = forward(params, cfg, batch, state=state, cache_pos=0)
+        x, new_state, _ = forward(params, cfg, batch, state=state,
+                                  cache_pos=0)
         return lm_logits(params, x[:, -1:, :]), new_state
 
     return prefill
@@ -160,11 +168,11 @@ def make_serve_step(cfg: ModelConfig):
     """serve_step(params, state, token, pos) -> (logits (B, 1, V), state).
 
     One decode step: ``token`` (B, 1) at position ``pos`` (an int) given
-    caches filled up to ``pos``."""
+    states filled up to ``pos``."""
 
     def serve_step(params, state, token, pos: int):
-        x, new_state = forward(params, cfg, {"tokens": token}, state=state,
-                               cache_pos=pos)
+        x, new_state, _ = forward(params, cfg, {"tokens": token},
+                                  state=state, cache_pos=pos)
         return lm_logits(params, x), new_state
 
     return serve_step

@@ -75,8 +75,9 @@ def tier_arrays(tables) -> list:
 
 def lm_params(jcfg, seed: int = 0):
     """The reference's parameters of ``jcfg`` (``init_model``), with every
-    zero-initialised leaf (norm scales, QKV biases) set to small random
-    values so that the ``(1 + w)`` scales and the biases are exercised.
+    zero-initialised leaf (norm scales, QKV biases, the conv and RG-LRU
+    gate biases) set to small random values so that the ``(1 + w)``
+    scales and the biases are exercised.
     Returns the JAX tree and the same tree as numpy arrays."""
     from repro.models.transformer import init_model
     params, _ = init_model(jax.random.PRNGKey(seed), jcfg)
@@ -84,10 +85,146 @@ def lm_params(jcfg, seed: int = 0):
 
     def fill(path, leaf):
         name = str(getattr(path[-1], "key", ""))
-        if name in ("scale", "bq", "bk", "bv", "q_norm", "k_norm"):
+        if name in ("scale", "bq", "bk", "bv", "q_norm", "k_norm", "b",
+                    "b_a", "b_x"):
             noise = rng.normal(scale=0.3, size=leaf.shape)
             return jax.numpy.asarray(noise, leaf.dtype)
         return leaf
 
     params = jax.tree_util.tree_map_with_path(fill, params)
     return params, jax.tree.map(np.asarray, params)
+
+
+# ---------------------------------------------------------------------------
+# LM serving in both packages
+# ---------------------------------------------------------------------------
+
+def serve_rules(cfg, batch: int, max_len: int):
+    """The sharding rules the reference's ``serve_batch`` builds."""
+    from repro.launch.mesh import make_host_mesh
+    from repro.parallel.sharding import rules_for_mesh
+    mesh = make_host_mesh()
+    axes = dict(zip(mesh.axis_names, mesh.devices.shape))
+    model = axes.get("model", 1)
+    ov = {}
+    if cfg.n_heads % model:
+        ov["heads"] = None
+    if cfg.d_ff % model or not cfg.d_ff:
+        ov["mlp"] = None
+    if max_len % model:
+        ov["kv_seq"] = None
+    if batch % (axes.get("data", 1) * axes.get("pod", 1)):
+        ov["batch"] = None
+    return rules_for_mesh(mesh, **ov)
+
+
+def _f32(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().to(torch.float32).numpy().copy()
+    return np.asarray(x, np.float32)
+
+
+def _leaf_dict(st) -> dict:
+    """One layer's decode state as a dict of float32 numpy arrays (a KV
+    cache as ``{"k", "v"}``)."""
+    if hasattr(st, "k"):
+        return {"k": _f32(st.k), "v": _f32(st.v)}
+    return {k: _leaf_dict(v) if isinstance(v, dict) else _f32(v)
+            for k, v in st.items()}
+
+
+def reference_layer_states(jcfg, jstate) -> list:
+    """The reference's decode state per layer, in layer order: period
+    ``i`` of ``blocks[pos]`` is layer ``i * len(pattern) + pos``, then
+    ``rest``."""
+    per = len(jcfg.pattern)
+    layers = {}
+    for pos, stacked in enumerate(jstate.get("blocks") or []):
+        leaves = _leaf_dict(stacked)
+        n = jax.tree.leaves(leaves)[0].shape[0]
+        for i in range(n):
+            layers[i * per + pos] = jax.tree.map(lambda a: a[i], leaves)
+    base = len(layers)
+    for j, st in enumerate(jstate.get("rest") or []):
+        layers[base + j] = _leaf_dict(st)
+    return [layers[i] for i in range(jcfg.n_layers)]
+
+
+def port_layer_states(tstate) -> list:
+    return [_leaf_dict(st) for st in tstate["layers"]]
+
+
+def serve_both(arch: str, impl: str, dtype: str = "float32",
+               batch: int = 2, prompt: int = 20, steps: int = 8,
+               meshless: bool = False, **overrides):
+    """Prefill and ``steps`` decode steps of the reduced ``arch`` in both
+    packages (``overrides`` replace config fields in both), the port
+    teacher-forced on the reference's greedy tokens, the weights the
+    reference's (``lm_params``).  The reference runs under the rules of
+    its ``serve_batch`` (a host mesh), or without a mesh (``meshless``:
+    its MoE layers then take the dispatch the port ports,
+    ``_apply_moe_dense``, not the expert-parallel one).  Returns the two
+    lists of logits and
+    ``{"prefill": (ref, port), "final": (ref, port)}``: each package's
+    decode state per layer (``reference_layer_states``) after the prefill
+    and after the last step."""
+    import dataclasses
+
+    import jax.numpy as jnp
+    from repro.configs import get_reduced as jget_reduced
+    from repro.models import model as jm
+    from repro.models import transformer as jt
+    from repro_torch import configs as tconfigs
+    from repro_torch.core.convert import model_params_from_arrays
+    from repro_torch.models import model as tm
+    from repro_torch.models import transformer as tt
+    jcfg = dataclasses.replace(jget_reduced(arch), attn_impl=impl,
+                               dtype=dtype, **overrides)
+    tcfg = dataclasses.replace(tconfigs.get_reduced(arch), attn_impl=impl,
+                               dtype=dtype, **overrides)
+    jp, arrays = lm_params(jcfg)
+    tp = model_params_from_arrays(tcfg, arrays, device="cpu")
+    max_len = prompt + steps
+    if meshless:
+        from repro.parallel.sharding import MeshRules
+        rules = MeshRules()
+    else:
+        rules = serve_rules(jcfg, batch, max_len)
+    rng = np.random.default_rng(7)
+    tokens = rng.integers(0, jcfg.vocab_size, (batch, prompt)).astype(
+        np.int32)
+
+    jstate = jt.init_decode_state(jcfg, batch, max_len)
+    tstate = tt.init_decode_state(tcfg, batch, max_len, device="cpu")
+    jlg, jstate = jax.jit(jm.make_prefill(jcfg, rules))(
+        jp, {"tokens": jnp.asarray(tokens)}, jstate)
+    tlg, tstate = tm.make_prefill(tcfg)(
+        tp, {"tokens": torch.from_numpy(tokens)}, tstate)
+    states = {"prefill": (reference_layer_states(jcfg, jstate),
+                          port_layer_states(tstate))}
+    jl_all, tl_all = [jlg], [tlg]
+    jstep = jax.jit(jm.make_serve_step(jcfg, rules))
+    tstep = tm.make_serve_step(tcfg)
+    for i in range(steps):
+        tok = np.asarray(jnp.argmax(jlg[:, -1:], axis=-1)).astype(np.int32)
+        jlg, jstate = jstep(jp, jstate, jnp.asarray(tok),
+                            jnp.int32(prompt + i))
+        tlg, tstate = tstep(tp, tstate, torch.from_numpy(tok), prompt + i)
+        jl_all.append(jlg)
+        tl_all.append(tlg)
+    states["final"] = (reference_layer_states(jcfg, jstate),
+                       port_layer_states(tstate))
+    return jl_all, tl_all, states
+
+
+def assert_states_close(ref_layers: list, port_layers: list, tol: float):
+    """Every layer's decode state leaf within ``tol`` (rtol and atol)."""
+    assert len(ref_layers) == len(port_layers)
+    for i, (r, p) in enumerate(zip(ref_layers, port_layers)):
+        r_leaves = jax.tree_util.tree_flatten_with_path(r)[0]
+        p_leaves = jax.tree_util.tree_flatten_with_path(p)[0]
+        assert [k for k, _ in r_leaves] == [k for k, _ in p_leaves], i
+        for (path, a), (_, b) in zip(r_leaves, p_leaves):
+            np.testing.assert_allclose(
+                b, a, rtol=tol, atol=tol,
+                err_msg=f"layer {i} {jax.tree_util.keystr(path)}")

@@ -118,9 +118,10 @@ def test_unrepeated_kv_equals_repeated_kv(window):
 def test_wrapper_refuses_what_the_kernel_does_not_take():
     q = torch.zeros(2, 4, 16)
     k = torch.zeros(1, 4, 16)
-    with pytest.raises(ValueError, match="head_dim"):
-        ops.attention(torch.zeros(2, 4, 12), torch.zeros(1, 4, 12),
-                      torch.zeros(1, 4, 12))
+    for d in (0, 257):
+        with pytest.raises(ValueError, match="head_dim"):
+            ops.attention(torch.zeros(2, 4, d), torch.zeros(1, 4, d),
+                          torch.zeros(1, 4, d))
     with pytest.raises(ValueError, match="dtype"):
         ops.attention(q.double(), k.double(), k.double())
     with pytest.raises(ValueError, match="dtype"):
@@ -143,24 +144,85 @@ def test_cpu_attention_launches_no_kernel():
     assert "flash_attention" in _build.SOURCES
 
 
-@pytest.mark.parametrize("d", [8, 16, 32, 64, 128, 256])
+@pytest.mark.parametrize("d", [8, 12, 16, 32, 64, 112, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_route(dtype, d):
-    """At head_dim 64/128/256 bf16 takes the bf16 tensor-core kernel and
-    float32 the 3xTF32 tensor-core kernel; head_dim 8-32 takes the
-    CUDA-core kernel in both dtypes."""
-    from repro_torch.kernels.flash_attention import (ROUTE_KERNELS,
-                                                     SM90_HEAD_DIMS,
-                                                     TF32_HEAD_DIMS, _route)
-    if dtype == torch.bfloat16 and d in SM90_HEAD_DIMS:
-        want = "sm90"
-    elif dtype == torch.float32 and d in TF32_HEAD_DIMS:
-        want = "tf32"
-    else:
+    """Above head_dim 32 bf16 takes the bf16 tensor-core kernel and
+    float32 the 3xTF32 tensor-core kernel; up to 32 both dtypes take the
+    CUDA-core kernel.  A width the route's kernels are not built for is
+    padded to the next one they are (12 -> 16, 112 -> 128)."""
+    from repro_torch.kernels.flash_attention import (HEAD_DIMS,
+                                                     ROUTE_KERNELS, _route,
+                                                     padded_head_dim)
+    if d <= 32:
         want = "simt"
+    else:
+        want = "sm90" if dtype == torch.bfloat16 else "tf32"
     assert _route(dtype, d) == want
     assert ROUTE_KERNELS[want] in ("flash_attention", "flash_attention_tf32",
                                    "flash_attention_simt")
+    assert padded_head_dim(want, d) == {12: 16, 112: 128}.get(d, d)
+    assert padded_head_dim(want, d) in HEAD_DIMS
+
+
+# the padded routes' head widths: reduced qwen2.5-3b
+# (12) and kimi-k2 (112); (bh, bh_kv, sq, sk, causal, window, q_offset)
+PAD_CASES = [(6, 2, 40, 40, True, None, 0), (4, 1, 33, 50, True, 9, 17),
+             (2, 2, 19, 27, False, None, 0)]
+# padded against unpadded plain version: the same sums with zero terms
+# added, in another blocking of the CPU's float32 dot products
+PAD_TOL = {"float32": 1e-6, "bfloat16": 1e-6}
+
+
+@pytest.mark.parametrize("case", PAD_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [12, 112])
+def test_padded_head_equals_plain_version(d, dtype, case):
+    """``with_padded_head`` (the CUDA route's zero padding to the route's
+    width, the true width's scale, the output sliced back) around the
+    plain version equals the plain version on the unpadded inputs:
+    outputs and the row statistic, within ``PAD_TOL`` of |value| + 1."""
+    from repro_torch.kernels.flash_attention import (_route,
+                                                     padded_head_dim,
+                                                     with_padded_head)
+    bh, bhkv, sq, sk, causal, win, qoff = case
+    rng = np.random.default_rng(d + sq)
+    q, k, v = (torch.from_numpy(x).to(getattr(torch, dtype))
+               for x in _qkv(rng, bh, bhkv, sq, sk, d))
+    route = _route(q.dtype, d)
+    assert padded_head_dim(route, d) == (16 if d == 12 else 128)
+    kw = dict(causal=causal, window=win, q_offset=qoff, return_lse=True)
+    got, got_l = with_padded_head(tref.attention_ref, route, q, k, v, **kw)
+    want, want_l = tref.attention_ref(q, k, v, **kw)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert got.is_contiguous()
+    tol = PAD_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol)
+    torch.testing.assert_close(got_l, want_l, rtol=tol, atol=tol)
+    # the caller's scale is kept
+    got2 = with_padded_head(tref.attention_ref, route, q, k, v, scale=0.3,
+                            causal=causal, window=win, q_offset=qoff)
+    torch.testing.assert_close(got2.float(), tref.attention_ref(
+        q, k, v, scale=0.3, causal=causal, window=win,
+        q_offset=qoff).float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("d", [12, 112])
+def test_wrapper_takes_any_head_dim_on_cpu(d):
+    """The wrapper takes D 1-256 and on CPU tensors is the plain version,
+    unpadded, launching nothing; against the reference's kernel in
+    interpret mode, which takes any D too."""
+    rng = np.random.default_rng(d)
+    q, k, v = _qkv(rng, 4, 2, 24, 24, d)
+    _build.reset_launch_counts()
+    got = ops.attention(torch.from_numpy(q), torch.from_numpy(k),
+                        torch.from_numpy(v), causal=True, window=10)
+    assert _build.launch_counts() == {}
+    want = jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                  causal=True, window=10, interpret=True)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=TOL["float32"],
+                               atol=TOL["float32"])
 
 
 # ---------------------------------------------------------------------------
@@ -278,7 +340,7 @@ def test_tf32_split_plain_version(sk):
 
 @pytest.mark.parametrize("dtype,d", [(torch.float16, 64),
                                      (torch.float64, 128),
-                                     (torch.bfloat16, 12),
+                                     (torch.bfloat16, 257),
                                      (torch.bfloat16, 512),
                                      (torch.float32, 0)])
 def test_flash_route_refuses(dtype, d):

@@ -700,7 +700,8 @@ def test_flash_kernel_fully_masked_rows_are_zero(cuda):
 def test_flash_wrapper_counts_launches_and_refuses(cuda):
     """Launches are counted per route: float32 at head_dim 64 takes the
     3xTF32 kernel (and its pre-pass), bf16 at head_dim 64 the bf16
-    tensor-core one, both dtypes at head_dim 32 the CUDA-core kernel."""
+    tensor-core one, both dtypes at head_dim 32 the CUDA-core kernel;
+    head_dim 0 and 512 raise."""
     from repro_torch.kernels import ops
     q = torch.randn(4, 32, 64, device=cuda)
     k = torch.randn(2, 32, 64, device=cuda)
@@ -718,7 +719,7 @@ def test_flash_wrapper_counts_launches_and_refuses(cuda):
     want = {"flash_attention_tf32": 2, "tf32_split": 2,
             "flash_attention_simt": 2, "flash_attention": 1}
     assert _build.launch_counts() == want
-    for bad in (torch.randn(2, 8, 12, device=cuda),
+    for bad in (torch.randn(2, 8, 0, device=cuda),
                 torch.randn(2, 8, 512, device=cuda)):
         with pytest.raises(ValueError, match="head_dim"):
             ops.attention(bad, bad, bad)
@@ -786,6 +787,79 @@ def test_flash_sm90_fully_masked_rows_are_zero(cuda, d):
     assert float(out[:, :163].float().abs().amax()) > 0
     torch.testing.assert_close(out.float(), want.float(), rtol=2e-2,
                                atol=2e-2)
+
+
+# head widths no kernel is built for, padded to the route's next width:
+# reduced qwen2.5-3b's 12 (-> 16, CUDA cores) and kimi-k2's 112 (-> 128,
+# tensor cores); (bh, bh_kv, sq, sk, causal, window, q_offset)
+PAD_CASES = [(6, 2, 200, 200, True, None, 0), (4, 1, 129, 300, True, 40, 171),
+             (2, 2, 37, 77, False, None, 0)]
+
+
+@pytest.mark.parametrize("case", PAD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [12, 112])
+def test_flash_padded_head_matches_plain(cuda, d, dtype, case):
+    """One launch of the route's kernel on the padded inputs; output and
+    row statistic against the plain version on the unpadded ones."""
+    from repro_torch.kernels import flash_attention as fa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bh, bhkv, sq, sk, causal, win, qoff = case
+    g = torch.Generator(device=cuda).manual_seed(sq + d)
+    q, k, v = (torch.randn(s, device=cuda, generator=g).to(dtype)
+               for s in ((bh, sq, d), (bhkv, sk, d), (bhkv, sk, d)))
+    kw = dict(causal=causal, window=win, q_offset=qoff)
+    route = fa._route(dtype, d)
+    _build.reset_launch_counts()
+    got, got_l = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    want, want_l = ref.attention_ref(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    names = {fa.ROUTE_KERNELS[route]: 1}
+    if route == "tf32":
+        names[fa.SPLIT_KERNEL] = 1
+    assert _build.launch_counts() == names
+    assert got.dtype == dtype and got.shape == (bh, sq, d)
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    ltol = 1e-5 if dtype == torch.float32 else 2e-3
+    dead = want_l == 1e30
+    assert torch.equal(got_l == 1e30, dead)
+    assert bool(((got_l - want_l).abs()[~dead]
+                 <= ltol * (1 + want_l[~dead].abs())).all())
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "kimi-k2-1t-a32b",
+                                  "falcon-mamba-7b", "recurrentgemma-9b",
+                                  "qwen2.5-3b"])
+def test_new_families_kernel_path_matches_plain(cuda, arch):
+    """Reduced configs in float32: the kernel path's prefill and a decode
+    step against the plain path's on the card, one flash launch per
+    attention layer in the prefill (none for mamba) and none in decode;
+    the padded heads (qwen2.5-3b's 12) included."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import model as tm
+    from repro_torch.models import transformer as tt
+    torch.backends.cuda.matmul.allow_tf32 = False
+    base = get_reduced(arch)
+    params = tt.init_model(base, seed=0, device=cuda)
+    tok = torch.randint(0, base.vocab_size, (2, 40), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(0))
+    n_attn = sum(k in ("attn", "moe") for k in base.layer_kinds)
+    out = {}
+    for impl in ("pallas", "naive"):
+        cfg = dataclasses.replace(base, attn_impl=impl)
+        state = tt.init_decode_state(cfg, 2, 42, device=cuda)
+        _build.reset_launch_counts()
+        lg, state = tm.make_prefill(cfg)(params, {"tokens": tok[:, :39]},
+                                         state)
+        n_prefill = sum(_build.launch_counts().values())
+        lg2, state = tm.make_serve_step(cfg)(params, state, tok[:, 39:], 39)
+        out[impl] = (lg, lg2, n_prefill, sum(_build.launch_counts().values())
+                     - n_prefill)
+    assert out["pallas"][2:] == (n_attn, 0)
+    assert out["naive"][2:] == (0, 0)
+    for a, b in zip(out["pallas"][:2], out["naive"][:2]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
 
 
 def test_lm_prefill_goes_through_the_kernel(cuda):

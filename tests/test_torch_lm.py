@@ -14,11 +14,7 @@ import torch
 
 from repro.configs import get_config as jget_config
 from repro.configs import get_reduced as jget_reduced
-from repro.launch.mesh import make_host_mesh
 from repro.models import layers as jl
-from repro.models import model as jm
-from repro.models import transformer as jt
-from repro.parallel.sharding import rules_for_mesh
 from repro_torch import configs as tconfigs
 from repro_torch.core.convert import model_params_from_arrays
 from repro_torch.kernels import _build
@@ -27,7 +23,8 @@ from repro_torch.models import layers as tl
 from repro_torch.models import model as tm
 from repro_torch.models import transformer as tt
 
-from _torch_parity import assert_bits_equal, lm_params
+from _torch_parity import (assert_bits_equal, assert_states_close,
+                           lm_params, serve_both)
 
 ARCHS = ("qwen2-1.5b", "gemma-2b")
 F32_TOL = 1e-5       # modules in float32
@@ -74,14 +71,29 @@ def test_qwen2_full_width():
 
 
 def test_unported_architectures_are_refused():
-    with pytest.raises(KeyError, match="ROADMAP"):
-        tconfigs.get_config("falcon-mamba-7b")
-    with pytest.raises(KeyError, match="ROADMAP"):
-        tconfigs.get_reduced("whisper-small")
-    for arch in ("granite-moe-1b-a400m", "falcon-mamba-7b",
-                 "recurrentgemma-9b", "whisper-small"):
+    """The encoder-decoder and frontend families (whisper-small,
+    internvl2-26b) are refused by name, by the registry and by the model
+    code."""
+    for arch in ("whisper-small", "internvl2-26b"):
+        with pytest.raises(KeyError, match="ROADMAP"):
+            tconfigs.get_config(arch)
+        with pytest.raises(KeyError, match="ROADMAP"):
+            tconfigs.get_reduced(arch)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tt.init_model(jget_reduced(arch), device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "kimi-k2-1t-a32b",
+                                  "falcon-mamba-7b", "recurrentgemma-9b"])
+def test_new_families_resolve(arch):
+    """The MoE, mamba and RG-LRU families resolve by name, at full width
+    and reduced, and their reduced models initialise."""
+    full, red = tconfigs.get_config(arch), tconfigs.get_reduced(arch)
+    assert full.name == arch
+    assert dataclasses.asdict(red) == dataclasses.asdict(jget_reduced(arch))
+    assert arch in tconfigs.ARCH_NAMES
+    p = tt.init_model(red, device="cpu")
+    assert len(p["layers"]) == red.n_layers
 
 
 # ---------------------------------------------------------------------------
@@ -220,86 +232,26 @@ def test_model_params_unstack_pattern_positions():
 # the slice: prefill, then teacher-forced decode
 # ---------------------------------------------------------------------------
 
-def _serve_rules(cfg, batch: int, max_len: int):
-    """The sharding rules the reference's ``serve_batch`` builds."""
-    mesh = make_host_mesh()
-    axes = dict(zip(mesh.axis_names, mesh.devices.shape))
-    model = axes.get("model", 1)
-    ov = {}
-    if cfg.n_heads % model:
-        ov["heads"] = None
-    if cfg.d_ff % model or not cfg.d_ff:
-        ov["mlp"] = None
-    if max_len % model:
-        ov["kv_seq"] = None
-    if batch % (axes.get("data", 1) * axes.get("pod", 1)):
-        ov["batch"] = None
-    return rules_for_mesh(mesh, **ov)
-
-
-def _serve_both(arch: str, impl: str, dtype: str = "float32",
-                batch: int = 2, prompt: int = 20, steps: int = 8):
-    """Prefill and ``steps`` decode steps in both packages, the port
-    teacher-forced on the reference's greedy tokens.  Returns the two
-    lists of logits, the two states after prefill (as numpy) and the
-    port's tokens."""
-    jcfg = dataclasses.replace(jget_reduced(arch), attn_impl=impl,
-                               dtype=dtype)
-    tcfg = dataclasses.replace(tconfigs.get_reduced(arch), attn_impl=impl,
-                               dtype=dtype)
-    jp, arrays = lm_params(jcfg)
-    tp = model_params_from_arrays(tcfg, arrays, device="cpu")
-    max_len = prompt + steps
-    rules = _serve_rules(jcfg, batch, max_len)
-    rng = np.random.default_rng(7)
-    tokens = rng.integers(0, jcfg.vocab_size, (batch, prompt)).astype(
-        np.int32)
-
-    jstate = jt.init_decode_state(jcfg, batch, max_len)
-    tstate = tt.init_decode_state(tcfg, batch, max_len, device="cpu")
-    jlg, jstate = jax.jit(jm.make_prefill(jcfg, rules))(
-        jp, {"tokens": jnp.asarray(tokens)}, jstate)
-    tlg, tstate = tm.make_prefill(tcfg)(
-        tp, {"tokens": torch.from_numpy(tokens)}, tstate)
-    caches = (jax.tree.map(np.asarray, jstate["blocks"][0]),
-              [(_f32(c.k), _f32(c.v)) for c in tstate["layers"]])
-    jl_all, tl_all = [jlg], [tlg]
-    jstep = jax.jit(jm.make_serve_step(jcfg, rules))
-    tstep = tm.make_serve_step(tcfg)
-    for i in range(steps):
-        tok = np.asarray(jnp.argmax(jlg[:, -1:], axis=-1)).astype(np.int32)
-        jlg, jstate = jstep(jp, jstate, jnp.asarray(tok),
-                            jnp.int32(prompt + i))
-        tlg, tstate = tstep(tp, tstate, torch.from_numpy(tok), prompt + i)
-        jl_all.append(jlg)
-        tl_all.append(tlg)
-    return jl_all, tl_all, caches
-
-
 # the reference's "pallas" runs its kernel in interpret mode: one config
 @pytest.mark.parametrize("arch,impl", [
     ("qwen2-1.5b", "pallas"), ("qwen2-1.5b", "chunked"),
     ("gemma-2b", "chunked"), ("gemma-2b", "naive")])
 def test_prefill_and_decode_match_reference(arch, impl):
-    jl_all, tl_all, (jcache, tcache) = _serve_both(arch, impl)
+    jl_all, tl_all, states = serve_both(arch, impl)
     assert len(jl_all) == 9
     for step, (jlg, tlg) in enumerate(zip(jl_all, tl_all)):
         assert tuple(tlg.shape) == tuple(jlg.shape), step
         np.testing.assert_allclose(_f32(tlg), _f32(jlg), rtol=LOGIT_TOL,
                                    atol=LOGIT_TOL, err_msg=f"step {step}")
-    for i, (k, v) in enumerate(tcache):
-        np.testing.assert_allclose(k, np.asarray(jcache.k[i], np.float32),
-                                   rtol=F32_TOL, atol=F32_TOL)
-        np.testing.assert_allclose(v, np.asarray(jcache.v[i], np.float32),
-                                   rtol=F32_TOL, atol=F32_TOL)
+    assert_states_close(*states["prefill"], F32_TOL)
 
 
 def test_prefill_and_decode_bf16():
     """bfloat16 logits reach |x| ~ 30, where one bf16 step is 0.125-0.25,
     and the two frameworks round at different places: the tolerance is
     2e-2 of the largest logit (measured: under 1.2e-2 of it)."""
-    jl_all, tl_all, _ = _serve_both("qwen2-1.5b", "chunked", "bfloat16",
-                                    prompt=8, steps=2)
+    jl_all, tl_all, _ = serve_both("qwen2-1.5b", "chunked", "bfloat16",
+                                   prompt=8, steps=2)
     for step, (jlg, tlg) in enumerate(zip(jl_all, tl_all)):
         assert tlg.dtype == torch.bfloat16
         ref = _f32(jlg)
@@ -328,7 +280,9 @@ def test_pallas_and_naive_paths_agree_on_cpu():
 # serve_batch
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + (
+    "granite-moe-1b-a400m", "kimi-k2-1t-a32b", "falcon-mamba-7b",
+    "recurrentgemma-9b"))
 def test_serve_batch_on_cpu(arch):
     a = serve_batch(arch, batch=2, prompt_len=10, gen=4, seed=5,
                     device="cpu")

@@ -44,7 +44,9 @@ from repro_torch.tree import tree_flatten
 from _torch_parity import assert_bits_equal, lm_params
 
 ARCHS = ("qwen2-1.5b", "qwen2.5-3b", "qwen3-8b")
-PORTED = ("qwen2-1.5b", "qwen3-8b", "gemma-2b", "qwen2.5-3b")
+PORTED = ("qwen2-1.5b", "qwen3-8b", "gemma-2b", "qwen2.5-3b",
+          "granite-moe-1b-a400m", "kimi-k2-1t-a32b", "falcon-mamba-7b",
+          "recurrentgemma-9b")
 # float32 throughout.  Attention gradients against the reference's
 # chunked_attention: both sides run the same chunk-pair arithmetic in
 # another einsum order: 1e-5 of the largest gradient.
@@ -216,17 +218,28 @@ def test_flash_gradcheck_float64():
 
 
 def test_pallas_training_route_raises_where_no_kernel_takes_the_head():
-    """qwen2.5-3b reduced has head_dim 12, which no flash route takes:
-    ``"pallas"`` raises there as on any unsupported head width."""
-    cfg = dataclasses.replace(tconfigs.get_reduced("qwen2.5-3b"),
-                              attn_impl="pallas")
-    assert cfg.resolved_head_dim == 12
-    params = init_model(cfg, seed=0, device="cpu")
-    batch = {"tokens": torch.zeros((1, 8), dtype=torch.int32),
-             "labels": torch.zeros((1, 8), dtype=torch.int32)}
+    """qwen2.5-3b reduced has head_dim 12, which the flash wrapper pads to
+    the CUDA-core kernel's 16: ``"pallas"`` trains there and equals the
+    plain chunked route.  A head wider than any kernel (260) still
+    raises."""
+    base = tconfigs.get_reduced("qwen2.5-3b")
+    assert base.resolved_head_dim == 12
+    params = init_model(base, seed=0, device="cpu")
+    rng = np.random.default_rng(3)
+    batch = {k: torch.from_numpy(rng.integers(
+        0, base.vocab_size, (1, 8)).astype(np.int32))
+        for k in ("tokens", "labels")}
+    out = {impl: tm._grads_of(params, dataclasses.replace(
+        base, attn_impl=impl), batch) for impl in ("pallas", "chunked")}
+    np.testing.assert_allclose(float(out["pallas"][0]),
+                               float(out["chunked"][0]), rtol=LOSS_TOL)
+    assert max(_leaf_errors(out["pallas"][2], out["chunked"][2])) \
+        <= LEAF_TOL
+    wide = dataclasses.replace(base, head_dim=260, attn_impl="pallas")
+    params = init_model(wide, seed=0, device="cpu")
     opt = adamw(warmup_cosine(1e-3, 2, 5))
     with pytest.raises(ValueError, match="head_dim"):
-        tm.make_train_step(cfg, opt)(params, opt.init(params), batch)
+        tm.make_train_step(wide, opt)(params, opt.init(params), batch)
 
 
 # ---------------------------------------------------------------------------
