@@ -37,8 +37,9 @@ Phases, each of which exits non-zero on failure:
 4. the plastic path (``init_plasticity`` -> ``simulate(plasticity=)``),
    both laws: 30 kernel-path steps on the card against 30 plain-path
    steps on the CPU at 4x4x1240 with the card's drive injected (rasters,
-   weights, traces and ring identical), then timed kernel-path steps at
-   8x8x1240; from its mid-run state, one step of the fixed-order
+   weights, traces and ring identical), then timed kernel-path steps
+   (gaussian on the parity leg's 4x4x1240 tables, exponential at
+   8x8x1240); from its mid-run state, one step of the fixed-order
    delivery + LTD kernel against its plain version on CPU copies (ring,
    weights and counts exact);
 5. the recorded path (``simulate(recorder=)``), static 8x8x1240,
@@ -179,14 +180,28 @@ Phases, each of which exits non-zero on failure:
    (1024 tokens, then the rest from that state) against the one-shot
    prefill (the same bound), prefill s and tokens/s, decode ms
    per token and the decode loop's idle share, peak memory; then
-   reduced kimi-k2 (head_dim 8) and qwen2.5-3b (12, padded to 16) in
-   float32 on the card against the same run on the CPU.
+   reduced kimi-k2 and internvl (head_dim 8), qwen2.5-3b and whisper
+   (12, padded to 16) in float32 on the card against the same run on
+   the CPU (whisper and internvl with their frames or patches);
+10. whisper-small and internvl2-26b at their published full widths, as
+   phase 9's models are served (``serve_family``): whisper with 16 clips
+   of 1500 stub frames and a 224-token prompt (12 encoder layers,
+   non-causal over the 1500 frames; 12 decoder layers, each causal
+   self-attention and cross-attention over the encoder's 1500 keys: 36
+   flash launches a prefill), internvl with 2 x (256 stub patches +
+   2048 tokens) (48 launches); each with its parameter count, prefill
+   and decode times, idle share, peak memory, kernel against plain
+   logits (a chunked control beside) and a two-part prefill (whisper:
+   the frames with the first 112 tokens, the rest over the cross
+   caches; internvl: the patches with the first 1024 tokens, the rest
+   at 256 + 1024) against the one-shot prefill.
 
 Launch counts are zeroed just before each of phases 3-5, 5b, 5c (after
-its ``make_sim_fn`` baselines), 5d, 7, 8 and each model of 9 and read
-just after it (the ``{"kernels"}`` line gives each kernel's launches on
-phase 3's or its own path, on 5b's, 5c's and 5d's, and the flash rows
-per model of phase 9); a replay of a captured static or recorded step
+its ``make_sim_fn`` baselines), 5d, 7, 8 and each model of 9 and 10 and
+read just after it (the ``{"kernels"}`` line gives each kernel's
+launches on phase 3's or its own path, on 5b's, 5c's and 5d's, and the
+flash rows per model of phases 9 and 10, with the bf16 kernel's times
+at phase 10's shapes); a replay of a captured static or recorded step
 counts as ``step_graph`` and as one launch of each kernel the graph
 holds.  It prints the metrics, each phase's seconds, a ``{"kernels":
 [...]}`` line, the card's name and power limit, and as its last line
@@ -231,6 +246,10 @@ PARITY_STEPS, TIMED_STEPS = 100, 500       # static path
 PROFILE_STEPS = 400        # static profile: 8 eager steps, 49 replays
 PLASTIC_PARITY_STEPS, PLASTIC_STEPS = 30, 200
 PARITY_GRID = 4                            # CPU parity of the plastic path
+# the timed plastic path: gaussian on its parity leg's 4x4x1240 tables
+# (one 8x8x1240 float32 host build and inverse index fewer), exponential
+# at 8x8x1240 (the kernel's timing row)
+PLASTIC_GRID = {"gaussian": PARITY_GRID, "exponential": GRID}
 RECORD_STEPS, SMALL_CAPACITY = 100, 1000
 # a recorded call captures its graph: 1000 steps amortize the capture
 RECORD_LONG_STEPS = 1000
@@ -289,9 +308,19 @@ FAMILIES = [("granite-moe-1b-a400m", 4, 2048, 32, None),
 FAMILY_TOL = 2e-2
 # decode steps profiled for the idle share (device events only)
 FAMILY_PROFILE_STEPS = 8
+# phase 10: the encoder-decoder and VLM families at full width, as phase
+# 9's (arch, batch, prompt, greedy steps, split).  whisper-small: 16
+# clips of 30 s (1500 stub frames each, Whisper's window) and a 224-token
+# decoder prompt (at most half of its 448-token text context is
+# conditioning), split 112 + 112 (frames with the first part only);
+# internvl2-26b: 256 patches + 2048 tokens, split at 1024 (patches and
+# the first half, then the rest at 256 + 1024)
+ENCDEC_FAMILIES = [("whisper-small", 16, 224, 32, 112),
+                   ("internvl2-26b", 2, 2048, 32, 1024)]
 # reduced configs on the card (float32, the CUDA-core flash kernel; the
-# 12-wide head padded to 16) against the same run on the CPU
-REDUCED_ON_CARD = ("kimi-k2-1t-a32b", "qwen2.5-3b")
+# 12-wide heads padded to 16) against the same run on the CPU
+REDUCED_ON_CARD = ("kimi-k2-1t-a32b", "qwen2.5-3b", "whisper-small",
+                   "internvl2-26b")
 REDUCED_TOL = 1e-4
 # the flash kernel against its plain version (tests/test_kernels.py)
 FLASH_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
@@ -316,6 +345,10 @@ SM90_CASES = [                     # the tensor-core kernel's edges (bf16)
     (2, 1, 513, 513, 64, True, 200, 0),
     (8, 1, 130, 300, 256, True, 40, 0),
     (2, 2, 300, 257, 256, False, None, 0),
+    # non-causal at D 64 over a ragged key edge (1500 = 11 x 128 + 92):
+    # whisper's encoder and its cross-attention (Sq != Sk)
+    (24, 24, 1500, 1500, 64, False, None, 0),
+    (24, 24, 224, 1500, 64, False, None, 0),
 ]
 PAD_CASES = [                      # head widths the wrapper pads: kimi-k2's
     (8, 1, 300, 300, 112, True, None, 0),       # 112 (-> 128) and reduced
@@ -770,7 +803,9 @@ def plastic_raster(state, tabs, aux, cfg, drive, device):
 
 def plastic_parity(law: str) -> dict:
     """30 kernel-path steps on the card against 30 plain-path steps on
-    the CPU at 4x4x1240, the card's drive injected into both."""
+    the CPU at 4x4x1240, the card's drive injected into both.  Returns
+    the result line's values, with the CPU tables the runs started from
+    (``tables``, unchanged by them)."""
     import torch
     from repro_torch.core import engine
     cfg = plastic_cfg(law, PARITY_GRID)
@@ -813,15 +848,15 @@ def plastic_parity(law: str) -> dict:
            "weights_changed": changed, "host_build_s": build_s}
     print("plastic parity (card kernel path == CPU plain path: raster, w, "
           "ring, traces, v, c, metrics) " + json.dumps(res))
-    return res
+    return dict(res, tables=cpu_tabs)
 
 
-def run_plastic(law: str, tabs, build_s: float) -> dict:
-    """The timed plastic path at 8x8x1240 (launch counts are read by the
-    caller around this call)."""
+def run_plastic(law: str, tabs, build_s: float, grid: int) -> dict:
+    """The timed plastic path at ``grid`` x ``grid`` x 1240 (launch
+    counts are read by the caller around this call)."""
     import torch
     from repro_torch.core import engine
-    cfg = plastic_cfg(law, GRID)
+    cfg = plastic_cfg(law, grid)
     t0 = time.perf_counter()
     aux = engine.init_plasticity(tabs, cfg)
     torch.cuda.synchronize()
@@ -852,8 +887,9 @@ def run_plastic(law: str, tabs, build_s: float) -> dict:
     events = float(fin["metrics"]["events"])
     require(0.0 < rate and counts.shape == (PLASTIC_STEPS,),
             f"plastic {law}: rate {rate} Hz")
+    label = f"{grid}x{grid}x{N_PER_COLUMN}"
     res = {
-        "law": law, "grid": f"{GRID}x{GRID}x{N_PER_COLUMN}",
+        "law": law, "grid": label,
         "steps": PLASTIC_STEPS, "host_build_s": build_s,
         "n_synapses": tabs.stats["n_synapses"],
         "inverse_index_host_s": inv_s, "inverse_index_bytes": inv_bytes,
@@ -872,7 +908,7 @@ def run_plastic(law: str, tabs, build_s: float) -> dict:
     profile_steps(dict(fin, i_ring=fin["i_ring"].clone()), tabs1, cfg, law,
                   n_steps=20, plasticity=dict(aux, traces=traces))
     return {"cfg": cfg, "aux": aux, "state": fin, "tables": tabs1,
-            "traces": traces}
+            "traces": traces, "grid": label}
 
 
 def plastic_step_inputs(run: dict):
@@ -916,7 +952,7 @@ def check_plastic_kernel(run: dict, law: str) -> float:
     require((ek, dk) == (ep, dp), f"plastic kernel {law}: counts {ek}/{dk}"
             f" vs plain {ep}/{dp}")
     changed = int((wk != local["w"].cpu()).sum())
-    print(f"check plastic_delivery_ltd {law} {GRID}x{GRID}x{N_PER_COLUMN}: "
+    print(f"check plastic_delivery_ltd {law} {run['grid']}: "
           f"{int(spikes.sum())} spikes, {ek} events, {dk} dropped, "
           f"{changed} weights depressed; ring, w' and counts exact")
     return float(max((rk - rp).abs().max(), (wk - wp).abs().max()))
@@ -2289,7 +2325,7 @@ def time_plastic(run: dict, launches: int, err: float, law: str) -> dict:
             "kernel_bytes_ms": kernel_bytes / HBM_BYTES_PER_S * 1e3,
             "target_major_bytes": inv["tm"].numel(),
             "ptxas": ptxas("plastic_delivery"),
-            "shape": f"{law} {GRID}x{GRID}x{N_PER_COLUMN}: "
+            "shape": f"{law} {run['grid']}: "
                      f"{int(rows.sum())} delivered rows, {delivered} "
                      f"events, {plastic} plastic, {slots_read} index "
                      "slots"}
@@ -3084,11 +3120,22 @@ def serve_family(arch: str, batch: int, prompt: int, gen: int,
     after), the decode loop's idle share (profiled, from a copy of the
     prefill's state); with attention, the plain path (``attn_impl=
     "naive"``, through ``forward``, which also returns the MoE aux
-    values) teacher-forced on the kernel path's tokens; then, unless
-    ``split`` is None, a prefill of the first ``split`` tokens and one
-    of the rest from its state (``cache_pos=split``) against the
-    one-shot prefill.  Every logit gap
-    is a share of the largest reference logit.
+    values) teacher-forced on the kernel path's tokens, beside a control
+    (the chunked plain path's gap to it); then, unless ``split``
+    is None, a prefill of the first ``split`` tokens and one of the rest
+    from its state (``cache_pos=split``) against the one-shot prefill.
+    Every logit gap is a share of the largest reference logit.
+
+    Whisper's frames (batch, 1500, STUB_WIDTH) and a VLM's patch
+    embeddings (batch, n_patches, STUB_WIDTH) are drawn after the
+    prompts from the same numpy generator, as ``serve_batch`` draws
+    them; they go with the first part of a two-part prefill only (the
+    second part's cross-attention reads the cross caches), and a VLM's
+    patches prefix the prompt, so its decode starts at ``n_patches +
+    prompt`` and its second part at ``n_patches + split``.  The prefill
+    launches flash once per self-attention layer, once per encoder layer
+    (non-causal, 1500 keys) and once per cross-attention layer (the
+    decoder's queries over the 1500 encoder keys).
 
     MoE routing is discrete: a difference of one bf16 rounding in a
     token's router input can change its top-k experts, and the changes
@@ -3105,6 +3152,8 @@ def serve_family(arch: str, batch: int, prompt: int, gen: int,
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     from repro_torch.models import transformer as tt
+    from repro_torch.models.frontends import STUB_WIDTH
+    from repro_torch.models.layers import torch_dtype
     from repro_torch.models.model import make_prefill
     torch.backends.cuda.matmul.allow_tf32 = False
     t_model = time.perf_counter()
@@ -3113,6 +3162,8 @@ def serve_family(arch: str, batch: int, prompt: int, gen: int,
     cfg = dataclasses.replace(get_config(arch), attn_impl="pallas")
     require(cfg.dtype == "bfloat16", f"{arch} is not bf16")
     n_attn = sum(k in ("attn", "moe") for k in cfg.layer_kinds)
+    n_flash = n_attn + cfg.encoder_layers + (cfg.n_layers if cfg.cross_attn
+                                             else 0)
     t0 = time.perf_counter()
     params = tt.init_model(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
@@ -3122,10 +3173,19 @@ def serve_family(arch: str, batch: int, prompt: int, gen: int,
     require(n_params == cfg.param_count() + gap, f"{arch}: {n_params} "
             f"parameters, the config counts {cfg.param_count()} + "
             f"{gap} (param_count_gap)")
-    prompts = np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (batch, prompt)).astype(np.int32)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size, (batch, prompt)).astype(
+        np.int32)
     tokens = torch.from_numpy(prompts).cuda()
-    max_len = prompt + gen
+    extra = {}
+    for key, n in (("frames", cfg.encoder_seq),
+                   ("patch_embeds", cfg.n_patches)):
+        if n:
+            extra[key] = torch.from_numpy(rng.standard_normal(
+                (batch, n, STUB_WIDTH))).to("cuda", torch_dtype(cfg.dtype))
+    inputs = {"tokens": tokens, **extra}
+    start = cfg.n_patches + prompt
+    max_len = start + gen
     res = {"arch": arch, "layers": cfg.n_layers, "d_model": cfg.d_model,
            "kinds": {k: cfg.layer_kinds.count(k)
                      for k in sorted(set(cfg.layer_kinds))},
@@ -3133,7 +3193,9 @@ def serve_family(arch: str, batch: int, prompt: int, gen: int,
            "dtype": cfg.dtype, "params": n_params,
            "param_count": cfg.param_count(), "param_count_gap": gap,
            "init_s": init_s, "batch": batch, "prompt_len": prompt,
-           "gen": gen}
+           "gen": gen, "encoder_layers": cfg.encoder_layers,
+           "encoder_frames": cfg.encoder_seq, "patches": cfg.n_patches,
+           "prefill_positions": start}
 
     stage, stage_peak = {}, {}
     t_stage = [time.perf_counter()]
@@ -3150,8 +3212,7 @@ def serve_family(arch: str, batch: int, prompt: int, gen: int,
     # the kernel path: a warm-up prefill, then prefill and greedy decode
     # (counted, timed; a MoE model's routes recorded)
     prefill = make_prefill(cfg)
-    prefill(params, {"tokens": tokens},
-            tt.init_decode_state(cfg, batch, max_len))
+    prefill(params, inputs, tt.init_decode_state(cfg, batch, max_len))
     lap("warm_up_prefill")
     state = tt.init_decode_state(cfg, batch, max_len)
     tape = []
@@ -3159,7 +3220,7 @@ def serve_family(arch: str, batch: int, prompt: int, gen: int,
     _build.reset_launch_counts()
     with route_tape(tape, replay=False):
         t0 = time.perf_counter()
-        lg_k, state = prefill(params, {"tokens": tokens}, state)
+        lg_k, state = prefill(params, inputs, state)
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t0
         pre_counts = _build.launch_counts()
@@ -3167,14 +3228,14 @@ def serve_family(arch: str, batch: int, prompt: int, gen: int,
         first = torch.argmax(lg_k[:, -1:], dim=-1).to(torch.int32)
         t0 = time.perf_counter()
         toks, lgs_k, _ = decode(params, cfg, state, first, gen,
-                                start=prompt)
+                                start=start)
         torch.cuda.synchronize()
         decode_s = time.perf_counter() - t0
     counts = _build.launch_counts()
-    n_flash = pre_counts.get("flash_attention", 0)
-    require(pre_counts == ({"flash_attention": n_attn} if n_attn else {}),
+    require(pre_counts == ({"flash_attention": n_flash} if n_flash else {}),
             f"{arch}: the prefill's launches {pre_counts}, not one "
-            f"flash_attention per attention layer ({n_attn})")
+            f"flash_attention per attention layer, encoder layer and "
+            f"cross-attention ({n_flash})")
     require(counts == pre_counts, f"{arch}: the decode steps launched "
             f"{counts} after the prefill's {pre_counts}")
     require(toks.shape == (batch, gen) and bool(
@@ -3196,7 +3257,7 @@ def serve_family(arch: str, batch: int, prompt: int, gen: int,
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         _, lgs_prof, _ = decode(params, cfg, clone_state(saved), first,
-                                n_prof, forced=toks, start=prompt)
+                                n_prof, forced=toks, start=start)
         torch.cuda.synchronize()
         prof_us = (time.perf_counter() - t0) * 1e6
     busy_us, decode_top = device_breakdown(prof, n_prof)
@@ -3215,11 +3276,11 @@ def serve_family(arch: str, batch: int, prompt: int, gen: int,
         with route_tape(tape, replay=True) if forced_routes \
                 else route_tape(routes if routes is not None else [],
                                 replay=False):
-            x, st, aux = tt.forward(params, c, {"tokens": tokens},
-                                    state=st, cache_pos=0)
+            x, st, aux = tt.forward(params, c, inputs, state=st,
+                                    cache_pos=0)
             lgs = [tt.logits(params, x[:, -1:])]
             lgs += decode(params, c, st, first, gen, forced=toks,
-                          start=prompt)[1]
+                          start=start)[1]
         return lgs, aux
 
     if n_attn:
@@ -3235,6 +3296,11 @@ def serve_family(arch: str, batch: int, prompt: int, gen: int,
             (torch.cat([torch.argmax(a, -1) for a in lgs_k], 1)
              == torch.cat([torch.argmax(b, -1) for b in ref[1:]], 1))
             .float().mean())
+        if not cfg.is_moe:
+            ctrl, _ = plain("chunked", forced_routes=False)
+            res["control_chunked_vs_plain_worst"] = max(
+                logit_gap(a, b) for a, b in zip(ctrl, ref))
+            del ctrl
         if cfg.is_moe:
             res["prefill_frac_dropped_mean_over_layers"] = float(
                 aux["frac_dropped"]) / cfg.n_layers
@@ -3264,9 +3330,9 @@ def serve_family(arch: str, batch: int, prompt: int, gen: int,
     # drop other assignments than the whole)
     if split:
         st2 = tt.init_decode_state(cfg, batch, max_len)
-        _, st2 = prefill(params, {"tokens": tokens[:, :split]}, st2)
+        _, st2 = prefill(params, dict(extra, tokens=tokens[:, :split]), st2)
         x, st2, _ = tt.forward(params, cfg, {"tokens": tokens[:, split:]},
-                               state=st2, cache_pos=split)
+                               state=st2, cache_pos=cfg.n_patches + split)
         res["split_prefill"] = [split, prompt - split]
         res["split_prefill_logit_gap"] = logit_gap(
             tt.logits(params, x[:, -1:]), lg_k)
@@ -3279,7 +3345,7 @@ def serve_family(arch: str, batch: int, prompt: int, gen: int,
     peak = max(stage_peak.values())
     res.update({
         "prefill_s": prefill_s,
-        "prefill_tokens_per_s": batch * prompt / prefill_s,
+        "prefill_tokens_per_s": batch * start / prefill_s,
         "decode_ms_per_token": 1e3 * decode_s / gen,
         "decode_device_idle_share": 1.0 - busy_us / prof_us,
         "decode_profiled_steps": n_prof,
@@ -3291,15 +3357,18 @@ def serve_family(arch: str, batch: int, prompt: int, gen: int,
         "peak_device_bytes_above_earlier_phases": peak,
         "flash_launches_prefill": n_flash,
         "flash_launches_decode": counts.get("flash_attention", 0) - n_flash,
+        "flash_launches_prefill_encoder_self_cross": [
+            cfg.encoder_layers, n_attn, cfg.n_layers if cfg.cross_attn
+            else 0],
         "tolerance": f"max |diff| <= {FAMILY_TOL} x max |reference logit|",
         "stage_s": stage, "stage_peak_bytes": stage_peak,
         "model_s": time.perf_counter() - t_model,
     })
-    del params, state, lg_k, lgs_k, kern
+    del params, state, lg_k, lgs_k, kern, inputs, extra
     torch.cuda.empty_cache()
     print(f"lm family {arch} " + json.dumps(res), flush=True)
-    print(f"lm family {arch}: prefill {batch} x {prompt} {prefill_s:.4f} s "
-          f"({batch * prompt / prefill_s:.0f} tok/s), decode "
+    print(f"lm family {arch}: prefill {batch} x {start} {prefill_s:.4f} s "
+          f"({batch * start / prefill_s:.0f} tok/s), decode "
           f"{1e3 * decode_s / gen:.2f} ms/token, idle "
           f"{1.0 - busy_us / prof_us:.3f} ({n_prof} steps profiled), "
           f"flash {n_flash} per prefill, "
@@ -3319,36 +3388,66 @@ def run_families() -> dict:
             "simt": run_reduced_on_card()}
 
 
+def run_encdec() -> dict:
+    """Phase 10: whisper-small and internvl2-26b at full width, each in
+    turn through ``serve_family`` (each freed before the next; the
+    memory earlier phases left cached is returned first).  Returns the
+    flash launches per prefill per model."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"lm encdec: {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
+          "allocated before phase 10", flush=True)
+    out = {}
+    for arch, batch, prompt, gen, split in ENCDEC_FAMILIES:
+        out[arch] = serve_family(arch, batch, prompt, gen, split)
+    return {a: r["flash_launches_prefill"] for a, r in out.items()}
+
+
 def run_reduced_on_card() -> dict:
     """Reduced configs whose heads the kernels are not built for, or that
-    only reduced configs reach (``REDUCED_ON_CARD``: kimi-k2's 8,
-    qwen2.5-3b's 12, padded to 16), in float32 through the kernel path
-    on the card against the same weights and tokens on the CPU (where
-    the wrapper is the plain version): a prefill and 8 greedy decode
-    steps, the CPU teacher-forced on the card's tokens.  Returns each
-    config's flash launches (the CUDA-core kernel)."""
+    only reduced configs reach (``REDUCED_ON_CARD``: kimi-k2's and
+    internvl's 8, qwen2.5-3b's and whisper's 12, padded to 16), in
+    float32 through the kernel path on the card against the same
+    weights, tokens (and frames or patches) on the CPU (where the
+    wrapper is the plain version): a prefill and 8 greedy decode steps,
+    the CPU teacher-forced on the card's tokens.  Returns each config's
+    flash launches (the CUDA-core kernel): one per self-attention,
+    encoder and cross-attention layer in the prefill."""
     import numpy as np
     import torch
     from repro_torch.configs import get_reduced
     from repro_torch.kernels import _build
     from repro_torch.models import transformer as tt
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.frontends import STUB_WIDTH
     from repro_torch.models.model import make_prefill, make_serve_step
     from repro_torch.tree import tree_flatten, tree_unflatten
     torch.backends.cuda.matmul.allow_tf32 = False
     launches = {}
     for arch in REDUCED_ON_CARD:
         cfg = dataclasses.replace(get_reduced(arch), attn_impl="pallas")
-        n_attn = sum(k in ("attn", "moe") for k in cfg.layer_kinds)
+        n_attn = sum(k in ("attn", "moe") for k in cfg.layer_kinds) \
+            + cfg.encoder_layers + (cfg.n_layers if cfg.cross_attn else 0)
         leaves, treedef = tree_flatten(tt.init_model(cfg, seed=0,
                                                      device="cpu"))
+        rng = np.random.default_rng(1)
+        host = {"tokens": rng.integers(0, cfg.vocab_size, (2, 40)).astype(
+            np.int32)}
+        for key, n in (("frames", cfg.encoder_seq),
+                       ("patch_embeds", cfg.n_patches)):
+            if n:
+                host[key] = rng.standard_normal(
+                    (2, n, STUB_WIDTH)).astype(np.float32)
+        start = cfg.n_patches + 40
         runs = {}
         for dev in ("cuda", "cpu"):
             params = tree_unflatten(treedef, [t.to(dev) for t in leaves])
-            tok = torch.from_numpy(np.random.default_rng(1).integers(
-                0, cfg.vocab_size, (2, 40)).astype(np.int32)).to(dev)
-            state = tt.init_decode_state(cfg, 2, 48, device=dev)
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+            state = tt.init_decode_state(cfg, 2, start + 8, device=dev)
             _build.reset_launch_counts()
-            lg, state = make_prefill(cfg)(params, {"tokens": tok}, state)
+            lg, state = make_prefill(cfg)(params, batch, state)
             n_pre = _build.launch_counts()
             step = make_serve_step(cfg)
             lgs, toks = [lg], runs.get("cuda", {}).get("toks")
@@ -3357,7 +3456,7 @@ def run_reduced_on_card() -> dict:
                 t = (toks[i].to(dev) if toks is not None else
                      torch.argmax(lgs[-1][:, -1:], -1).to(torch.int32))
                 fed.append(t)
-                lg, state = step(params, state, t, 40 + i)
+                lg, state = step(params, state, t, start + i)
                 lgs.append(lg)
             runs[dev] = {"lgs": [x.cpu() for x in lgs], "toks": fed,
                          "prefill": n_pre, "all": _build.launch_counts()}
@@ -3374,8 +3473,8 @@ def run_reduced_on_card() -> dict:
         launches[cfg.name] = n_attn
         print(f"lm reduced on card {cfg.name} " + json.dumps({
             "head_dim": cfg.resolved_head_dim, "dtype": cfg.dtype,
-            "padded_head_dim": (16 if cfg.resolved_head_dim == 12
-                                else cfg.resolved_head_dim),
+            "padded_head_dim": fa.padded_head_dim(
+                "simt", cfg.resolved_head_dim),
             "flash_simt_launches_prefill": n_attn,
             "flash_launches_decode": 0,
             "logit_gap_card_vs_cpu_worst": gap,
@@ -3412,26 +3511,26 @@ def _tensors(tree):
         yield tree
 
 
-def _sdpa(q, k, v):
-    """One F.scaled_dot_product_attention call on (B*H, S, D) q and
-    (B*Kv, S, D) k, v (causal GQA), the yardstick the port never calls,
-    and its name."""
+def _sdpa(q, k, v, b: int = LM_BATCH, causal: bool = True):
+    """One F.scaled_dot_product_attention call on (B*H, Sq, D) q and
+    (B*Kv, Sk, D) k, v (GQA), the yardstick the port never calls, and
+    its name."""
     import torch.nn.functional as F
-    bh, s, d = q.shape
-    b = LM_BATCH
-    q4, k4, v4 = (x.view(b, x.shape[0] // b, s, d) for x in (q, k, v))
+    q4, k4, v4 = (x.view(b, x.shape[0] // b, *x.shape[1:])
+                  for x in (q, k, v))
     try:
-        F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+        F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal,
                                        enable_gqa=True)
         return (lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=True, enable_gqa=True),
-            "F.scaled_dot_product_attention(is_causal=True, enable_gqa)")
+            q4, k4, v4, is_causal=causal, enable_gqa=True),
+            f"F.scaled_dot_product_attention(is_causal={causal}, "
+            "enable_gqa)")
     except TypeError:
-        k4r, v4r = (x.repeat_interleave(bh // k.shape[0], 1)
+        k4r, v4r = (x.repeat_interleave(q.shape[0] // k.shape[0], 1)
                     for x in (k4, v4))
         return (lambda: F.scaled_dot_product_attention(q4, k4r, v4r,
-                                                       is_causal=True),
-                "F.scaled_dot_product_attention(is_causal=True), KV "
+                                                       is_causal=causal),
+                f"F.scaled_dot_product_attention(is_causal={causal}), KV "
                 "repeated")
 
 
@@ -3552,8 +3651,67 @@ def time_flash(launches: dict, err: dict, train: dict,
             row["path_note"] = ("on no main path since the TF32 route took "
                                 "float32 at head_dim 64-256; head_dim 8-32")
             row["at_small_head_dims"] = time_flash_small(gen)
+        if route == "sm90":
+            row["at_encdec_shapes"] = time_flash_encdec(gen)
         rows.append(row)
     return rows
+
+
+# phase 10's flash calls, one layer each: (label, batch, q heads, kv heads,
+# Sq, Sk, head_dim, causal)
+ENCDEC_FLASH_SHAPES = [
+    ("whisper-small encoder", 16, 12, 12, 1500, 1500, 64, False),
+    ("whisper-small cross", 16, 12, 12, 224, 1500, 64, False),
+    ("internvl2-26b prefill", 2, 48, 8, 2304, 2304, 128, True),
+]
+
+
+def time_flash_encdec(gen) -> list:
+    """The bf16 tensor-core kernel at phase 10's shapes (whisper's
+    encoder self-attention and its cross-attention, non-causal over 1500
+    keys; internvl's causal GQA prefill over 256 + 2048 positions),
+    each beside F.scaled_dot_product_attention on the same inputs, the
+    plain version (profiler) and the bound; device time as in
+    ``queued_ms``.  Each call is also held against the plain version."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import attention_ref
+    out = []
+    for label, b, h, kvh, sq, sk, d, causal in ENCDEC_FLASH_SHAPES:
+        q, k, v = (torch.randn((b * n, s, d), device="cuda", generator=gen)
+                   .to(torch.bfloat16)
+                   for n, s in ((h, sq), (kvh, sk), (kvh, sk)))
+        require(fa._route(torch.bfloat16, d) == "sm90",
+                f"{label}: head_dim {d} bf16 is not on the sm90 route")
+        kern = lambda: fa._launch("sm90", q, k, v, causal=causal)
+        err = float((kern().float() - attention_ref(
+            q, k, v, causal=causal).float()).abs().max())
+        require(err <= FLASH_TOL["bfloat16"], f"{label}: the kernel differs "
+                f"from its plain version by {err}")
+        lib, library = _sdpa(q, k, v, b=b, causal=causal)
+        diff = float((lib().reshape(q.shape).float()
+                      - kern().float()).abs().max())
+        require(diff <= FLASH_TOL["bfloat16"] * 4, f"{label}: the "
+                f"yardstick computes another function: {diff}")
+        pairs = sq * (sk + 1) / 2 if causal else sq * sk
+        flops = 4 * b * h * d * pairs
+        nbytes = sum(t.numel() * t.element_size() for t in (q, q, k, v))
+        bound_ops = flops / BF16_OPS_PER_S * 1e3
+        bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        out.append({
+            "shape": f"{label}: q {tuple(q.shape)}, k/v {tuple(k.shape)} "
+                     f"bf16 {'causal' if causal else 'non-causal'}",
+            "max_abs_err": err,
+            "ms": queued_ms(kern, 20), "call_ms": call_ms(kern, 20),
+            "plain_ms": device_ms(lambda: attention_ref(
+                q, k, v, causal=causal), 3),
+            "bound_ms": max(bound_ops, bound_bytes),
+            "bound_by": "operations" if bound_ops >= bound_bytes
+            else "bytes", "flops": flops,
+            "library_ms": queued_ms(lib, 20), "library": library,
+            "library_vs_kernel_max_abs_diff": diff})
+        print(f"timing flash at {json.dumps(out[-1])}", flush=True)
+    return out
 
 
 def time_flash_small(gen) -> list:
@@ -3815,18 +3973,25 @@ def main() -> None:
             "the static path reached the legacy warp-per-row kernel")
     phase("3")
 
-    # 4. the plastic path: CPU parity at 4x4, then timed at 8x8
-    for law in LAWS:
-        plastic_parity(law)
+    # 4. the plastic path: CPU parity at 4x4, then timed (gaussian on the
+    # parity leg's 4x4 tables, exponential at 8x8)
     plastic_tabs = {}
     for law in LAWS:
-        t0 = time.perf_counter()
-        plastic_tabs[law] = engine.build_shard_tables(plastic_cfg(law, GRID))
-        builds[("plastic", law)] = time.perf_counter() - t0
+        par = plastic_parity(law)
+        if PLASTIC_GRID[law] == PARITY_GRID:
+            plastic_tabs[law] = par["tables"].to("cuda")
+            builds[("plastic", law)] = par["host_build_s"]
+    for law in LAWS:
+        if law not in plastic_tabs:
+            t0 = time.perf_counter()
+            plastic_tabs[law] = engine.build_shard_tables(
+                plastic_cfg(law, PLASTIC_GRID[law]))
+            builds[("plastic", law)] = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
     pruns = {law: run_plastic(law, plastic_tabs[law],
-                              builds[("plastic", law)]) for law in LAWS}
+                              builds[("plastic", law)], PLASTIC_GRID[law])
+             for law in LAWS}
     p_launches = _build.launch_counts()
     print(f"plastic path launches: {json.dumps(p_launches)}; "
           f"max_memory_allocated {torch.cuda.max_memory_allocated()} B")
@@ -3946,6 +4111,11 @@ def main() -> None:
     # on the card against the CPU
     families = run_families()
     phase("9")
+
+    # 10. whisper-small and internvl2-26b at full width (counts zeroed and
+    # read inside, per model)
+    families["sm90"].update(run_encdec())
+    phase("10")
     for k in time_flash(lm["launches"], flash_err, train["launches"],
                         families):
         print(f"timing {json.dumps(k)}")

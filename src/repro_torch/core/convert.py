@@ -140,7 +140,10 @@ def model_params_from_arrays(cfg, tree: dict, device="cuda",
     layers in ``rest``: period ``i`` of ``blocks[pos]`` is layer
     ``i * len(cfg.pattern) + pos``, and ``rest`` follows (recurrentgemma:
     12 periods of (rglru, rglru, attn), then its 2 remainder rglru
-    layers)."""
+    layers).  A decoder layer's ``cross`` and ``ln_x`` come with it.  The
+    encoder's blocks (``enc_blocks``, stacked over the encoder's layers)
+    become ``enc_layers``; ``enc_ln_f`` and ``frontend`` cross as they
+    are."""
     dev = resolve_device(device)
     base_dtype = torch_dtype(dtype or cfg.dtype)
     keep_f32 = dtype is None
@@ -167,8 +170,19 @@ def model_params_from_arrays(cfg, tree: dict, device="cuda",
     if sorted(layers) != list(range(cfg.n_layers)):
         raise ValueError(f"the tree holds layers {sorted(layers)}, the "
                          f"config has {cfg.n_layers}")
-    return {"embed": conv(tree["embed"]), "ln_f": conv(tree["ln_f"]),
-            "layers": [layers[i] for i in range(cfg.n_layers)]}
+    out = {"embed": conv(tree["embed"]), "ln_f": conv(tree["ln_f"]),
+           "layers": [layers[i] for i in range(cfg.n_layers)]}
+    if "enc_blocks" in tree:
+        enc = tree["enc_blocks"]
+        n_enc = np.asarray(enc["ln1"]["scale"]).shape[0]
+        if n_enc != cfg.encoder_layers:
+            raise ValueError(f"the tree holds {n_enc} encoder layers, the "
+                             f"config has {cfg.encoder_layers}")
+        out["enc_layers"] = [conv(take(enc, i)) for i in range(n_enc)]
+    for name in ("enc_ln_f", "frontend"):
+        if name in tree:
+            out[name] = conv(tree[name])
+    return out
 
 
 def adamw_state_from_arrays(cfg, state: dict, device="cuda") -> dict:

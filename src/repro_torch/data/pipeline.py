@@ -22,10 +22,7 @@ from typing import Dict
 import numpy as np
 
 from ..models.config import ModelConfig, ShapeConfig
-
-# width of the precomputed frame / patch embeddings the stub frontends
-# take (a copy of ``repro.models.frontends.STUB_WIDTH``)
-STUB_WIDTH = 256
+from ..models.frontends import STUB_WIDTH
 
 
 def host_shard_slice(global_batch: int, host_id: int, n_hosts: int):

@@ -5,8 +5,9 @@ Two arch families behind one entry point:
 
 * ``--arch <model>`` (any of ``configs.ARCH_NAMES``: the dense qwen2 /
   qwen3 / gemma models, granite-moe-1b-a400m, kimi-k2-1t-a32b,
-  falcon-mamba-7b, recurrentgemma-9b): a batched prefill, then greedy
-  decode, of the architecture's reduced configuration::
+  falcon-mamba-7b, recurrentgemma-9b, whisper-small, internvl2-26b): a
+  batched prefill, then greedy decode, of the architecture's reduced
+  configuration::
 
       PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \\
           --batch 4 --prompt-len 32 --gen 16
@@ -62,6 +63,8 @@ import torch
 
 from .. import resolve_device
 from ..configs import ARCH_NAMES, get_reduced
+from ..models.frontends import STUB_WIDTH
+from ..models.layers import torch_dtype
 from ..models.model import make_prefill, make_serve_step
 from ..models.transformer import init_decode_state, init_model
 from ..obs.telemetry import NULL, Telemetry
@@ -79,12 +82,18 @@ def _sync(dev: torch.device) -> None:
 
 def serve_batch(arch: str, batch: int, prompt_len: int, gen: int,
                 seed: int = 0, greedy: bool = True, device="cuda") -> dict:
-    """Prefill ``batch`` random prompts of ``prompt_len`` tokens (numpy
-    ``default_rng(seed)``, as the reference draws them), then decode
-    ``gen`` tokens greedily.  Parameters come from ``init_model`` seeded
-    with ``seed``.  Returns ``tokens`` ((batch, gen) int32 numpy),
-    ``prefill_s``, ``decode_s_per_token`` (host clock, CUDA-synchronised)
-    and ``config`` (the config's name)."""
+    """Prefill ``batch`` random prompts of ``prompt_len`` tokens, then
+    decode ``gen`` tokens greedily.  The inputs are drawn as the
+    reference draws them, from numpy ``default_rng(seed)``: the prompts,
+    then whisper's frames (batch, encoder_seq, STUB_WIDTH), then a VLM's
+    patch embeddings (batch, n_patches, STUB_WIDTH), normal, in the
+    config's dtype.  A VLM's patches prefix the prompt: its state holds
+    ``n_patches + prompt_len + gen`` positions and step ``i`` decodes at
+    ``n_patches + prompt_len + i`` (the reference sizes and places its
+    decode without the prefix).  Parameters come from ``init_model``
+    seeded with ``seed``.  Returns ``tokens`` ((batch, gen) int32 numpy),
+    ``prefill_s``, ``decode_s_per_token`` (host clock,
+    CUDA-synchronised) and ``config`` (the config's name)."""
     if not greedy:
         raise NotImplementedError("only greedy decoding is implemented "
                                   "(the reference decodes greedily too)")
@@ -94,14 +103,21 @@ def serve_batch(arch: str, batch: int, prompt_len: int, gen: int,
     rng = np.random.default_rng(seed)
     prompts = rng.integers(0, cfg.vocab_size,
                            (batch, prompt_len)).astype(np.int32)
-    tokens = torch.from_numpy(prompts).to(dev)
-    state = init_decode_state(cfg, batch, prompt_len + gen, device=dev)
+    batch_in = {"tokens": torch.from_numpy(prompts).to(dev)}
+    dtype = torch_dtype(cfg.dtype)
+    for key, n in (("frames", cfg.encoder_seq),
+                   ("patch_embeds", cfg.n_patches)):
+        if n:
+            batch_in[key] = torch.from_numpy(rng.standard_normal(
+                (batch, n, STUB_WIDTH))).to(dev, dtype)
+    start = cfg.n_patches + prompt_len
+    state = init_decode_state(cfg, batch, start + gen, device=dev)
     prefill = make_prefill(cfg)
     serve_step = make_serve_step(cfg)
 
     _sync(dev)
     t0 = time.perf_counter()
-    logits, state = prefill(params, {"tokens": tokens}, state)
+    logits, state = prefill(params, batch_in, state)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
 
@@ -110,7 +126,7 @@ def serve_batch(arch: str, batch: int, prompt_len: int, gen: int,
     t0 = time.perf_counter()
     for i in range(gen):
         toks.append(tok)
-        logits, state = serve_step(params, state, tok, prompt_len + i)
+        logits, state = serve_step(params, state, tok, start + i)
         tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
     _sync(dev)
     t_decode = time.perf_counter() - t0

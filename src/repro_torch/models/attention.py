@@ -20,8 +20,9 @@ way.)
 One card has no mesh, so the reference's ``rules``/``constrain``
 sharding has no counterpart here.  Caches are updated in place, which
 saves a copy of every layer's cache per step; the functions still return
-the cache, as the reference does.  Cross-attention (whisper) is not
-ported yet.
+the cache, as the reference does.  Cross-attention (whisper's decoder)
+takes its keys and values from the encoder's output (``kv_x``) or from a
+static cross cache that the prefill wrote (``update_cache=False``).
 """
 
 from __future__ import annotations
@@ -41,7 +42,10 @@ from .layers import _normal, apply_rmsnorm, apply_rope
 NEG_INF = -1e30
 
 
-def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
+def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype,
+                   cross: bool = False) -> dict:
+    """The projections; a cross-attention (``cross``) has no QKV bias,
+    as the reference's has none."""
     d, h, kv, hd = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                     cfg.resolved_head_dim)
     sc = 1.0 / math.sqrt(d)
@@ -55,7 +59,7 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
     def zeros(*shape):
         return torch.zeros(shape, dtype=dtype, device=gen.device)
 
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         p.update(bq=zeros(h, hd), bk=zeros(kv, hd), bv=zeros(kv, hd))
     if cfg.qk_norm:
         p.update(q_norm=zeros(hd), k_norm=zeros(hd))
@@ -75,19 +79,27 @@ def _heads(x, w):
     return (x @ w.reshape(w.shape[0], -1)).reshape(b, s, *w.shape[1:])
 
 
-def _project_qkv(p, cfg: ModelConfig, x, kv_x, positions, kv_positions):
+def _project_q(p, cfg: ModelConfig, x, positions):
     q = _heads(x, p["wq"])
-    k = _heads(kv_x, p["wk"])
-    v = _heads(kv_x, p["wv"])
     if "bq" in p:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        q = q + p["bq"]
     if cfg.qk_norm:
         q = apply_rmsnorm({"scale": p["q_norm"]}, q)
-        k = apply_rmsnorm({"scale": p["k_norm"]}, k)
     if cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
+    return q
+
+
+def _project_kv(p, cfg: ModelConfig, kv_x, kv_positions):
+    k = _heads(kv_x, p["wk"])
+    v = _heads(kv_x, p["wv"])
+    if "bk" in p:
+        k, v = k + p["bk"], v + p["bv"]
+    if cfg.qk_norm:
+        k = apply_rmsnorm({"scale": p["k_norm"]}, k)
+    if cfg.use_rope:
         k = apply_rope(k, kv_positions, cfg.rope_theta)
-    return q, k, v
+    return k, v
 
 
 def _grouped(q, n_kv: int):
@@ -378,12 +390,38 @@ def _decode_attention(q, cache: KVCache, cur_len: int, window):
     return o.permute(0, 3, 1, 2, 4).reshape(b, 1, h, dh).to(q.dtype)
 
 
+def _cross_attention(p, cfg: ModelConfig, x, positions, kv_x,
+                     cache: Optional[KVCache]):
+    """Cross-attention's (B, S, H, D) output (the modes of
+    ``apply_attention``).  Keys sit at positions ``arange(Sk)``; nothing
+    is causal."""
+    q = _project_q(p, cfg, x, positions)
+    if kv_x is not None:
+        sk = kv_x.shape[1]
+        k, v = _project_kv(p, cfg, kv_x, torch.arange(sk, device=x.device))
+        if cache is not None:
+            if cache.ring or cache.k.shape[1] != sk:
+                raise ValueError(
+                    f"a cross cache holds all {sk} encoder positions "
+                    f"(got {cache.k.shape[1]}, ring={cache.ring})")
+            cache.k.copy_(k)
+            cache.v.copy_(v)
+    elif cache is None:
+        raise ValueError("update_cache=False reads a static cross cache: "
+                         "pass cache=")
+    elif x.shape[1] == 1:
+        return _decode_attention(q, cache, cache.k.shape[1], None)
+    else:
+        k, v = cache.k, cache.v
+    return _full_attention(q, k, v, cfg, causal=False, window=None)
+
+
 def apply_attention(p, cfg: ModelConfig, x, positions, *, causal=True,
                     window=None, kv_x=None, cache: Optional[KVCache] = None,
-                    cache_pos: Optional[int] = None):
-    """Self-attention.  Returns (out (B, S, d), cache).
+                    cache_pos: Optional[int] = None, update_cache=True):
+    """Self- or cross-attention.  Returns (out (B, S, d), cache).
 
-    Modes:
+    Self-attention (``kv_x`` None, ``update_cache``):
       * cache None:        full attention over ``x`` (train / prefill);
       * cache, S > 1:      prefill: full attention over the prompt, then
                            its keys/values (the last window of them for a
@@ -394,15 +432,27 @@ def apply_attention(p, cfg: ModelConfig, x, positions, *, causal=True,
                            always starts at 0);
       * cache, S == 1:     decode: the token's key/value is written at
                            ``cache_pos`` and it attends over the cache.
+    Cross-attention (keys and values at positions ``arange(Sk)``, never
+    causal):
+      * ``kv_x`` (B, Sk, d): full attention over ``kv_x``'s keys (train,
+                           or prefill, which writes them into the cross
+                           cache at 0);
+      * static cache (``kv_x`` None, ``update_cache=False``): S == 1
+                           decodes over the whole cache (the plain
+                           ``_decode_attention``); S > 1, a prefill
+                           continued without the encoder's input, attends
+                           over the whole cache through the flash route
+                           (the reference would run causal self-attention
+                           over the chunk with the cross weights there).
     The cache is written in place.
     """
-    if kv_x is not None:
-        raise NotImplementedError(
-            "cross-attention (whisper) is not ported yet: ROADMAP.md, "
-            "item 10 (LM side)")
+    if kv_x is not None or not update_cache:
+        out = _cross_attention(p, cfg, x, positions, kv_x, cache)
+        return _project_out(p, out), cache
     kv_positions = (torch.arange(x.shape[1], device=x.device)
                     if cache is None else positions)
-    q, k, v = _project_qkv(p, cfg, x, x, positions, kv_positions)
+    q = _project_q(p, cfg, x, positions)
+    k, v = _project_kv(p, cfg, x, kv_positions)
 
     s_q = x.shape[1]
     if cache is None:
@@ -429,11 +479,14 @@ def apply_attention(p, cfg: ModelConfig, x, positions, *, causal=True,
         cache.k[:, idx:idx + 1] = k
         cache.v[:, idx:idx + 1] = v
         out = _decode_attention(q, cache, cache_pos + s_q, window)
+    return _project_out(p, out), cache
 
+
+def _project_out(p, out):
+    """(B, S, H, D) @ wo (H, D, d) -> (B, S, d)."""
     b, s = out.shape[:2]
     wo = p["wo"]
-    out = out.reshape(b, s, -1) @ wo.reshape(-1, wo.shape[-1])
-    return out, cache
+    return out.reshape(b, s, -1) @ wo.reshape(-1, wo.shape[-1])
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq: int, dtype,

@@ -2,9 +2,7 @@
 
 ``ModelConfig``, ``ShapeConfig`` and ``SHAPES`` as the JAX package defines
 them, so that the port reads the same configurations without importing
-it.  Every field is kept, including those of families the port does not
-run yet (MoE, SSM, hybrid, encoder-decoder, VLM): the model modules
-refuse those kinds by name (``models.transformer``).
+it.  Every field is kept.
 """
 
 from __future__ import annotations

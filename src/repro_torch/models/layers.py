@@ -15,7 +15,6 @@ The reference's quirks are carried across as they are:
 
 The reference's ``init_*`` functions also return logical sharding
 names; one card has no mesh, so the port's return the parameters only.
-``sinusoidal_positions`` belongs to the encoder family, not ported yet.
 """
 
 from __future__ import annotations
@@ -132,6 +131,24 @@ def apply_rope(x, positions, theta: float):
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(positions, d: int, device="cuda") -> torch.Tensor:
+    """Whisper-style fixed sinusoidal embeddings (no parameters), float32
+    (S, d): ``[sin, cos]`` of ``pos / 10000 ** (dim / d)``.
+
+    ``positions``: an int ``n`` (``arange(n)`` on ``device``), or an
+    (S,) position tensor (decode computes the embedding at the current
+    offset directly, no table; ``device`` is then the tensor's).  The
+    caller casts to its working dtype, as the reference's does."""
+    if isinstance(positions, int):
+        positions = torch.arange(positions, dtype=torch.int32,
+                                 device=device)
+    pos = positions.to(torch.float32)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32,
+                       device=pos.device)[None, :]
+    ang = pos / torch.pow(10000.0, dim / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # ---------------------------------------------------------------------------

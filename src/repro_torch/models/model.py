@@ -153,8 +153,11 @@ def make_prefill(cfg: ModelConfig):
     """prefill(params, batch, state) -> (last-position logits (B, 1, V),
     state).
 
-    Runs the full forward on the prompt while writing the KV caches and
-    recurrent states, so decode continues from ``pos = prompt_len``."""
+    Runs the full forward on the prompt (``batch``: ``tokens``, and
+    whisper's ``frames`` or a VLM's ``patch_embeds``) while writing the
+    KV caches, the cross caches and the recurrent states, so decode
+    continues from ``pos = prompt_len`` (a VLM's ``n_patches +
+    prompt_len``: the patches prefix the prompt)."""
 
     def prefill(params, batch, state):
         x, new_state, _ = forward(params, cfg, batch, state=state,

@@ -1,26 +1,29 @@
 """Block assembly and the full-model forward of the LM stack (the port of
 ``repro.models.transformer``): the dense, MoE, mamba and RG-LRU
-families.
+families, the encoder-decoder (whisper) and the VLM (internvl).
 
 Parameters are plain dicts: ``{"embed": {"table"}, "ln_f": {"scale"},
 "layers": [block, ...]}``, one dict per layer in layer order; layer
 ``i``'s kind is ``cfg.layer_kinds[i]`` (the config's pattern cycled over
-the layers, so recurrentgemma's two remainder layers are RG-LRU).  The
-reference stacks the layers of each pattern position and drives them
-with ``lax.scan``; here a Python loop runs them.  The decode state is
-``{"layers": [state, ...]}`` (a ``KVCache`` for attention layers, ring-
-buffered under a sliding window; ``{"conv", "ssm"}`` for mamba;
-``{"conv", "h"}`` for RG-LRU); a training forward returns
-``{"layers": [None, ...]}``.
+the layers, so recurrentgemma's two remainder layers are RG-LRU).  With
+``cfg.cross_attn`` each decoder layer also holds ``ln_x`` and
+``cross``; an encoder adds ``enc_layers`` (``cfg.encoder_layers``
+"attn" blocks, run non-causal) and ``enc_ln_f``; a frontend
+(``cfg.encoder_seq`` or ``cfg.n_patches``) adds ``frontend``
+(``{"adapter"}``).  The reference stacks the layers of each pattern
+position (and the encoder's) and drives them with ``lax.scan``; here a
+Python loop runs them.  The decode state is ``{"layers": [state,
+...]}`` (a ``KVCache`` for attention layers, ring-buffered under a
+sliding window; ``{"conv", "ssm"}`` for mamba; ``{"conv", "h"}`` for
+RG-LRU), plus ``"cross": [KVCache, ...]`` (one static cache of the
+encoder's keys per decoder layer) with cross-attention; a training
+forward returns ``{"layers": [None, ...]}``.
 
 Block kinds:
   attn   -- pre-norm attention + pre-norm gated MLP
   moe    -- pre-norm attention + pre-norm MoE FFN
   mamba  -- pre-norm mamba mixer (no MLP; the mamba1 convention)
   rglru  -- pre-norm RG-LRU mixer + pre-norm gated MLP
-
-The encoder-decoder and frontend families (whisper, internvl) are not
-ported yet and are refused by name.
 """
 
 from __future__ import annotations
@@ -33,9 +36,12 @@ from torch.utils.checkpoint import checkpoint
 from .. import resolve_device
 from .attention import apply_attention, init_attention, init_cache
 from .config import ModelConfig
+from .frontends import (STUB_WIDTH, apply_audio_frontend,
+                        apply_patch_frontend, init_frontend)
 from .layers import (apply_embedding, apply_mlp, apply_rmsnorm,
                      init_embedding, init_mlp, init_rmsnorm,
-                     logits_from_embedding, torch_dtype)
+                     logits_from_embedding, sinusoidal_positions,
+                     torch_dtype)
 from .moe import apply_moe, init_moe
 from .rglru import apply_rglru, init_rglru, init_rglru_state
 from .ssm import apply_mamba, init_mamba, init_mamba_state
@@ -49,17 +55,6 @@ def _zero_aux(device) -> dict:
             for k in AUX_KEYS}
 
 
-def _require_ported(cfg: ModelConfig) -> None:
-    """Raise for what the port does not run yet."""
-    for kind in set(cfg.layer_kinds):
-        _require_kind(kind)
-    if cfg.encoder_layers or cfg.cross_attn or cfg.encoder_seq \
-            or cfg.n_patches:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder and frontend families (whisper, "
-            "internvl) are not ported yet: ROADMAP.md, item 10 (LM side)")
-
-
 def _require_kind(kind: str) -> None:
     if kind not in BLOCK_KINDS:
         raise ValueError(f"unknown block kind {kind!r}")
@@ -70,7 +65,9 @@ def _require_kind(kind: str) -> None:
 # ---------------------------------------------------------------------------
 
 def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str,
-               dtype) -> dict:
+               dtype, cross: bool = False) -> dict:
+    """One block's parameters; ``cross`` adds the decoder's
+    cross-attention (``ln_x``, ``cross``)."""
     _require_kind(kind)
     dev, d = gen.device, cfg.d_model
     p = {"ln1": init_rmsnorm(d, dtype, dev)}
@@ -87,15 +84,24 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str,
         p["rglru"] = init_rglru(gen, cfg, dtype)
         p["ln2"] = init_rmsnorm(d, dtype, dev)
         p["mlp"] = init_mlp(gen, d, cfg.d_ff, dtype)
+    if cross:
+        p["ln_x"] = init_rmsnorm(d, dtype, dev)
+        p["cross"] = init_attention(gen, cfg, dtype, cross=True)
     return p
 
 
 def apply_block(p, cfg: ModelConfig, kind: str, x, positions, *,
                 state=None, cache_pos: Optional[int] = None, window=None,
-                causal=True):
+                enc_out=None, cross_state=None, causal=True):
     """Returns (x, new_state, aux): ``aux`` the MoE block's auxiliary
     values, None for the other kinds (the reference returns zeros, which
-    add nothing to the model's sums)."""
+    add nothing to the model's sums).
+
+    A block with ``cross`` attends over the encoder's output after its
+    self-attention: ``enc_out`` (train, or prefill, which also fills
+    ``cross_state`` in place), or the static ``cross_state`` alone
+    (decode, continued prefill); with neither it skips that step, as
+    the reference's does."""
     _require_kind(kind)
     aux = None
     h = apply_rmsnorm(p["ln1"], x)
@@ -104,6 +110,13 @@ def apply_block(p, cfg: ModelConfig, kind: str, x, positions, *,
                                        causal=causal, window=window,
                                        cache=state, cache_pos=cache_pos)
         x = x + a
+        if "cross" in p and (enc_out is not None
+                             or cross_state is not None):
+            hx = apply_rmsnorm(p["ln_x"], x)
+            cx, _ = apply_attention(p["cross"], cfg, hx, positions,
+                                    kv_x=enc_out, cache=cross_state,
+                                    update_cache=enc_out is not None)
+            x = x + cx
         h2 = apply_rmsnorm(p["ln2"], x)
         if kind == "moe":
             m, aux = apply_moe(p["moe"], cfg, h2)
@@ -144,17 +157,23 @@ def init_model(cfg: ModelConfig, seed: int = 0, device="cuda") -> Dict:
     scaled by 1/sqrt(fan-in), unit-normal embedding, zero norm scales
     and biases, the float32 leaves of the recurrent and MoE blocks), not
     its numbers."""
-    _require_ported(cfg)
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.dtype)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    return {
+    p = {
         "embed": init_embedding(gen, cfg.padded_vocab, cfg.d_model, dtype),
         "ln_f": init_rmsnorm(cfg.d_model, dtype, dev),
-        "layers": [init_block(gen, cfg, kind, dtype)
+        "layers": [init_block(gen, cfg, kind, dtype, cross=cfg.cross_attn)
                    for kind in cfg.layer_kinds],
     }
+    if cfg.encoder_layers:
+        p["enc_layers"] = [init_block(gen, cfg, "attn", dtype)
+                           for _ in range(cfg.encoder_layers)]
+        p["enc_ln_f"] = init_rmsnorm(cfg.d_model, dtype, dev)
+    if cfg.encoder_seq or cfg.n_patches:
+        p["frontend"] = init_frontend(gen, cfg, dtype)
+    return p
 
 
 def param_count_gap(cfg: ModelConfig) -> int:
@@ -165,9 +184,15 @@ def param_count_gap(cfg: ModelConfig) -> int:
     bias and one of ``dt_bias`` / ``d_skip`` uncounted, a second
     pre-norm counted that it lacks), an RG-LRU block ``w (2 - k)`` more
     (its conv counted as ``2 w k`` where it holds ``w k + w``, and
-    ``lam`` and the two gate biases as ``2 w``).  Zero for attention
-    and MoE blocks."""
+    ``lam`` and the two gate biases as ``2 w``).  The formula also
+    leaves out the frontend's adapter (``STUB_WIDTH x d_model``) and the
+    encoder's final norm (``d_model``).  Zero for attention and MoE
+    blocks."""
     gap = 0
+    if cfg.encoder_seq or cfg.n_patches:
+        gap += STUB_WIDTH * cfg.d_model
+    if cfg.encoder_layers:
+        gap += cfg.d_model
     for kind in cfg.layer_kinds:
         if kind == "mamba":
             gap += 2 * cfg.d_inner - cfg.d_model
@@ -176,12 +201,29 @@ def param_count_gap(cfg: ModelConfig) -> int:
     return gap
 
 
-def _block_out(lp, cfg: ModelConfig, kind: str, x, positions, window):
+def _block_out(lp, cfg: ModelConfig, kind: str, x, positions, window,
+               enc_out=None, causal=True):
     """One training block's output and its aux values (no cache), the
     checkpointed unit."""
-    x, _, aux = apply_block(lp, cfg, kind, x, positions, window=window)
+    x, _, aux = apply_block(lp, cfg, kind, x, positions, window=window,
+                            enc_out=enc_out, causal=causal)
     aux = aux or _zero_aux(x.device)
     return (x,) + tuple(aux[k] for k in AUX_KEYS)
+
+
+def _encode(p, cfg: ModelConfig, frames, dtype, remat: bool):
+    """Whisper's encoder: the audio frontend, ``cfg.encoder_layers``
+    non-causal "attn" blocks (each under ``torch.utils.checkpoint`` with
+    ``remat``), the final norm."""
+    e = apply_audio_frontend(p["frontend"], frames).to(dtype)
+    e_pos = torch.arange(e.shape[1], device=e.device)
+    for lp in p["enc_layers"]:
+        if remat:
+            e = checkpoint(_block_out, lp, cfg, "attn", e, e_pos, None,
+                           None, False, use_reentrant=False)[0]
+        else:
+            e = apply_block(lp, cfg, "attn", e, e_pos, causal=False)[0]
+    return apply_rmsnorm(p["enc_ln_f"], e)
 
 
 def forward(p, cfg: ModelConfig, batch: Dict, *, state=None,
@@ -190,41 +232,71 @@ def forward(p, cfg: ModelConfig, batch: Dict, *, state=None,
     aux): ``aux`` is each of ``AUX_KEYS`` summed over the layers (zeros
     for a model without MoE blocks), as the reference returns it.
 
-    ``batch["tokens"]``: (B, S) integer.  ``state``/``cache_pos`` (an
-    int) enable prefill into and decode from the states of
-    ``init_decode_state``; a prefill at ``cache_pos > 0`` continues the
-    state (the recurrent layers from their carry, attention over the
-    cached keys too).  Training (no ``state``, grad enabled) with
-    ``cfg.remat`` runs each layer under ``torch.utils.checkpoint``
-    (non-reentrant): the backward recomputes the layer from its input,
-    so only the layers' inputs stay alive (the reference's
-    ``jax.checkpoint``; its sqrt(L) grouping exists for ``lax.scan``,
-    which the port's loop does not have)."""
-    _require_ported(cfg)
+    ``batch["tokens"]``: (B, S) integer; ``batch["patch_embeds"]`` (B,
+    n_patches, STUB_WIDTH) for a VLM: the projected patches are a prefix
+    of the sequence (positions run over prefix and tokens; the prefix
+    rows are dropped from the output only without ``cache_pos``, the
+    path of the loss); ``batch["frames"]`` (B, encoder_seq, STUB_WIDTH)
+    for whisper: the encoder runs and the decoder's cross-attention
+    attends over its output (and a prefill writes it into the cross
+    caches); whisper's decoder adds sinusoidal positions at
+    ``cache_pos + arange(S)``.  ``state``/``cache_pos`` (an int) enable
+    prefill into and decode from the states of ``init_decode_state``; a
+    prefill at ``cache_pos > 0`` continues the state (the recurrent
+    layers from their carry, attention over the cached keys too, cross-
+    attention over the cross caches when no frames come).  Training (no
+    ``state``, grad enabled) with ``cfg.remat`` runs each layer (the
+    encoder's too) under ``torch.utils.checkpoint`` (non-reentrant): the
+    backward recomputes the layer from its input, so only the layers'
+    inputs stay alive (the reference's ``jax.checkpoint``; its sqrt(L)
+    grouping exists for ``lax.scan``, which the port's loop does not
+    have)."""
     tokens = batch["tokens"]
     x = apply_embedding(p["embed"], tokens, scale=cfg.embed_scale)
+    n_prefix = 0
+    if cfg.n_patches and "patch_embeds" in batch:
+        px = apply_patch_frontend(p["frontend"], batch["patch_embeds"])
+        x = torch.cat([px.to(x.dtype), x], dim=1)
+        n_prefix = px.shape[1]
     positions = torch.arange(x.shape[1], device=x.device)
     if cache_pos is not None:
         positions = positions + cache_pos
-    states = state["layers"] if state else [None] * len(p["layers"])
+    if not cfg.use_rope and cfg.encoder_layers:
+        # whisper's decoder: sinusoidal absolute positions at the live
+        # offsets (no table)
+        x = x + sinusoidal_positions(positions, cfg.d_model).to(
+            x.dtype)[None]
     remat = cfg.remat and state is None and torch.is_grad_enabled()
+    enc_out = None
+    if cfg.encoder_layers and "frames" in batch:
+        enc_out = _encode(p, cfg, batch["frames"], x.dtype, remat)
+    n = len(p["layers"])
+    states = state["layers"] if state else [None] * n
+    crosses = (state or {}).get("cross") or [None] * n
     aux_total = _zero_aux(x.device)
     new_states = []
-    for lp, kind, st in zip(p["layers"], cfg.layer_kinds, states):
+    for lp, kind, st, cst in zip(p["layers"], cfg.layer_kinds, states,
+                                 crosses):
         win = cfg.window if kind in ("attn", "moe") else None
         if remat:
             x, *vals = checkpoint(_block_out, lp, cfg, kind, x, positions,
-                                  win, use_reentrant=False)
+                                  win, enc_out, use_reentrant=False)
             aux = dict(zip(AUX_KEYS, vals))
             new_states.append(None)
         else:
             x, ns, aux = apply_block(lp, cfg, kind, x, positions, state=st,
-                                     cache_pos=cache_pos, window=win)
+                                     cache_pos=cache_pos, window=win,
+                                     enc_out=enc_out, cross_state=cst)
             new_states.append(ns)
         if aux is not None:
             aux_total = {k: aux_total[k] + aux[k] for k in AUX_KEYS}
     x = apply_rmsnorm(p["ln_f"], x)
-    return x, {"layers": new_states}, aux_total
+    if n_prefix and cache_pos is None:
+        x = x[:, n_prefix:]
+    new_state = {"layers": new_states}
+    if state and "cross" in state:
+        new_state["cross"] = state["cross"]
+    return x, new_state, aux_total
 
 
 def logits(p, x):
@@ -233,12 +305,18 @@ def logits(p, x):
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       device="cuda") -> Dict:
-    """The zeroed decode state of every layer for ``max_len`` positions:
-    KV caches (rings under a shorter sliding window) and recurrent
-    states."""
-    _require_ported(cfg)
+    """The zeroed decode state of every layer for ``max_len`` positions
+    (a VLM's count its patch prefix): KV caches (rings under a shorter
+    sliding window) and recurrent states; with cross-attention also
+    ``"cross"``, one (batch, encoder_seq, Kv, D) cache per decoder
+    layer."""
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.dtype)
-    return {"layers": [block_state_init(cfg, kind, batch, max_len, dtype,
-                                        dev)
-                       for kind in cfg.layer_kinds]}
+    st = {"layers": [block_state_init(cfg, kind, batch, max_len, dtype,
+                                      dev)
+                     for kind in cfg.layer_kinds]}
+    if cfg.cross_attn and cfg.encoder_seq:
+        st["cross"] = [init_cache(cfg, batch, cfg.encoder_seq, dtype,
+                                  device=dev)
+                       for _ in range(cfg.n_layers)]
+    return st

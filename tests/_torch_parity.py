@@ -154,6 +154,31 @@ def port_layer_states(tstate) -> list:
     return [_leaf_dict(st) for st in tstate["layers"]]
 
 
+def reference_cross_states(jcfg, jstate) -> list:
+    """The reference's cross caches per decoder layer, in layer order:
+    ``cross`` (stacked per pattern position, as ``blocks``), then
+    ``cross_rest``."""
+    return reference_layer_states(jcfg, {"blocks": jstate.get("cross"),
+                                         "rest": jstate.get("cross_rest")})
+
+
+def port_cross_states(tstate) -> list:
+    return [_leaf_dict(st) for st in tstate["cross"]]
+
+
+def frontend_inputs(cfg, rng, batch: int) -> dict:
+    """Whisper's frames, then a VLM's patch embeddings, drawn from
+    ``rng`` as the reference's ``serve_batch`` draws them (float32)."""
+    from repro.models.frontends import STUB_WIDTH
+    out = {}
+    for key, n in (("frames", cfg.encoder_seq),
+                   ("patch_embeds", cfg.n_patches)):
+        if n:
+            out[key] = rng.standard_normal(
+                (batch, n, STUB_WIDTH)).astype(np.float32)
+    return out
+
+
 def serve_both(arch: str, impl: str, dtype: str = "float32",
                batch: int = 2, prompt: int = 20, steps: int = 8,
                meshless: bool = False, **overrides):
@@ -163,11 +188,15 @@ def serve_both(arch: str, impl: str, dtype: str = "float32",
     reference's (``lm_params``).  The reference runs under the rules of
     its ``serve_batch`` (a host mesh), or without a mesh (``meshless``:
     its MoE layers then take the dispatch the port ports,
-    ``_apply_moe_dense``, not the expert-parallel one).  Returns the two
-    lists of logits and
+    ``_apply_moe_dense``, not the expert-parallel one).  Whisper's frames
+    and a VLM's patches are drawn after the tokens
+    (``frontend_inputs``); a VLM decodes from ``n_patches + prompt``.
+    Returns the two lists of logits and
     ``{"prefill": (ref, port), "final": (ref, port)}``: each package's
     decode state per layer (``reference_layer_states``) after the prefill
-    and after the last step."""
+    and after the last step, and with cross-attention
+    ``"cross_prefill"`` / ``"cross_final"``, the cross caches per layer
+    (``reference_cross_states``)."""
     import dataclasses
 
     import jax.numpy as jnp
@@ -184,7 +213,8 @@ def serve_both(arch: str, impl: str, dtype: str = "float32",
                                dtype=dtype, **overrides)
     jp, arrays = lm_params(jcfg)
     tp = model_params_from_arrays(tcfg, arrays, device="cpu")
-    max_len = prompt + steps
+    start = jcfg.n_patches + prompt
+    max_len = start + steps
     if meshless:
         from repro.parallel.sharding import MeshRules
         rules = MeshRules()
@@ -193,27 +223,38 @@ def serve_both(arch: str, impl: str, dtype: str = "float32",
     rng = np.random.default_rng(7)
     tokens = rng.integers(0, jcfg.vocab_size, (batch, prompt)).astype(
         np.int32)
+    extra = frontend_inputs(jcfg, rng, batch)
 
     jstate = jt.init_decode_state(jcfg, batch, max_len)
     tstate = tt.init_decode_state(tcfg, batch, max_len, device="cpu")
+    jbatch = {k: jnp.asarray(v) for k, v in extra.items()}
+    tbatch = {k: torch.from_numpy(v) for k, v in extra.items()}
     jlg, jstate = jax.jit(jm.make_prefill(jcfg, rules))(
-        jp, {"tokens": jnp.asarray(tokens)}, jstate)
+        jp, {"tokens": jnp.asarray(tokens), **jbatch}, jstate)
     tlg, tstate = tm.make_prefill(tcfg)(
-        tp, {"tokens": torch.from_numpy(tokens)}, tstate)
-    states = {"prefill": (reference_layer_states(jcfg, jstate),
-                          port_layer_states(tstate))}
+        tp, {"tokens": torch.from_numpy(tokens), **tbatch}, tstate)
+    cross = jcfg.cross_attn and jcfg.encoder_seq
+
+    def snapshot(when):
+        states[when] = (reference_layer_states(jcfg, jstate),
+                        port_layer_states(tstate))
+        if cross:
+            states["cross_" + when] = (reference_cross_states(jcfg, jstate),
+                                       port_cross_states(tstate))
+
+    states = {}
+    snapshot("prefill")
     jl_all, tl_all = [jlg], [tlg]
     jstep = jax.jit(jm.make_serve_step(jcfg, rules))
     tstep = tm.make_serve_step(tcfg)
     for i in range(steps):
         tok = np.asarray(jnp.argmax(jlg[:, -1:], axis=-1)).astype(np.int32)
         jlg, jstate = jstep(jp, jstate, jnp.asarray(tok),
-                            jnp.int32(prompt + i))
-        tlg, tstate = tstep(tp, tstate, torch.from_numpy(tok), prompt + i)
+                            jnp.int32(start + i))
+        tlg, tstate = tstep(tp, tstate, torch.from_numpy(tok), start + i)
         jl_all.append(jlg)
         tl_all.append(tlg)
-    states["final"] = (reference_layer_states(jcfg, jstate),
-                       port_layer_states(tstate))
+    snapshot("final")
     return jl_all, tl_all, states
 
 

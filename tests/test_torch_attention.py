@@ -487,7 +487,20 @@ def test_chunked_attention_matches_reference(causal, window, k_valid):
 
 
 def test_cross_attention_is_refused():
+    """Cross-attention where it is undefined: a cross cache that does not
+    hold every encoder position (or is a ring), and a static read
+    (``update_cache=False``) with no cache."""
     _, tcfg, _, tp = _layer0("qwen2-1.5b", "naive")
     x = torch.zeros(1, 4, tcfg.d_model)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tatt.apply_attention(tp, tcfg, x, torch.arange(4), kv_x=x)
+    short = tatt.init_cache(tcfg, 1, 3, torch.float32, device="cpu")
+    with pytest.raises(ValueError, match="encoder positions"):
+        tatt.apply_attention(tp, tcfg, x, torch.arange(4), kv_x=x,
+                             cache=short, cache_pos=0)
+    ring = tatt.init_cache(tcfg, 1, 8, torch.float32, window=4,
+                           device="cpu")
+    with pytest.raises(ValueError, match="encoder positions"):
+        tatt.apply_attention(tp, tcfg, x, torch.arange(4), kv_x=x,
+                             cache=ring, cache_pos=0)
+    with pytest.raises(ValueError, match="static cross cache"):
+        tatt.apply_attention(tp, tcfg, x, torch.arange(4),
+                             update_cache=False)

@@ -730,7 +730,8 @@ def test_flash_wrapper_counts_launches_and_refuses(cuda):
 
 # the tensor-core kernel's cases (bf16, head_dim 64/128/256): Sq = 1,
 # Sq and Sk off the 64/128 tiles, Sk below one tile, q_offset > 0, windows,
-# GQA groups 1, 6 and 8
+# GQA groups 1, 6 and 8, non-causal at D 64 over 1500 keys (whisper's
+# encoder and cross-attention: 1500 = 11 x 128 + 92)
 SM90_CASES = [
     (4, 2, 64, 64, 64, True, None, 0),
     (8, 2, 100, 100, 64, True, 48, 0),
@@ -744,6 +745,8 @@ SM90_CASES = [
     (8, 1, 130, 300, 256, True, 40, 0),
     (2, 2, 300, 257, 256, False, None, 0),
     (8, 1, 1, 40, 256, True, None, 39),
+    (24, 24, 1500, 1500, 64, False, None, 0),
+    (24, 24, 224, 1500, 64, False, None, 0),
 ]
 
 
@@ -858,6 +861,49 @@ def test_new_families_kernel_path_matches_plain(cuda, arch):
                      - n_prefill)
     assert out["pallas"][2:] == (n_attn, 0)
     assert out["naive"][2:] == (0, 0)
+    for a, b in zip(out["pallas"][:2], out["naive"][:2]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch,n_flash", [("whisper-small", 2 + 3 + 3),
+                                          ("internvl2-26b", 3)])
+def test_encdec_families_kernel_path_matches_plain(cuda, arch, n_flash):
+    """Reduced whisper (head_dim 12, padded to 16) and internvl (8) in
+    float32 on the CUDA-core kernel: the kernel path's prefill and a
+    decode step against the plain path's, with one launch per encoder
+    layer, self-attention layer and cross-attention in the prefill
+    (whisper 2 + 3 + 3, internvl 3) and none in decode; internvl's
+    patches prefix the prompt, so it decodes at n_patches + 39."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import model as tm
+    from repro_torch.models import transformer as tt
+    from repro_torch.models.frontends import STUB_WIDTH
+    torch.backends.cuda.matmul.allow_tf32 = False
+    base = get_reduced(arch)
+    params = tt.init_model(base, seed=0, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    tok = torch.randint(0, base.vocab_size, (2, 40), device=cuda,
+                        generator=g)
+    batch = {"tokens": tok[:, :39]}
+    for key, n in (("frames", base.encoder_seq),
+                   ("patch_embeds", base.n_patches)):
+        if n:
+            batch[key] = torch.randn((2, n, STUB_WIDTH), device=cuda,
+                                     generator=g)
+    start = base.n_patches + 39
+    out = {}
+    for impl in ("pallas", "naive"):
+        cfg = dataclasses.replace(base, attn_impl=impl)
+        state = tt.init_decode_state(cfg, 2, start + 2, device=cuda)
+        _build.reset_launch_counts()
+        lg, state = tm.make_prefill(cfg)(params, batch, state)
+        counts = _build.launch_counts()
+        lg2, state = tm.make_serve_step(cfg)(params, state, tok[:, 39:],
+                                             start)
+        out[impl] = (lg, lg2, counts, _build.launch_counts())
+    assert out["pallas"][2] == out["pallas"][3] == {
+        "flash_attention_simt": n_flash}
+    assert out["naive"][2:] == ({}, {})
     for a, b in zip(out["pallas"][:2], out["naive"][:2]):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
 

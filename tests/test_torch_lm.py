@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCH_NAMES as J_ARCH_NAMES
 from repro.configs import get_config as jget_config
 from repro.configs import get_reduced as jget_reduced
 from repro.models import layers as jl
@@ -71,16 +72,20 @@ def test_qwen2_full_width():
 
 
 def test_unported_architectures_are_refused():
-    """The encoder-decoder and frontend families (whisper-small,
-    internvl2-26b) are refused by name, by the registry and by the model
+    """All ten architectures resolve; a name outside them is refused by
+    the registry, and a block kind the stack does not have by the model
     code."""
-    for arch in ("whisper-small", "internvl2-26b"):
-        with pytest.raises(KeyError, match="ROADMAP"):
-            tconfigs.get_config(arch)
-        with pytest.raises(KeyError, match="ROADMAP"):
-            tconfigs.get_reduced(arch)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tt.init_model(jget_reduced(arch), device="cpu")
+    assert set(tconfigs.ARCH_NAMES) == set(J_ARCH_NAMES)
+    for get in (tconfigs.get_config, tconfigs.get_reduced,
+                tconfigs.shape_cells):
+        with pytest.raises(KeyError, match="unknown architecture"):
+            get("gpt-2")
+    cfg = dataclasses.replace(tconfigs.get_reduced("qwen2-1.5b"),
+                              pattern=("conv",))
+    with pytest.raises(ValueError, match="unknown block kind"):
+        tt.init_model(cfg, device="cpu")
+    with pytest.raises(ValueError, match="unknown block kind"):
+        tt.init_decode_state(cfg, 1, 4, device="cpu")
 
 
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "kimi-k2-1t-a32b",

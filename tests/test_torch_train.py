@@ -46,7 +46,7 @@ from _torch_parity import assert_bits_equal, lm_params
 ARCHS = ("qwen2-1.5b", "qwen2.5-3b", "qwen3-8b")
 PORTED = ("qwen2-1.5b", "qwen3-8b", "gemma-2b", "qwen2.5-3b",
           "granite-moe-1b-a400m", "kimi-k2-1t-a32b", "falcon-mamba-7b",
-          "recurrentgemma-9b")
+          "recurrentgemma-9b", "whisper-small", "internvl2-26b")
 # float32 throughout.  Attention gradients against the reference's
 # chunked_attention: both sides run the same chunk-pair arithmetic in
 # another einsum order: 1e-5 of the largest gradient.
