@@ -37,9 +37,9 @@ Phases, each of which exits non-zero on failure:
 4. the plastic path (``init_plasticity`` -> ``simulate(plasticity=)``),
    both laws: 30 kernel-path steps on the card against 30 plain-path
    steps on the CPU at 4x4x1240 with the card's drive injected (rasters,
-   weights, traces and ring identical), then timed kernel-path steps
-   (gaussian on the parity leg's 4x4x1240 tables, exponential at
-   8x8x1240); from its mid-run state, one step of the fixed-order
+   weights, traces and ring identical), then timed kernel-path steps on
+   the parity leg's 4x4x1240 tables; from its mid-run state, one step of
+   the fixed-order
    delivery + LTD kernel against its plain version on CPU copies (ring,
    weights and counts exact);
 5. the recorded path (``simulate(recorder=)``), static 8x8x1240,
@@ -141,11 +141,14 @@ Phases, each of which exits non-zero on failure:
    times (bf16 and float32), the decode loop's device idle share and
    peak memory; then the flash kernels' timing at the prefill shape:
    each tensor-core kernel beside the CUDA-core kernel it replaced
-   there, and the CUDA-core kernel where it is still the route (head_dim
-   32 and 16, bf16 and float32) beside the library call.  Phase 2 holds every flash kernel against its plain version
-   at the reference's kernel-test shapes, the tensor-core kernels' edge
-   cases in bf16 and float32, fully masked rows, qwen2's prefill shape
-   and a head_dim-256 window, each also with the row statistic
+   there, and both again with the head narrowed to 32 and 16 (bf16 and
+   float32, the narrow heads' own kernel instances) beside the replaced
+   kernel and the library call.  Phase 2 holds every flash kernel
+   against its plain version at the reference's kernel-test shapes, the
+   tensor-core kernels' edge cases in bf16 and float32 at head_dim
+   64/128/256 and at 16/32 (``NARROW_CASES``), fully masked rows,
+   qwen2's prefill shape and a head_dim-256 window, each also with the
+   row statistic
    (``return_lse``: the same output, L = m + log l against the plain
    logsumexp, +1e30 on fully masked rows); the TF32 pre-pass bit for
    bit, and the tf32 fragment layout the TF32 kernel assumes;
@@ -181,8 +184,11 @@ Phases, each of which exits non-zero on failure:
    prefill (the same bound), prefill s and tokens/s, decode ms
    per token and the decode loop's idle share, peak memory; then
    reduced kimi-k2 and internvl (head_dim 8), qwen2.5-3b and whisper
-   (12, padded to 16) in float32 on the card against the same run on
-   the CPU (whisper and internvl with their frames or patches);
+   (12) in float32 on the card (the 3xTF32 kernel, heads padded to 16)
+   against the same run on the CPU (whisper and internvl with their
+   frames or patches), and reduced qwen2.5-3b in bf16 (the bf16
+   tensor-core kernel, 12 padded to 16) against the plain path on the
+   card;
 10. whisper-small and internvl2-26b at their published full widths, as
    phase 9's models are served (``serve_family``): whisper with 16 clips
    of 1500 stub frames and a 224-token prompt (12 encoder layers,
@@ -246,10 +252,9 @@ PARITY_STEPS, TIMED_STEPS = 100, 500       # static path
 PROFILE_STEPS = 400        # static profile: 8 eager steps, 49 replays
 PLASTIC_PARITY_STEPS, PLASTIC_STEPS = 30, 200
 PARITY_GRID = 4                            # CPU parity of the plastic path
-# the timed plastic path: gaussian on its parity leg's 4x4x1240 tables
-# (one 8x8x1240 float32 host build and inverse index fewer), exponential
-# at 8x8x1240 (the kernel's timing row)
-PLASTIC_GRID = {"gaussian": PARITY_GRID, "exponential": GRID}
+# the timed plastic path runs on its parity leg's 4x4x1240 tables, both
+# laws (an 8x8x1240 float32 host build and its inverse index, ~80 s, a
+# law fewer)
 RECORD_STEPS, SMALL_CAPACITY = 100, 1000
 # a recorded call captures its graph: 1000 steps amortize the capture
 RECORD_LONG_STEPS = 1000
@@ -317,16 +322,19 @@ FAMILY_PROFILE_STEPS = 8
 # the first half, then the rest at 256 + 1024)
 ENCDEC_FAMILIES = [("whisper-small", 16, 224, 32, 112),
                    ("internvl2-26b", 2, 2048, 32, 1024)]
-# reduced configs on the card (float32, the CUDA-core flash kernel; the
-# 12-wide heads padded to 16) against the same run on the CPU
+# reduced configs on the card (float32, the 3xTF32 flash kernel; the 8-
+# and 12-wide heads padded to 16) against the same run on the CPU
 REDUCED_ON_CARD = ("kimi-k2-1t-a32b", "qwen2.5-3b", "whisper-small",
                    "internvl2-26b")
 REDUCED_TOL = 1e-4
+# and one in bf16 (the bf16 tensor-core kernel, 12 padded to 16) against
+# the plain path on the card, within FAMILY_TOL
+REDUCED_BF16 = "qwen2.5-3b"
 # the flash kernel against its plain version (tests/test_kernels.py)
 FLASH_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 # its row statistic L = m + log l against the plain logsumexp, times
 # |L| + 1: float32 scores in another order and base-2 exponents (1e-5),
-# bf16 operands on the sm90 route and the CUDA-core one (2e-3)
+# bf16 operands on the sm90 route (2e-3)
 LSE_TOL = {"float32": 1e-5, "bfloat16": 2e-3}
 FLASH_CASES = [                    # (bh, bh_kv, sq, sk, d, causal, window,
     (4, 2, 64, 64, 32, True, None, 0),          # q_offset, dtype)
@@ -350,10 +358,26 @@ SM90_CASES = [                     # the tensor-core kernel's edges (bf16)
     (24, 24, 1500, 1500, 64, False, None, 0),
     (24, 24, 224, 1500, 64, False, None, 0),
 ]
+# the narrow heads' kernel instances (head_dim 16 and 32; bf16 on the
+# sm90 route, float32 on the TF32 one): Sq = 1, ragged Sq/Sk, Sk
+# below one key tile, q_offset, windows, GQA groups 1, 6 and 8, rows that
+# see no key (the window-5 q_offset-18 case leaves rows 6+ without one)
+NARROW_CASES = [
+    (2, 1, 1, 77, 32, True, None, 76),
+    (12, 2, 1, 300, 16, False, None, 0),
+    (3, 3, 48, 16, 32, True, None, 0),
+    (2, 2, 37, 129, 16, False, None, 0),
+    (6, 1, 200, 200, 32, True, None, 0),
+    (4, 4, 129, 1000, 16, True, None, 871),
+    (2, 1, 513, 513, 32, True, 200, 0),
+    (8, 1, 130, 300, 16, True, 40, 0),
+    (4, 4, 12, 20, 32, True, 5, 18),
+    (48, 8, 300, 300, 32, True, None, 0),
+]
 PAD_CASES = [                      # head widths the wrapper pads: kimi-k2's
     (8, 1, 300, 300, 112, True, None, 0),       # 112 (-> 128) and reduced
     (4, 2, 129, 257, 112, True, 40, 128),       # qwen2.5-3b's 12 (-> 16)
-    (6, 2, 200, 200, 12, True, None, 0),
+    (6, 2, 200, 200, 12, True, None, 0),       # (-> 16 bf16, 32 float32)
     (2, 2, 37, 77, 12, False, None, 0),
 ]
 
@@ -2350,14 +2374,15 @@ def qwen2_prefill_qkv(gen):
 
 
 def check_flash(gen) -> dict:
-    """The three flash kernels against their plain version on the card
+    """The two flash routes against their plain version on the card
     (TF32 off in the plain version): the reference's kernel-test shapes
-    in both dtypes (head_dim 8-32 on the CUDA-core kernel, 64 on the
-    tensor-core ones), the tensor-core kernels' edge cases in bf16 and in
-    float32 (head_dim 64/128/256: Sq = 1, ragged Sq/Sk, Sk below a tile,
-    q_offset, windows, GQA groups 1, 6, 8), fully masked rows (exactly
-    0) on every route, qwen2-1.5b's prefill shape in both dtypes and a
-    head_dim-256 sliding window over 4096 keys (gemma's head dim,
+    in both dtypes (head_dim 8-64; 8 padded to 16), the tensor-core
+    kernels' edge cases in bf16 and in float32
+    at head_dim 64/128/256 and at 16/32 (``NARROW_CASES``: Sq = 1,
+    ragged Sq/Sk, Sk below a tile, q_offset, windows, GQA groups 1, 6,
+    8, rows with no key), padded widths, fully masked rows (exactly 0)
+    at every built width, qwen2-1.5b's prefill shape in both dtypes and
+    a head_dim-256 sliding window over 4096 keys (gemma's head dim,
     recurrentgemma's local attention).  The TF32 route's pre-pass is
     held to its plain version bit for bit, and its fragment probe to the
     layout the kernel assumes.  Returns the largest difference seen on
@@ -2431,7 +2456,8 @@ def check_flash(gen) -> dict:
             f"assumption at {bad} of 512 elements: {layout.tolist()}")
     print("check tf32 fragment probe: the kernel's key order and register "
           "map hold (0 of 512 elements differ)")
-    for shape in ((3, 77, 64), (8, LM_PROMPT, 128), (2, 130, 256)):
+    for shape in ((3, 77, 16), (3, 77, 32), (8, LM_PROMPT, 32), (3, 77, 64),
+                  (8, LM_PROMPT, 128), (2, 130, 256)):
         k, v = rand(*shape) * 10, rand(*shape)
         got, want = fa.tf32_split_cuda(k, v), tf32_split_ref(k, v)
         torch.cuda.synchronize()
@@ -2448,7 +2474,27 @@ def check_flash(gen) -> dict:
                 f"{(bh, bhkv, sq, sk, d)} causal={causal} window={win} "
                 f"q_offset={qoff} {dtype}", causal=causal, window=win,
                 q_offset=qoff)
-    for bh, bhkv, sq, sk, d, causal, win, qoff in SM90_CASES:
+    # the replaced CUDA-core kernel (on no route; timed in phase 7) at
+    # its widths, through _launch
+    for bh, bhkv, sq, sk, d, causal, win, qoff in FLASH_CASES:
+        if d not in fa.SIMT_HEAD_DIMS:
+            continue
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (x.to(dtype) for x in (
+                rand(bh, sq, d), rand(bhkv, sk, d), rand(bhkv, sk, d)))
+            kw = dict(causal=causal, window=win, q_offset=qoff)
+            got = fa._launch("simt", q, k, v, **kw)
+            want = attention_ref(q, k, v, **kw)
+            torch.cuda.synchronize()
+            tol = FLASH_TOL[str(dtype).removeprefix("torch.")]
+            err = (got.float() - want.float()).abs()
+            require(int((err > tol + tol * want.float().abs()).sum()) == 0,
+                    f"the replaced CUDA-core flash kernel differs from the "
+                    f"plain version at {(bh, bhkv, sq, sk, d)} {dtype}")
+            worst["simt"] = max(worst["simt"], float(err.max()))
+    print(f"check flash_attention_simt (replaced, on no route): max_abs_err "
+          f"{worst['simt']:.3g} at the reference's kernel-test shapes")
+    for bh, bhkv, sq, sk, d, causal, win, qoff in SM90_CASES + NARROW_CASES:
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = rand(bh, sq, d), rand(bhkv, sk, d), rand(bhkv, sk, d)
             one(q.to(dtype), k.to(dtype), v.to(dtype),
@@ -2463,10 +2509,12 @@ def check_flash(gen) -> dict:
                 f"q_offset={qoff} {dtype} (padded to "
                 f"{fa.padded_head_dim(fa._route(dtype, d), d)})",
                 causal=causal, window=win, q_offset=qoff)
-    for dtype, d in ((torch.float32, 8), (torch.bfloat16, 64),
+    for dtype, d in ((torch.float32, 8), (torch.bfloat16, 16),
+                     (torch.bfloat16, 32), (torch.bfloat16, 64),
                      (torch.bfloat16, 128), (torch.bfloat16, 256),
-                     (torch.float32, 64), (torch.float32, 128),
-                     (torch.float32, 256)):
+                     (torch.float32, 16), (torch.float32, 32),
+                     (torch.float32, 64),
+                     (torch.float32, 128), (torch.float32, 256)):
         q = rand(2, 8, d).to(dtype)
         out = fa.flash_attention_cuda(q, q, q, causal=False, window=2,
                                       q_offset=100)
@@ -3383,9 +3431,10 @@ def run_families() -> dict:
     out = {}
     for arch, batch, prompt, gen, split in FAMILIES:
         out[arch] = serve_family(arch, batch, prompt, gen, split)
-    return {"sm90": {a: r["flash_launches_prefill"]
-                     for a, r in out.items()},
-            "simt": run_reduced_on_card()}
+    reduced = run_reduced_on_card()
+    return {"sm90": {**{a: r["flash_launches_prefill"]
+                        for a, r in out.items()}, **reduced["sm90"]},
+            "tf32": reduced["tf32"]}
 
 
 def run_encdec() -> dict:
@@ -3406,15 +3455,18 @@ def run_encdec() -> dict:
 
 
 def run_reduced_on_card() -> dict:
-    """Reduced configs whose heads the kernels are not built for, or that
-    only reduced configs reach (``REDUCED_ON_CARD``: kimi-k2's and
-    internvl's 8, qwen2.5-3b's and whisper's 12, padded to 16), in
-    float32 through the kernel path on the card against the same
+    """Reduced configs whose heads the kernels are not built for
+    (``REDUCED_ON_CARD``: kimi-k2's and internvl's 8, qwen2.5-3b's and
+    whisper's 12, padded to 16), in float32 through the kernel path on
+    the card (the 3xTF32 kernel and its pre-pass) against the same
     weights, tokens (and frames or patches) on the CPU (where the
     wrapper is the plain version): a prefill and 8 greedy decode steps,
-    the CPU teacher-forced on the card's tokens.  Returns each config's
-    flash launches (the CUDA-core kernel): one per self-attention,
-    encoder and cross-attention layer in the prefill."""
+    the CPU teacher-forced on the card's tokens.  Then ``REDUCED_BF16``
+    in bf16 (12 padded to 16, the bf16 tensor-core kernel), its kernel
+    path against the plain path (``"naive"``) on the card, teacher-forced,
+    within ``FAMILY_TOL`` of the largest logit.  Returns each config's
+    flash launches by route ({"tf32": ..., "sm90": ...}): one per
+    self-attention, encoder and cross-attention layer in the prefill."""
     import numpy as np
     import torch
     from repro_torch.configs import get_reduced
@@ -3461,7 +3513,7 @@ def run_reduced_on_card() -> dict:
             runs[dev] = {"lgs": [x.cpu() for x in lgs], "toks": fed,
                          "prefill": n_pre, "all": _build.launch_counts()}
         card, cpu = runs["cuda"], runs["cpu"]
-        want = {"flash_attention_simt": n_attn}
+        want = {"flash_attention_tf32": n_attn, "tf32_split": n_attn}
         require(card["prefill"] == want and card["all"] == want,
                 f"{arch} reduced: the card's launches {card['all']} "
                 f"(prefill {card['prefill']}), not {want}")
@@ -3474,12 +3526,73 @@ def run_reduced_on_card() -> dict:
         print(f"lm reduced on card {cfg.name} " + json.dumps({
             "head_dim": cfg.resolved_head_dim, "dtype": cfg.dtype,
             "padded_head_dim": fa.padded_head_dim(
-                "simt", cfg.resolved_head_dim),
-            "flash_simt_launches_prefill": n_attn,
+                "tf32", cfg.resolved_head_dim),
+            "flash_tf32_launches_prefill": n_attn,
+            "tf32_split_launches_prefill": n_attn,
             "flash_launches_decode": 0,
             "logit_gap_card_vs_cpu_worst": gap,
             "tolerance": f"<= {REDUCED_TOL} x max |CPU logit|"}))
-    return launches
+    return {"tf32": launches, "sm90": reduced_bf16()}
+
+
+def reduced_bf16() -> dict:
+    """``REDUCED_BF16`` in bf16 on the card: the kernel path (the bf16
+    tensor-core kernel, its 12-wide heads padded to 16) against the
+    plain path on the same weights and tokens, a prefill and 8 greedy
+    decode steps, the plain path teacher-forced on the kernel path's
+    tokens; each step's logits within ``FAMILY_TOL`` of the largest.
+    Returns its flash launches per prefill."""
+    import torch
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer as tt
+    from repro_torch.models.model import make_prefill, make_serve_step
+    base = dataclasses.replace(get_reduced(REDUCED_BF16), dtype="bfloat16")
+    params = tt.init_model(base, seed=0, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    tok = torch.randint(0, base.vocab_size, (2, 40), device="cuda",
+                        generator=gen, dtype=torch.int32)
+    n_attn = sum(k in ("attn", "moe") for k in base.layer_kinds)
+    runs = {}
+    for impl in ("pallas", "naive"):
+        cfg = dataclasses.replace(base, attn_impl=impl)
+        state = tt.init_decode_state(cfg, 2, 48, device="cuda")
+        _build.reset_launch_counts()
+        lg, state = make_prefill(cfg)(params, {"tokens": tok}, state)
+        n_pre = _build.launch_counts()
+        step = make_serve_step(cfg)
+        lgs, fed = [lg], runs.get("pallas", {}).get("toks")
+        toks = []
+        for i in range(8):
+            t = (fed[i] if fed is not None else
+                 torch.argmax(lgs[-1][:, -1:], -1).to(torch.int32))
+            toks.append(t)
+            lg, state = step(params, state, t, 40 + i)
+            lgs.append(lg)
+        torch.cuda.synchronize()
+        runs[impl] = {"lgs": lgs, "toks": toks, "prefill": n_pre,
+                      "all": _build.launch_counts()}
+    kern, plain = runs["pallas"], runs["naive"]
+    want = {"flash_attention": n_attn}
+    require(kern["prefill"] == want and kern["all"] == want
+            and plain["all"] == {}, f"{REDUCED_BF16} reduced bf16: "
+            f"launches {kern['all']} (prefill {kern['prefill']}), plain "
+            f"{plain['all']}, not {want}")
+    require(all(bool(torch.isfinite(x).all()) for x in kern["lgs"]),
+            f"{REDUCED_BF16} reduced bf16: non-finite logits")
+    gap = max(logit_gap(a, b) for a, b in zip(kern["lgs"], plain["lgs"]))
+    require(gap <= FAMILY_TOL, f"{REDUCED_BF16} reduced bf16: kernel vs "
+            f"plain logits differ by {gap} of the largest logit")
+    print(f"lm reduced on card {base.name} bf16 " + json.dumps({
+        "head_dim": base.resolved_head_dim, "dtype": base.dtype,
+        "padded_head_dim": fa.padded_head_dim(
+            "sm90", base.resolved_head_dim),
+        "flash_launches_prefill": n_attn, "flash_launches_decode": 0,
+        "logit_gap_kernel_vs_plain_worst": gap,
+        "tolerance": f"<= {FAMILY_TOL} x max |plain logit|"}))
+    return {f"{base.name} bf16": n_attn}
 
 
 def device_breakdown(prof, n: int):
@@ -3541,10 +3654,12 @@ def time_flash(launches: dict, err: dict, train: dict,
     the 3xTF32 kernel in float32 (the float32 prefill's route) and its
     pre-pass, each tensor-core kernel beside the CUDA-core kernel on the
     same inputs (``replaced_kernel_ms``: the kernel each replaced there),
-    and the CUDA-core kernel's own row in float32 (no longer on either
-    path).  Kernels, replaced kernel and the yardstick
-    F.scaled_dot_product_attention (never called by the port) are timed
-    as in ``queued_ms``, with per-call and profiler figures beside.  The
+    and the CUDA-core kernel's own row in float32 (on no route), its
+    bound the card's (3 TF32 products a flop, as the TF32 row's), with
+    ``time_flash_small``'s narrow heads under it.  Kernels, replaced
+    kernel and the yardstick F.scaled_dot_product_attention (never
+    called by the port) are timed as in ``queued_ms``, with per-call and
+    profiler figures beside.  The
     TF32 kernel is timed on a split made once (``ms``), and with its
     pre-pass (``route_ms``).  Each route is also timed writing the row
     statistic (``ms_with_lse``, the training forward's call), beside its
@@ -3568,7 +3683,7 @@ def time_flash(launches: dict, err: dict, train: dict,
     for route, dtype, products, rate in (
             ("sm90", torch.bfloat16, 1, BF16_OPS_PER_S),
             ("tf32", torch.float32, 3, TF32_OPS_PER_S),
-            ("simt", torch.float32, 1, F32_OPS_PER_S)):
+            ("simt", torch.float32, 3, TF32_OPS_PER_S)):
         x = [t.to(dtype) for t in (q, k, v)]
         split = fa.tf32_split_cuda(x[1], x[2]) if route == "tf32" else None
         kern = lambda: fa._launch(route, *x, causal=True, split=split)
@@ -3648,8 +3763,10 @@ def time_flash(launches: dict, err: dict, train: dict,
                          f"{tuple(split[1].shape)}"})
             continue
         if route == "simt":
-            row["path_note"] = ("on no main path since the TF32 route took "
-                                "float32 at head_dim 64-256; head_dim 8-32")
+            row["path_note"] = ("on no route: replaced at head_dim 1-32 by "
+                                "the sm90 (bf16) and TF32 (float32) "
+                                "kernels; timed only")
+            row["bound_f32_cuda_core_ms"] = flops / F32_OPS_PER_S * 1e3
             row["at_small_head_dims"] = time_flash_small(gen)
         if route == "sm90":
             row["at_encdec_shapes"] = time_flash_encdec(gen)
@@ -3714,38 +3831,109 @@ def time_flash_encdec(gen) -> list:
     return out
 
 
+# the special-function units' ex2 rate of an H100 SXM (16 a clock on each
+# of 132 SMs; the FlashAttention-3 paper's 3.9 TFLOP/s): one exponent a
+# live score, the floor of a softmax that is not on the tensor cores
+EXP_PER_S = 3.9e12
+
+
 def time_flash_small(gen) -> list:
-    """The CUDA-core kernel where it is still the route (head_dim 32 and
-    16, bf16 and float32) beside F.scaled_dot_product_attention on the
-    same inputs: qwen2-1.5b's prefill shape with the head narrowed (q
-    48 x 2048 x D, k/v 8 x 2048 x D, causal).  Device time as in
-    ``queued_ms``, with the CUDA cores' f32 bound."""
+    """The flash routes at the narrow heads, where they replaced the
+    CUDA-core kernel: qwen2-1.5b's prefill shape with the head narrowed
+    (q 48 x 2048 x D, k/v 8 x 2048 x D, causal), D 32 and 16, bf16 (the
+    sm90 kernel's D-32 and D-16 instances) and float32 (the TF32
+    kernel's), each through ``flash_attention_cuda`` (the TF32 route's
+    pre-pass included; ``kernel_ms``: the attention kernel alone on the
+    split it is handed) beside the replaced CUDA-core kernel and
+    F.scaled_dot_product_attention and the plain version (profiler) on
+    the same inputs, with ptxas's registers and spills of both kernels'
+    instances.  At D 16 the call
+    and the kernel alone are also timed on the inputs zero-padded to 32
+    (the D-32 instance; ``ms_padded_to_32`` with the padding, the
+    output's slice and the wider pre-pass, ``kernel_ms_padded_to_32``
+    the kernel alone): what padding instead of a D-16 build would cost.
+    Device time as in ``queued_ms``.  The
+    bound is the card's: the bytes of q, k, v and o over 3.35 TB/s, or
+    the tensor-core operations (3 TF32 products a flop in float32) over
+    the type's peak; the exp floor, one ex2 a live score over
+    ``EXP_PER_S``, stands beside it.  Each call is held against the
+    plain version."""
     import torch
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import attention_ref
     out = []
     for d in (32, 16):
         q, k, v = (torch.randn((bh, 2048, d), device="cuda", generator=gen)
                    for bh in (48, 8, 8))
-        flops = 4 * 48 * d * 2048 * 2049 / 2
+        scores = 48 * 2048 * 2049 / 2
+        flops = 4 * d * scores
         for dtype in (torch.bfloat16, torch.float32):
             x = [t.to(dtype) for t in (q, k, v)]
-            require(fa._route(dtype, d) == "simt",
-                    f"head_dim {d} {dtype} no longer takes the CUDA cores")
-            kern = lambda: fa._launch("simt", *x, causal=True)
+            route = fa._route(dtype, d)
+            require(route == ("sm90" if dtype == torch.bfloat16 else "tf32")
+                    and d in fa.ROUTE_HEAD_DIMS[route], f"head_dim {d} "
+                    f"{dtype} is not on a tensor-core kernel built for it")
+            new = lambda: fa.flash_attention_cuda(*x, causal=True)
+            old = lambda: fa._launch("simt", *x, causal=True)
+            dt = str(dtype).removeprefix("torch.")
+            tol = FLASH_TOL[dt]
+            want = attention_ref(*x, causal=True).float()
+            for label, fn in (("kernel", new), ("replaced kernel", old)):
+                err = float((fn().float() - want).abs().max())
+                require(err <= tol * (1 + float(want.abs().max())),
+                        f"head_dim {d} {dtype}: the {label} differs from "
+                        f"the plain version by {err}")
             lib, library = _sdpa(*x)
             diff = float((lib().reshape(q.shape).float()
-                          - kern().float()).abs().max())
-            require(diff <= FLASH_TOL[str(dtype).removeprefix("torch.")] * 4,
-                    f"head_dim {d}: the yardstick computes another "
-                    f"function: {diff}")
+                          - new().float()).abs().max())
+            require(diff <= tol * 4, f"head_dim {d}: the yardstick computes "
+                    f"another function: {diff}")
+            split = (fa.tf32_split_cuda(x[1], x[2]) if route == "tf32"
+                     else None)
+            alone = lambda: fa._launch(route, *x, causal=True, split=split)
+            products, rate = ((3, TF32_OPS_PER_S) if route == "tf32"
+                              else (1, BF16_OPS_PER_S))
             nbytes = sum(t.numel() * t.element_size() for t in (x[0], *x))
-            out.append({
-                "head_dim": d, "dtype": str(dtype).removeprefix("torch."),
-                "ms": queued_ms(kern, 20), "library_ms": queued_ms(lib, 20),
-                "library": library, "library_vs_kernel_max_abs_diff": diff,
-                "bound_ms": max(flops / F32_OPS_PER_S,
-                                nbytes / HBM_BYTES_PER_S) * 1e3,
-                "shape": f"q (48, 2048, {d}), k/v (8, 2048, {d}) causal"})
+            bound_ops = products * flops / rate * 1e3
+            bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            source = {"sm90": "flash_attention_sm90",
+                      "tf32": "flash_attention_tf32"}[route]
+            row = {
+                "head_dim": d, "dtype": dt, "kernel": fa.ROUTE_KERNELS[route],
+                "route": route, "ms": queued_ms(new, 20),
+                "kernel_ms": queued_ms(alone, 20),
+                "replaced_kernel": "flash_attention_simt",
+                "replaced_kernel_ms": queued_ms(old, 10),
+                "library_ms": queued_ms(lib, 20), "library": library,
+                "library_vs_kernel_max_abs_diff": diff,
+                "plain_ms": device_ms(lambda: attention_ref(*x, causal=True),
+                                      3),
+                "bound_ms": max(bound_ops, bound_bytes),
+                "bound_by": "operations" if bound_ops >= bound_bytes
+                else "bytes", "flops": flops, "bytes": nbytes,
+                "exp_floor_ms": scores / EXP_PER_S * 1e3,
+                "bound_f32_cuda_core_ms": flops / F32_OPS_PER_S * 1e3,
+                "ptxas": [e for e in ptxas(source)
+                          if f"_kernelILi{d}E" in e["entry"]],
+                "replaced_kernel_ptxas": [
+                    e for e in ptxas("flash_attention")
+                    if f"Li{d}E" in e["entry"] and ("bfloat16" in e["entry"])
+                    == (dtype == torch.bfloat16)],
+                "shape": f"q (48, 2048, {d}), k/v (8, 2048, {d}) causal"}
+            if d == 16:
+                def padded():
+                    xp = [torch.nn.functional.pad(t, (0, 16)) for t in x]
+                    return fa.flash_attention_cuda(
+                        *xp, causal=True, scale=d ** -0.5)[..., :d].contiguous()
+                x32 = [torch.nn.functional.pad(t, (0, 16)) for t in x]
+                split32 = (fa.tf32_split_cuda(x32[1], x32[2])
+                           if route == "tf32" else None)
+                row["ms_padded_to_32"] = queued_ms(padded, 20)
+                row["kernel_ms_padded_to_32"] = queued_ms(
+                    lambda: fa._launch(route, *x32, causal=True,
+                                       split=split32, scale=d ** -0.5), 20)
+            out.append(row)
+            print(f"timing flash narrow {json.dumps(row)}", flush=True)
     return out
 
 
@@ -3973,24 +4161,17 @@ def main() -> None:
             "the static path reached the legacy warp-per-row kernel")
     phase("3")
 
-    # 4. the plastic path: CPU parity at 4x4, then timed (gaussian on the
-    # parity leg's 4x4 tables, exponential at 8x8)
+    # 4. the plastic path: CPU parity at 4x4, then timed on the parity
+    # leg's 4x4 tables
     plastic_tabs = {}
     for law in LAWS:
         par = plastic_parity(law)
-        if PLASTIC_GRID[law] == PARITY_GRID:
-            plastic_tabs[law] = par["tables"].to("cuda")
-            builds[("plastic", law)] = par["host_build_s"]
-    for law in LAWS:
-        if law not in plastic_tabs:
-            t0 = time.perf_counter()
-            plastic_tabs[law] = engine.build_shard_tables(
-                plastic_cfg(law, PLASTIC_GRID[law]))
-            builds[("plastic", law)] = time.perf_counter() - t0
+        plastic_tabs[law] = par["tables"].to("cuda")
+        builds[("plastic", law)] = par["host_build_s"]
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
     pruns = {law: run_plastic(law, plastic_tabs[law],
-                              builds[("plastic", law)], PLASTIC_GRID[law])
+                              builds[("plastic", law)], PARITY_GRID)
              for law in LAWS}
     p_launches = _build.launch_counts()
     print(f"plastic path launches: {json.dumps(p_launches)}; "

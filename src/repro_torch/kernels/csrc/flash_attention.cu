@@ -1,4 +1,9 @@
-// Blocked online-softmax (flash) attention for Hopper (sm_90a).
+// Blocked online-softmax (flash) attention for Hopper (sm_90a), on the
+// CUDA cores.  Replaced; timed only: no route of flash_attention.py takes
+// it any more.  bf16 at every head_dim goes to flash_attention_sm90.cu and
+// float32 to flash_attention_tf32.cu, both on the tensor cores.  It stays
+// as the kernel chip_smoke.py times beside them on the same inputs
+// (flash_attention.py: _launch("simt", ...)); its removal is queued.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py:flash_attention
 // (_kernel), which ran a (B*H, nQ, nK) grid with the key loop innermost,

@@ -1,6 +1,7 @@
 // Flash attention on Hopper's tensor cores (sm_90a): bf16 q/k/v, head_dim
-// 64, 128 or 256.  float32 inputs and bf16 with head_dim 8-32 take the
-// CUDA-core kernel in flash_attention.cu (flash_attention.py: _route).
+// 16, 32, 64, 128 or 256 (every bf16 width; the wrapper pads 1-15 to 16,
+// 17-31 to 32, flash_attention.py: _route).  float32 takes the 3xTF32
+// kernel in flash_attention_tf32.cu.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py:flash_attention
 // (_kernel), which ran a (B*H, nQ, nK) grid with the key loop innermost,
@@ -19,12 +20,15 @@
 //   * one CTA of two consumer warpgroups per (bh, 128 query rows); each
 //     warpgroup owns 64 rows.  No producer warp: thread 0 issues the TMA
 //     loads, which run on their own while both warpgroups compute;
-//   * Q is loaded once by TMA into shared memory as bf16 (D / 64 panels of
-//     128-byte rows, 128-byte swizzle); K and V tiles of kKeys keys (128
-//     at D <= 128, 64 at D = 256) go through a 2-stage ring in shared
-//     memory, filled by TMA and tracked by mbarriers: "full" (the bytes
-//     arrived) and "empty" (all 256 threads are done with the stage).
-//     Thread 0 issues tile j + 1 before the warpgroups compute tile j;
+//   * Q is loaded once by TMA into shared memory as bf16, in panels of
+//     kPanel = min(D, 64) columns whose rows are swizzled at their own
+//     width (128 bytes at D >= 64, 64 at D 32, 32 at D 16; the same mode
+//     in the TMA map and in the wgmma descriptors); K and V tiles of kKeys
+//     keys (128 at D <= 128, 64 at D = 256) go through a ring of kStages
+//     stages in shared memory, filled by TMA and tracked by mbarriers:
+//     "full" (the bytes arrived) and "empty" (all 256 threads are done
+//     with the stage).  Thread 0 keeps kStages - 1 tiles in flight ahead
+//     of the tile the warpgroups compute;
 //   * S = Q K^T by wgmma m64nNk16, both operands from shared memory
 //     (K-major, no transpose), f32 accumulators in registers;
 //   * the online softmax runs in registers on the accumulator fragment
@@ -42,6 +46,23 @@
 //     the base-2 m it holds; +1e30 where l is 0), the residual of the
 //     training backward (models/attention.py: _Flash): one float per
 //     row from the lane that holds column 0 of it, no second pass.
+//
+// Narrow heads (D 16 and 32; the CUDA-core kernel of flash_attention.cu
+// took them before).  A score costs only 4 D tensor-core flops there,
+// against one ex2 on the special-function units (16 a clock per SM, about
+// 3.9e12 a second on an H100) and a few f32 operations: the softmax, not
+// the MMA, sets the pace.  At q 48 x 2048, k/v 8 x 2048, causal, D 32 the
+// 1.01e8 exponents take 0.026 ms, the 1.29e10 tensor-core flops 0.013 ms.
+// So at D <= 32 the design keeps 128-key tiles (a K or V tile is 4-8 KB),
+// runs a 4-stage ring, and fits two CTAs on an SM (__launch_bounds__ with
+// 2 blocks: at most 128 registers a thread; 74 KB of shared memory a
+// CTA), so that one CTA's softmax overlaps the other's wgmma on the same
+// SM.  Two resident CTAs were chosen over two ping-ponging warpgroups in
+// one CTA because the warp schedulers interleave independent CTAs with no
+// named barriers or schedule to keep in step, and the wide widths' code
+// path stays as it is; D 64/128/256 keep one CTA an SM and 2 stages.
+// python -m repro_torch.perf.flash_sweep times these settings against
+// 64-key tiles, 2 or 6 stages and 1, 3 or 4 CTAs an SM (PERF.md).
 //
 // Arithmetic against _kernel (f32 QK^T and PV from widened inputs):
 // bf16 x bf16 products are exact in f32, so S differs only in summation
@@ -69,19 +90,26 @@ namespace {
 
 constexpr int kRows = 128;    // query rows per CTA: two warpgroups of 64
 constexpr int kThreads = 256;
-constexpr int kPanel = 64;    // bf16 columns in one 128-byte swizzled row
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
 template <int D>
 struct Cfg {
+  static constexpr bool kNarrow = D <= 32;
   static constexpr int kKeys = D <= 128 ? 128 : 64;
+  static constexpr int kStages = kNarrow ? 4 : 2;      // K/V ring depth
+  static constexpr int kMinBlocks = kNarrow ? 2 : 1;   // CTAs an SM
+  static constexpr int kPanel = D < 64 ? D : 64;  // bf16 columns a panel
+  static constexpr int kRowBytes = 2 * kPanel;    // = the swizzle: 128/64/32
+  static constexpr int kSteps = kRowBytes / 32;   // k16 steps in a row
   static constexpr int kPanels = D / kPanel;
-  static constexpr int kQBytes = kPanels * kRows * 128;
-  static constexpr int kKVBytes = kPanels * kKeys * 128;  // one K or V tile
-  // Q, K[2], V[2], five mbarriers, and slack to align the base to 1024 B
-  static constexpr int kSmem = kQBytes + 4 * kKVBytes + 64 + 1024;
+  static constexpr int kQBytes = kPanels * kRows * kRowBytes;
+  static constexpr int kKVBytes = kPanels * kKeys * kRowBytes;  // K or V tile
+  // Q, K[kStages], V[kStages], 2 kStages + 1 mbarriers, and slack to align
+  // the base to 1024 B
+  static constexpr int kSmem =
+      kQBytes + 2 * kStages * kKVBytes + 16 * kStages + 32 + 1024;
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -142,13 +170,17 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets, all in 16-byte units
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
+// wgmma shared-memory descriptor of a tile whose rows of row_bytes (128,
+// 64 or 32) carry the swizzle of that width (layout 1, 2 or 3): start
+// address, leading and stride byte offsets, all in 16-byte units
+template <int row_bytes>
+__device__ __forceinline__ uint64_t desc_sw(uint32_t addr, uint32_t lbo,
+                                            uint32_t sbo) {
+  constexpr uint64_t layout =
+      row_bytes == 128 ? 1ull : (row_bytes == 64 ? 2ull : 3ull);
   return (uint64_t)((addr & 0x3FFFF) >> 4) |
          ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
 }
 
 __device__ __forceinline__ void wg_fence() {
@@ -240,6 +272,39 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[8],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[16],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 __device__ __forceinline__ void wgmma_rs(float (&d)[32],
@@ -364,15 +429,19 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128],
 
 
 template <int D>
-__global__ void __launch_bounds__(kThreads, 1) flash_attention_sm90_kernel(
-    const __grid_constant__ CUtensorMap q_map,
-    const __grid_constant__ CUtensorMap k_map,
-    const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ o,
-    float* __restrict__ lse, int sq, int sk, int group, int causal,
-    int has_window, int window, int q_offset, float scale_log2) {
+__global__ void __launch_bounds__(kThreads, Cfg<D>::kMinBlocks)
+    flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
+                                const __grid_constant__ CUtensorMap k_map,
+                                const __grid_constant__ CUtensorMap v_map,
+                                __nv_bfloat16* __restrict__ o,
+                                float* __restrict__ lse, int sq, int sk,
+                                int group, int causal, int has_window,
+                                int window, int q_offset, float scale_log2) {
   using C = Cfg<D>;
   constexpr int kKeys = C::kKeys;
+  constexpr int kStages = C::kStages;
   constexpr int kPanels = C::kPanels;
+  constexpr int kRowBytes = C::kRowBytes;
   constexpr int kS = kKeys / 2;  // score accumulators per thread
   constexpr int kO = D / 2;      // output accumulators per thread
 
@@ -380,11 +449,12 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_sm90_kernel(
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t s_q = (raw + 1023u) & ~1023u;  // swizzle atoms: 1024 B
   const uint32_t s_k = s_q + C::kQBytes;        // stage s: + s * kKVBytes
-  const uint32_t s_v = s_k + 2 * C::kKVBytes;
-  const uint32_t bars = s_v + 2 * C::kKVBytes;  // full[2], empty[2], q
+  const uint32_t s_v = s_k + kStages * C::kKVBytes;
+  // full[kStages], empty[kStages], q
+  const uint32_t bars = s_v + kStages * C::kKVBytes;
   auto full_bar = [=](int s) { return bars + 8u * s; };
-  auto empty_bar = [=](int s) { return bars + 16u + 8u * s; };
-  const uint32_t q_bar = bars + 32u;
+  auto empty_bar = [=](int s) { return bars + 8u * (kStages + s); };
+  const uint32_t q_bar = bars + 16u * kStages;
 
   const int tid = threadIdx.x;
   const int wg = tid >> 7;  // consumer warpgroup: rows 64 wg .. 64 wg + 63
@@ -425,7 +495,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_sm90_kernel(
   }
 
   if (tid == 0) {
-    for (int s = 0; s < 2; ++s) {
+    for (int s = 0; s < kStages; ++s) {
       mbar_init(full_bar(s), 1);
       mbar_init(empty_bar(s), kThreads);
     }
@@ -434,26 +504,28 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_sm90_kernel(
   }
   __syncthreads();
 
-  // load j of the K/V ring: tile t_lo + j into stage j & 1 (thread 0)
+  // load j of the K/V ring: tile t_lo + j into stage j % kStages
+  // (thread 0)
   const CUtensorMap* kmap = &k_map;
   const CUtensorMap* vmap = &v_map;
   auto issue_kv = [=](int j) {
-    const int s = j & 1;
+    const int s = j % kStages;
     const int key0 = (t_lo + j) * kKeys;
     mbar_expect_tx(full_bar(s), 2 * C::kKVBytes);
 #pragma unroll
     for (int p = 0; p < kPanels; ++p) {
-      const uint32_t off = s * C::kKVBytes + p * kKeys * 128;
-      tma_load(s_k + off, kmap, full_bar(s), p * kPanel, key0, kvh);
-      tma_load(s_v + off, vmap, full_bar(s), p * kPanel, key0, kvh);
+      const uint32_t off = s * C::kKVBytes + p * kKeys * kRowBytes;
+      tma_load(s_k + off, kmap, full_bar(s), p * C::kPanel, key0, kvh);
+      tma_load(s_v + off, vmap, full_bar(s), p * C::kPanel, key0, kvh);
     }
   };
   if (tid == 0) {
     mbar_expect_tx(q_bar, C::kQBytes);
 #pragma unroll
     for (int p = 0; p < kPanels; ++p)
-      tma_load(s_q + p * kRows * 128, &q_map, q_bar, p * kPanel, q0, bh);
-    issue_kv(0);
+      tma_load(s_q + p * kRows * kRowBytes, &q_map, q_bar, p * C::kPanel,
+               q0, bh);
+    for (int j = 0; j < kStages - 1 && j < n_live; ++j) issue_kv(j);
   }
 
   // accumulator fragment: element i of a thread is row
@@ -476,14 +548,15 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_sm90_kernel(
 
   mbar_wait(q_bar, 0);
   for (int it = 0; it < n_live; ++it) {
-    if (tid == 0 && it + 1 < n_live) {
-      const int j = it + 1;
-      if (j >= 2) mbar_wait(empty_bar(j & 1), ((j >> 1) - 1) & 1);
+    if (tid == 0 && it + kStages - 1 < n_live) {
+      const int j = it + kStages - 1;
+      if (j >= kStages)
+        mbar_wait(empty_bar(j % kStages), (j / kStages - 1) & 1);
       issue_kv(j);
     }
     __syncwarp();
-    const int s = it & 1;
-    mbar_wait(full_bar(s), (it >> 1) & 1);
+    const int s = it % kStages;
+    mbar_wait(full_bar(s), (it / kStages) & 1);
 
     const int k_first = (t_lo + it) * kKeys;
     const int k_last = k_first + kKeys - 1;
@@ -498,12 +571,14 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_sm90_kernel(
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t koff = (kk % 4) * 32;
-        const uint32_t qa = s_q + (kk / 4) * kRows * 128 + wg * 64 * 128;
+        constexpr int kSteps = C::kSteps;
+        const uint32_t koff = (kk % kSteps) * 32;
+        const uint32_t qa = s_q + (kk / kSteps) * kRows * kRowBytes +
+                            wg * 64 * kRowBytes;
         const uint32_t ka =
-            s_k + s * C::kKVBytes + (kk / 4) * kKeys * 128;
-        wgmma_ss(sc, desc_sw128(qa + koff, 16, 1024),
-                 desc_sw128(ka + koff, 16, 1024), kk > 0);
+            s_k + s * C::kKVBytes + (kk / kSteps) * kKeys * kRowBytes;
+        wgmma_ss(sc, desc_sw<kRowBytes>(qa + koff, 16, 8 * kRowBytes),
+                 desc_sw<kRowBytes>(ka + koff, 16, 8 * kRowBytes), kk > 0);
       }
       wg_commit();
       wg_wait0();
@@ -567,8 +642,9 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_sm90_kernel(
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < kKeys / 16; ++kk) {
-        const uint32_t va = s_v + s * C::kKVBytes + kk * 16 * 128;
-        wgmma_rs(acc, pa[kk], desc_sw128(va, kKeys * 128, 1024));
+        const uint32_t va = s_v + s * C::kKVBytes + kk * 16 * kRowBytes;
+        wgmma_rs(acc, pa[kk], desc_sw<kRowBytes>(va, kKeys * kRowBytes,
+                                                 8 * kRowBytes));
       }
       wg_commit();
       wg_wait0();
@@ -627,8 +703,9 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a (heads, rows, d) bf16 tensor, boxes of 64 columns x box_rows rows,
-// 128-byte swizzle; out-of-bounds rows read as zeros
+// a (heads, rows, d) bf16 tensor, boxes of min(d, 64) columns x box_rows
+// rows, swizzled at the box's row width (128, 64 or 32 bytes, as the
+// wgmma descriptors' layout); out-of-bounds rows read as zeros
 int make_map(CUtensorMap* map, const void* ptr, int d, int rows, int heads,
              int box_rows) {
   EncodeTiled fn = encode_tiled();
@@ -637,12 +714,15 @@ int make_map(CUtensorMap* map, const void* ptr, int d, int rows, int heads,
                               (cuuint64_t)heads};
   const cuuint64_t strides[2] = {(cuuint64_t)d * 2,
                                  (cuuint64_t)d * 2 * (cuuint64_t)rows};
-  const cuuint32_t box[3] = {(cuuint32_t)kPanel, (cuuint32_t)box_rows, 1};
+  const int panel = d < 64 ? d : 64;
+  const cuuint32_t box[3] = {(cuuint32_t)panel, (cuuint32_t)box_rows, 1};
   const cuuint32_t estr[3] = {1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
                         const_cast<void*>(ptr), dims, strides, box, estr,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        panel == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                        : panel == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                      : CU_TENSOR_MAP_SWIZZLE_32B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
@@ -676,8 +756,8 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 }  // namespace
 
 // q: (bh, sq, d); k, v: (bh_kv, sk, d); o: (bh, sq, d); all contiguous,
-// 16-byte aligned bfloat16, d in {64, 128, 256}; lse: (bh, sq) float32,
-// or null for no row statistic.
+// 16-byte aligned bfloat16, d in {16, 32, 64, 128, 256}; lse: (bh, sq)
+// float32, or null for no row statistic.
 extern "C" int flash_attention_sm90_launch(const void* q, const void* k,
                                            const void* v, void* o,
                                            void* lse, int bh, int bh_kv,
@@ -693,6 +773,12 @@ extern "C" int flash_attention_sm90_launch(const void* q, const void* k,
   cudaStream_t st = (cudaStream_t)stream;
   float* l = (float*)lse;
   switch (d) {
+    case 16:
+      return launch<16>(q, k, v, o, l, bh, bh_kv, sq, sk, group, causal,
+                        has_window, window, q_offset, scale, st);
+    case 32:
+      return launch<32>(q, k, v, o, l, bh, bh_kv, sq, sk, group, causal,
+                        has_window, window, q_offset, scale, st);
     case 64:
       return launch<64>(q, k, v, o, l, bh, bh_kv, sq, sk, group, causal,
                         has_window, window, q_offset, scale, st);

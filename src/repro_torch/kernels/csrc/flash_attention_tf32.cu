@@ -1,7 +1,7 @@
 // Flash attention in float32 on Hopper's tensor cores (sm_90a): 3xTF32
-// wgmma, head_dim 64, 128 or 256.  bf16 at head_dim 64/128/256 takes
-// flash_attention_sm90.cu, every other case flash_attention.cu
-// (flash_attention.py: _route).
+// wgmma, head_dim 16, 32, 64, 128 or 256 (every float32 width; the
+// wrapper pads 1-15 to 16 and 17-31 to 32, flash_attention.py: _route).
+// bf16 takes flash_attention_sm90.cu.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py:flash_attention
 // (_kernel) for float32 q/k/v, which computed QK^T and PV in f32 over a
@@ -33,7 +33,8 @@
 //     "empty" mbarrier, so that K of tile j + 1 loads while the
 //     warpgroups compute P V of tile j, and V of tile j + 1 while they
 //     compute S of tile j + 1;
-//   * Q arrives as f32 (TMA, 128-byte swizzle) and each warpgroup splits
+//   * Q arrives as f32 (TMA, 128-byte swizzle; 64-byte at D 16, whose
+//     rows of Q and K are 64 bytes) and each warpgroup splits
 //     its own 64 rows in place into Q hi and Q lo (the same swizzled
 //     layout), then fences the generic proxy against the async one;
 //   * S = Q K^T by wgmma m64n{kKeys}k8, both operands from shared memory:
@@ -59,6 +60,8 @@
 // Shared memory (one stage of K and of V; hi and lo double each operand):
 //
 //   D     kWG  rows  kKeys  Q hi+lo   K hi+lo   V^T hi+lo   total
+//   16    2    128   64     16 KB     8 KB      8 KB        32 KB
+//   32    2    128   64     32 KB     16 KB     16 KB       64 KB
 //   64    2    128   64     64 KB     32 KB     32 KB       128 KB
 //   128   2    128   32     128 KB    32 KB     32 KB       192 KB
 //   256   1    64    16     128 KB    32 KB     32 KB       192 KB
@@ -66,7 +69,15 @@
 // plus 40 B of mbarriers and 1 KB of alignment slack, within the 227 KB a
 // block may hold.  At D 256 a V^T row of 16 keys is 64 bytes, so V^T uses
 // the 64-byte swizzle there.  Two stages would not fit at D 128 and 256
-// (256 KB).  Ragged edges: Q rows past Sq lie outside the tensor map and
+// (256 KB).  At D 32 and 16 they would fit, and so would two CTAs an SM,
+// but on an H100 both ran slower than this one-stage, one-CTA design at
+// q 48 x 2048, k/v 8 x 2048, causal (python -m repro_torch.perf.flash_sweep;
+// PERF.md): two CTAs cap a thread at 96 registers, which spills at 64
+// keys and serialises more at 32.  A score costs only 3 x 4 D tensor-core
+// flops there, against its ex2 and the split of P into hi and lo on the
+// CUDA cores.  D 16 has its own build rather than padding to 32: the
+// padding doubled the products, loads and splits of Q and K for nothing
+// (PERF.md, row 5b).  Ragged edges: Q rows past Sq lie outside the tensor map and
 // read as zeros, keys past Sk are zeros in the padded scratch and masked,
 // so P and V are exactly 0 there.  GQA: query head bh reads kv head
 // bh / group through one tensor map, with no repeated KV.
@@ -77,7 +88,6 @@
 
 namespace {
 
-constexpr int kPanel = 32;    // f32 columns in one 128-byte swizzled row
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -99,9 +109,14 @@ template <int D>
 struct Cfg {
   static constexpr int kWG = D <= 128 ? 2 : 1;
   static constexpr int kRows = 64 * kWG;
-  static constexpr int kKeys = D == 64 ? 64 : (D == 128 ? 32 : 16);
+  static constexpr int kKeys = D <= 64 ? 64 : (D == 128 ? 32 : 16);
   static constexpr int kThreads = 128 * kWG + 32;
-  static constexpr int kPanels = D / kPanel;     // Q and K panels
+  // Q and K in panels of kPanel f32 columns whose rows (kRowBytes: 128,
+  // or 64 at D 16) carry the swizzle of their width; k8 steps of 32 bytes
+  static constexpr int kPanel = D < 32 ? D : 32;
+  static constexpr int kRowBytes = 4 * kPanel;
+  static constexpr int kSteps = kRowBytes / 32;
+  static constexpr int kPanels = D / kPanel;
   static constexpr int kQBytes = kRows * D * 4;  // Q hi (Q lo the same)
   static constexpr int kKBytes = kKeys * D * 4;  // one K tile, hi or lo
   static constexpr int kVRow = kKeys >= 32 ? 128 : kKeys * 4;  // V^T row
@@ -297,6 +312,41 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[4],
       "%0, %1, %2, %3"
       "}, {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// d (+)= A B^T, m64n16k8: A from registers, B from shared memory
+__device__ __forceinline__ void wgmma_rs(float (&d)[8],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// d (+)= A B^T, m64n32k8: A from registers, B from shared memory
+__device__ __forceinline__ void wgmma_rs(float (&d)[16],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
@@ -497,16 +547,18 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
     mbar_expect_tx(q_full, C::kQBytes);
 #pragma unroll
     for (int p = 0; p < C::kPanels; ++p)
-      tma_load(s_qhi + p * kRows * 128, &q_map, q_full, p * kPanel, q0, bh);
+      tma_load(s_qhi + p * kRows * C::kRowBytes, &q_map, q_full,
+               p * C::kPanel, q0, bh);
     for (int j = 0; j < n_live; ++j) {
       const int key0 = (t_lo + j) * kKeys;
       if (j > 0) mbar_wait(k_empty, (j - 1) & 1);
       mbar_expect_tx(k_full, 2 * C::kKBytes);
 #pragma unroll
       for (int p = 0; p < C::kPanels; ++p) {
-        const uint32_t off = p * kKeys * 128;
-        tma_load(s_khi + off, &k_map, k_full, p * kPanel, key0, kvh);
-        tma_load(s_klo + off, &k_map, k_full, p * kPanel, key0, bh_kv + kvh);
+        const uint32_t off = p * kKeys * C::kRowBytes;
+        tma_load(s_khi + off, &k_map, k_full, p * C::kPanel, key0, kvh);
+        tma_load(s_klo + off, &k_map, k_full, p * C::kPanel, key0,
+                 bh_kv + kvh);
       }
       if (j > 0) mbar_wait(v_empty, (j - 1) & 1);
       mbar_expect_tx(v_full, 2 * C::kVBytes);
@@ -536,12 +588,13 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
   // (where TMA left the f32 values) and lo (the same offset in Q lo);
   // the swizzle moves whole 16-byte chunks, so it does not matter here
   mbar_wait(q_full, 0);
+  constexpr int kChunks = 64 * C::kPanel / 4;  // 16-byte chunks a panel
 #pragma unroll 4
-  for (int i = wtid; i < C::kPanels * 64 * 32 / 4; i += 128) {
-    const int p = i / (64 * 32 / 4);
-    const int within = i % (64 * 32 / 4);
-    const uint32_t off =
-        p * kRows * 128 + wg * 64 * 128 + within * 16;
+  for (int i = wtid; i < C::kPanels * kChunks; i += 128) {
+    const int p = i / kChunks;
+    const int within = i % kChunks;
+    const uint32_t off = p * kRows * C::kRowBytes + wg * 64 * C::kRowBytes +
+                         within * 16;
     float4* hi = reinterpret_cast<float4*>(smem_base + off);
     float4* lo = reinterpret_cast<float4*>(smem_base + C::kQBytes + off);
     const float4 x = *hi;
@@ -576,8 +629,8 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
 #pragma unroll
   for (int i = 0; i < kO; ++i) acc[i] = 0.f;
 
-  const uint32_t qa_hi = s_qhi + wg * 64 * 128;
-  const uint32_t qa_lo = s_qlo + wg * 64 * 128;
+  const uint32_t qa_hi = s_qhi + wg * 64 * C::kRowBytes;
+  const uint32_t qa_lo = s_qlo + wg * 64 * C::kRowBytes;
   for (int it = 0; it < n_live; ++it) {
     const int k_first = (t_lo + it) * kKeys;
     const int k_last = k_first + kKeys - 1;
@@ -587,20 +640,23 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
     mbar_wait(k_full, it & 1);
     if (live) {
       // S = Q_hi K_hi + Q_hi K_lo + Q_lo K_hi over D / 8 steps of 8
-      // (32 bytes within a swizzled 128-byte row)
+      // (32 bytes within a swizzled row)
 #pragma unroll
       for (int i = 0; i < kS; ++i) sc[i] = 0.f;
       reg_fence(sc);
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 8; ++kk) {
-        const uint32_t qoff = (kk / 4) * kRows * 128 + (kk % 4) * 32;
-        const uint32_t koff = (kk / 4) * kKeys * 128 + (kk % 4) * 32;
-        const uint64_t kh = desc_sw(s_khi + koff, 128);
-        const uint64_t qh = desc_sw(qa_hi + qoff, 128);
+        constexpr int kRow = C::kRowBytes, kSteps = C::kSteps;
+        const uint32_t qoff =
+            (kk / kSteps) * kRows * kRow + (kk % kSteps) * 32;
+        const uint32_t koff =
+            (kk / kSteps) * kKeys * kRow + (kk % kSteps) * 32;
+        const uint64_t kh = desc_sw(s_khi + koff, kRow);
+        const uint64_t qh = desc_sw(qa_hi + qoff, kRow);
         wgmma_ss(sc, qh, kh, kk > 0);
-        wgmma_ss(sc, qh, desc_sw(s_klo + koff, 128), 1);
-        wgmma_ss(sc, desc_sw(qa_lo + qoff, 128), kh, 1);
+        wgmma_ss(sc, qh, desc_sw(s_klo + koff, kRow), 1);
+        wgmma_ss(sc, desc_sw(qa_lo + qoff, kRow), kh, 1);
       }
       wg_commit();
       wg_wait0();
@@ -709,8 +765,9 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
 // lo); v (bh_kv, sk, d) -> vt_split (2, bh_kv, d, sk_pad), transposed
 // with each group of 8 keys in key_order.  Keys past sk are zeros.  One
 // block of 32 x 8 threads per (32 keys, 32 columns, kv head), through a
-// 32 x 33 shared tile for the transpose.  Bound by bytes: 8 B read and
-// 16 B written per element pair.
+// 32 x 33 shared tile for the transpose; a block's columns past d (d 16)
+// are skipped.  Bound by bytes: 8 B read and 16 B written per element
+// pair.
 __global__ void __launch_bounds__(256) tf32_split_kernel(
     const float* __restrict__ k, const float* __restrict__ v,
     float* __restrict__ k_split, float* __restrict__ vt_split, int bh_kv,
@@ -719,21 +776,24 @@ __global__ void __launch_bounds__(256) tf32_split_kernel(
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int key0 = blockIdx.x * 32, d0 = blockIdx.y * 32, h = blockIdx.z;
   const size_t plane = (size_t)bh_kv * sk_pad * d;  // hi -> lo
+  const bool col = d0 + tx < d;
   for (int r = ty; r < 32; r += 8) {
     const int key = key0 + r;
     const size_t src = ((size_t)h * sk + key) * d + d0 + tx;
-    const float x = key < sk ? k[src] : 0.f;
-    const float y = key < sk ? v[src] : 0.f;
+    const float x = key < sk && col ? k[src] : 0.f;
+    const float y = key < sk && col ? v[src] : 0.f;
     uint32_t hi, lo;
     split(x, hi, lo);
     const size_t dst = ((size_t)h * sk_pad + key) * d + d0 + tx;
-    k_split[dst] = __uint_as_float(hi);
-    k_split[plane + dst] = __uint_as_float(lo);
+    if (col) {
+      k_split[dst] = __uint_as_float(hi);
+      k_split[plane + dst] = __uint_as_float(lo);
+    }
     tile[r][tx] = y;
   }
   __syncthreads();
   const int src_key = (tx & ~7) | key_order(tx & 7);
-  for (int r = ty; r < 32; r += 8) {
+  for (int r = ty; r < 32 && d0 + r < d; r += 8) {
     uint32_t hi, lo;
     split(tile[src_key][r], hi, lo);
     const size_t dst = ((size_t)h * d + d0 + r) * sk_pad + key0 + tx;
@@ -838,8 +898,8 @@ int launch(const void* q, const void* k_split, const void* vt_split, void* o,
            float scale, cudaStream_t stream) {
   using C = Cfg<D>;
   CUtensorMap qm, km, vm;
-  int err = make_map(&qm, q, D, sq, bh, kPanel, C::kRows);
-  if (!err) err = make_map(&km, k_split, D, sk_pad, 2 * bh_kv, kPanel,
+  int err = make_map(&qm, q, D, sq, bh, C::kPanel, C::kRows);
+  if (!err) err = make_map(&km, k_split, D, sk_pad, 2 * bh_kv, C::kPanel,
                            C::kKeys);
   if (!err) err = make_map(&vm, vt_split, sk_pad, D, 2 * bh_kv,
                            C::kVRow / 4, D);
@@ -859,9 +919,9 @@ int launch(const void* q, const void* k_split, const void* vt_split, void* o,
 
 // q: (bh, sq, d) float32; k_split: (2, bh_kv, sk_pad, d) and vt_split:
 // (2, bh_kv, d, sk_pad), tf32_split_launch's output; o: (bh, sq, d)
-// float32; all contiguous and 16-byte aligned, d in {64, 128, 256},
-// sk_pad a positive multiple of 64 and >= sk; lse: (bh, sq) float32, or
-// null for no row statistic.
+// float32; all contiguous and 16-byte aligned, d in {16, 32, 64, 128,
+// 256}, sk_pad a positive multiple of 64 and >= sk; lse: (bh, sq)
+// float32, or null for no row statistic.
 extern "C" int flash_attention_tf32_launch(const void* q, const void* k_split,
                                            const void* vt_split, void* o,
                                            void* lse, int bh, int bh_kv,
@@ -879,6 +939,14 @@ extern "C" int flash_attention_tf32_launch(const void* q, const void* k_split,
   cudaStream_t st = (cudaStream_t)stream;
   float* l = (float*)lse;
   switch (d) {
+    case 16:
+      return launch<16>(q, k_split, vt_split, o, l, bh, bh_kv, sq, sk,
+                        sk_pad, group, causal, has_window, window, q_offset,
+                        scale, st);
+    case 32:
+      return launch<32>(q, k_split, vt_split, o, l, bh, bh_kv, sq, sk,
+                        sk_pad, group, causal, has_window, window, q_offset,
+                        scale, st);
     case 64:
       return launch<64>(q, k_split, vt_split, o, l, bh, bh_kv, sq, sk,
                         sk_pad, group, causal, has_window, window, q_offset,
@@ -897,15 +965,15 @@ extern "C" int flash_attention_tf32_launch(const void* q, const void* k_split,
 }
 
 // k, v: (bh_kv, sk, d) float32; k_split: (2, bh_kv, sk_pad, d); vt_split:
-// (2, bh_kv, d, sk_pad); d a multiple of 32, sk_pad a multiple of 64 >= sk.
+// (2, bh_kv, d, sk_pad); d a multiple of 16, sk_pad a multiple of 64 >= sk.
 extern "C" int tf32_split_launch(const void* k, const void* v, void* k_split,
                                  void* vt_split, int bh_kv, int sk,
                                  int sk_pad, int d, void* stream) {
   if (bh_kv <= 0 || sk < 0 || sk_pad < sk || sk_pad % kKeyPad != 0 ||
-      d <= 0 || d % 32 != 0 || bh_kv > 65535)
+      d <= 0 || d % 16 != 0 || bh_kv > 65535)
     return (int)cudaErrorInvalidValue;
   if (sk_pad == 0) return 0;
-  const dim3 grid(sk_pad / 32, d / 32, bh_kv);
+  const dim3 grid(sk_pad / 32, (d + 31) / 32, bh_kv);
   tf32_split_kernel<<<grid, dim3(32, 8), 0, (cudaStream_t)stream>>>(
       (const float*)k, (const float*)v, (float*)k_split, (float*)vt_split,
       bh_kv, sk, sk_pad, d);

@@ -1,46 +1,50 @@
 """Blocked online-softmax (flash) attention: the CUDA kernels' wrapper.
 
 Replaces the TPU kernel ``repro/kernels/flash_attention.py:
-flash_attention``.  Three kernels, one route each (``_route``):
+flash_attention``.  Two routes (``_route``), both on the tensor cores:
 
-* ``"sm90"`` -- bfloat16 q/k/v with head_dim 64, 128 or 256
-  (``SM90_HEAD_DIMS``), the LM serving path's case:
+* ``"sm90"`` -- bfloat16 q/k/v at every head_dim, built for 16, 32,
+  64, 128 and 256 (``SM90_HEAD_DIMS``), the LM serving path's case:
   ``csrc/flash_attention_sm90.cu`` runs both products on the tensor
   cores (``wgmma``, bf16 x bf16 -> f32, P rounded to bf16 for P V) with
-  Q and a 2-stage K/V ring loaded by TMA; counted as
-  ``flash_attention``;
-* ``"tf32"`` -- float32 q/k/v with head_dim 64, 128 or 256
-  (``TF32_HEAD_DIMS``): ``csrc/flash_attention_tf32.cu`` runs both
-  products on the tensor cores as three TF32 products each (3xTF32:
-  ``hi hi + hi lo + lo hi`` with ``x = hi + lo``; one TF32 product
-  would not hold the float32 tolerance), after a pre-pass kernel that
-  splits K and V into hi and lo and writes V transposed
+  Q and a K/V ring loaded by TMA (2 stages at D 64-256; at D 16 and 32,
+  rows of 32 and 64 bytes in the 32- and 64-byte swizzles, 4 stages and
+  two CTAs an SM); counted as ``flash_attention``;
+* ``"tf32"`` -- float32 q/k/v at every head_dim, built for 16, 32, 64,
+  128 and 256 (``TF32_HEAD_DIMS``): ``csrc/flash_attention_tf32.cu`` runs
+  both products on the tensor cores as three TF32 products each
+  (3xTF32: ``hi hi + hi lo + lo hi`` with ``x = hi + lo``; one TF32
+  product would not hold the float32 tolerance), after a pre-pass
+  kernel that splits K and V into hi and lo and writes V transposed
   (``tf32_split_cuda``, counted as ``tf32_split``); counted as
-  ``flash_attention_tf32``;
-* ``"simt"`` -- head_dim 8, 16 or 32 (``SIMT_HEAD_DIMS``) in either
-  dtype:
-  ``csrc/flash_attention.cu`` computes in f32 on the CUDA cores;
-  counted as ``flash_attention_simt``.
+  ``flash_attention_tf32``.
+
+The CUDA-core kernel ``csrc/flash_attention.cu`` (head_dim 8 to 256,
+``SIMT_HEAD_DIMS``, either dtype, counted as ``flash_attention_simt``)
+is on no route: it is the kernel the two replaced at head_dim 1-32, and
+stays only for chip_smoke.py to time beside them (``_launch("simt",
+...)``).
 
 All run one block per (query head, tile of query rows), keep each
 row's running max, sum and accumulator in float32 registers and skip key
-tiles that are fully masked.  They are bound by operations: 4 D flops
-per live (q, k) pair (three times that on the TF32 route).  Ragged
-edges are masked in the kernels, so q/k/v are never padded (the TF32
-route's split scratch pads the keys with zeros).
+tiles that are fully masked.  Their work is 4 D flops per live (q, k)
+pair (three times that on the TF32 route); at D 32 and below the
+exponent of each pair on the special-function units weighs as much.
+Ragged edges are masked in the kernels, so q/k/v are never padded on
+the sequence (the TF32 route's split scratch pads the keys with zeros).
 
 They take q ``(BH, Sq, D)`` and k, v ``(BH_kv, Sk, D)`` with ``BH %
 BH_kv == 0`` (GQA: query head ``bh`` reads kv head ``bh // (BH //
 BH_kv)``), all contiguous, float32 or bfloat16, ``1 <= D <= 256``; the
 output is ``(BH, Sq, D)`` in q's dtype and fully masked rows are 0.
-The kernels are built for the widths ``HEAD_DIMS``: a head of another
+The kernels are built for the widths of their route: a head of another
 width is zero-padded on its last axis to the smallest width of its
-route that holds it (``padded_head_dim``: 112 -> 128 on the tensor-core
-routes, 12 -> 16 on the CUDA cores), with the scale of the true width,
-and the output is sliced back (``with_padded_head``).  Zero columns add
-exactly 0 to every q.k and give zero output columns, so the result and
-the row statistic are those of the unpadded function; the reference's
-kernel takes any D the same way (it pads only the sequence).
+route that holds it (``padded_head_dim``: 12 -> 16, 20 -> 32 and 112
+-> 128 on both routes), with the scale of the true width, and the
+output is sliced back (``with_padded_head``).  Zero columns add exactly
+0 to every q.k and give zero output columns, so the result and the row
+statistic are those of the unpadded function; the reference's kernel
+takes any D the same way (it pads only the sequence).
 With ``return_lse`` each kernel also writes every row's statistic
 ``L = m + log l`` (float32 ``(BH, Sq)`` in natural units, ``+1e30`` on
 a fully masked row), the residual of the training backward
@@ -63,11 +67,14 @@ import torch
 from . import _build
 from .ref import TF32_KEY_ORDER, TF32_KEY_PAD, attention_ref
 
-SIMT_HEAD_DIMS = (8, 16, 32)
-SM90_HEAD_DIMS = (64, 128, 256)
-TF32_HEAD_DIMS = (64, 128, 256)
-# the widths the kernels are built for; the wrapper takes 1..MAX_HEAD_DIM
-HEAD_DIMS = SIMT_HEAD_DIMS + SM90_HEAD_DIMS
+SM90_HEAD_DIMS = (16, 32, 64, 128, 256)
+TF32_HEAD_DIMS = (16, 32, 64, 128, 256)
+# the replaced CUDA-core kernel's widths (timed only; on no route)
+SIMT_HEAD_DIMS = (8, 16, 32, 64, 128, 256)
+# the widths each kernel is built for; the wrapper takes 1..MAX_HEAD_DIM
+ROUTE_HEAD_DIMS = {"sm90": SM90_HEAD_DIMS, "tf32": TF32_HEAD_DIMS,
+                   "simt": SIMT_HEAD_DIMS}
+HEAD_DIMS = tuple(sorted(set(SM90_HEAD_DIMS + TF32_HEAD_DIMS)))
 MAX_HEAD_DIM = 256
 INPUT_DTYPES = (torch.float32, torch.bfloat16)
 # launch-count name of each route's kernel
@@ -87,25 +94,20 @@ _F = ctypes.c_float
 
 def _route(dtype: torch.dtype, d: int) -> str:
     """The kernel that takes (dtype, head_dim): ``"sm90"`` (tensor
-    cores, bf16) for bfloat16 with D above 32, ``"tf32"`` (tensor cores,
-    3xTF32) for float32 with D above 32, ``"simt"`` (CUDA cores, f32)
-    for D up to 32 in either dtype; D runs from 1 to ``MAX_HEAD_DIM``
-    (a width the route's kernels are not built for is padded,
-    ``padded_head_dim``)."""
+    cores, bf16) for bfloat16, ``"tf32"`` (tensor cores, 3xTF32) for
+    float32, at every D from 1 to ``MAX_HEAD_DIM`` (a width the route's
+    kernel is not built for is padded, ``padded_head_dim``).  No D
+    takes the CUDA-core kernel."""
     if dtype not in INPUT_DTYPES or not 1 <= d <= MAX_HEAD_DIM:
         raise ValueError(f"no flash-attention kernel takes {dtype} with "
                          f"head_dim {d}")
-    if d <= SIMT_HEAD_DIMS[-1]:
-        return "simt"
     return "sm90" if dtype == torch.bfloat16 else "tf32"
 
 
 def padded_head_dim(route: str, d: int) -> int:
     """The smallest width the kernel of ``route`` is built for that holds
     head_dim ``d`` (``d`` itself when it is one)."""
-    widths = {"simt": HEAD_DIMS, "sm90": SM90_HEAD_DIMS,
-              "tf32": TF32_HEAD_DIMS}[route]
-    for w in widths:
+    for w in ROUTE_HEAD_DIMS[route]:
         if w >= d:
             return w
     raise ValueError(f"route {route!r} takes no head_dim {d}")
@@ -187,7 +189,7 @@ def _check(q, k, v, q_offset: int) -> None:
 
 def tf32_split_cuda(k: torch.Tensor, v: torch.Tensor):
     """Launch the TF32 route's pre-pass on float32 k, v ``(BH_kv, Sk,
-    D)`` (CUDA, contiguous, D a multiple of 32): returns ``(k_split,
+    D)`` (CUDA, contiguous, D a multiple of 16): returns ``(k_split,
     vt_split)``, ``(2, BH_kv, Sk_pad, D)`` and ``(2, BH_kv, D, Sk_pad)``
     float32 (hi then lo, V transposed with each group of 8 keys in
     ``TF32_KEY_ORDER``, keys past Sk zero; ``Sk_pad``: Sk rounded up to
@@ -195,11 +197,11 @@ def tf32_split_cuda(k: torch.Tensor, v: torch.Tensor):
     ``ref.tf32_split_ref``."""
     if (k.device.type != "cuda" or v.device != k.device
             or k.dtype != torch.float32 or v.dtype != torch.float32
-            or k.dim() != 3 or k.shape != v.shape or k.shape[2] % 32
+            or k.dim() != 3 or k.shape != v.shape or k.shape[2] % 16
             or not (k.is_contiguous() and v.is_contiguous())):
         raise ValueError("tf32_split_cuda takes contiguous float32 CUDA k, "
                          "v of one shape (BH_kv, Sk, D), D a multiple of "
-                         f"32; got {k.dtype} {tuple(k.shape)} on "
+                         f"16; got {k.dtype} {tuple(k.shape)} on "
                          f"{k.device}, {v.dtype} {tuple(v.shape)}")
     bh_kv, sk, d = k.shape
     sk_pad = max(-(-sk // TF32_KEY_PAD), 1) * TF32_KEY_PAD
@@ -268,9 +270,10 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
 def _launch(route: str, q, k, v, *, causal: bool = True,
             window: Optional[int] = None, scale: Optional[float] = None,
             q_offset: int = 0, split=None, return_lse: bool = False):
-    """Launch the kernel of ``route`` on checked inputs.  The CUDA-core
-    kernel takes every case; chip_smoke.py times it beside the
-    tensor-core kernels at their shapes through this function.
+    """Launch the kernel of ``route`` on checked inputs at a width it is
+    built for.  The CUDA-core kernel (``"simt"``, on no route) takes
+    either dtype; chip_smoke.py times it beside the tensor-core kernels
+    on their inputs through this function.
     ``split``: the TF32 route's pre-pass output for these k, v
     (``tf32_split_cuda``), made here when None; chip_smoke.py passes it
     to time the attention kernel on its own.  ``return_lse``: also write
@@ -280,11 +283,11 @@ def _launch(route: str, q, k, v, *, causal: bool = True,
     for x in (q, k, v):
         if x.data_ptr() % 16:
             raise ValueError("attention takes 16-byte aligned q, k, v")
-    if route not in ROUTE_KERNELS or q.shape[2] not in HEAD_DIMS or (
-            route != "simt" and _route(q.dtype, q.shape[2]) != route):
-        raise ValueError(f"route {route!r} does not take {q.dtype} with "
-                         f"head_dim {q.shape[2]}")
     bh, sq, d = q.shape
+    if d not in ROUTE_HEAD_DIMS.get(route, ()) or (
+            route != "simt" and _route(q.dtype, d) != route):
+        raise ValueError(f"route {route!r} does not take {q.dtype} with "
+                         f"head_dim {d}")
     bh_kv, sk, _ = k.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     out = torch.empty_like(q)

@@ -147,26 +147,25 @@ def test_cpu_attention_launches_no_kernel():
 @pytest.mark.parametrize("d", [8, 12, 16, 32, 64, 112, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_route(dtype, d):
-    """Above head_dim 32 bf16 takes the bf16 tensor-core kernel and
-    float32 the 3xTF32 tensor-core kernel; up to 32 both dtypes take the
-    CUDA-core kernel.  A width the route's kernels are not built for is
-    padded to the next one they are (12 -> 16, 112 -> 128)."""
+    """At every head_dim bf16 takes the bf16 tensor-core kernel and
+    float32 the 3xTF32 tensor-core kernel; no width takes the CUDA-core
+    kernel.  A width the route's kernel is not built for is padded to the
+    next one it is (8, 12 -> 16; 112 -> 128)."""
     from repro_torch.kernels.flash_attention import (HEAD_DIMS,
+                                                     ROUTE_HEAD_DIMS,
                                                      ROUTE_KERNELS, _route,
                                                      padded_head_dim)
-    if d <= 32:
-        want = "simt"
-    else:
-        want = "sm90" if dtype == torch.bfloat16 else "tf32"
+    want = "sm90" if dtype == torch.bfloat16 else "tf32"
     assert _route(dtype, d) == want
-    assert ROUTE_KERNELS[want] in ("flash_attention", "flash_attention_tf32",
-                                   "flash_attention_simt")
-    assert padded_head_dim(want, d) == {12: 16, 112: 128}.get(d, d)
+    assert ROUTE_KERNELS[want] in ("flash_attention", "flash_attention_tf32")
+    assert padded_head_dim(want, d) == {8: 16, 12: 16, 112: 128}.get(d, d)
+    assert padded_head_dim(want, d) in ROUTE_HEAD_DIMS[want]
     assert padded_head_dim(want, d) in HEAD_DIMS
 
 
-# the padded routes' head widths: reduced qwen2.5-3b
-# (12) and kimi-k2 (112); (bh, bh_kv, sq, sk, causal, window, q_offset)
+# head widths the routes pad: 1, 8 (reduced kimi-k2, internvl), 12
+# (reduced qwen2.5-3b, whisper), 20 and 112 (kimi-k2); (bh, bh_kv, sq,
+# sk, causal, window, q_offset)
 PAD_CASES = [(6, 2, 40, 40, True, None, 0), (4, 1, 33, 50, True, 9, 17),
              (2, 2, 19, 27, False, None, 0)]
 # padded against unpadded plain version: the same sums with zero terms
@@ -174,9 +173,14 @@ PAD_CASES = [(6, 2, 40, 40, True, None, 0), (4, 1, 33, 50, True, 9, 17),
 PAD_TOL = {"float32": 1e-6, "bfloat16": 1e-6}
 
 
+# each width padded on each route (both build 16, 32, 128)
+PAD_WIDTHS = {"bfloat16": {1: 16, 8: 16, 12: 16, 20: 32, 112: 128},
+              "float32": {1: 16, 8: 16, 12: 16, 20: 32, 112: 128}}
+
+
 @pytest.mark.parametrize("case", PAD_CASES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", [12, 112])
+@pytest.mark.parametrize("d", [1, 8, 12, 20, 112])
 def test_padded_head_equals_plain_version(d, dtype, case):
     """``with_padded_head`` (the CUDA route's zero padding to the route's
     width, the true width's scale, the output sliced back) around the
@@ -190,7 +194,7 @@ def test_padded_head_equals_plain_version(d, dtype, case):
     q, k, v = (torch.from_numpy(x).to(getattr(torch, dtype))
                for x in _qkv(rng, bh, bhkv, sq, sk, d))
     route = _route(q.dtype, d)
-    assert padded_head_dim(route, d) == (16 if d == 12 else 128)
+    assert padded_head_dim(route, d) == PAD_WIDTHS[dtype][d]
     kw = dict(causal=causal, window=win, q_offset=qoff, return_lse=True)
     got, got_l = with_padded_head(tref.attention_ref, route, q, k, v, **kw)
     want, want_l = tref.attention_ref(q, k, v, **kw)
@@ -208,7 +212,7 @@ def test_padded_head_equals_plain_version(d, dtype, case):
         q_offset=qoff).float(), rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("d", [12, 112])
+@pytest.mark.parametrize("d", [1, 8, 12, 20, 112])
 def test_wrapper_takes_any_head_dim_on_cpu(d):
     """The wrapper takes D 1-256 and on CPU tensors is the plain version,
     unpadded, launching nothing; against the reference's kernel in
@@ -230,12 +234,13 @@ def test_wrapper_takes_any_head_dim_on_cpu(d):
 # ---------------------------------------------------------------------------
 
 def _emulate_tf32(q, k, v, *, products, causal=True, window=None,
-                  q_offset=0):
+                  q_offset=0, scale=None):
     """The TF32 kernel's arithmetic: K and V^T from the pre-pass's plain
     version (``tref.tf32_split_ref``, V^T in its key order), Q and P
     split by ``tref.tf32_split``, ``products`` TF32 products per matmul
     (3: hi hi + hi lo + lo hi; 1: hi hi) summed exactly (float64) and
-    rounded to float32, P V over the permuted keys; softmax in float32."""
+    rounded to float32, P V over the permuted keys; softmax in float32;
+    scores scaled by ``scale`` (``1/sqrt(D)`` when None)."""
     bh, sq, d = q.shape
     bhkv, sk, _ = k.shape
     group = bh // bhkv
@@ -251,7 +256,8 @@ def _emulate_tf32(q, k, v, *, products, causal=True, window=None,
 
     kp = [x.repeat_interleave(group, 0) for x in k_split]
     vp = [x.repeat_interleave(group, 0) for x in vt_split]
-    s = mm("bqd,bkd->bqk", tref.tf32_split(q), kp) / np.sqrt(d)
+    s = mm("bqd,bkd->bqk", tref.tf32_split(q), kp) * (
+        scale if scale is not None else 1.0 / np.sqrt(d))
     q_pos = q_offset + torch.arange(sq)[:, None]
     k_pos = torch.arange(sk_pad)[None, :]
     live = (k_pos < sk) & (q_pos >= 0)
@@ -272,6 +278,12 @@ TF32_CASES = [                     # (bh, bh_kv, sq, sk, d, causal, window)
     (4, 2, 96, 96, 64, True, 40),
     (6, 2, 80, 100, 128, True, None),
     (6, 2, 80, 100, 128, False, 33),
+    # the narrow heads: D 32 and 16, and D 8 and 20 padded to 16 and 32
+    (4, 2, 96, 96, 32, True, None),
+    (6, 2, 80, 100, 32, False, 33),
+    (4, 2, 96, 96, 16, True, 40),
+    (6, 3, 80, 100, 8, True, None),
+    (4, 4, 70, 90, 20, True, 25),
 ]
 
 
@@ -280,14 +292,22 @@ def test_3xtf32_emulation_holds_float32_tolerance(bh, bhkv, sq, sk, d,
                                                   causal, win):
     """Three TF32 products per matmul (the TF32 kernel's design) hold the
     float32 tolerance against the reference's flash kernel, causal and
-    windowed, GQA."""
+    windowed, GQA; a head of a width the route is not built for goes
+    through its zero padding (``with_padded_head``) first, as on the
+    card."""
+    from repro_torch.kernels.flash_attention import (padded_head_dim,
+                                                     with_padded_head)
     rng = np.random.default_rng(bh * 100 + d + (win or 0))
     q, k, v = _qkv(rng, bh, bhkv, sq, sk, d)
     kw = dict(causal=causal, window=win)
     want = jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                   block_q=32, block_k=32, interpret=True, **kw)
-    got = _emulate_tf32(torch.from_numpy(q), torch.from_numpy(k),
-                        torch.from_numpy(v), products=3, **kw)
+
+    def emulate(q, k, v, **kw):
+        return _emulate_tf32(q, k, v, products=3, **kw)
+    assert padded_head_dim("tf32", d) == {8: 16, 20: 32}.get(d, d)
+    got = with_padded_head(emulate, "tf32", torch.from_numpy(q),
+                           torch.from_numpy(k), torch.from_numpy(v), **kw)
     np.testing.assert_allclose(_f32(got), _f32(want), rtol=TOL["float32"],
                                atol=TOL["float32"])
 

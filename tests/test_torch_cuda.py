@@ -698,10 +698,10 @@ def test_flash_kernel_fully_masked_rows_are_zero(cuda):
 
 
 def test_flash_wrapper_counts_launches_and_refuses(cuda):
-    """Launches are counted per route: float32 at head_dim 64 takes the
-    3xTF32 kernel (and its pre-pass), bf16 at head_dim 64 the bf16
-    tensor-core one, both dtypes at head_dim 32 the CUDA-core kernel;
-    head_dim 0 and 512 raise."""
+    """Launches are counted per route: float32 at head_dim 64 and 32
+    takes the 3xTF32 kernel (and its pre-pass), bf16 at head_dim 64 and
+    32 the bf16 tensor-core one, never the CUDA-core kernel; head_dim 0
+    and 512 raise."""
     from repro_torch.kernels import ops
     q = torch.randn(4, 32, 64, device=cuda)
     k = torch.randn(2, 32, 64, device=cuda)
@@ -716,8 +716,8 @@ def test_flash_wrapper_counts_launches_and_refuses(cuda):
                   k[..., :32].bfloat16().contiguous())
     ops.attention(q[..., :32].contiguous(), k[..., :32].contiguous(),
                   k[..., :32].contiguous())
-    want = {"flash_attention_tf32": 2, "tf32_split": 2,
-            "flash_attention_simt": 2, "flash_attention": 1}
+    want = {"flash_attention_tf32": 3, "tf32_split": 3,
+            "flash_attention": 2}
     assert _build.launch_counts() == want
     for bad in (torch.randn(2, 8, 0, device=cuda),
                 torch.randn(2, 8, 512, device=cuda)):
@@ -792,9 +792,89 @@ def test_flash_sm90_fully_masked_rows_are_zero(cuda, d):
                                atol=2e-2)
 
 
+# the narrow heads' kernel instances (D 16 and 32, bf16 on the sm90
+# route, float32 on the TF32 one): Sq = 1, ragged Sq/Sk,
+# Sk below one key tile, q_offset, windows, GQA groups 1, 6 and 8, and
+# rows that see no key (window 5 at q_offset 18: rows 6+)
+NARROW_CASES = [
+    (2, 1, 1, 77, 32, True, None, 76),
+    (12, 2, 1, 300, 16, False, None, 0),
+    (3, 3, 48, 16, 32, True, None, 0),
+    (2, 2, 37, 129, 16, False, None, 0),
+    (6, 1, 200, 200, 32, True, None, 0),
+    (4, 4, 129, 1000, 16, True, None, 871),
+    (2, 1, 513, 513, 32, True, 200, 0),
+    (8, 1, 130, 300, 16, True, 40, 0),
+    (4, 4, 12, 20, 32, True, 5, 18),
+    (48, 8, 300, 300, 32, True, None, 0),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bh,bhkv,sq,sk,d,causal,win,qoff", NARROW_CASES)
+def test_flash_narrow_kernel_matches_plain(cuda, bh, bhkv, sq, sk, d,
+                                           causal, win, qoff, dtype):
+    """One launch of the route's tensor-core kernel (and, in float32, of
+    its pre-pass), no CUDA-core launch; output within 2e-2 (bf16) or
+    2e-4 (float32) of the plain version, the row statistic within 2e-3 /
+    1e-5 of |L| + 1, +1e30 exactly on rows that see no key."""
+    from repro_torch.kernels import flash_attention as fa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda).manual_seed(sq * 11 + sk + d)
+    q, k, v = (torch.randn(s, device=cuda, generator=g).to(dtype)
+               for s in ((bh, sq, d), (bhkv, sk, d), (bhkv, sk, d)))
+    kw = dict(causal=causal, window=win, q_offset=qoff)
+    route = fa._route(dtype, d)
+    _build.reset_launch_counts()
+    got, got_l = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    want, want_l = ref.attention_ref(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    names = {fa.ROUTE_KERNELS[route]: 1}
+    if route == "tf32":
+        names[fa.SPLIT_KERNEL] = 1
+    assert _build.launch_counts() == names
+    assert got.dtype == dtype and got.shape == (bh, sq, d)
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    ltol = 1e-5 if dtype == torch.float32 else 2e-3
+    dead = want_l == 1e30
+    assert torch.equal(got_l == 1e30, dead)
+    assert bool(((got_l - want_l).abs()[~dead]
+                 <= ltol * (1 + want_l[~dead].abs())).all())
+    if qoff == 18:
+        assert bool(dead.any())
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 16),
+                                     (torch.bfloat16, 32),
+                                     (torch.float32, 16),
+                                     (torch.float32, 32),
+                                     (torch.float32, 8)])
+def test_flash_narrow_fully_masked_rows_are_zero(cuda, dtype, d):
+    """At the narrow widths, rows that see no key are exactly 0: the
+    whole CTA masked (window 2 far behind), and rows masked while others
+    of the CTA are live."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    g = torch.Generator(device=cuda).manual_seed(d)
+    q = torch.randn(2, 8, d, device=cuda, generator=g).to(dtype)
+    out = flash_attention_cuda(q, q, q, causal=False, window=2,
+                               q_offset=100)
+    q = torch.randn(2, 200, d, device=cuda, generator=g).to(dtype)
+    k = torch.randn(2, 64, d, device=cuda, generator=g).to(dtype)
+    out2 = flash_attention_cuda(q, k, k, causal=True, window=100)
+    want = ref.attention_ref(q, k, k, causal=True, window=100)
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.zeros_like(out))
+    assert torch.equal(out2[:, 163:], torch.zeros_like(out2[:, 163:]))
+    assert float(out2[:, :163].float().abs().amax()) > 0
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out2.float(), want.float(), rtol=tol,
+                               atol=tol)
+
+
 # head widths no kernel is built for, padded to the route's next width:
-# reduced qwen2.5-3b's 12 (-> 16, CUDA cores) and kimi-k2's 112 (-> 128,
-# tensor cores); (bh, bh_kv, sq, sk, causal, window, q_offset)
+# reduced qwen2.5-3b's 12 (-> 16 in bf16, 32 in float32) and kimi-k2's
+# 112 (-> 128); (bh, bh_kv, sq, sk, causal, window, q_offset)
 PAD_CASES = [(6, 2, 200, 200, True, None, 0), (4, 1, 129, 300, True, 40, 171),
              (2, 2, 37, 77, False, None, 0)]
 
@@ -836,9 +916,10 @@ def test_flash_padded_head_matches_plain(cuda, d, dtype, case):
                                   "qwen2.5-3b"])
 def test_new_families_kernel_path_matches_plain(cuda, arch):
     """Reduced configs in float32: the kernel path's prefill and a decode
-    step against the plain path's on the card, one flash launch per
-    attention layer in the prefill (none for mamba) and none in decode;
-    the padded heads (qwen2.5-3b's 12) included."""
+    step against the plain path's on the card, one launch of the 3xTF32
+    flash kernel and one of its pre-pass per attention layer in the
+    prefill (none for mamba) and none in decode; the padded heads
+    (kimi-k2's 8, qwen2.5-3b's 12, padded to 16) included."""
     from repro_torch.configs import get_reduced
     from repro_torch.models import model as tm
     from repro_torch.models import transformer as tt
@@ -855,10 +936,13 @@ def test_new_families_kernel_path_matches_plain(cuda, arch):
         _build.reset_launch_counts()
         lg, state = tm.make_prefill(cfg)(params, {"tokens": tok[:, :39]},
                                          state)
-        n_prefill = sum(_build.launch_counts().values())
+        counts = _build.launch_counts()
+        n_prefill = counts.get("flash_attention_tf32", 0)
+        assert counts == ({"flash_attention_tf32": n_prefill,
+                           "tf32_split": n_prefill} if n_prefill else {})
         lg2, state = tm.make_serve_step(cfg)(params, state, tok[:, 39:], 39)
-        out[impl] = (lg, lg2, n_prefill, sum(_build.launch_counts().values())
-                     - n_prefill)
+        out[impl] = (lg, lg2, n_prefill, _build.launch_counts().get(
+            "flash_attention_tf32", 0) - n_prefill)
     assert out["pallas"][2:] == (n_attn, 0)
     assert out["naive"][2:] == (0, 0)
     for a, b in zip(out["pallas"][:2], out["naive"][:2]):
@@ -868,12 +952,13 @@ def test_new_families_kernel_path_matches_plain(cuda, arch):
 @pytest.mark.parametrize("arch,n_flash", [("whisper-small", 2 + 3 + 3),
                                           ("internvl2-26b", 3)])
 def test_encdec_families_kernel_path_matches_plain(cuda, arch, n_flash):
-    """Reduced whisper (head_dim 12, padded to 16) and internvl (8) in
-    float32 on the CUDA-core kernel: the kernel path's prefill and a
-    decode step against the plain path's, with one launch per encoder
-    layer, self-attention layer and cross-attention in the prefill
-    (whisper 2 + 3 + 3, internvl 3) and none in decode; internvl's
-    patches prefix the prompt, so it decodes at n_patches + 39."""
+    """Reduced whisper (head_dim 12) and internvl (8) in float32 on the
+    3xTF32 kernel (heads padded to 16): the kernel path's prefill and a
+    decode step against the plain path's, with one launch (and one of
+    its pre-pass) per encoder layer, self-attention layer and
+    cross-attention in the prefill (whisper 2 + 3 + 3, internvl 3) and
+    none in decode; internvl's patches prefix the prompt, so it decodes
+    at n_patches + 39."""
     from repro_torch.configs import get_reduced
     from repro_torch.models import model as tm
     from repro_torch.models import transformer as tt
@@ -902,7 +987,7 @@ def test_encdec_families_kernel_path_matches_plain(cuda, arch, n_flash):
                                              start)
         out[impl] = (lg, lg2, counts, _build.launch_counts())
     assert out["pallas"][2] == out["pallas"][3] == {
-        "flash_attention_simt": n_flash}
+        "flash_attention_tf32": n_flash, "tf32_split": n_flash}
     assert out["naive"][2:] == ({}, {})
     for a, b in zip(out["pallas"][:2], out["naive"][:2]):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
@@ -927,12 +1012,13 @@ def test_lm_prefill_goes_through_the_kernel(cuda):
         _build.reset_launch_counts()
         lg, state = tm.make_prefill(cfg)(params, {"tokens": tok[:, :69]},
                                          state)
-        # float32 takes the CUDA-core kernel
-        n_prefill = _build.launch_counts().get("flash_attention_simt", 0)
+        # float32 takes the 3xTF32 kernel (its narrow head padded)
+        n_prefill = _build.launch_counts().get("flash_attention_tf32", 0)
         lg2, state = tm.make_serve_step(cfg)(params, state, tok[:, 69:], 69)
-        n_decode = _build.launch_counts().get("flash_attention_simt", 0) \
+        n_decode = _build.launch_counts().get("flash_attention_tf32", 0) \
             - n_prefill
         assert "flash_attention" not in _build.launch_counts()
+        assert "flash_attention_simt" not in _build.launch_counts()
         out[impl] = (lg, lg2, n_prefill, n_decode)
     assert out["pallas"][2:] == (base.n_layers, 0)
     assert out["naive"][2:] == (0, 0)
@@ -966,7 +1052,8 @@ def test_tf32_fragment_layout_is_what_the_kernel_assumes(cuda):
 
 
 @pytest.mark.parametrize("sk,d", [(1, 64), (77, 64), (300, 128),
-                                  (2048, 128), (130, 256)])
+                                  (2048, 128), (130, 256), (77, 32),
+                                  (2048, 32), (77, 16)])
 def test_tf32_split_kernel_bit_exact(cuda, sk, d):
     from repro_torch.kernels.flash_attention import tf32_split_cuda
     g = torch.Generator(device=cuda).manual_seed(sk + d)
@@ -1418,8 +1505,8 @@ def test_capture_holds_off_the_garbage_collector(cuda, monkeypatch):
 # ragged edges, GQA, windows and fully masked rows (the q_offset-18
 # window-5 case leaves rows 6+ without a key)
 LSE_CASES = [
-    (4, 2, 100, 100, 8, True, None, 0, torch.float32),       # simt
-    (4, 2, 12, 20, 16, True, 5, 18, torch.bfloat16),         # simt, dead
+    (4, 2, 100, 100, 8, True, None, 0, torch.float32),       # tf32 (-> 16)
+    (4, 2, 12, 20, 16, True, 5, 18, torch.bfloat16),         # sm90, dead
     (6, 2, 300, 300, 128, True, None, 0, torch.bfloat16),    # sm90
     (4, 4, 12, 20, 64, True, 5, 18, torch.bfloat16),         # sm90, dead
     (2, 1, 130, 300, 256, True, 40, 0, torch.bfloat16),      # sm90
@@ -1451,8 +1538,8 @@ def test_flash_row_statistic_matches_plain(cuda, bh, bhkv, sq, sk, d,
     torch.cuda.synchronize()
     route = _route(dtype, d)
     assert _build.launch_counts()[
-        {"sm90": "flash_attention", "tf32": "flash_attention_tf32",
-         "simt": "flash_attention_simt"}[route]] == 2
+        {"sm90": "flash_attention", "tf32": "flash_attention_tf32"}[
+            route]] == 2
     assert lse.dtype == torch.float32 and lse.shape == (bh, sq)
     assert torch.equal(out, plain)
     dead = want_l == 1e30

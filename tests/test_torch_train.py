@@ -219,8 +219,8 @@ def test_flash_gradcheck_float64():
 
 def test_pallas_training_route_raises_where_no_kernel_takes_the_head():
     """qwen2.5-3b reduced has head_dim 12, which the flash wrapper pads to
-    the CUDA-core kernel's 16: ``"pallas"`` trains there and equals the
-    plain chunked route.  A head wider than any kernel (260) still
+    its route's width (32 in float32, the 3xTF32 kernel): ``"pallas"``
+    trains there and equals the plain chunked route.  A head wider than any kernel (260) still
     raises."""
     base = tconfigs.get_reduced("qwen2.5-3b")
     assert base.resolved_head_dim == 12
