@@ -200,17 +200,36 @@ Phases, each of which exits non-zero on failure:
    logits (a chunked control beside) and a two-part prefill (whisper:
    the frames with the first 112 tokens, the rest over the cross
    caches; internvl: the patches with the first 1024 tokens, the rest
-   at 256 + 1024) against the one-shot prefill.
+   at 256 + 1024) against the one-shot prefill;
+11. the cost models (``launch.dryrun``, ``perf.op_analysis``,
+   ``perf.roofline``, ``core.metrics.step_time_model``), on ``"meta"``
+   and the host, beside the figures the phases above measured: the
+   abstract trees must equal the card's real ones leaf for leaf, in
+   shape, dtype and bytes (qwen2-1.5b's 1,543,910,912 parameters and
+   its 4 x (2048 + 32) decode state from phase 7, AdamW's state from
+   phase 8, both laws' 8x8x1240 2x2 state and tables from phase 5b,
+   with their built storage); the dry run of phase 7's and 8's
+   qwen2-1.5b shapes runs on ``"meta"`` (chunked attention) and the
+   prefill's counted products must lie within 5 % of their count (2 N T
+   less the embedding lookup, the LM head at the last position, the
+   live chunk pairs' attention products); then one ``{"cost_model":
+   {...}}`` line: the roofline terms (H100 SXM constants) of prefill,
+   decode and train beside the measured seconds and peak bytes,
+   ``step_time_model`` of the static and 2x2 steps at their measured
+   rates beside their ms per step, and ``strong_scaling_curve`` of the
+   paper's six cases on 1, 2, 4 and 8 cards (a model: no multi-card
+   run exists).  No kernel launches there.
 
 Launch counts are zeroed just before each of phases 3-5, 5b, 5c (after
 its ``make_sim_fn`` baselines), 5d, 7, 8 and each model of 9 and 10 and
-read just after it (the ``{"kernels"}`` line gives each kernel's
-launches on phase 3's or its own path, on 5b's, 5c's and 5d's, and the
-flash rows per model of phases 9 and 10, with the bf16 kernel's times
-at phase 10's shapes); a replay of a captured static or recorded step
+read just after it (phase 11 launches nothing; the ``{"kernels"}``
+line gives each kernel's launches on phase 3's or its own path, on
+5b's, 5c's and 5d's, and the flash rows per model of phases 9 and 10,
+with the bf16 kernel's times at phase 10's shapes); a replay of a captured static or recorded step
 counts as ``step_graph`` and as one launch of each kernel the graph
-holds.  It prints the metrics, each phase's seconds, a ``{"kernels":
-[...]}`` line, the card's name and power limit, and as its last line
+holds.  It prints the metrics, the ``{"cost_model": {...}}`` line, each
+phase's seconds, a ``{"kernels": [...]}`` line, the card's name and
+power limit, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 It needs one CUDA card and the repository checkout around it.
 
@@ -762,7 +781,8 @@ def run_law(law: str, tabs, build_s: float) -> dict:
     steps = raster_k[PARITY_STEPS // 2:]
     med = int(steps.sum(1).argsort()[steps.shape[0] // 2])
     return {"cfg": cfg, "state": fin_k, "spikes": steps[med].clone(),
-            "rate_hz": rate, "ms_per_step": res["ms_per_step"]}
+            "rate_hz": rate, "ms_per_step": res["ms_per_step"],
+            "events_per_step": res["events_per_step"]}
 
 
 def profile_steps(state, tabs, cfg, law: str, n_steps: int = 50,
@@ -1408,6 +1428,11 @@ def run_multishard(law: str, single: dict) -> dict:
     mem = ms_memory(cfg, tables, stats)
     print(f"{label} memory " + json.dumps(mem))
     res["memory"] = mem
+    # the state and tables as phase 11 holds them against their abstract
+    # counterparts (every leaf's path, shape, dtype and bytes)
+    from repro_torch.tree import tree_signature
+    res["dist"] = {"cfg": cfg, "storage": tables.storage,
+                   "signature": tree_signature((state, tables))}
     return res
 
 
@@ -2645,6 +2670,7 @@ def run_lm() -> dict:
     from repro_torch.kernels import _build
     from repro_torch.models.model import make_prefill
     from repro_torch.models.transformer import init_decode_state, init_model
+    from repro_torch.tree import tree_signature
     torch.backends.cuda.matmul.allow_tf32 = False
     base_bytes = torch.cuda.memory_allocated()
     cfg = dataclasses.replace(get_config(LM_ARCH), attn_impl="pallas")
@@ -2672,6 +2698,8 @@ def run_lm() -> dict:
 
     # the kernel path: prefill, then greedy decode (counted, timed)
     state = init_decode_state(cfg, LM_BATCH, max_len)
+    signatures = {"params": tree_signature(params),
+                  "decode_state": tree_signature(state)}
     prefill = make_prefill(cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2822,7 +2850,7 @@ def run_lm() -> dict:
     print(f"lm prefill seconds, 4 x {LM_PROMPT} tokens: bf16 {prefill_s:.4f}"
           f" (flash_attention), float32 {secs32['pallas']:.4f} "
           f"(flash_attention_tf32), float32 plain {secs32['naive']:.4f}")
-    return {"res": res, "launches": {
+    return {"res": res, "signatures": signatures, "launches": {
         "sm90": n_prefill, "tf32": f32_launches["flash_attention_tf32"],
         "tf32_split": f32_launches["tf32_split"],
         "simt": simt_prefill + f32_launches.get("flash_attention_simt", 0)}}
@@ -2869,7 +2897,7 @@ def run_train() -> dict:
     from repro_torch.models.config import ShapeConfig
     from repro_torch.models.transformer import init_model
     from repro_torch.optim import adamw, warmup_cosine
-    from repro_torch.tree import tree_flatten
+    from repro_torch.tree import tree_flatten, tree_signature
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = dataclasses.replace(get_config(LM_ARCH), attn_impl="pallas")
     require((cfg.n_layers, cfg.d_model, cfg.dtype, cfg.remat)
@@ -2926,6 +2954,8 @@ def run_train() -> dict:
     # five steps of the train step, counted and timed
     opt = adamw(warmup_cosine(3e-4, 2, 5))
     opt_state = opt.init(params)
+    signatures = {"params": tree_signature(params),
+                  "opt_state": tree_signature(opt_state)}
     step = M.make_train_step(cfg, opt)
     batches = [batch(i) for i in range(TRAIN_STEPS + 1)]
     torch.cuda.synchronize()
@@ -3015,7 +3045,7 @@ def run_train() -> dict:
           f"dense peak, peak {peak / 2 ** 30:.2f} GiB ({gpu_line()})")
     del params, opt_state, batches
     torch.cuda.empty_cache()
-    return {"res": res, "launches": launches}
+    return {"res": res, "launches": launches, "signatures": signatures}
 
 
 def run_train_driver() -> dict:
@@ -3593,6 +3623,200 @@ def reduced_bf16() -> dict:
         "logit_gap_kernel_vs_plain_worst": gap,
         "tolerance": f"<= {FAMILY_TOL} x max |plain logit|"}))
     return {f"{base.name} bf16": n_attn}
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the cost models against the card
+# ---------------------------------------------------------------------------
+
+def same_tree(abstract, signature: list, label: str) -> int:
+    """Require ``tree_signature(abstract)`` (a ``"meta"`` tree) to equal
+    ``signature`` (a real tree's, taken on the card) leaf for leaf:
+    path, shape, dtype and bytes; returns the total bytes."""
+    from repro_torch.tree import tree_signature
+    ours = tree_signature(abstract)
+    diff = [(a, b) for a, b in zip(ours, signature) if a != b]
+    require(len(ours) == len(signature) and not diff,
+            f"{label}: the abstract tree differs from the card's "
+            f"({len(ours)} against {len(signature)} leaves; first "
+            f"differences {diff[:3]})")
+    return sum(e[3] for e in ours)
+
+
+def lm_expected_prefill_flops(cfg, batch: int, seq: int) -> dict:
+    """The products a prefill of ``batch`` x ``seq`` tokens computes on
+    the chunked route: 2 N T for every parameter but the embedding
+    table, the tied LM head at the last position only (2 V d B), and
+    the attention products of the live chunk pairs (QK^T and PV, 2 B H
+    cq ck D each); 2 N T beside it."""
+    from repro_torch.perf.attention_credit import live_chunk_pairs
+    n = cfg.param_count()
+    vd = cfg.padded_vocab * cfg.d_model
+    cq, ck = min(cfg.attn_chunk_q, seq), min(cfg.attn_chunk_k, seq)
+    pairs = live_chunk_pairs(seq, seq, cq, ck)
+    attn = cfg.n_layers * pairs * 2 * (2 * batch * cfg.n_heads * cq * ck
+                                       * cfg.resolved_head_dim)
+    tokens = batch * seq
+    return {"expected": 2 * (n - vd) * tokens + 2 * vd * batch + attn,
+            "two_n_t": 2 * n * tokens, "attention": attn,
+            "live_chunk_pairs_per_layer": pairs}
+
+
+def run_cost_models(runs: dict, ms_runs: dict, lm: dict,
+                    train: dict) -> dict:
+    """Phase 11: the cost models held against the card.
+
+    Gates: the abstract (``"meta"``) trees equal the real ones the
+    earlier phases held on the card, leaf for leaf and in bytes
+    (qwen2-1.5b's parameters and its 4 x (2048 + 32) decode state from
+    phase 7, AdamW's state from phase 8, phase 5b's 8x8x1240 2x2 state
+    and tables with their built storage); the dry run of the same
+    qwen2-1.5b shapes completes on ``"meta"`` and its prefill's counted
+    products are within 5 % of ``lm_expected_prefill_flops``.  Printed:
+    one ``{"cost_model": {...}}`` line, each model figure beside the
+    measured one (the static and 2x2 steps against ``step_time_model``
+    at the measured rate; prefill, decode and train against the
+    roofline terms; the peaks), and ``strong_scaling_curve`` for the
+    paper's grids on 1-8 cards (a model: no multi-card run exists)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.snn import CASES
+    from repro_torch.core import dist_engine as de
+    from repro_torch.core import metrics
+    from repro_torch.models import model as M
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.perf.attention_credit import flash_credit_bytes
+    from repro_torch.perf.op_analysis import analyze
+    from repro_torch.perf.roofline import HW, model_flops, roofline_terms
+    from repro_torch.tree import tree_flatten
+    t0 = time.perf_counter()
+    card = gpu_line()
+    hw, snn_hw = HW(), metrics.HardwareModel()
+
+    # gates: the abstract trees against the card's
+    cfg = dataclasses.replace(get_config(LM_ARCH), attn_impl="chunked")
+    params, _ = M.abstract_params(cfg)
+    n_params = sum(t.numel() for t in tree_flatten(params)[0])
+    require(n_params == 1_543_910_912, f"abstract qwen2-1.5b holds "
+            f"{n_params} parameters")
+    gates = {"params_bytes": same_tree(params, lm["signatures"]["params"],
+                                       "qwen2-1.5b parameters")}
+    require(train["signatures"]["params"] == lm["signatures"]["params"],
+            "phases 7 and 8 hold different qwen2-1.5b trees")
+    max_len = LM_PROMPT + LM_GEN
+    dshape = ShapeConfig("lm_decode", max_len, LM_BATCH, "decode")
+    state = M.abstract_decode_state(cfg, dshape)
+    gates["decode_state_bytes"] = same_tree(
+        state, lm["signatures"]["decode_state"], "qwen2-1.5b decode state")
+    opt = adamw(warmup_cosine(3e-4, 2, 5))
+    opt_state = opt.abstract_state(params)
+    gates["adamw_state_bytes"] = same_tree(
+        opt_state, train["signatures"]["opt_state"], "AdamW state")
+    for law in LAWS:
+        dist = ms_runs[law]["dist"]
+        gates[f"dist_2x2_{law}_bytes"] = same_tree(
+            de.abstract_dist_inputs(dist["cfg"], storage=dist["storage"],
+                                    device="cuda"),
+            dist["signature"], f"{law} 2x2 state and tables")
+
+    # the dry run of qwen2-1.5b's measured shapes on "meta"
+    pshape = ShapeConfig("lm_prefill", LM_PROMPT, LM_BATCH, "prefill")
+    tshape = ShapeConfig("lm_train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    t_trace = time.perf_counter()
+    costs = {
+        "prefill": analyze(M.make_prefill(cfg), params,
+                           M.input_specs(cfg, pshape), state),
+        "decode": analyze(M.make_serve_step(cfg), params, state,
+                          M.input_specs(cfg, dshape)["token"], LM_PROMPT),
+        "train": analyze(M.make_train_step(cfg, opt), params, opt_state,
+                         M.input_specs(cfg, tshape))}
+    trace_s = time.perf_counter() - t_trace
+    want = lm_expected_prefill_flops(cfg, LM_BATCH, LM_PROMPT)
+    got = costs["prefill"].dot_flops
+    require(abs(got / want["expected"] - 1.0) <= 0.05,
+            f"the prefill's counted products {got:.6g} against the "
+            f"expected {want['expected']:.6g}")
+    inputs = {"prefill": gates["params_bytes"] + gates["decode_state_bytes"]
+              + LM_BATCH * LM_PROMPT * 4,
+              "decode": gates["params_bytes"] + gates["decode_state_bytes"]
+              + LM_BATCH * 4,
+              "train": gates["params_bytes"] + gates["adamw_state_bytes"]
+              + 2 * TRAIN_BATCH * TRAIN_SEQ * 4}
+    measured = {
+        "prefill": (lm["res"]["prefill_s"], "phase 7: bf16 4 x 2048 "
+                    "prefill through the flash kernel"),
+        "decode": (lm["res"]["decode_ms_per_token"] / 1e3,
+                   "phase 7: one greedy decode step, batch 4"),
+        "train": (train["res"]["steady_s_per_step"],
+                  "phase 8: steady train step, 4 x 2048, flash forward")}
+    shapes = {"prefill": pshape, "decode": dshape, "train": tshape}
+    lm_rows = {}
+    for kind, c in costs.items():
+        rep = roofline_terms(LM_ARCH, kind, "1xh100", 1, c,
+                             model_flops(cfg, shapes[kind]), hw=hw)
+        credit = flash_credit_bytes(cfg, shapes[kind])
+        secs, what = measured[kind]
+        bound = rep.step_time_s
+        lm_rows[kind] = {
+            "measured_s": secs, "measured": what,
+            "model_flops": rep.model_flops, "counted_flops": c.flops,
+            "counted_dot_flops": c.dot_flops, "counted_bytes": c.bytes,
+            "compute_s": rep.compute_s, "memory_s": rep.memory_s,
+            "memory_s_flash": max(c.bytes - credit, 0.0) / hw.hbm_bw,
+            "dominant": rep.dominant, "roofline_step_s": bound,
+            "measured_over_roofline": secs / bound,
+            "model_flops_s": rep.model_flops / hw.peak_flops,
+            "measured_over_model_flops_s":
+                secs / (rep.model_flops / hw.peak_flops),
+            "dry_run_peak_bytes": inputs[kind] + c.peak_bytes,
+            "dry_run_input_bytes": inputs[kind],
+            "ops": c.n_ops, "top_ops_by_bytes": c.top(4)}
+    lm_rows["prefill"]["expected_dot_flops"] = want
+    lm_rows["prefill"]["measured_peak_bytes_above_earlier_phases"] = \
+        lm["res"]["peak_device_bytes_above_earlier_phases"]
+    lm_rows["train"]["measured_peak_bytes"] = \
+        train["res"]["peak_device_bytes"]
+    lm_rows["train"]["measured_peak_bytes_above_earlier_phases"] = \
+        train["res"]["peak_device_bytes_above_earlier_phases"]
+
+    # the SNN steps: step_time_model at the measured rate
+    snn = {}
+    for law in LAWS:
+        for label, run, spec in (
+                ("static_8x8x1240", runs[law], runs[law]["cfg"].spec()),
+                ("dist_8x8x1240_2x2", ms_runs[law],
+                 ms_runs[law]["dist"]["cfg"].engine.spec())):
+            m = metrics.step_time_model(spec, run["rate_hz"], snn_hw)
+            n = 1 if label.startswith("static") else MS_TILES ** 2
+            snn[f"{label}_{law}"] = {
+                "rate_hz": run["rate_hz"],
+                "measured_ms_per_step": run["ms_per_step"],
+                "model_step_ms": 1e3 * m["step_s"],
+                "model_memory_ms": 1e3 * m["memory_s"],
+                "model_compute_ms": 1e3 * m["compute_s"],
+                "model_collective_ms": 1e3 * m["collective_s"],
+                "measured_over_model": run["ms_per_step"]
+                / (1e3 * m["step_s"]),
+                "model_events_per_step_all_shards":
+                    m["events_per_step"] * n,
+                "measured_events_per_step": run["events_per_step"]}
+    curves = {}
+    for name, case in CASES.items():
+        rows = metrics.strong_scaling_curve(
+            case.grid[0], case.grid[1], case.connectivity(), [1, 2, 4, 8],
+            38.0, case.n_per_column, snn_hw)
+        curves[name] = [{"cards": r["shards"], "tiles": r["tiles"],
+                         "step_ms": 1e3 * r["step_s"],
+                         "s_per_event": r["cost_per_event"]}
+                        for r in rows]
+    out = {"card": card, "hw": dataclasses.asdict(hw),
+           "snn_hw": dataclasses.asdict(snn_hw), "gates": gates,
+           "lm_dry_run_trace_s": trace_s, "lm": lm_rows, "snn": snn,
+           "strong_scaling_model_38hz": curves,
+           "strong_scaling_note": "a model: no multi-card run exists",
+           "phase_s": time.perf_counter() - t0}
+    print(json.dumps({"cost_model": out}), flush=True)
+    return out
 
 
 def device_breakdown(prof, n: int):
@@ -4205,8 +4429,7 @@ def main() -> None:
     with seg_shared_builds():
         torch.cuda.reset_peak_memory_stats()
         _build.reset_launch_counts()
-        for law in LAWS:
-            run_multishard(law, runs[law])
+        ms_runs = {law: run_multishard(law, runs[law]) for law in LAWS}
         ms_plastic_parity()
         ms_launches = _build.launch_counts()
         print(f"multi-shard path launches: {json.dumps(ms_launches)}; "
@@ -4302,6 +4525,12 @@ def main() -> None:
         print(f"timing {json.dumps(k)}")
         kernels.append(k)
     phase("flash timing")
+
+    # 11. the cost models against the card: the abstract trees against
+    # the real ones the phases above held, the dry run of qwen2-1.5b's
+    # shapes on "meta", and each model figure beside its measurement
+    run_cost_models(runs, ms_runs, lm, train)
+    phase("11")
     require("jax" not in sys.modules and not any(
         m == "repro" or m.startswith("repro.") for m in sys.modules),
         "the port pulled in jax or the JAX package")

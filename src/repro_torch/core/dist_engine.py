@@ -49,7 +49,7 @@ import torch
 
 from .. import resolve_device
 from ..kernels.ref import delivered_bits
-from ..tree import tree_flatten
+from ..tree import tree_flatten, tree_unflatten
 from .engine import (EngineConfig, GraphLoop, bind_tier_structures,
                      deliver_event_tiers, deliver_gather_all_tiers,
                      init_sim_state, plastic_delivery_stdp, step_head)
@@ -164,38 +164,97 @@ def init_dist_state(cfg: DistConfig, device="cuda") -> dict:
 def state_like(cfg: DistConfig, storage: Optional[TableStorage] = None,
                device="cuda") -> dict:
     """A stacked state of zeros in the checkpoint's shapes and dtypes,
-    with fresh (unseeded) generators: the state half of the reference's
-    ``abstract_dist_inputs``, which ``load_state`` fills.  ``storage``:
-    the tables' storage descriptor (sizes the plastic weight tiers;
-    None for the spec's analytic caps).  Plastic engines grow the
-    ``plastic`` carry: every tier's float32 weights ``(TY, TX, rows + 1,
-    cap)``, the local pre-trace, the post-trace.  An ensemble's leaves
-    lead with ``(TY, TX, M)``."""
+    with fresh (unseeded) generators, which ``load_state`` fills: the
+    state of ``abstract_dist_inputs`` made real on ``device``.
+    ``storage``: the tables' storage descriptor (sizes the plastic
+    weight tiers; None for the spec's analytic caps).  Plastic engines
+    grow the ``plastic`` carry: every tier's weights ``(TY, TX, rows +
+    1, cap)``, the local pre-trace, the post-trace.  An ensemble's
+    leaves lead with ``(TY, TX, M)``."""
     dev = resolve_device(device)
+    abst = abstract_dist_inputs(cfg, storage, dev)[0]
+    body = {k: v for k, v in abst.items() if k not in ("t", "rng")}
+    leaves, treedef = tree_flatten(body)
+    state = tree_unflatten(treedef, [
+        torch.zeros(x.shape, dtype=x.dtype, device=dev) for x in leaves])
+    state["t"] = np.zeros(cfg.lead, np.int32)
+    state["rng"] = [torch.Generator(device=dev) for _ in abst["rng"]]
+    return state
+
+
+def generator_state_bytes(device="cuda") -> int:
+    """Bytes of one ``torch.Generator``'s state (``get_state()``) on a
+    device of ``device``'s type, without touching that device: CUDA's
+    Philox generator holds its seed and offset, two 64-bit words; the
+    CPU's Mersenne twister holds its whole state."""
+    if torch.device(device).type == "cuda":
+        return 16
+    return int(torch.Generator().get_state().numel())
+
+
+def abstract_dist_inputs(cfg: DistConfig,
+                         storage: Optional[TableStorage] = None,
+                         device="cuda"):
+    """``(state, tables)`` as ``"meta"`` tensors, nothing allocated: the
+    dry run's inputs, the reference's ``abstract_dist_inputs`` in the
+    port's layout.
+
+    ``storage``: the built tables' descriptor (``tables.storage``), or
+    None for the spec's analytic (uncompressed) capacities.  Every state
+    leaf leads with ``cfg.lead`` (``(TY, TX)``, ``(TY, TX, M)`` for an
+    ensemble); the tables with ``(TY, TX)`` only (the members share one
+    realization).  A plastic engine's state grows ``"plastic"``: every
+    tier's weights in the storage's weight dtype (the live copy), the
+    local pre-trace ``(n_local + 1,)`` and the post-trace; its tables'
+    ``w`` fold to the int8 mask (``fold_plastic_tables``).
+
+    Two leaves differ from the reference's, as the port's state does:
+    ``"rng"`` is one uint8 leaf per (tile[, member]) instance, row-major,
+    of ``generator_state_bytes(device)`` bytes (the port draws on a
+    ``torch.Generator`` per instance, ``state_tree``'s checkpoint form),
+    where the reference holds a ``(TY, TX, 2)`` uint32 key; ``"t"`` is
+    the port's host ``(TY, TX)`` int32 array (here a meta tensor of that
+    shape).  ``device`` names the device whose generators the real state
+    holds; nothing is made there.  So the total bytes of these leaves
+    equal ``tree_nbytes`` of ``init_dist_state`` (with
+    ``init_dist_plastic_state``) and ``build_dist_tables`` (folded when
+    plastic) on ``device``."""
     lead = cfg.lead
     e = cfg.engine
     spec = e.spec()
     n = spec.n_local
     f32 = torch.float32
 
-    def z(shape, dtype=f32):
-        return torch.zeros(lead + shape, dtype=dtype, device=dev)
+    def sd(shape, dtype=f32, prefix=lead):
+        return torch.empty(prefix + tuple(shape), dtype=dtype,
+                           device="meta")
 
+    g_bytes = generator_state_bytes(device)
     state = {
-        "neuron": {"v": z((n,)), "c": z((n,)),
-                   "refrac": z((n,), torch.int32)},
-        "i_ring": z((e.d_ring, n)),
-        "t": np.zeros(lead, np.int32),
-        "rng": [torch.Generator(device=dev)
+        "neuron": {"v": sd((n,)), "c": sd((n,)),
+                   "refrac": sd((n,), torch.int32)},
+        "i_ring": sd((e.d_ring, n)),
+        "t": sd((), torch.int32),
+        "rng": [sd((g_bytes,), torch.uint8, ())
                 for _ in range(int(np.prod(lead)))],
-        "active": z((n,), torch.bool),
-        "metrics": {k: z(()) for k in ("spikes", "events", "dropped")},
+        "active": sd((n,), torch.bool),
+        "metrics": {k: sd(()) for k in ("spikes", "events", "dropped")},
     }
+    abst = spec.abstract_tables(storage)
     if e.stdp is not None:
-        plan = spec.delivery_plan(storage)
-        state["plastic"] = {"w": [z((p.rows + 1, p.cap)) for p in plan],
-                            "x_pre": [z((n + 1,))], "x_post": z((n,))}
-    return state
+        tiers = abst.tiers()
+        state["plastic"] = {
+            "w": [sd(t["w"].shape, t["w"].dtype) for t in tiers],
+            "x_pre": [sd((tiers[0]["tgt"].shape[0],))],
+            "x_post": sd((n,))}
+        abst = fold_plastic_tables(abst)
+
+    def lift(t):
+        return {k: sd(v.shape, v.dtype, cfg.tiles) for k, v in t.items()}
+
+    tables = SynapseTables(lift(abst.local), [lift(t) for t in abst.halo],
+                           abst.storage)
+    return state, tables
 
 
 def state_tree(state: dict) -> dict:

@@ -542,8 +542,30 @@ class SynapseTableSpec:
         return float(local_syn
                      + (local_remote + halo_remote) * self.n_exc_per_col)
 
+    # ---- abstract shapes for the dry run --------------------------------
+    def _tier_abstract(self, rows: int, cap: int, st: TableStorage) -> dict:
+        def sd(shape, dtype):
+            return torch.empty(shape, dtype=dtype, device="meta")
+        return {"tgt": sd((rows + 1, cap), TORCH_DTYPES[st.tgt_dtype]),
+                "w": sd((rows + 1, cap), TORCH_DTYPES[st.weight_dtype]),
+                "dslot": sd((rows + 1, cap), torch.int8),
+                "nnz": sd((rows + 1,), torch.int32)}
+
+    def abstract_tables(self, storage: Optional[TableStorage] = None
+                        ) -> SynapseTables:
+        """The shard's tables as ``"meta"`` tensors (nothing allocated):
+        each tier ``(rows + 1, cap)`` at the descriptor's capacities (the
+        spec's analytic ones for None), as ``build_tables`` lays them
+        out."""
+        st = self._storage(storage)
+        return SynapseTables(
+            self._tier_abstract(self.n_local, st.cap_local, st),
+            [self._tier_abstract(b["rows"], cap, st)
+             for b, cap in zip(self.halo_bands(), st.halo_caps)], st)
+
     def table_bytes(self, storage: Optional[TableStorage] = None) -> int:
-        """Bytes of the tables at the descriptor's capacities."""
+        """Bytes of the tables at the descriptor's capacities (those of
+        ``abstract_tables``)."""
         st = self._storage(storage)
         per_entry = (np.dtype(st.tgt_dtype).itemsize
                      + TORCH_DTYPES[st.weight_dtype].itemsize + 1)

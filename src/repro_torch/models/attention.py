@@ -493,7 +493,17 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int, dtype,
                window: Optional[int] = None, device="cuda") -> KVCache:
     """Zeroed cache for ``seq`` positions (``min(seq, window)`` slots as
     a ring when the window is shorter than ``seq``)."""
-    dev = resolve_device(device)
+    return _cache(cfg, batch, seq, dtype, window, resolve_device(device))
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, seq: int, dtype,
+                   window: Optional[int] = None) -> KVCache:
+    """``init_cache``'s shapes and dtypes as ``"meta"`` tensors."""
+    return _cache(cfg, batch, seq, dtype, window, torch.device("meta"))
+
+
+def _cache(cfg: ModelConfig, batch: int, seq: int, dtype,
+           window: Optional[int], dev: torch.device) -> KVCache:
     s = min(seq, window) if window else seq
     shape = (batch, s, cfg.n_kv_heads, cfg.resolved_head_dim)
     return KVCache(torch.zeros(shape, dtype=dtype, device=dev),

@@ -14,7 +14,13 @@ The reference's quirks are carried across as they are:
 * ``logits_from_embedding`` returns padded-vocabulary logits.
 
 The reference's ``init_*`` functions also return logical sharding
-names; one card has no mesh, so the port's return the parameters only.
+names; the port's return the parameters only, and ``logical_names``
+names a leaf by its place in the tree (the reference's names, which no
+placement reads on one card).  Every ``init_*`` draws through
+``random_normal`` / ``random_uniform``: given ``META_GEN`` in place of
+a ``torch.Generator`` they return uninitialised ``"meta"`` tensors, so
+the abstract (shape-and-dtype) trees come from the same code as the
+real ones.
 """
 
 from __future__ import annotations
@@ -37,12 +43,76 @@ def torch_dtype(name: str) -> torch.dtype:
         raise ValueError(f"unsupported model dtype {name!r}") from None
 
 
+class MetaGenerator:
+    """Stands in for a ``torch.Generator`` on the ``"meta"`` device,
+    which has none: the draws below return uninitialised meta tensors
+    for it, and ``gen.device`` places the zeros and ones beside them."""
+
+    device = torch.device("meta")
+
+
+META_GEN = MetaGenerator()
+
+
+def random_normal(gen, shape) -> torch.Tensor:
+    """Standard normal float32 draws on ``gen`` (a meta tensor for
+    ``META_GEN``)."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+    return torch.randn(shape, generator=gen, dtype=torch.float32,
+                       device=gen.device)
+
+
+def random_uniform(gen, shape) -> torch.Tensor:
+    """Uniform [0, 1) float32 draws on ``gen`` (a meta tensor for
+    ``META_GEN``)."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+    return torch.rand(shape, generator=gen, dtype=torch.float32,
+                      device=gen.device)
+
+
 def _normal(gen: torch.Generator, shape, scale: float, dtype):
     """N(0, scale^2) drawn in float32 on ``gen``'s device, then cast: the
     distribution of the reference's ``_normal`` (not its numbers)."""
-    x = torch.randn(shape, generator=gen, dtype=torch.float32,
-                    device=gen.device)
-    return (x * scale).to(dtype)
+    return (random_normal(gen, shape) * scale).to(dtype)
+
+
+# the reference's logical axis names of every parameter leaf, by the
+# leaf's key and, where a key means two things, its parent's key
+_MLP_NAMES = {"gate": ("fsdp", "mlp"), "up": ("fsdp", "mlp"),
+              "down": ("mlp", "fsdp")}
+_PARENT_NAMES = {
+    "mlp": _MLP_NAMES,
+    "moe": {"router": ("fsdp", "experts"),
+            "gate": ("experts", "fsdp", None),
+            "up": ("experts", "fsdp", None),
+            "down": ("experts", None, "fsdp")},
+    "conv": {"w": (None, "d_inner"), "b": ("d_inner",)},
+}
+_LEAF_NAMES = {
+    "table": ("vocab", "fsdp"), "scale": (None,),
+    "wq": ("fsdp", "heads", None), "wk": ("fsdp", "kv_heads", None),
+    "wv": ("fsdp", "kv_heads", None), "wo": ("heads", None, "fsdp"),
+    "bq": ("heads", None), "bk": ("kv_heads", None),
+    "bv": ("kv_heads", None), "q_norm": (None,), "k_norm": (None,),
+    "in_proj": ("fsdp", "d_inner"), "out_proj": ("d_inner", "fsdp"),
+    "x_proj": ("d_inner", None), "dt_proj": (None, "d_inner"),
+    "dt_bias": ("d_inner",), "a_log": ("d_inner", None),
+    "d_skip": ("d_inner",), "w_a": (None, "d_inner"), "b_a": ("d_inner",),
+    "w_x": (None, "d_inner"), "b_x": ("d_inner",), "lam": ("d_inner",),
+    "adapter": (None, "fsdp"),
+}
+
+
+def logical_names(parent: str, key: str) -> tuple:
+    """The logical axis names of the parameter leaf ``key`` of the dict
+    held under ``parent`` (``"mlp"``'s ``"gate"``, ``"attn"``'s
+    ``"wq"``); raises on a leaf it does not know."""
+    names = _PARENT_NAMES.get(parent, {}).get(key) or _LEAF_NAMES.get(key)
+    if names is None:
+        raise KeyError(f"no logical names for parameter {parent}/{key}")
+    return names
 
 
 def init_dense(gen, d_in: int, d_out: int, dtype, bias: bool = False,

@@ -2,7 +2,9 @@
 the chunked loss, the train and eval steps, prefill and decode.
 
 The reference's functions take sharding ``rules``; one card has none,
-so these take the config alone.  Nothing is jitted: the returned
+so these take the config alone.  The abstract inputs of a shape cell
+(``input_specs``, ``abstract_params``, ``abstract_decode_state``) are
+``"meta"`` tensors, the dry run's inputs (``launch.dryrun``).  Nothing is jitted: the returned
 functions run eagerly.  The train step updates the parameters and the
 optimizer state in place (the counterpart of the reference's donated
 buffers) and returns them.
@@ -16,8 +18,12 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..tree import tree_flatten, tree_unflatten
-from .config import ModelConfig
-from .transformer import forward, logits as lm_logits
+from .attention import KVCache
+from .config import ModelConfig, ShapeConfig
+from .frontends import STUB_WIDTH
+from .layers import torch_dtype
+from .transformer import (abstract_model, forward, init_decode_state,
+                          logits as lm_logits)
 
 
 # ---------------------------------------------------------------------------
@@ -179,3 +185,71 @@ def make_serve_step(cfg: ModelConfig):
         return lm_logits(params, x), new_state
 
     return serve_step
+
+
+# ---------------------------------------------------------------------------
+# Abstract inputs for the dry run (``"meta"`` tensors: no allocation)
+# ---------------------------------------------------------------------------
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict:
+    """``"meta"`` stand-ins for every model input of a shape cell: a
+    decode cell's ``(B, 1)`` int32 token; otherwise int32 ``tokens``
+    (and ``labels`` to train), with a VLM's ``patch_embeds`` (its
+    patches count toward the cell's sequence) and whisper's ``frames``
+    (``encoder_seq`` long) in the model's dtype."""
+    b = shape.global_batch
+
+    def sd(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    if shape.kind == "decode":
+        return {"token": sd((b, 1), torch.int32)}
+    dtype = torch_dtype(cfg.dtype)
+    s = shape.seq_len
+    specs: Dict = {}
+    if cfg.n_patches:
+        specs["patch_embeds"] = sd((b, cfg.n_patches, STUB_WIDTH), dtype)
+        s = s - cfg.n_patches
+    if cfg.encoder_seq:
+        specs["frames"] = sd((b, cfg.encoder_seq, STUB_WIDTH), dtype)
+    specs["tokens"] = sd((b, s), torch.int32)
+    if shape.kind == "train":
+        specs["labels"] = sd((b, s), torch.int32)
+    return specs
+
+
+def abstract_params(cfg: ModelConfig):
+    """``(params, specs)`` on ``"meta"`` (``transformer.abstract_model``)."""
+    return abstract_model(cfg)
+
+
+def abstract_decode_state(cfg: ModelConfig, shape: ShapeConfig):
+    """The decode state of ``shape.global_batch`` rows and
+    ``shape.seq_len`` positions on ``"meta"``."""
+    return init_decode_state(cfg, shape.global_batch, shape.seq_len,
+                             abstract=True)
+
+
+def decode_state_specs(cfg: ModelConfig, shape: ShapeConfig):
+    """The reference's logical axis names of every decode-state leaf, in
+    the state's tree (a ``KVCache`` of two name tuples per attention
+    layer): KV caches shard (batch, kv_seq), recurrent states their
+    channel axis, whisper's cross caches batch only.  The port's
+    per-layer leaves have no ``"stack"`` axis.  No mesh is needed: the
+    names are data that a placement maps to devices."""
+    def cache(c: KVCache, cross: bool) -> KVCache:
+        nd = c.k.dim()
+        names = (("batch",) + (None,) * (nd - 1) if cross else
+                 ("batch", "kv_seq") + (None,) * (nd - 2))
+        return KVCache(names, names, c.ring)
+
+    recurrent = {"conv": ("batch", None, "d_inner"),
+                 "ssm": ("batch", "d_inner", None),
+                 "h": ("batch", "d_inner")}
+    state = abstract_decode_state(cfg, shape)
+    out = {"layers": [cache(st, False) if isinstance(st, KVCache)
+                      else {k: recurrent[k] for k in st}
+                      for st in state["layers"]]}
+    if "cross" in state:
+        out["cross"] = [cache(c, True) for c in state["cross"]]
+    return out

@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from .config import ModelConfig
-from .layers import _normal, apply_conv1d, init_conv1d
+from .layers import _normal, apply_conv1d, init_conv1d, random_uniform
 from .ssm import diag_scan_chunk
 
 _C = 8.0
@@ -38,8 +38,7 @@ def init_rglru(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
     in float32."""
     d, w, k = cfg.d_model, cfg.resolved_rglru_width, cfg.conv_k
     dev = gen.device
-    u = 0.9 ** 2 + (0.999 ** 2 - 0.9 ** 2) * torch.rand(
-        (w,), generator=gen, dtype=torch.float32, device=dev)
+    u = 0.9 ** 2 + (0.999 ** 2 - 0.9 ** 2) * random_uniform(gen, (w,))
     lam = torch.log(torch.expm1(-torch.log(u) / (2.0 * _C)))
     return {
         "in_proj": _normal(gen, (d, 2 * w), 1 / math.sqrt(d), dtype),
@@ -113,3 +112,8 @@ def init_rglru_state(cfg: ModelConfig, batch: int, dtype,
                                 device=device),
             "h": torch.zeros((batch, w), dtype=torch.float32,
                              device=device)}
+
+
+def abstract_rglru_state(cfg: ModelConfig, batch: int, dtype) -> dict:
+    """``init_rglru_state``'s shapes and dtypes as ``"meta"`` tensors."""
+    return init_rglru_state(cfg, batch, dtype, device="meta")

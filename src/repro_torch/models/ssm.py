@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from .config import ModelConfig
-from .layers import _normal, apply_conv1d, init_conv1d
+from .layers import _normal, apply_conv1d, init_conv1d, random_uniform
 
 
 def _combine(x, y):
@@ -82,7 +82,7 @@ def init_mamba(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
     dev = gen.device
     a_init = torch.arange(1, n + 1, dtype=torch.float32,
                           device=dev)[None].repeat(di, 1)
-    u = torch.rand((di,), generator=gen, dtype=torch.float32, device=dev)
+    u = random_uniform(gen, (di,))
     dt_init = torch.exp(u * (math.log(0.1) - math.log(1e-3))
                         + math.log(1e-3))
     dt_bias = dt_init + torch.log(-torch.expm1(-dt_init))
@@ -182,3 +182,8 @@ def init_mamba_state(cfg: ModelConfig, batch: int, dtype,
                                 dtype=dtype, device=device),
             "ssm": torch.zeros((batch, cfg.d_inner, cfg.ssm_state),
                                dtype=torch.float32, device=device)}
+
+
+def abstract_mamba_state(cfg: ModelConfig, batch: int, dtype) -> dict:
+    """``init_mamba_state``'s shapes and dtypes as ``"meta"`` tensors."""
+    return init_mamba_state(cfg, batch, dtype, device="meta")

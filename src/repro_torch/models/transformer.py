@@ -34,17 +34,20 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
-from .attention import apply_attention, init_attention, init_cache
+from .attention import (abstract_cache, apply_attention, init_attention,
+                        init_cache)
 from .config import ModelConfig
 from .frontends import (STUB_WIDTH, apply_audio_frontend,
                         apply_patch_frontend, init_frontend)
 from .layers import (apply_embedding, apply_mlp, apply_rmsnorm,
                      init_embedding, init_mlp, init_rmsnorm,
-                     logits_from_embedding, sinusoidal_positions,
-                     torch_dtype)
+                     logical_names, logits_from_embedding, META_GEN,
+                     sinusoidal_positions, torch_dtype)
 from .moe import apply_moe, init_moe
-from .rglru import apply_rglru, init_rglru, init_rglru_state
-from .ssm import apply_mamba, init_mamba, init_mamba_state
+from .rglru import (abstract_rglru_state, apply_rglru, init_rglru,
+                    init_rglru_state)
+from .ssm import (abstract_mamba_state, apply_mamba, init_mamba,
+                  init_mamba_state)
 
 AUX_KEYS = ("load_balance", "router_z", "frac_dropped")
 BLOCK_KINDS = ("attn", "moe", "mamba", "rglru")
@@ -134,14 +137,21 @@ def apply_block(p, cfg: ModelConfig, kind: str, x, positions, *,
 
 
 def block_state_init(cfg: ModelConfig, kind: str, batch: int, seq: int,
-                     dtype, device="cuda"):
+                     dtype, device="cuda", abstract: bool = False):
     """Decode-time state of one block: a KV cache (a ring of the last
     ``window`` positions under a sliding window shorter than ``seq``), or
-    the recurrent state."""
+    the recurrent state; ``abstract``: its shapes and dtypes as
+    ``"meta"`` tensors (``device`` unread)."""
     _require_kind(kind)
+    win = cfg.window or None
+    if abstract:
+        if kind in ("attn", "moe"):
+            return abstract_cache(cfg, batch, seq, dtype, window=win)
+        if kind == "mamba":
+            return abstract_mamba_state(cfg, batch, dtype)
+        return abstract_rglru_state(cfg, batch, dtype)
     if kind in ("attn", "moe"):
-        return init_cache(cfg, batch, seq, dtype, window=cfg.window or None,
-                          device=device)
+        return init_cache(cfg, batch, seq, dtype, window=win, device=device)
     if kind == "mamba":
         return init_mamba_state(cfg, batch, dtype, device=device)
     return init_rglru_state(cfg, batch, dtype, device=device)
@@ -157,10 +167,37 @@ def init_model(cfg: ModelConfig, seed: int = 0, device="cuda") -> Dict:
     scaled by 1/sqrt(fan-in), unit-normal embedding, zero norm scales
     and biases, the float32 leaves of the recurrent and MoE blocks), not
     its numbers."""
-    dev = resolve_device(device)
-    dtype = torch_dtype(cfg.dtype)
-    gen = torch.Generator(device=dev)
+    gen = torch.Generator(device=resolve_device(device))
     gen.manual_seed(seed)
+    return _init_params(cfg, gen)
+
+
+def abstract_model(cfg: ModelConfig):
+    """``(params, specs)`` without allocating anything: ``init_model``'s
+    tree built by the same code on ``"meta"`` (its draws through
+    ``layers.META_GEN``), and the tree of each leaf's logical axis names
+    (``param_specs``)."""
+    params = _init_params(cfg, META_GEN)
+    return params, param_specs(params)
+
+
+def param_specs(params):
+    """The tree of ``params`` with each leaf replaced by the reference's
+    logical axis names (a tuple; ``layers.logical_names``).  The
+    reference's stacked layers lead theirs with ``"stack"``; the port's
+    per-layer leaves have no such axis."""
+    def walk(node, parent=""):
+        if isinstance(node, dict):
+            return {k: (walk(v, k) if isinstance(v, (dict, list))
+                        else logical_names(parent, k))
+                    for k, v in node.items()}
+        return [walk(v, parent) for v in node]
+    return walk(params)
+
+
+def _init_params(cfg: ModelConfig, gen) -> Dict:
+    dev = gen.device
+    dtype = torch_dtype(cfg.dtype)
     p = {
         "embed": init_embedding(gen, cfg.padded_vocab, cfg.d_model, dtype),
         "ln_f": init_rmsnorm(cfg.d_model, dtype, dev),
@@ -304,19 +341,21 @@ def logits(p, x):
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
-                      device="cuda") -> Dict:
+                      device="cuda", abstract: bool = False) -> Dict:
     """The zeroed decode state of every layer for ``max_len`` positions
     (a VLM's count its patch prefix): KV caches (rings under a shorter
     sliding window) and recurrent states; with cross-attention also
     ``"cross"``, one (batch, encoder_seq, Kv, D) cache per decoder
-    layer."""
-    dev = resolve_device(device)
+    layer.  ``abstract``: the same tree of ``"meta"`` tensors, nothing
+    allocated (``device`` unread)."""
+    dev = None if abstract else resolve_device(device)
     dtype = torch_dtype(cfg.dtype)
     st = {"layers": [block_state_init(cfg, kind, batch, max_len, dtype,
-                                      dev)
+                                      dev, abstract)
                      for kind in cfg.layer_kinds]}
     if cfg.cross_attn and cfg.encoder_seq:
-        st["cross"] = [init_cache(cfg, batch, cfg.encoder_seq, dtype,
-                                  device=dev)
-                       for _ in range(cfg.n_layers)]
+        st["cross"] = [
+            abstract_cache(cfg, batch, cfg.encoder_seq, dtype) if abstract
+            else init_cache(cfg, batch, cfg.encoder_seq, dtype, device=dev)
+            for _ in range(cfg.n_layers)]
     return st

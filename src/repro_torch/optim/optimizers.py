@@ -11,8 +11,9 @@ and state into their tensors in place (under ``torch.no_grad``) and
 returns them.  The reference stacks the layers of an LM along a leading
 axis, so its Adafactor factors a per-layer 1-D leaf (a norm scale)
 across the layers; the port keeps one tree node per layer and gives such
-a leaf full second moments.  The reference's ``state_specs`` /
-``abstract_state`` are mesh tooling and have no counterpart on one card.
+a leaf full second moments.  ``abstract_state`` builds the state on
+``"meta"`` through the same ``init`` (the dry run's input), and
+``state_specs`` names its leaves as the reference does.
 """
 
 from __future__ import annotations
@@ -37,10 +38,39 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(torch.stack(sq).sum())
 
 
+def _is_names(t) -> bool:
+    return isinstance(t, tuple)
+
+
+def _map_names(fn, specs):
+    """``specs`` (a tree of logical-name tuples) with ``fn`` applied to
+    every tuple."""
+    if _is_names(specs):
+        return fn(specs)
+    if isinstance(specs, dict):
+        return {k: _map_names(fn, v) for k, v in specs.items()}
+    return [_map_names(fn, v) for v in specs]
+
+
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
     init: Callable          # params -> opt_state
     _update: Callable       # (params, grads, state) -> (params, state, gnorm)
+    _state_specs: Callable  # param logical-name tree -> state name tree
+
+    def abstract_state(self, params):
+        """``init``'s state for parameters of ``params``' shapes and
+        dtypes, on ``"meta"``: nothing is allocated."""
+        leaves, treedef = tree_flatten(params)
+        return self.init(tree_unflatten(treedef, [
+            torch.empty(p.shape, dtype=p.dtype, device="meta")
+            for p in leaves]))
+
+    def state_specs(self, param_specs):
+        """The logical axis names of the state's leaves, from the
+        parameters' (``transformer.param_specs``): moments named as the
+        parameters they mirror, ``step`` ``()``."""
+        return self._state_specs(param_specs)
 
     def update(self, params, grads, state):
         """One step: ``(params, state, grad_norm)``, the parameters and
@@ -110,7 +140,10 @@ def adamw(lr: Callable, *, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
             v.copy_(v32)
         return params, state, gnorm
 
-    return Optimizer(init=init, _update=update)
+    def state_specs(param_specs):
+        return {"m": param_specs, "v": param_specs, "step": ()}
+
+    return Optimizer(init=init, _update=update, _state_specs=state_specs)
 
 
 def adafactor(lr: Callable, *, decay=0.8, eps=1e-30, clip_norm: float = 1.0,
@@ -166,4 +199,11 @@ def adafactor(lr: Callable, *, decay=0.8, eps=1e-30, clip_norm: float = 1.0,
             p.copy_(p * dec - u.to(p.dtype))
         return params, state, gnorm
 
-    return Optimizer(init=init, _update=update)
+    def state_specs(param_specs):
+        def moments(names):
+            if len(names) >= 2:
+                return {"row": names[:-1], "col": names[:-2] + names[-1:]}
+            return {"full": names}
+        return {"v": _map_names(moments, param_specs), "step": ()}
+
+    return Optimizer(init=init, _update=update, _state_specs=state_specs)

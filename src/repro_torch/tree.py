@@ -1,5 +1,7 @@
 """Trees: nested dicts, lists and tuples of tensors, flattened to their
-leaves and back.
+leaves and back; ``tree_signature`` / ``tree_nbytes`` list a tree's
+leaves by path, shape, dtype and bytes (an abstract ``"meta"`` tree
+beside the real one it stands for).
 
 Dict keys come in sorted order (as the reference flattens them), lists
 and tuples in order; ``None`` is an empty subtree; every other value is
@@ -9,7 +11,11 @@ names the tensors a captured graph holds by them.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, List, Tuple
+
+import numpy as np
+import torch
 
 
 def tree_flatten(tree) -> Tuple[List[Any], tuple]:
@@ -62,3 +68,51 @@ def tree_flatten_up_to(treedef: tuple, tree) -> List[Any]:
                 walk(sub, x)
     walk(treedef, tree)
     return out
+
+
+def _leaf_entry(x):
+    """(shape, dtype name, bytes) of a tensor, numpy array or generator
+    (its state's bytes); None for anything else (a Python scalar, a
+    flag)."""
+    if isinstance(x, torch.Tensor):
+        return (tuple(x.shape), str(x.dtype).removeprefix("torch."),
+                x.numel() * x.element_size())
+    if isinstance(x, np.ndarray):
+        return tuple(x.shape), x.dtype.name, int(x.nbytes)
+    if isinstance(x, torch.Generator):
+        n = int(x.get_state().numel())
+        return (n,), "uint8", n
+    return None
+
+
+def tree_signature(tree, path: str = "") -> List[tuple]:
+    """``[(path, shape, dtype, bytes), ...]`` of every array leaf:
+    dicts in sorted key order, lists and tuples in order, a dataclass by
+    its fields (a ``KVCache``), synapse tables by their ``local`` and
+    ``halo`` tiers; a ``torch.Generator`` is a uint8 leaf of its
+    state's bytes.  Python scalars are no leaf."""
+    out: List[tuple] = []
+
+    def walk(x, p):
+        if isinstance(x, dict):
+            for k in sorted(x):
+                walk(x[k], f"{p}/{k}")
+        elif isinstance(x, (list, tuple)):
+            for i, v in enumerate(x):
+                walk(v, f"{p}/{i}")
+        elif hasattr(x, "tiers") and hasattr(x, "halo"):
+            walk({"local": x.local, "halo": list(x.halo)}, p)
+        elif dataclasses.is_dataclass(x) and not isinstance(x, type):
+            for f in dataclasses.fields(x):
+                walk(getattr(x, f.name), f"{p}/{f.name}")
+        else:
+            e = _leaf_entry(x)
+            if e is not None:
+                out.append((p,) + e)
+    walk(tree, path)
+    return out
+
+
+def tree_nbytes(tree) -> int:
+    """Total bytes of ``tree_signature(tree)``'s leaves."""
+    return sum(e[3] for e in tree_signature(tree))

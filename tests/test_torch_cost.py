@@ -1,0 +1,547 @@
+"""Port parity: the cost models against the reference's.
+
+The abstract (``"meta"``) models, decode states, batches and optimizer
+states of every published config against the reference's
+``ShapeDtypeStruct`` trees, leaf for leaf (the reference stacks the
+layers of each pattern position, the port keeps one tree node per
+layer: the reference's trees are unstacked here), and against the
+port's own real trees; the logical axis names; the SNN tables and
+state; the scaling model and the roofline's conventions under the
+reference's constants; ``perf.op_analysis`` against hand counts and
+against the reference's HLO analysis; and the dry run on ``"meta"``.
+"""
+
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jget_config
+from repro.configs import get_reduced as jget_reduced
+from repro.core import dist_engine as jde
+from repro.core import metrics as jmetrics
+from repro.core.stdp import STDPParams as JSTDP
+from repro.models import model as JM
+from repro.models.attention import KVCache as JKVCache
+from repro.models.config import SHAPES as JSHAPES
+from repro.optim import adafactor as jadafactor
+from repro.optim import adamw as jadamw
+from repro.optim import warmup_cosine as jwarmup
+from repro.perf import attention_credit as jcredit
+from repro.perf import roofline as jroofline
+from repro_torch.configs import (ARCH_NAMES, all_cells, get_config,
+                                 get_reduced)
+from repro_torch.configs.snn import CASES
+from repro_torch.core import dist_engine as tde
+from repro_torch.core import metrics as tmetrics
+from repro_torch.core.stdp import STDPParams
+from repro_torch.launch import dryrun
+from repro_torch.models import model as M
+from repro_torch.models import transformer as T
+from repro_torch.models.config import SHAPES, ShapeConfig
+from repro_torch.optim import adafactor, adamw, warmup_cosine
+from repro_torch.perf import attention_credit, roofline
+from repro_torch.perf.op_analysis import analyze
+from repro_torch.tree import tree_flatten, tree_nbytes, tree_signature
+
+from _torch_parity import configs
+
+# ---------------------------------------------------------------------------
+# the reference's abstract trees in the port's layout
+# ---------------------------------------------------------------------------
+
+
+def _node(x):
+    """A reference tree with ``(shape, dtype)`` leaves (a ``KVCache`` as
+    its ``k`` and ``v``)."""
+    if x is None:
+        return None
+    if isinstance(x, JKVCache):
+        return {"k": _node(x.k), "v": _node(x.v)}
+    if isinstance(x, dict):
+        return {k: _node(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_node(v) for v in x]
+    return (tuple(x.shape), str(x.dtype))
+
+
+def _unstack(node):
+    """One period's subtree of a stacked subtree (the leading axis off)."""
+    if isinstance(node, dict):
+        return {k: _unstack(v) for k, v in node.items()}
+    return (node[0][1:], node[1])
+
+
+def _n_stacked(node) -> int:
+    while isinstance(node, dict):
+        node = next(iter(node.values()))
+    return node[0][0]
+
+
+def _layers(cfg, stacked, rest) -> list:
+    """Layer i of the reference's ``stacked`` (per pattern position,
+    period-major) and ``rest`` lists, in layer order."""
+    per = len(cfg.pattern)
+    out = {}
+    for pos, st in enumerate(stacked or []):
+        if st is None:
+            continue
+        for i in range(_n_stacked(st)):
+            out[i * per + pos] = _unstack(st)
+    base = len(out)
+    for j, lp in enumerate(rest or []):
+        out[base + j] = lp
+    return [out[i] for i in range(len(out))]
+
+
+def ref_params(cfg) -> dict:
+    tree = _node(JM.abstract_params(cfg)[0])
+    out = {"embed": tree["embed"], "ln_f": tree["ln_f"],
+           "layers": _layers(cfg, tree.get("blocks"), tree.get("rest"))}
+    if "enc_blocks" in tree:
+        enc = tree["enc_blocks"]
+        out["enc_layers"] = [_unstack(enc)] * _n_stacked(enc)
+    for k in ("enc_ln_f", "frontend"):
+        if k in tree:
+            out[k] = tree[k]
+    return out
+
+
+def ref_decode_state(cfg, shape) -> dict:
+    tree = _node(JM.abstract_decode_state(cfg, shape))
+    out = {"layers": _layers(cfg, tree["blocks"], tree["rest"])}
+    if tree.get("cross") is not None or tree.get("cross_rest"):
+        out["cross"] = _layers(cfg, tree.get("cross"),
+                               tree.get("cross_rest"))
+    return out
+
+
+def _flat(node, path="") -> list:
+    """``[(path, shape, dtype), ...]`` in ``tree_signature``'s order."""
+    if node is None:
+        return []
+    if isinstance(node, dict):
+        return [e for k in sorted(node) for e in _flat(node[k],
+                                                       f"{path}/{k}")]
+    if isinstance(node, list):
+        return [e for i, v in enumerate(node) for e in _flat(v,
+                                                             f"{path}/{i}")]
+    return [(path,) + node]
+
+
+def port_sig(tree) -> list:
+    return [e[:3] for e in tree_signature(tree)]
+
+
+def _names(tree, path="", strip=False) -> dict:
+    """``{path: names}`` of a tree of logical-name tuples (a KVCache's
+    ``k`` and ``v``); ``strip`` drops a leading ``"stack"``."""
+    if isinstance(tree, tuple):
+        if strip and tree[:1] == ("stack",):
+            tree = tree[1:]
+        return {path: tree}
+    if dataclasses.is_dataclass(tree):
+        return {**_names(tree.k, f"{path}/k", strip),
+                **_names(tree.v, f"{path}/v", strip)}
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(_names(tree[k], f"{path}/{k}", strip))
+        return out
+    out = {}
+    for i, v in enumerate(tree or []):
+        out.update(_names(v, f"{path}/{i}", strip))
+    return out
+
+
+def _ref_names_per_layer(cfg, specs, stacked="blocks", rest="rest"):
+    """The reference's names of ``stacked``/``rest`` in layer order,
+    ``"stack"`` dropped."""
+    per = len(cfg.pattern)
+    n_per, _ = cfg.pattern_periods
+    out = {}
+    for pos, st in enumerate(specs.get(stacked) or []):
+        if st is None:
+            continue
+        for i in range(n_per if cfg.scan_layers and n_per > 1 else 0):
+            out[i * per + pos] = _names(st, strip=True)
+    base = len(out)
+    for j, lp in enumerate(specs.get(rest) or []):
+        out[base + j] = _names(lp)
+    return [out[i] for i in range(len(out))]
+
+
+# ---------------------------------------------------------------------------
+# abstract models, decode states and batches: all ten published configs
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ARCH_NAMES)
+def test_abstract_model_matches_reference(arch):
+    cfg = get_config(arch)
+    params, specs = M.abstract_params(cfg)
+    leaves = tree_flatten(params)[0]
+    assert all(t.device.type == "meta" for t in leaves)
+    assert port_sig(params) == _flat(ref_params(jget_config(arch)))
+    n = sum(t.numel() for t in leaves)
+    assert n == cfg.param_count() + T.param_count_gap(cfg)
+    if arch == "kimi-k2-1t-a32b":
+        assert n > 1.0e12
+    # the names: the reference's, per layer ("stack" dropped)
+    _, jspecs = JM.abstract_params(jget_config(arch))
+    ours = _names(specs)
+    layers = _ref_names_per_layer(cfg, jspecs)
+    for i, ref in enumerate(layers):
+        got = {k.removeprefix(f"/layers/{i}"): v for k, v in ours.items()
+               if k.startswith(f"/layers/{i}/")}
+        assert got == ref, (arch, i)
+    for key in ("embed", "ln_f", "enc_ln_f", "frontend"):
+        if key in jspecs:
+            assert {k: v for k, v in ours.items()
+                    if k.startswith(f"/{key}/")} == _names(jspecs[key],
+                                                           f"/{key}")
+    if "enc_blocks" in jspecs:
+        enc = _names(jspecs["enc_blocks"], strip=True)
+        got = {k.removeprefix("/enc_layers/0"): v for k, v in ours.items()
+               if k.startswith("/enc_layers/0/")}
+        assert got == enc
+
+
+@pytest.mark.parametrize("arch", ARCH_NAMES)
+def test_abstract_decode_state_and_inputs_match_reference(arch):
+    cfg, jcfg = get_config(arch), jget_config(arch)
+    shapes = [SHAPES["decode_32k"], SHAPES["long_500k"]]
+    for shape in shapes:
+        st = M.abstract_decode_state(cfg, shape)
+        assert port_sig(st) == _flat(ref_decode_state(
+            jcfg, JSHAPES[shape.name])), shape.name
+        assert all(e[0] for e in tree_signature(st))
+        # the names, per layer and cross cache
+        jnames = JM.decode_state_specs(jcfg, JSHAPES[shape.name])
+        ours = _names(M.decode_state_specs(cfg, shape))
+        for i, ref in enumerate(_ref_names_per_layer(cfg, jnames)):
+            got = {k.removeprefix(f"/layers/{i}"): v
+                   for k, v in ours.items()
+                   if k.startswith(f"/layers/{i}/")}
+            assert got == ref, (arch, shape.name, i)
+        if cfg.cross_attn:
+            refx = _ref_names_per_layer(cfg, jnames, "cross", "cross_rest")
+            for i, ref in enumerate(refx):
+                got = {k.removeprefix(f"/cross/{i}"): v
+                       for k, v in ours.items()
+                       if k.startswith(f"/cross/{i}/")}
+                assert got == ref
+    for shape in SHAPES.values():
+        ours = M.input_specs(cfg, shape)
+        ref = JM.input_specs(jcfg, JSHAPES[shape.name])
+        assert {k: (tuple(v.shape), str(v.dtype).removeprefix("torch."))
+                for k, v in ours.items()} == \
+            {k: (tuple(v.shape), str(v.dtype)) for k, v in ref.items()}
+        assert all(v.device.type == "meta" for v in ours.values())
+
+
+def test_windowed_ring_caches_hold_the_window():
+    cfg = get_config("recurrentgemma-9b")
+    st = M.abstract_decode_state(cfg, SHAPES["decode_32k"])
+    caches = [c for c in st["layers"] if hasattr(c, "ring")]
+    assert caches and all(c.ring and c.k.shape[1] == cfg.window
+                          for c in caches)
+
+
+@pytest.mark.parametrize("arch", ARCH_NAMES)
+def test_abstract_model_is_init_model_leaf_for_leaf(arch):
+    cfg = get_reduced(arch)
+    params, _ = T.abstract_model(cfg)
+    real = T.init_model(cfg, seed=0, device="cpu")
+    assert tree_signature(params) == tree_signature(real)
+    st = T.init_decode_state(cfg, 2, 40, abstract=True)
+    assert tree_signature(st) == tree_signature(
+        T.init_decode_state(cfg, 2, 40, device="cpu"))
+    opt = adamw(warmup_cosine(3e-4, 2, 5))
+    assert tree_signature(opt.abstract_state(real)) == tree_signature(
+        opt.init(real))
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "recurrentgemma-9b",
+                                  "kimi-k2-1t-a32b"])
+def test_optimizer_state_and_names_match_reference(arch):
+    cfg, jcfg = get_reduced(arch), jget_reduced(arch)
+    params, specs = M.abstract_params(cfg)
+    jparams, jspecs = JM.abstract_params(jcfg)
+    # AdamW: moments mirror the parameters exactly
+    opt, jopt = adamw(warmup_cosine(3e-4, 2, 5)), jadamw(jwarmup(3e-4, 2, 5))
+    st, jst = opt.abstract_state(params), jopt.abstract_state(jparams)
+    for k in ("m", "v"):
+        assert port_sig(st[k]) == _flat(ref_params(jcfg)) and \
+            all(e[2] == "float32" for e in port_sig(st[k]))
+    assert port_sig({"s": st["step"]}) == [("/s", (), str(jst["step"].dtype))]
+    names = opt.state_specs(specs)
+    assert names["m"] is specs and names["step"] == ()
+    # Adafactor: factored moments over the last two axes; a per-layer
+    # 1-D leaf (a norm scale) has full moments here, where the reference
+    # factors its stacked (layers, d) leaf across the layers
+    fac = adafactor(warmup_cosine(1e-4, 2, 5))
+    fst = fac.abstract_state(params)
+    for path, shape, dtype in port_sig(fst["v"]):
+        assert dtype == "float32"
+        leaf = path.rsplit("/", 1)[0]
+        p_shape = dict((e[0], e[1]) for e in port_sig(params))[leaf]
+        if len(p_shape) >= 2:
+            want = p_shape[:-1] if path.endswith("/row") else \
+                p_shape[:-2] + p_shape[-1:]
+            assert shape == want
+        else:
+            assert path.endswith("/full") and shape == p_shape
+    # the moments' names: the reference's ("stack" dropped), but where
+    # the reference factors a stacked 1-D leaf (row ("stack",), col the
+    # leaf's name) the port's per-layer leaf has full moments
+    fv = _names(fac.state_specs(specs)["v"])
+    jv = jadafactor(jwarmup(1e-4, 2, 5)).state_specs(jspecs)["v"]
+    for i, ref in enumerate(_ref_names_per_layer(cfg, jv)):
+        got = {k.removeprefix(f"/layers/{i}"): v for k, v in fv.items()
+               if k.startswith(f"/layers/{i}/")}
+        assert got
+        for path, names in got.items():
+            if path.endswith("/full") and path not in ref:
+                base = path.removesuffix("/full")
+                assert ref[base + "/row"] == () and \
+                    ref[base + "/col"] == names
+            else:
+                assert ref[path] == names, (arch, i, path)
+    for key in ("embed", "ln_f"):
+        assert {k: v for k, v in fv.items() if k.startswith(f"/{key}/")} \
+            == _names(jv[key], f"/{key}")
+    assert fac.state_specs(specs)["step"] == ()
+
+
+# ---------------------------------------------------------------------------
+# model FLOPs, the attention credit, the scaling model
+# ---------------------------------------------------------------------------
+
+def test_model_flops_and_credit_match_reference_on_every_cell():
+    cells = list(all_cells())
+    assert len(cells) == 32
+    for arch, shape in cells:
+        cfg, jcfg = get_config(arch), jget_config(arch)
+        jshape = JSHAPES[shape.name]
+        assert roofline.model_flops(cfg, shape) == pytest.approx(
+            jroofline.model_flops(jcfg, jshape), rel=1e-12, abs=0)
+        for kw in ({}, {"chips": 16, "model_axis": 4, "microbatches": 2}):
+            assert attention_credit.chunk_traffic_bytes(
+                cfg, shape, **kw) == pytest.approx(
+                jcredit.chunk_traffic_bytes(jcfg, jshape, **kw),
+                rel=1e-12, abs=0)
+        # the port's credit: the forward's passes only (x2 to train)
+        fwd = attention_credit.chunk_pass_bytes(cfg, shape, 1, 1) * 4
+        assert attention_credit.flash_credit_bytes(cfg, shape) == \
+            pytest.approx(fwd * (2 if shape.kind == "train" else 1))
+    rep = roofline.roofline_terms(
+        "a", "s", "m", 1, dryrun_costs(2e15, 3.35e12), 1e12,
+        hw=roofline.HW(peak_flops=1e15))
+    assert rep.roofline_frac == pytest.approx(1e12 / 2.0 / 1e15)
+
+
+def dryrun_costs(flops, nbytes):
+    from repro_torch.perf.op_analysis import Costs
+    return Costs(flops=flops, bytes=nbytes)
+
+
+def _jhw() -> tmetrics.HardwareModel:
+    """The reference's TPU constants, in the port's model."""
+    return tmetrics.HardwareModel(**dataclasses.asdict(
+        jmetrics.HardwareModel()))
+
+
+SHARDS = [1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024]
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_scaling_model_matches_reference_under_its_constants(case):
+    c = CASES[case]
+    from repro.configs.snn import CASES as JCASES
+    jc = JCASES[case]
+    law, jlaw = c.connectivity(), jc.connectivity()
+    for rate in (38.0, 5.0):
+        ours = tmetrics.strong_scaling_curve(
+            c.grid[0], c.grid[1], law, SHARDS, rate, c.n_per_column,
+            hw=_jhw())
+        ref = jmetrics.strong_scaling_curve(
+            jc.grid[0], jc.grid[1], jlaw, SHARDS, rate, jc.n_per_column)
+        assert len(ours) == len(ref) == len(SHARDS)
+        for a, b in zip(ours, ref):
+            assert a["tiles"] == tuple(b["tiles"])
+            for k in ("step_s", "compute_s", "memory_s", "collective_s",
+                      "cost_per_event"):
+                assert a[k] == pytest.approx(b[k], rel=1e-12, abs=0), k
+    spec = c.engine_config(2, 2).spec()
+    jspec = jc.engine_config(2, 2).spec()
+    a = tmetrics.step_time_model(spec, 38.0, hw=_jhw(), pack_spikes=False)
+    b = jmetrics.step_time_model(jspec, 38.0, pack_spikes=False)
+    assert a == pytest.approx(b, rel=1e-12)
+
+
+def test_hardware_model_is_the_h100s():
+    hw = tmetrics.HardwareModel()
+    assert (hw.peak_flops, hw.hbm_bw, hw.ici_bw) == (66.9e12, 3.35e12,
+                                                      450e9)
+    assert roofline.HW() == roofline.HW("h100-sxm", 989.4e12, 3.35e12,
+                                        450e9)
+
+
+# ---------------------------------------------------------------------------
+# SNN tables and state
+# ---------------------------------------------------------------------------
+
+def _dist_cfgs(law, plastic: bool, members):
+    jcfg, tcfg = configs(law, grid=4, n_per_col=30, tiles=2)
+    if plastic:
+        jcfg = dataclasses.replace(jcfg, stdp=JSTDP())
+        tcfg = dataclasses.replace(tcfg, stdp=STDPParams())
+    return (jde.DistConfig(engine=jcfg, ensemble_seeds=members),
+            tde.DistConfig(engine=tcfg, ensemble_seeds=members))
+
+
+@pytest.mark.parametrize("plastic,members", [(False, None), (True, None),
+                                             (True, (3, 5))])
+def test_abstract_dist_inputs_match_reference_and_real(plastic, members):
+    jcfg, cfg = _dist_cfgs("gaussian", plastic, members)
+    # the tables' spec alone: the reference's shapes and dtypes
+    spec, jspec = cfg.engine.spec(), jcfg.engine.spec()
+    tabs = spec.abstract_tables()
+    jtabs = jspec.abstract_tables()
+    assert port_sig({"local": tabs.local, "halo": list(tabs.halo)}) == \
+        _flat(_node({"local": jtabs.local, "halo": list(jtabs.halo)}))
+    assert spec.table_bytes() == tree_nbytes(tabs)
+    # the analytic inputs against the reference's, rng and t aside
+    state, tables = tde.abstract_dist_inputs(cfg, device="cpu")
+    jstate, jtables = jde.abstract_dist_inputs(jcfg)
+    jst = _node(jstate)
+    lead = cfg.lead
+    assert jst.pop("rng") == (lead + (2,), "uint32")
+    assert jst.pop("t") == (lead, "int32")
+    ours = {k: v for k, v in state.items() if k not in ("rng", "t")}
+    assert port_sig(ours) == _flat(jst)
+    assert port_sig(tables) == _flat(_node(
+        {"local": jtables.local, "halo": list(jtables.halo)}))
+    g = tde.generator_state_bytes("cpu")
+    assert port_sig({"t": state["t"], "rng": state["rng"]}) == \
+        [("/rng/%d" % i, (g,), "uint8") for i in range(int(np.prod(lead)))
+         ] + [("/t", lead, "int32")]
+    # built tables' storage: every leaf and byte of the real inputs
+    real_tables, _ = tde.build_dist_tables(cfg, device="cpu")
+    real_state = tde.init_dist_state(cfg, device="cpu")
+    if plastic:
+        real_state["plastic"] = tde.init_dist_plastic_state(cfg,
+                                                            real_tables)
+        real_tables = tde.fold_plastic_tables(real_tables)
+    a_state, a_tables = tde.abstract_dist_inputs(
+        cfg, storage=real_tables.storage, device="cpu")
+    assert tree_signature((a_state, a_tables)) == tree_signature(
+        (real_state, real_tables))
+    assert tree_nbytes((a_state, a_tables)) == tree_nbytes(
+        (real_state, real_tables))
+    assert tde.generator_state_bytes("cuda") == 16
+
+
+# ---------------------------------------------------------------------------
+# the op counter
+# ---------------------------------------------------------------------------
+
+def test_op_analysis_counts_every_loop_iteration():
+    """The counterpart of the reference's loop-aware HLO test: a Python
+    loop of ten 128^3 products dispatches ten products."""
+    x = torch.empty(128, 128, device="meta")
+    w = torch.empty(128, 128, device="meta")
+
+    def looped(x, w):
+        for _ in range(10):
+            x = x @ w
+        return x.sum()
+
+    c = analyze(looped, x, w)
+    assert c.dot_flops == 10 * 2 * 128 ** 3
+    assert c.by_op["mm"][2] == 10
+
+
+def test_op_analysis_bytes_of_an_elementwise_chain():
+    x = torch.empty(1000, device="meta")
+    b = torch.empty(1, 1000, device="meta").expand(8, 1000)
+
+    def chain(x, b):
+        y = x * 2.0                       # read 4000, write 4000
+        z = (y + b).to(torch.bfloat16)    # 4000 + 4000 + 32000; 32000 + 16000
+        return torch.exp(z).view(-1)      # 16000 + 16000; the view is free
+
+    c = analyze(chain, x, b)
+    assert c.bytes == 8000 + 40000 + 48000 + 32000
+    assert c.flops == 1000 + 8000 + 8000
+    assert c.dot_flops == 0
+    assert c.peak_bytes == 4000 + 32000 + 16000
+
+
+def test_op_analysis_prefill_dot_flops_match_reference_hlo():
+    """The reduced qwen2 prefill at Sq 128: the port's counted products
+    equal the reference's loop-aware HLO count (``analyze_hlo`` of its
+    jitted prefill) less the dead causal chunk pairs, which the
+    reference's chunk loop multiplies and masks and the port's skips."""
+    from repro.perf.hlo_analysis import analyze_hlo
+    from repro.models.config import ShapeConfig as JShape
+    from _torch_parity import serve_rules
+    b, s = 2, 128
+    jcfg = dataclasses.replace(jget_reduced("qwen2-1.5b"),
+                               attn_impl="chunked")
+    shape = JShape("prefill_128", s, b, "prefill")
+    jparams, _ = JM.abstract_params(jcfg)
+    compiled = jax.jit(JM.make_prefill(jcfg, serve_rules(jcfg, b, s))).lower(
+        jparams, JM.input_specs(jcfg, shape),
+        JM.abstract_decode_state(jcfg, shape)).compile()
+    ref = analyze_hlo(compiled.as_text()).dot_flops
+
+    cfg = dataclasses.replace(get_reduced("qwen2-1.5b"), attn_impl="chunked")
+    tshape = ShapeConfig("prefill_128", s, b, "prefill")
+    params, _ = M.abstract_params(cfg)
+    c = analyze(M.make_prefill(cfg), params, M.input_specs(cfg, tshape),
+                M.abstract_decode_state(cfg, tshape))
+    cq = ck = cfg.attn_chunk_q
+    live = attention_credit.live_chunk_pairs(s, s, cq, ck)
+    dead = (s // cq) * (s // ck) - live
+    pair = 2 * 2 * b * cfg.n_heads * cq * ck * cfg.resolved_head_dim
+    assert c.dot_flops + cfg.n_layers * dead * pair == pytest.approx(
+        ref, rel=0.01)
+
+
+# ---------------------------------------------------------------------------
+# the dry run on "meta"
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "granite-moe-1b-a400m",
+                                  "falcon-mamba-7b"])
+def test_dryrun_cells_complete_on_meta(arch):
+    out = {}
+    for kind in ("prefill", "decode", "train"):
+        r = dryrun.run_cell(arch, ShapeConfig(f"{kind}_64", 64, 2, kind),
+                            out_dir=None, reduced=True)
+        assert r["ok"], r.get("traceback")
+        out[kind] = r
+    pre = out["prefill"]
+    assert pre["op_cost"]["dot_flops"] > 0
+    assert pre["memory"]["peak_bytes"] > \
+        pre["memory"]["input_state_bytes_per_device"] > 0
+    assert pre["memory"]["fits_one_card"]
+    assert out["decode"]["op_cost"]["dot_flops"] > 0
+    tr = out["train"]
+    # the train step's counted products cover 6 N T at least (remat
+    # recomputes the forward on top)
+    assert tr["op_cost"]["dot_flops"] >= 0.9 * tr["roofline"]["model_flops"]
+    assert tr["roofline"]["hw"]["name"] == "h100-sxm"
+
+
+def test_dryrun_snn_case_on_meta():
+    r = dryrun.run_cell("snn-24x24-gaussian", "sim", out_dir=None)
+    assert r["ok"], r.get("traceback")
+    assert r["traced"] is False and r["memory"]["fits_one_card"]
+    m = r["memory"]
+    assert m["peak_bytes"] == m["input_state_bytes_per_device"] > 1e9
+    assert r["step_time_model"]["step_s"] > 0
+    assert r["roofline"]["dominant"] == "memory"
