@@ -20,7 +20,7 @@ Phases, each of which exits non-zero on failure:
    grid (714,240 rows): exact, one launch per call; the fused step
    head (``neuron_step``) at the same two sizes, at spike densities 0,
    mid-run and above ``active_cap``, in place and not (v, c, refrac,
-   spk, ring, bitmap and count exact); the three flash-
+   spk, ring, bitmap and count exact); the two flash-
    attention kernels and the TF32 route's pre-pass (see 7); and
    dict-form tables (``{"local", "halo"}``) at 4x4x1240: delivered on
    the card exactly as ``SynapseTables`` and the plain path deliver,
@@ -130,20 +130,18 @@ Phases, each of which exits non-zero on failure:
 7. the LM serving path (``init_model`` -> ``init_decode_state`` ->
    ``make_prefill`` -> ``make_serve_step``): qwen2-1.5b at its full
    width in bf16 with seeded random weights, a 4 x 2048-token prefill
-   through the tensor-core flash kernel (one launch per layer, none of
-   the CUDA-core one) and 32 greedy decode steps (no launch: decode
-   attention is plain, as in the reference),
+   through the tensor-core flash kernel (one launch per layer) and 32
+   greedy decode steps (no launch: decode attention is plain, as in the
+   reference),
    held against the plain path (``attn_impl="naive"``) on the same
    weights and prompts, teacher-forced, beside a control (the chunked
    plain path against the plain path), then a float32 prefill of both
    paths (the 3xTF32 tensor-core kernel and its pre-pass, one launch
-   each per layer, none of the CUDA-core kernel); prefill and decode
-   times (bf16 and float32), the decode loop's device idle share and
-   peak memory; then the flash kernels' timing at the prefill shape:
-   each tensor-core kernel beside the CUDA-core kernel it replaced
-   there, and both again with the head narrowed to 32 and 16 (bf16 and
-   float32, the narrow heads' own kernel instances) beside the replaced
-   kernel and the library call.  Phase 2 holds every flash kernel
+   each per layer); prefill and decode times (bf16 and float32), the
+   decode loop's device idle share and peak memory; then the flash
+   kernels' timing at the prefill shape, and again with the head
+   narrowed to 32 and 16 (bf16 and float32, the narrow heads' own kernel
+   instances) beside the library call.  Phase 2 holds every flash kernel
    against its plain version at the reference's kernel-test shapes, the
    tensor-core kernels' edge cases in bf16 and float32 at head_dim
    64/128/256 and at 16/32 (``NARROW_CASES``), fully masked rows,
@@ -218,14 +216,35 @@ Phases, each of which exits non-zero on failure:
    ``step_time_model`` of the static and 2x2 steps at their measured
    rates beside their ms per step, and ``strong_scaling_curve`` of the
    paper's six cases on 1, 2, 4 and 8 cards (a model: no multi-card
-   run exists).  No kernel launches there.
+   run exists).  No kernel launches there;
+12. training the families (``make_train_step`` through the flash
+   kernel's forward, ``TRAIN_FAMILIES``): granite-moe-1b-a400m (4 x
+   2048), whisper-small (8 x (1500 frames + 448 tokens)), falcon-mamba-7b
+   (8 of 64 layers, 4 x 2048), recurrentgemma-9b (6 of 38, 2 x 4096, past
+   its window) and internvl2-26b (4 of 48, 2 x (256 patches + 2048),
+   Adafactor over its stack group) at published width in bf16 with
+   seeded random weights, each freed before the next: its parameter
+   count, one step's loss and per-leaf gradients on the kernel route
+   against the plain chunked route (naive against chunked the control,
+   phase 8's gates; granite's plain routes teacher-forced on the kernel
+   route's experts, the backward's recompute included), 3 timed steps
+   (finite losses and grad norms, the last below the first, two flash
+   launches a step per self-attention, encoder and cross-attention
+   layer), a profiled fourth (the shares of the flash forward, the
+   plain attention backward and the optimizer, from its Chrome trace),
+   s per step, tokens/s and peak memory (granite's dropped share too);
+   the bytes the recurrent scans' per-chunk checkpoint saves at
+   falcon-mamba's shape (one step through a copy of the port without
+   it); then the five families' reduced configs in float32 on the card
+   (the 3xTF32 kernel) for 3 steps against the same steps on the CPU.
 
 Launch counts are zeroed just before each of phases 3-5, 5b, 5c (after
-its ``make_sim_fn`` baselines), 5d, 7, 8 and each model of 9 and 10 and
-read just after it (phase 11 launches nothing; the ``{"kernels"}``
+its ``make_sim_fn`` baselines), 5d, 7, 8 and each model of 9, 10 and 12
+and read just after it (phase 11 launches nothing; the ``{"kernels"}``
 line gives each kernel's launches on phase 3's or its own path, on
-5b's, 5c's and 5d's, and the flash rows per model of phases 9 and 10,
-with the bf16 kernel's times at phase 10's shapes); a replay of a captured static or recorded step
+5b's, 5c's and 5d's, the flash rows per model of phases 9 and 10, with
+the bf16 kernel's times at phase 10's shapes, and per config of phase
+12); a replay of a captured static or recorded step
 counts as ``step_graph`` and as one launch of each kernel the graph
 holds.  It prints the metrics, the ``{"cost_model": {...}}`` line, each
 phase's seconds, a ``{"kernels": [...]}`` line, the card's name and
@@ -349,6 +368,20 @@ REDUCED_TOL = 1e-4
 # and one in bf16 (the bf16 tensor-core kernel, 12 padded to 16) against
 # the plain path on the card, within FAMILY_TOL
 REDUCED_BF16 = "qwen2.5-3b"
+# phase 12: training the families, one at a time: (arch, layers (None:
+# all), batch, tokens a row, optimizer).  Widths are the published ones;
+# depth is cut only where one 80 GB card cannot hold bf16 parameters and
+# gradients and AdamW's float32 moments (about 12 B a parameter).
+# whisper: 30 s clips (1500 frames) and its whole 448-token text context;
+# falcon-mamba: 16 chunks of 128 a layer; recurrentgemma: two whole
+# periods, past its 2048 window; internvl: 256 patches + 2048 tokens under
+# the dry run's optimizer for the full model, its 4 layers one stack group
+TRAIN_FAMILIES = [("granite-moe-1b-a400m", None, 4, 2048, "adamw"),
+                  ("whisper-small", None, 8, 448, "adamw"),
+                  ("falcon-mamba-7b", 8, 4, 2048, "adamw"),
+                  ("recurrentgemma-9b", 6, 2, 4096, "adamw"),
+                  ("internvl2-26b", 4, 2, 2048, "adafactor")]
+TRAIN_FAMILY_STEPS = 3
 # the flash kernel against its plain version (tests/test_kernels.py)
 FLASH_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 # its row statistic L = m + log l against the plain logsumexp, times
@@ -2499,26 +2532,6 @@ def check_flash(gen) -> dict:
                 f"{(bh, bhkv, sq, sk, d)} causal={causal} window={win} "
                 f"q_offset={qoff} {dtype}", causal=causal, window=win,
                 q_offset=qoff)
-    # the replaced CUDA-core kernel (on no route; timed in phase 7) at
-    # its widths, through _launch
-    for bh, bhkv, sq, sk, d, causal, win, qoff in FLASH_CASES:
-        if d not in fa.SIMT_HEAD_DIMS:
-            continue
-        for dtype in (torch.float32, torch.bfloat16):
-            q, k, v = (x.to(dtype) for x in (
-                rand(bh, sq, d), rand(bhkv, sk, d), rand(bhkv, sk, d)))
-            kw = dict(causal=causal, window=win, q_offset=qoff)
-            got = fa._launch("simt", q, k, v, **kw)
-            want = attention_ref(q, k, v, **kw)
-            torch.cuda.synchronize()
-            tol = FLASH_TOL[str(dtype).removeprefix("torch.")]
-            err = (got.float() - want.float()).abs()
-            require(int((err > tol + tol * want.float().abs()).sum()) == 0,
-                    f"the replaced CUDA-core flash kernel differs from the "
-                    f"plain version at {(bh, bhkv, sq, sk, d)} {dtype}")
-            worst["simt"] = max(worst["simt"], float(err.max()))
-    print(f"check flash_attention_simt (replaced, on no route): max_abs_err "
-          f"{worst['simt']:.3g} at the reference's kernel-test shapes")
     for bh, bhkv, sq, sk, d, causal, win, qoff in SM90_CASES + NARROW_CASES:
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = rand(bh, sq, d), rand(bhkv, sk, d), rand(bhkv, sk, d)
@@ -2709,7 +2722,6 @@ def run_lm() -> dict:
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     n_prefill = _build.launch_counts().get("flash_attention", 0)
-    simt_prefill = _build.launch_counts().get("flash_attention_simt", 0)
     saved = [(c.k.clone(), c.v.clone()) for c in state["layers"]]
     first = torch.argmax(lg_k[:, -1:], dim=-1).to(torch.int32)
     t0 = time.perf_counter()
@@ -2721,10 +2733,7 @@ def run_lm() -> dict:
     require(n_prefill == cfg.n_layers,
             f"prefill launched the flash kernel {n_prefill} times, not "
             f"{cfg.n_layers}")
-    require(simt_prefill == 0, f"the bf16 prefill launched the CUDA-core "
-            f"flash kernel {simt_prefill} times")
-    require(launches.get("flash_attention", 0) == n_prefill
-            and launches.get("flash_attention_simt", 0) == 0,
+    require(launches.get("flash_attention", 0) == n_prefill,
             "the decode steps launched a flash kernel")
     require(toks.shape == (LM_BATCH, LM_GEN) and bool(
         ((toks >= 0) & (toks < cfg.padded_vocab)).all()), "bad tokens")
@@ -2824,12 +2833,9 @@ def run_lm() -> dict:
             1e3 * 2 * n_params / HBM_BYTES_PER_S,
         "peak_device_bytes_above_earlier_phases": peak - base_bytes,
         "flash_launches_prefill": n_prefill,
-        "flash_simt_launches_prefill": simt_prefill,
         "flash_tf32_launches_f32_prefill":
             f32_launches["flash_attention_tf32"],
         "tf32_split_launches_f32_prefill": f32_launches["tf32_split"],
-        "flash_simt_launches_f32_prefill":
-            f32_launches.get("flash_attention_simt", 0),
         "f32_prefill_s": secs32["pallas"],
         "f32_plain_prefill_s": secs32["naive"],
         "f32_prefill_peak_bytes_above_caches": f32_peak,
@@ -2852,27 +2858,86 @@ def run_lm() -> dict:
           f"(flash_attention_tf32), float32 plain {secs32['naive']:.4f}")
     return {"res": res, "signatures": signatures, "launches": {
         "sm90": n_prefill, "tf32": f32_launches["flash_attention_tf32"],
-        "tf32_split": f32_launches["tf32_split"],
-        "simt": simt_prefill + f32_launches.get("flash_attention_simt", 0)}}
+        "tf32_split": f32_launches["tf32_split"]}}
 
 
 # ---------------------------------------------------------------------------
 # phase 8: LM training (qwen2-1.5b at full width, then the train driver)
 # ---------------------------------------------------------------------------
 
-def _range_device_ms(prof, name: str) -> float:
-    """Device time of the kernels that the PyTorch ops inside the
-    profiler range ``name`` (its ``record_function``) launched, summed
-    over its occurrences: the host-side entry of the range, whose
-    children's kernels the profiler attributes to it.  (A kernel
-    launched through ctypes, as the port's are, is not attributed to a
-    PyTorch op: time those by name.)"""
-    import torch
-    for e in prof.key_averages():
-        if e.key == name and e.device_type == torch.autograd.DeviceType.CPU:
-            return getattr(e, "device_time_total",
-                           getattr(e, "cuda_time_total", 0.0)) / 1e3
-    return 0.0
+def trace_profile(prof) -> dict:
+    """Where a profiled train step's device time went, from the
+    profile's Chrome trace (kineto writes it, ``json`` reads it; the
+    profiler's Python event tree took about 50 s for one step of a
+    recurrent model): ``busy_us`` (every kernel, copy and memset),
+    ``top`` (as ``device_breakdown``), ``flash_ms`` (the flash kernel),
+    ``ranges`` (the device ms of the ``torch.profiler`` ranges of the
+    flash forward, the plain attention backward and the optimizer) and
+    ``unlinked_ms`` (device work whose launch the trace lacks, so that
+    no range can hold it).  A range's device ms: the kernels whose launch
+    lies inside one of its spans on the launching thread, the
+    ctypes-launched flash kernel included."""
+    import bisect
+    import os
+    import tempfile
+    names = ("flash_attention_forward", "flash_attention_backward",
+             "optimizer_update")
+    (ROOT / "build").mkdir(exist_ok=True)
+    fd, path = tempfile.mkstemp(suffix=".json", dir=ROOT / "build")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.remove(path)
+    spans, launch, kernels, by_kernel = {}, {}, [], {}
+    for e in events:
+        cat = e.get("cat")
+        if e.get("ph") != "X":
+            continue
+        if cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+            by_kernel[e["name"]] = by_kernel.get(e["name"], 0.0) + e["dur"]
+            kernels.append((e.get("args", {}).get("correlation"), e["dur"]))
+        elif cat in ("cuda_runtime", "cuda_driver"):
+            launch[e.get("args", {}).get("correlation")] = (e["tid"], e["ts"])
+        elif cat == "user_annotation" and e["name"] in names:
+            spans.setdefault((e["name"], e["tid"]), []).append(
+                (e["ts"], e["ts"] + e["dur"]))
+    require(bool(by_kernel), "the profile's trace holds no kernel")
+    for v in spans.values():
+        v.sort()
+    ranges = dict.fromkeys(names, 0.0)
+    unlinked_us = 0.0
+    for corr, dur in kernels:
+        if corr not in launch:
+            unlinked_us += dur
+            continue
+        tid, ts = launch[corr]
+        for name in names:
+            iv = spans.get((name, tid), ())
+            i = bisect.bisect_right(iv, (ts, float("inf"))) - 1
+            if i >= 0 and iv[i][0] <= ts <= iv[i][1]:
+                ranges[name] += dur / 1e3
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    flash_ms = sum(v for k, v in by_kernel.items()
+                   if "flash_attention_sm90" in k) / 1e3
+    return {"busy_us": sum(by_kernel.values()),
+            "top": [[k[:100], v / 1e3] for k, v in top],
+            "flash_ms": flash_ms, "ranges": ranges,
+            "unlinked_ms": unlinked_us / 1e3}
+
+
+def grad_gap(a: tuple, b: tuple) -> dict:
+    """Loss and per-leaf gradient gaps of route ``a`` against ``b`` (each
+    ``(loss, [grad leaves])``): each leaf's error norm over its norm."""
+    import numpy as np
+    errs = [float((x.float() - y.float()).norm()
+                  / y.float().norm().clamp_min(1e-30))
+            for x, y in zip(a[1], b[1])]
+    return {"loss_rel_diff": abs(a[0] / b[0] - 1.0),
+            "worst_leaf_rel_norm_err": max(errs),
+            "median_leaf_rel_norm_err": float(np.median(errs))}
 
 
 def run_train() -> dict:
@@ -2925,15 +2990,8 @@ def run_train() -> dict:
         grads[impl] = (float(loss_i), tree_flatten(g_i)[0])
         torch.cuda.synchronize()
 
-    def versus(x: str, y: str) -> dict:
-        errs = [float((a.float() - b.float()).norm()
-                      / b.float().norm().clamp_min(1e-30))
-                for a, b in zip(grads[x][1], grads[y][1])]
-        return {"loss_rel_diff": abs(grads[x][0] / grads[y][0] - 1.0),
-                "worst_leaf_rel_norm_err": max(errs),
-                "median_leaf_rel_norm_err": float(np.median(errs))}
-    kern_cmp, ctrl_cmp = versus("pallas", "chunked"), versus("naive",
-                                                              "chunked")
+    kern_cmp = grad_gap(grads["pallas"], grads["chunked"])
+    ctrl_cmp = grad_gap(grads["naive"], grads["chunked"])
     kern_cmp["losses"] = [grads["pallas"][0], grads["chunked"][0]]
     kern_cmp["targets_met"] = (
         kern_cmp["loss_rel_diff"] <= TRAIN_LOSS_TOL
@@ -2987,14 +3045,9 @@ def run_train() -> dict:
         step(params, opt_state, batches[TRAIN_STEPS])
         torch.cuda.synchronize()
         prof_ms = (time.perf_counter() - t0) * 1e3
-    busy_us, top = device_breakdown(prof, 1)
-    flash_fwd_kernel_ms = sum(
-        e.time_range.elapsed_us() for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-        and "flash_attention_sm90" in e.name) / 1e3
-    ranges = {name: _range_device_ms(prof, name) for name in (
-        "flash_attention_forward", "flash_attention_backward",
-        "optimizer_update")}
+    tr = trace_profile(prof)
+    busy_us, top = tr["busy_us"], tr["top"]
+    flash_fwd_kernel_ms, ranges = tr["flash_ms"], tr["ranges"]
     steady = float(np.mean(secs[1:]))
     tokens = TRAIN_BATCH * TRAIN_SEQ
     flops = 6 * n_params * tokens
@@ -3019,15 +3072,16 @@ def run_train() -> dict:
         "profiled_device_busy_ms": busy_us / 1e3,
         "profiled_device_idle_share": 1.0 - busy_us / 1e3 / prof_ms,
         "flash_forward_kernel_ms": flash_fwd_kernel_ms,
-        "range_device_ms": ranges,
+        "range_device_ms": ranges, "unlinked_device_ms": tr["unlinked_ms"],
         # shares of the profiled step's wall time and of its device busy
-        # time: the flash kernels (by name), the forward range's PyTorch
-        # ops (the heads' layout copies), the plain attention backward
+        # time: the flash kernels (by name), the rest of the forward
+        # range (the heads' layout copies), the plain attention backward
         # and the optimizer (by range)
         "share_of_step": {
             basis: {"flash_forward_kernels": flash_fwd_kernel_ms / total,
                     "flash_forward_layout_ops":
-                        ranges["flash_attention_forward"] / total,
+                        (ranges["flash_attention_forward"]
+                         - flash_fwd_kernel_ms) / total,
                     "plain_attention_backward":
                         ranges["flash_attention_backward"] / total,
                     "optimizer": ranges["optimizer_update"] / total}
@@ -3626,6 +3680,401 @@ def reduced_bf16() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 12: training the MoE, mamba, RG-LRU, whisper and internvl families
+# ---------------------------------------------------------------------------
+
+def family_flash_per_step(cfg) -> int:
+    """Flash launches of one remat train step: the forward and the
+    backward's recompute of every self-attention, encoder and
+    cross-attention layer."""
+    n_attn = sum(k in ("attn", "moe") for k in cfg.layer_kinds)
+    return 2 * (n_attn + cfg.encoder_layers
+                + (cfg.n_layers if cfg.cross_attn else 0))
+
+
+def train_family(arch: str, layers, batch: int, seq: int,
+                 opt_name: str) -> dict:
+    """One family's train step on the card at its published width (depth
+    cut to ``layers`` where given), bf16, ``attn_impl="pallas"``, seeded
+    random weights, batches of ``LMBatchPipeline`` (``seq`` tokens, a
+    VLM's patches on top, whisper's frames beside): one step's loss and
+    per-leaf gradients on the kernel route against the plain chunked
+    route, with naive against chunked as the control (phase 8's
+    targets; a MoE model's plain routes teacher-forced on the kernel
+    route's experts, the backward's recompute included); then
+    ``TRAIN_FAMILY_STEPS`` steps of ``make_train_step`` (launch counts
+    zeroed just before and read just after; finite losses and grad
+    norms, the last loss below the first) and one more under the
+    profiler for the shares of the flash forward, the plain attention
+    backward and the optimizer.  A MoE model also gives the dropped share
+    of one forward over the first batch and over serving's uniform
+    prompts of the same shape."""
+    import gc
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import LMBatchPipeline
+    from repro_torch.kernels import _build
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as tt
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import adafactor, adamw, warmup_cosine
+    from repro_torch.tree import tree_flatten
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, attn_impl="pallas",
+                              n_layers=layers or full.n_layers)
+    require(cfg.dtype == "bfloat16" and cfg.remat, f"{arch}: not bf16 "
+            "with remat")
+    base_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    stage_s, t_stage = {}, [time.perf_counter()]
+
+    def lap(name):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        stage_s[name] = now - t_stage[0]
+        t_stage[0] = now
+    params = tt.init_model(cfg, seed=0, device="cuda")
+    lap("init")
+    n_params = sum(t.numel() for t in tree_flatten(params)[0])
+    require(n_params == cfg.param_count() + tt.param_count_gap(cfg),
+            f"{arch}: {n_params} parameters, the config counts "
+            f"{cfg.param_count()} + {tt.param_count_gap(cfg)}")
+    n_full = full.param_count() + tt.param_count_gap(full)
+    print(f"lm train family {arch}: {cfg.n_layers} of {full.n_layers} "
+          f"layers at d_model {cfg.d_model}, {n_params:,} parameters "
+          f"(the full model {n_full:,})", flush=True)
+    pipe = LMBatchPipeline(cfg, ShapeConfig("train", seq + cfg.n_patches,
+                                            batch, "train"), seed=0)
+
+    def batch_of(i):
+        return {k: torch.from_numpy(v).cuda()
+                for k, v in pipe.batch(i).items()}
+
+    # the kernel route against the plain chunked route, naive against
+    # chunked the control; the plain routes replay the kernel route's MoE
+    # experts, forward and recompute, in call order
+    b0 = batch_of(0)
+    tape, grads = [], {}
+    for impl in ("pallas", "chunked", "naive"):
+        c = dataclasses.replace(cfg, attn_impl=impl)
+        with route_tape(tape, replay=impl != "pallas"):
+            loss_i, _, g_i = M._grads_of(params, c, b0)
+        grads[impl] = (float(loss_i), tree_flatten(g_i)[0])
+        torch.cuda.synchronize()
+    kern_cmp = grad_gap(grads["pallas"], grads["chunked"])
+    ctrl_cmp = grad_gap(grads["naive"], grads["chunked"])
+    kern_cmp["losses"] = [grads["pallas"][0], grads["chunked"][0]]
+    kern_cmp["routes_taped"] = len(tape)
+    drops = {}
+    if cfg.is_moe:
+        # the first batch's dropped share against serving's prompts (as
+        # phase 9 draws them) at the same shape: the router's skew from
+        # the pipeline's Zipf tokens, or from training
+        uniform = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, tuple(b0["tokens"].shape)).astype(
+                np.int32)).cuda()
+        with torch.no_grad():
+            for src, toks in (("pipeline_tokens", b0["tokens"]),
+                              ("serving_prompts", uniform)):
+                aux = tt.forward(params, cfg, {"tokens": toks})[2]
+                drops[src] = float(aux["frac_dropped"]) \
+                    / cfg.layer_kinds.count("moe")
+        del uniform, aux
+    del grads, tape, b0
+    torch.cuda.empty_cache()
+    for key, target in (("loss_rel_diff", TRAIN_LOSS_TOL),
+                        ("worst_leaf_rel_norm_err", TRAIN_GRAD_TOL)):
+        require(kern_cmp[key] <= max(target, 2 * ctrl_cmp[key] + 0.01),
+                f"{arch}: the kernel route's {key} {kern_cmp[key]} misses "
+                f"both its target {target} and twice the control's "
+                f"{ctrl_cmp[key]} + 0.01")
+    kern_cmp["targets_met"] = (
+        kern_cmp["loss_rel_diff"] <= TRAIN_LOSS_TOL
+        and kern_cmp["worst_leaf_rel_norm_err"] <= TRAIN_GRAD_TOL)
+    lap("routes")
+
+    lr = warmup_cosine(3e-4, 2, 5)
+    opt = (adafactor(lr, stacks=tt.stack_groups(cfg))
+           if opt_name == "adafactor" else adamw(lr))
+    opt_state = opt.init(params)
+    step = M.make_train_step(cfg, opt)
+    batches = [batch_of(i) for i in range(TRAIN_FAMILY_STEPS + 1)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    outs, secs = [], []
+    for i in range(TRAIN_FAMILY_STEPS):
+        t0 = time.perf_counter()
+        params, opt_state, out = step(params, opt_state, batches[i])
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        outs.append({k: float(v) for k, v in out.items()})
+    launches = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    per_step = family_flash_per_step(cfg)
+    want = {"flash_attention": TRAIN_FAMILY_STEPS * per_step} \
+        if per_step else {}
+    require(launches == want, f"{arch}: training launched {launches}, "
+            f"not {want}")
+    require(all(np.isfinite(o["loss"]) and np.isfinite(o["grad_norm"])
+                for o in outs), f"{arch}: non-finite loss or grad norm: "
+            f"{outs}")
+    require(outs[-1]["loss"] < outs[0]["loss"], f"{arch}: step "
+            f"{TRAIN_FAMILY_STEPS}'s loss is not below step 1's: {outs}")
+    lap("steps")
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(params, opt_state, batches[TRAIN_FAMILY_STEPS])
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    tr = trace_profile(prof)
+    busy_us, top, flash_ms, ranges = (tr["busy_us"], tr["top"],
+                                      tr["flash_ms"], tr["ranges"])
+    lap("profile")
+    steady = float(np.mean(secs[1:]))
+    tokens = batch * seq
+    positions = batch * (seq + cfg.n_patches + cfg.encoder_seq)
+    res = {
+        "arch": arch, "layers": cfg.n_layers, "published_layers":
+        full.n_layers, "encoder_layers": cfg.encoder_layers,
+        "d_model": cfg.d_model, "head_dim": cfg.resolved_head_dim,
+        "window": cfg.window, "dtype": cfg.dtype, "params": n_params,
+        "stage_s": stage_s, "optimizer": f"{opt_name}(warmup_cosine(3e-4, "
+        "2, 5))" + (", stacks=stack_groups(cfg)"
+                     if opt_name == "adafactor" else ""),
+        "batch": batch, "seq": seq, "patches": cfg.n_patches,
+        "encoder_frames": cfg.encoder_seq,
+        "losses": [o["loss"] for o in outs],
+        "grad_norms": [o["grad_norm"] for o in outs],
+        "step_s": secs, "steady_s_per_step": steady,
+        "tokens_per_s": tokens / steady,
+        "positions_per_s": positions / steady,
+        "peak_device_bytes_above_phase": peak - base_bytes,
+        "flash_launches": launches.get("flash_attention", 0),
+        "flash_launches_per_step": per_step,
+        "profiled_step_ms": prof_ms,
+        "profiled_device_busy_ms": busy_us / 1e3,
+        "profiled_device_idle_share": 1.0 - busy_us / 1e3 / prof_ms,
+        "flash_forward_kernel_ms": flash_ms, "range_device_ms": ranges,
+        "unlinked_device_ms": tr["unlinked_ms"],
+        "share_of_device_busy": {
+            "flash_forward_kernels": flash_ms / max(busy_us / 1e3, 1e-9),
+            "plain_attention_backward":
+                ranges["flash_attention_backward"] / max(busy_us / 1e3,
+                                                         1e-9),
+            "optimizer": ranges["optimizer_update"] / max(busy_us / 1e3,
+                                                          1e-9)},
+        "top_kernels_ms": top,
+        "kernel_vs_plain_route": kern_cmp,
+        "control_naive_vs_chunked": ctrl_cmp,
+    }
+    if cfg.is_moe:
+        n_moe = cfg.layer_kinds.count("moe")
+        res["moe_frac_dropped_per_layer"] = [o["frac_dropped"] / n_moe
+                                             for o in outs]
+        res["moe_frac_dropped_first_batch_forward"] = drops
+    print("lm train family " + json.dumps(res), flush=True)
+    print(f"lm train family {arch}: {steady:.4f} s per step, "
+          f"{tokens / steady:.0f} tokens/s, peak "
+          f"{(peak - base_bytes) / 2 ** 30:.2f} GiB ({gpu_line()})",
+          flush=True)
+    del params, opt_state, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def train_reduced_on_card() -> dict:
+    """The reduced configs of ``TRAIN_FAMILIES`` in float32 with
+    ``attn_impl="pallas"``: ``TRAIN_FAMILY_STEPS`` train steps on the
+    card (the 3xTF32 flash kernel and its pre-pass, heads padded to 16)
+    against the same steps on the CPU (the plain version), same weights
+    and batches (internvl under Adafactor over its stack group): losses
+    and grad norms within ``REDUCED_TOL`` of the CPU's, every parameter
+    leaf's error norm within ``REDUCED_TOL`` of its norm.  Returns the
+    card's flash launches per config."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.pipeline import LMBatchPipeline
+    from repro_torch.kernels import _build
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as tt
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import adafactor, adamw, warmup_cosine
+    from repro_torch.tree import tree_flatten, tree_unflatten
+    torch.backends.cuda.matmul.allow_tf32 = False
+    launches = {}
+    for arch, _, _, _, opt_name in TRAIN_FAMILIES:
+        cfg = dataclasses.replace(get_reduced(arch), attn_impl="pallas")
+        leaves, treedef = tree_flatten(tt.init_model(cfg, seed=0,
+                                                     device="cpu"))
+        pipe = LMBatchPipeline(cfg, ShapeConfig("train", 48 + cfg.n_patches,
+                                                2, "train"), seed=0)
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            params = tree_unflatten(treedef, [t.to(dev, copy=True)
+                                              for t in leaves])
+            lr = warmup_cosine(3e-4, 2, 5)
+            opt = (adafactor(lr, stacks=tt.stack_groups(cfg))
+                   if opt_name == "adafactor" else adamw(lr))
+            state = opt.init(params)
+            step = M.make_train_step(cfg, opt)
+            _build.reset_launch_counts()
+            outs = []
+            for i in range(TRAIN_FAMILY_STEPS):
+                b = {k: torch.from_numpy(v).to(dev)
+                     for k, v in pipe.batch(i).items()}
+                params, state, out = step(params, state, b)
+                outs.append({k: float(v) for k, v in out.items()})
+            runs[dev] = (outs, [t.cpu() for t in tree_flatten(params)[0]],
+                         _build.launch_counts())
+        (card, card_p, card_n), (cpu, cpu_p, cpu_n) = runs["cuda"], \
+            runs["cpu"]
+        per = family_flash_per_step(cfg)
+        want = ({"flash_attention_tf32": TRAIN_FAMILY_STEPS * per,
+                 "tf32_split": TRAIN_FAMILY_STEPS * per} if per else {})
+        require(card_n == want and cpu_n == {}, f"{arch} reduced: the "
+                f"card launched {card_n} (not {want}), the CPU {cpu_n}")
+        gaps = {key: max(abs(a[key] / b[key] - 1.0)
+                         for a, b in zip(card, cpu))
+                for key in ("loss", "grad_norm")}
+        gaps["worst_leaf_rel_norm_err"] = max(
+            float((a - b).norm() / b.norm().clamp_min(1e-30))
+            for a, b in zip(card_p, cpu_p))
+        require(all(np.isfinite(o["loss"]) for o in card)
+                and max(gaps.values()) <= REDUCED_TOL,
+                f"{arch} reduced: card vs CPU training gaps {gaps} beyond "
+                f"{REDUCED_TOL}")
+        launches[cfg.name] = card_n.get("flash_attention_tf32", 0)
+        print(f"lm train reduced on card {cfg.name} " + json.dumps({
+            "dtype": cfg.dtype, "optimizer": opt_name,
+            "head_dim": cfg.resolved_head_dim, "steps": TRAIN_FAMILY_STEPS,
+            "card_losses": [o["loss"] for o in card],
+            "cpu_losses": [o["loss"] for o in cpu],
+            "card_vs_cpu": gaps, "flash_tf32_launches": launches[cfg.name],
+            "tolerance": f"<= {REDUCED_TOL} relative"}), flush=True)
+    return launches
+
+
+def train_steps_peak(pkg: str, arch: str, layers: int, batch: int,
+                     seq: int) -> dict:
+    """Two AdamW train steps of ``arch`` (bf16, ``layers`` deep,
+    published width) on one batch of ``batch`` x ``seq`` tokens through
+    the package ``pkg``: each step's seconds and loss (``step_s`` the
+    last step's: the first also warms the allocator), and the peak
+    device bytes above those allocated before the model's init
+    (parameters, AdamW's state, the batch, gradients and activations)."""
+    import gc
+    import importlib
+    import torch
+
+    def mod(name):
+        return importlib.import_module(f"{pkg}.{name}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(mod("configs").get_config(arch),
+                              n_layers=layers)
+    base = torch.cuda.memory_allocated()
+    params = mod("models.transformer").init_model(cfg, seed=0,
+                                                  device="cuda")
+    optim = mod("optim")
+    opt = optim.adamw(optim.warmup_cosine(3e-4, 2, 5))
+    state = opt.init(params)
+    shape = mod("models.config").ShapeConfig("train", seq, batch, "train")
+    b = {k: torch.from_numpy(v).cuda() for k, v in mod(
+        "data.pipeline").LMBatchPipeline(cfg, shape).batch(0).items()}
+    step = mod("models.model").make_train_step(cfg, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"package": pkg, "arch": arch, "layers": layers, "batch": batch,
+           "seq": seq, "steps_s": [], "losses": []}
+    try:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            params, state, res = step(params, state, b)
+            torch.cuda.synchronize()
+            out["steps_s"].append(time.perf_counter() - t0)
+            out["losses"].append(float(res["loss"]))
+        out.update(step_s=out["steps_s"][-1], out_of_memory=False)
+    except torch.cuda.OutOfMemoryError:
+        out.update(out_of_memory=True)
+    out["peak_device_bytes"] = torch.cuda.max_memory_allocated() - base
+    del params, state, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def scan_remat_saving() -> dict:
+    """What the recurrent scans' per-chunk checkpoint saves and costs at
+    phase 12's falcon-mamba and recurrentgemma shapes: ``train_steps_peak``
+    through the port, then through a copy of it (``build/scan_remat_off/
+    repro_torch_scan_remat_off``, imported under that name) whose scans
+    keep every chunk's tensors for the backward: the checkpoint taken
+    out of ``models/ssm.py`` and ``models/rglru.py`` by text
+    replacement.  The same loss from both."""
+    import shutil
+    name = "repro_torch_scan_remat_off"
+    root = ROOT / "build" / "scan_remat_off"
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(ROOT / "src" / "repro_torch", root / name,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    old = "remat = state is None and torch.is_grad_enabled()"
+    for f in ("ssm.py", "rglru.py"):
+        path = root / name / "models" / f
+        text = path.read_text()
+        require(text.count(old) == 1, f"{f}: the chunk checkpoint's "
+                "switch is not where the copy expects it")
+        path.write_text(text.replace(old, "remat = False"))
+    sys.path.insert(0, str(root))
+    res = {}
+    for arch, layers, batch, seq, _ in TRAIN_FAMILIES:
+        if arch not in ("falcon-mamba-7b", "recurrentgemma-9b"):
+            continue
+        on = train_steps_peak("repro_torch", arch, layers, batch, seq)
+        off = train_steps_peak(name, arch, layers, batch, seq)
+        require(not on["out_of_memory"], f"{arch}: the step ran out of "
+                "memory")
+        require(off["out_of_memory"] or off["losses"] == on["losses"],
+                f"{arch}: the copy without the chunk checkpoint computes "
+                f"other losses ({off['losses']} against {on['losses']})")
+        res[arch] = {
+            "with_chunk_checkpoint": on, "without_chunk_checkpoint": off,
+            "saved_bytes": None if off["out_of_memory"]
+            else off["peak_device_bytes"] - on["peak_device_bytes"],
+            "added_step_s": None if off["out_of_memory"]
+            else on["step_s"] - off["step_s"]}
+    print("scan remat saving " + json.dumps(res), flush=True)
+    return res
+
+
+def run_train_families() -> dict:
+    """Phase 12: each config of ``TRAIN_FAMILIES`` in turn (each freed
+    before the next), the chunk checkpoint's saving and cost at the
+    recurrent configs' shapes (``scan_remat_saving``), then
+    ``train_reduced_on_card``.
+    Returns the flash launches by route and config."""
+    out = {}
+    for arch, layers, batch, seq, opt_name in TRAIN_FAMILIES:
+        out[arch] = train_family(arch, layers, batch, seq, opt_name)
+    saving = scan_remat_saving()
+    reduced = train_reduced_on_card()
+    return {"res": out, "scan_remat": saving,
+            "launches": {"sm90": {a: r["flash_launches"]
+                                  for a, r in out.items()},
+                         "tf32": reduced}}
+
+
+# ---------------------------------------------------------------------------
 # phase 11: the cost models against the card
 # ---------------------------------------------------------------------------
 
@@ -3876,14 +4325,11 @@ def time_flash(launches: dict, err: dict, train: dict,
     """The flash kernels at qwen2-1.5b's prefill shape (one layer of the
     4 x 2048 prefill): the bf16 tensor-core kernel (the serving path),
     the 3xTF32 kernel in float32 (the float32 prefill's route) and its
-    pre-pass, each tensor-core kernel beside the CUDA-core kernel on the
-    same inputs (``replaced_kernel_ms``: the kernel each replaced there),
-    and the CUDA-core kernel's own row in float32 (on no route), its
-    bound the card's (3 TF32 products a flop, as the TF32 row's), with
-    ``time_flash_small``'s narrow heads under it.  Kernels, replaced
-    kernel and the yardstick F.scaled_dot_product_attention (never
-    called by the port) are timed as in ``queued_ms``, with per-call and
-    profiler figures beside.  The
+    pre-pass, with ``time_flash_small``'s narrow heads and
+    ``time_flash_encdec``'s shapes under the bf16 row.  Kernels and the
+    yardstick F.scaled_dot_product_attention (never called by the port)
+    are timed as in ``queued_ms``, with per-call and profiler figures
+    beside.  The
     TF32 kernel is timed on a split made once (``ms``), and with its
     pre-pass (``route_ms``).  Each route is also timed writing the row
     statistic (``ms_with_lse``, the training forward's call), beside its
@@ -3900,14 +4346,12 @@ def time_flash(launches: dict, err: dict, train: dict,
     # live (q, k) pairs of causal attention, 4 D flops each (QK^T, PV)
     flops = 4 * bh * d * s * (s + 1) / 2
     src = "src/repro_torch/kernels/csrc/"
-    sources = {"sm90": "flash_attention_sm90", "tf32": "flash_attention_tf32",
-               "simt": "flash_attention"}
+    sources = {"sm90": "flash_attention_sm90", "tf32": "flash_attention_tf32"}
     rows = []
     # (route, dtype, tensor-core products per flop, peak rate)
     for route, dtype, products, rate in (
             ("sm90", torch.bfloat16, 1, BF16_OPS_PER_S),
-            ("tf32", torch.float32, 3, TF32_OPS_PER_S),
-            ("simt", torch.float32, 3, TF32_OPS_PER_S)):
+            ("tf32", torch.float32, 3, TF32_OPS_PER_S)):
         x = [t.to(dtype) for t in (q, k, v)]
         split = fa.tf32_split_cuda(x[1], x[2]) if route == "tf32" else None
         kern = lambda: fa._launch(route, *x, causal=True, split=split)
@@ -3949,13 +4393,6 @@ def time_flash(launches: dict, err: dict, train: dict,
             "shape": f"q {tuple(q.shape)}, k/v {tuple(k.shape)} "
                      f"{str(dtype).removeprefix('torch.')} causal "
                      "(qwen2-1.5b prefill, one layer)"}
-        if route != "simt":
-            old = lambda: fa._launch("simt", *x, causal=True)
-            row["replaced_kernel"] = "flash_attention_simt"
-            row["replaced_kernel_ms"] = queued_ms(old, 10)
-            row["replaced_kernel_call_ms"] = call_ms(old, 10)
-            row["replaced_kernel_profiler_ms"] = device_ms(old, 10)
-            row["bound_f32_cuda_core_ms"] = flops / F32_OPS_PER_S * 1e3
         if route == "tf32":
             whole = lambda: fa._launch("tf32", *x, causal=True)
             row["bound_3xtf32_ms"] = bound_ops
@@ -3986,13 +4423,8 @@ def time_flash(launches: dict, err: dict, train: dict,
                          f"V^T {tuple(split[0].shape)}, "
                          f"{tuple(split[1].shape)}"})
             continue
-        if route == "simt":
-            row["path_note"] = ("on no route: replaced at head_dim 1-32 by "
-                                "the sm90 (bf16) and TF32 (float32) "
-                                "kernels; timed only")
-            row["bound_f32_cuda_core_ms"] = flops / F32_OPS_PER_S * 1e3
-            row["at_small_head_dims"] = time_flash_small(gen)
         if route == "sm90":
+            row["at_small_head_dims"] = time_flash_small(gen)
             row["at_encdec_shapes"] = time_flash_encdec(gen)
         rows.append(row)
     return rows
@@ -4062,17 +4494,16 @@ EXP_PER_S = 3.9e12
 
 
 def time_flash_small(gen) -> list:
-    """The flash routes at the narrow heads, where they replaced the
-    CUDA-core kernel: qwen2-1.5b's prefill shape with the head narrowed
+    """The flash routes at the narrow heads: qwen2-1.5b's prefill shape
+    with the head narrowed
     (q 48 x 2048 x D, k/v 8 x 2048 x D, causal), D 32 and 16, bf16 (the
     sm90 kernel's D-32 and D-16 instances) and float32 (the TF32
     kernel's), each through ``flash_attention_cuda`` (the TF32 route's
     pre-pass included; ``kernel_ms``: the attention kernel alone on the
-    split it is handed) beside the replaced CUDA-core kernel and
-    F.scaled_dot_product_attention and the plain version (profiler) on
-    the same inputs, with ptxas's registers and spills of both kernels'
-    instances.  At D 16 the call
-    and the kernel alone are also timed on the inputs zero-padded to 32
+    split it is handed) beside F.scaled_dot_product_attention and the
+    plain version (profiler) on the same inputs, with ptxas's registers
+    and spills of the kernel's instances.  At D 16 the call and the
+    kernel alone are also timed on the inputs zero-padded to 32
     (the D-32 instance; ``ms_padded_to_32`` with the padding, the
     output's slice and the wider pre-pass, ``kernel_ms_padded_to_32``
     the kernel alone): what padding instead of a D-16 build would cost.
@@ -4098,15 +4529,13 @@ def time_flash_small(gen) -> list:
                     and d in fa.ROUTE_HEAD_DIMS[route], f"head_dim {d} "
                     f"{dtype} is not on a tensor-core kernel built for it")
             new = lambda: fa.flash_attention_cuda(*x, causal=True)
-            old = lambda: fa._launch("simt", *x, causal=True)
             dt = str(dtype).removeprefix("torch.")
             tol = FLASH_TOL[dt]
             want = attention_ref(*x, causal=True).float()
-            for label, fn in (("kernel", new), ("replaced kernel", old)):
-                err = float((fn().float() - want).abs().max())
-                require(err <= tol * (1 + float(want.abs().max())),
-                        f"head_dim {d} {dtype}: the {label} differs from "
-                        f"the plain version by {err}")
+            err = float((new().float() - want).abs().max())
+            require(err <= tol * (1 + float(want.abs().max())),
+                    f"head_dim {d} {dtype}: the kernel differs from the "
+                    f"plain version by {err}")
             lib, library = _sdpa(*x)
             diff = float((lib().reshape(q.shape).float()
                           - new().float()).abs().max())
@@ -4126,8 +4555,6 @@ def time_flash_small(gen) -> list:
                 "head_dim": d, "dtype": dt, "kernel": fa.ROUTE_KERNELS[route],
                 "route": route, "ms": queued_ms(new, 20),
                 "kernel_ms": queued_ms(alone, 20),
-                "replaced_kernel": "flash_attention_simt",
-                "replaced_kernel_ms": queued_ms(old, 10),
                 "library_ms": queued_ms(lib, 20), "library": library,
                 "library_vs_kernel_max_abs_diff": diff,
                 "plain_ms": device_ms(lambda: attention_ref(*x, causal=True),
@@ -4136,13 +4563,8 @@ def time_flash_small(gen) -> list:
                 "bound_by": "operations" if bound_ops >= bound_bytes
                 else "bytes", "flops": flops, "bytes": nbytes,
                 "exp_floor_ms": scores / EXP_PER_S * 1e3,
-                "bound_f32_cuda_core_ms": flops / F32_OPS_PER_S * 1e3,
                 "ptxas": [e for e in ptxas(source)
                           if f"_kernelILi{d}E" in e["entry"]],
-                "replaced_kernel_ptxas": [
-                    e for e in ptxas("flash_attention")
-                    if f"Li{d}E" in e["entry"] and ("bfloat16" in e["entry"])
-                    == (dtype == torch.bfloat16)],
                 "shape": f"q (48, 2048, {d}), k/v (8, 2048, {d}) causal"}
             if d == 16:
                 def padded():
@@ -4531,6 +4953,17 @@ def main() -> None:
     # shapes on "meta", and each model figure beside its measurement
     run_cost_models(runs, ms_runs, lm, train)
     phase("11")
+
+    # 12. training the MoE, mamba, RG-LRU, whisper and internvl families
+    # (counts zeroed and read inside, per config), then their reduced
+    # configs on the card against the CPU
+    fam_train = run_train_families()["launches"]
+    phase("12")
+    for k in kernels:
+        if k["name"] in ("flash_attention", "flash_attention_tf32",
+                         "tf32_split"):
+            route = "sm90" if k["name"] == "flash_attention" else "tf32"
+            k["train_family_launches"] = fam_train[route]
     require("jax" not in sys.modules and not any(
         m == "repro" or m.startswith("repro.") for m in sys.modules),
         "the port pulled in jax or the JAX package")

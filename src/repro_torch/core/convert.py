@@ -6,8 +6,10 @@ reference's synapse tables (bfloat16 or float32 weights), simulation
 state and STDP auxiliaries as numpy arrays (``np.asarray`` of each leaf)
 and return the port's; ``model_params_from_arrays`` does the same for
 the parameters of an LM (and any tree of their structure: gradients,
-moments), ``adamw_state_from_arrays`` for AdamW's state.  bfloat16 arrays (ml_dtypes' ``bfloat16``) are reinterpreted
-bit for bit, so neither ml_dtypes nor jax is needed here.
+moments), ``adamw_state_from_arrays`` and ``adafactor_state_from_arrays``
+for the optimizers' states.  bfloat16 arrays (ml_dtypes' ``bfloat16``)
+are reinterpreted bit for bit, so neither ml_dtypes nor jax is needed
+here.
 """
 
 from __future__ import annotations
@@ -193,3 +195,29 @@ def adamw_state_from_arrays(cfg, state: dict, device="cuda") -> dict:
     return {"m": model_params_from_arrays(cfg, state["m"], dev, "float32"),
             "v": model_params_from_arrays(cfg, state["v"], dev, "float32"),
             "step": _tensor(state["step"], torch.int32, dev)}
+
+
+def adafactor_state_from_arrays(cfg, state: dict, device="cuda") -> dict:
+    """The port's Adafactor state (``optim.adafactor(..., stacks=
+    transformer.stack_groups(cfg))``) from the reference's, as numpy
+    arrays: the moments keep the reference's layout (``blocks``,
+    ``rest``, ``enc_blocks`` and the other parameter keys), each leaf in
+    float32, ``step`` an int32 0-d tensor."""
+    from ..models.transformer import stack_groups
+    dev = resolve_device(device)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [conv(v) for v in node]
+        return _tensor(node, torch.float32, dev)
+
+    v = conv(state["v"])
+    for key, (_, entries) in stack_groups(cfg).items():
+        n = 1 if isinstance(entries, tuple) else len(entries)
+        got = 1 if isinstance(entries, tuple) else len(v.get(key) or [])
+        if key not in v or got != n:
+            raise ValueError(f"the state's {key!r} does not hold the "
+                             f"config's {n} entries")
+    return {"v": v, "step": _tensor(state["step"], torch.int32, dev)}

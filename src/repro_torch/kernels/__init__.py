@@ -18,8 +18,7 @@ PyTorch version in ``ref.py`` and a wrapper that routes by tensor device:
   * flash_attention -- blocked online-softmax attention with causal and
                        sliding-window masks and GQA (the LM prefill):
                        bf16 and 3xTF32 float32 on the tensor cores at
-                       every head_dim (the CUDA-core kernel it replaced
-                       is kept only to be timed beside them)
+                       every head_dim
 
 ``_build`` compiles the sources with ``nvcc`` at first use and counts
 every launch.

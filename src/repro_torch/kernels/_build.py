@@ -29,8 +29,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("lif_step", "neuron_step", "event_delivery", "plastic_delivery",
-           "spike_compact", "flash_attention", "flash_attention_sm90",
-           "flash_attention_tf32")
+           "spike_compact", "flash_attention_sm90", "flash_attention_tf32")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")

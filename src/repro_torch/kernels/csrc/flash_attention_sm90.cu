@@ -14,8 +14,7 @@
 // flops against 5.9e7 bytes of q, k, v and o: bound by operations, 52 us
 // at the bf16 tensor-core rate (989 TFLOP/s), 18 us of bytes.  Measured
 // on an H100 (chip_smoke.py, PERF.md): 0.165 ms, 32 % of that bound, where
-// F.scaled_dot_product_attention takes 0.109 ms and the CUDA-core kernel
-// 2.93 ms.  Design:
+// F.scaled_dot_product_attention takes 0.109 ms.  Design:
 //
 //   * one CTA of two consumer warpgroups per (bh, 128 query rows); each
 //     warpgroup owns 64 rows.  No producer warp: thread 0 issues the TMA
@@ -47,8 +46,7 @@
 //     training backward (models/attention.py: _Flash): one float per
 //     row from the lane that holds column 0 of it, no second pass.
 //
-// Narrow heads (D 16 and 32; the CUDA-core kernel of flash_attention.cu
-// took them before).  A score costs only 4 D tensor-core flops there,
+// Narrow heads (D 16 and 32).  A score costs only 4 D tensor-core flops there,
 // against one ex2 on the special-function units (16 a clock per SM, about
 // 3.9e12 a second on an H100) and a few f32 operations: the softmax, not
 // the MMA, sets the pace.  At q 48 x 2048, k/v 8 x 2048, causal, D 32 the

@@ -19,13 +19,7 @@ flash_attention``.  Two routes (``_route``), both on the tensor cores:
   (``tf32_split_cuda``, counted as ``tf32_split``); counted as
   ``flash_attention_tf32``.
 
-The CUDA-core kernel ``csrc/flash_attention.cu`` (head_dim 8 to 256,
-``SIMT_HEAD_DIMS``, either dtype, counted as ``flash_attention_simt``)
-is on no route: it is the kernel the two replaced at head_dim 1-32, and
-stays only for chip_smoke.py to time beside them (``_launch("simt",
-...)``).
-
-All run one block per (query head, tile of query rows), keep each
+Both run one block per (query head, tile of query rows), keep each
 row's running max, sum and accumulator in float32 registers and skip key
 tiles that are fully masked.  Their work is 4 D flops per live (q, k)
 pair (three times that on the TF32 route); at D 32 and below the
@@ -69,17 +63,13 @@ from .ref import TF32_KEY_ORDER, TF32_KEY_PAD, attention_ref
 
 SM90_HEAD_DIMS = (16, 32, 64, 128, 256)
 TF32_HEAD_DIMS = (16, 32, 64, 128, 256)
-# the replaced CUDA-core kernel's widths (timed only; on no route)
-SIMT_HEAD_DIMS = (8, 16, 32, 64, 128, 256)
 # the widths each kernel is built for; the wrapper takes 1..MAX_HEAD_DIM
-ROUTE_HEAD_DIMS = {"sm90": SM90_HEAD_DIMS, "tf32": TF32_HEAD_DIMS,
-                   "simt": SIMT_HEAD_DIMS}
+ROUTE_HEAD_DIMS = {"sm90": SM90_HEAD_DIMS, "tf32": TF32_HEAD_DIMS}
 HEAD_DIMS = tuple(sorted(set(SM90_HEAD_DIMS + TF32_HEAD_DIMS)))
 MAX_HEAD_DIM = 256
 INPUT_DTYPES = (torch.float32, torch.bfloat16)
 # launch-count name of each route's kernel
-ROUTE_KERNELS = {"sm90": "flash_attention", "tf32": "flash_attention_tf32",
-                 "simt": "flash_attention_simt"}
+ROUTE_KERNELS = {"sm90": "flash_attention", "tf32": "flash_attention_tf32"}
 SPLIT_KERNEL = "tf32_split"     # the TF32 route's pre-pass
 # the TF32 kernel's P V operand order (csrc/flash_attention_tf32.cu): slot
 # j of each group of 8 keys of the split V^T holds key TF32_KEY_ORDER[j]
@@ -96,8 +86,7 @@ def _route(dtype: torch.dtype, d: int) -> str:
     """The kernel that takes (dtype, head_dim): ``"sm90"`` (tensor
     cores, bf16) for bfloat16, ``"tf32"`` (tensor cores, 3xTF32) for
     float32, at every D from 1 to ``MAX_HEAD_DIM`` (a width the route's
-    kernel is not built for is padded, ``padded_head_dim``).  No D
-    takes the CUDA-core kernel."""
+    kernel is not built for is padded, ``padded_head_dim``)."""
     if dtype not in INPUT_DTYPES or not 1 <= d <= MAX_HEAD_DIM:
         raise ValueError(f"no flash-attention kernel takes {dtype} with "
                          f"head_dim {d}")
@@ -149,16 +138,9 @@ def _tf32_lib():
 def _launcher(route: str):
     if route == "tf32":
         return _tf32_lib().flash_attention_tf32_launch
-    if route == "sm90":
-        fn = _build.library("flash_attention_sm90") \
-            .flash_attention_sm90_launch
-        if fn.argtypes is None:
-            fn.argtypes = [_P] * 5 + [_I] * 9 + [_F, _P]
-            fn.restype = _I
-        return fn
-    fn = _build.library("flash_attention").flash_attention_launch
+    fn = _build.library("flash_attention_sm90").flash_attention_sm90_launch
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 5 + [_I] * 10 + [_F, _P]
+        fn.argtypes = [_P] * 5 + [_I] * 9 + [_F, _P]
         fn.restype = _I
     return fn
 
@@ -271,10 +253,7 @@ def _launch(route: str, q, k, v, *, causal: bool = True,
             window: Optional[int] = None, scale: Optional[float] = None,
             q_offset: int = 0, split=None, return_lse: bool = False):
     """Launch the kernel of ``route`` on checked inputs at a width it is
-    built for.  The CUDA-core kernel (``"simt"``, on no route) takes
-    either dtype; chip_smoke.py times it beside the tensor-core kernels
-    on their inputs through this function.
-    ``split``: the TF32 route's pre-pass output for these k, v
+    built for.  ``split``: the TF32 route's pre-pass output for these k, v
     (``tf32_split_cuda``), made here when None; chip_smoke.py passes it
     to time the attention kernel on its own.  ``return_lse``: also write
     and return the rows' statistic (see the module docstring)."""
@@ -284,8 +263,7 @@ def _launch(route: str, q, k, v, *, causal: bool = True,
         if x.data_ptr() % 16:
             raise ValueError("attention takes 16-byte aligned q, k, v")
     bh, sq, d = q.shape
-    if d not in ROUTE_HEAD_DIMS.get(route, ()) or (
-            route != "simt" and _route(q.dtype, d) != route):
+    if d not in ROUTE_HEAD_DIMS.get(route, ()) or _route(q.dtype, d) != route:
         raise ValueError(f"route {route!r} does not take {q.dtype} with "
                          f"head_dim {d}")
     bh_kv, sk, _ = k.shape
@@ -316,16 +294,11 @@ def _launch(route: str, q, k, v, *, causal: bool = True,
             out.data_ptr(), lse_ptr, bh, bh_kv, sq, sk, k_split.shape[2], d,
             *mask,
             float(scale), _build.stream_ptr(q))
-    elif route == "sm90":
+    else:
         err = _launcher(route)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse_ptr, bh, bh_kv, sq, sk, d, *mask, float(scale),
             _build.stream_ptr(q))
-    else:
-        err = _launcher(route)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse_ptr, bh, bh_kv, sq, sk, d, int(q.dtype == torch.bfloat16),
-            *mask, float(scale), _build.stream_ptr(q))
     _build.check(err, ROUTE_KERNELS[route])
     _build.count_launch(ROUTE_KERNELS[route])
     return out if lse is None else (out, lse)

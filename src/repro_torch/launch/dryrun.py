@@ -117,16 +117,19 @@ def cell_config(arch: str, variant=None, reduced: bool = False):
     return dataclasses.replace(cfg, attn_impl="chunked")
 
 
-def train_setup(n_params: int, overrides: dict = None):
-    """The reference's choice for a train cell: Adafactor (factored
-    moments) above 15e9 parameters, else AdamW; 8 microbatches above
-    15e9 parameters, 4 above 4e9, else 1."""
+def train_setup(cfg, n_params: int, overrides: dict):
+    """The reference's choice for a train cell of ``cfg`` (``n_params``
+    parameters): Adafactor (factored moments, over ``cfg``'s stack
+    groups) above 15e9 parameters, else AdamW; 8 microbatches above 15e9
+    parameters, 4 above 4e9, else 1, unless ``overrides`` names them."""
+    from ..models.transformer import stack_groups
     from ..optim import adafactor, adamw, warmup_cosine
     big = n_params > 15e9
-    opt = adafactor(warmup_cosine(1e-4, 100, 10000)) if big else \
-        adamw(warmup_cosine(3e-4, 100, 10000))
+    opt = adafactor(warmup_cosine(1e-4, 100, 10000),
+                    stacks=stack_groups(cfg)) if big \
+        else adamw(warmup_cosine(3e-4, 100, 10000))
     micro = 8 if big else (4 if n_params > 4e9 else 1)
-    return opt, (overrides or {}).get("microbatches", micro)
+    return opt, overrides.get("microbatches", micro)
 
 
 def _shape(shape):
@@ -161,7 +164,7 @@ def build_cell(arch: str, shape_name, variant=None,
         state = M.abstract_decode_state(cfg, shape)
         return M.make_prefill(cfg), (params, batch, state), meta
 
-    opt, micro = train_setup(n_params, _overrides(variant))
+    opt, micro = train_setup(cfg, n_params, _overrides(variant))
     meta["microbatches"] = micro
     meta["optimizer"] = "adafactor" if n_params > 15e9 else "adamw"
     step = M.make_train_step(cfg, opt, microbatches=micro)

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import math
 
+import torch
+
 from .config import ModelConfig
 from .layers import _normal, sinusoidal_positions
 
@@ -24,9 +26,17 @@ def init_frontend(gen, cfg: ModelConfig, dtype) -> dict:
                                1 / math.sqrt(STUB_WIDTH), dtype)}
 
 
+def _adapt(p, x):
+    """``x @ adapter`` in the wider of the two dtypes, as the reference's
+    product promotes them (float32 embeddings into a bf16 model)."""
+    w = p["adapter"]
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt) @ w.to(dt)
+
+
 def apply_audio_frontend(p, frames):
     """frames: (B, n_frames, STUB_WIDTH) precomputed conv features."""
-    x = frames @ p["adapter"]
+    x = _adapt(p, frames)
     pos = sinusoidal_positions(frames.shape[1], x.shape[-1],
                                device=x.device).to(x.dtype)
     return x + pos[None]
@@ -34,4 +44,4 @@ def apply_audio_frontend(p, frames):
 
 def apply_patch_frontend(p, patches):
     """patches: (B, n_patches, STUB_WIDTH) precomputed ViT patch embeds."""
-    return patches @ p["adapter"]
+    return _adapt(p, patches)

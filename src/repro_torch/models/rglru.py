@@ -23,6 +23,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .config import ModelConfig
 from .layers import _normal, apply_conv1d, init_conv1d, random_uniform
@@ -64,10 +65,25 @@ def _gates(p, x_c):
     return a, beta * (i * xf)
 
 
+def _chunk_step(p, h, x_chunk, chunk: int):
+    """One chunk of the scan (``x_chunk`` its valid positions, up to
+    ``chunk``): (h_last, h over the valid positions, float32).  The
+    padded tail (a = 1, b = 0) does not advance the state."""
+    n_valid = x_chunk.shape[1]
+    a, bx = _gates(p, x_chunk)
+    if n_valid < chunk:
+        a = F.pad(a, (0, 0, 0, chunk - n_valid), value=1.0)
+        bx = F.pad(bx, (0, 0, 0, chunk - n_valid))
+    h, h_all = diag_scan_chunk(a, bx, h)
+    return h, h_all[:, :n_valid]
+
+
 def apply_rglru(p, cfg: ModelConfig, x, state: Optional[dict] = None):
     """x: (B, S, d) -> (out, new_state); ``state`` = ``{"conv", "h"}``
     for decode and for a prefill that continues from it, None for
-    training."""
+    training.  Training with grad enabled runs each chunk under
+    ``torch.utils.checkpoint`` (non-reentrant), as the reference's scan
+    runs ``jax.checkpoint(step)``."""
     b, s, _ = x.shape
     w = cfg.resolved_rglru_width
 
@@ -87,17 +103,16 @@ def apply_rglru(p, cfg: ModelConfig, x, state: Optional[dict] = None):
         chunk = min(cfg.mamba_chunk, s)
         h = torch.zeros((b, w), dtype=torch.float32, device=x.device) \
             if state is None else state["h"]
+        remat = state is None and torch.is_grad_enabled()
         ys = []
         for c0 in range(0, s, chunk):
             x_chunk = x_c[:, c0:c0 + chunk]
-            n_valid = x_chunk.shape[1]
-            a, bx = _gates(p, x_chunk)
-            if n_valid < chunk:
-                # the padded tail: a = 1, b = 0 do not advance the state
-                a = F.pad(a, (0, 0, 0, chunk - n_valid), value=1.0)
-                bx = F.pad(bx, (0, 0, 0, chunk - n_valid))
-            h, h_all = diag_scan_chunk(a, bx, h)
-            ys.append(h_all[:, :n_valid])
+            if remat:
+                h, y_c = checkpoint(_chunk_step, p, h, x_chunk, chunk,
+                                    use_reentrant=False)
+            else:
+                h, y_c = _chunk_step(p, h, x_chunk, chunk)
+            ys.append(y_c)
         y = torch.cat(ys, dim=1)
         new_state = None if state is None else {"conv": conv_state, "h": h}
 

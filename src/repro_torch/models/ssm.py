@@ -22,6 +22,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .config import ModelConfig
 from .layers import _normal, apply_conv1d, init_conv1d, random_uniform
@@ -132,7 +133,11 @@ def apply_mamba(p, cfg: ModelConfig, x, state: Optional[dict] = None):
 
     ``state`` = ``{"conv", "ssm"}`` for decode and for a prefill that
     continues from it; None for training (a zero initial state, no state
-    returned)."""
+    returned).  Training with grad enabled runs each chunk under
+    ``torch.utils.checkpoint`` (non-reentrant), as the reference's scan
+    runs ``jax.checkpoint(step)``: the backward recomputes a chunk's
+    (B, C, d_inner, N) tensors instead of keeping every chunk's, so the
+    bytes saved for it do not grow with the number of chunks."""
     b, s, _ = x.shape
     di, n = cfg.d_inner, cfg.ssm_state
     a_neg = -torch.exp(p["a_log"])                          # (di, N)
@@ -159,13 +164,18 @@ def apply_mamba(p, cfg: ModelConfig, x, state: Optional[dict] = None):
         chunk = min(cfg.mamba_chunk, s)
         h = torch.zeros((b, di, n), dtype=torch.float32, device=x.device) \
             if state is None else state["ssm"]
+        remat = state is None and torch.is_grad_enabled()
         ys = []
         for c0 in range(0, s, chunk):
             x_chunk = x_c[:, c0:c0 + chunk]
             n_valid = x_chunk.shape[1]
             if n_valid < chunk:          # the padded tail of the sequence
                 x_chunk = F.pad(x_chunk, (0, 0, 0, chunk - n_valid))
-            h, y_c = _chunk_step(p, cfg, a_neg, h, x_chunk, n_valid)
+            if remat:
+                h, y_c = checkpoint(_chunk_step, p, cfg, a_neg, h, x_chunk,
+                                    n_valid, use_reentrant=False)
+            else:
+                h, y_c = _chunk_step(p, cfg, a_neg, h, x_chunk, n_valid)
             ys.append(y_c[:, :n_valid])
         y = torch.cat(ys, dim=1)
         new_state = None if state is None else \

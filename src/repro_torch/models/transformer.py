@@ -12,12 +12,14 @@ the layers, so recurrentgemma's two remainder layers are RG-LRU).  With
 (``cfg.encoder_seq`` or ``cfg.n_patches``) adds ``frontend``
 (``{"adapter"}``).  The reference stacks the layers of each pattern
 position (and the encoder's) and drives them with ``lax.scan``; here a
-Python loop runs them.  The decode state is ``{"layers": [state,
-...]}`` (a ``KVCache`` for attention layers, ring-buffered under a
-sliding window; ``{"conv", "ssm"}`` for mamba; ``{"conv", "h"}`` for
-RG-LRU), plus ``"cross": [KVCache, ...]`` (one static cache of the
-encoder's keys per decoder layer) with cross-attention; a training
-forward returns ``{"layers": [None, ...]}``.
+Python loop runs them, and ``stack_groups`` names the reference's groups
+(Adafactor factors and clips each as one stacked leaf).  The decode
+state is ``{"layers": [state, ...]}`` (a ``KVCache`` for attention
+layers, ring-buffered under a sliding window; ``{"conv", "ssm"}`` for
+mamba; ``{"conv", "h"}`` for RG-LRU), plus ``"cross": [KVCache,
+...]`` (one static cache of the encoder's keys per decoder layer) with
+cross-attention; a training forward returns ``{"layers": [None,
+...]}``.
 
 Block kinds:
   attn   -- pre-norm attention + pre-norm gated MLP
@@ -211,6 +213,32 @@ def _init_params(cfg: ModelConfig, gen) -> Dict:
     if cfg.encoder_seq or cfg.n_patches:
         p["frontend"] = init_frontend(gen, cfg, dtype)
     return p
+
+
+def stack_groups(cfg: ModelConfig) -> Dict:
+    """The reference's layout of the layers (``repro.models.transformer.
+    init_model``), as the port's layer indices: ``{"blocks": ("layers",
+    [group, ...]), "rest": ("layers", [i, ...])}``, with an encoder also
+    ``"enc_blocks": ("enc_layers", group)``.  A group is a tuple of
+    layer indices that the reference stacks into one leaf: with
+    ``cfg.scan_layers`` and more than one period, the layers at each
+    pattern position of the whole periods (period-major); the encoder's
+    layers always.  The remainder layers (all of them with one period or
+    without ``scan_layers``) stay single.  ``optim.adafactor(...,
+    stacks=)`` factors and clips each group as the reference does its
+    stacked leaf."""
+    per = len(cfg.pattern)
+    n_periods, _ = cfg.pattern_periods
+    if cfg.scan_layers and n_periods > 1:
+        blocks = [tuple(i * per + pos for i in range(n_periods))
+                  for pos in range(per)]
+        rest = list(range(n_periods * per, cfg.n_layers))
+    else:
+        blocks, rest = [], list(range(cfg.n_layers))
+    out = {"blocks": ("layers", blocks), "rest": ("layers", rest)}
+    if cfg.encoder_layers:
+        out["enc_blocks"] = ("enc_layers", tuple(range(cfg.encoder_layers)))
+    return out
 
 
 def param_count_gap(cfg: ModelConfig) -> int:

@@ -9,11 +9,13 @@ last two axes of every leaf with two or more, with relative-scale update
 clipping.  Unlike the reference, ``update`` writes the new parameters
 and state into their tensors in place (under ``torch.no_grad``) and
 returns them.  The reference stacks the layers of an LM along a leading
-axis, so its Adafactor factors a per-layer 1-D leaf (a norm scale)
-across the layers; the port keeps one tree node per layer and gives such
-a leaf full second moments.  ``abstract_state`` builds the state on
-``"meta"`` through the same ``init`` (the dry run's input), and
-``state_specs`` names its leaves as the reference does.
+axis, and its Adafactor treats each stacked leaf as one parameter; the
+port keeps one tree node per layer, so its Adafactor takes the model's
+stack groups (``stacks=models.transformer.stack_groups(cfg)``) and
+factors and clips each group as the reference does its stacked leaf.
+``abstract_state`` builds the state on ``"meta"`` through the same
+``init`` (the dry run's input), and ``state_specs`` names its leaves as
+the reference does.
 """
 
 from __future__ import annotations
@@ -146,57 +148,156 @@ def adamw(lr: Callable, *, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
     return Optimizer(init=init, _update=update, _state_specs=state_specs)
 
 
-def adafactor(lr: Callable, *, decay=0.8, eps=1e-30, clip_norm: float = 1.0,
-              weight_decay: float = 0.0) -> Optimizer:
+class _Group(list):
+    """The subtrees of the layers of one stack group, in the group's
+    order (the reference's stacked leaf, unstacked)."""
+
+
+def _regroup(tree, stacks):
+    """``tree`` (parameters, gradients, names, or their leaves' flat
+    indices) in the layout of ``stacks``: each of its keys in place of
+    the key its layers come from, a layer index standing for that
+    layer's subtree and a tuple of them for a ``_Group``."""
+    if not stacks:
+        return tree
+    sources = {src for src, _ in stacks.values()}
+    out = {k: v for k, v in tree.items() if k not in sources}
+    for key, (src, entries) in stacks.items():
+        nodes = tree[src]
+
+        def one(e):
+            return _Group(nodes[i] for i in e) if isinstance(e, tuple) \
+                else nodes[e]
+        out[key] = one(entries) if isinstance(entries, tuple) \
+            else [one(e) for e in entries]
+    return out
+
+
+def _map_groups(fn_leaf, fn_group, node):
+    """``node`` (a ``_regroup`` tree) with ``fn_group`` applied to each
+    ``_Group`` and ``fn_leaf`` to every other leaf."""
+    if isinstance(node, _Group):
+        return fn_group(node)
+    if isinstance(node, dict):
+        return {k: _map_groups(fn_leaf, fn_group, v)
+                for k, v in node.items()}
+    if isinstance(node, list):
+        return [_map_groups(fn_leaf, fn_group, v) for v in node]
+    return None if node is None else fn_leaf(node)
+
+
+def _units(node, vnode, out: list) -> list:
+    """``[(leaf indices, moments, stacked), ...]``: every parameter of a
+    ``_regroup`` tree of flat leaf indices beside its moments in the
+    state ``vnode`` (a group's leaves at one path share one unit)."""
+    if isinstance(node, _Group):
+        flats = [tree_flatten(n)[0] for n in node]
+        treedef = tree_flatten(node[0])[1]
+        for j, v in enumerate(tree_flatten_up_to(treedef, vnode)):
+            out.append(([f[j] for f in flats], v, True))
+    elif isinstance(node, dict):
+        for k in node:
+            _units(node[k], vnode[k], out)
+    elif isinstance(node, list):
+        for n, v in zip(node, vnode):
+            _units(n, v, out)
+    elif node is not None:
+        out.append(([node], vnode, False))
+    return out
+
+
+def _moments(shape: tuple, device) -> dict:
+    z = dict(dtype=torch.float32, device=device)
+    if len(shape) >= 2:
+        return {"row": torch.zeros(shape[:-1], **z),
+                "col": torch.zeros(shape[:-2] + shape[-1:], **z)}
+    return {"full": torch.zeros(shape, **z)}
+
+
+def _scaled_grad(g, v: dict, beta, eps: float):
+    """The reference's Adafactor direction of one leaf ``g`` (before the
+    update clipping), its second moments ``v`` updated in place:
+    factored over the last two axes of a leaf with two or more, full
+    otherwise.  Full-size intermediates keep the gradient's dtype."""
+    if g.dim() >= 2:
+        row = beta * v["row"] + (1 - beta) * (_mean_sq(g, -1) + eps)
+        col = beta * v["col"] + (1 - beta) * (_mean_sq(g, -2) + eps)
+        rinv = torch.rsqrt(row + eps)
+        cinv = torch.rsqrt(col / (row.mean(dim=-1, keepdim=True) + eps)
+                           + eps)
+        v["row"].copy_(row)
+        v["col"].copy_(col)
+        return (g * rinv.to(g.dtype)[..., None]) \
+            * cinv.to(g.dtype)[..., None, :]
+    full = beta * v["full"] + (1 - beta) * (
+        torch.square(g.to(torch.float32)) + eps)
+    v["full"].copy_(full)
+    return (g.to(torch.float32) * torch.rsqrt(full + eps)).to(g.dtype)
+
+
+def adafactor(lr: Callable, *, stacks: dict, decay=0.8, eps=1e-30,
+              clip_norm: float = 1.0, weight_decay: float = 0.0
+              ) -> Optimizer:
     """Adafactor: factored second moments ``{"row", "col"}`` over the
     last two axes of leaves with two or more, ``{"full"}`` for the
     others, float32; ``"step"`` as AdamW's.  Full-size intermediates keep
-    the gradient's dtype, as the reference's do."""
+    the gradient's dtype, as the reference's do.
+
+    ``stacks`` (``models.transformer.stack_groups(cfg)``): ``{state
+    key: (parameter key, entries)}``, the entries a list of layer
+    indices (a layer on its own) and index tuples (a stack group), or
+    one tuple.  The state's ``"v"`` then holds those keys in place of
+    the parameter keys their layers come from, in the reference's
+    layout: a group's moments are those of the reference's stacked leaf,
+    ``(len(group),) + shape``.  So a per-layer 1-D leaf ``(d,)`` gets
+    ``row (L,)`` and ``col (d,)``, a leaf of two or more dimensions the
+    stacked moments whose per-layer slices are its own, and the update
+    is clipped by the RMS over the whole group.  ``stacks={}`` groups
+    nothing (a tree that is not a stacked model): ``"v"`` then mirrors
+    the parameters."""
 
     def init(params):
-        leaves, treedef = tree_flatten(params)
-
-        def moments(p):
-            z = dict(dtype=torch.float32, device=p.device)
-            if p.dim() >= 2:
-                return {"row": torch.zeros(p.shape[:-1], **z),
-                        "col": torch.zeros(p.shape[:-2] + p.shape[-1:],
-                                           **z)}
-            return {"full": torch.zeros(p.shape, **z)}
-        return {"v": tree_unflatten(treedef, [moments(p) for p in leaves]),
+        def group(g):
+            leaves, treedef = tree_flatten(g[0])
+            return tree_unflatten(treedef, [
+                _moments((len(g),) + tuple(p.shape), p.device)
+                for p in leaves])
+        return {"v": _map_groups(lambda p: _moments(tuple(p.shape),
+                                                    p.device), group,
+                                 _regroup(params, stacks)),
                 "step": _zero_step(params)}
 
     def update(params, grads, state):
         flat_p, treedef = tree_flatten(params)
         flat_g, gnorm = _clipped(tree_flatten(grads)[0], clip_norm)
-        flat_v = tree_flatten_up_to(treedef, state["v"])
+        index = tree_unflatten(treedef, list(range(len(flat_p))))
+        units = _units(_regroup(index, stacks), state["v"], [])
         state["step"] += 1
         step = state["step"]
         lr_t = lr(step)
         beta = 1.0 - (step.to(torch.float32) + 1.0) ** (-decay)
-        for p, g, v in zip(flat_p, flat_g, flat_v):
-            if p.dim() >= 2:
-                row = beta * v["row"] + (1 - beta) * (_mean_sq(g, -1) + eps)
-                col = beta * v["col"] + (1 - beta) * (_mean_sq(g, -2) + eps)
-                rinv = torch.rsqrt(row + eps)
-                cinv = torch.rsqrt(
-                    col / (row.mean(dim=-1, keepdim=True) + eps) + eps)
-                u = (g * rinv.to(g.dtype)[..., None]) \
-                    * cinv.to(g.dtype)[..., None, :]
-                v["row"].copy_(row)
-                v["col"].copy_(col)
+        for ids, v, stacked in units:
+            gs = [flat_g[i] for i in ids]
+            if stacked and gs[0].dim() >= 2:
+                # the stacked leaf's moments, slice by slice (the last two
+                # axes are each layer's own)
+                us = [_scaled_grad(g, {k: m[j] for k, m in v.items()},
+                                   beta, eps) for j, g in enumerate(gs)]
+            elif stacked:
+                us = list(_scaled_grad(torch.stack(gs), v, beta,
+                                       eps).unbind(0))
             else:
-                full = beta * v["full"] + (1 - beta) * (
-                    torch.square(g.to(torch.float32)) + eps)
-                u = (g.to(torch.float32)
-                     * torch.rsqrt(full + eps)).to(g.dtype)
-                v["full"].copy_(full)
-            acc = torch.promote_types(u.dtype, torch.float32)
-            sq = torch.square(u.to(acc)).sum()
-            rms = torch.sqrt(sq / float(u.numel()) + 1e-12)
-            u = u * (lr_t / torch.clamp(rms, min=1.0)).to(u.dtype)
-            dec = (1.0 - lr_t * weight_decay).to(p.dtype)
-            p.copy_(p * dec - u.to(p.dtype))
+                us = [_scaled_grad(gs[0], v, beta, eps)]
+            # relative-scale update clipping over the whole (stacked) leaf
+            acc = torch.promote_types(us[0].dtype, torch.float32)
+            sq = sum(torch.square(u.to(acc)).sum() for u in us)
+            n = sum(u.numel() for u in us)
+            rms = torch.sqrt(sq / float(n) + 1e-12)
+            scale = (lr_t / torch.clamp(rms, min=1.0)).to(us[0].dtype)
+            for i, u in zip(ids, us):
+                p = flat_p[i]
+                dec = (1.0 - lr_t * weight_decay).to(p.dtype)
+                p.copy_(p * dec - (u * scale).to(p.dtype))
         return params, state, gnorm
 
     def state_specs(param_specs):
@@ -204,6 +305,11 @@ def adafactor(lr: Callable, *, decay=0.8, eps=1e-30, clip_norm: float = 1.0,
             if len(names) >= 2:
                 return {"row": names[:-1], "col": names[:-2] + names[-1:]}
             return {"full": names}
-        return {"v": _map_names(moments, param_specs), "step": ()}
+
+        def group(g):
+            return _map_names(lambda n: moments(("stack",) + n), g[0])
+        return {"v": _map_groups(moments, group,
+                                 _regroup(param_specs, stacks)),
+                "step": ()}
 
     return Optimizer(init=init, _update=update, _state_specs=state_specs)

@@ -264,7 +264,8 @@ def test_abstract_model_is_init_model_leaf_for_leaf(arch):
 
 
 @pytest.mark.parametrize("arch", ["qwen2-1.5b", "recurrentgemma-9b",
-                                  "kimi-k2-1t-a32b"])
+                                  "kimi-k2-1t-a32b", "whisper-small",
+                                  "internvl2-26b"])
 def test_optimizer_state_and_names_match_reference(arch):
     cfg, jcfg = get_reduced(arch), jget_reduced(arch)
     params, specs = M.abstract_params(cfg)
@@ -278,41 +279,23 @@ def test_optimizer_state_and_names_match_reference(arch):
     assert port_sig({"s": st["step"]}) == [("/s", (), str(jst["step"].dtype))]
     names = opt.state_specs(specs)
     assert names["m"] is specs and names["step"] == ()
-    # Adafactor: factored moments over the last two axes; a per-layer
-    # 1-D leaf (a norm scale) has full moments here, where the reference
-    # factors its stacked (layers, d) leaf across the layers
-    fac = adafactor(warmup_cosine(1e-4, 2, 5))
-    fst = fac.abstract_state(params)
-    for path, shape, dtype in port_sig(fst["v"]):
-        assert dtype == "float32"
-        leaf = path.rsplit("/", 1)[0]
-        p_shape = dict((e[0], e[1]) for e in port_sig(params))[leaf]
-        if len(p_shape) >= 2:
-            want = p_shape[:-1] if path.endswith("/row") else \
-                p_shape[:-2] + p_shape[-1:]
-            assert shape == want
-        else:
-            assert path.endswith("/full") and shape == p_shape
-    # the moments' names: the reference's ("stack" dropped), but where
-    # the reference factors a stacked 1-D leaf (row ("stack",), col the
-    # leaf's name) the port's per-layer leaf has full moments
-    fv = _names(fac.state_specs(specs)["v"])
-    jv = jadafactor(jwarmup(1e-4, 2, 5)).state_specs(jspecs)["v"]
-    for i, ref in enumerate(_ref_names_per_layer(cfg, jv)):
-        got = {k.removeprefix(f"/layers/{i}"): v for k, v in fv.items()
-               if k.startswith(f"/layers/{i}/")}
-        assert got
-        for path, names in got.items():
-            if path.endswith("/full") and path not in ref:
-                base = path.removesuffix("/full")
-                assert ref[base + "/row"] == () and \
-                    ref[base + "/col"] == names
-            else:
-                assert ref[path] == names, (arch, i, path)
-    for key in ("embed", "ln_f"):
-        assert {k: v for k, v in fv.items() if k.startswith(f"/{key}/")} \
-            == _names(jv[key], f"/{key}")
+    # Adafactor over the model's stack groups: the reference's state leaf
+    # for leaf (its layout, shapes, dtypes) and its names, with no
+    # exception (a stacked 1-D leaf's row over the layers, col over d)
+    fac = adafactor(warmup_cosine(1e-4, 2, 5), stacks=T.stack_groups(cfg))
+    jfac = jadafactor(jwarmup(1e-4, 2, 5))
+    fst, jfst = fac.abstract_state(params), jfac.abstract_state(jparams)
+    assert port_sig(fst["v"]) == _flat(_node(jfst["v"]))
+    assert all(e[2] == "float32" for e in port_sig(fst["v"]))
+    assert port_sig({"s": fst["step"]}) == [
+        ("/s", (), str(jfst["step"].dtype))]
+    assert _names(fac.state_specs(specs)["v"]) == \
+        _names(jfac.state_specs(jspecs)["v"])
     assert fac.state_specs(specs)["step"] == ()
+    n_periods, _ = cfg.pattern_periods
+    stacked = [e for e in port_sig(fst["v"]) if e[0].startswith(
+        ("/blocks/", "/enc_blocks/"))]
+    assert bool(stacked) == (n_periods > 1 or bool(cfg.encoder_layers))
 
 
 # ---------------------------------------------------------------------------
@@ -545,3 +528,17 @@ def test_dryrun_snn_case_on_meta():
     assert m["peak_bytes"] == m["input_state_bytes_per_device"] > 1e9
     assert r["step_time_model"]["step_s"] > 0
     assert r["roofline"]["dominant"] == "memory"
+
+
+@pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "internvl2-26b"])
+def test_dry_run_adafactor_state_matches_reference(arch):
+    """The models above 15e9 parameters train with Adafactor in the dry
+    run: its abstract state over the full-width model's stack groups
+    equals the reference's Adafactor state leaf for leaf."""
+    _, (params, opt_state, _), meta = dryrun.build_cell(arch, "train_4k")
+    assert meta["optimizer"] == "adafactor"
+    jparams, _ = JM.abstract_params(jget_config(arch))
+    jst = jadafactor(jwarmup(1e-4, 100, 10000)).abstract_state(jparams)
+    assert port_sig(opt_state["v"]) == _flat(_node(jst["v"]))
+    assert all(t.device.type == "meta"
+               for t in tree_flatten(opt_state)[0])

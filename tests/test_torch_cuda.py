@@ -1018,7 +1018,6 @@ def test_lm_prefill_goes_through_the_kernel(cuda):
         n_decode = _build.launch_counts().get("flash_attention_tf32", 0) \
             - n_prefill
         assert "flash_attention" not in _build.launch_counts()
-        assert "flash_attention_simt" not in _build.launch_counts()
         out[impl] = (lg, lg2, n_prefill, n_decode)
     assert out["pallas"][2:] == (base.n_layers, 0)
     assert out["naive"][2:] == (0, 0)

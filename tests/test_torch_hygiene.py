@@ -165,7 +165,7 @@ def test_package_rules_cover_the_lm_modules():
           "repro_torch.configs.gemma_2b", "repro_torch.launch.serve",
           "repro_torch.kernels.flash_attention"}
     assert lm <= set(MODULES), lm - set(MODULES)
-    assert (_build.CSRC / "flash_attention.cu").exists()
+    assert (_build.CSRC / "flash_attention_sm90.cu").exists()
 
 
 def test_package_rules_cover_the_training_modules():

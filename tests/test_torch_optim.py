@@ -113,7 +113,8 @@ def test_update_matches_reference(kind, dtype, grad_scale):
         topt = adamw(warmup_cosine(1e-2, 2, 10))
     else:
         jopt = jadafactor(jwarmup_rsqrt(1e-2, 3), weight_decay=0.1)
-        topt = adafactor(warmup_rsqrt(1e-2, 3), weight_decay=0.1)
+        topt = adafactor(warmup_rsqrt(1e-2, 3), stacks={},
+                         weight_decay=0.1)
     jstate, tstate = _state_pair(rng, kind)
     jp, jst, jgn = jax.jit(jopt.update)(_to_jax(params, jdt),
                                         _to_jax(grads, jdt), jstate)
@@ -137,7 +138,7 @@ def test_init_state_layout():
     assert all(x.dtype == torch.float32 and not x.any()
                for x in tree_flatten(st["m"])[0] + tree_flatten(st["v"])[0])
     assert st["step"].dtype == torch.int32 and int(st["step"]) == 0
-    fac = adafactor(constant(1e-3)).init(tp)
+    fac = adafactor(constant(1e-3), stacks={}).init(tp)
     assert fac["v"]["layers"][0]["w"]["row"].shape == (6, 3)
     assert fac["v"]["layers"][0]["w"]["col"].shape == (6, 4)
     assert fac["v"]["ln_f"]["scale"]["full"].shape == (6,)
