@@ -33,7 +33,7 @@ Phases, each of which exits non-zero on failure:
    graph after 8 eager steps, an eager tail: 100 steps) against
    plain-path steps from the same seed (rasters, rings and metrics
    identical), then timed kernel-path steps (500, which must show
-   ``(500 - 8) // 8`` graph replays) and a profile of 400 more;
+   ``(500 - 8) // 8`` graph replays) and a profile of 200 more;
 4. the plastic path (``init_plasticity`` -> ``simulate(plasticity=)``),
    both laws: 30 kernel-path steps on the card against 30 plain-path
    steps on the CPU at 4x4x1240 with the card's drive injected (rasters,
@@ -61,7 +61,7 @@ Phases, each of which exits non-zero on failure:
    global raster as (step, gid) events, identical); then at 8x8x1240
    (the table build shared with 5c and 5d) 500 timed steps (which must
    show ``(500 - 8) // 8`` replays and fire within ``rel=0.35`` of the
-   single shard's rate), a profile of 400 more and of the graph's
+   single shard's rate), a profile of 200 more and of the graph's
    replays alone (device operations per step, the exchange's gathers),
    and the device bytes per shard beside
    ``metrics.shard_memory_bytes``; then the plastic multi-shard path at
@@ -236,15 +236,34 @@ Phases, each of which exits non-zero on failure:
    the bytes the recurrent scans' per-chunk checkpoint saves at
    falcon-mamba's shape (one step through a copy of the port without
    it); then the five families' reduced configs in float32 on the card
-   (the 3xTF32 kernel) for 3 steps against the same steps on the CPU.
+   (the 3xTF32 kernel) for 3 steps against the same steps on the CPU;
+13. the SNN on ranks (``launch.mesh.spawn_ranks``): four rank processes
+   on the one card, a 2x2 mesh over ``torch.distributed`` (gloo), one
+   tile each, the halo strips staged through pinned host memory
+   (``core.halo.Transport("gloo", "cuda")``).  Each rank builds its own
+   tile's tables and runs phase 5b's 4x4x1240 parity legs, both laws:
+   static 48 steps and recorded 32 on its own drive, plastic 30 (recorded)
+   on its block of 5b's injected drive; every leaf of its state, per-step
+   spikes, plastic weights and traces, and recorder must be bit for bit
+   its tile of 5b's stacked run (sha-256 of each leaf's bytes).  Then it
+   builds its tile of the exponential 8x8x1240 tables (every leaf's
+   digest that of 5b's stacked build's slice, and the same storage
+   descriptor) and times 200 steps of it: ms per step (slowest rank),
+   the exchange's ms per step (staging and gloo), the bytes each rank
+   sent and received per step (received equal to ``halo_import_bytes``
+   of its tile), beside 5b's stacked 2x2 step; then 50 more steps with
+   rank 0 under the profiler (its device busy ms per step and top
+   kernels).  The parent built every kernel before it spawns; each
+   rank's launches (counted before the profiled steps) are summed.
 
 Launch counts are zeroed just before each of phases 3-5, 5b, 5c (after
 its ``make_sim_fn`` baselines), 5d, 7, 8 and each model of 9, 10 and 12
-and read just after it (phase 11 launches nothing; the ``{"kernels"}``
-line gives each kernel's launches on phase 3's or its own path, on
-5b's, 5c's and 5d's, the flash rows per model of phases 9 and 10, with
-the bf16 kernel's times at phase 10's shapes, and per config of phase
-12); a replay of a captured static or recorded step
+and in each rank of 13, and read just after it (phase 11 launches
+nothing; the ``{"kernels"}`` line gives each kernel's launches on phase
+3's or its own path, on 5b's, 5c's and 5d's, the flash rows per model
+of phases 9 and 10, with the bf16 kernel's times at phase 10's shapes,
+per config of phase 12, and the ranks' sum on 13); a replay of a
+captured static or recorded step
 counts as ``step_graph`` and as one launch of each kernel the graph
 holds.  It prints the metrics, the ``{"cost_model": {...}}`` line, each
 phase's seconds, a ``{"kernels": [...]}`` line, the card's name and
@@ -265,7 +284,7 @@ CUDA-synchronised, then profiles ``N`` more for the device's idle
 share; then it builds phase 5b's exponential 8x8x1240 tables in 2x2
 tiles and times three fresh ``make_sim_fn`` calls of 500 steps as phase
 5b's timed run does (8 eager steps, a capture, replays), and profiles a
-fourth of 400 steps for the idle share; then phase 5c's gaussian 2x2
+fourth of 200 steps for the idle share; then phase 5c's gaussian 2x2
 driver, unrecorded and recorded, each 400 steps in segments of 50 with
 a checkpoint a segment: its steady ms per step and captures.  One ``ab {...}`` line per run
 (with the metrics, which must not differ between trees), then the
@@ -287,7 +306,7 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12              # H100 SXM float32 rate outside the MXU
 GRID, N_PER_COLUMN = 8, 1240       # the main path's network
 PARITY_STEPS, TIMED_STEPS = 100, 500       # static path
-PROFILE_STEPS = 400        # static profile: 8 eager steps, 49 replays
+PROFILE_STEPS = 200        # static profile: 8 eager steps, 24 replays
 PLASTIC_PARITY_STEPS, PLASTIC_STEPS = 30, 200
 PARITY_GRID = 4                            # CPU parity of the plastic path
 # the timed plastic path runs on its parity leg's 4x4x1240 tables, both
@@ -299,7 +318,7 @@ RECORD_LONG_STEPS = 1000
 MS_TILES = 2                       # the multi-shard path: 2x2 tiles
 # the parity legs (captured / eager / plain, recorded) run at 4x4x1240,
 # the timed and profiled runs at 8x8x1240
-MS_PARITY_STEPS, MS_TIMED_STEPS, MS_PROFILE_STEPS = 48, 500, 400
+MS_PARITY_STEPS, MS_TIMED_STEPS, MS_PROFILE_STEPS = 48, 500, 200
 # the plastic leg at 4x4x1240 in 2x2 tiles: the slab first fires in
 # bulk after step 20 (20 steps changed 9 weights, none in a halo tier);
 # its CPU plain paths (both laws side by side) are most of its time
@@ -313,6 +332,9 @@ SEG_EAGER_STEPS = 10       # below 2 * d_ring: a driver that steps eagerly
 # example (two 3-member jobs) at 4x4x1240 in 2x2 tiles, segments of 20
 ENS_SEEDS, ENS_PLASTIC_SEEDS = (0, 1, 2), (0, 1)
 SERVICE_STEPS, SERVICE_SEG = 60, 20
+# phase 13: four ranks (2x2) on the one card; the timed leg's steps, the
+# phase's time limit
+RANKS, RANK_TIMED_STEPS, RANK_PROFILE_STEPS, RANK_TIMEOUT_S = 4, 200, 50, 300
 LAWS = ("gaussian", "exponential")
 BF16_OPS_PER_S = 989e12            # H100 SXM bf16 dense tensor-core rate
 TF32_OPS_PER_S = 495e12            # H100 SXM TF32 dense tensor-core rate
@@ -1202,21 +1224,25 @@ def ms_diff(a: dict, b: dict) -> list:
 
 
 def ms_recorded(cfg, tables, steps: int, device: str, drive=None,
-                plastic=None) -> tuple:
+                plastic=None, mesh=None) -> tuple:
     """A recorded multi-shard run (eager) at the default capacity: the
     global raster as (step, gid) events.  ``plastic``: (carry, inverse
-    index slots, folded tables)."""
+    index slots, folded tables).  ``mesh``: this rank's tile (phase
+    13), its blocks of everything."""
     import torch
     from repro_torch.core import dist_engine as de
     from repro_torch.obs.record import recorder_spec, stacked_gid_maps
-    state = de.init_dist_state(cfg, device=device)
+    state = de.init_dist_state(cfg, device=device, mesh=mesh)
+    gids = stacked_gid_maps(cfg.engine.decomp)
+    if mesh is not None:
+        gids = de.rank_block(cfg, gids, mesh)
     inputs = de.SimInputs(tables=tables, drive=drive, gids=torch.from_numpy(
-        stacked_gid_maps(cfg.engine.decomp)).to(device))
+        gids).to(device))
     if plastic is not None:
         state["plastic"], inputs.inv_slots, inputs.tables = plastic
     sim = de.make_sim_fn(cfg, steps, recorder=recorder_spec(cfg.engine,
                                                             steps),
-                         storage=tables.storage, device=device)
+                         storage=tables.storage, device=device, mesh=mesh)
     state, per, rec = sim(state, inputs)
     return state, per, rec, sim
 
@@ -1456,6 +1482,14 @@ def run_multishard(law: str, single: dict) -> dict:
         "recorded_step_graph_replays": rec_replays,
     }
     lap("profile_and_exchange_timing")
+    # what phase 13's ranks hold their tiles to: every leaf's digest of
+    # the parity legs' runs and, for the exponential law, of this build
+    res["rank_digests"] = {
+        "static": rank_leaf_digests(cap_state, cap_per),
+        "recorded": rank_leaf_digests(rk_state, rk_per, rec_k)}
+    if law == "exponential":
+        res["rank_tables"] = rank_table_digests(tables)
+    lap("rank_digests")
     res["stage_s"] = stage
     print(f"{label} path " + json.dumps(res))
     mem = ms_memory(cfg, tables, stats)
@@ -1579,7 +1613,293 @@ def ms_plastic_check(ctx: dict, cpu_run: tuple, cpu_s: float) -> dict:
     print(f"{label} parity (card kernel path == CPU plain path: raster, "
           "every tier's w, traces, ring, v, c, refrac, metrics) "
           + json.dumps(res))
+    res["rank_digests"] = {"plastic": rank_leaf_digests(sk, pk, rk)}
+    res["drive"] = ctx["drive"]
     return res
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the SNN on ranks (four processes, one tile each, one card)
+# ---------------------------------------------------------------------------
+
+def leaf_digest(x) -> str:
+    """sha-256 of a tensor's (or array's) shape, dtype and bytes."""
+    import hashlib
+    import numpy as np
+    import torch
+    if isinstance(x, torch.Tensor):
+        t = x.detach().contiguous().cpu()
+        head = f"{tuple(t.shape)} {t.dtype}"
+        raw = t.reshape(-1).view(torch.uint8).numpy().tobytes()
+    else:
+        a = np.ascontiguousarray(x)
+        head, raw = f"{a.shape} {a.dtype}", a.tobytes()
+    return hashlib.sha256(head.encode() + raw).hexdigest()
+
+
+def tile_blocks(n_y: int, n_x: int):
+    return [(y, x) for y in range(n_y) for x in range(n_x)]
+
+
+def run_leaves(state, per, rec=None) -> dict:
+    """A multi-shard run's leaves by name (stacked or a rank's block)."""
+    out = {"per_step": per, "i_ring": state["i_ring"], "t": state["t"]}
+    out.update({f"neuron_{k}": v for k, v in state["neuron"].items()})
+    out.update({f"metrics_{k}": v for k, v in state["metrics"].items()})
+    if "plastic" in state:
+        pl = state["plastic"]
+        out.update({f"w_{i}": w for i, w in enumerate(pl["w"])})
+        out["x_pre"], out["x_post"] = pl["x_pre"][0], pl["x_post"]
+    if rec is not None:
+        out.update({f"rec_{k}": v for k, v in rec.items()})
+    return out
+
+
+def rank_leaf_digests(state, per, rec=None) -> dict:
+    """Per tile ``"y,x"``: the digest of each leaf's ``[y:y+1, x:x+1]``
+    block of a stacked run (a rank's own block hashes the same)."""
+    leaves = run_leaves(state, per, rec)
+    return {f"{y},{x}": {k: leaf_digest(v[y:y + 1, x:x + 1])
+                         for k, v in leaves.items()}
+            for y, x in tile_blocks(MS_TILES, MS_TILES)}
+
+
+def rank_table_digests(tables) -> dict:
+    """Per tile: each tier leaf's digest of its block, and the storage
+    descriptor."""
+    out = {}
+    for y, x in tile_blocks(MS_TILES, MS_TILES):
+        d = {f"t{i}_{k}": leaf_digest(v[y:y + 1, x:x + 1])
+             for i, tier in enumerate(tables.tiers())
+             for k, v in tier.items()}
+        d["storage"] = json.dumps(tables.storage.meta(), sort_keys=True)
+        out[f"{y},{x}"] = d
+    return out
+
+
+def rank_diff(want: dict, got: dict) -> list:
+    return sorted(k for k in set(want) | set(got) if want.get(k) != got.get(k))
+
+
+def ranks_rank(rank: int, world: int, job_path: str) -> None:
+    """One rank of phase 13 (``launch.mesh.spawn_ranks`` runs it): the
+    parity legs, the construction and the timed leg on this rank's tile;
+    it writes its verdicts, times and launch counts to
+    ``build/ranks/rank_<r>.json``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import dist_engine as de
+    from repro_torch.core import halo
+    from repro_torch.core.stdp import STDPParams
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_host_mesh
+    job = torch.load(job_path, weights_only=False)
+    torch.cuda.set_device(0)
+    mesh = make_host_mesh((MS_TILES, MS_TILES))
+    out = {"rank": rank, "errors": [], "build_s": {}}
+    _build.reset_launch_counts()
+    t_rank = time.perf_counter()
+    for law in LAWS:
+        cfg = ms_cfg(law, PARITY_GRID)
+        y, x = de.rank_tile(cfg, mesh)
+        tile = f"{y},{x}"
+        out["tile"] = [y, x]
+        want = job[law]
+        t0 = time.perf_counter()
+        tables, _ = de.build_dist_tables(cfg, mesh=mesh)
+        out["build_s"][f"{law}_parity"] = time.perf_counter() - t0
+        sim = de.make_sim_fn(cfg, MS_PARITY_STEPS, storage=tables.storage,
+                             mesh=mesh)
+        state, per = sim(de.init_dist_state(cfg, mesh=mesh),
+                         de.SimInputs(tables=tables))
+        got = {k: leaf_digest(v) for k, v in run_leaves(state, per).items()}
+        bad = rank_diff(want["static"][tile], got)
+        if bad:
+            out["errors"].append(f"{law} static {MS_PARITY_STEPS} steps: "
+                                 f"{bad}")
+        st, per, rec, _ = ms_recorded(cfg, tables, MS_RECORD_STEPS, "cuda",
+                                      mesh=mesh)
+        got = {k: leaf_digest(v)
+               for k, v in run_leaves(st, per, rec).items()}
+        bad = rank_diff(want["recorded"][tile], got)
+        if bad:
+            out["errors"].append(f"{law} recorded {MS_RECORD_STEPS} steps: "
+                                 f"{bad}")
+        del tables, sim, state, st, rec
+        pcfg = ms_cfg(law, PARITY_GRID, stdp=STDPParams())
+        t0 = time.perf_counter()
+        cpu_tabs, _ = de.build_dist_tables(pcfg, device="cpu", mesh=mesh)
+        slots, _ = de.build_dist_inverse_index(pcfg, cpu_tabs, mesh=mesh)
+        out["build_s"][f"{law}_plastic"] = time.perf_counter() - t0
+        tabs = cpu_tabs.to("cuda")
+        drive = want["drive"][:, y:y + 1, x:x + 1].cuda()
+        st, per, rec, _ = ms_recorded(pcfg, tabs, MS_PLASTIC_STEPS, "cuda",
+                                      drive, ms_carry(pcfg, tabs,
+                                                      slots.cuda()),
+                                      mesh=mesh)
+        got = {k: leaf_digest(v)
+               for k, v in run_leaves(st, per, rec).items()}
+        bad = rank_diff(want["plastic"][tile], got)
+        if bad:
+            out["errors"].append(f"{law} plastic {MS_PLASTIC_STEPS} steps: "
+                                 f"{bad}")
+        del cpu_tabs, tabs, st, rec
+    # construction: this rank's tile of the exponential 8x8x1240 tables
+    cfg = ms_cfg("exponential", GRID)
+    y, x = de.rank_tile(cfg, mesh)
+    dist.barrier()
+    t0 = time.perf_counter()
+    tables, stats = de.build_dist_tables(cfg, mesh=mesh)
+    torch.cuda.synchronize()
+    out["build_s"]["exponential_8x8"] = time.perf_counter() - t0
+    got = {f"t{i}_{k}": leaf_digest(v) for i, tier in enumerate(
+        tables.tiers()) for k, v in tier.items()}
+    got["storage"] = json.dumps(tables.storage.meta(), sort_keys=True)
+    bad = rank_diff(job["tables"][f"{y},{x}"], got)
+    if bad:
+        out["errors"].append(f"exponential 8x8 tables differ: {bad}")
+    out["n_synapses"] = stats["n_synapses"]
+    # the timed leg: a warm-up (the column descriptors are built at
+    # first use), then RANK_TIMED_STEPS steps after a barrier
+    inputs = de.SimInputs(tables=tables)
+    state = de.init_dist_state(cfg, mesh=mesh)
+    de.make_sim_fn(cfg, 2 * cfg.engine.d_ring, storage=tables.storage,
+                   mesh=mesh)(state, inputs)
+    timed = de.make_sim_fn(cfg, RANK_TIMED_STEPS, storage=tables.storage,
+                           mesh=mesh)
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    state, per = timed(state, inputs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tr = timed.transport
+    spec, d = cfg.engine.spec(), cfg.engine.decomp
+    per_col = halo.packed_width(spec.n_exc_per_col)
+    out.update({
+        "ms_per_step": 1e3 * wall / RANK_TIMED_STEPS,
+        "exchange_ms_per_step": 1e3 * tr.seconds / RANK_TIMED_STEPS,
+        "bytes_sent_per_step": tr.bytes_sent / RANK_TIMED_STEPS,
+        "bytes_received_per_step": tr.bytes_received / RANK_TIMED_STEPS,
+        "halo_import_bytes": halo.halo_import_bytes(
+            d.tile_h, d.tile_w, d.radius, per_col, cfg.halo_mode,
+            tiles=cfg.tiles, at=(y, x)),
+        "spikes": float(state["metrics"]["spikes"].sum()),
+        "finite": bool(torch.isfinite(state["neuron"]["v"]).all()),
+        "per_step_shape": list(per.shape),
+        "launches": _build.launch_counts()})
+    # where a rank's step goes: RANK_PROFILE_STEPS more steps, rank 0's
+    # under the profiler (its own process's kernels), its peers' plain
+    prof_sim = de.make_sim_fn(cfg, RANK_PROFILE_STEPS,
+                              storage=tables.storage, mesh=mesh)
+    dist.barrier()
+    if rank == 0:
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            prof_sim(state, inputs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy, top = device_breakdown(prof, RANK_PROFILE_STEPS)
+        out["profile"] = {
+            "steps": RANK_PROFILE_STEPS,
+            "wall_ms_per_step": 1e3 * wall / RANK_PROFILE_STEPS,
+            "device_busy_ms_per_step": busy / RANK_PROFILE_STEPS / 1e3,
+            "exchange_ms_per_step": 1e3 * prof_sim.transport.seconds
+            / RANK_PROFILE_STEPS,
+            "top_kernels_ms_per_step": top}
+    else:
+        prof_sim(state, inputs)
+        torch.cuda.synchronize()
+    out["rank_s"] = time.perf_counter() - t_rank
+    Path(job_path).with_name(f"rank_{rank}.json").write_text(
+        json.dumps(out))
+
+
+def run_ranks(ms_runs: dict, ms_plastic: list) -> dict:
+    """Phase 13: four ranks on the one card against phase 5b's stacked
+    runs.  Returns the ranks' summed launches."""
+    import torch
+    from repro_torch.launch.mesh import RankFailure, spawn_ranks
+    work = ROOT / "build" / "ranks"
+    work.mkdir(parents=True, exist_ok=True)
+    for f in work.glob("rank_*.json"):
+        f.unlink()
+    job = {law: {**ms_runs[law]["rank_digests"]} for law in LAWS}
+    for res in ms_plastic:
+        job[res["law"]].update(res["rank_digests"])
+        job[res["law"]]["drive"] = res["drive"]
+    job["tables"] = ms_runs["exponential"]["rank_tables"]
+    job_path = work / "job.pt"
+    torch.save(job, job_path)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        spawn_ranks(ranks_rank, RANKS, args=(str(job_path),),
+                    backend="gloo", timeout_s=RANK_TIMEOUT_S,
+                    store_dir=str(work))
+    except RankFailure as e:
+        fail(f"phase 13: a rank failed: {e}")
+    wall = time.perf_counter() - t0
+    ranks = [json.loads((work / f"rank_{r}.json").read_text())
+             for r in range(RANKS)]
+    errors = [(r["rank"], e) for r in ranks for e in r["errors"]]
+    require(not errors, f"phase 13: a rank's tile differs from phase 5b's "
+            f"stacked run: {errors}")
+    for r in ranks:
+        require(r["bytes_received_per_step"] == r["halo_import_bytes"],
+                f"phase 13: rank {r['rank']} received "
+                f"{r['bytes_received_per_step']} B a step, "
+                f"halo_import_bytes {r['halo_import_bytes']}")
+        require(r["finite"] and r["per_step_shape"] == [1, 1,
+                                                        RANK_TIMED_STEPS]
+                and r["spikes"] > 0, f"phase 13: rank {r['rank']}'s timed "
+                "run is not finite, of the wrong shape or silent")
+    require(sum(r["bytes_sent_per_step"] for r in ranks)
+            == sum(r["bytes_received_per_step"] for r in ranks),
+            "phase 13: bytes sent and received differ")
+    require(all(r["n_synapses"] == ms_runs["exponential"]["n_synapses"]
+                for r in ranks),
+            "phase 13: the ranks' synapse count is not the stacked build's")
+    launches = {}
+    for r in ranks:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    for name in ("neuron_step", "event_delivery", "plastic_delivery_ltd",
+                 "spike_compact"):
+        require(launches.get(name, 0) > 0,
+                f"kernel {name} was not launched on the ranks")
+    require("step_graph" not in launches,
+            "a rank replayed a graph (a host-staged exchange is eager)")
+    stacked = ms_runs["exponential"]
+    res = {
+        "ranks": RANKS, "mesh": f"{MS_TILES}x{MS_TILES}",
+        "transport": "gloo (CUDA strips staged through pinned host "
+                     "memory)",
+        "parity": f"{PARITY_GRID}x{PARITY_GRID}x{N_PER_COLUMN}: static "
+                  f"{MS_PARITY_STEPS}, recorded {MS_RECORD_STEPS}, plastic "
+                  f"{MS_PLASTIC_STEPS} steps, both laws == phase 5b's "
+                  "stacked runs (every leaf's sha-256)",
+        "timed": f"exponential {GRID}x{GRID}x{N_PER_COLUMN}, "
+                 f"{RANK_TIMED_STEPS} steps a rank, eager",
+        "ms_per_step_slowest_rank": max(r["ms_per_step"] for r in ranks),
+        "ms_per_step_by_rank": [r["ms_per_step"] for r in ranks],
+        "exchange_ms_per_step_by_rank": [r["exchange_ms_per_step"]
+                                         for r in ranks],
+        "bytes_sent_per_step_by_rank": [r["bytes_sent_per_step"]
+                                        for r in ranks],
+        "bytes_received_per_step_by_rank": [r["bytes_received_per_step"]
+                                            for r in ranks],
+        "halo_import_bytes_by_rank": [r["halo_import_bytes"] for r in ranks],
+        "stacked_2x2_ms_per_step_phase_5b": stacked["ms_per_step"],
+        "stacked_2x2_host_build_s_phase_5b": stacked["host_build_s"],
+        "rank0_profile": ranks[0]["profile"],
+        "rank_build_s": [r["build_s"] for r in ranks],
+        "rank_s": [r["rank_s"] for r in ranks],
+        "spawn_to_join_s": wall, "launches": launches}
+    print("ranks " + json.dumps(res))
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1676,16 +1996,16 @@ def seg_shared_builds():
     def model(cfg) -> str:          # an ensemble's tables are its solo's
         return repr(dataclasses.replace(cfg, ensemble_seeds=None))
 
-    def shared_tables(cfg, device="cuda"):
-        key = (model(cfg), str(device))
+    def shared_tables(cfg, device="cuda", mesh=None):
+        key = (model(cfg), str(device), mesh)
         if key not in tables:
-            tables[key] = build_tables(cfg, device=device)
+            tables[key] = build_tables(cfg, device=device, mesh=mesh)
         return tables[key]
 
-    def shared_index(cfg, host):
-        key = (model(cfg), id(host))
+    def shared_index(cfg, host, mesh=None):
+        key = (model(cfg), id(host), mesh)
         if key not in slots:
-            slots[key] = (host, build_index(cfg, host))
+            slots[key] = (host, build_index(cfg, host, mesh=mesh))
         return slots[key][1]
 
     with mock.patch.object(sd, "build_dist_tables", shared_tables), \
@@ -4852,7 +5172,7 @@ def main() -> None:
         torch.cuda.reset_peak_memory_stats()
         _build.reset_launch_counts()
         ms_runs = {law: run_multishard(law, runs[law]) for law in LAWS}
-        ms_plastic_parity()
+        ms_plastic = ms_plastic_parity()
         ms_launches = _build.launch_counts()
         print(f"multi-shard path launches: {json.dumps(ms_launches)}; "
               f"max_memory_allocated {torch.cuda.max_memory_allocated()} B")
@@ -4959,6 +5279,11 @@ def main() -> None:
     # configs on the card against the CPU
     fam_train = run_train_families()["launches"]
     phase("12")
+
+    # 13. the SNN on ranks: four processes on the one card (each rank
+    # zeroes and reads its own counts; the sum is the ranks' launches)
+    rank_launches = run_ranks(ms_runs, ms_plastic)
+    phase("13")
     for k in kernels:
         if k["name"] in ("flash_attention", "flash_attention_tf32",
                          "tf32_split"):
@@ -4971,6 +5296,7 @@ def main() -> None:
         k["multi_shard_launches"] = ms_launches.get(k["name"], 0)
         k["segmented_launches"] = seg_launches.get(k["name"], 0)
         k["ensemble_launches"] = ens_launches.get(k["name"], 0)
+        k["rank_launches"] = rank_launches.get(k["name"], 0)
     print(json.dumps({"kernels": kernels}))
     print("phase seconds " + json.dumps(phase_s))
     print(f"total: {time.perf_counter() - t_start:.1f} s")

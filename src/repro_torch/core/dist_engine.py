@@ -34,6 +34,21 @@ steps of every instance (``engine.GraphLoop``); plastic and plain runs
 step eagerly.  The drive is drawn with ``torch.poisson``, which cannot
 reproduce ``jax.random.poisson``: parity runs inject the reference's
 drive (``SimInputs.drive``).
+
+**Ranks** (``mesh=``, a ``launch.mesh.RankMesh`` over a
+``torch.distributed`` group): one tile per process, DPSNN's own layout
+and the reference's ``shard_map`` (each shard takes ``a[0, 0]`` of its
+block).  The rank's state, tables and inputs are its block of the
+stacked form, leading ``(1, 1)`` (``(1, 1, M)`` for an ensemble): it
+builds only its own tile's tables (``build_dist_tables``; the ranks
+agree on each tier's realized cap), seeds its tile's generators as the
+stacked state seeds tile ``y*TX + x``, and moves its excitatory spikes
+(and plastic pre-traces) to its neighbours each step through
+``halo.exchange_halo_2d(mesh=...)`` and a ``halo.Transport``.  The band
+vectors it gathers from the region equal the stacked gather maps', so
+every rank's run is bit for bit its tile of the stacked run.  A rank
+steps eagerly: a host-staged exchange cannot sit inside a CUDA graph.
+``rank_block`` / ``gather_blocks`` move between the two forms.
 """
 
 from __future__ import annotations
@@ -42,7 +57,7 @@ import dataclasses
 import os
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, List, Optional, Tuple
+from typing import Any, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -53,7 +68,7 @@ from ..tree import tree_flatten, tree_unflatten
 from .engine import (EngineConfig, GraphLoop, bind_tier_structures,
                      deliver_event_tiers, deliver_gather_all_tiers,
                      init_sim_state, plastic_delivery_stdp, step_head)
-from .halo import exchange_halo_2d, pack_bits, unpack_bits
+from .halo import Transport, exchange_halo_2d, pack_bits, unpack_bits
 from .stdp import (build_inverse_index, check_weight_invariant,
                    plastic_masks, stdp_step, target_major_meta)
 from .synapses import (SynapseTables, TableStorage, build_tables,
@@ -83,8 +98,13 @@ class DistConfig:
     """Distribution settings layered on an EngineConfig: the exchange's
     ``halo_mode`` ("strip" | "block") and wire format (``pack_spikes``: a
     1-bit payload, ``halo.pack_bits``), as ``band_gather_maps`` composes
-    them into the bands' gather maps.  Every setting gives the same
-    regions, so the same maps and the same run.
+    them into the bands' gather maps and as the ranks move their
+    strips.  Every setting gives the same regions, so the same run.
+
+    ``axis_y`` / ``axis_x``: the rank mesh's axes of the tile rows and
+    columns (a tuple folds several axes into one, pod major, as
+    ``("pod", "data")`` on the multi-pod mesh).  The stacked form
+    ignores them.
 
     ``ensemble_seeds``: member state seeds of an ensemble run.  When
     set, every state leaf grows a member axis at position 2, ``(TY, TX,
@@ -93,11 +113,17 @@ class DistConfig:
     (``engine.seed``), one sim function, M realizations."""
 
     engine: EngineConfig
+    axis_y: Union[str, Tuple[str, ...]] = "data"
+    axis_x: Union[str, Tuple[str, ...]] = "model"
     halo_mode: str = "strip"
     pack_spikes: bool = True
     ensemble_seeds: Optional[Tuple[int, ...]] = None
 
     def __post_init__(self):
+        for name in ("axis_y", "axis_x"):
+            a = getattr(self, name)
+            if not isinstance(a, str):
+                object.__setattr__(self, name, tuple(a))
         if self.ensemble_seeds is not None:
             seeds = tuple(int(s) for s in self.ensemble_seeds)
             if not seeds:
@@ -125,25 +151,166 @@ class DistConfig:
 
 
 # ---------------------------------------------------------------------------
+# Ranks: a rank's tile, its block of the stacked form, host collectives
+# ---------------------------------------------------------------------------
+
+def rank_tile(cfg: DistConfig, mesh) -> Tuple[int, int]:
+    """This rank's tile ``(y, x)``: its index along ``cfg.axis_y`` and
+    ``cfg.axis_x`` of ``mesh``, whose axes must hold the tiling exactly
+    (every mesh axis one of them, their sizes ``cfg.tiles``)."""
+    ty, tx = cfg.tiles
+    have = (mesh.axis_size(cfg.axis_y), mesh.axis_size(cfg.axis_x))
+    names = [cfg.axis_y] if isinstance(cfg.axis_y, str) else list(cfg.axis_y)
+    names += [cfg.axis_x] if isinstance(cfg.axis_x, str) else list(cfg.axis_x)
+    if have != (ty, tx) or sorted(names) != sorted(mesh.axis_names):
+        raise ValueError(
+            f"the mesh {dict(zip(mesh.axis_names, mesh.shape))} does not "
+            f"hold the {ty}x{tx} tiling on axes y={cfg.axis_y!r}, "
+            f"x={cfg.axis_x!r} (one tile per rank)")
+    return mesh.axis_index(cfg.axis_y), mesh.axis_index(cfg.axis_x)
+
+
+def _tiles_here(cfg: DistConfig, mesh) -> List[Tuple[int, int]]:
+    """The tiles this process holds, row-major: all, or the rank's."""
+    if mesh is None:
+        ty, tx = cfg.tiles
+        return [(y, x) for y in range(ty) for x in range(tx)]
+    return [rank_tile(cfg, mesh)]
+
+
+def _local_lead(cfg: DistConfig, mesh=None) -> Tuple[int, ...]:
+    """The leading axes of this process's state: ``cfg.lead``, or a
+    rank's block ``(1, 1)`` / ``(1, 1, M)``."""
+    if mesh is None:
+        return cfg.lead
+    return (1, 1) + cfg.lead[2:]
+
+
+def all_reduce_host(values, op: str = "sum") -> list:
+    """``values`` (integers) summed (``"sum"``) or maximised (``"max"``)
+    over the process group's ranks, on the host."""
+    import torch.distributed as dist
+    x = torch.tensor([int(v) for v in values], dtype=torch.int64)
+    dist.all_reduce(x, op=dist.ReduceOp.SUM if op == "sum"
+                    else dist.ReduceOp.MAX)
+    return x.tolist()
+
+
+def all_gather_host(value) -> list:
+    """Every rank's ``value`` (any picklable object), in rank order."""
+    import torch.distributed as dist
+    got = [None] * dist.get_world_size()
+    dist.all_gather_object(got, value)
+    return got
+
+
+def _host(tree):
+    """``tree`` with every tensor leaf on the CPU."""
+    leaves, treedef = tree_flatten(tree)
+    return tree_unflatten(treedef, [x.cpu() if isinstance(x, torch.Tensor)
+                                    else x for x in leaves])
+
+
+def _as_tree(x):
+    if isinstance(x, SynapseTables):
+        return {"local": x.local, "halo": list(x.halo)}
+    return x
+
+
+def rank_block(cfg: DistConfig, tree, mesh):
+    """This rank's block of a stacked tree: every tensor or numpy leaf
+    cut to ``[y:y+1, x:x+1]`` on its tile axes, ``"rng"`` lists (one
+    entry per instance, ``state_tree``'s form) cut to the tile's
+    instances; ``SynapseTables`` keep their storage descriptor."""
+    y, x = rank_tile(cfg, mesh)
+    per = cfg.n_members or 1
+    i = y * cfg.tiles[1] + x
+
+    def cut(node, key=None):
+        if isinstance(node, SynapseTables):
+            return SynapseTables(cut(node.local), [cut(t) for t in node.halo],
+                                 node.storage, stats=node.stats)
+        if isinstance(node, dict):
+            return {k: cut(v, k) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            if key == "rng":
+                return list(node[i * per:(i + 1) * per])
+            return type(node)(cut(v) for v in node)
+        if isinstance(node, torch.Tensor):
+            return node[y:y + 1, x:x + 1].contiguous()
+        if isinstance(node, np.ndarray):
+            return np.ascontiguousarray(node[y:y + 1, x:x + 1])
+        return node
+    return cut(tree)
+
+
+def gather_blocks(cfg: DistConfig, block, mesh, dst: Optional[int] = 0):
+    """The stacked tree of every rank's ``block`` (``rank_block``'s
+    form), on rank ``dst`` (None elsewhere), or on every rank when
+    ``dst`` is None.  Tensors come back on the CPU, stacked on the tile
+    axes in tile order; ``"rng"`` lists are joined in (y, x, m) order.
+    Every rank calls it."""
+    import torch.distributed as dist
+    ty, tx = cfg.tiles
+    mine = (rank_tile(cfg, mesh), _host(_as_tree(block)))
+    if dst is None:
+        got = [None] * mesh.size
+        dist.all_gather_object(got, mine)
+    else:
+        got = [None] * mesh.size if mesh.rank == dst else None
+        dist.gather_object(mine, got, dst=dst)
+        if got is None:
+            return None
+    blocks = [None] * (ty * tx)
+    for (y, x), b in got:
+        blocks[y * tx + x] = b
+
+    def join(nodes, key=None):
+        first = nodes[0]
+        if isinstance(first, dict):
+            return {k: join([n[k] for n in nodes], k) for k in first}
+        if isinstance(first, (list, tuple)):
+            if key == "rng":
+                return [g for n in nodes for g in n]
+            return type(first)(join([n[j] for n in nodes])
+                               for j in range(len(first)))
+        if isinstance(first, torch.Tensor):
+            return torch.cat([torch.cat(nodes[r * tx:(r + 1) * tx], dim=1)
+                              for r in range(ty)], dim=0)
+        if isinstance(first, np.ndarray):
+            return np.concatenate([np.concatenate(nodes[r * tx:(r + 1) * tx],
+                                                  axis=1)
+                                   for r in range(ty)], axis=0)
+        return first
+    out = join(blocks)
+    if isinstance(block, SynapseTables):
+        out = SynapseTables(out["local"], out["halo"], block.storage,
+                            stats=block.stats)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Stacked state / tables
 # ---------------------------------------------------------------------------
 
-def init_dist_state(cfg: DistConfig, device="cuda") -> dict:
+def init_dist_state(cfg: DistConfig, device="cuda", mesh=None) -> dict:
     """Every tile's ``engine.init_sim_state(e, y, x, seed_offset=y*TX+x)``
     stacked into ``(TY, TX, ...)`` tensors on ``device``; ``t`` a ``(TY,
     TX)`` int32 numpy array, ``rng`` the tiles' generators (row-major),
     the metrics ``(TY, TX)`` float32.  An ensemble stacks one such state
     per member seed on axis 2, ``(TY, TX, M, ...)`` (``t`` too), its
     generators in (y, x, m) order, each seeded as the solo run with
-    ``state_seed=seeds[m]`` seeds that tile."""
+    ``state_seed=seeds[m]`` seeds that tile.  With ``mesh``, the rank's
+    tile alone, ``(1, 1[, M], ...)``, seeded as the stacked state seeds
+    that tile: the same draws."""
     dev = resolve_device(device)
-    ty, tx = cfg.tiles
+    tx = cfg.tiles[1]
     engines = ([cfg.engine] if cfg.ensemble_seeds is None else
                [dataclasses.replace(cfg.engine, state_seed=s)
                 for s in cfg.ensemble_seeds])
     insts = [init_sim_state(e, y, x, seed_offset=y * tx + x, device=dev)
-             for y in range(ty) for x in range(tx) for e in engines]
-    lead = cfg.lead
+             for y, x in _tiles_here(cfg, mesh) for e in engines]
+    lead = _local_lead(cfg, mesh)
 
     def stack(get):
         x = torch.stack([get(s) for s in insts])
@@ -162,7 +329,7 @@ def init_dist_state(cfg: DistConfig, device="cuda") -> dict:
 
 
 def state_like(cfg: DistConfig, storage: Optional[TableStorage] = None,
-               device="cuda") -> dict:
+               device="cuda", mesh=None) -> dict:
     """A stacked state of zeros in the checkpoint's shapes and dtypes,
     with fresh (unseeded) generators, which ``load_state`` fills: the
     state of ``abstract_dist_inputs`` made real on ``device``.
@@ -170,14 +337,15 @@ def state_like(cfg: DistConfig, storage: Optional[TableStorage] = None,
     weight tiers; None for the spec's analytic caps).  Plastic engines
     grow the ``plastic`` carry: every tier's weights ``(TY, TX, rows +
     1, cap)``, the local pre-trace, the post-trace.  An ensemble's
-    leaves lead with ``(TY, TX, M)``."""
+    leaves lead with ``(TY, TX, M)``; with ``mesh``, the rank's block
+    ``(1, 1[, M])``."""
     dev = resolve_device(device)
-    abst = abstract_dist_inputs(cfg, storage, dev)[0]
+    abst = abstract_dist_inputs(cfg, storage, dev, mesh)[0]
     body = {k: v for k, v in abst.items() if k not in ("t", "rng")}
     leaves, treedef = tree_flatten(body)
     state = tree_unflatten(treedef, [
         torch.zeros(x.shape, dtype=x.dtype, device=dev) for x in leaves])
-    state["t"] = np.zeros(cfg.lead, np.int32)
+    state["t"] = np.zeros(_local_lead(cfg, mesh), np.int32)
     state["rng"] = [torch.Generator(device=dev) for _ in abst["rng"]]
     return state
 
@@ -194,7 +362,7 @@ def generator_state_bytes(device="cuda") -> int:
 
 def abstract_dist_inputs(cfg: DistConfig,
                          storage: Optional[TableStorage] = None,
-                         device="cuda"):
+                         device="cuda", mesh=None):
     """``(state, tables)`` as ``"meta"`` tensors, nothing allocated: the
     dry run's inputs, the reference's ``abstract_dist_inputs`` in the
     port's layout.
@@ -218,8 +386,10 @@ def abstract_dist_inputs(cfg: DistConfig,
     holds; nothing is made there.  So the total bytes of these leaves
     equal ``tree_nbytes`` of ``init_dist_state`` (with
     ``init_dist_plastic_state``) and ``build_dist_tables`` (folded when
-    plastic) on ``device``."""
-    lead = cfg.lead
+    plastic) on ``device``.  With ``mesh``, a rank's block: every tile
+    axis 1."""
+    lead = _local_lead(cfg, mesh)
+    tiles = lead[:2]
     e = cfg.engine
     spec = e.spec()
     n = spec.n_local
@@ -250,7 +420,7 @@ def abstract_dist_inputs(cfg: DistConfig,
         abst = fold_plastic_tables(abst)
 
     def lift(t):
-        return {k: sd(v.shape, v.dtype, cfg.tiles) for k, v in t.items()}
+        return {k: sd(v.shape, v.dtype, tiles) for k, v in t.items()}
 
     tables = SynapseTables(lift(abst.local), [lift(t) for t in abst.halo],
                            abst.storage)
@@ -310,7 +480,7 @@ def _stack_tiers(tiers: List[dict], ty: int, tx: int) -> dict:
 
 
 def build_dist_tables(cfg: DistConfig, compress: bool = True,
-                      device="cuda") -> Tuple[SynapseTables, dict]:
+                      device="cuda", mesh=None) -> Tuple[SynapseTables, dict]:
     """Materialize every tile's synapse tables (host-side numpy, the
     reference's draws) stacked on ``(TY, TX)``, placed on ``device``.
 
@@ -320,21 +490,30 @@ def build_dist_tables(cfg: DistConfig, compress: bool = True,
     storage descriptor and one delivery plan, as in the reference.
     Tiles are built by as many host threads as there are tiles and
     cores (each tile draws from its own seed, so the tables do not
-    depend on the count)."""
+    depend on the count).
+
+    With ``mesh``, each rank builds its own tile alone (DPSNN's parallel
+    construction) as a ``(1, 1, ...)`` block, and the ranks agree on
+    each tier's realized cap (an all-reduce MAX) before the cut: the
+    block equals the stacked build's ``[y, x]`` slice, storage
+    descriptor included.  The stats are summed over the ranks."""
     dev = resolve_device(device)
-    ty, tx = cfg.tiles
     e = cfg.engine
     spec = e.spec()
+    tiles = _tiles_here(cfg, mesh)
+    ty, tx = _local_lead(cfg, mesh)[:2]
 
     def build(yx):
         return build_tables(spec, *yx, j_exc=e.lif.j_exc_mv,
                             j_inh=e.lif.j_inh_mv, seed=e.seed, device="cpu")
 
-    tiles = [(y, x) for y in range(ty) for x in range(tx)]
     with ThreadPoolExecutor(min(len(tiles), os.cpu_count() or 1)) as pool:
         tabs = list(pool.map(build, tiles))
-    stats = {"n_synapses": int(sum(t.stats["n_synapses"] for t in tabs)),
-             "clipped": int(sum(t.stats["clipped"] for t in tabs))}
+    counts = [sum(t.stats[k] for t in tabs) for k in ("n_synapses",
+                                                      "clipped")]
+    if mesh is not None:
+        counts = all_reduce_host(counts)
+    stats = {"n_synapses": int(counts[0]), "clipped": int(counts[1])}
     out = SynapseTables(
         _stack_tiers([t.local for t in tabs], ty, tx),
         [_stack_tiers([t.halo[b] for t in tabs], ty, tx)
@@ -342,7 +521,12 @@ def build_dist_tables(cfg: DistConfig, compress: bool = True,
         tabs[0].storage, stats=dict(stats))
     del tabs
     if compress:
-        out = compress_tables(out)
+        nnz_max = None
+        if mesh is not None:
+            nnz_max = all_reduce_host(
+                [int(t["nnz"].max()) if t["nnz"].numel() else 0
+                 for t in out.tiers()], op="max")
+        out = compress_tables(out, nnz_max=nnz_max)
     stats["table_bytes_per_shard"] = materialized_table_bytes(out, ty * tx)
     return out.to(dev), stats
 
@@ -370,11 +554,12 @@ def init_dist_plastic_state(cfg: DistConfig, tables) -> dict:
     replicas are exchanged each step, never carried.  An ensemble gives
     every member its own copy of the weights and traces, on axis 2: the
     members start from the one build realization and diverge through
-    their own STDP."""
-    lead = cfg.lead
+    their own STDP.  A rank's block of tables gives its block of the
+    carry."""
     m = cfg.n_members
     n_local = cfg.engine.spec().n_local
     tiers = tier_list(tables)
+    lead = tuple(tiers[0]["tgt"].shape[:2]) + (() if m is None else (m,))
     if any(t["w"].dtype == torch.int8 for t in tiers):
         raise ValueError(
             "init_dist_plastic_state needs the build-weight tables "
@@ -410,7 +595,7 @@ def fold_plastic_tables(tables: SynapseTables) -> SynapseTables:
                          tables.storage, stats=tables.stats)
 
 
-def build_dist_inverse_index(cfg: DistConfig, tables):
+def build_dist_inverse_index(cfg: DistConfig, tables, mesh=None):
     """Per-tile target-major inverse indices (``stdp.build_inverse_index``,
     host numpy), stacked on ``(TY, TX)`` on the tables' device.
 
@@ -420,8 +605,10 @@ def build_dist_inverse_index(cfg: DistConfig, tables):
     with the ``total`` sentinel.  Returns ``(slots, aux)``: ``slots``
     (TY, TX, n_local, K) int32, ``aux`` the tier geometry (``bases``,
     ``sizes``, ``total``, the same on every tile) and ``clipped`` (summed
-    over tiles)."""
-    ty, tx = cfg.tiles
+    over tiles).  With ``mesh``, ``tables`` is the rank's block and so is
+    ``slots``, ``(1, 1, n_local, K)``: the ranks agree on ``K`` (an
+    all-reduce MAX) and sum ``clipped``."""
+    ty, tx = tuple(tables["local"]["tgt"].shape[:2])
     n_local = cfg.engine.spec().n_local
     dev = tables["local"]["tgt"].device
     invs = [build_inverse_index(tier_list(v), n_local, device="cpu")
@@ -430,6 +617,9 @@ def build_dist_inverse_index(cfg: DistConfig, tables):
            "total": invs[0]["total"],
            "clipped": int(sum(i["clipped"] for i in invs))}
     k_max = max(int(i["slots"].shape[1]) for i in invs)
+    if mesh is not None:
+        k_max = all_reduce_host([k_max], op="max")[0]
+        aux["clipped"] = all_reduce_host([aux["clipped"]])[0]
     stacked = torch.full((ty * tx, n_local, k_max), aux["total"],
                          dtype=torch.int32)
     for i, inv in enumerate(invs):
@@ -546,13 +736,16 @@ class _DistSim:
 
     def __init__(self, cfg: DistConfig, n_steps: int, record_rate: bool,
                  recorder, storage: Optional[TableStorage], dev,
-                 recorder_copy: bool = True):
+                 recorder_copy: bool = True, mesh=None,
+                 transport: Optional[Transport] = None):
         e = cfg.engine
         self.cfg, self.e, self.n_steps = cfg, e, n_steps
         self.record_rate, self.recorder, self.dev = record_rate, recorder, dev
         self.recorder_copy = recorder_copy
         self.spec = spec = e.spec()
-        ty, tx = cfg.tiles
+        self.mesh, self.transport = mesh, transport
+        self.lead = _local_lead(cfg, mesh)
+        ty, tx = self.lead[:2]
         self.n_tiles = ty * tx
         self.members = cfg.n_members or 1
         self.n_inst = self.n_tiles * self.members
@@ -563,11 +756,20 @@ class _DistSim:
         bands = spec.halo_bands()
         self.plan = spec.delivery_plan(storage)
         self.plastic = e.stdp is not None
-        self.maps = band_gather_maps(cfg, self.n_local, device=dev)
-        self.pre_maps = None
+        self.maps = self.pre_maps = None
+        if mesh is None:
+            self.maps = band_gather_maps(cfg, self.n_local, device=dev)
+            if self.plastic:
+                self.pre_maps = band_gather_maps(
+                    cfg, self.n_local + 1, sink_column=True, device=dev)
+        else:
+            rank_tile(cfg, mesh)
+            if transport is None:
+                raise ValueError("a run on ranks needs a transport")
+            self.band_idx = [torch.from_numpy(
+                spec.band_positions_exc(b).astype(np.int64)).to(dev)
+                for b in bands]
         if self.plastic:
-            self.pre_maps = band_gather_maps(cfg, self.n_local + 1,
-                                             sink_column=True, device=dev)
             self.pre_caps = [spec.active_cap_local] + [
                 spec.active_cap_band(b) for b in bands]
         self.zero = torch.zeros((1,), dtype=torch.float32, device=dev)
@@ -633,19 +835,20 @@ class _DistSim:
             n_spk.append(count)
             local_bits.append(bits)
 
-        # the halo exchange: one gather per band for every instance
-        src = torch.cat(spikes + [self.zero])
-        band_spk = [src[m] for m in self.maps]
+        # the halo exchange: every band's source vector (and pre-trace)
+        # for every instance
+        if self.mesh is None:
+            band_spk, xpre_bands = self._gather_bands(st, spikes)
+        else:
+            band_spk, xpre_bands = self._exchange_bands(st, spikes)
         band_bits = None
         if (self.event and e.use_kernels and not self.plastic
-                and src.device.type == "cuda"
+                and spikes[0].device.type == "cuda"
                 and tiles.tables[0]["local"]["w"].dtype != torch.float32):
             band_bits = [delivered_bits(b, p.rows, p.active_cap)
                          for b, p in zip(band_spk, plan[1:])]
         if self.plastic:
             pl = st["plastic"]
-            xpre_src = torch.cat([st["x_pre_flat"], self.zero])
-            xpre_bands = [xpre_src[m] for m in self.pre_maps]
 
         evs, drs = [], []
         for i in range(self.n_inst):
@@ -711,11 +914,61 @@ class _DistSim:
         st["state"]["t"] = st["state"]["t"] + 1
         st["t"] = st["state"]["t"].reshape(-1)
 
+    # ---- the exchange: two ways to the bands' vectors ------------------
+    def _gather_bands(self, st: dict, spikes: list) -> tuple:
+        """Stacked: one gather per band over every instance's spikes
+        (and pre-traces), through the precomputed maps."""
+        src = torch.cat(spikes + [self.zero])
+        band_spk = [src[m] for m in self.maps]
+        xpre_bands = None
+        if self.plastic:
+            xpre_src = torch.cat([st["x_pre_flat"], self.zero])
+            xpre_bands = [xpre_src[m] for m in self.pre_maps]
+        return band_spk, xpre_bands
+
+    def _rank_region(self, x: torch.Tensor, packed: bool,
+                     channel: int) -> torch.Tensor:
+        """This rank's ``(M, rows)`` instances' excitatory lanes ``x``
+        (``(M, n_local)``) exchanged with the neighbours: the flat
+        ``(M, region)`` block the band positions index; the members
+        travel in the same message."""
+        cfg, spec = self.cfg, self.spec
+        d = self.e.decomp
+        n_exc = spec.n_exc_per_col
+        blk = x.reshape(x.shape[0], d.tile_h, d.tile_w,
+                        spec.n_per_col)[..., :n_exc].permute(1, 2, 0, 3)
+        payload = pack_bits(blk) if packed else blk
+        region = exchange_halo_2d(
+            payload, radius=d.radius, mode=cfg.halo_mode, mesh=self.mesh,
+            axis_y=cfg.axis_y, axis_x=cfg.axis_x, transport=self.transport,
+            channel=channel)
+        if packed:
+            region = unpack_bits(region, n_exc)
+        return region.permute(2, 0, 1, 3).reshape(x.shape[0], -1)
+
+    def _exchange_bands(self, st: dict, spikes: list) -> tuple:
+        """Ranks: this rank's spikes (bit-packed when ``pack_spikes``)
+        and pre-traces go to its neighbours; each band gathers its
+        positions of the region (the pre-trace with a zero sink)."""
+        region = self._rank_region(torch.stack(spikes),
+                                   self.cfg.pack_spikes, 0)
+        band_spk = [region[:, idx] for idx in self.band_idx]
+        xpre_bands = None
+        if self.plastic:
+            xpre = st["plastic"]["x_pre"]
+            pre = self._rank_region(torch.stack(xpre)[:, :self.n_local],
+                                    False, 1)
+            sink = torch.zeros((self.n_inst, 1), dtype=pre.dtype,
+                               device=pre.device)
+            xpre_bands = [torch.cat([pre[:, idx], sink], dim=1)
+                          for idx in self.band_idx]
+        return band_spk, xpre_bands
+
     # ---- the run --------------------------------------------------------
     def _views(self, state: dict, inputs: SimInputs, recs) -> dict:
         """The stacked state's per-instance views (flattened leading
         axes)."""
-        k = len(self.cfg.lead)
+        k = len(self.lead)
         flat = lambda x: x.flatten(0, k - 1)     # noqa: E731
         st = {
             "state": state,
@@ -742,7 +995,7 @@ class _DistSim:
     def __call__(self, state: dict, inputs: SimInputs):
         _check_state(state, inputs, self)
         tiles = self._tiles_for(inputs)
-        lead = self.cfg.lead
+        lead = self.lead
         n, n_steps = self.n_inst, self.n_steps
         rec_state = recs = None
         if self.recorder is not None:
@@ -763,7 +1016,7 @@ class _DistSim:
         out = torch.empty((n_steps, n), dtype=torch.float32, device=self.dev)
         loop = None
         if (self.dev.type == "cuda" and self.e.use_kernels and self.event
-                and not self.plastic):
+                and not self.plastic and self.mesh is None):
             loop = self.graph_loop
             if loop is not None and loop.serves(st, tiles, drive):
                 loop.rebind(st, drive)
@@ -803,7 +1056,7 @@ def _check_state(state: dict, inputs: SimInputs, sim: _DistSim) -> None:
             f"make_sim_fn(device={str(sim.dev)!r}) but the state/tables "
             f"live on {sorted(str(d) for d in have)}; build them with the "
             "same device=")
-    lead = sim.cfg.lead
+    lead = sim.lead
     if tuple(state["i_ring"].shape[:-2]) != lead or \
             len(state["rng"]) != sim.n_inst:
         what = "tiles" if len(lead) == 2 else "tiles and members"
@@ -862,7 +1115,8 @@ class _DistStepGraph(GraphLoop):
 
 def make_sim_fn(cfg: DistConfig, n_steps: int, record_rate: bool = True,
                 recorder=None, storage: Optional[TableStorage] = None,
-                device="cuda", recorder_copy: bool = True):
+                device="cuda", recorder_copy: bool = True, mesh=None,
+                transport: Union[str, Transport] = "gloo"):
     """The multi-shard simulation function of ``n_steps`` steps.
 
     Returns ``sim(state, inputs) -> (state, per_step (TY, TX, n_steps)
@@ -901,46 +1155,75 @@ def make_sim_fn(cfg: DistConfig, n_steps: int, record_rate: bool = True,
     (recorded or not) of at least ``2 * d_ring`` steps replays one CUDA
     graph of ``d_ring`` steps of all instances after ``d_ring`` eager
     steps, then steps an eager tail (``engine.GraphLoop``); plastic and
-    shorter runs step eagerly."""
-    return _DistSim(cfg, n_steps, record_rate, recorder, storage,
-                    resolve_device(device), recorder_copy)
+    shorter runs step eagerly.
+
+    Ranks (``mesh``): the sim steps this rank's tile, its state and
+    inputs the rank's blocks (``init_dist_state(mesh=)``,
+    ``build_dist_tables(mesh=)``, ``rank_block``; a drive ``(n_steps, 1,
+    1[, M], n_local)``), ``per_step`` ``(1, 1[, M], n_steps)``.  Every
+    step sends the tile's excitatory spikes (plastic: and its local
+    pre-trace) to its neighbours through ``transport`` (``"gloo"``,
+    ``"nccl"`` or a ``halo.Transport``, made once for the sim; its
+    ``bytes_sent`` and ``seconds`` count the run's exchange).  It steps
+    eagerly."""
+    dev = resolve_device(device)
+    if mesh is not None and not isinstance(transport, Transport):
+        transport = Transport(transport, dev)
+    return _DistSim(cfg, n_steps, record_rate, recorder, storage, dev,
+                    recorder_copy, mesh,
+                    transport if mesh is not None else None)
 
 
 def simulate(cfg: DistConfig, n_steps: int, timed: bool = False,
-             device="cuda") -> dict:
+             device="cuda", mesh=None,
+             transport: Union[str, Transport] = "gloo") -> dict:
     """Build, run, report (static engines).  ``timed=True`` runs a
     second segment of ``n_steps`` after the first and reports its host
-    wall time (``elapsed_s``, CUDA-synchronised) and events."""
+    wall time (``elapsed_s``, CUDA-synchronised) and events.  With
+    ``mesh`` each rank builds and runs its own tile; the metrics stay
+    per tile in its state, and the reported keys are the stacked run's,
+    reduced over every rank's tile (gathered, then summed as the stacked
+    tensors are), the same on every rank; ``elapsed_s`` is the slowest
+    rank's."""
     if cfg.engine.stdp is not None:
         raise ValueError("simulate() is the static convenience driver; "
                          "drive plastic runs through make_sim_fn")
     dev = resolve_device(device)
-    state = init_dist_state(cfg, device=dev)
-    tables, stats = build_dist_tables(cfg, device=dev)
-    sim = make_sim_fn(cfg, n_steps, storage=tables.storage, device=dev)
+    state = init_dist_state(cfg, device=dev, mesh=mesh)
+    tables, stats = build_dist_tables(cfg, device=dev, mesh=mesh)
+    sim = make_sim_fn(cfg, n_steps, storage=tables.storage, device=dev,
+                      mesh=mesh, transport=transport)
     inputs = SimInputs(tables=tables)
 
     def sync():
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
+    def whole(x):
+        """A per-tile tensor of every tile (the stacked form's)."""
+        if mesh is None:
+            return x
+        return gather_blocks(cfg, x, mesh, dst=None)
+
     state, per_step = sim(state, inputs)
     elapsed = before = None
     if timed:
         sync()
-        before = float(state["metrics"]["events"].sum())
+        before = float(whole(state["metrics"]["events"]).sum())
         t0 = time.perf_counter()
         state, per_step = sim(state, inputs)
         sync()
         elapsed = time.perf_counter() - t0
-    n_active = float(state["active"].sum())
-    spikes = float(state["metrics"]["spikes"].sum())
+        if mesh is not None:
+            elapsed = max(all_gather_host(elapsed))
+    n_active = float(whole(state["active"]).sum())
+    spikes = float(whole(state["metrics"]["spikes"]).sum())
     sim_sec = n_steps * (2 if timed else 1) * cfg.engine.lif.dt_ms * 1e-3
     out = {
         "state": state, "per_step_spikes": per_step, "stats": stats,
         "rate_hz": spikes / max(n_active, 1.0) / max(sim_sec, 1e-9),
-        "events": float(state["metrics"]["events"].sum()),
-        "dropped": float(state["metrics"]["dropped"].sum()),
+        "events": float(whole(state["metrics"]["events"]).sum()),
+        "dropped": float(whole(state["metrics"]["dropped"]).sum()),
     }
     if timed:
         out["elapsed_s"] = elapsed

@@ -313,17 +313,23 @@ def materialized_table_bytes(tables: SynapseTables,
     return total // max(n_shards, 1)
 
 
-def compress_tables(tables: SynapseTables) -> SynapseTables:
+def compress_tables(tables: SynapseTables,
+                    nnz_max: Optional[Sequence[int]] = None
+                    ) -> SynapseTables:
     """Truncate each tier's all-padding trailing columns.
 
     Columns past the realized max nnz hold only (0, 0.0, 0) padding, so
     dropping them is value-exact.  Works on per-shard and on stacked
     (leading shard axes) tables; the cap is the max over every shard, so
     the compressed storage descriptor is the same on every shard.
+    ``nnz_max``: each tier's max nnz (local first) to cut at in place of
+    these tables' own, as the ranks of a distributed build agree on it
+    (``core.dist_engine.build_dist_tables(mesh=)``).
     """
-    def realized_cap(tier, cap):
+    def realized_cap(tier, cap, hi=None):
         nnz = tier["nnz"]
-        hi = int(nnz.max()) if nnz.numel() else 0
+        if hi is None:
+            hi = int(nnz.max()) if nnz.numel() else 0
         return max(min(hi, cap), 1)
 
     def cut(tier, cap):
@@ -331,9 +337,11 @@ def compress_tables(tables: SynapseTables) -> SynapseTables:
                 for k, v in tier.items()}
 
     st = tables.storage
-    cap_l = realized_cap(tables.local, st.cap_local)
-    caps_h = tuple(realized_cap(t, c)
-                   for t, c in zip(tables.halo, st.halo_caps))
+    his = list(nnz_max) if nnz_max is not None else \
+        [None] * (1 + len(tables.halo))
+    cap_l = realized_cap(tables.local, st.cap_local, his[0])
+    caps_h = tuple(realized_cap(t, c, hi)
+                   for t, c, hi in zip(tables.halo, st.halo_caps, his[1:]))
     new_storage = dataclasses.replace(st, cap_local=cap_l,
                                       halo_caps=caps_h)
     out = SynapseTables(cut(tables.local, cap_l),

@@ -34,6 +34,19 @@ the async writers' owning-thread assertions; the reference's JAX debug
 flags (``jax_debug_nans``, ``jax_check_tracer_leaks``) have no torch
 meaning and are left out.  ``--trace-dir`` takes a ``torch.profiler``
 trace (Chrome JSON) of the whole run.
+
+``--nproc N`` runs the job on N rank processes, one tile each (DPSNN's
+layout; ``launch.mesh.spawn_ranks``), their halo strips moved by
+``--transport`` (``gloo``: CPU tensors, and CUDA ones staged through
+host memory, so several ranks may share one card; ``nccl``: one card a
+rank).  The tiling defaults to the host-mesh shape of N ranks
+(``launch.mesh.host_mesh_shape``: 4 -> 2x2, 2 -> 2x1); rank 0 writes the
+checkpoints, the spool and the report, which a single-process run on
+any tiling resumes.  A rank that fails fails the run (non-zero exit)::
+
+    PYTHONPATH=src python -m repro_torch.launch.sim --device cpu \
+        --nproc 2 --transport gloo --grid 4 --neurons-per-column 20 \
+        --steps 40 --segment-steps 10 --ckpt-dir RUN
 """
 
 from __future__ import annotations
@@ -102,15 +115,43 @@ def spec_from_args(args) -> SimJobSpec:
         raise SystemExit(str(e)) from None
 
 
-def build_driver(args, telemetry: Telemetry = NULL) -> SimDriver:
+def build_driver(args, telemetry: Telemetry = NULL,
+                 mesh=None) -> SimDriver:
     try:
         return build_sim_driver(spec_from_args(args), device=args.device,
-                                telemetry=telemetry)
+                                telemetry=telemetry, mesh=mesh,
+                                transport=args.transport)
     except JobError as e:
         raise SystemExit(str(e)) from None
 
 
+def _rank_entry(rank: int, world: int, argv) -> None:
+    """One rank of ``--nproc``: the job on this rank's tile."""
+    import torch
+    from .mesh import make_host_mesh
+    args = _parser().parse_args(argv)
+    if torch.device(args.device).type == "cuda":
+        args.device = f"cuda:{rank % max(torch.cuda.device_count(), 1)}"
+        torch.cuda.set_device(args.device)
+    _run(args, make_host_mesh(parse_tiles(args.tiles)))
+
+
 def main(argv=None):
+    args = _parser().parse_args(argv)
+    if args.nproc is None:
+        return _run(args)
+    if args.nproc < 1:
+        raise SystemExit(f"--nproc {args.nproc}: expected >= 1")
+    from .mesh import RankFailure, spawn_ranks
+    try:
+        spawn_ranks(_rank_entry, args.nproc, args=(argv,),
+                    backend=args.transport)
+    except RankFailure as e:
+        raise SystemExit(f"a rank failed: {e}") from None
+    return None
+
+
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--law", default="gaussian",
                     choices=("gaussian", "exponential"))
@@ -191,18 +232,32 @@ def main(argv=None):
                     help="debug/CI mode: owning-thread assertions on "
                          "the async writers (catches writer races at "
                          "their origin)")
-    args = ap.parse_args(argv)
+    ap.add_argument("--nproc", type=int, default=None,
+                    help="run on N rank processes, one tile each (the "
+                         "tiling defaults to the host-mesh shape of N); "
+                         "default: one process holding every tile")
+    ap.add_argument("--transport", default="gloo",
+                    choices=("gloo", "nccl"),
+                    help="how the ranks move their halo strips (gloo: "
+                         "CUDA strips staged through host memory, ranks "
+                         "may share a card; nccl: one card a rank)")
+    return ap
 
+
+def _run(args, mesh=None):
+    """The job in this process: every tile, or (``mesh``) this rank's;
+    rank 0 reports."""
+    root = mesh is None or mesh.rank == 0
     if args.sanitize:
         enable_sanitizers()
     if args.log_json:
         enable_json_logging()
     tel = NULL
-    if args.telemetry_out or args.trace_out:
+    if root and (args.telemetry_out or args.trace_out):
         tel = Telemetry(jsonl_path=args.telemetry_out)
         set_default(tel)
-    driver = build_driver(args, telemetry=tel)
-    with torch_profiler_trace(args.trace_dir,
+    driver = build_driver(args, telemetry=tel, mesh=mesh)
+    with torch_profiler_trace(args.trace_dir if root else None,
                               cuda=driver.device.type == "cuda"):
         out = driver.run(args.steps)
     t = int(np.max(out["state"]["t"]))
@@ -216,6 +271,8 @@ def main(argv=None):
             plastic_members = [driver.plastic_summary(out["state"], member=m)
                                for m in range(driver.n_members)]
             plastic = plastic_members[0]
+    if not root:
+        return out
     extra = (f" plastic_checksum={plastic['weight_checksum'][:12]} "
              f"w_l1_delta={plastic['w_l1_delta']:.4f}"
              if plastic else "")
@@ -234,6 +291,7 @@ def main(argv=None):
         payload = {"final_step": t, "preempted": out["preempted"],
                    "rate_hz": rate,
                    "tiles": list(driver.dist_cfg.tiles),
+                   "ranks": 1 if mesh is None else mesh.size,
                    "totals": totals,
                    # active_cap compaction overflow, surfaced explicitly
                    # (nonzero means results undercount synaptic events)

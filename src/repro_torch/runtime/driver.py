@@ -117,6 +117,9 @@ class FaultTolerantLoop:
     """
 
     step_size: int = 1
+    # False where a failed step cannot be replayed alone (a rank of a
+    # process group: its peers are mid-step): the failure ends the run
+    retry_failures: bool = True
 
     def __init__(self, cfg: DriverConfig, telemetry: Telemetry = NULL):
         self.cfg = cfg
@@ -187,7 +190,8 @@ class FaultTolerantLoop:
                         f"{retries}/{self.cfg.max_retries}",
                     step=step, retry=retries,
                     max_retries=self.cfg.max_retries, error=str(e))
-                if retries > self.cfg.max_retries:
+                if retries > self.cfg.max_retries \
+                        or not self.retry_failures:
                     self.ckpt.wait()
                     raise
                 time.sleep(self.cfg.backoff_s * 2 ** (retries - 1))

@@ -155,13 +155,18 @@ def dist_config_for(spec: SimJobSpec, tiles: Tuple[int, int]):
 
 def build_sim_driver(spec: SimJobSpec, device="cuda",
                      telemetry: Telemetry = NULL,
-                     sim_cache: Optional[dict] = None):
+                     sim_cache: Optional[dict] = None, mesh=None,
+                     transport="gloo"):
     """Construct the :class:`~repro_torch.runtime.SimDriver` a spec
     denotes, every tile on ``device``; the tiling is ``spec.tiles``
     (default 1x1: the port stacks every tile on one device, where the
-    reference defaulted to the host mesh).  Pass the same
-    ``sim_cache`` dict across calls to share sim functions between jobs
-    that differ only in seeds (see ``sim_fingerprint``).
+    reference defaulted to the host mesh).  With ``mesh`` (a
+    ``launch.mesh.RankMesh``, every rank calls this) the tiling is the
+    mesh's ``("data", "model")`` shape, one tile a rank, its strips
+    moved by ``transport``; ``spec.tiles``, when given, must be that
+    shape.  Pass the same ``sim_cache`` dict across calls to share sim
+    functions between jobs that differ only in seeds (see
+    ``sim_fingerprint``).
 
     Raises :class:`JobError` for specs that must not run: a fresh job
     aimed at an occupied checkpoint directory, or ``resume=True`` with
@@ -172,6 +177,11 @@ def build_sim_driver(spec: SimJobSpec, device="cuda",
     from .sim_driver import SimDriver
 
     tiles = spec.tiles or (1, 1)
+    if mesh is not None:
+        tiles = (mesh.axis_size("data"), mesh.axis_size("model"))
+        if spec.tiles is not None and tuple(spec.tiles) != tiles:
+            raise JobError(f"tiles={spec.tiles} but the rank mesh holds "
+                           f"{tiles[0]}x{tiles[1]} tiles")
     last = latest_step(spec.ckpt_dir)
     if last is not None and not spec.resume:
         raise JobError(
@@ -193,4 +203,5 @@ def build_sim_driver(spec: SimJobSpec, device="cuda",
         record_capacity=spec.record_cap,
         telemetry=telemetry,
         sim_cache=sim_cache,
-        job_meta=spec.job_meta())
+        job_meta=spec.job_meta(),
+        mesh=mesh, transport=transport)

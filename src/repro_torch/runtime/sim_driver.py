@@ -67,6 +67,18 @@ Checkpoints hold ``dist_engine.state_tree(state)``: the state's tensors,
 ``t`` and each tile's generator state.  A restore loads them into the
 driver's live state in place (``dist_engine.load_state``), so a
 captured graph goes on reading the same tensors and generators.
+
+**Ranks** (``mesh=``): each process of a ``torch.distributed`` group
+runs one tile (``core.dist_engine``'s rank form), building only its own
+tables.  Each checkpoint is gathered to rank 0 and written there in the
+single-device driver's format, so one checkpoint resumes on ranks or on
+one device, and retiles between them (every rank reads the checkpoint,
+relays it as the single-device driver does, and keeps its block).  The
+recorders are gathered to rank 0 each segment and spooled there in
+``(y, x[, m])`` order.  Preemption is agreed at each segment's end (an
+all-reduce of the ranks' flags), so every rank stops after the same
+segment.  A failed segment fails the run: a rank cannot replay a
+segment while its peers go on.
 """
 
 from __future__ import annotations
@@ -83,11 +95,12 @@ import torch
 from .. import resolve_device
 from ..checkpoint.store import (LeafSpec, checkpoint_meta, latest_step,
                                 refuse_meta_drift, restore_checkpoint)
-from ..core.dist_engine import (DistConfig, SimInputs,
+from ..core.dist_engine import (DistConfig, SimInputs, all_reduce_host,
                                 build_dist_inverse_index, build_dist_tables,
-                                fold_plastic_tables, init_dist_plastic_state,
-                                init_dist_state, load_state, make_sim_fn,
-                                state_like, state_tree)
+                                fold_plastic_tables, gather_blocks,
+                                init_dist_plastic_state, init_dist_state,
+                                load_state, make_sim_fn, rank_block,
+                                rank_tile, state_like, state_tree)
 from ..core.retile import (gather_synapse_stream, retile_config,
                            retile_plastic, retile_state, retile_tables)
 from ..core.synapses import TableStorage, compress_tables
@@ -152,6 +165,12 @@ class SimDriver(FaultTolerantLoop):
     ``sim_cache``: a caller-owned dict mapping ``sim_fingerprint`` keys
     to sim functions.  An ensemble's ``drive`` is ``(n_steps, TY, TX,
     M, n_local)``.
+
+    ``mesh``: a ``launch.mesh.RankMesh`` holding the tiling, one tile a
+    rank (see the module docstring); ``transport`` moves the halo
+    strips (``core.halo.Transport``).  Every rank constructs the driver
+    and calls the same methods; the spool and the checkpoint files are
+    rank 0's, and ``spike_counts`` reads them there.
     """
 
     def __init__(self, cfg: DriverConfig, dist_cfg: DistConfig, device,
@@ -164,8 +183,14 @@ class SimDriver(FaultTolerantLoop):
                  telemetry: Telemetry = NULL,
                  sim_cache: Optional[dict] = None,
                  job_meta: Optional[dict] = None,
-                 drive: Optional[torch.Tensor] = None):
+                 drive: Optional[torch.Tensor] = None,
+                 mesh=None, transport="gloo"):
         super().__init__(cfg, telemetry=telemetry)
+        self.mesh = mesh
+        self.root = mesh is None or mesh.rank == 0
+        self.retry_failures = mesh is None
+        if mesh is not None:
+            self._tile = rank_tile(dist_cfg, mesh)
         if segment_steps <= 0:
             raise ValueError(f"segment_steps={segment_steps} must be > 0")
         self.dist_cfg = dist_cfg
@@ -194,6 +219,8 @@ class SimDriver(FaultTolerantLoop):
                 born = checkpoint_meta(cfg.ckpt_dir, last0).get("born_tiles")
                 if born:
                     self._born_tiles = tuple(born)
+        # the birth tables of every tile (None until a retile needs
+        # them, on ranks, where a rank builds its own tile)
         self._birth_tables = None
         if self.plastic and self._born_tiles != dist_cfg.tiles:
             from ..core.synapses import materialized_table_bytes
@@ -212,13 +239,16 @@ class SimDriver(FaultTolerantLoop):
                 self.table_stats,
                 table_bytes_per_shard=materialized_table_bytes(
                     tables, ty * tx))
+            if mesh is not None:
+                tables = rank_block(dist_cfg, tables, mesh)
         elif self.plastic:
-            tables, self.table_stats = build_dist_tables(dist_cfg,
-                                                         device="cpu")
-            self._birth_tables = tables
+            tables, self.table_stats = build_dist_tables(
+                dist_cfg, device="cpu", mesh=mesh)
+            if mesh is None:
+                self._birth_tables = tables
         else:
-            tables, self.table_stats = build_dist_tables(dist_cfg,
-                                                         device=dev)
+            tables, self.table_stats = build_dist_tables(
+                dist_cfg, device=dev, mesh=mesh)
         # the materialized (compressed) storage descriptor: everything
         # that sizes shapes from the spec -- the delivery plan, the
         # plastic weight tiers, checkpoint meta -- goes through it
@@ -227,7 +257,7 @@ class SimDriver(FaultTolerantLoop):
         self._inv_slots = None
         if self.plastic:
             self._inv_slots = build_dist_inverse_index(
-                dist_cfg, tables)[0].to(dev)
+                dist_cfg, tables, mesh=mesh)[0].to(dev)
             # the state carries the single live weight copy; the
             # resident tables keep only the int8 plastic mask
             tables = fold_plastic_tables(tables).to(dev)
@@ -255,7 +285,10 @@ class SimDriver(FaultTolerantLoop):
             d = e.decomp
             self.recorder = recorder_spec(e, segment_steps,
                                           capacity=record_capacity)
-            self._gids = torch.from_numpy(stacked_gid_maps(d)).to(dev)
+            gids = stacked_gid_maps(d)
+            if mesh is not None:
+                gids = rank_block(dist_cfg, gids, mesh)
+            self._gids = torch.from_numpy(gids).to(dev)
             header = {"grid": [d.grid.height, d.grid.width,
                                d.grid.n_per_column],
                       "law": e.law.kind, "seed": e.seed,
@@ -267,10 +300,11 @@ class SimDriver(FaultTolerantLoop):
                 # spool records it at the top, so an ensemble member's
                 # stream compares header for header
                 header["state_seed"] = e.state_seed_value
-            self.spool = SpikeSpooler(
-                os.path.join(cfg.ckpt_dir, "spool"), dist_cfg.tiles,
-                header=header, telemetry=telemetry,
-                members=dist_cfg.ensemble_seeds)
+            if self.root:
+                self.spool = SpikeSpooler(
+                    os.path.join(cfg.ckpt_dir, "spool"), dist_cfg.tiles,
+                    header=header, telemetry=telemetry,
+                    members=dist_cfg.ensemble_seeds)
         # the driver never consumes the per-step spike output (the
         # spool is the per-step record), so it is not returned
         self._sim_key = sim_fingerprint(dist_cfg, segment_steps,
@@ -284,7 +318,8 @@ class SimDriver(FaultTolerantLoop):
                                     record_rate=False,
                                     recorder=self.recorder,
                                     storage=self.storage, device=dev,
-                                    recorder_copy=False)
+                                    recorder_copy=False, mesh=mesh,
+                                    transport=transport)
             if sim_cache is not None:
                 sim_cache[self._sim_key] = self._sim
         # a shared sim counts every job's captures: this driver's start
@@ -328,6 +363,13 @@ class SimDriver(FaultTolerantLoop):
         # repro-lint: ignore[meta-drift] report-only running totals; the
         # resumable base rides (and is validated via) 'metric_base'
         meta["metric_totals"] = self.metric_totals(state)
+        tree = state_tree(state)
+        if self.mesh is not None:
+            # every rank's block, stacked on rank 0: the single-device
+            # driver's checkpoint
+            tree = gather_blocks(self.dist_cfg, tree, self.mesh)
+            if not self.root:
+                return
         if self.spool is not None:
             # the manifest's spool offsets must never reference bytes
             # that are not yet durable: drain the (small) spool queue
@@ -336,7 +378,7 @@ class SimDriver(FaultTolerantLoop):
                 self.spool.wait()
             meta["spool_offsets"] = self.spool.offsets()
             meta["recorder_dropped"] = self.recorder_dropped
-        self.ckpt.save(step, state_tree(state), meta=meta)
+        self.ckpt.save(step, tree, meta=meta)
 
     # ---- restore / init ----------------------------------------------
     def _like(self, cfg: DistConfig, storage) -> dict:
@@ -348,29 +390,44 @@ class SimDriver(FaultTolerantLoop):
         tree["rng"] = [LeafSpec(n, torch.uint8) for _ in tree["rng"]]
         return tree
 
-    def _install(self, tree: dict) -> dict:
-        """Load a state tree into the live state (made at first use)."""
+    def _install(self, tree: dict, block: bool = False) -> dict:
+        """Load a state tree into the live state (made at first use): a
+        stacked tree, of which a rank keeps its block, or (``block``) a
+        rank's block already."""
         if self._state is None:
             self._state = state_like(self.dist_cfg, self.storage,
-                                     device=self.device)
+                                     device=self.device, mesh=self.mesh)
+        if self.mesh is not None and not block:
+            tree = rank_block(self.dist_cfg, tree, self.mesh)
         return load_state(self._state, tree)
 
+    def _agreed(self, value):
+        """Rank 0's ``value`` on every rank (``value`` itself off
+        ranks)."""
+        if self.mesh is None:
+            return value
+        import torch.distributed as dist
+        box = [value]
+        dist.broadcast_object_list(box, src=0)
+        return box[0]
+
     def _restore_or_init(self):
-        last = latest_step(self.cfg.ckpt_dir)
+        last = self._agreed(latest_step(self.cfg.ckpt_dir))
         self._prev_totals = None           # deltas restart per timeline
         if last is None:
             self._metric_base = {k: 0.0 for k in METRIC_KEYS}
             with self.tel.span("restore.init"):
                 if self.spool is not None:
                     self.spool.truncate({})
-                fresh = init_dist_state(self.dist_cfg, device=self.device)
+                fresh = init_dist_state(self.dist_cfg, device=self.device,
+                                        mesh=self.mesh)
                 if self.plastic:
                     # from the host build tables: the device tables
                     # carry only the folded int8 mask, not the build
                     # weights
                     fresh["plastic"] = init_dist_plastic_state(
                         self.dist_cfg, self._tables_host)
-                state = self._install(state_tree(fresh))
+                state = self._install(state_tree(fresh), block=True)
             return 0, state
         d = self.dist_cfg.engine.decomp
         meta = checkpoint_meta(self.cfg.ckpt_dir, last)
@@ -475,10 +532,15 @@ class SimDriver(FaultTolerantLoop):
             # birth realization); relay them onward by global synapse id
             old_d = old_cfg.engine.decomp
             old_spec = old_cfg.engine.spec()
+            born_cfg = retile_config(self.dist_cfg, *self._born_tiles)
+            if self._birth_tables is None:
+                # a rank built its own tile only: every tile's birth
+                # tables, as the single-device driver holds them
+                self._birth_tables = build_dist_tables(born_cfg,
+                                                       device="cpu")[0]
             if old_tiles == self._born_tiles:
                 old_tabs = self._birth_tables
             else:
-                born_cfg = retile_config(self.dist_cfg, *self._born_tiles)
                 # compressed exactly as the old process built them (the
                 # relay preserves per-row occupancy, so the realized caps
                 # -- and hence the checkpointed w shapes -- are
@@ -498,8 +560,11 @@ class SimDriver(FaultTolerantLoop):
         t0 = time.perf_counter()
         inputs = self._sim_inputs
         if self._drive is not None:
-            inputs = dataclasses.replace(
-                inputs, drive=self._drive[step:step + self.step_size])
+            drive = self._drive[step:step + self.step_size]
+            if self.mesh is not None:
+                y, x = self._tile
+                drive = drive[:, y:y + 1, x:x + 1]
+            inputs = dataclasses.replace(inputs, drive=drive)
         with self.tel.span("segment.compute", step=step):
             out = self._sim(state, inputs)
             state = out[0]
@@ -513,12 +578,22 @@ class SimDriver(FaultTolerantLoop):
         if self.recorder is not None:
             t_drain = time.perf_counter()
             with self.tel.span("segment.spool_drain", step=step):
-                d_rec_dropped = self._drain_recorder(out[2], step)
+                rec = out[2]
+                if self.mesh is not None:
+                    # every rank's recorder on rank 0, which spools
+                    rec = gather_blocks(self.dist_cfg, rec, self.mesh)
+                if rec is not None:
+                    d_rec_dropped = self._drain_recorder(rec, step)
             self.drain_s += time.perf_counter() - t_drain
         self._segments_done += 1
         if self._preempt_after is not None \
                 and self._segments_done >= self._preempt_after:
             self.preempted = True
+        if self.mesh is not None:
+            # a SIGTERM reaches the ranks apart: all stop after the same
+            # segment
+            self.preempted = bool(all_reduce_host(
+                [int(self.preempted)], op="max")[0])
         totals = self.metric_totals(state)
         prev = self._prev_totals or {k: 0.0 for k in METRIC_KEYS}
         delta = {k: totals[k] - prev[k] for k in METRIC_KEYS}
@@ -584,19 +659,27 @@ class SimDriver(FaultTolerantLoop):
         return seg_dropped
 
     # ---- host-side views ----------------------------------------------
+    def _whole(self, tree):
+        """A tree of per-tile tensors of every tile (on ranks, gathered
+        to every rank)."""
+        if self.mesh is None:
+            return tree
+        return gather_blocks(self.dist_cfg, tree, self.mesh, dst=None)
+
     def metric_totals(self, state) -> Dict[str, float]:
         """Cumulative run totals: the manifest-carried base (history
         predating an elastic retile) plus the live state's per-tile
-        partial sums.  Tiling-independent by construction."""
-        return {k: self._metric_base[k]
-                + float(state["metrics"][k].sum())
+        partial sums.  Tiling-independent by construction.  On ranks
+        every rank calls it and gets the same totals."""
+        metrics = self._whole(state["metrics"])
+        return {k: self._metric_base[k] + float(metrics[k].sum())
                 for k in METRIC_KEYS}
 
     def firing_rate_hz(self, state) -> float:
         """Mean rate over the whole run (active neurons), retile-proof:
         uses ``metric_totals`` rather than raw state sums."""
         t = int(np.max(state["t"]))
-        n_active = float(state["active"].sum())
+        n_active = float(self._whole(state["active"]).sum())
         sim_sec = t * self.dist_cfg.engine.lif.dt_ms * 1e-3
         return self.metric_totals(state)["spikes"] \
             / max(n_active, 1.0) / max(sim_sec, 1e-9)
@@ -624,7 +707,8 @@ class SimDriver(FaultTolerantLoop):
         if self.spool is None:
             raise ValueError(
                 "spike_counts() reads the spike spool; construct the "
-                "driver with record_events=True")
+                "driver with record_events=True" + (
+                    "" if self.root else " (on ranks, rank 0 spools)"))
         from ..obs.spool import RECORD_DTYPE, member_name, shard_events
         self._check_member("spike_counts", member)
         self.spool.wait()
@@ -654,10 +738,20 @@ class SimDriver(FaultTolerantLoop):
             raise ValueError("plastic_summary() needs a plastic engine "
                              "(EngineConfig.stdp set)")
         self._check_member("plastic_summary", member)
+        if self.mesh is not None:
+            # every tile's weights and build tables on rank 0, whose
+            # digest every rank returns
+            pl = gather_blocks(self.dist_cfg, state["plastic"], self.mesh)
+            host = gather_blocks(self.dist_cfg, self._tables_host,
+                                 self.mesh)
+            out = (self._summary(pl, host, member) if self.root
+                   else None)
+            return self._agreed(out)
+        return self._summary(state["plastic"], self._tables_host, member)
+
+    def _summary(self, pl: dict, host, member: Optional[int]) -> dict:
         e = self.dist_cfg.engine
         d, spec = e.decomp, e.spec()
-        pl = state["plastic"]
-        host = self._tables_host
 
         def pick(w):
             return w if member is None else w[:, :, member]

@@ -321,18 +321,25 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
-@pytest.fixture(scope="session")
-def reference_runs(tmp_path_factory):
-    """Every case's reference run, in one 4-device subprocess, once per
-    test session: its files go to the session's shared base directory
-    (the parent of each xdist worker's), and a lock lets one process run
-    it while any other waits and then reads the files.  The ensembles'
-    runs come with them (``ENSEMBLE``; ``"ensemble_driver"`` also names
-    the reference driver's checkpoint directory, its spool inside)."""
+def reference_dir(tmp_path_factory):
+    """Where ``reference_runs`` writes its files (``done`` last): the
+    session's shared base directory (the parent of each xdist worker's)."""
     base = tmp_path_factory.getbasetemp()
     if os.environ.get("PYTEST_XDIST_WORKER"):
         base = base.parent
-    out = base / "dist_reference"
+    return base / "dist_reference"
+
+
+@pytest.fixture(scope="session")
+def reference_runs(tmp_path_factory):
+    """Every case's reference run, in one 4-device subprocess, once per
+    test session: its files go to ``reference_dir``, and a lock lets one
+    process run it while any other waits and then reads the files.  The
+    ensembles' runs come with them (``ENSEMBLE``; ``"ensemble_driver"``
+    also names the reference driver's checkpoint directory, its spool
+    inside)."""
+    out = reference_dir(tmp_path_factory)
+    base = out.parent
     with open(base / "dist_reference.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if not (out / "done").exists():
