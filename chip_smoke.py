@@ -254,15 +254,40 @@ Phases, each of which exits non-zero on failure:
    of its tile), beside 5b's stacked 2x2 step; then 50 more steps with
    rank 0 under the profiler (its device busy ms per step and top
    kernels).  The parent built every kernel before it spawns; each
-   rank's launches (counted before the profiled steps) are summed.
+   rank's launches (counted before the profiled steps) are summed;
+14. the LM on ranks (``parallel.sharding.MeshRules``,
+   ``parallel.collectives``, ``models.model.make_train_step(rules=)`` /
+   ``make_compressed_pod_train_step``, through ``launch.train``'s
+   ``--nproc`` code: ``rules_for``, ``rank_model``): four rank processes
+   on the one card, mesh (pod 2, data 1, model 2), gloo with CUDA
+   tensors staged through pinned host memory.  Each rank runs two
+   float32 parity legs, reduced granite-moe (expert-parallel, capacity
+   factor 8 so that nothing drops) and reduced qwen2-1.5b (tensor-
+   parallel), with the 3xTF32 flash kernel: one exact rank step held
+   against the single-process step on the card (loss and grad norm to
+   1e-5, every leaf to 2e-5), then six compressed pod steps (the first
+   loss the exact step's to 1e-5, its parameters within 5e-3, the last
+   loss below the first).  Then granite-moe-1b-a400m whole (24 layers,
+   d_model 1024, 16 / 8 heads, 32 experts top-8, bf16, AdamW): its
+   blocks (heads, experts and the vocabulary split over ``model``), a
+   global batch of 4 x 2048 from ``LMBatchPipeline(seed=0)`` (two
+   sequences a pod), one ``make_eval_step`` loss (within 2e-3 of the
+   single-process eval on the card, run before the spawn and freed),
+   three compressed pod steps (the first loss the eval loss, finite
+   losses, each rank's pod wire bytes a step ``wire_bytes`` of its
+   gradient elements, 48 flash launches a rank a step): s per step
+   (slowest rank), tokens/s, bytes, seconds and calls per collective
+   channel a step, peak GB per rank beside the dry run's bytes per rank
+   (``launch.dryrun.rank_bytes``) and the dropped share.
 
 Launch counts are zeroed just before each of phases 3-5, 5b, 5c (after
 its ``make_sim_fn`` baselines), 5d, 7, 8 and each model of 9, 10 and 12
-and in each rank of 13, and read just after it (phase 11 launches
-nothing; the ``{"kernels"}`` line gives each kernel's launches on phase
-3's or its own path, on 5b's, 5c's and 5d's, the flash rows per model
-of phases 9 and 10, with the bf16 kernel's times at phase 10's shapes,
-per config of phase 12, and the ranks' sum on 13); a replay of a
+and in each rank of 13 and 14 (before its full-width steps), and read
+just after it (phase 11 launches nothing; the ``{"kernels"}`` line
+gives each kernel's launches on phase 3's or its own path, on 5b's,
+5c's and 5d's, the flash rows per model of phases 9 and 10, with the
+bf16 kernel's times at phase 10's shapes, per config of phase 12, and
+the ranks' sums on 13 and 14); a replay of a
 captured static or recorded step
 counts as ``step_graph`` and as one launch of each kernel the graph
 holds.  It prints the metrics, the ``{"cost_model": {...}}`` line, each
@@ -335,6 +360,23 @@ SERVICE_STEPS, SERVICE_SEG = 60, 20
 # phase 13: four ranks (2x2) on the one card; the timed leg's steps, the
 # phase's time limit
 RANKS, RANK_TIMED_STEPS, RANK_PROFILE_STEPS, RANK_TIMEOUT_S = 4, 200, 50, 300
+# phase 14: the LM on four ranks (pod 2, data 1, model 2) on the one card:
+# the float32 parity legs (reduced configs, global batch x seq), then
+# granite-moe-1b-a400m at full width; the gates
+LM_RANK_MESH = ((2, 1, 2), ("pod", "data", "model"))
+LM_RANK_PARITY = ("granite-moe-1b-a400m", "qwen2-1.5b")
+LM_RANK_PARITY_BATCH, LM_RANK_PARITY_SEQ, LM_RANK_POD_STEPS = 4, 64, 6
+LM_RANK_ARCH, LM_RANK_BATCH, LM_RANK_SEQ, LM_RANK_STEPS = \
+    "granite-moe-1b-a400m", 4, 2048, 3
+LM_RANK_LOSS_TOL, LM_RANK_LEAF_TOL = 1e-5, 2e-5   # exact step vs one card
+LM_RANK_POD_PARAM_TOL = 5e-3     # the compressed step's first parameters
+LM_RANK_EVAL_TOL = 2e-3          # bf16 eval on ranks vs one card, relative
+# (against the one-card eval of each pod's own sequences: the MoE's
+# capacity is per shard on ranks, as the reference's EP has it, so with
+# drops the whole batch on one card drops other assignments)
+LM_RANK_FLAT_GRAD = 1e-6         # 100 x AdamW's eps (see lm_rank_parity)
+LM_RANK_LR, LM_RANK_TIMEOUT_S = 1e-3, 900
+LM_RANK_FULL_LR = 1e-4           # AdamW's rate at full width
 LAWS = ("gaussian", "exponential")
 BF16_OPS_PER_S = 989e12            # H100 SXM bf16 dense tensor-core rate
 TF32_OPS_PER_S = 495e12            # H100 SXM TF32 dense tensor-core rate
@@ -1899,6 +1941,358 @@ def run_ranks(ms_runs: dict, ms_plastic: list) -> dict:
         "rank_s": [r["rank_s"] for r in ranks],
         "spawn_to_join_s": wall, "launches": launches}
     print("ranks " + json.dumps(res))
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the LM on ranks (four processes on one card, pod 2 x model 2)
+# ---------------------------------------------------------------------------
+
+def lm_rank_mesh():
+    """This rank's (pod 2, data 1, model 2) mesh with its collectives
+    (gloo: CUDA tensors staged through pinned host memory)."""
+    from repro_torch.core.halo import Transport
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel.collectives import attach
+    return attach(make_host_mesh(*LM_RANK_MESH), Transport("gloo", "cuda"))
+
+
+def lm_rank_parity(arch: str, mesh) -> dict:
+    """One float32 parity leg of phase 14 on this rank, through the
+    ``--nproc`` train code (``launch.train.rules_for`` / ``rank_model``,
+    ``data.pipeline.rank_batch``): the reduced ``arch`` (a MoE at
+    capacity factor 8, so that nothing drops: EP and one card agree
+    only then) with ``attn_impl="pallas"`` (the 3xTF32 flash kernel).
+    The single-process step on the card from the same seed and batch is
+    the reference: the exact rank step's loss and grad norm within
+    ``LM_RANK_LOSS_TOL`` and every leaf block within ``LM_RANK_LEAF_TOL``
+    (error norm over norm; the elements whose one-card gradient lies
+    within ``LM_RANK_FLAT_GRAD`` of zero, which AdamW's first update
+    ``g / (|g| + 1e-8)`` moves by up to lr on rounding, within lr).
+    Then ``LM_RANK_POD_STEPS`` compressed pod steps: the first loss the
+    exact step's (``LM_RANK_LOSS_TOL``), its parameters within
+    ``LM_RANK_POD_PARAM_TOL`` of the exact step's, the last loss below
+    the first.  Returns the verdicts and figures."""
+    import torch
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.pipeline import LMBatchPipeline, rank_batch
+    from repro_torch.launch.train import rank_model, rules_for
+    from repro_torch.models import model as M
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.transformer import init_model
+    from repro_torch.optim import adamw, constant
+    from repro_torch.optim.compression import init_residuals
+    from repro_torch.parallel import sharding as S
+    from repro_torch.tree import tree_flatten
+    cfg = dataclasses.replace(get_reduced(arch), attn_impl="pallas")
+    if cfg.is_moe:
+        cfg = dataclasses.replace(cfg, capacity_factor=8.0)
+    rules = rules_for(cfg, mesh)
+    pipe = LMBatchPipeline(cfg, ShapeConfig(
+        "train", LM_RANK_PARITY_SEQ, LM_RANK_PARITY_BATCH, "train"), seed=0)
+    whole_batch = {k: torch.from_numpy(v).cuda()
+                   for k, v in pipe.batch(0).items()}
+    batch = rank_batch(whole_batch, rules)
+    opt = adamw(constant(LM_RANK_LR))
+    # one card
+    one = init_model(cfg, 0, device="cuda")
+    _, _, g_one = M._grads_of(one, cfg, whole_batch)
+    one, _, out_one = M.make_train_step(cfg, opt)(one, opt.init(one),
+                                                 whole_batch)
+    # the exact rank step
+    blocks, specs = rank_model(cfg, rules, 0, "cuda")
+    exact, _, out = M.make_train_step(cfg, opt, rules=rules)(
+        blocks, opt.init(blocks), batch)
+    names = S.spec_leaves(specs)
+    errors, worst, flat_n = [], 0.0, 0
+    for key in ("loss", "grad_norm"):
+        gap = abs(float(out[key]) / float(out_one[key]) - 1.0)
+        if not gap <= LM_RANK_LOSS_TOL:
+            errors.append(f"{arch} exact {key}: {float(out[key])} vs one "
+                          f"card {float(out_one[key])}")
+    for w, g, grad, n in zip(tree_flatten(one)[0], tree_flatten(exact)[0],
+                             tree_flatten(g_one)[0], names):
+        w = S.block(w, n, rules).float()
+        g = g.float()
+        flat = S.block(grad, n, rules).abs() < LM_RANK_FLAT_GRAD
+        flat_n += int(flat.sum())
+        if flat.any() and float((g - w).abs()[flat].max()) > LM_RANK_LR:
+            errors.append(f"{arch} exact {n}: a flat element past lr")
+        g = torch.where(flat, w, g)
+        err = float((g - w).norm() / w.norm().clamp_min(1e-30))
+        worst = max(worst, err)
+        if not err <= LM_RANK_LEAF_TOL:
+            errors.append(f"{arch} exact leaf {n}: {err:.3g}")
+    # the compressed pod step
+    blocks, _ = rank_model(cfg, rules, 0, "cuda")
+    state, resid = opt.init(blocks), init_residuals(blocks)
+    step = M.make_compressed_pod_train_step(cfg, rules, opt)
+    losses, diff = [], None
+    for i in range(LM_RANK_POD_STEPS):
+        blocks, state, resid, o = step(blocks, state, resid, batch)
+        losses.append(float(o["loss"]))
+        if i == 0:
+            diff = max(float((a - b).abs().max()) for a, b in zip(
+                tree_flatten(exact)[0], tree_flatten(blocks)[0]))
+    if not abs(losses[0] / float(out["loss"]) - 1.0) <= LM_RANK_LOSS_TOL:
+        errors.append(f"{arch} compressed loss {losses[0]} vs exact "
+                      f"{float(out['loss'])}")
+    if not diff <= LM_RANK_POD_PARAM_TOL:
+        errors.append(f"{arch} compressed parameters {diff} from exact")
+    if not losses[-1] < losses[0]:
+        errors.append(f"{arch} compressed losses do not fall: {losses}")
+    return {"errors": errors, "loss_one_card": float(out_one["loss"]),
+            "loss_exact": float(out["loss"]),
+            "grad_norm_one_card": float(out_one["grad_norm"]),
+            "grad_norm_exact": float(out["grad_norm"]),
+            "worst_leaf_rel_err": worst, "flat_elements": flat_n,
+            "compressed_losses": losses, "compressed_param_diff": diff}
+
+
+def lm_ranks_rank(rank: int, world: int, job_path: str) -> None:
+    """One rank of phase 14 (``launch.mesh.spawn_ranks`` runs it): the
+    parity legs, then granite-moe-1b-a400m at full width (bf16,
+    ``attn_impl="pallas"``): its blocks under ``launch.train.rules_for``
+    (heads, experts and the vocabulary split over ``model``, the batch
+    over ``pod``), one ``make_eval_step`` loss, ``LM_RANK_STEPS``
+    compressed pod steps (AdamW) with the launch counts zeroed just
+    before and read just after.  It writes ``build/lm_ranks/rank_<r>
+    .json``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import LMBatchPipeline, rank_batch
+    from repro_torch.kernels import _build
+    from repro_torch.launch.train import rank_model, rules_for
+    from repro_torch.models import model as M
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import adamw, constant
+    from repro_torch.optim.compression import (CompressedAllReduce,
+                                               init_residuals)
+    from repro_torch.parallel.collectives import stats
+    from repro_torch.tree import tree_flatten
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_rank = time.perf_counter()
+    mesh = lm_rank_mesh()
+    out = {"rank": rank, "coordinate": list(mesh.coordinate()),
+           "parity": {a: lm_rank_parity(a, mesh) for a in LM_RANK_PARITY}}
+    out["parity_s"] = time.perf_counter() - t_rank
+    # full width
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config(LM_RANK_ARCH), attn_impl="pallas")
+    rules = rules_for(cfg, mesh)
+    t0 = time.perf_counter()
+    blocks, _ = rank_model(cfg, rules, 0, "cuda")
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["params_per_rank"] = sum(x.numel() for x in tree_flatten(blocks)[0])
+    out["param_bytes"] = sum(x.numel() * x.element_size()
+                             for x in tree_flatten(blocks)[0])
+    pipe = LMBatchPipeline(cfg, ShapeConfig("train", LM_RANK_SEQ,
+                                            LM_RANK_BATCH, "train"), seed=0)
+    batch = {k: v.cuda() for k, v in rank_batch(pipe.batch(0),
+                                                rules).items()}
+    loss_e, metrics_e = M.make_eval_step(cfg, rules)(blocks, batch)
+    out["eval_loss"] = float(loss_e)
+    out["eval_frac_dropped"] = float(metrics_e["frac_dropped"]) \
+        / cfg.layer_kinds.count("moe")
+    opt = adamw(constant(LM_RANK_FULL_LR))
+    state, resid = opt.init(blocks), init_residuals(blocks)
+    step = M.make_compressed_pod_train_step(cfg, rules, opt)
+    car = CompressedAllReduce()
+    out["wire_bytes"] = sum(car.wire_bytes(x.numel())
+                            for x in tree_flatten(blocks)[0])
+    _build.reset_launch_counts()
+    mesh.comm.reset_stats()
+    steps = []
+    for _ in range(LM_RANK_STEPS):
+        dist.barrier()
+        torch.cuda.synchronize()
+        before = stats(mesh)
+        t0 = time.perf_counter()
+        blocks, state, resid, o = step(blocks, state, resid, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        after = stats(mesh)
+        steps.append({
+            "s": dt, "loss": float(o["loss"]),
+            "grad_norm": float(o["grad_norm"]),
+            "frac_dropped": float(o["frac_dropped"])
+            / cfg.layer_kinds.count("moe"),
+            "channels": {k: {f: v[f] - before.get(k, {}).get(f, 0)
+                             for f in v} for k, v in after.items()}})
+    out["launches"] = _build.launch_counts()
+    out["steps"] = steps
+    out["finite"] = bool(all(np.isfinite([s["loss"], s["grad_norm"]]).all()
+                             for s in steps))
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["rank_s"] = time.perf_counter() - t_rank
+    Path(job_path).with_name(f"rank_{rank}.json").write_text(
+        json.dumps(out))
+
+
+def one_card_evals(cfg, params, batch: dict) -> dict:
+    """The single-process eval on the card of ``batch`` whole, and of
+    each pod's own sequences (the pod-major halves the ranks take),
+    combined as the ranks' loss is: ``sum nll / sum n`` plus the pods'
+    mean router terms.  The MoE's capacity follows the token count, so
+    only the per-pod evals drop what the ranks drop (the reference's EP
+    takes its capacity per shard too); the load-balance term on ranks
+    is over the global means, within ~1e-5 of the pods' mean here."""
+    from repro_torch.models import model as M
+    step = M.make_eval_step(cfg)
+    n_moe = cfg.layer_kinds.count("moe")
+    loss, m = step(params, batch)
+    out = {"eval_loss_whole_batch": float(loss),
+           "frac_dropped_whole_batch": float(m["frac_dropped"]) / n_moe}
+    pods = LM_RANK_MESH[0][0]
+    rows = LM_RANK_BATCH // pods
+    nll = n = router = dropped = 0.0
+    for p in range(pods):
+        part = {k: v[p * rows:(p + 1) * rows] for k, v in batch.items()}
+        _, m = step(params, part)
+        nll += float(m["nll"])
+        n += float(m["tokens"])
+        router += (cfg.router_aux_coef * float(m["load_balance"])
+                   + 1e-4 * float(m["router_z"])) / pods
+        dropped += float(m["frac_dropped"]) / n_moe / pods
+    out.update(eval_loss=nll / n + router, frac_dropped=dropped)
+    return out
+
+
+def run_lm_ranks() -> dict:
+    """Phase 14: the single-process eval losses of granite-moe-1b-a400m
+    at full width on the card (``one_card_evals``; freed before the
+    spawn), the dry run's bytes per rank, then four rank processes
+    (``lm_ranks_rank``), their figures, and the gates.  Returns the
+    ranks' summed launches."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import LMBatchPipeline
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import RankFailure, RankMesh, spawn_ranks
+    from repro_torch.launch.train import rules_for
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.transformer import init_model
+    from repro_torch.optim import adamw, constant
+    work = ROOT / "build" / "lm_ranks"
+    work.mkdir(parents=True, exist_ok=True)
+    for f in work.glob("rank_*.json"):
+        f.unlink()
+    cfg = dataclasses.replace(get_config(LM_RANK_ARCH), attn_impl="pallas")
+    gc.collect()
+    torch.cuda.empty_cache()
+    pipe = LMBatchPipeline(cfg, ShapeConfig("train", LM_RANK_SEQ,
+                                            LM_RANK_BATCH, "train"), seed=0)
+    params = init_model(cfg, 0, device="cuda")
+    batch = {k: torch.from_numpy(v).cuda() for k, v in pipe.batch(0).items()}
+    one = one_card_evals(cfg, params, batch)
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    rules = rules_for(cfg, RankMesh(*LM_RANK_MESH))
+    planned = dryrun.rank_bytes(cfg, rules, adamw(constant(1.0)),
+                                residuals=True)
+    print(f"lm ranks: parent holds {torch.cuda.memory_allocated()} B "
+          f"({torch.cuda.memory_reserved()} B reserved) before the spawn",
+          flush=True)
+    job_path = work / "job.json"
+    job_path.write_text(json.dumps(one))
+    t0 = time.perf_counter()
+    try:
+        spawn_ranks(lm_ranks_rank, RANKS, args=(str(job_path),),
+                    backend="gloo", timeout_s=LM_RANK_TIMEOUT_S,
+                    store_dir=str(work))
+    except RankFailure as e:
+        fail(f"phase 14: a rank failed: {e}")
+    wall = time.perf_counter() - t0
+    ranks = [json.loads((work / f"rank_{r}.json").read_text())
+             for r in range(RANKS)]
+    launches = {}
+    for r in ranks:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    timed = range(1, LM_RANK_STEPS)       # the first step warms the caches
+    s_step = max(sum(r["steps"][i]["s"] for i in timed) / len(timed)
+                 for r in ranks)
+
+    def per_step_of(r, channel, field):
+        return sum(r["steps"][i]["channels"].get(channel, {}).get(field, 0)
+                   for i in timed) / len(timed)
+    channels = sorted({c for r in ranks for st in r["steps"]
+                       for c in st["channels"]})
+    res = {
+        "ranks": RANKS, "mesh": dict(zip(LM_RANK_MESH[1], LM_RANK_MESH[0])),
+        "transport": "gloo (CUDA tensors staged through pinned host "
+                     "memory)",
+        "parity": {a: {k: v for k, v in ranks[0]["parity"][a].items()
+                       if k != "errors"} for a in LM_RANK_PARITY},
+        "parity_rank_losses": {a: [r["parity"][a]["loss_exact"]
+                                   for r in ranks] for a in LM_RANK_PARITY},
+        "full_width": f"{LM_RANK_ARCH} {cfg.n_layers} layers, d_model "
+                      f"{cfg.d_model}, {cfg.n_experts} experts top-"
+                      f"{cfg.moe_top_k}, bf16, {LM_RANK_BATCH} x "
+                      f"{LM_RANK_SEQ}, AdamW",
+        "params_per_rank": [r["params_per_rank"] for r in ranks],
+        "one_card": one,
+        "eval_loss_ranks": [r["eval_loss"] for r in ranks],
+        "frac_dropped_ranks_eval": [r["eval_frac_dropped"] for r in ranks],
+        "losses": [[st["loss"] for st in r["steps"]] for r in ranks],
+        "grad_norms": [st["grad_norm"] for st in ranks[0]["steps"]],
+        "frac_dropped_steps": [st["frac_dropped"] for st in
+                               ranks[0]["steps"]],
+        "s_per_step_slowest_rank": s_step,
+        "s_per_step_by_rank": [[st["s"] for st in r["steps"]]
+                               for r in ranks],
+        "tokens_per_s": LM_RANK_BATCH * LM_RANK_SEQ / s_step,
+        "wire_bytes_per_rank": [r["wire_bytes"] for r in ranks],
+        "per_step_rank0": {c: {f: per_step_of(ranks[0], c, f) for f in (
+            "calls", "bytes_sent", "bytes_received", "seconds")}
+            for c in channels},
+        "collectives_per_step": [sum(per_step_of(r, c, "calls")
+                                     for c in channels) for r in ranks],
+        "collective_s_per_step": [sum(per_step_of(r, c, "seconds")
+                                      for c in channels) for r in ranks],
+        "peak_gb_by_rank": [r["peak_bytes"] / 1e9 for r in ranks],
+        "dryrun_gb_per_rank": {k: v / 1e9 for k, v in planned.items()},
+        "flash_launches_per_rank_per_step": [
+            r["launches"].get("flash_attention", 0) / LM_RANK_STEPS
+            for r in ranks],
+        "init_s": [r["init_s"] for r in ranks],
+        "parity_s": [r["parity_s"] for r in ranks],
+        "rank_s": [r["rank_s"] for r in ranks],
+        "spawn_to_join_s": wall, "launches": launches,
+        "card": gpu_line()}
+    print("lm ranks " + json.dumps(res), flush=True)
+    errors = [(r["rank"], e) for r in ranks for leg in r["parity"].values()
+              for e in leg["errors"]]
+    require(not errors, f"phase 14: parity legs failed: {errors}")
+    per_step = 2 * cfg.layer_kinds.count("moe") \
+        + 2 * cfg.layer_kinds.count("attn")
+    for r in ranks:
+        gap = abs(r["eval_loss"] / one["eval_loss"] - 1.0)
+        require(gap <= LM_RANK_EVAL_TOL, f"phase 14: rank {r['rank']}'s "
+                f"eval loss {r['eval_loss']} vs one card's "
+                f"{one['eval_loss']} ({gap:.3g} > {LM_RANK_EVAL_TOL})")
+        first = r["steps"][0]["loss"]
+        require(abs(first / r["eval_loss"] - 1.0) <= LM_RANK_LOSS_TOL,
+                f"phase 14: rank {r['rank']}'s first step loss {first}, "
+                f"its eval loss {r['eval_loss']}")
+        require(r["finite"], f"phase 14: rank {r['rank']}: a loss or "
+                "grad norm is not finite")
+        for i, st in enumerate(r["steps"]):
+            sent = st["channels"]["pod"]["bytes_sent"]
+            require(sent == r["wire_bytes"], f"phase 14: rank {r['rank']} "
+                    f"step {i} put {sent} B on the pod wire, wire_bytes "
+                    f"{r['wire_bytes']}")
+        flash = r["launches"].get("flash_attention", 0)
+        require(flash == LM_RANK_STEPS * per_step,
+                f"phase 14: rank {r['rank']} launched flash {flash} times "
+                f"in {LM_RANK_STEPS} steps, not {per_step} a step")
     return launches
 
 
@@ -5284,6 +5678,14 @@ def main() -> None:
     # zeroes and reads its own counts; the sum is the ranks' launches)
     rank_launches = run_ranks(ms_runs, ms_plastic)
     phase("13")
+
+    # 14. the LM on ranks: four processes on the one card, (pod 2, data 1,
+    # model 2); the earlier phases' tensors freed first (each rank zeroes
+    # and reads its own counts; the sum is the ranks' launches)
+    del tables, plastic_tabs, runs, pruns, ms_runs, ms_plastic, lm, train
+    del families, seg
+    lm_rank_launches = run_lm_ranks()
+    phase("14")
     for k in kernels:
         if k["name"] in ("flash_attention", "flash_attention_tf32",
                          "tf32_split"):
@@ -5297,6 +5699,7 @@ def main() -> None:
         k["segmented_launches"] = seg_launches.get(k["name"], 0)
         k["ensemble_launches"] = ens_launches.get(k["name"], 0)
         k["rank_launches"] = rank_launches.get(k["name"], 0)
+        k["lm_rank_launches"] = lm_rank_launches.get(k["name"], 0)
     print(json.dumps({"kernels": kernels}))
     print("phase seconds " + json.dumps(phase_s))
     print(f"total: {time.perf_counter() - t_start:.1f} s")

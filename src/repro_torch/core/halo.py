@@ -111,7 +111,14 @@ class Transport:
     is moved by another way.  ``bytes_sent`` / ``bytes_received`` count
     the payload bytes this rank put on and took off the wire;
     ``seconds`` the host time of the moves (staging and the wire, after
-    the device finished the work queued before them)."""
+    the device finished the work queued before them).
+
+    Besides the point-to-point ``move``, it runs the collectives of a
+    process group (``all_reduce``, ``all_gather``) for
+    ``parallel.collectives``: each is one synchronising call, staged
+    like a move under ``"gloo"``.  An all-reduce counts its tensor's
+    bytes sent and received; an all-gather its own block sent and the
+    others' received."""
 
     def __init__(self, kind: str, device):
         if kind not in ("gloo", "nccl"):
@@ -147,6 +154,45 @@ class Transport:
             self._host[key] = buf
         return buf
 
+    def _begin(self) -> float:
+        """Wait for the device work queued before a move (and the last
+        move's uploads, whose pinned buffers it may reuse); the host
+        clock after."""
+        dev = self.device
+        if dev.type == "cuda":
+            if self._landed is not None:
+                self._landed.synchronize()
+            torch.cuda.current_stream(dev).synchronize()
+        return time.perf_counter()
+
+    def _stage_out(self, items) -> list:
+        """``(tensor, key)`` pairs as the tensors that go on the wire:
+        pinned host copies under staging, else contiguous tensors."""
+        if not self.staged:
+            return [x.contiguous() for x, _ in items]
+        wire = []
+        for x, key in items:
+            buf = self._pinned(("send",) + key, x.shape, x.dtype)
+            buf.copy_(x, non_blocking=True)
+            wire.append(buf)
+        torch.cuda.current_stream(self.device).synchronize()
+        return wire
+
+    def _into(self, key, shape, dtype) -> torch.Tensor:
+        if self.staged:
+            return self._pinned(("recv",) + key, shape, dtype)
+        return torch.empty(shape, dtype=dtype, device=self.device)
+
+    def _land(self, into: list, t0: float) -> list:
+        """The received tensors on the device (uploaded under staging,
+        the upload's event kept for the next move), and the clock."""
+        if self.staged:
+            into = [b.to(self.device, non_blocking=True) for b in into]
+            self._landed = torch.cuda.Event()
+            self._landed.record(torch.cuda.current_stream(self.device))
+        self.seconds += time.perf_counter() - t0
+        return into
+
     def move(self, sends: Sequence[Tuple[torch.Tensor, int, int]],
              recvs: Sequence[Tuple[tuple, torch.dtype, int, int]]
              ) -> List[torch.Tensor]:
@@ -157,25 +203,10 @@ class Transport:
         import torch.distributed as dist
         for x, _, _ in sends:
             self.check(x)
-        dev = self.device
-        if dev.type == "cuda":
-            if self._landed is not None:
-                self._landed.synchronize()
-            torch.cuda.current_stream(dev).synchronize()
-        t0 = time.perf_counter()
-        if self.staged:
-            wire = []
-            for x, dst, tag in sends:
-                buf = self._pinned(("send", dst, tag), x.shape, x.dtype)
-                buf.copy_(x, non_blocking=True)
-                wire.append(buf)
-            torch.cuda.current_stream(dev).synchronize()
-            into = [self._pinned(("recv", src, tag), shape, dtype)
-                    for shape, dtype, src, tag in recvs]
-        else:
-            wire = [x.contiguous() for x, _, _ in sends]
-            into = [torch.empty(shape, dtype=dtype, device=dev)
-                    for shape, dtype, _, _ in recvs]
+        t0 = self._begin()
+        wire = self._stage_out([(x, (dst, tag)) for x, dst, tag in sends])
+        into = [self._into((src, tag), shape, dtype)
+                for shape, dtype, src, tag in recvs]
         ops = [dist.P2POp(dist.isend, w, dst, tag=tag)
                for w, (_, dst, tag) in zip(wire, sends)]
         ops += [dist.P2POp(dist.irecv, b, src, tag=tag)
@@ -183,15 +214,46 @@ class Transport:
         if ops:
             for work in dist.batch_isend_irecv(ops):
                 work.wait()
-        if self.staged:
-            into = [b.to(dev, non_blocking=True) for b in into]
-            self._landed = torch.cuda.Event()
-            self._landed.record(torch.cuda.current_stream(dev))
-        self.seconds += time.perf_counter() - t0
         self.bytes_sent += sum(w.numel() * w.element_size() for w in wire)
         self.bytes_received += sum(b.numel() * b.element_size()
                                    for b in into)
-        return into
+        return self._land(into, t0)
+
+    def all_reduce(self, x: torch.Tensor, group, op: str = "sum"
+                   ) -> torch.Tensor:
+        """``x`` reduced (``"sum"`` or ``"max"``) over the ranks of
+        ``group``, as a new tensor on ``device``; every rank of the
+        group gets the same bits."""
+        import torch.distributed as dist
+        self.check(x)
+        ops = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+        t0 = self._begin()
+        if self.staged:
+            buf = self._stage_out([(x, ("ar", tuple(x.shape), x.dtype))])[0]
+        else:
+            buf = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(buf, op=ops[op], group=group)
+        n = buf.numel() * buf.element_size()
+        self.bytes_sent += n
+        self.bytes_received += n
+        return self._land([buf], t0)[0]
+
+    def all_gather(self, x: torch.Tensor, group, n: int
+                   ) -> List[torch.Tensor]:
+        """Every rank's ``x`` (all of one shape and dtype) in the group's
+        rank order, on ``device``."""
+        import torch.distributed as dist
+        self.check(x)
+        t0 = self._begin()
+        key = ("ag", tuple(x.shape), x.dtype)
+        wire = self._stage_out([(x, key)])[0]
+        into = [self._into(key + (i,), tuple(x.shape), x.dtype)
+                for i in range(n)]
+        dist.all_gather(into, wire, group=group)
+        size = wire.numel() * wire.element_size()
+        self.bytes_sent += size
+        self.bytes_received += (n - 1) * size
+        return self._land(into, t0)
 
 
 def _tag(channel: int, dim: int, k: int) -> int:

@@ -10,8 +10,9 @@ decrease during the example runs (pure uniform tokens give a flat loss
 at ln(V)).
 
 Multi-host sharding: each host materializes only its slice of the global
-batch (``host_shard_slice``); one card is one host.  The reference's
-``make_batch_specs`` needs a mesh and has no counterpart here.
+batch (``host_shard_slice``).  On ranks, ``make_batch_specs`` names the
+batch dim's mesh axes and ``rank_batch`` cuts a batch to one rank's
+slice along them.
 """
 
 from __future__ import annotations
@@ -80,3 +81,28 @@ class LMBatchPipeline:
         if shape.kind == "train":
             out["labels"] = toks[:, 1:].astype(np.int32)
         return out
+
+
+def make_batch_specs(cfg: ModelConfig, shape: ShapeConfig, rules):
+    """The port's ``PartitionSpec`` (a tuple of mesh axes) of every
+    input of a shape cell: the batch dim on the ``batch`` axes, the
+    rest whole."""
+    from ..models.model import input_specs
+    specs = input_specs(cfg, shape)
+    return {k: rules.pspec("batch", *([None] * (v.dim() - 1)))
+            for k, v in specs.items()}
+
+
+def rank_batch(batch: Dict, rules) -> Dict:
+    """This rank's slice of ``batch`` (numpy arrays or tensors, batch
+    first) along the ``batch`` axes of ``rules`` (pod-major for
+    ``("pod", "data")``); raises when the batch does not divide (the
+    dry run's ``_batch_rules`` replicates such a batch)."""
+    import torch
+    from ..parallel.sharding import block
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(np.ascontiguousarray(v)) \
+            if isinstance(v, np.ndarray) else v
+        out[k] = block(t, ("batch",) + (None,) * (t.dim() - 1), rules)
+    return out

@@ -117,6 +117,56 @@ def cell_config(arch: str, variant=None, reduced: bool = False):
     return dataclasses.replace(cfg, attn_impl="chunked")
 
 
+# ---------------------------------------------------------------------------
+# Rules for a rank mesh (the reference's, for its TPU meshes)
+# ---------------------------------------------------------------------------
+
+def _rules_for(cfg, mesh):
+    """Divisibility-aware logical rules for this arch on this mesh (a
+    ``launch.mesh.RankMesh``, or anything with ``axis_names`` and
+    ``devices.shape``), and the data-parallel degree."""
+    from ..parallel.sharding import rules_for_mesh
+    axes = dict(zip(mesh.axis_names, mesh.devices.shape))
+    model = axes.get("model", 1)
+    dp = axes.get("data", 1) * axes.get("pod", 1)
+    ov = {}
+    ov["heads"] = "model" if cfg.n_heads % model == 0 else None
+    ov["mlp"] = "model" if cfg.d_ff and cfg.d_ff % model == 0 else None
+    ov["experts"] = "model" if cfg.n_experts % model == 0 and \
+        cfg.n_experts else None
+    ov["d_inner"] = "model" if cfg.d_inner % model == 0 else None
+    ov["vocab"] = "model" if cfg.padded_vocab % model == 0 else None
+    return rules_for_mesh(mesh, **ov), dp
+
+
+def _batch_rules(rules, shape, dp):
+    """``rules`` with the batch replicated when the shape's global batch
+    does not divide over the data-parallel ranks (e.g. long_500k's
+    B = 1: the model axis still splits)."""
+    if shape.global_batch % dp:
+        return dataclasses.replace(rules, batch=None)
+    return rules
+
+
+def rank_bytes(cfg, rules, optimizer=None, residuals: bool = False) -> dict:
+    """The bytes one rank holds under ``rules`` (whose mesh need only
+    carry its shape): the parameters' blocks, the optimizer state's
+    (``optimizer``: an ``optim.Optimizer``) and the pod step's float32
+    residuals, from the abstract trees (nothing allocated)."""
+    from ..models import model as M
+    from ..optim.compression import init_residuals
+    from ..parallel.sharding import rank_nbytes
+    params, specs = M.abstract_params(cfg)
+    out = {"params": rank_nbytes(params, specs, rules)}
+    if optimizer is not None:
+        out["optimizer"] = rank_nbytes(optimizer.abstract_state(params),
+                                       optimizer.state_specs(specs), rules)
+    if residuals:
+        out["residuals"] = rank_nbytes(init_residuals(params), specs, rules)
+    out["total"] = sum(out.values())
+    return out
+
+
 def train_setup(cfg, n_params: int, overrides: dict):
     """The reference's choice for a train cell of ``cfg`` (``n_params``
     parameters): Adafactor (factored moments, over ``cfg``'s stack

@@ -27,7 +27,7 @@ import dataclasses
 import datetime
 import os
 import time
-from typing import Callable, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -40,11 +40,14 @@ class RankMesh:
     name per dimension; ``rank`` is this process's rank (None outside a
     process group, as for ``make_production_mesh``'s shape checks).
     ``devices`` is the array of ranks (``mesh_chips`` reads its shape,
-    as the reference reads its device array's)."""
+    as the reference reads its device array's).  ``comm``: this rank's
+    collectives over the mesh's axes (``parallel.collectives.attach``),
+    None for a mesh of shapes only; it takes no part in equality."""
 
     shape: Tuple[int, ...]
     axis_names: Tuple[str, ...]
     rank: Optional[int] = None
+    comm: Any = dataclasses.field(default=None, compare=False, repr=False)
 
     def __post_init__(self):
         if len(self.shape) != len(self.axis_names):

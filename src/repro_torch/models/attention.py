@@ -17,8 +17,14 @@ reference repeats KV to the query-head count before the kernel, for
 tensor-parallel sharding; each query head sees the same values either
 way.)
 
-One card has no mesh, so the reference's ``rules``/``constrain``
-sharding has no counterpart here.  Caches are updated in place, which
+On ranks (``rules`` with a mesh, training and evaluation) the query
+heads are split over the ``heads`` axes: ``wq`` and ``wo`` are this
+rank's heads (``("fsdp", "heads", None)`` / ``("heads", None,
+"fsdp")``), ``wk``/``wv`` stay whole (``kv_heads`` is None, as the
+reference specs them) and each rank takes only the KV heads its query
+heads group onto; the FSDP dims are gathered per call and the output is
+summed over the heads axes.  Caches (``kv_seq``) and cross-attention on
+ranks raise.  Caches are updated in place, which
 saves a copy of every layer's cache per step; the functions still return
 the cache, as the reference does.  Cross-attention (whisper's decoder)
 takes its keys and values from the encoder's output (``kv_x``) or from a
@@ -36,6 +42,8 @@ from torch.profiler import record_function
 
 from .. import resolve_device
 from ..kernels import ops, ref
+from ..parallel.collectives import gather_dim, index_along, psum_over
+from ..parallel.sharding import on_ranks
 from .config import ModelConfig
 from .layers import _normal, apply_rmsnorm, apply_rope
 
@@ -416,9 +424,49 @@ def _cross_attention(p, cfg: ModelConfig, x, positions, kv_x,
     return _full_attention(q, k, v, cfg, causal=False, window=None)
 
 
+def local_kv_heads(n_heads: int, n_kv: int, h0: int, h_loc: int):
+    """The KV heads that query heads ``h0 .. h0 + h_loc`` group onto
+    (query head ``i`` reads KV head ``i // (n_heads // n_kv)``): a
+    slice of the KV heads when the local heads are whole groups or lie
+    in one group, else an index of one KV head per query head."""
+    group = n_heads // n_kv
+    first, last = h0 // group, (h0 + h_loc - 1) // group
+    if (h0 % group == 0 and h_loc % group == 0) or first == last:
+        return slice(first, last + 1)
+    return torch.arange(h0, h0 + h_loc) // group
+
+
+def _rank_attention(p, cfg: ModelConfig, x, positions, causal, window,
+                    rules):
+    """Self-attention (no cache) of this rank's query heads and the KV
+    heads they read; the output summed over the heads axes."""
+    if rules.kv_heads is not None:
+        raise NotImplementedError("kv_heads split over ranks: the "
+                                  "reference keeps K/V whole")
+    wq = gather_dim(p["wq"], rules, "fsdp", 0)
+    pl = dict(p, wq=wq, wk=gather_dim(p["wk"], rules, "fsdp", 0),
+              wv=gather_dim(p["wv"], rules, "fsdp", 0),
+              wo=gather_dim(p["wo"], rules, "fsdp", 2))
+    h_loc = wq.shape[1]
+    sel = local_kv_heads(cfg.n_heads, cfg.n_kv_heads,
+                         index_along(rules, "heads")[0] * h_loc, h_loc)
+    if isinstance(sel, torch.Tensor):
+        sel = sel.to(x.device)
+    for k, dim in (("wk", 1), ("wv", 1), ("bk", 0), ("bv", 0)):
+        if k in pl:
+            idx = [slice(None)] * dim + [sel]
+            pl[k] = pl[k][tuple(idx)]
+    q = _project_q(pl, cfg, x, positions)
+    k, v = _project_kv(pl, cfg, x, torch.arange(x.shape[1],
+                                                  device=x.device))
+    out = _full_attention(q, k, v, cfg, causal=causal, window=window)
+    return psum_over(_project_out(pl, out), rules, "heads", "tp")
+
+
 def apply_attention(p, cfg: ModelConfig, x, positions, *, causal=True,
                     window=None, kv_x=None, cache: Optional[KVCache] = None,
-                    cache_pos: Optional[int] = None, update_cache=True):
+                    cache_pos: Optional[int] = None, update_cache=True,
+                    rules=None):
     """Self- or cross-attention.  Returns (out (B, S, d), cache).
 
     Self-attention (``kv_x`` None, ``update_cache``):
@@ -444,8 +492,17 @@ def apply_attention(p, cfg: ModelConfig, x, positions, *, causal=True,
                            over the whole cache through the flash route
                            (the reference would run causal self-attention
                            over the chunk with the cross weights there).
-    The cache is written in place.
+    The cache is written in place.  On ranks (``rules`` with a mesh):
+    self-attention without a cache only (see the module docstring).
     """
+    if on_ranks(rules):
+        if kv_x is not None or not update_cache or cache is not None:
+            raise NotImplementedError(
+                "attention on ranks runs training and evaluation only: "
+                "KV caches (kv_seq) and cross-attention under rules are "
+                "ROADMAP item 6b-LM part 2")
+        return _rank_attention(p, cfg, x, positions, causal, window,
+                               rules), None
     if kv_x is not None or not update_cache:
         out = _cross_attention(p, cfg, x, positions, kv_x, cache)
         return _project_out(p, out), cache

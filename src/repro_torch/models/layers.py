@@ -31,6 +31,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..parallel.collectives import gather_dim, index_along, psum_over
+
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
 
@@ -149,8 +151,23 @@ def init_embedding(gen, vocab: int, d: int, dtype) -> dict:
     return {"table": _normal(gen, (vocab, d), 1.0, dtype)}
 
 
-def apply_embedding(p, tokens, *, scale: bool = False):
-    x = p["table"][tokens.long()]
+def apply_embedding(p, tokens, *, scale: bool = False, rules=None):
+    """The rows of ``tokens``.  On ranks (``rules`` with a mesh) the
+    table is this rank's block, ``("vocab", "fsdp")``: the FSDP dim is
+    gathered, each rank looks up the tokens in its vocabulary range
+    (zeros for the others) and the rows are summed over the vocab axes
+    (exact: one row is not zero)."""
+    table = gather_dim(p["table"], rules, "fsdp", 1)
+    part, parts = index_along(rules, "vocab")
+    if parts > 1:
+        local = tokens.long() - part * table.shape[0]
+        inside = (local >= 0) & (local < table.shape[0])
+        rows = table[torch.where(inside, local, torch.zeros_like(local))]
+        x = psum_over(torch.where(inside[..., None], rows,
+                                  torch.zeros_like(rows)),
+                      rules, "vocab", "tp")
+    else:
+        x = table[tokens.long()]
     if scale:
         x = x * torch.tensor(math.sqrt(x.shape[-1]), dtype=x.dtype,
                              device=x.device)
@@ -174,10 +191,17 @@ def init_mlp(gen, d: int, d_ff: int, dtype) -> dict:
     }
 
 
-def apply_mlp(p, x, act: str = "silu"):
-    a = x @ p["gate"]
+def apply_mlp(p, x, act: str = "silu", rules=None):
+    """The gated MLP.  On ranks, ``gate``/``up`` are this rank's columns
+    (``("fsdp", "mlp")``) and ``down`` its rows (``("mlp", "fsdp")``):
+    the FSDP dims are gathered and the output is summed over the mlp
+    axes."""
+    gate = gather_dim(p["gate"], rules, "fsdp", 0)
+    up = gather_dim(p["up"], rules, "fsdp", 0)
+    down = gather_dim(p["down"], rules, "fsdp", 1)
+    a = x @ gate
     a = F.silu(a) if act == "silu" else F.gelu(a, approximate="tanh")
-    return (a * (x @ p["up"])) @ p["down"]
+    return psum_over((a * (x @ up)) @ down, rules, "mlp", "tp")
 
 
 # ---------------------------------------------------------------------------

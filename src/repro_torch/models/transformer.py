@@ -36,6 +36,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
+from ..parallel.sharding import on_ranks
 from .attention import (abstract_cache, apply_attention, init_attention,
                         init_cache)
 from .config import ModelConfig
@@ -97,7 +98,7 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str,
 
 def apply_block(p, cfg: ModelConfig, kind: str, x, positions, *,
                 state=None, cache_pos: Optional[int] = None, window=None,
-                enc_out=None, cross_state=None, causal=True):
+                enc_out=None, cross_state=None, causal=True, rules=None):
     """Returns (x, new_state, aux): ``aux`` the MoE block's auxiliary
     values, None for the other kinds (the reference returns zeros, which
     add nothing to the model's sums).
@@ -113,7 +114,8 @@ def apply_block(p, cfg: ModelConfig, kind: str, x, positions, *,
     if kind in ("attn", "moe"):
         a, new_state = apply_attention(p["attn"], cfg, h, positions,
                                        causal=causal, window=window,
-                                       cache=state, cache_pos=cache_pos)
+                                       cache=state, cache_pos=cache_pos,
+                                       rules=rules)
         x = x + a
         if "cross" in p and (enc_out is not None
                              or cross_state is not None):
@@ -124,9 +126,9 @@ def apply_block(p, cfg: ModelConfig, kind: str, x, positions, *,
             x = x + cx
         h2 = apply_rmsnorm(p["ln2"], x)
         if kind == "moe":
-            m, aux = apply_moe(p["moe"], cfg, h2)
+            m, aux = apply_moe(p["moe"], cfg, h2, rules)
         else:
-            m = apply_mlp(p["mlp"], h2, cfg.mlp_act)
+            m = apply_mlp(p["mlp"], h2, cfg.mlp_act, rules)
         x = x + m
     elif kind == "mamba":
         m, new_state = apply_mamba(p["mamba"], cfg, h, state=state)
@@ -267,11 +269,11 @@ def param_count_gap(cfg: ModelConfig) -> int:
 
 
 def _block_out(lp, cfg: ModelConfig, kind: str, x, positions, window,
-               enc_out=None, causal=True):
+               enc_out=None, causal=True, rules=None):
     """One training block's output and its aux values (no cache), the
-    checkpointed unit."""
+    checkpointed unit (on ranks, its FSDP gathers with it)."""
     x, _, aux = apply_block(lp, cfg, kind, x, positions, window=window,
-                            enc_out=enc_out, causal=causal)
+                            enc_out=enc_out, causal=causal, rules=rules)
     aux = aux or _zero_aux(x.device)
     return (x,) + tuple(aux[k] for k in AUX_KEYS)
 
@@ -291,8 +293,27 @@ def _encode(p, cfg: ModelConfig, frames, dtype, remat: bool):
     return apply_rmsnorm(p["enc_ln_f"], e)
 
 
+def _refuse_on_ranks(cfg: ModelConfig, batch: Dict, state, cache_pos,
+                     rules) -> None:
+    """Raise for what the rank form does not split yet (ROADMAP item
+    6b-LM part 2) rather than replicate it quietly."""
+    why = None
+    if state is not None or cache_pos is not None:
+        why = "decode state and caches (kv_seq)"
+    elif rules.seq is not None:
+        why = "sequence parallelism (seq)"
+    elif cfg.encoder_layers or cfg.n_patches or cfg.cross_attn \
+            or "frames" in batch or "patch_embeds" in batch:
+        why = "the whisper and internvl frontends"
+    elif any(k in ("mamba", "rglru") for k in cfg.layer_kinds):
+        why = "mamba and RG-LRU blocks (d_inner)"
+    if why:
+        raise NotImplementedError(f"{why} on ranks: ROADMAP item 6b-LM "
+                                  "part 2")
+
+
 def forward(p, cfg: ModelConfig, batch: Dict, *, state=None,
-            cache_pos: Optional[int] = None):
+            cache_pos: Optional[int] = None, rules=None):
     """Full forward.  Returns (final-norm hidden (B, S, d), new_state,
     aux): ``aux`` is each of ``AUX_KEYS`` summed over the layers (zeros
     for a model without MoE blocks), as the reference returns it.
@@ -315,9 +336,17 @@ def forward(p, cfg: ModelConfig, batch: Dict, *, state=None,
     backward recomputes the layer from its input, so only the layers'
     inputs stay alive (the reference's ``jax.checkpoint``; its sqrt(L)
     grouping exists for ``lax.scan``, which the port's loop does not
-    have)."""
+    have).
+
+    On ranks (``rules`` with a mesh; ``p`` this rank's blocks, ``batch``
+    its slice): the dense and MoE blocks in training and evaluation,
+    each layer (with its FSDP gathers) under the checkpoint; decode
+    states, ``seq``, the frontends and the recurrent blocks raise."""
+    if on_ranks(rules):
+        _refuse_on_ranks(cfg, batch, state, cache_pos, rules)
     tokens = batch["tokens"]
-    x = apply_embedding(p["embed"], tokens, scale=cfg.embed_scale)
+    x = apply_embedding(p["embed"], tokens, scale=cfg.embed_scale,
+                        rules=rules)
     n_prefix = 0
     if cfg.n_patches and "patch_embeds" in batch:
         px = apply_patch_frontend(p["frontend"], batch["patch_embeds"])
@@ -345,13 +374,15 @@ def forward(p, cfg: ModelConfig, batch: Dict, *, state=None,
         win = cfg.window if kind in ("attn", "moe") else None
         if remat:
             x, *vals = checkpoint(_block_out, lp, cfg, kind, x, positions,
-                                  win, enc_out, use_reentrant=False)
+                                  win, enc_out, True, rules,
+                                  use_reentrant=False)
             aux = dict(zip(AUX_KEYS, vals))
             new_states.append(None)
         else:
             x, ns, aux = apply_block(lp, cfg, kind, x, positions, state=st,
                                      cache_pos=cache_pos, window=win,
-                                     enc_out=enc_out, cross_state=cst)
+                                     enc_out=enc_out, cross_state=cst,
+                                     rules=rules)
             new_states.append(ns)
         if aux is not None:
             aux_total = {k: aux_total[k] + aux[k] for k in AUX_KEYS}

@@ -1,8 +1,11 @@
-"""Optimizers and learning-rate schedules of the port (the port of
-``repro.optim``, without the pod-axis gradient compression)."""
+"""Optimizers, learning-rate schedules and the pod-axis gradient
+compression of the port (the port of ``repro.optim``)."""
 
+from .compression import (CompressedAllReduce, int8_dequantize,
+                          int8_quantize)
 from .optimizers import Optimizer, adafactor, adamw, global_norm
 from .schedules import constant, warmup_cosine, warmup_rsqrt
 
-__all__ = ["Optimizer", "adafactor", "adamw", "constant", "global_norm",
+__all__ = ["CompressedAllReduce", "Optimizer", "adafactor", "adamw",
+           "constant", "global_norm", "int8_dequantize", "int8_quantize",
            "warmup_cosine", "warmup_rsqrt"]

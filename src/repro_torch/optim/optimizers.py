@@ -31,13 +31,28 @@ from ..tree import tree_flatten, tree_flatten_up_to, tree_unflatten
 MOMENT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, specs=None, rules=None) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, accumulated in float32
-    (float64 for float64 leaves)."""
+    (float64 for float64 leaves).
+
+    On ranks (``rules`` with a mesh; ``specs`` the tree's logical names)
+    each leaf is this rank's block: its squares are summed across the
+    ranks that split it, once, and a leaf that a rank holds whole counts
+    once, so every rank gets the norm of the whole tree."""
     leaves = tree_flatten(tree)[0]
     acc = torch.promote_types(leaves[0].dtype, torch.float32)
     sq = [torch.linalg.vector_norm(x, dtype=acc).square() for x in leaves]
-    return torch.sqrt(torch.stack(sq).sum())
+    if rules is None or rules.mesh is None:
+        return torch.sqrt(torch.stack(sq).sum())
+    from ..parallel.collectives import all_reduce_plain
+    from ..parallel.sharding import shard_axes, spec_leaves
+    by_axes: dict = {}
+    for s, names in zip(sq, spec_leaves(specs)):
+        by_axes.setdefault(shard_axes(names, rules), []).append(s)
+    total = [all_reduce_plain(torch.stack(v).sum(), rules.mesh, axes,
+                              channel="norm")
+             for axes, v in sorted(by_axes.items())]
+    return torch.sqrt(torch.stack(total).sum())
 
 
 def _is_names(t) -> bool:
@@ -57,8 +72,9 @@ def _map_names(fn, specs):
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
     init: Callable          # params -> opt_state
-    _update: Callable       # (params, grads, state) -> (params, state, gnorm)
+    _update: Callable       # (params, grads, state, norm) -> (.., gnorm)
     _state_specs: Callable  # param logical-name tree -> state name tree
+    kind: str = ""          # "adamw" / "adafactor"
 
     def abstract_state(self, params):
         """``init``'s state for parameters of ``params``' shapes and
@@ -74,18 +90,19 @@ class Optimizer:
         parameters they mirror, ``step`` ``()``."""
         return self._state_specs(param_specs)
 
-    def update(self, params, grads, state):
+    def update(self, params, grads, state, norm: Callable = None):
         """One step: ``(params, state, grad_norm)``, the parameters and
         the state updated in place (in the ``torch.profiler`` range
-        ``optimizer_update``)."""
+        ``optimizer_update``).  ``norm(grads)``: the global gradient
+        norm that clipping reads (default ``global_norm``; on ranks, the
+        norm of the whole tree from this rank's blocks)."""
         with torch.no_grad(), record_function("optimizer_update"):
-            return self._update(params, grads, state)
+            return self._update(params, grads, state, norm or global_norm)
 
 
-def _clipped(grads: list, max_norm: float):
+def _clipped(grads: list, max_norm: float, g: torch.Tensor):
     """The leaves scaled to a global norm of at most ``max_norm`` (each
-    in its own dtype), and the norm before clipping."""
-    g = global_norm(grads)
+    in its own dtype), given their norm ``g``; and ``g``."""
     scale = torch.clamp(max_norm / (g + 1e-9), max=1.0)
     return [x * scale.to(x.dtype) for x in grads], g
 
@@ -116,9 +133,10 @@ def adamw(lr: Callable, *, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
                                             for p in leaves])
         return {"m": zeros(), "v": zeros(), "step": _zero_step(params)}
 
-    def update(params, grads, state):
+    def update(params, grads, state, norm):
         flat_p, _ = tree_flatten(params)
-        flat_g, gnorm = _clipped(tree_flatten(grads)[0], clip_norm)
+        flat_g, gnorm = _clipped(tree_flatten(grads)[0], clip_norm,
+                                 norm(grads))
         flat_m = tree_flatten(state["m"])[0]
         flat_v = tree_flatten(state["v"])[0]
         state["step"] += 1
@@ -145,7 +163,8 @@ def adamw(lr: Callable, *, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
     def state_specs(param_specs):
         return {"m": param_specs, "v": param_specs, "step": ()}
 
-    return Optimizer(init=init, _update=update, _state_specs=state_specs)
+    return Optimizer(init=init, _update=update, _state_specs=state_specs,
+                     kind="adamw")
 
 
 class _Group(list):
@@ -267,9 +286,10 @@ def adafactor(lr: Callable, *, stacks: dict, decay=0.8, eps=1e-30,
                                  _regroup(params, stacks)),
                 "step": _zero_step(params)}
 
-    def update(params, grads, state):
+    def update(params, grads, state, norm):
         flat_p, treedef = tree_flatten(params)
-        flat_g, gnorm = _clipped(tree_flatten(grads)[0], clip_norm)
+        flat_g, gnorm = _clipped(tree_flatten(grads)[0], clip_norm,
+                                 norm(grads))
         index = tree_unflatten(treedef, list(range(len(flat_p))))
         units = _units(_regroup(index, stacks), state["v"], [])
         state["step"] += 1
@@ -312,4 +332,5 @@ def adafactor(lr: Callable, *, stacks: dict, decay=0.8, eps=1e-30,
                                  _regroup(param_specs, stacks)),
                 "step": ()}
 
-    return Optimizer(init=init, _update=update, _state_specs=state_specs)
+    return Optimizer(init=init, _update=update, _state_specs=state_specs,
+                     kind="adafactor")

@@ -239,13 +239,21 @@ class TrainDriver(FaultTolerantLoop):
     state first would double peak memory right at restart.  Without it
     the restore reads the shapes from ``init_state_fn()`` (torch has no
     ``jax.eval_shape``).  ``device``: where restored tensors go.
+
+    ``rank_layout``: on the ranks of a process group, ``(whole, block)``
+    -- ``whole(state)`` gathers a state of blocks into the whole tree on
+    every rank (every rank calls it), ``block(tree)`` cuts a whole tree
+    to this rank's blocks.  Checkpoints then hold the whole tree, the
+    single-device format, written by rank 0; every rank restores the
+    whole tree (``abstract_state`` its shapes) and keeps its blocks, and
+    a failed step ends the run (its peers are mid-step).
     """
 
     def __init__(self, cfg: DriverConfig, step_fn: Callable,
                  batch_fn: Callable, init_state_fn: Callable,
                  device="cuda",
                  fault_hook: Optional[Callable] = None,
-                 abstract_state=None):
+                 abstract_state=None, rank_layout=None):
         super().__init__(cfg)
         self.step_fn = step_fn
         self.batch_fn = batch_fn
@@ -253,10 +261,21 @@ class TrainDriver(FaultTolerantLoop):
         self.device = resolve_device(device)
         self.fault_hook = fault_hook          # tests inject failures here
         self.abstract_state = abstract_state
+        self.rank_layout = rank_layout
+        self.retry_failures = rank_layout is None
 
     # ------------------------------------------------------------------
-    def _restore_or_init(self):
+    def _agreed_latest(self):
         last = latest_step(self.cfg.ckpt_dir)
+        if self.rank_layout is None:
+            return last
+        import torch.distributed as dist
+        box = [last]
+        dist.broadcast_object_list(box, src=0)
+        return box[0]
+
+    def _restore_or_init(self):
+        last = self._agreed_latest()
         if last is None:
             return 0, self.init_state_fn()
         log.info("restoring from step %d", last)
@@ -265,7 +284,17 @@ class TrainDriver(FaultTolerantLoop):
             like = self.init_state_fn()
         state = restore_checkpoint(self.cfg.ckpt_dir, last, like,
                                    device=self.device)
+        if self.rank_layout is not None:
+            state = self.rank_layout[1](state)
         return last, state
+
+    def _save(self, step: int, state):
+        if self.rank_layout is None:
+            return super()._save(step, state)
+        import torch.distributed as dist
+        tree = self.rank_layout[0](state)
+        if dist.get_rank() == 0:
+            self.ckpt.save(step, tree)
 
     def _step_once(self, state, step):
         if self.fault_hook:

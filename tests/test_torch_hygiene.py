@@ -43,6 +43,16 @@ def test_import_pulls_in_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_rank_lm_modules_are_imported_and_checked():
+    """The LM-on-ranks modules are among those that the import and the
+    source checks cover."""
+    for m in ("repro_torch.parallel", "repro_torch.parallel.sharding",
+              "repro_torch.parallel.collectives",
+              "repro_torch.optim.compression"):
+        assert m in MODULES
+        importlib.import_module(m)
+
+
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")),
                          ids=lambda p: str(p.relative_to(PORT)))
 def test_source_names_no_jax_or_repro(path):
