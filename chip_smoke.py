@@ -26,6 +26,14 @@ Phases, each of which exits non-zero on failure:
    the card exactly as ``SynapseTables`` and the plain path deliver,
    through the same run descriptors, and with ``dict(tier, w=2 w)``
    exactly as the plain version (the descriptor rebound, not rebuilt);
+   the four table sets it checks (the dict check's uncompressed one
+   too) are built on the host in threads started beside phase 1's nvcc
+   processes, with the host work of phases 4 and 5b (their table builds
+   and 5b's inverse indexes; six threads in all), and all of it is done
+   before phase 3 (only phase 2's sets are on the card then; each
+   build's seconds are its wall time beside the others, flagged
+   ``host_build_concurrent`` / ``build_concurrent`` in the result
+   lines);
 3. the static path, through the library API (``build_shard_tables`` ->
    ``init_sim_state`` -> ``simulate``), single shard, 8x8 columns of the
    paper's 1240 neurons, both connectivity laws: kernel-path steps
@@ -37,8 +45,12 @@ Phases, each of which exits non-zero on failure:
 4. the plastic path (``init_plasticity`` -> ``simulate(plasticity=)``),
    both laws: 30 kernel-path steps on the card against 30 plain-path
    steps on the CPU at 4x4x1240 with the card's drive injected (rasters,
-   weights, traces and ring identical), then timed kernel-path steps on
-   the parity leg's 4x4x1240 tables; from its mid-run state, one step of
+   weights, traces and ring identical; the host tables built in phase
+   1-2's threads, their card copies and inverse indexes made here, in
+   turn; the CPU legs run in 5b beside 5b's own, one thread each), then
+   timed kernel-path steps on the parity leg's card copy (its inverse
+   index cached) of its 4x4x1240 tables; from its mid-run
+   state, one step of
    the fixed-order
    delivery + LTD kernel against its plain version on CPU copies (ring,
    weights and counts exact);
@@ -59,14 +71,16 @@ Phases, each of which exits non-zero on failure:
    rebuilt after the first step), a recorded kernel-path run (captured)
    against the plain path and against 32 one-step eager calls (the
    global raster as (step, gid) events, identical); then at 8x8x1240
-   (the table build shared with 5c and 5d) 500 timed steps (which must
-   show ``(500 - 8) // 8`` replays and fire within ``rel=0.35`` of the
-   single shard's rate), a profile of 200 more and of the graph's
+   (both laws' tables built on the host in phase 1-2's threads, moved
+   to the card at 5b's start, shared with 5c and 5d) 500 timed steps
+   (which must show ``(500 - 8) // 8`` replays and fire within
+   ``rel=0.35`` of the single shard's rate), a profile of 200 more and of the graph's
    replays alone (device operations per step, the exchange's gathers),
    and the device bytes per shard beside
    ``metrics.shard_memory_bytes``; then the plastic multi-shard path at
-   4x4x1240 in 2x2 tiles: 30 recorded kernel-path steps on the card
-   against 30 plain-path steps on the CPU (both laws' at once) with
+   4x4x1240 in 2x2 tiles (the host builds done in phase 1-2's threads):
+   30 recorded kernel-path steps on the card against 30 plain-path
+   steps on the CPU (both laws' at once, beside phase 4's CPU legs) with
    the card's drive injected (raster, every tier's weights, traces,
    ring and state identical; every halo band with a source inside the
    slab must have learned);
@@ -278,16 +292,31 @@ Phases, each of which exits non-zero on failure:
    gradient elements, 48 flash launches a rank a step): s per step
    (slowest rank), tokens/s, bytes, seconds and calls per collective
    channel a step, peak GB per rank beside the dry run's bytes per rank
-   (``launch.dryrun.rank_bytes``) and the dropped share.
+   (``launch.dryrun.rank_bytes``) and the dropped share;
+15. the launch geometry and the last three examples:
+   ``analysis.hopper_geometry.check_built()`` over the seven built
+   libraries (each kernel's ptxas registers, static shared memory,
+   spills and stack against its source's launch bounds and ``Cfg<D>``
+   and its wrapper's declared static shared memory: a line a kernel),
+   then ``repro_torch.examples.quickstart`` (6x6x50 both laws, 200
+   steps each through the captured static path; one AdamW step and one
+   decode step of reduced qwen3-8b), ``serve_lm`` at gemma-2b's full
+   width (batch 4, 32-token prompts, 16 greedy tokens: tokens in the
+   vocabulary, flash launches in prefill and none in decode) and
+   ``snn_simulation`` (8x8x60 in 2x2 stacked tiles, both laws, 300 + 300
+   steps: ``neuron_step``, ``event_delivery`` and ``step_graph``
+   launched for each law, finite rates, then the 4x4x40 STDP demo, which
+   must move synapses).
 
 Launch counts are zeroed just before each of phases 3-5, 5b, 5c (after
-its ``make_sim_fn`` baselines), 5d, 7, 8 and each model of 9, 10 and 12
-and in each rank of 13 and 14 (before its full-width steps), and read
+its ``make_sim_fn`` baselines), 5d, 7, 8, each model of 9, 10 and 12
+and each example of 15, and in each rank of 13 and 14 (before its
+full-width steps), and read
 just after it (phase 11 launches nothing; the ``{"kernels"}`` line
 gives each kernel's launches on phase 3's or its own path, on 5b's,
 5c's and 5d's, the flash rows per model of phases 9 and 10, with the
-bf16 kernel's times at phase 10's shapes, per config of phase 12, and
-the ranks' sums on 13 and 14); a replay of a
+bf16 kernel's times at phase 10's shapes, per config of phase 12, the
+ranks' sums on 13 and 14, and per example of 15); a replay of a
 captured static or recorded step
 counts as ``step_graph`` and as one launch of each kernel the graph
 holds.  It prints the metrics, the ``{"cost_model": {...}}`` line, each
@@ -324,6 +353,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -585,27 +615,32 @@ def ulps(x, y):
 
 
 def ptxas(source: str) -> list:
-    """Registers and spill bytes of each kernel entry that ptxas built
-    from ``csrc/<source>.cu`` in this run (``_build.BUILD_LOG``)."""
-    import re
+    """ptxas's figures of each kernel entry built from
+    ``csrc/<source>.cu``: registers, static shared memory, spill stores
+    and loads, stack (the log kept beside its library)."""
+    from repro_torch.analysis.hopper_geometry import parse_ptxas
     from repro_torch.kernels import _build
-    out, cur = [], None
-    for line in _build.BUILD_LOG.get(source, "").splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            cur = {"entry": m.group(1)}
-            out.append(cur)
-            continue
-        if cur is None:
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m:
-            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            cur["registers"] = int(m.group(1))
-    return out
+    return parse_ptxas(_build.log_path(source).read_text())
+
+
+# phase 2's host table builds: (law, grid, compressed); the last is the
+# dict-form check's uncompressed set
+STATIC_BUILDS = [("gaussian", 4, True), ("gaussian", GRID, True),
+                 ("exponential", GRID, True), ("gaussian", 4, False)]
+
+
+def host_table_build(key) -> tuple:
+    """One single-shard table set on the card, built on the host (numpy,
+    the reference's draws), and its seconds.  numpy releases the
+    interpreter lock for most of a build, so builds in threads overlap;
+    each one's seconds are then its own wall time beside the others."""
+    from repro_torch.configs.snn import reduced_case
+    from repro_torch.core import engine
+    law, grid, compress = key
+    cfg = reduced_case(law, grid, N_PER_COLUMN).engine_config(1, 1)
+    t0 = time.perf_counter()
+    tabs = engine.build_shard_tables(cfg, compress=compress, device="cuda")
+    return tabs, time.perf_counter() - t0
 
 
 # ---------------------------------------------------------------------------
@@ -714,7 +749,8 @@ def column_runs(tabs, spec, label: str) -> dict:
     n_syn = tabs.stats["n_synapses"]
     nbytes = sum(r["nbytes"] for r in runs)
     res = {"tables": label, "build_s": time.perf_counter() - t0,
-           "bytes": nbytes, "bytes_per_synapse": nbytes / n_syn,
+           "build_concurrent": True, "bytes": nbytes,
+           "bytes_per_synapse": nbytes / n_syn,
            "table_bytes_per_synapse": tabs.stats["bytes_per_synapse"],
            "pairs": [int(r["pair_src"].numel()) for r in runs],
            "max_pairs_per_column": [r["max_pairs"] for r in runs],
@@ -861,7 +897,8 @@ def run_law(law: str, tabs, build_s: float) -> dict:
     require(0.0 < rate <= max_rate, f"{law}: firing rate {rate} Hz")
     res = {
         "law": law, "grid": f"{GRID}x{GRID}x{N_PER_COLUMN}",
-        "host_build_s": build_s, "n_synapses": tabs.stats["n_synapses"],
+        "host_build_s": build_s, "host_build_concurrent": True,
+        "n_synapses": tabs.stats["n_synapses"],
         "steps": TIMED_STEPS, "rate_hz": rate,
         "events_per_step": events / TIMED_STEPS,
         "dropped": float(fin["metrics"]["dropped"]),
@@ -942,66 +979,104 @@ def plastic_raster(state, tabs, aux, cfg, drive, device):
     return state, tabs, aux["traces"], torch.stack(rows)
 
 
-def plastic_parity(law: str) -> dict:
-    """30 kernel-path steps on the card against 30 plain-path steps on
-    the CPU at 4x4x1240, the card's drive injected into both.  Returns
-    the result line's values, with the CPU tables the runs started from
-    (``tables``, unchanged by them)."""
-    import torch
+def plastic_parity_host(law: str) -> dict:
+    """The host build of the plastic parity's 4x4x1240 tables (one
+    thread a law; its seconds are wall time beside the other host
+    work)."""
     from repro_torch.core import engine
     cfg = plastic_cfg(law, PARITY_GRID)
-    plain = dataclasses.replace(cfg, use_kernels=False)
     require(cfg.lif.refrac_steps > 0, "refrac_steps must be > 0")
     t0 = time.perf_counter()
     cpu_tabs = engine.build_shard_tables(cfg, device="cpu")
-    build_s = time.perf_counter() - t0
+    return {"law": law, "cfg": cfg, "cpu_tabs": cpu_tabs,
+            "build_s": time.perf_counter() - t0}
+
+
+def plastic_parity_card(ctx: dict) -> None:
+    """The card's leg: the tables' card copy and its plasticity (the
+    inverse index, built on the host in turn and cached on the tier
+    tensors, so the timed run on the same copy finds it), a drive drawn
+    on the card, and 30 kernel-path steps (which leave the tables
+    unchanged: a plastic run clones the weights it updates), kept on
+    the host for the comparison in 5b.  The leg's masks and traces go
+    with it: the timed run makes its own."""
+    import torch
+    from repro_torch.core import engine
+    from repro_torch.tree import tree_flatten, tree_unflatten
+    cfg = ctx["cfg"]
+    ctx["tabs"] = ctx["cpu_tabs"].to("cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    aux = engine.init_plasticity(ctx["tabs"], cfg)
+    torch.cuda.synchronize()
+    ctx["inv_s"] = time.perf_counter() - t0
     gen = torch.Generator(device="cuda")
     gen.manual_seed(99)
     n = cfg.spec().n_local
     drive = torch.stack([engine.external_drive(gen, n, cfg)
                          for _ in range(PLASTIC_PARITY_STEPS)])
-    tabs = cpu_tabs.to("cuda")
-    sk, tk, rk, rast_k = plastic_raster(
-        engine.init_sim_state(cfg), tabs, engine.init_plasticity(tabs, cfg),
-        cfg, drive, "cuda")
-    sp, tp, rp, rast_p = plastic_raster(
-        engine.init_sim_state(plain, device="cpu"), cpu_tabs,
-        engine.init_plasticity(cpu_tabs, plain), plain, drive.cpu(), "cpu")
-    torch.cuda.synchronize()
-    label = f"plastic {law} {PARITY_GRID}x{PARITY_GRID}x{N_PER_COLUMN}"
-    require(bits_equal(rast_k, rast_p), f"{label}: raster differs "
-            f"({int((rast_k.cpu() != rast_p).sum())} entries)")
-    for what, a, b in (("w", tk["local"]["w"], tp["local"]["w"]),
-                       ("ring", sk["i_ring"], sp["i_ring"]),
-                       ("x_post", rk["x_post"], rp["x_post"]),
-                       ("x_pre", rk["x_pre"][0], rp["x_pre"][0]),
-                       ("v", sk["neuron"]["v"], sp["neuron"]["v"]),
-                       ("c", sk["neuron"]["c"], sp["neuron"]["c"])):
-        require(bits_equal(a, b), f"{label}: {what} differs between the "
-                "card's kernel path and the CPU plain path")
-    for k in ("spikes", "events", "dropped"):
-        require(float(sk["metrics"][k]) == float(sp["metrics"][k]),
-                f"{label}: metric {k} differs")
-    changed = int((tk["local"]["w"].cpu() != cpu_tabs.local["w"]).sum())
-    require(changed > 0, f"{label}: no weight changed")
-    res = {"law": law, "grid": f"{PARITY_GRID}x{PARITY_GRID}x{N_PER_COLUMN}",
-           "steps": PLASTIC_PARITY_STEPS, "spikes": float(rast_k.sum()),
-           "weights_changed": changed, "host_build_s": build_s}
-    print("plastic parity (card kernel path == CPU plain path: raster, w, "
-          "ring, traces, v, c, metrics) " + json.dumps(res))
-    return dict(res, tables=cpu_tabs)
+    sk, tk, rk, rast = plastic_raster(engine.init_sim_state(cfg),
+                                      ctx["tabs"], aux, cfg, drive,
+                                      "cuda")
+    leaves, treedef = tree_flatten((sk, rk))
+    sk, rk = tree_unflatten(treedef, [x.cpu() if torch.is_tensor(x) else x
+                                      for x in leaves])
+    # of the tables the comparison reads the updated weights only
+    ctx["card"] = (sk, {"local": {"w": tk["local"]["w"].cpu()}}, rk,
+                   rast.cpu())
+    ctx["drive"] = drive.cpu()
 
 
-def run_plastic(law: str, tabs, build_s: float, grid: int) -> dict:
-    """The timed plastic path at ``grid`` x ``grid`` x 1240 (launch
+def plastic_parity_cpu(ctx: dict) -> tuple:
+    """The plain path of ``plastic_parity_card``'s run on the CPU."""
+    from repro_torch.core import engine
+    plain = dataclasses.replace(ctx["cfg"], use_kernels=False)
+    tabs = ctx["cpu_tabs"]
+    return plastic_raster(engine.init_sim_state(plain, device="cpu"), tabs,
+                          engine.init_plasticity(tabs, plain), plain,
+                          ctx["drive"], "cpu")
+
+
+def plastic_parity_check(ctxs: list, cpu: list) -> None:
+    """Each law's card leg against its CPU plain leg, bit for bit."""
+    for ctx, (sp, tp, rp, rast_p) in zip(ctxs, cpu):
+        law, cpu_tabs = ctx["law"], ctx["cpu_tabs"]
+        sk, tk, rk, rast_k = ctx["card"]
+        label = f"plastic {law} {PARITY_GRID}x{PARITY_GRID}x{N_PER_COLUMN}"
+        require(bits_equal(rast_k, rast_p), f"{label}: raster differs "
+                f"({int((rast_k.cpu() != rast_p).sum())} entries)")
+        for what, a, b in (("w", tk["local"]["w"], tp["local"]["w"]),
+                           ("ring", sk["i_ring"], sp["i_ring"]),
+                           ("x_post", rk["x_post"], rp["x_post"]),
+                           ("x_pre", rk["x_pre"][0], rp["x_pre"][0]),
+                           ("v", sk["neuron"]["v"], sp["neuron"]["v"]),
+                           ("c", sk["neuron"]["c"], sp["neuron"]["c"])):
+            require(bits_equal(a, b), f"{label}: {what} differs between "
+                    "the card's kernel path and the CPU plain path")
+        for k in ("spikes", "events", "dropped"):
+            require(float(sk["metrics"][k]) == float(sp["metrics"][k]),
+                    f"{label}: metric {k} differs")
+        changed = int((tk["local"]["w"].cpu() != cpu_tabs.local["w"]).sum())
+        require(changed > 0, f"{label}: no weight changed")
+        res = {"law": law,
+               "grid": f"{PARITY_GRID}x{PARITY_GRID}x{N_PER_COLUMN}",
+               "steps": PLASTIC_PARITY_STEPS, "spikes": float(rast_k.sum()),
+               "weights_changed": changed, "host_build_s": ctx["build_s"],
+               "host_build_concurrent": True,
+               "inverse_index_host_s": ctx["inv_s"]}
+        print("plastic parity (card kernel path == CPU plain path: raster, "
+              "w, ring, traces, v, c, metrics) " + json.dumps(res))
+
+
+def run_plastic(law: str, tabs, build_s: float, inv_s: float,
+                grid: int) -> dict:
+    """The timed plastic path at ``grid`` x ``grid`` x 1240 on ``tabs``
+    (their inverse index built in ``inv_s`` and cached on them; launch
     counts are read by the caller around this call)."""
     import torch
     from repro_torch.core import engine
     cfg = plastic_cfg(law, grid)
-    t0 = time.perf_counter()
     aux = engine.init_plasticity(tabs, cfg)
-    torch.cuda.synchronize()
-    inv_s = time.perf_counter() - t0
     inv = aux["inv"]
     tm_bytes = inv["tm"].numel() * inv["tm"].element_size()
     inv_bytes = (inv["slots"].numel() * inv["slots"].element_size()
@@ -1032,6 +1107,7 @@ def run_plastic(law: str, tabs, build_s: float, grid: int) -> dict:
     res = {
         "law": law, "grid": label,
         "steps": PLASTIC_STEPS, "host_build_s": build_s,
+        "host_build_concurrent": True,
         "n_synapses": tabs.stats["n_synapses"],
         "inverse_index_host_s": inv_s, "inverse_index_bytes": inv_bytes,
         "target_major_bytes": tm_bytes,
@@ -1326,14 +1402,25 @@ def ms_memory(cfg, tables, stats: dict) -> dict:
             "expected_synapses_interior_shard": spec.expected_synapses()}
 
 
-def run_multishard(law: str, single: dict) -> dict:
+def timed_dist_build(law: str) -> tuple:
+    """``law``'s 8x8x1240 2x2 tables on the host (each tile's build in a
+    thread of its own; phase 5b moves them to the card), and their
+    seconds, wall time beside the other host work."""
+    from repro_torch.core import dist_engine as de
+    t0 = time.perf_counter()
+    built = de.build_dist_tables(ms_cfg(law, GRID), device="cpu")
+    return built, time.perf_counter() - t0
+
+
+def run_multishard(law: str, single: dict, build_s: float) -> dict:
     """The static multi-shard path in 2x2 tiles: captured, eager and
     plain runs from the same seed and recorded kernel and plain runs
     (the global raster) at 4x4x1240 (the parity legs), then at 8x8x1240
     the timed run, its profile and the exchange's device time.  The
-    8x8x1240 tables come from ``runtime.sim_driver.build_dist_tables``:
-    inside ``seg_shared_builds`` phase 5c's gaussian drivers find them
-    built."""
+    8x8x1240 tables come from ``runtime.sim_driver.build_dist_tables``
+    inside ``seg_shared_builds``, which holds them built ahead
+    (``timed_dist_build``, whose seconds ``build_s`` gives) for this
+    call and for phase 5c's gaussian drivers."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import dist_engine as de
@@ -1434,10 +1521,7 @@ def run_multishard(law: str, single: dict) -> dict:
     # the timed run at 8x8x1240
     cfg = ms_cfg(law, GRID)
     d = cfg.engine.d_ring
-    t0 = time.perf_counter()
     tables, stats = sd.build_dist_tables(cfg, device="cuda")
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
     inputs = de.SimInputs(tables=tables)
     lap("host_build")
     # a short run first: the tables' run descriptors are built on first
@@ -1498,7 +1582,7 @@ def run_multishard(law: str, single: dict) -> dict:
     res = {
         "law": law, "grid": f"{GRID}x{GRID}x{N_PER_COLUMN}",
         "tiles": f"{MS_TILES}x{MS_TILES}", "halo_bands": len(tables.halo),
-        "host_build_s": build_s,
+        "host_build_s": build_s, "host_build_concurrent": True,
         "n_synapses": stats["n_synapses"], "steps": MS_TIMED_STEPS,
         "rate_hz": rate, "single_shard_rate_hz": single["rate_hz"],
         "rate_rel_diff": rel, "events_per_step": events / MS_TIMED_STEPS,
@@ -1545,19 +1629,27 @@ def run_multishard(law: str, single: dict) -> dict:
     return res
 
 
-def ms_plastic_card(law: str) -> dict:
-    """The plastic multi-shard path at 4x4x1240 in 2x2 tiles: the host
-    build and inverse index, a drive drawn on the card, and the
-    kernel-path run on the card (recorded: the global raster)."""
-    import torch
+def ms_plastic_host(law: str) -> dict:
+    """The plastic multi-shard leg's host work at 4x4x1240 in 2x2 tiles
+    (one thread a law, each building its tiles in threads of its own):
+    the tables and the inverse index."""
     from repro_torch.core import dist_engine as de
-    from repro_torch.core import engine
     from repro_torch.core.stdp import STDPParams
     cfg = ms_cfg(law, PARITY_GRID, stdp=STDPParams())
     t0 = time.perf_counter()
     cpu_tabs, stats = de.build_dist_tables(cfg, device="cpu")
     slots, aux = de.build_dist_inverse_index(cfg, cpu_tabs)
-    build_s = time.perf_counter() - t0
+    return {"law": law, "cfg": cfg, "cpu_tabs": cpu_tabs, "stats": stats,
+            "slots": slots, "clipped": aux["clipped"],
+            "build_s": time.perf_counter() - t0}
+
+
+def ms_plastic_card(ctx: dict) -> dict:
+    """A drive drawn on the card, and the kernel-path run on the card
+    (recorded: the global raster) on ``ms_plastic_host``'s tables."""
+    import torch
+    from repro_torch.core import engine
+    cfg, cpu_tabs, slots = ctx["cfg"], ctx["cpu_tabs"], ctx["slots"]
     n = cfg.engine.spec().n_local
     gen = torch.Generator(device="cuda")
     gen.manual_seed(77)
@@ -1570,10 +1662,8 @@ def ms_plastic_card(law: str) -> dict:
     card = ms_recorded(cfg, tabs, MS_PLASTIC_STEPS, "cuda", drive,
                        ms_carry(cfg, tabs, slots.cuda()))
     torch.cuda.synchronize()
-    return {"law": law, "cfg": cfg, "cpu_tabs": cpu_tabs, "stats": stats,
-            "slots": slots, "clipped": aux["clipped"], "drive": drive.cpu(),
-            "build_s": build_s, "card": card,
-            "card_s": time.perf_counter() - t0}
+    return dict(ctx, drive=drive.cpu(), card=card,
+                card_s=time.perf_counter() - t0)
 
 
 def ms_carry(cfg, tables, slots) -> tuple:
@@ -1593,17 +1683,6 @@ def ms_plastic_cpu(ctx: dict) -> tuple:
                       ctx["drive"], ms_carry(plain, ctx["cpu_tabs"],
                                              ctx["slots"]))
     return run, time.perf_counter() - t0
-
-
-def ms_plastic_parity() -> list:
-    """Both laws' plastic multi-shard legs: the card's first, then the
-    CPU plain paths side by side (one thread each: their LTP scatters
-    run on one core), then the comparison."""
-    from concurrent.futures import ThreadPoolExecutor
-    ctxs = [ms_plastic_card(law) for law in LAWS]
-    with ThreadPoolExecutor(len(ctxs)) as pool:
-        cpu = list(pool.map(ms_plastic_cpu, ctxs))
-    return [ms_plastic_check(ctx, *c) for ctx, c in zip(ctxs, cpu)]
 
 
 def ms_plastic_check(ctx: dict, cpu_run: tuple, cpu_s: float) -> dict:
@@ -1643,7 +1722,8 @@ def ms_plastic_check(ctx: dict, cpu_run: tuple, cpu_s: float) -> dict:
            "tiles": f"{MS_TILES}x{MS_TILES}", "steps": MS_PLASTIC_STEPS,
            "spikes": float(pk.sum()), "weights_changed_per_tier": changed,
            "in_slab_sources_per_band": sources,
-           "host_build_s": ctx["build_s"], "card_s": ctx["card_s"],
+           "host_build_s": ctx["build_s"], "host_build_concurrent": True,
+           "card_s": ctx["card_s"],
            "cpu_plain_s": cpu_s, "n_synapses": stats["n_synapses"],
            "carry_bytes_per_shard": carry_bytes / n_tiles,
            "inverse_index_slots_bytes_per_shard": slot_bytes / n_tiles,
@@ -2376,11 +2456,12 @@ def seg_mean(tel, name: str) -> float:
 
 
 @contextlib.contextmanager
-def seg_shared_builds():
+def seg_shared_builds(prebuilt: dict):
     """While open, the drivers of this process build each table set and
     plastic inverse index once: ``SimDriver``'s builds are memoised by
     config and device (every driver of phase 5c builds the same model,
-    and the host build costs about 0.3 us a synapse)."""
+    and the host build costs about 0.3 us a synapse).  ``prebuilt``:
+    law -> its 8x8x1240 2x2 tables on the card, already built."""
     from unittest import mock
     from repro_torch.runtime import sim_driver as sd
     tables, slots = {}, {}
@@ -2389,6 +2470,9 @@ def seg_shared_builds():
 
     def model(cfg) -> str:          # an ensemble's tables are its solo's
         return repr(dataclasses.replace(cfg, ensemble_seeds=None))
+
+    for law, built in prebuilt.items():
+        tables[(model(ms_cfg(law, GRID)), "cuda", None)] = built
 
     def shared_tables(cfg, device="cuda", mesh=None):
         key = (model(cfg), str(device), mesh)
@@ -3291,10 +3375,11 @@ def check_flash(gen) -> dict:
                 lse={r: worst_lse[r] for r in fa.ROUTE_KERNELS})
 
 
-def check_dict_tables(gen) -> None:
+def check_dict_tables(gen, tabs, build_s: float) -> None:
     """Dict-form tables and new weights on the card: 4x4x1240 gaussian
-    bf16 tables, uncompressed (a dict's delivery plan comes from the
-    spec, as in the reference), delivered on a CUDA ring through
+    bf16 tables, uncompressed (``tabs``, built on the host in
+    ``build_s``; a dict's delivery plan comes from the spec, as in the
+    reference), delivered on a CUDA ring through
     ``engine.deliver_event_tiers`` as ``SynapseTables`` and as a
     ``{"local", "halo"}`` dict: rings, events and drops bit-equal to
     each other and to the plain path, through the same run descriptors
@@ -3307,9 +3392,6 @@ def check_dict_tables(gen) -> None:
     from repro_torch.core import engine, synapses
     cfg = reduced_case("gaussian", 4, N_PER_COLUMN).engine_config(1, 1)
     spec, d_ring = cfg.spec(), cfg.d_ring
-    t0 = time.perf_counter()
-    tabs = engine.build_shard_tables(cfg, compress=False, device="cuda")
-    build_s = time.perf_counter() - t0
     as_dict = {"local": tabs.local, "halo": list(tabs.halo)}
     runs = tabs.column_runs(spec.n_per_col, spec.n_exc_per_col, d_ring)
     builds = dict(synapses.BUILD_COUNTS)
@@ -5297,6 +5379,97 @@ def time_flash_small(gen) -> list:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the launch-geometry check and the last three examples
+# ---------------------------------------------------------------------------
+
+def run_examples() -> dict:
+    """Phase 15: ``hopper-geometry``'s card half over every built
+    library (ptxas's figures against the sources' and wrappers'
+    declarations; a line a kernel), then the three examples through
+    their ``main``: quickstart (6x6x50 both laws, reduced qwen3-8b),
+    serve_lm at gemma-2b's full width (prefill through the flash kernel,
+    none in decode) and snn_simulation (8x8x60 in 2x2 tiles, both laws,
+    then the STDP demo).  Returns each example's launches (counts zeroed
+    just before it and read just after)."""
+    import math
+    from repro_torch.analysis import hopper_geometry
+    from repro_torch.configs import get_config
+    from repro_torch.examples import quickstart, serve_lm, snn_simulation
+    from repro_torch.kernels import _build
+    _build.build_all()
+    t0 = time.perf_counter()
+    rows = hopper_geometry.check_built()      # raises on any failure
+    for r in rows:
+        print("geometry " + json.dumps({k: r[k] for k in (
+            "source", "kernel", "registers", "smem", "declared_smem",
+            "spill_stores", "spill_loads", "stack", "launch_bounds",
+            "threads", "min_blocks")}))
+    require(len({r["source"] for r in rows}) == len(_build.SOURCES),
+            "phase 15: a library has no checked kernel")
+    geometry_s = time.perf_counter() - t0
+    launches, seconds = {}, {}
+
+    def example(name, fn, argv):
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn(argv)
+        seconds[name] = time.perf_counter() - t0
+        launches[name] = _build.launch_counts()
+        print(f"example {name} launches: {json.dumps(launches[name])}",
+              flush=True)
+        return out
+
+    qs = example("quickstart", quickstart.main, ["--device", "cuda"])
+    for law, r in qs["snn"].items():
+        require(math.isfinite(r["rate_hz"]) and r["events"] > 0,
+                f"phase 15: quickstart {law}: rate {r['rate_hz']}, events "
+                f"{r['events']}")
+    require(math.isfinite(qs["lm"]["loss"])
+            and math.isfinite(qs["lm"]["grad_norm"]),
+            f"phase 15: quickstart's train step: {qs['lm']}")
+    for name in ("neuron_step", "event_delivery", "step_graph"):
+        require(launches["quickstart"].get(name, 0) > 0,
+                f"phase 15: quickstart launched no {name}")
+
+    arch = "gemma-2b"
+    sv = example("serve_lm", serve_lm.main,
+                 ["--arch", arch, "--full-width", "--device", "cuda"])
+    vocab = get_config(arch).vocab_size
+    require(sv["tokens"].shape == (4, 16) and bool(
+        ((sv["tokens"] >= 0) & (sv["tokens"] < vocab)).all()),
+        f"phase 15: serve_lm's tokens leave the vocabulary ({vocab})")
+    require(sv["prefill_launches"].get("flash_attention", 0) > 0,
+            f"phase 15: serve_lm's prefill launched no flash kernel: "
+            f"{sv['prefill_launches']}")
+    require(not any(k.startswith(("flash", "tf32"))
+                    for k in sv["decode_launches"]),
+            f"phase 15: serve_lm's decode launched {sv['decode_launches']}")
+
+    sim = example("snn_simulation", snn_simulation.main,
+                  ["--device", "cuda"])
+    for law in snn_simulation.LAWS:
+        r = sim["laws"][law]
+        require(math.isfinite(r["rate"]) and r["events"] > 0,
+                f"phase 15: snn_simulation {law}: rate {r['rate']}")
+        for name in ("neuron_step", "event_delivery", "step_graph"):
+            require(r["launches"].get(name, 0) > 0,
+                    f"phase 15: snn_simulation {law} launched no {name}")
+    require(sim["stdp"]["moved"] > 0,
+            "phase 15: the STDP demo moved no synapse")
+    res = {"geometry_s": geometry_s, "example_s": seconds,
+           "quickstart": qs["snn"], "lm": qs["lm"],
+           "serve_lm": {k: sv[k] for k in ("config", "prefill_s",
+                                           "decode_s_per_token",
+                                           "prefill_launches",
+                                           "decode_launches")},
+           "snn_simulation": {law: sim["laws"][law]
+                              for law in snn_simulation.LAWS},
+           "cost_ratio": sim["laws"]["cost_ratio"], "stdp": sim["stdp"]}
+    print("examples " + json.dumps(res, default=str))
+    return launches
+
+
 def gpu_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5448,27 +5621,48 @@ def main() -> None:
         t_phase[0] = now
         print(f"phase {name}: {phase_s[name]:.1f} s", flush=True)
 
+    # the host work of phases 2, 4 and 5b, started beside phase 1's nvcc
+    # processes in six threads: phase 2's table sets (the dict check's
+    # uncompressed one too) first, then phase 4's and 5b's table builds
+    # and 5b's inverse indexes (5b's 8x8x1240 builds last, which bounds
+    # the host memory held at once); all of it done before phase 3.
+    # Only phase 2's sets go to the card here: the others wait on the
+    # host for their phase, so each phase's peak device memory counts
+    # its own tables.  A build's seconds are its wall time beside the
+    # rest (``host_build_concurrent`` in the result lines)
+    keys, dict_key = STATIC_BUILDS[:-1], STATIC_BUILDS[-1]
+    t_builds = time.perf_counter()
+    pool = ThreadPoolExecutor(6)
+    pending = {key: pool.submit(host_table_build, key)
+               for key in STATIC_BUILDS}
+    p4_pending = [pool.submit(plastic_parity_host, law) for law in LAWS]
+    msp_pending = [pool.submit(ms_plastic_host, law) for law in LAWS]
+    ms_pending = {law: pool.submit(timed_dist_build, law) for law in LAWS}
+
     # 1. build
     t0 = time.perf_counter()
     _build.build_all()
-    print(f"build: {time.perf_counter() - t0:.1f} s")
-    for name, log in sorted(_build.BUILD_LOG.items()):
-        regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
-        print(f"build {name}: " + " | ".join(regs))
+    print(f"build: {time.perf_counter() - t0:.1f} s (beside the host "
+          "builds)")
+    for name in _build.SOURCES:
+        print(f"build {name}: " + " | ".join(
+            f"{e['entry']} {e['registers']} registers" for e in ptxas(name)))
     phase("1")
 
-    # host builds of every static table set (numpy, the reference's draws)
+    built = {key: f.result() for key, f in pending.items()}
+    del pending
+    print(f"host builds: {time.perf_counter() - t_builds:.1f} s for "
+          f"{len(built)}, one thread each, from before phase 1")
     tables, builds = {}, {}
-    for law, grid in [("gaussian", 4)] + [(law, GRID) for law in LAWS]:
-        cfg = reduced_case(law, grid, N_PER_COLUMN).engine_config(1, 1)
-        t0 = time.perf_counter()
-        tables[(law, grid)] = engine.build_shard_tables(cfg, device="cuda")
-        builds[(law, grid)] = time.perf_counter() - t0
+    for (law, grid, _) in keys:
+        tables[(law, grid)], builds[(law, grid)] = built[(law, grid, True)]
         st = tables[(law, grid)].storage
         print(f"host build {law} {grid}x{grid}x{N_PER_COLUMN}: "
-              f"{builds[(law, grid)]:.1f} s, "
+              f"{builds[(law, grid)]:.1f} s (concurrent), "
               f"{tables[(law, grid)].stats['n_synapses']} synapses, "
               f"cap {st.cap_local}, {st.tgt_dtype} ids")
+    dict_tables = built.pop(dict_key)
+    del built
 
     # the column kernel's run descriptors, built once per table set on
     # the card, and their size reckoned at one 24x24x1240 shard
@@ -5501,7 +5695,14 @@ def main() -> None:
     head_err = check_neuron_step([(n_main, cap_main), (n_big, cap_big)],
                                  gen)
     flash_err = check_flash(gen)
-    check_dict_tables(gen)
+    check_dict_tables(gen, *dict_tables)
+    del dict_tables
+    p4_ctxs = [f.result() for f in p4_pending]
+    msp_ctxs = [f.result() for f in msp_pending]
+    ms_built = {law: f.result() for law, f in ms_pending.items()}
+    pool.shutdown()
+    print(f"host work of phases 2, 4 and 5b: "
+          f"{time.perf_counter() - t_builds:.1f} s from before phase 1")
     phase("2 (with the host table builds)")
 
     # 3. the static path
@@ -5521,18 +5722,16 @@ def main() -> None:
             "the static path reached the legacy warp-per-row kernel")
     phase("3")
 
-    # 4. the plastic path: CPU parity at 4x4, then timed on the parity
-    # leg's 4x4 tables
-    plastic_tabs = {}
-    for law in LAWS:
-        par = plastic_parity(law)
-        plastic_tabs[law] = par["tables"].to("cuda")
-        builds[("plastic", law)] = par["host_build_s"]
+    # 4. the plastic path: the card's parity legs at 4x4 (the tables'
+    # card copies and inverse indexes; their CPU legs run in 5b, beside
+    # 5b's own), then timed on the parity legs' 4x4 tables
+    for ctx in p4_ctxs:
+        plastic_parity_card(ctx)
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
-    pruns = {law: run_plastic(law, plastic_tabs[law],
-                              builds[("plastic", law)], PARITY_GRID)
-             for law in LAWS}
+    pruns = {ctx["law"]: run_plastic(ctx["law"], ctx["tabs"], ctx["build_s"],
+                                     ctx["inv_s"], PARITY_GRID)
+             for ctx in p4_ctxs}
     p_launches = _build.launch_counts()
     print(f"plastic path launches: {json.dumps(p_launches)}; "
           f"max_memory_allocated {torch.cuda.max_memory_allocated()} B")
@@ -5560,13 +5759,29 @@ def main() -> None:
     phase("5")
 
     # 5b. the multi-shard path: 2x2 tiles, static (both laws, with the
-    # recorded runs) and the plastic parity at 4x4; its 8x8x1240 table
-    # builds are shared with 5c and 5d (``seg_shared_builds``)
-    with seg_shared_builds():
-        torch.cuda.reset_peak_memory_stats()
-        _build.reset_launch_counts()
-        ms_runs = {law: run_multishard(law, runs[law]) for law in LAWS}
-        ms_plastic = ms_plastic_parity()
+    # recorded runs) and the plastic parity at 4x4; its 8x8x1240 tables,
+    # built on the host, go to the card here and are shared with 5c and
+    # 5d (``seg_shared_builds``)
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    ms_card = {law: ((tabs.to("cuda"), stats), build_s)
+               for law, ((tabs, stats), build_s) in ms_built.items()}
+    del ms_built
+    with seg_shared_builds({law: b[0] for law, b in ms_card.items()}):
+        ms_runs = {law: run_multishard(law, runs[law], ms_card[law][1])
+                   for law in LAWS}
+        del ms_card
+        # the plastic legs' card runs, then every CPU plain leg, phase 4's
+        # and 5b's, side by side (one thread each), then the comparisons
+        ms_ctxs = [ms_plastic_card(ctx) for ctx in msp_ctxs]
+        with ThreadPoolExecutor(2 * len(LAWS)) as legs:
+            p4_cpu = legs.map(plastic_parity_cpu, p4_ctxs)
+            ms_cpu = legs.map(ms_plastic_cpu, ms_ctxs)
+            p4_cpu, ms_cpu = list(p4_cpu), list(ms_cpu)
+        plastic_parity_check(p4_ctxs, p4_cpu)
+        ms_plastic = [ms_plastic_check(ctx, *c)
+                      for ctx, c in zip(ms_ctxs, ms_cpu)]
+        del p4_ctxs, p4_cpu, msp_ctxs, ms_ctxs, ms_cpu
         ms_launches = _build.launch_counts()
         print(f"multi-shard path launches: {json.dumps(ms_launches)}; "
               f"max_memory_allocated {torch.cuda.max_memory_allocated()} B")
@@ -5682,10 +5897,16 @@ def main() -> None:
     # 14. the LM on ranks: four processes on the one card, (pod 2, data 1,
     # model 2); the earlier phases' tensors freed first (each rank zeroes
     # and reads its own counts; the sum is the ranks' launches)
-    del tables, plastic_tabs, runs, pruns, ms_runs, ms_plastic, lm, train
+    del tables, runs, pruns, ms_runs, ms_plastic, lm, train
     del families, seg
     lm_rank_launches = run_lm_ranks()
     phase("14")
+
+    # 15. the launch-geometry card check over the seven libraries, then
+    # quickstart, serve_lm (gemma-2b at full width) and snn_simulation on
+    # the card (counts zeroed and read around each example)
+    example_launches = run_examples()
+    phase("15")
     for k in kernels:
         if k["name"] in ("flash_attention", "flash_attention_tf32",
                          "tf32_split"):
@@ -5700,6 +5921,8 @@ def main() -> None:
         k["ensemble_launches"] = ens_launches.get(k["name"], 0)
         k["rank_launches"] = rank_launches.get(k["name"], 0)
         k["lm_rank_launches"] = lm_rank_launches.get(k["name"], 0)
+        k["example_launches"] = {ex: n.get(k["name"], 0)
+                                 for ex, n in example_launches.items()}
     print(json.dumps({"kernels": kernels}))
     print("phase seconds " + json.dumps(phase_s))
     print(f"total: {time.perf_counter() - t_start:.1f} s")

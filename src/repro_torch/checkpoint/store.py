@@ -233,6 +233,10 @@ def set_thread_asserts(enabled: bool):
     _THREAD_ASSERTS = enabled
 
 
+def thread_asserts_enabled() -> bool:
+    return _THREAD_ASSERTS
+
+
 class AsyncWriterThread:
     """Daemon-thread work queue with deferred error surfacing.
 

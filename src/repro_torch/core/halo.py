@@ -157,12 +157,16 @@ class Transport:
     def _begin(self) -> float:
         """Wait for the device work queued before a move (and the last
         move's uploads, whose pinned buffers it may reuse); the host
-        clock after."""
+        clock after.  (A rank steps eagerly: no capture holds a
+        Transport, so its syncs and clocks carry lint pragmas.)"""
         dev = self.device
         if dev.type == "cuda":
             if self._landed is not None:
+                # repro-lint: ignore[tracer-purity] eager ranks only
                 self._landed.synchronize()
+            # repro-lint: ignore[tracer-purity] eager ranks only
             torch.cuda.current_stream(dev).synchronize()
+        # repro-lint: ignore[tracer-purity] eager ranks only
         return time.perf_counter()
 
     def _stage_out(self, items) -> list:
@@ -175,6 +179,7 @@ class Transport:
             buf = self._pinned(("send",) + key, x.shape, x.dtype)
             buf.copy_(x, non_blocking=True)
             wire.append(buf)
+        # repro-lint: ignore[tracer-purity] eager ranks only
         torch.cuda.current_stream(self.device).synchronize()
         return wire
 
@@ -190,6 +195,7 @@ class Transport:
             into = [b.to(self.device, non_blocking=True) for b in into]
             self._landed = torch.cuda.Event()
             self._landed.record(torch.cuda.current_stream(self.device))
+        # repro-lint: ignore[tracer-purity] eager ranks only
         self.seconds += time.perf_counter() - t0
         return into
 

@@ -4,8 +4,13 @@ Each source ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into its own shared library
 ``build/torch_kernels/lib<name>-<hash>.so`` at the root of the checkout
 (``REPRO_TORCH_BUILD_DIR`` overrides the directory), then loaded with
-ctypes.  The build happens at first use; ``build_all`` starts one
-``nvcc`` per source, all at once.  Nothing is compiled at import time.
+ctypes.  nvcc's output, with ptxas's ``-v`` figures of every kernel
+(registers, shared memory, spills, stack), is kept beside the library as
+``lib<name>-<hash>.log`` (``log_path``), which the ``hopper-geometry``
+lint pass reads (``analysis.hopper_geometry.check_built``); a library
+without its log is built again.  The build happens at first use;
+``build_all`` starts one ``nvcc`` per source, all at once.  Nothing is
+compiled at import time.
 
 Every wrapper counts its launches here (``count_launch``), so a run can
 show that its main path went through the kernels.  While a CUDA graph is
@@ -40,20 +45,26 @@ SMEM_BYTES = 232_448
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LAUNCHES: Dict[str, int] = {}
 _TALLY: Optional[Dict[str, int]] = None   # set while a graph is captured
-BUILD_LOG: Dict[str, str] = {}    # nvcc/ptxas output of each build
+_DEFAULT_BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
+                      / "torch_kernels")
 
 
 def build_dir() -> Path:
+    # repro-lint: ignore[tracer-purity] the build's paths are read at a
+    # kernel's first launch; a graph's loop steps eagerly before it
+    # captures, so no capture reaches them
     env = os.environ.get("REPRO_TORCH_BUILD_DIR")
-    if env:
-        return Path(env)
-    return Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
+    # repro-lint: ignore[tracer-purity] as above
+    return Path(env) if env else _DEFAULT_BUILD_DIR
 
 
 def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc")):
+    # repro-lint: ignore[tracer-purity] looked up at a kernel's first
+    # build, which no capture reaches (see build_dir)
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    # repro-lint: ignore[tracer-purity] as above
+    for cand in (shutil.which("nvcc"), os.path.join(home, "bin", "nvcc")):
+        # repro-lint: ignore[tracer-purity] as above
         if cand and os.path.exists(cand):
             return cand
     raise RuntimeError("nvcc not found: the CUDA kernels are built on the "
@@ -66,13 +77,25 @@ def _lib_path(name: str) -> Path:
     return build_dir() / f"lib{name}-{tag[:12]}.so"
 
 
+def log_path(name: str) -> Path:
+    """nvcc's output (ptxas's figures) of the built ``csrc/<name>.cu``."""
+    return _lib_path(name).with_suffix(".log")
+
+
+def _tmp(out: Path, kind: str) -> Path:
+    """This process's temporary file beside the library ``out``."""
+    # repro-lint: ignore[tracer-purity] named at a kernel's first build,
+    # which no capture reaches (see build_dir)
+    return out.with_suffix(f".{os.getpid()}.{kind}")
+
+
 def _start(name: str) -> Optional[subprocess.Popen]:
     out = _lib_path(name)
-    if out.exists():
+    if out.exists() and log_path(name).exists():
         return None
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(_tmp(out, "tmp")),
+           str(CSRC / f"{name}.cu")]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
 
@@ -81,12 +104,16 @@ def _finish(name: str, proc: Optional[subprocess.Popen]) -> None:
     if proc is None:
         return
     log, _ = proc.communicate()
-    BUILD_LOG[name] = log
-    out = _lib_path(name)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
-    os.replace(tmp, out)
+    out = _lib_path(name)
+    log_tmp = _tmp(out, "logtmp")
+    log_tmp.write_text(log)
+    # repro-lint: ignore[tracer-purity] the build's end, at a kernel's
+    # first launch, which no capture reaches (see build_dir)
+    os.replace(log_tmp, log_path(name))
+    # repro-lint: ignore[tracer-purity] as above
+    os.replace(_tmp(out, "tmp"), out)
 
 
 def build_all() -> None:
@@ -155,6 +182,12 @@ def count_replay(name: str, tally: Dict[str, int]) -> None:
 
 def launch_counts() -> Dict[str, int]:
     return dict(_LAUNCHES)
+
+
+def launches_since(before: Dict[str, int]) -> Dict[str, int]:
+    """The launches counted since ``before`` (a ``launch_counts()``)."""
+    return {k: n - before.get(k, 0) for k, n in sorted(_LAUNCHES.items())
+            if n != before.get(k, 0)}
 
 
 def reset_launch_counts() -> None:

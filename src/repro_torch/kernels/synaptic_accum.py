@@ -114,7 +114,9 @@ def _window_scale(w: torch.Tensor, tgt: torch.Tensor, n_local: int):
         return 0.0
     # repro-lint: ignore[dtype-bounds] a host-side bound, not stored
     per_target = torch.zeros(n_local, dtype=torch.float64, device=w.device)
-    per_target.index_add_(0, tgt.long(), wa.double())
+    per_target.index_add_(0, tgt.long(), wa.to(per_target.dtype))
+    # repro-lint: ignore[tracer-purity] first use of new weights, before
+    # any capture: a graph's loop binds its tiers' weights eagerly
     top = float(per_target.max())
     if top * 2.0 ** s >= 2 ** 24:
         raise ValueError(
@@ -213,6 +215,8 @@ def build_column_runs(tier: dict, row_group: int, col_width: int,
     starts = run_starts(key)
     skey, order = torch.sort(key, dim=1, stable=True)
     perm = None
+    # repro-lint: ignore[tracer-purity] built once per table set, before
+    # any capture: a graph's loop builds its tiers' descriptors eagerly
     if int(starts.sum()) != int(run_starts(skey).sum()):
         # some (row, T, d) is split: deliver from a row-sorted copy
         key, starts = skey, run_starts(skey)
@@ -256,6 +260,8 @@ def build_column_runs(tier: dict, row_group: int, col_width: int,
         nbytes += sum(x.numel() * x.element_size() for x in (perm, tgt, w))
     return dict(out, row_group=row_group, col_width=col_width,
                 n_tcols=n_tcols, n_local=n_local,
+                # repro-lint: ignore[tracer-purity] as above: before any
+                # capture
                 max_pairs=int(per_col.max()) if n_tcols else 0,
                 nbytes=nbytes)
 

@@ -63,6 +63,8 @@ import torch
 
 from .. import resolve_device
 from ..configs import ARCH_NAMES, get_reduced
+from ..kernels import _build
+from ..models.config import ModelConfig
 from ..models.frontends import STUB_WIDTH
 from ..models.layers import torch_dtype
 from ..models.model import make_prefill, make_serve_step
@@ -81,7 +83,8 @@ def _sync(dev: torch.device) -> None:
 # --------------------------------------------------------------------------
 
 def serve_batch(arch: str, batch: int, prompt_len: int, gen: int,
-                seed: int = 0, greedy: bool = True, device="cuda") -> dict:
+                seed: int = 0, greedy: bool = True, device="cuda",
+                cfg: Optional[ModelConfig] = None) -> dict:
     """Prefill ``batch`` random prompts of ``prompt_len`` tokens, then
     decode ``gen`` tokens greedily.  The inputs are drawn as the
     reference draws them, from numpy ``default_rng(seed)``: the prompts,
@@ -91,14 +94,17 @@ def serve_batch(arch: str, batch: int, prompt_len: int, gen: int,
     ``n_patches + prompt_len + gen`` positions and step ``i`` decodes at
     ``n_patches + prompt_len + i`` (the reference sizes and places its
     decode without the prefix).  Parameters come from ``init_model``
-    seeded with ``seed``.  Returns ``tokens`` ((batch, gen) int32 numpy),
-    ``prefill_s``, ``decode_s_per_token`` (host clock,
-    CUDA-synchronised) and ``config`` (the config's name)."""
+    seeded with ``seed``.  ``cfg``: the configuration served (default
+    the architecture's reduced one, as the reference serves).  Returns
+    ``tokens`` ((batch, gen) int32 numpy), ``prefill_s``,
+    ``decode_s_per_token`` (host clock, CUDA-synchronised), ``config``
+    (the config's name) and the kernels launched in each stage
+    (``prefill_launches``, ``decode_launches``: name -> count)."""
     if not greedy:
         raise NotImplementedError("only greedy decoding is implemented "
                                   "(the reference decodes greedily too)")
     dev = resolve_device(device)
-    cfg = get_reduced(arch)
+    cfg = cfg or get_reduced(arch)
     params = init_model(cfg, seed=seed, device=dev)
     rng = np.random.default_rng(seed)
     prompts = rng.integers(0, cfg.vocab_size,
@@ -116,10 +122,13 @@ def serve_batch(arch: str, batch: int, prompt_len: int, gen: int,
     serve_step = make_serve_step(cfg)
 
     _sync(dev)
+    before = _build.launch_counts()
     t0 = time.perf_counter()
     logits, state = prefill(params, batch_in, state)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
+    prefill_launches = _build.launches_since(before)
+    before = _build.launch_counts()
 
     toks = []
     tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
@@ -130,6 +139,7 @@ def serve_batch(arch: str, batch: int, prompt_len: int, gen: int,
         tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
     _sync(dev)
     t_decode = time.perf_counter() - t0
+    decode_launches = _build.launches_since(before)
     out = (torch.cat(toks, dim=1).cpu().numpy() if toks
            else np.zeros((batch, 0), np.int32))
     return {
@@ -137,6 +147,8 @@ def serve_batch(arch: str, batch: int, prompt_len: int, gen: int,
         "prefill_s": t_prefill,
         "decode_s_per_token": t_decode / gen if gen else 0.0,
         "config": cfg.name,
+        "prefill_launches": prefill_launches,
+        "decode_launches": decode_launches,
     }
 
 

@@ -1585,3 +1585,16 @@ def test_flash_function_on_kernel_matches_plain_route(cuda, dtype, d):
                                res[False]):
         scale = float(want.abs().max())
         assert float((got - want).abs().max()) <= tol * scale, name
+
+
+def test_hopper_geometry_card_check_passes_on_every_library(cuda):
+    """hopper-geometry's card half: every built library's ptxas figures
+    (registers, static shared memory, spills, stack) within the sources'
+    and wrappers' declarations, a row for every kernel entry."""
+    from repro_torch.analysis.hopper_geometry import check_built
+    _build.build_all()
+    rows = check_built()
+    assert {r["source"] for r in rows} == set(_build.SOURCES)
+    for r in rows:
+        assert r["smem"] <= r["declared_smem"], r
+        assert r["threads"] is not None, r

@@ -185,7 +185,10 @@ def test_package_rules_cover_the_training_modules():
              "repro_torch.data.pipeline", "repro_torch.launch.train",
              "repro_torch.configs.qwen2_5_3b", "repro_torch.configs.qwen3_8b",
              "repro_torch.examples.train_lm",
-             "repro_torch.examples.fault_tolerance_demo"}
+             "repro_torch.examples.fault_tolerance_demo",
+             "repro_torch.examples.quickstart",
+             "repro_torch.examples.serve_lm",
+             "repro_torch.examples.snn_simulation"}
     assert train <= set(MODULES), train - set(MODULES)
 
 

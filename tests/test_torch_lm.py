@@ -293,7 +293,10 @@ def test_serve_batch_on_cpu(arch):
                     device="cpu")
     b = serve_batch(arch, batch=2, prompt_len=10, gen=4, seed=5,
                     device="cpu")
-    assert set(a) == {"tokens", "prefill_s", "decode_s_per_token", "config"}
+    assert set(a) == {"tokens", "prefill_s", "decode_s_per_token", "config",
+                      "prefill_launches", "decode_launches"}
+    # CPU tensors take the plain versions: no kernel launched in either
+    assert a["prefill_launches"] == {} and a["decode_launches"] == {}
     assert a["config"] == jget_reduced(arch).name
     assert a["tokens"].shape == (2, 4) and a["tokens"].dtype == np.int32
     assert ((a["tokens"] >= 0)
