@@ -234,23 +234,23 @@ Phases, each of which exits non-zero on failure:
 12. training the families (``make_train_step`` through the flash
    kernel's forward, ``TRAIN_FAMILIES``): granite-moe-1b-a400m (4 x
    2048), whisper-small (8 x (1500 frames + 448 tokens)), falcon-mamba-7b
-   (8 of 64 layers, 4 x 2048), recurrentgemma-9b (6 of 38, 2 x 4096, past
+   (2 of 64 layers, 4 x 2048), recurrentgemma-9b (3 of 38, 2 x 4096, past
    its window) and internvl2-26b (4 of 48, 2 x (256 patches + 2048),
    Adafactor over its stack group) at published width in bf16 with
    seeded random weights, each freed before the next: its parameter
    count, one step's loss and per-leaf gradients on the kernel route
    against the plain chunked route (naive against chunked the control,
    phase 8's gates; granite's plain routes teacher-forced on the kernel
-   route's experts, the backward's recompute included), 3 timed steps
+   route's experts, the backward's recompute included), 2 timed steps
    (finite losses and grad norms, the last below the first, two flash
    launches a step per self-attention, encoder and cross-attention
-   layer), a profiled fourth (the shares of the flash forward, the
+   layer), a profiled third (the shares of the flash forward, the
    plain attention backward and the optimizer, from its Chrome trace),
    s per step, tokens/s and peak memory (granite's dropped share too);
    the bytes the recurrent scans' per-chunk checkpoint saves at
    falcon-mamba's shape (one step through a copy of the port without
    it); then the five families' reduced configs in float32 on the card
-   (the 3xTF32 kernel) for 3 steps against the same steps on the CPU;
+   (the 3xTF32 kernel) for 2 steps against the same steps on the CPU;
 13. the SNN on ranks (``launch.mesh.spawn_ranks``): four rank processes
    on the one card, a 2x2 mesh over ``torch.distributed`` (gloo), one
    tile each, the halo strips staged through pinned host memory
@@ -279,7 +279,7 @@ Phases, each of which exits non-zero on failure:
    factor 8 so that nothing drops) and reduced qwen2-1.5b (tensor-
    parallel), with the 3xTF32 flash kernel: one exact rank step held
    against the single-process step on the card (loss and grad norm to
-   1e-5, every leaf to 2e-5), then six compressed pod steps (the first
+   1e-5, every leaf to 2e-5), then four compressed pod steps (the first
    loss the exact step's to 1e-5, its parameters within 5e-3, the last
    loss below the first).  Then granite-moe-1b-a400m whole (24 layers,
    d_model 1024, 16 / 8 heads, 32 experts top-8, bf16, AdamW): its
@@ -287,7 +287,7 @@ Phases, each of which exits non-zero on failure:
    global batch of 4 x 2048 from ``LMBatchPipeline(seed=0)`` (two
    sequences a pod), one ``make_eval_step`` loss (within 2e-3 of the
    single-process eval on the card, run before the spawn and freed),
-   three compressed pod steps (the first loss the eval loss, finite
+   two compressed pod steps (the first loss the eval loss, finite
    losses, each rank's pod wire bytes a step ``wire_bytes`` of its
    gradient elements, 48 flash launches a rank a step): s per step
    (slowest rank), tokens/s, bytes, seconds and calls per collective
@@ -306,17 +306,41 @@ Phases, each of which exits non-zero on failure:
    ``snn_simulation`` (8x8x60 in 2x2 stacked tiles, both laws, 300 + 300
    steps: ``neuron_step``, ``event_delivery`` and ``step_graph``
    launched for each law, finite rates, then the 4x4x40 STDP demo, which
-   must move synapses).
+   must move synapses);
+16. LM serving on ranks (``launch.serve.serve_rules`` /
+   ``serve_inputs``, ``models.transformer.init_model(rules=)`` /
+   ``init_decode_state(rules=)``, ``models.model.make_prefill`` /
+   ``make_serve_step(cfg, rules)``): four rank processes on the one
+   card on the host mesh of four, (data 2, model 2), gloo, and beside
+   their start qwen2-1.5b served at full width by this process (4 x
+   2048 prompts, 32 greedy tokens: its tokens and every step's logits
+   written to the host for the ranks).  Each rank serves six reduced
+   float32 configs (qwen2-1.5b with a 32-slot state whose rank-1 slots
+   are all masked in decode; recurrentgemma-9b's 16-slot ring
+   wrapping; falcon-mamba-7b;
+   granite-moe-1b-a400m; whisper-small; internvl2-26b) with the 3xTF32
+   flash kernel, on one card in its own process and on the ranks: every
+   step's logits within ``REDUCED_TOL`` of the largest, the same greedy
+   tokens, the TF32 kernel once a prefill per attention, encoder and
+   cross layer and never in decode.  Then the full-width bf16 models
+   of ``SERVE_RANK_FULL`` (qwen2-1.5b, falcon-mamba-7b, recurrentgemma-9b
+   2 x 3072 past its 2048 window, whisper-small's 16 clips, internvl2-26b
+   cut to 32 of its 48 layers): prefill s and decode ms a token
+   (slowest rank), collective calls, bytes and seconds a token by
+   channel, peak GB a rank, flash launches (one a prefill per attention
+   layer, none in decode); qwen2-1.5b decodes teacher-forced on the one
+   card's tokens, its logits within ``FAMILY_TOL`` of the one card's.
 
 Launch counts are zeroed just before each of phases 3-5, 5b, 5c (after
 its ``make_sim_fn`` baselines), 5d, 7, 8, each model of 9, 10 and 12
-and each example of 15, and in each rank of 13 and 14 (before its
-full-width steps), and read
+and each example of 15, in each rank of 13 and 14 (before its
+full-width steps), and in each rank of 16 around each rank prefill and
+each rank decode, and read
 just after it (phase 11 launches nothing; the ``{"kernels"}`` line
 gives each kernel's launches on phase 3's or its own path, on 5b's,
 5c's and 5d's, the flash rows per model of phases 9 and 10, with the
 bf16 kernel's times at phase 10's shapes, per config of phase 12, the
-ranks' sums on 13 and 14, and per example of 15); a replay of a
+ranks' sums on 13, 14 and 16, and per example of 15); a replay of a
 captured static or recorded step
 counts as ``step_graph`` and as one launch of each kernel the graph
 holds.  It prints the metrics, the ``{"cost_model": {...}}`` line, each
@@ -395,9 +419,9 @@ RANKS, RANK_TIMED_STEPS, RANK_PROFILE_STEPS, RANK_TIMEOUT_S = 4, 200, 50, 300
 # granite-moe-1b-a400m at full width; the gates
 LM_RANK_MESH = ((2, 1, 2), ("pod", "data", "model"))
 LM_RANK_PARITY = ("granite-moe-1b-a400m", "qwen2-1.5b")
-LM_RANK_PARITY_BATCH, LM_RANK_PARITY_SEQ, LM_RANK_POD_STEPS = 4, 64, 6
+LM_RANK_PARITY_BATCH, LM_RANK_PARITY_SEQ, LM_RANK_POD_STEPS = 4, 64, 4
 LM_RANK_ARCH, LM_RANK_BATCH, LM_RANK_SEQ, LM_RANK_STEPS = \
-    "granite-moe-1b-a400m", 4, 2048, 3
+    "granite-moe-1b-a400m", 4, 2048, 2
 LM_RANK_LOSS_TOL, LM_RANK_LEAF_TOL = 1e-5, 2e-5   # exact step vs one card
 LM_RANK_POD_PARAM_TOL = 5e-3     # the compressed step's first parameters
 LM_RANK_EVAL_TOL = 2e-3          # bf16 eval on ranks vs one card, relative
@@ -407,6 +431,28 @@ LM_RANK_EVAL_TOL = 2e-3          # bf16 eval on ranks vs one card, relative
 LM_RANK_FLAT_GRAD = 1e-6         # 100 x AdamW's eps (see lm_rank_parity)
 LM_RANK_LR, LM_RANK_TIMEOUT_S = 1e-3, 900
 LM_RANK_FULL_LR = 1e-4           # AdamW's rate at full width
+# phase 16: LM serving on four ranks of the one card, the host mesh of
+# four, (data 2, model 2).  Parity leg: the six reduced float32 configs
+# of tests/test_torch_serve_ranks.py (arch, prompt, tokens, the state's
+# length (None: patches + prompt + tokens)); recurrentgemma's 16-slot
+# ring wraps, and qwen2's 32-slot state leaves rank 1's slots all
+# masked in decode.
+# Full-width bf16 models (arch, layers (None: all), batch, prompt,
+# tokens): phase 9-10's prompt shapes; internvl2-26b cut to 32 of 48
+# layers (its 48 layers' blocks are 19.9 GB a rank, 80 GB for four)
+SERVE_RANK_PARITY = [("qwen2-1.5b", 3, 4, 32),
+                     ("recurrentgemma-9b", 24, 8, None),
+                     ("falcon-mamba-7b", 20, 4, None),
+                     ("granite-moe-1b-a400m", 12, 4, None),
+                     ("whisper-small", 12, 4, None),
+                     ("internvl2-26b", 12, 4, None)]
+SERVE_RANK_FULL = [("qwen2-1.5b", None, 4, 2048, 32),
+                   ("falcon-mamba-7b", None, 4, 2048, 16),
+                   ("recurrentgemma-9b", None, 2, 3072, 16),
+                   ("whisper-small", None, 16, 224, 16),
+                   ("internvl2-26b", 32, 2, 2048, 16)]
+SERVE_RANK_TIMEOUT_S = 600
+SERVE_RANK_ONE_CARD_WAIT_S = 300   # a rank's wait for the one-card file
 LAWS = ("gaussian", "exponential")
 BF16_OPS_PER_S = 989e12            # H100 SXM bf16 dense tensor-core rate
 TF32_OPS_PER_S = 495e12            # H100 SXM TF32 dense tensor-core rate
@@ -464,18 +510,21 @@ REDUCED_TOL = 1e-4
 REDUCED_BF16 = "qwen2.5-3b"
 # phase 12: training the families, one at a time: (arch, layers (None:
 # all), batch, tokens a row, optimizer).  Widths are the published ones;
-# depth is cut only where one 80 GB card cannot hold bf16 parameters and
-# gradients and AdamW's float32 moments (about 12 B a parameter).
-# whisper: 30 s clips (1500 frames) and its whole 448-token text context;
-# falcon-mamba: 16 chunks of 128 a layer; recurrentgemma: two whole
-# periods, past its 2048 window; internvl: 256 patches + 2048 tokens under
-# the dry run's optimizer for the full model, its 4 layers one stack group
+# depth is cut where one 80 GB card cannot hold bf16 parameters and
+# gradients and AdamW's float32 moments (about 12 B a parameter), and
+# falcon-mamba's and recurrentgemma's further for the smoke's time limit
+# (their scans are most of the phase).  whisper: 30 s clips (1500
+# frames) and its whole 448-token text context; falcon-mamba: 2 layers,
+# 16 chunks of 128 a layer; recurrentgemma: one whole period (two RG-LRU
+# layers and an attention layer), past its 2048 window; internvl: 256
+# patches + 2048 tokens under the dry run's optimizer for the full
+# model, its 4 layers one stack group
 TRAIN_FAMILIES = [("granite-moe-1b-a400m", None, 4, 2048, "adamw"),
                   ("whisper-small", None, 8, 448, "adamw"),
-                  ("falcon-mamba-7b", 8, 4, 2048, "adamw"),
-                  ("recurrentgemma-9b", 6, 2, 4096, "adamw"),
+                  ("falcon-mamba-7b", 2, 4, 2048, "adamw"),
+                  ("recurrentgemma-9b", 3, 2, 4096, "adamw"),
                   ("internvl2-26b", 4, 2, 2048, "adafactor")]
-TRAIN_FAMILY_STEPS = 3
+TRAIN_FAMILY_STEPS = 2
 # the flash kernel against its plain version (tests/test_kernels.py)
 FLASH_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 # its row statistic L = m + log l against the plain logsumexp, times
@@ -2377,6 +2426,337 @@ def run_lm_ranks() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 16: LM serving on ranks (four processes on one card, data 2 x
+# model 2)
+# ---------------------------------------------------------------------------
+
+def serve_flash_per_prefill(cfg) -> int:
+    """Flash launches of one prefill: every self-attention, encoder and
+    cross-attention layer once (decode attends in plain PyTorch)."""
+    n_attn = sum(k in ("attn", "moe") for k in cfg.layer_kinds)
+    return n_attn + cfg.encoder_layers + (cfg.n_layers if cfg.cross_attn
+                                          else 0)
+
+
+def serve_rank_one_card() -> dict:
+    """Phase 16's one-card reference of qwen2-1.5b at full width (bf16,
+    the flash kernel): ``SERVE_RANK_FULL``'s prompts for it
+    (``launch.serve.serve_inputs``, seed 0), its prefill and greedy
+    tokens, every step's logits on the host (freed from the card
+    before the spawn)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve_inputs
+    from repro_torch.models.model import make_prefill
+    from repro_torch.models.transformer import init_decode_state, init_model
+    arch, _, batch, prompt, gen = SERVE_RANK_FULL[0]
+    cfg = dataclasses.replace(get_config(arch), attn_impl="pallas")
+    params = init_model(cfg, 0, device="cuda")
+    inputs = serve_inputs(cfg, batch, prompt, 0, "cuda")
+    state = init_decode_state(cfg, batch, prompt + gen, device="cuda")
+    lg, state = make_prefill(cfg)(params, inputs, state)
+    first = torch.argmax(lg[:, -1:], dim=-1).to(torch.int32)
+    toks, lgs, _ = decode(params, cfg, state, first, gen, start=prompt)
+    out = {"prefill": lg.float().cpu(), "tokens": toks.cpu(),
+           "logits": torch.stack([x.float().cpu() for x in lgs])}
+    del params, state, lg, lgs
+    return out
+
+
+def serve_rank_parity(entry, mesh) -> dict:
+    """One float32 parity leg of phase 16 on this rank: a reduced config
+    (``attn_impl="pallas"``: the 3xTF32 flash kernel in prefill) served
+    on one card in this process, then on the ranks under
+    ``launch.serve.serve_rules`` from the same seed and inputs: every
+    step's logits within ``REDUCED_TOL`` of the largest and the same
+    greedy tokens.  The launch counts are zeroed just before the rank
+    prefill and read after it, and again around the rank decode."""
+    import torch
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.pipeline import rank_batch
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import serve_inputs, serve_rules
+    from repro_torch.models.model import make_prefill
+    from repro_torch.models.transformer import init_decode_state, init_model
+    from repro_torch.parallel.sharding import block
+    arch, prompt, gen, max_len = entry
+    cfg = dataclasses.replace(get_reduced(arch), attn_impl="pallas")
+    b, start = 2, cfg.n_patches + prompt
+    max_len = max_len or start + gen
+    rules = serve_rules(cfg, mesh, b, max_len)
+    inputs = serve_inputs(cfg, b, prompt, 0, "cuda")
+    whole = init_model(cfg, 0, device="cuda")
+    lg1, st1 = make_prefill(cfg)(whole, inputs, init_decode_state(
+        cfg, b, max_len, device="cuda"))
+    toks1, lgs1, _ = decode(whole, cfg, st1, torch.argmax(
+        lg1[:, -1:], dim=-1).to(torch.int32), gen, start=start)
+    blocks = init_model(cfg, 0, device="cuda", rules=rules)
+    state = init_decode_state(cfg, b, max_len, device="cuda", rules=rules)
+    _build.reset_launch_counts()
+    lg, state = make_prefill(cfg, rules)(blocks, rank_batch(inputs, rules),
+                                         state)
+    torch.cuda.synchronize()
+    pre = _build.launch_counts()
+    _build.reset_launch_counts()
+    toks, lgs, _ = decode(blocks, cfg, state, torch.argmax(
+        lg[:, -1:], dim=-1).to(torch.int32), gen, start=start, rules=rules)
+    torch.cuda.synchronize()
+    dec = _build.launch_counts()
+    gaps = [logit_gap(a, block(w, ("batch", None, None), rules))
+            for a, w in zip([lg] + lgs, [lg1] + lgs1)]
+    errors = []
+    if not max(gaps) <= REDUCED_TOL:
+        errors.append(f"{arch} {prompt}+{gen} in {max_len}: logit gaps "
+                      f"{gaps} (> {REDUCED_TOL})")
+    if not torch.equal(toks, block(toks1, ("batch", None), rules)):
+        errors.append(f"{arch} {prompt}+{gen}: tokens differ")
+    want = serve_flash_per_prefill(cfg)
+    if pre.get("flash_attention_tf32", 0) != want or any(
+            k.startswith("flash") for k in dec):
+        errors.append(f"{arch}: flash launches {pre} in prefill, {dec} in "
+                      f"decode (want {want} and none)")
+    return {"errors": errors, "max_gap": max(gaps), "kv_seq": rules.kv_seq,
+            "heads": rules.heads, "prefill_launches": pre,
+            "decode_launches": dec}
+
+
+def serve_rank_full(entry, mesh, one_card) -> dict:
+    """One full-width bf16 model of phase 16 on this rank: its blocks
+    (``init_model(..., rules=)`` under ``serve_rules``), its batch slice
+    of ``serve_inputs``, a timed prefill and ``gen`` timed decode steps
+    (greedy; qwen2-1.5b teacher-forced on the one-card tokens, its
+    logits held within ``FAMILY_TOL`` of the one card's), the launch
+    counts and the collectives of each stage, peak device bytes."""
+    import gc
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import rank_batch
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import serve_inputs, serve_rules
+    from repro_torch.models.model import make_prefill
+    from repro_torch.models.transformer import init_decode_state, init_model
+    from repro_torch.parallel.collectives import stats
+    from repro_torch.parallel.sharding import block
+    from repro_torch.tree import tree_flatten
+    arch, layers, b, prompt, gen = entry
+    cfg = dataclasses.replace(get_config(arch), attn_impl="pallas")
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    start = cfg.n_patches + prompt
+    rules = serve_rules(cfg, mesh, b, start + gen)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    blocks = init_model(cfg, 0, device="cuda", rules=rules)
+    inputs = rank_batch(serve_inputs(cfg, b, prompt, 0, "cuda"), rules)
+    state = init_decode_state(cfg, b, start + gen, device="cuda",
+                              rules=rules)
+    torch.cuda.synchronize()
+    out = {"arch": arch, "layers": cfg.n_layers,
+           "init_s": time.perf_counter() - t0,
+           "param_bytes": sum(x.numel() * x.element_size()
+                              for x in tree_flatten(blocks)[0]),
+           "kv_seq": rules.kv_seq, "heads": rules.heads,
+           "d_inner": rules.d_inner}
+    dist.barrier()
+    mesh.comm.reset_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    lg, state = make_prefill(cfg, rules)(blocks, inputs, state)
+    torch.cuda.synchronize()
+    out["prefill_s"] = time.perf_counter() - t0
+    out["prefill_launches"] = _build.launch_counts()
+    out["prefill_collectives"] = stats(mesh)
+    forced = None if one_card is None else block(
+        one_card["tokens"], ("batch", None), rules).cuda()
+    dist.barrier()
+    mesh.comm.reset_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    toks, lgs, state = decode(blocks, cfg, state, torch.argmax(
+        lg[:, -1:], dim=-1).to(torch.int32), gen, forced=forced,
+        start=start, rules=rules)
+    torch.cuda.synchronize()
+    out["decode_s"] = time.perf_counter() - t0
+    out["decode_launches"] = _build.launch_counts()
+    out["decode_collectives"] = stats(mesh)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["finite"] = bool(all(torch.isfinite(x).all() for x in [lg] + lgs))
+    out["tokens_in_vocab"] = bool(((toks >= 0)
+                                   & (toks < cfg.vocab_size)).all())
+    if one_card is not None:
+        lgs_one = [one_card["prefill"]] + list(one_card["logits"])
+        out["gaps_vs_one_card"] = [
+            logit_gap(a.cpu(), block(w, ("batch", None, None), rules))
+            for a, w in zip([lg] + lgs, lgs_one)]
+        out["argmax_agreement"] = float((torch.argmax(
+            torch.stack(lgs), dim=-1).cpu() == torch.argmax(block(
+                one_card["logits"], (None, "batch", None, None), rules),
+                dim=-1)).float().mean())
+    del blocks, state, lg, lgs
+    return out
+
+
+def lm_serve_ranks_rank(rank: int, world: int, job_path: str) -> None:
+    """One rank of phase 16 (``launch.mesh.spawn_ranks`` runs it): the
+    host mesh of four ranks, (data 2, model 2), with gloo collectives
+    staging CUDA tensors through pinned host memory; the parity legs,
+    then every full-width model.  It writes
+    ``build/lm_serve_ranks/rank_<r>.json``."""
+    import torch
+    from repro_torch.core.halo import Transport
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel.collectives import attach
+    torch.cuda.set_device(0)
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_rank = time.perf_counter()
+    mesh = attach(make_host_mesh(), Transport("gloo", "cuda"))
+    out = {"rank": rank, "mesh": dict(zip(mesh.axis_names, mesh.shape)),
+           "coordinate": list(mesh.coordinate()),
+           "parity": [serve_rank_parity(e, mesh)
+                      for e in SERVE_RANK_PARITY]}
+    out["parity_s"] = time.perf_counter() - t_rank
+    # the parent serves qwen2 on one card beside the parity legs
+    path = Path(job_path).with_name("one_card.pt")
+    t0 = time.perf_counter()
+    while not path.exists():
+        if time.perf_counter() - t0 > SERVE_RANK_ONE_CARD_WAIT_S:
+            raise RuntimeError(f"no {path} after {SERVE_RANK_ONE_CARD_WAIT_S}"
+                               " s: the parent's one-card serve failed")
+        time.sleep(0.2)
+    out["one_card_wait_s"] = time.perf_counter() - t0
+    one_card = torch.load(path)
+    out["full"] = [serve_rank_full(e, mesh, one_card if i == 0 else None)
+                   for i, e in enumerate(SERVE_RANK_FULL)]
+    out["rank_s"] = time.perf_counter() - t_rank
+    Path(job_path).with_name(f"rank_{rank}.json").write_text(
+        json.dumps(out))
+
+
+def run_lm_serve_ranks() -> dict:
+    """Phase 16: four rank processes (``lm_serve_ranks_rank``) spawned,
+    and while they start and run their parity legs, qwen2-1.5b served
+    on the card by this process (``serve_rank_one_card``: its tokens and
+    logits written to ``one_card.pt``, which the ranks wait for, the
+    card freed); then the ranks' figures and the gates.  Returns the
+    ranks' summed launches (prefill and decode of the rank serves; the
+    one-card runs they are held against are not counted)."""
+    import gc
+    import torch
+    from repro_torch.launch.mesh import RankFailure, spawn_ranks
+    work = ROOT / "build" / "lm_serve_ranks"
+    work.mkdir(parents=True, exist_ok=True)
+    for f in list(work.glob("rank_*.json")) + [work / "one_card.pt"]:
+        f.unlink(missing_ok=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"lm serve ranks: parent holds {torch.cuda.memory_allocated()} B "
+          f"({torch.cuda.memory_reserved()} B reserved) at the spawn",
+          flush=True)
+    job_path = work / "job.json"
+    job_path.write_text("{}")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(1) as pool:
+        spawned = pool.submit(spawn_ranks, lm_serve_ranks_rank, RANKS,
+                              args=(str(job_path),), backend="gloo",
+                              timeout_s=SERVE_RANK_TIMEOUT_S,
+                              store_dir=str(work))
+        t1 = time.perf_counter()
+        one = serve_rank_one_card()
+        torch.save(one, work / "one_card.tmp")
+        (work / "one_card.tmp").rename(work / "one_card.pt")
+        one_card_s = time.perf_counter() - t1
+        del one
+        gc.collect()
+        torch.cuda.empty_cache()
+        try:
+            spawned.result()
+        except RankFailure as e:
+            fail(f"phase 16: a rank failed: {e}")
+    wall = time.perf_counter() - t0
+    ranks = [json.loads((work / f"rank_{r}.json").read_text())
+             for r in range(RANKS)]
+    launches = {}
+    for r in ranks:
+        for leg in r["parity"] + r["full"]:
+            for key in ("prefill_launches", "decode_launches"):
+                for k, v in leg[key].items():
+                    launches[k] = launches.get(k, 0) + v
+    models = {}
+    for i, (arch, _, b, prompt, gen) in enumerate(SERVE_RANK_FULL):
+        legs = [r["full"][i] for r in ranks]
+        chans = sorted({c for x in legs for c in x["decode_collectives"]})
+        models[arch] = {
+            "layers": legs[0]["layers"], "batch": b, "prompt": prompt,
+            "tokens": gen, "kv_seq": legs[0]["kv_seq"],
+            "heads": legs[0]["heads"], "d_inner": legs[0]["d_inner"],
+            "prefill_s_slowest_rank": max(x["prefill_s"] for x in legs),
+            "decode_ms_per_token_slowest_rank": max(
+                x["decode_s"] for x in legs) / gen * 1e3,
+            "decode_per_token_rank0": {c: {f: legs[0][
+                "decode_collectives"].get(c, {}).get(f, 0) / gen for f in (
+                "calls", "bytes_sent", "bytes_received", "seconds")}
+                for c in chans},
+            "prefill_collectives_rank0": legs[0]["prefill_collectives"],
+            "decode_collective_s_per_token": [sum(
+                v["seconds"] for v in x["decode_collectives"].values())
+                / gen for x in legs],
+            "peak_gb_by_rank": [x["peak_bytes"] / 1e9 for x in legs],
+            "param_gb_by_rank": [x["param_bytes"] / 1e9 for x in legs],
+            "init_s": [x["init_s"] for x in legs],
+            "prefill_launches_rank0": legs[0]["prefill_launches"],
+            "decode_launches_rank0": legs[0]["decode_launches"]}
+        if "gaps_vs_one_card" in legs[0]:
+            models[arch]["max_gap_vs_one_card"] = max(
+                max(x["gaps_vs_one_card"]) for x in legs)
+            models[arch]["argmax_agreement"] = [x["argmax_agreement"]
+                                                for x in legs]
+    res = {"ranks": RANKS, "mesh": ranks[0]["mesh"],
+           "transport": "gloo (CUDA tensors staged through pinned host "
+                        "memory)",
+           "parity": [{k: v for k, v in leg.items() if k != "errors"}
+                      for leg in ranks[0]["parity"]],
+           "parity_max_gap": max(leg["max_gap"] for r in ranks
+                                 for leg in r["parity"]),
+           "models": models, "one_card_s": one_card_s,
+           "one_card_wait_s": [r["one_card_wait_s"] for r in ranks],
+           "parity_s": [r["parity_s"] for r in ranks],
+           "rank_s": [r["rank_s"] for r in ranks],
+           "spawn_to_join_s": wall, "launches": launches,
+           "card": gpu_line()}
+    print("lm serve ranks " + json.dumps(res), flush=True)
+    errors = [(r["rank"], e) for r in ranks for leg in r["parity"]
+              for e in leg["errors"]]
+    require(not errors, f"phase 16: parity legs failed: {errors}")
+    for r in ranks:
+        for (arch, layers, _, _, _), leg in zip(SERVE_RANK_FULL, r["full"]):
+            from repro_torch.configs import get_config
+            cfg = get_config(arch)
+            if layers:
+                cfg = dataclasses.replace(cfg, n_layers=layers)
+            want = serve_flash_per_prefill(cfg)
+            got = leg["prefill_launches"].get("flash_attention", 0)
+            require(got == want, f"phase 16: rank {r['rank']} {arch}: "
+                    f"{got} flash launches in prefill, not {want}")
+            require(not any(k.startswith("flash") for k in
+                            leg["decode_launches"]),
+                    f"phase 16: rank {r['rank']} {arch}: flash launched "
+                    f"in decode ({leg['decode_launches']})")
+            require(leg["finite"] and leg["tokens_in_vocab"],
+                    f"phase 16: rank {r['rank']} {arch}: a logit is not "
+                    "finite or a token is outside the vocabulary")
+            if "gaps_vs_one_card" in leg:
+                gap = max(leg["gaps_vs_one_card"])
+                require(gap <= FAMILY_TOL, f"phase 16: rank {r['rank']} "
+                        f"{arch}: teacher-forced logits {gap:.3g} of the "
+                        f"largest from one card's (> {FAMILY_TOL})")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 5c: the segmented driver (checkpoints, resume, spool, retile)
 # ---------------------------------------------------------------------------
 
@@ -3444,13 +3824,14 @@ def lm_compare(a, b) -> dict:
 
 
 def decode(params, cfg, state, first_tok, steps: int, forced=None,
-           start: int = LM_PROMPT):
+           start: int = LM_PROMPT, rules=None):
     """``steps`` greedy decode steps from ``first_tok`` at ``start`` (or
-    teacher-forced on ``forced``: (B, steps) tokens).  Returns the tokens
-    fed, the logits of every step and the state."""
+    teacher-forced on ``forced``: (B, steps) tokens), on ranks under
+    ``rules``.  Returns the tokens fed, the logits of every step and the
+    state."""
     import torch
     from repro_torch.models.model import make_serve_step
-    step = make_serve_step(cfg)
+    step = make_serve_step(cfg, rules)
     tok, toks, lgs = first_tok, [], []
     for i in range(steps):
         if forced is not None:
@@ -5907,6 +6288,13 @@ def main() -> None:
     # the card (counts zeroed and read around each example)
     example_launches = run_examples()
     phase("15")
+
+    # 16. LM serving on ranks: four processes on the one card, (data 2,
+    # model 2); qwen2-1.5b served by this process first (each rank zeroes
+    # and reads its own counts around its rank serves; the sum is the
+    # ranks' launches)
+    serve_rank_launches = run_lm_serve_ranks()
+    phase("16")
     for k in kernels:
         if k["name"] in ("flash_attention", "flash_attention_tf32",
                          "tf32_split"):
@@ -5921,6 +6309,7 @@ def main() -> None:
         k["ensemble_launches"] = ens_launches.get(k["name"], 0)
         k["rank_launches"] = rank_launches.get(k["name"], 0)
         k["lm_rank_launches"] = lm_rank_launches.get(k["name"], 0)
+        k["lm_serve_rank_launches"] = serve_rank_launches.get(k["name"], 0)
         k["example_launches"] = {ex: n.get(k["name"], 0)
                                  for ex, n in example_launches.items()}
     print(json.dumps({"kernels": kernels}))

@@ -48,6 +48,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import multiprocessing
 import os
 import time
@@ -148,14 +149,19 @@ def _batch_rules(rules, shape, dp):
     return rules
 
 
-def rank_bytes(cfg, rules, optimizer=None, residuals: bool = False) -> dict:
+def rank_bytes(cfg, rules, optimizer=None, residuals: bool = False,
+               serving=None) -> dict:
     """The bytes one rank holds under ``rules`` (whose mesh need only
     carry its shape): the parameters' blocks, the optimizer state's
-    (``optimizer``: an ``optim.Optimizer``) and the pod step's float32
-    residuals, from the abstract trees (nothing allocated)."""
+    (``optimizer``: an ``optim.Optimizer``), the pod step's float32
+    residuals, and with ``serving`` (a decode or prefill shape cell)
+    the decode state's blocks (``decode_state_specs``: what
+    ``init_decode_state(..., rules=)`` allocates), from the abstract
+    trees (nothing allocated)."""
     from ..models import model as M
+    from ..models.transformer import decode_state_leaves
     from ..optim.compression import init_residuals
-    from ..parallel.sharding import rank_nbytes
+    from ..parallel.sharding import block_shape, rank_nbytes
     params, specs = M.abstract_params(cfg)
     out = {"params": rank_nbytes(params, specs, rules)}
     if optimizer is not None:
@@ -163,6 +169,11 @@ def rank_bytes(cfg, rules, optimizer=None, residuals: bool = False) -> dict:
                                        optimizer.state_specs(specs), rules)
     if residuals:
         out["residuals"] = rank_nbytes(init_residuals(params), specs, rules)
+    if serving is not None:
+        state = M.abstract_decode_state(cfg, _shape(serving))
+        out["decode_state"] = sum(
+            math.prod(block_shape(tuple(x.shape), n, rules))
+            * x.element_size() for x, n in decode_state_leaves(state))
     out["total"] = sum(out.values())
     return out
 

@@ -1,5 +1,6 @@
-"""Serving launcher on one card: LM batch serving *and* the simulation
-job service (the port of ``repro.launch.serve``).
+"""Serving launcher: LM batch serving on one card or on the ranks of a
+process group, *and* the simulation job service (the port of
+``repro.launch.serve``).
 
 Two arch families behind one entry point:
 
@@ -11,6 +12,15 @@ Two arch families behind one entry point:
 
       PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \\
           --batch 4 --prompt-len 32 --gen 16
+
+  ``--nproc N`` serves it on N rank processes (``launch.mesh.
+  spawn_ranks``; the host-mesh shape for N, or ``--mesh DxM``), each
+  with its blocks, its batch slice and its slots of every KV cache
+  (``serve_batch(mesh=)``); ``--transport gloo`` (the default) lets the
+  ranks share a card::
+
+      PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
+          --nproc 4 --device cpu
 
 * ``--arch sim``: a long-lived **simulation job server**.  Clients POST
   typed :class:`~repro_torch.runtime.SimJobSpec` JSON; one worker thread
@@ -69,6 +79,7 @@ from ..models.frontends import STUB_WIDTH
 from ..models.layers import torch_dtype
 from ..models.model import make_prefill, make_serve_step
 from ..models.transformer import init_decode_state, init_model
+from ..parallel.sharding import rules_for_mesh
 from ..obs.telemetry import NULL, Telemetry
 from ..runtime.jobs import JobError, SimJobSpec
 
@@ -82,15 +93,62 @@ def _sync(dev: torch.device) -> None:
 # LM serving path
 # --------------------------------------------------------------------------
 
+def serve_rules(cfg: ModelConfig, mesh, batch: int, max_len: int):
+    """The rules ``serve_batch`` serves ``cfg`` under on ``mesh``: the
+    reference's ``serve_batch`` overrides (``heads``, ``mlp`` and
+    ``experts`` whole where they do not divide over the ``model`` axis,
+    ``kv_seq`` whole when the state's ``max_len`` does not, ``batch``
+    whole when ``batch`` does not divide over the data ranks), its dry
+    run's for ``d_inner`` and ``vocab``, and ``fsdp = None``: a rank
+    holds its ``model``-axis blocks whole along ``data``."""
+    axes = dict(zip(mesh.axis_names, mesh.devices.shape))
+    model = axes.get("model", 1)
+    ov = {"fsdp": None}
+    if cfg.n_heads % model:
+        ov["heads"] = None
+    if cfg.d_ff % model or not cfg.d_ff:
+        ov["mlp"] = None
+    if cfg.n_experts and cfg.n_experts % model:
+        ov["experts"] = None
+    if max_len % model:
+        ov["kv_seq"] = None
+    if batch % (axes.get("data", 1) * axes.get("pod", 1)):
+        ov["batch"] = None
+    if cfg.d_inner % model or cfg.resolved_rglru_width % model:
+        ov["d_inner"] = None
+    if cfg.padded_vocab % model:
+        ov["vocab"] = None
+    return rules_for_mesh(mesh, **ov)
+
+
+def serve_inputs(cfg: ModelConfig, batch: int, prompt_len: int,
+                 seed: int = 0, device="cuda") -> dict:
+    """The inputs ``serve_batch`` serves, drawn as the reference draws
+    them from numpy ``default_rng(seed)``: ``tokens`` (batch,
+    prompt_len) int32, then whisper's ``frames`` (batch, encoder_seq,
+    STUB_WIDTH), then a VLM's ``patch_embeds`` (batch, n_patches,
+    STUB_WIDTH), normal, in the config's dtype; on ``device``."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    prompts = rng.integers(0, cfg.vocab_size,
+                           (batch, prompt_len)).astype(np.int32)
+    out = {"tokens": torch.from_numpy(prompts).to(dev)}
+    for key, n in (("frames", cfg.encoder_seq),
+                   ("patch_embeds", cfg.n_patches)):
+        if n:
+            out[key] = torch.from_numpy(rng.standard_normal(
+                (batch, n, STUB_WIDTH))).to(dev, torch_dtype(cfg.dtype))
+    return out
+
+
 def serve_batch(arch: str, batch: int, prompt_len: int, gen: int,
                 seed: int = 0, greedy: bool = True, device="cuda",
-                cfg: Optional[ModelConfig] = None) -> dict:
+                cfg: Optional[ModelConfig] = None, mesh=None) -> dict:
     """Prefill ``batch`` random prompts of ``prompt_len`` tokens, then
-    decode ``gen`` tokens greedily.  The inputs are drawn as the
-    reference draws them, from numpy ``default_rng(seed)``: the prompts,
-    then whisper's frames (batch, encoder_seq, STUB_WIDTH), then a VLM's
-    patch embeddings (batch, n_patches, STUB_WIDTH), normal, in the
-    config's dtype.  A VLM's patches prefix the prompt: its state holds
+    decode ``gen`` tokens greedily.  The inputs are ``serve_inputs``:
+    the prompts, then whisper's frames, then a VLM's patch embeddings,
+    drawn as the reference draws them.  A VLM's patches prefix the
+    prompt: its state holds
     ``n_patches + prompt_len + gen`` positions and step ``i`` decodes at
     ``n_patches + prompt_len + i`` (the reference sizes and places its
     decode without the prefix).  Parameters come from ``init_model``
@@ -99,35 +157,53 @@ def serve_batch(arch: str, batch: int, prompt_len: int, gen: int,
     ``tokens`` ((batch, gen) int32 numpy), ``prefill_s``,
     ``decode_s_per_token`` (host clock, CUDA-synchronised), ``config``
     (the config's name) and the kernels launched in each stage
-    (``prefill_launches``, ``decode_launches``: name -> count)."""
+    (``prefill_launches``, ``decode_launches``: name -> count).
+
+    ``mesh``: a ``launch.mesh.RankMesh`` with its collectives
+    (``parallel.collectives.attach``); every rank of it calls
+    ``serve_batch`` alike.  Each rank draws the whole inputs and takes
+    its batch slice (``data.pipeline.rank_batch``), holds its blocks of
+    the parameters (``init_model(..., rules=)``) and of the decode state
+    under ``serve_rules``, and every rank returns the whole ``tokens``
+    (gathered over the batch axes).  ``prefill_s`` and
+    ``decode_s_per_token`` are the slowest rank's; ``collectives`` holds
+    this rank's per-channel counts of each stage.  Placement: the
+    reference's ``serve_batch`` hands its jitted steps whole parameters,
+    and FSDP over ``data`` would gather every layer's parameters through
+    the host-staged transport at every decode step, so serving leaves
+    ``fsdp`` whole (``serve_rules``)."""
     if not greedy:
         raise NotImplementedError("only greedy decoding is implemented "
                                   "(the reference decodes greedily too)")
     dev = resolve_device(device)
     cfg = cfg or get_reduced(arch)
-    params = init_model(cfg, seed=seed, device=dev)
-    rng = np.random.default_rng(seed)
-    prompts = rng.integers(0, cfg.vocab_size,
-                           (batch, prompt_len)).astype(np.int32)
-    batch_in = {"tokens": torch.from_numpy(prompts).to(dev)}
-    dtype = torch_dtype(cfg.dtype)
-    for key, n in (("frames", cfg.encoder_seq),
-                   ("patch_embeds", cfg.n_patches)):
-        if n:
-            batch_in[key] = torch.from_numpy(rng.standard_normal(
-                (batch, n, STUB_WIDTH))).to(dev, dtype)
     start = cfg.n_patches + prompt_len
-    state = init_decode_state(cfg, batch, start + gen, device=dev)
-    prefill = make_prefill(cfg)
-    serve_step = make_serve_step(cfg)
+    rules = None if mesh is None else serve_rules(cfg, mesh, batch,
+                                                  start + gen)
+    params = init_model(cfg, seed=seed, device=dev, rules=rules)
+    batch_in = serve_inputs(cfg, batch, prompt_len, seed, dev)
+    if rules is not None:
+        from ..data.pipeline import rank_batch
+        batch_in = rank_batch(batch_in, rules)
+    state = init_decode_state(cfg, batch, start + gen, device=dev,
+                              rules=rules)
+    prefill, serve_step = make_prefill(cfg, rules), make_serve_step(cfg,
+                                                                    rules)
+    comm = None if mesh is None else mesh.comm
 
     _sync(dev)
+    if comm is not None:
+        comm.reset_stats()
     before = _build.launch_counts()
     t0 = time.perf_counter()
     logits, state = prefill(params, batch_in, state)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
     prefill_launches = _build.launches_since(before)
+    stats = {}
+    if comm is not None:
+        stats["prefill"] = comm.stats
+        comm.reset_stats()
     before = _build.launch_counts()
 
     toks = []
@@ -140,12 +216,26 @@ def serve_batch(arch: str, batch: int, prompt_len: int, gen: int,
     _sync(dev)
     t_decode = time.perf_counter() - t0
     decode_launches = _build.launches_since(before)
-    out = (torch.cat(toks, dim=1).cpu().numpy() if toks
-           else np.zeros((batch, 0), np.int32))
+    out = (torch.cat(toks, dim=1) if toks
+           else torch.zeros((batch_in["tokens"].shape[0], 0),
+                            dtype=torch.int32, device=dev))
+    res = {"prefill_s": t_prefill,
+           "decode_s_per_token": t_decode / gen if gen else 0.0}
+    if comm is not None:
+        from ..parallel.collectives import (all_gather_plain,
+                                            all_reduce_plain)
+        stats["decode"] = comm.stats
+        comm.reset_stats()
+        out = all_gather_plain(out, mesh, rules.batch, 0, "serve")
+        slowest = all_reduce_plain(torch.tensor(
+            [t_prefill, res["decode_s_per_token"]], dtype=torch.float64,
+            device=dev), mesh, mesh.axis_names, op="max", channel="serve")
+        res = {"prefill_s": float(slowest[0]),
+               "decode_s_per_token": float(slowest[1]),
+               "collectives": stats}
     return {
-        "tokens": out,
-        "prefill_s": t_prefill,
-        "decode_s_per_token": t_decode / gen if gen else 0.0,
+        "tokens": out.cpu().numpy(),
+        **res,
         "config": cfg.name,
         "prefill_launches": prefill_launches,
         "decode_launches": decode_launches,
@@ -416,6 +506,13 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="where the models or simulations run (default "
                          "cuda; cpu runs the kernels' plain versions)")
+    ap.add_argument("--nproc", type=int, default=0,
+                    help="LM rank processes (0: this process, no mesh)")
+    ap.add_argument("--mesh", default=None,
+                    help="DxM ranks on (data, model) (default: the "
+                         "host-mesh shape of --nproc)")
+    ap.add_argument("--transport", default="gloo",
+                    choices=("gloo", "nccl"))
     args = ap.parse_args(argv)
 
     choices = ("sim",) + tuple(ARCH_NAMES)
@@ -434,11 +531,41 @@ def main(argv=None):
         raise SystemExit(
             f"--arch {args.arch!r}: unknown arch; choices: "
             + ", ".join(choices))
-    out = serve_batch(args.arch, args.batch, args.prompt_len, args.gen,
-                      device=args.device)
+    if args.nproc:
+        from .mesh import spawn_ranks
+        spawn_ranks(_serve_rank_main, args.nproc, args=(vars(args),),
+                    backend=args.transport)
+        return
+    _report(serve_batch(args.arch, args.batch, args.prompt_len, args.gen,
+                        device=args.device))
+
+
+def _report(out: dict) -> None:
     print(f"{out['config']}: prefill {out['prefill_s']*1e3:.1f} ms, "
           f"decode {out['decode_s_per_token']*1e3:.2f} ms/token, "
           f"generated shape {out['tokens'].shape}")
+
+
+def _serve_rank_main(rank: int, world: int, args: dict) -> None:
+    """One rank of ``--nproc``: its mesh and collectives, then
+    ``serve_batch(mesh=)``; rank 0 reports (the slowest rank's times)
+    and the collectives of each stage."""
+    from ..core.halo import Transport
+    from ..parallel.collectives import attach
+    from .mesh import make_host_mesh
+    dims = None if args["mesh"] is None else tuple(
+        int(v) for v in args["mesh"].lower().split("x"))
+    dev = args["device"]
+    if dev == "cuda":
+        dev = f"cuda:{rank % torch.cuda.device_count()}"
+        torch.cuda.set_device(dev)
+    mesh = attach(make_host_mesh(dims), Transport(args["transport"], dev))
+    out = serve_batch(args["arch"], args["batch"], args["prompt_len"],
+                      args["gen"], device=dev, mesh=mesh)
+    if rank == 0:
+        _report(out)
+        for stage, chans in out["collectives"].items():
+            print(f"{stage} collectives (rank 0): " + json.dumps(chans))
 
 
 if __name__ == "__main__":

@@ -62,15 +62,11 @@ def rules_for(cfg, mesh):
 
 
 def rank_model(cfg, rules, seed: int = 0, device="cuda"):
-    """``(blocks, specs)``: the whole model built from ``seed`` on
-    ``device`` (``init_model``, the same numbers on every rank), cut to
-    this rank's blocks under ``rules``, the whole freed."""
-    from ..parallel.sharding import block_tree
-    whole = init_model(cfg, seed, device=device)
-    specs = param_specs(whole)
-    blocks = block_tree(whole, specs, rules)
-    del whole
-    return blocks, specs
+    """``(blocks, specs)``: the model drawn from ``seed`` on ``device``
+    (the same numbers on every rank), cut to this rank's blocks under
+    ``rules`` part by part (``init_model(..., rules=)``)."""
+    blocks = init_model(cfg, seed, device=device, rules=rules)
+    return blocks, param_specs(blocks)
 
 
 def _leaf_specs(tree):

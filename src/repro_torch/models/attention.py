@@ -17,14 +17,21 @@ reference repeats KV to the query-head count before the kernel, for
 tensor-parallel sharding; each query head sees the same values either
 way.)
 
-On ranks (``rules`` with a mesh, training and evaluation) the query
-heads are split over the ``heads`` axes: ``wq`` and ``wo`` are this
-rank's heads (``("fsdp", "heads", None)`` / ``("heads", None,
-"fsdp")``), ``wk``/``wv`` stay whole (``kv_heads`` is None, as the
-reference specs them) and each rank takes only the KV heads its query
-heads group onto; the FSDP dims are gathered per call and the output is
-summed over the heads axes.  Caches (``kv_seq``) and cross-attention on
-ranks raise.  Caches are updated in place, which
+On ranks (``rules`` with a mesh) the query heads are split over the
+``heads`` axes: ``wq`` and ``wo`` are this rank's heads (``("fsdp",
+"heads", None)`` / ``("heads", None, "fsdp")``), ``wk``/``wv`` stay
+whole (``kv_heads`` is None, as the reference specs them) and each rank
+attends with only the KV heads its query heads group onto; the FSDP
+dims are gathered per call and the output is summed over the heads
+axes.  A self-attention cache is split by sequence (``kv_seq``): each
+rank holds the slots ``[r W/M, (r+1) W/M)`` of every KV head, so
+prefill writes the keys whose slots it holds, decode writes the token's
+key on the rank that holds its slot, and a decode step is the
+reference's "flash-decoding pattern" (``_rank_decode``): every rank
+takes the partial softmax of every query head over its own slots and
+the partials are combined over the ``kv_seq`` axes.  A cross cache is
+split by batch only: every ``model`` rank holds all of it.  Caches are
+updated in place, which
 saves a copy of every layer's cache per step; the functions still return
 the cache, as the reference does.  Cross-attention (whisper's decoder)
 takes its keys and values from the encoder's output (``kv_x``) or from a
@@ -42,8 +49,9 @@ from torch.profiler import record_function
 
 from .. import resolve_device
 from ..kernels import ops, ref
-from ..parallel.collectives import gather_dim, index_along, psum_over
-from ..parallel.sharding import on_ranks
+from ..parallel.collectives import (all_gather_plain, gather_dim,
+                                    index_along, psum_over)
+from ..parallel.sharding import live_axes, on_ranks
 from .config import ModelConfig
 from .layers import _normal, apply_rmsnorm, apply_rope
 
@@ -374,35 +382,51 @@ def _cached_prefix(cache: KVCache, cache_pos: int, k, v):
             n_prev)
 
 
-def _decode_attention(q, cache: KVCache, cur_len: int, window):
-    """One-token attention over the cache.  q: (B, 1, H, D)."""
-    b, _, h, dh = q.shape
-    kvh, s_cache = cache.k.shape[2], cache.k.shape[1]
-    scale = 1.0 / math.sqrt(dh)
-    qg = _grouped(q, kvh)                        # (B, Kv, g, 1, D)
-    kc = cache.k.permute(0, 2, 1, 3)             # (B, Kv, S, D)
-    vc = cache.v.permute(0, 2, 1, 3)
-    s = torch.einsum("bkgqd,bksd->bkgqs", qg.to(torch.float32),
-                     kc.to(torch.float32)) * scale
-    pos = torch.arange(s_cache, device=q.device)
+def _decode_partial(q, cache: KVCache, cur_len: int, window, lo: int,
+                    w: int):
+    """One query token's softmax over the slots ``lo ..`` (on ranks,
+    this rank's) of a cache of ``w`` slots, unnormalised, in float32
+    (the reference's ``_decode_attention`` masks): ``(m, l, o)``,
+    the row maxima (B, Kv, g, 1, 1), the sums of ``exp(s - m)`` and the
+    weighted values (B, Kv, g, 1, D).  A row whose slots are all masked
+    has ``m = NEG_INF`` and ``l = o = 0``."""
+    dh = q.shape[-1]
+    kvh, w_loc = cache.k.shape[2], cache.k.shape[1]
+    qg = _grouped(q, kvh).to(torch.float32)
+    s = torch.einsum("bkgqd,bksd->bkgqs", qg,
+                     cache.k.permute(0, 2, 1, 3).to(torch.float32)) \
+        * (1.0 / math.sqrt(dh))
+    pos = lo + torch.arange(w_loc, device=q.device)
     if cache.ring:
-        # the ring holds the last W keys: slots < min(len, W) are valid
-        mask = pos < min(cur_len, s_cache)
+        mask = pos < min(cur_len, w)
     else:
         mask = pos < cur_len
         if window is not None:
             mask = mask & (pos >= cur_len - window)
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqs,bksd->bkgqd", p, vc.to(torch.float32))
-    return o.permute(0, 3, 1, 2, 4).reshape(b, 1, h, dh).to(q.dtype)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m) * mask
+    o = torch.einsum("bkgqs,bksd->bkgqd", p,
+                     cache.v.permute(0, 2, 1, 3).to(torch.float32))
+    return m, p.sum(dim=-1, keepdim=True), o
+
+
+def _decode_attention(q, cache: KVCache, cur_len: int, window):
+    """One-token attention over the cache.  q: (B, 1, H, D); the
+    softmax in float32 (``_decode_partial`` over every slot)."""
+    b, _, _, dh = q.shape
+    _, l, o = _decode_partial(q, cache, cur_len, window, 0,
+                              cache.k.shape[1])
+    return (o / l).permute(0, 3, 1, 2, 4).reshape(b, 1, -1, dh).to(q.dtype)
 
 
 def _cross_attention(p, cfg: ModelConfig, x, positions, kv_x,
-                     cache: Optional[KVCache]):
+                     cache: Optional[KVCache], sel=slice(None)):
     """Cross-attention's (B, S, H, D) output (the modes of
     ``apply_attention``).  Keys sit at positions ``arange(Sk)``; nothing
-    is causal."""
+    is causal.  A cache written here holds every KV head; the attention
+    reads the KV heads ``sel`` (on ranks, those of the local query
+    heads)."""
     q = _project_q(p, cfg, x, positions)
     if kv_x is not None:
         sk = kv_x.shape[1]
@@ -417,10 +441,11 @@ def _cross_attention(p, cfg: ModelConfig, x, positions, kv_x,
     elif cache is None:
         raise ValueError("update_cache=False reads a static cross cache: "
                          "pass cache=")
-    elif x.shape[1] == 1:
-        return _decode_attention(q, cache, cache.k.shape[1], None)
     else:
         k, v = cache.k, cache.v
+    k, v = k[:, :, sel], v[:, :, sel]
+    if kv_x is None and x.shape[1] == 1:
+        return _decode_attention(q, KVCache(k, v), k.shape[1], None)
     return _full_attention(q, k, v, cfg, causal=False, window=None)
 
 
@@ -436,10 +461,12 @@ def local_kv_heads(n_heads: int, n_kv: int, h0: int, h_loc: int):
     return torch.arange(h0, h0 + h_loc) // group
 
 
-def _rank_attention(p, cfg: ModelConfig, x, positions, causal, window,
-                    rules):
-    """Self-attention (no cache) of this rank's query heads and the KV
-    heads they read; the output summed over the heads axes."""
+def _rank_params(p, cfg: ModelConfig, rules, select_kv: bool):
+    """This rank's projections, the FSDP dims gathered: ``wq``/``bq``/
+    ``wo`` its query heads, ``wk``/``wv``/``bk``/``bv`` every KV head
+    (``select_kv``: only those its query heads read).  Returns ``(p,
+    sel, h0)``: ``sel`` the KV heads its query heads read
+    (``local_kv_heads``), ``h0`` its first query head."""
     if rules.kv_heads is not None:
         raise NotImplementedError("kv_heads split over ranks: the "
                                   "reference keeps K/V whole")
@@ -448,18 +475,116 @@ def _rank_attention(p, cfg: ModelConfig, x, positions, causal, window,
               wv=gather_dim(p["wv"], rules, "fsdp", 0),
               wo=gather_dim(p["wo"], rules, "fsdp", 2))
     h_loc = wq.shape[1]
-    sel = local_kv_heads(cfg.n_heads, cfg.n_kv_heads,
-                         index_along(rules, "heads")[0] * h_loc, h_loc)
+    h0 = index_along(rules, "heads")[0] * h_loc
+    sel = local_kv_heads(cfg.n_heads, cfg.n_kv_heads, h0, h_loc)
     if isinstance(sel, torch.Tensor):
-        sel = sel.to(x.device)
-    for k, dim in (("wk", 1), ("wv", 1), ("bk", 0), ("bv", 0)):
-        if k in pl:
-            idx = [slice(None)] * dim + [sel]
-            pl[k] = pl[k][tuple(idx)]
+        sel = sel.to(wq.device)
+    if select_kv:
+        for k, dim in (("wk", 1), ("wv", 1), ("bk", 0), ("bv", 0)):
+            if k in pl:
+                pl[k] = pl[k][(slice(None),) * dim + (sel,)]
+    return pl, sel, h0
+
+
+def _rank_attention(p, cfg: ModelConfig, x, positions, causal, window,
+                    rules):
+    """Self-attention (no cache) of this rank's query heads and the KV
+    heads they read; the output summed over the heads axes."""
+    pl, _, _ = _rank_params(p, cfg, rules, select_kv=True)
     q = _project_q(pl, cfg, x, positions)
     k, v = _project_kv(pl, cfg, x, torch.arange(x.shape[1],
                                                   device=x.device))
     out = _full_attention(q, k, v, cfg, causal=causal, window=window)
+    return psum_over(_project_out(pl, out), rules, "heads", "tp")
+
+
+def _slot_range(cache: KVCache, rules) -> tuple:
+    """``(lo, W)``: the first global slot of this rank's part of a
+    ``kv_seq``-split cache, and the cache's global slot count."""
+    part, parts = index_along(rules, "kv_seq")
+    w_loc = cache.k.shape[1]
+    return part * w_loc, parts * w_loc
+
+
+def _write_own(cache: KVCache, k, v, first: int, rules) -> None:
+    """Write the keys and values of positions ``first, first + 1, ..``
+    (``k``'s rows) whose slots (``position % W`` in a ring) this rank
+    holds."""
+    lo, w = _slot_range(cache, rules)
+    pos = torch.arange(first, first + k.shape[1])
+    slot = pos % w if cache.ring else pos
+    mine = (slot >= lo) & (slot < lo + cache.k.shape[1])
+    if bool(mine.any()):
+        rows = (pos[mine] - first).to(k.device)
+        idx = (slot[mine] - lo).to(k.device)
+        cache.k[:, idx] = k[:, rows]
+        cache.v[:, idx] = v[:, rows]
+
+
+def _rank_decode(q, cache: KVCache, cur_len: int, window, sel, h0: int,
+                 rules):
+    """One token's attention over a ``kv_seq``-split cache: q (B, 1,
+    H_loc, D), this rank's heads from ``h0``.  The query of every head
+    is gathered over the heads axes; each rank takes the partial softmax
+    of every head over its slots (``_decode_partial``); the partials
+    ``(m, l, o)`` of every rank are gathered over the ``kv_seq`` axes
+    (one call) and combined alike on each rank, ``M`` the maximum of
+    the ranks' ``m`` and each rank's ``l`` and ``o`` weighed by ``exp(m
+    - M)`` (exactly 0 for a rank whose slots are all masked: ``m =
+    NEG_INF``); each rank keeps its own heads.  Without a split
+    ``kv_seq`` the rank attends with its own heads over the whole cache
+    (the KV heads ``sel``).  Returns (B, 1, H_loc, D) in q's dtype."""
+    b, _, h_loc, dh = q.shape
+    lo, w = _slot_range(cache, rules)
+    seq_axes = live_axes(rules, rules.kv_seq)
+    if not seq_axes:
+        cache = KVCache(cache.k[:, :, sel], cache.v[:, :, sel], cache.ring)
+    else:
+        q = gather_dim(q, rules, "heads", 2, "tp")
+    m, l, o = _decode_partial(q, cache, cur_len, window, lo, w)
+    if seq_axes:
+        parts = all_gather_plain(torch.cat([m, l, o], -1)[None],
+                                 rules.mesh, seq_axes, 0, "kv")
+        scale = torch.exp(parts[..., :1] - parts[..., :1].amax(dim=0))
+        l = (parts[..., 1:2] * scale).sum(dim=0)
+        o = (parts[..., 2:] * scale).sum(dim=0)
+    out = (o / l).permute(0, 3, 1, 2, 4).reshape(b, 1, -1, dh)
+    return out[:, :, h0:h0 + h_loc].to(q.dtype) if seq_axes \
+        else out.to(q.dtype)
+
+
+def _rank_cached_attention(p, cfg: ModelConfig, x, positions, causal,
+                           window, cache: KVCache, cache_pos: int, rules):
+    """Self-attention with a ``kv_seq``-split cache on ranks (the
+    prefill and decode modes of ``apply_attention``): this rank's query
+    heads, every KV head projected (the rank writes every KV head of
+    the slots it holds).  A prefill attends through the flash route
+    (at ``cache_pos > 0`` over the cache gathered over ``kv_seq`` and
+    the prompt, ``_cached_prefix``), then writes its slots of the
+    prompt's keys (the last ``W`` of them in a ring); a decode step
+    writes the token's key on the rank that holds its slot and attends
+    through ``_rank_decode``.  The output is summed over the heads
+    axes."""
+    pl, sel, h0 = _rank_params(p, cfg, rules, select_kv=False)
+    q = _project_q(pl, cfg, x, positions)
+    k, v = _project_kv(pl, cfg, x, positions)
+    s_q = x.shape[1]
+    if s_q > 1:
+        if cache_pos:
+            whole = KVCache(gather_dim(cache.k, rules, "kv_seq", 1, "kv"),
+                            gather_dim(cache.v, rules, "kv_seq", 1, "kv"),
+                            cache.ring)
+            kc, vc, q_off = _cached_prefix(whole, cache_pos, k, v)
+        else:
+            kc, vc, q_off = k, v, 0
+        out = _full_attention(q, kc[:, :, sel], vc[:, :, sel], cfg,
+                              causal=causal, window=window, q_offset=q_off)
+        w = _slot_range(cache, rules)[1]
+        skip = s_q - min(w, s_q) if cache.ring else 0
+        _write_own(cache, k[:, skip:], v[:, skip:], cache_pos + skip, rules)
+    else:
+        _write_own(cache, k, v, cache_pos, rules)
+        out = _rank_decode(q, cache, cache_pos + 1, window, sel, h0, rules)
     return psum_over(_project_out(pl, out), rules, "heads", "tp")
 
 
@@ -492,17 +617,21 @@ def apply_attention(p, cfg: ModelConfig, x, positions, *, causal=True,
                            over the whole cache through the flash route
                            (the reference would run causal self-attention
                            over the chunk with the cross weights there).
-    The cache is written in place.  On ranks (``rules`` with a mesh):
-    self-attention without a cache only (see the module docstring).
+    The cache is written in place.  On ranks (``rules`` with a mesh)
+    every mode runs on this rank's heads and cache slots (the module
+    docstring).
     """
     if on_ranks(rules):
-        if kv_x is not None or not update_cache or cache is not None:
-            raise NotImplementedError(
-                "attention on ranks runs training and evaluation only: "
-                "KV caches (kv_seq) and cross-attention under rules are "
-                "ROADMAP item 6b-LM part 2")
-        return _rank_attention(p, cfg, x, positions, causal, window,
-                               rules), None
+        if kv_x is not None or not update_cache:
+            pl, sel, _ = _rank_params(p, cfg, rules, select_kv=False)
+            out = _cross_attention(pl, cfg, x, positions, kv_x, cache, sel)
+            return psum_over(_project_out(pl, out), rules, "heads",
+                             "tp"), cache
+        if cache is None:
+            return _rank_attention(p, cfg, x, positions, causal, window,
+                                   rules), None
+        return _rank_cached_attention(p, cfg, x, positions, causal, window,
+                                      cache, cache_pos, rules), cache
     if kv_x is not None or not update_cache:
         out = _cross_attention(p, cfg, x, positions, kv_x, cache)
         return _project_out(p, out), cache

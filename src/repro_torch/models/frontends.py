@@ -13,6 +13,7 @@ import math
 
 import torch
 
+from ..parallel.collectives import gather_dim
 from .config import ModelConfig
 from .layers import _normal, sinusoidal_positions
 
@@ -26,22 +27,23 @@ def init_frontend(gen, cfg: ModelConfig, dtype) -> dict:
                                1 / math.sqrt(STUB_WIDTH), dtype)}
 
 
-def _adapt(p, x):
+def _adapt(p, x, rules=None):
     """``x @ adapter`` in the wider of the two dtypes, as the reference's
-    product promotes them (float32 embeddings into a bf16 model)."""
-    w = p["adapter"]
+    product promotes them (float32 embeddings into a bf16 model).  On
+    ranks the adapter's ``(None, "fsdp")`` block is gathered whole."""
+    w = gather_dim(p["adapter"], rules, "fsdp", 1)
     dt = torch.promote_types(x.dtype, w.dtype)
     return x.to(dt) @ w.to(dt)
 
 
-def apply_audio_frontend(p, frames):
+def apply_audio_frontend(p, frames, rules=None):
     """frames: (B, n_frames, STUB_WIDTH) precomputed conv features."""
-    x = _adapt(p, frames)
+    x = _adapt(p, frames, rules)
     pos = sinusoidal_positions(frames.shape[1], x.shape[-1],
                                device=x.device).to(x.dtype)
     return x + pos[None]
 
 
-def apply_patch_frontend(p, patches):
+def apply_patch_frontend(p, patches, rules=None):
     """patches: (B, n_patches, STUB_WIDTH) precomputed ViT patch embeds."""
-    return _adapt(p, patches)
+    return _adapt(p, patches, rules)

@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from ..parallel.collectives import gather_dim, index_along, psum_over
+from ..parallel.sharding import Halves
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -98,7 +99,8 @@ _LEAF_NAMES = {
     "wv": ("fsdp", "kv_heads", None), "wo": ("heads", None, "fsdp"),
     "bq": ("heads", None), "bk": ("kv_heads", None),
     "bv": ("kv_heads", None), "q_norm": (None,), "k_norm": (None,),
-    "in_proj": ("fsdp", "d_inner"), "out_proj": ("d_inner", "fsdp"),
+    # [x | z] side by side: each rank holds its channels of both halves
+    "in_proj": ("fsdp", Halves("d_inner")), "out_proj": ("d_inner", "fsdp"),
     "x_proj": ("d_inner", None), "dt_proj": (None, "d_inner"),
     "dt_bias": ("d_inner",), "a_log": ("d_inner", None),
     "d_skip": ("d_inner",), "w_a": (None, "d_inner"), "b_a": ("d_inner",),

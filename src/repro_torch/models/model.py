@@ -7,8 +7,9 @@ an optional keyword: None is one card, and rules with a rank mesh
 process group, each rank with its block of every parameter (the
 ``param_specs`` names) and its slice of the batch
 (``data.pipeline.rank_batch``); ``make_compressed_pod_train_step``
-carries the gradient across pods in int8.  Serving under rules raises
-(``kv_seq``: ROADMAP item 6b-LM part 2).  The abstract inputs of a shape cell
+carries the gradient across pods in int8, and ``make_prefill`` /
+``make_serve_step`` serve from this rank's blocks of the decode state
+(KV caches split by sequence, ``kv_seq``).  The abstract inputs of a shape cell
 (``input_specs``, ``abstract_params``, ``abstract_decode_state``) are
 ``"meta"`` tensors, the dry run's inputs (``launch.dryrun``).  Nothing is jitted: the returned
 functions run eagerly.  The train step updates the parameters and the
@@ -28,12 +29,11 @@ from ..parallel.collectives import (all_reduce_plain, gather_dim,
 from ..parallel.sharding import (on_ranks, replicated_axes, rule_axes,
                                  shard_axes, spec_leaves)
 from ..tree import tree_flatten, tree_unflatten
-from .attention import KVCache
 from .config import ModelConfig, ShapeConfig
 from .frontends import STUB_WIDTH
 from .layers import torch_dtype
-from .transformer import (abstract_model, forward, init_decode_state,
-                          logits as lm_logits)
+from .transformer import (abstract_model, decode_state_names, forward,
+                          init_decode_state, logits as lm_logits)
 
 
 # ---------------------------------------------------------------------------
@@ -197,7 +197,7 @@ def _check_optimizer(optimizer, specs, rules) -> None:
         raise NotImplementedError(
             "Adafactor over leaves split across ranks (its factored "
             "moments need row and column sums across the ranks): ROADMAP "
-            "item 6b-LM part 2")
+            "item 6b-LM part 3")
 
 
 def make_train_step(cfg: ModelConfig, optimizer, microbatches: int = 1,
@@ -307,11 +307,18 @@ def make_compressed_pod_train_step(cfg: ModelConfig, rules, optimizer):
 # Serving
 # ---------------------------------------------------------------------------
 
-def _serve_on_one_card(rules) -> None:
-    if on_ranks(rules):
-        raise NotImplementedError(
-            "serving under rules needs the KV caches split (kv_seq): "
-            "ROADMAP item 6b-LM part 2")
+def serve_logits(params, x, rules=None):
+    """The padded-vocabulary logits of the hidden ``x`` (B, S, d).  On
+    ranks the table is this rank's ``("vocab", "fsdp")`` block: its
+    FSDP dim gathered, its vocabulary range's logits gathered over the
+    vocab axes, so every rank holds the whole row (whose ``argmax``,
+    the first index on ties as the reference's, is then the same token
+    on every rank)."""
+    if not on_ranks(rules):
+        return lm_logits(params, x)
+    table = gather_dim(params["embed"]["table"], rules, "fsdp", 1)
+    part = lm_logits({"embed": {"table": table}}, x)
+    return gather_dim(part, rules, "vocab", part.dim() - 1, "tp")
 
 
 def make_prefill(cfg: ModelConfig, rules=None):
@@ -322,14 +329,15 @@ def make_prefill(cfg: ModelConfig, rules=None):
     whisper's ``frames`` or a VLM's ``patch_embeds``) while writing the
     KV caches, the cross caches and the recurrent states, so decode
     continues from ``pos = prompt_len`` (a VLM's ``n_patches +
-    prompt_len``: the patches prefix the prompt)."""
-
-    _serve_on_one_card(rules)
+    prompt_len``: the patches prefix the prompt).  On ranks (``rules``
+    with a mesh): this rank's blocks, batch slice and state blocks
+    (``init_decode_state(..., rules=)``); the logits are the slice's
+    whole rows (``serve_logits``)."""
 
     def prefill(params, batch, state):
         x, new_state, _ = forward(params, cfg, batch, state=state,
-                                  cache_pos=0)
-        return lm_logits(params, x[:, -1:, :]), new_state
+                                  cache_pos=0, rules=rules)
+        return serve_logits(params, x[:, -1:, :], rules), new_state
 
     return prefill
 
@@ -338,14 +346,12 @@ def make_serve_step(cfg: ModelConfig, rules=None):
     """serve_step(params, state, token, pos) -> (logits (B, 1, V), state).
 
     One decode step: ``token`` (B, 1) at position ``pos`` (an int) given
-    states filled up to ``pos``."""
-
-    _serve_on_one_card(rules)
+    states filled up to ``pos`` (on ranks, as ``make_prefill``)."""
 
     def serve_step(params, state, token, pos: int):
         x, new_state, _ = forward(params, cfg, {"tokens": token},
-                                  state=state, cache_pos=pos)
-        return lm_logits(params, x), new_state
+                                  state=state, cache_pos=pos, rules=rules)
+        return serve_logits(params, x, rules), new_state
 
     return serve_step
 
@@ -395,24 +401,8 @@ def abstract_decode_state(cfg: ModelConfig, shape: ShapeConfig):
 
 def decode_state_specs(cfg: ModelConfig, shape: ShapeConfig):
     """The reference's logical axis names of every decode-state leaf, in
-    the state's tree (a ``KVCache`` of two name tuples per attention
-    layer): KV caches shard (batch, kv_seq), recurrent states their
-    channel axis, whisper's cross caches batch only.  The port's
-    per-layer leaves have no ``"stack"`` axis.  No mesh is needed: the
-    names are data that a placement maps to devices."""
-    def cache(c: KVCache, cross: bool) -> KVCache:
-        nd = c.k.dim()
-        names = (("batch",) + (None,) * (nd - 1) if cross else
-                 ("batch", "kv_seq") + (None,) * (nd - 2))
-        return KVCache(names, names, c.ring)
-
-    recurrent = {"conv": ("batch", None, "d_inner"),
-                 "ssm": ("batch", "d_inner", None),
-                 "h": ("batch", "d_inner")}
-    state = abstract_decode_state(cfg, shape)
-    out = {"layers": [cache(st, False) if isinstance(st, KVCache)
-                      else {k: recurrent[k] for k in st}
-                      for st in state["layers"]]}
-    if "cross" in state:
-        out["cross"] = [cache(c, True) for c in state["cross"]]
-    return out
+    the state's tree (``transformer.decode_state_names``): KV caches
+    shard (batch, kv_seq), recurrent states their channel axis,
+    whisper's cross caches batch only.  No mesh is needed: the names
+    are data that a placement maps to devices."""
+    return decode_state_names(abstract_decode_state(cfg, shape))

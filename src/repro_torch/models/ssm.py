@@ -13,6 +13,15 @@ position.  Single-token decode is the closed-form one-step update.
 The state is ``{"conv": (B, k-1, d_inner), "ssm": (B, d_inner, N)
 float32}``; ``apply_mamba`` returns a new state dict and leaves the one
 it was given unchanged.
+
+On ranks (``rules`` with a mesh) every rank holds its ``d_inner / M``
+channels of each leaf: ``in_proj``'s block is its slice of both halves
+(``parallel.sharding.Halves``), the conv, ``dt_proj``, ``dt_bias``,
+``a_log``, ``d_skip``, the scan and the state are per channel and
+local, and the two products that contract over the channels,
+``x_proj`` and ``out_proj``, are summed over the ``d_inner`` axes.
+``x_proj``'s product is taken once for the whole sequence (one sum a
+layer, not one a chunk).
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.collectives import gather_dim, psum_over
 from .config import ModelConfig
 from .layers import _normal, apply_conv1d, init_conv1d, random_uniform
 
@@ -99,22 +109,28 @@ def init_mamba(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
     }
 
 
-def _ssm_inputs(p, cfg: ModelConfig, x_c):
-    """Per-position SSM tensors from the conv output (any length):
-    dt (softplus, float32), B and C (float32)."""
+def _xdb(p, x_c, rules):
+    """``x_c @ x_proj`` (B, S, r + 2N): on ranks summed over the
+    ``d_inner`` axes (each rank holds its channels' rows)."""
+    return psum_over(x_c @ p["x_proj"], rules, "d_inner", "tp")
+
+
+def _ssm_inputs(p, cfg: ModelConfig, xdb):
+    """Per-position SSM tensors from ``_xdb`` of the conv output (any
+    length): dt (softplus, float32), B and C (float32)."""
     n, r = cfg.ssm_state, cfg.resolved_dt_rank
-    xdb = x_c @ p["x_proj"]
     dt_low, b_in, c_in = torch.split(xdb, [r, n, n], dim=-1)
     dt = F.softplus((dt_low @ p["dt_proj"]).to(torch.float32)
                     + p["dt_bias"])
     return dt, b_in.to(torch.float32), c_in.to(torch.float32)
 
 
-def _chunk_step(p, cfg: ModelConfig, a_neg, h, x_chunk, n_valid: int):
+def _chunk_step(p, cfg: ModelConfig, a_neg, h, x_chunk, xdb_chunk,
+                n_valid: int):
     """One chunk of the scan: (h_last, y (B, C, di) float32).  Positions
     from ``n_valid`` on are padding: they must not advance the state
     (a = 1, b = 0 there)."""
-    dt, b_in, c_in = _ssm_inputs(p, cfg, x_chunk)
+    dt, b_in, c_in = _ssm_inputs(p, cfg, xdb_chunk)
     xf = x_chunk.to(torch.float32)
     a = torch.exp(dt[..., None] * a_neg[None, None])        # (B,C,di,N)
     bx = dt[..., None] * b_in[:, :, None, :] * xf[..., None]
@@ -128,7 +144,8 @@ def _chunk_step(p, cfg: ModelConfig, a_neg, h, x_chunk, n_valid: int):
     return h_last, y
 
 
-def apply_mamba(p, cfg: ModelConfig, x, state: Optional[dict] = None):
+def apply_mamba(p, cfg: ModelConfig, x, state: Optional[dict] = None,
+                rules=None):
     """x: (B, S, d).  Returns (out, new_state).
 
     ``state`` = ``{"conv", "ssm"}`` for decode and for a prefill that
@@ -137,13 +154,15 @@ def apply_mamba(p, cfg: ModelConfig, x, state: Optional[dict] = None):
     ``torch.utils.checkpoint`` (non-reentrant), as the reference's scan
     runs ``jax.checkpoint(step)``: the backward recomputes a chunk's
     (B, C, d_inner, N) tensors instead of keeping every chunk's, so the
-    bytes saved for it do not grow with the number of chunks."""
+    bytes saved for it do not grow with the number of chunks.  On ranks
+    ``p`` and ``state`` are this rank's channels (module docstring)."""
     b, s, _ = x.shape
-    di, n = cfg.d_inner, cfg.ssm_state
+    n = cfg.ssm_state
     a_neg = -torch.exp(p["a_log"])                          # (di, N)
 
-    xz = x @ p["in_proj"]
+    xz = x @ gather_dim(p["in_proj"], rules, "fsdp", 0)
     x_in, z = torch.chunk(xz, 2, dim=-1)
+    di = x_in.shape[-1]
     if state is not None:
         x_c, conv_state = apply_conv1d(p["conv"], x_in, state["conv"])
     else:
@@ -152,7 +171,7 @@ def apply_mamba(p, cfg: ModelConfig, x, state: Optional[dict] = None):
 
     if state is not None and s == 1:
         # single-step decode: h' = exp(dt A) h + dt B x
-        dt, b_in, c_in = _ssm_inputs(p, cfg, x_c)
+        dt, b_in, c_in = _ssm_inputs(p, cfg, _xdb(p, x_c, rules))
         dt1, b1, c1 = dt[:, 0], b_in[:, 0], c_in[:, 0]
         x1 = x_c[:, 0].to(torch.float32)
         da = torch.exp(dt1[:, :, None] * a_neg[None])        # (B, di, N)
@@ -165,17 +184,20 @@ def apply_mamba(p, cfg: ModelConfig, x, state: Optional[dict] = None):
         h = torch.zeros((b, di, n), dtype=torch.float32, device=x.device) \
             if state is None else state["ssm"]
         remat = state is None and torch.is_grad_enabled()
+        xdb = _xdb(p, x_c, rules)
         ys = []
         for c0 in range(0, s, chunk):
-            x_chunk = x_c[:, c0:c0 + chunk]
+            x_chunk, xdb_chunk = x_c[:, c0:c0 + chunk], xdb[:, c0:c0 + chunk]
             n_valid = x_chunk.shape[1]
             if n_valid < chunk:          # the padded tail of the sequence
                 x_chunk = F.pad(x_chunk, (0, 0, 0, chunk - n_valid))
+                xdb_chunk = F.pad(xdb_chunk, (0, 0, 0, chunk - n_valid))
             if remat:
                 h, y_c = checkpoint(_chunk_step, p, cfg, a_neg, h, x_chunk,
-                                    n_valid, use_reentrant=False)
+                                    xdb_chunk, n_valid, use_reentrant=False)
             else:
-                h, y_c = _chunk_step(p, cfg, a_neg, h, x_chunk, n_valid)
+                h, y_c = _chunk_step(p, cfg, a_neg, h, x_chunk, xdb_chunk,
+                                     n_valid)
             ys.append(y_c[:, :n_valid])
         y = torch.cat(ys, dim=1)
         new_state = None if state is None else \
@@ -183,7 +205,8 @@ def apply_mamba(p, cfg: ModelConfig, x, state: Optional[dict] = None):
 
     y = (y + p["d_skip"] * x_c.to(torch.float32)).to(x.dtype)
     y = y * F.silu(z)
-    return y @ p["out_proj"], new_state
+    out = y @ gather_dim(p["out_proj"], rules, "fsdp", 1)
+    return psum_over(out, rules, "d_inner", "tp"), new_state
 
 
 def init_mamba_state(cfg: ModelConfig, batch: int, dtype,

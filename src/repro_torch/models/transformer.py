@@ -36,9 +36,9 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
-from ..parallel.sharding import on_ranks
-from .attention import (abstract_cache, apply_attention, init_attention,
-                        init_cache)
+from ..parallel.sharding import block, block_shape, on_ranks
+from .attention import (KVCache, abstract_cache, apply_attention,
+                        init_attention, init_cache)
 from .config import ModelConfig
 from .frontends import (STUB_WIDTH, apply_audio_frontend,
                         apply_patch_frontend, init_frontend)
@@ -122,7 +122,8 @@ def apply_block(p, cfg: ModelConfig, kind: str, x, positions, *,
             hx = apply_rmsnorm(p["ln_x"], x)
             cx, _ = apply_attention(p["cross"], cfg, hx, positions,
                                     kv_x=enc_out, cache=cross_state,
-                                    update_cache=enc_out is not None)
+                                    update_cache=enc_out is not None,
+                                    rules=rules)
             x = x + cx
         h2 = apply_rmsnorm(p["ln2"], x)
         if kind == "moe":
@@ -131,12 +132,15 @@ def apply_block(p, cfg: ModelConfig, kind: str, x, positions, *,
             m = apply_mlp(p["mlp"], h2, cfg.mlp_act, rules)
         x = x + m
     elif kind == "mamba":
-        m, new_state = apply_mamba(p["mamba"], cfg, h, state=state)
+        m, new_state = apply_mamba(p["mamba"], cfg, h, state=state,
+                                   rules=rules)
         x = x + m
     else:
-        r, new_state = apply_rglru(p["rglru"], cfg, h, state=state)
+        r, new_state = apply_rglru(p["rglru"], cfg, h, state=state,
+                                   rules=rules)
         x = x + r
-        x = x + apply_mlp(p["mlp"], apply_rmsnorm(p["ln2"], x), cfg.mlp_act)
+        x = x + apply_mlp(p["mlp"], apply_rmsnorm(p["ln2"], x), cfg.mlp_act,
+                          rules)
     return x, new_state, aux
 
 
@@ -165,15 +169,25 @@ def block_state_init(cfg: ModelConfig, kind: str, batch: int, seq: int,
 # Whole model
 # ---------------------------------------------------------------------------
 
-def init_model(cfg: ModelConfig, seed: int = 0, device="cuda") -> Dict:
+def init_model(cfg: ModelConfig, seed: int = 0, device="cuda",
+               rules=None) -> Dict:
     """Random parameters from a ``torch.Generator`` seeded with ``seed``
     on ``device``: the reference's distributions (normal projections
     scaled by 1/sqrt(fan-in), unit-normal embedding, zero norm scales
     and biases, the float32 leaves of the recurrent and MoE blocks), not
-    its numbers."""
+    its numbers.  ``rules`` with a mesh: this rank's blocks of the same
+    numbers (``param_specs``), each part (the embedding, a layer, the
+    frontend) cut as soon as it is drawn, so no more than one whole
+    part is held at once."""
     gen = torch.Generator(device=resolve_device(device))
     gen.manual_seed(seed)
-    return _init_params(cfg, gen)
+    if not on_ranks(rules):
+        return _init_params(cfg, gen)
+
+    def place(key, part):
+        specs = param_specs({key: part})[key]
+        return _map_named(lambda x, n: block(x, n, rules), part, specs)
+    return _init_params(cfg, gen, place)
 
 
 def abstract_model(cfg: ModelConfig):
@@ -199,21 +213,44 @@ def param_specs(params):
     return walk(params)
 
 
-def _init_params(cfg: ModelConfig, gen) -> Dict:
+def _map_named(fn, tree, names):
+    """``fn(leaf, names)`` over a parameter (or decode-state) tree and
+    its tree of logical names (a ``KVCache`` of two name tuples for a
+    cache)."""
+    if isinstance(names, tuple):
+        return fn(tree, names)
+    if isinstance(names, KVCache):
+        return KVCache(fn(tree.k, names.k), fn(tree.v, names.v), tree.ring)
+    if isinstance(names, dict):
+        return {k: _map_named(fn, tree[k], v) for k, v in names.items()}
+    return [_map_named(fn, t, n) for t, n in zip(tree, names)]
+
+
+def _init_params(cfg: ModelConfig, gen, place=None) -> Dict:
+    """The parameter tree, drawn in one order from ``gen``; ``place(key,
+    part)`` (default: the part itself) receives each top-level part, and
+    each layer as ``(key, [layer])``, as soon as it is drawn."""
     dev = gen.device
     dtype = torch_dtype(cfg.dtype)
+    if place is None:
+        def place(key, part):
+            return part
     p = {
-        "embed": init_embedding(gen, cfg.padded_vocab, cfg.d_model, dtype),
-        "ln_f": init_rmsnorm(cfg.d_model, dtype, dev),
-        "layers": [init_block(gen, cfg, kind, dtype, cross=cfg.cross_attn)
+        "embed": place("embed", init_embedding(gen, cfg.padded_vocab,
+                                               cfg.d_model, dtype)),
+        "ln_f": place("ln_f", init_rmsnorm(cfg.d_model, dtype, dev)),
+        "layers": [place("layers", [init_block(gen, cfg, kind, dtype,
+                                               cross=cfg.cross_attn)])[0]
                    for kind in cfg.layer_kinds],
     }
     if cfg.encoder_layers:
-        p["enc_layers"] = [init_block(gen, cfg, "attn", dtype)
+        p["enc_layers"] = [place("enc_layers",
+                                 [init_block(gen, cfg, "attn", dtype)])[0]
                            for _ in range(cfg.encoder_layers)]
-        p["enc_ln_f"] = init_rmsnorm(cfg.d_model, dtype, dev)
+        p["enc_ln_f"] = place("enc_ln_f", init_rmsnorm(cfg.d_model, dtype,
+                                                       dev))
     if cfg.encoder_seq or cfg.n_patches:
-        p["frontend"] = init_frontend(gen, cfg, dtype)
+        p["frontend"] = place("frontend", init_frontend(gen, cfg, dtype))
     return p
 
 
@@ -278,38 +315,20 @@ def _block_out(lp, cfg: ModelConfig, kind: str, x, positions, window,
     return (x,) + tuple(aux[k] for k in AUX_KEYS)
 
 
-def _encode(p, cfg: ModelConfig, frames, dtype, remat: bool):
+def _encode(p, cfg: ModelConfig, frames, dtype, remat: bool, rules=None):
     """Whisper's encoder: the audio frontend, ``cfg.encoder_layers``
     non-causal "attn" blocks (each under ``torch.utils.checkpoint`` with
     ``remat``), the final norm."""
-    e = apply_audio_frontend(p["frontend"], frames).to(dtype)
+    e = apply_audio_frontend(p["frontend"], frames, rules).to(dtype)
     e_pos = torch.arange(e.shape[1], device=e.device)
     for lp in p["enc_layers"]:
         if remat:
             e = checkpoint(_block_out, lp, cfg, "attn", e, e_pos, None,
-                           None, False, use_reentrant=False)[0]
+                           None, False, rules, use_reentrant=False)[0]
         else:
-            e = apply_block(lp, cfg, "attn", e, e_pos, causal=False)[0]
+            e = apply_block(lp, cfg, "attn", e, e_pos, causal=False,
+                            rules=rules)[0]
     return apply_rmsnorm(p["enc_ln_f"], e)
-
-
-def _refuse_on_ranks(cfg: ModelConfig, batch: Dict, state, cache_pos,
-                     rules) -> None:
-    """Raise for what the rank form does not split yet (ROADMAP item
-    6b-LM part 2) rather than replicate it quietly."""
-    why = None
-    if state is not None or cache_pos is not None:
-        why = "decode state and caches (kv_seq)"
-    elif rules.seq is not None:
-        why = "sequence parallelism (seq)"
-    elif cfg.encoder_layers or cfg.n_patches or cfg.cross_attn \
-            or "frames" in batch or "patch_embeds" in batch:
-        why = "the whisper and internvl frontends"
-    elif any(k in ("mamba", "rglru") for k in cfg.layer_kinds):
-        why = "mamba and RG-LRU blocks (d_inner)"
-    if why:
-        raise NotImplementedError(f"{why} on ranks: ROADMAP item 6b-LM "
-                                  "part 2")
 
 
 def forward(p, cfg: ModelConfig, batch: Dict, *, state=None,
@@ -339,17 +358,20 @@ def forward(p, cfg: ModelConfig, batch: Dict, *, state=None,
     have).
 
     On ranks (``rules`` with a mesh; ``p`` this rank's blocks, ``batch``
-    its slice): the dense and MoE blocks in training and evaluation,
-    each layer (with its FSDP gathers) under the checkpoint; decode
-    states, ``seq``, the frontends and the recurrent blocks raise."""
-    if on_ranks(rules):
-        _refuse_on_ranks(cfg, batch, state, cache_pos, rules)
+    its slice, ``state`` its blocks of ``init_decode_state(...,
+    rules=)``): every family, training (each layer with its FSDP gathers
+    under the checkpoint), prefill and decode; sequence parallelism
+    (``seq``) raises."""
+    if on_ranks(rules) and rules.seq is not None:
+        raise NotImplementedError("sequence parallelism (seq) on ranks: "
+                                  "ROADMAP item 6b-LM part 3")
     tokens = batch["tokens"]
     x = apply_embedding(p["embed"], tokens, scale=cfg.embed_scale,
                         rules=rules)
     n_prefix = 0
     if cfg.n_patches and "patch_embeds" in batch:
-        px = apply_patch_frontend(p["frontend"], batch["patch_embeds"])
+        px = apply_patch_frontend(p["frontend"], batch["patch_embeds"],
+                                  rules)
         x = torch.cat([px.to(x.dtype), x], dim=1)
         n_prefix = px.shape[1]
     positions = torch.arange(x.shape[1], device=x.device)
@@ -363,7 +385,7 @@ def forward(p, cfg: ModelConfig, batch: Dict, *, state=None,
     remat = cfg.remat and state is None and torch.is_grad_enabled()
     enc_out = None
     if cfg.encoder_layers and "frames" in batch:
-        enc_out = _encode(p, cfg, batch["frames"], x.dtype, remat)
+        enc_out = _encode(p, cfg, batch["frames"], x.dtype, remat, rules)
     n = len(p["layers"])
     states = state["layers"] if state else [None] * n
     crosses = (state or {}).get("cross") or [None] * n
@@ -400,15 +422,24 @@ def logits(p, x):
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
-                      device="cuda", abstract: bool = False) -> Dict:
+                      device="cuda", abstract: bool = False,
+                      rules=None) -> Dict:
     """The zeroed decode state of every layer for ``max_len`` positions
     (a VLM's count its patch prefix): KV caches (rings under a shorter
     sliding window) and recurrent states; with cross-attention also
     ``"cross"``, one (batch, encoder_seq, Kv, D) cache per decoder
     layer.  ``abstract``: the same tree of ``"meta"`` tensors, nothing
-    allocated (``device`` unread)."""
+    allocated (``device`` unread).  ``rules`` with a mesh: this rank's
+    block of every leaf (``decode_state_names``), zeroed."""
     dev = None if abstract else resolve_device(device)
     dtype = torch_dtype(cfg.dtype)
+    if on_ranks(rules):
+        whole = init_decode_state(cfg, batch, max_len, abstract=True)
+        out_dev = torch.device("meta") if abstract else dev
+        return _map_named(
+            lambda x, n: torch.zeros(block_shape(tuple(x.shape), n, rules),
+                                     dtype=x.dtype, device=out_dev),
+            whole, decode_state_names(whole))
     st = {"layers": [block_state_init(cfg, kind, batch, max_len, dtype,
                                       dev, abstract)
                      for kind in cfg.layer_kinds]}
@@ -418,3 +449,46 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
             else init_cache(cfg, batch, cfg.encoder_seq, dtype, device=dev)
             for _ in range(cfg.n_layers)]
     return st
+
+
+_RECURRENT_NAMES = {"conv": ("batch", None, "d_inner"),
+                    "ssm": ("batch", "d_inner", None),
+                    "h": ("batch", "d_inner")}
+
+
+def decode_state_names(state: Dict) -> Dict:
+    """The reference's logical axis names of every leaf of a decode
+    state (``init_decode_state``'s tree; a ``KVCache`` of two name
+    tuples per attention layer): KV caches shard (batch, kv_seq),
+    recurrent states their channel axis, whisper's cross caches batch
+    only.  The port's per-layer leaves have no ``"stack"`` axis."""
+    def cache(c: KVCache, cross: bool) -> KVCache:
+        nd = c.k.dim()
+        names = (("batch",) + (None,) * (nd - 1) if cross else
+                 ("batch", "kv_seq") + (None,) * (nd - 2))
+        return KVCache(names, names, c.ring)
+
+    out = {"layers": [cache(st, False) if isinstance(st, KVCache)
+                      else {k: _RECURRENT_NAMES[k] for k in st}
+                      for st in state["layers"]]}
+    if "cross" in state:
+        out["cross"] = [cache(c, True) for c in state["cross"]]
+    return out
+
+
+def gather_decode_state(state: Dict, rules) -> Dict:
+    """The whole decode state from every rank's blocks (each rank calls
+    it; every rank gets the whole), without autograd.  A leaf that no
+    live axis splits comes back as the rank's own tensor."""
+    from ..parallel.sharding import gather_block
+    return _map_named(lambda x, n: gather_block(x, n, rules), state,
+                      decode_state_names(state))
+
+
+def decode_state_leaves(state: Dict) -> list:
+    """``(tensor, logical names)`` of every leaf of a decode state, in
+    ``decode_state_names``' order (a cache's ``k``, then its ``v``)."""
+    out: list = []
+    _map_named(lambda x, n: out.append((x, n)), state,
+               decode_state_names(state))
+    return out

@@ -15,8 +15,9 @@ Default mapping (mesh ("data", "model"), or ("pod", "data", "model")):
   heads          -> "model"          tensor parallelism (when divisible)
   mlp / experts  -> "model"          TP for the dense FFN, EP for MoE
   vocab          -> "model"          vocab-parallel embedding + logits
-  kv_seq         -> "model"          decode-time KV caches (not on ranks
-                                     yet: serving under rules raises)
+  kv_seq         -> "model"          decode-time KV caches (each rank
+                                     holds a range of the slots)
+  d_inner        -> "model"          the SSM / RG-LRU channels
   seq            -> None             (sequence parallelism: raises when
                                      set on ranks)
 
@@ -25,6 +26,16 @@ the layout is explicit.  Each rank holds its ``block`` of every
 parameter, the model code gathers and reduces what it needs
 (``parallel.collectives``), and ``gather_block`` puts a whole tensor
 back.  So ``constrain`` has nothing to constrain: it is the identity.
+
+Two-halves leaves.  The mamba and RG-LRU ``in_proj`` (d, 2 di) holds
+two projections side by side, ``[x | z]``, which the block splits in
+half; its dim is named ``Halves("d_inner")``, which equals
+``"d_inner"`` (the reference's name).  GSPMD reshuffles such a leaf
+after the split; here the layout is blocked instead: a rank's block is
+its slice of *each* half, ``[x_r | z_r]``, so the split of the block is
+the rank's channels of both and nothing is exchanged per layer.
+``gather_block`` puts the halves back in the reference's order, and a
+block still holds ``1 / ranks`` of the leaf (``rank_nbytes``).
 """
 
 from __future__ import annotations
@@ -74,6 +85,16 @@ class MeshRules:
         if isinstance(logical_tree, dict):
             return {k: self.spec_tree(v) for k, v in logical_tree.items()}
         return [self.spec_tree(v) for v in logical_tree]
+
+
+class Halves(str):
+    """A logical axis name whose dim holds two equal halves side by side
+    (the module docstring): the name itself for every rule (it equals
+    and hashes as the plain string), and to ``block`` / ``gather_block``
+    the blocked layout ``[half0_r | half1_r]``."""
+
+    def __reduce__(self):
+        return Halves, (str(self),)
 
 
 def _mesh_axes(mesh_or_axes) -> tuple:
@@ -163,23 +184,48 @@ def replicated_axes(names: tuple, rules: MeshRules, within=None) -> tuple:
                  and rules.mesh.axis_size(a) > 1)
 
 
-def block(x: torch.Tensor, names: tuple, rules: MeshRules) -> torch.Tensor:
-    """This rank's block of the whole tensor ``x``, whose dims are named
-    ``names``: each split dim cut to the rank's index along its mesh
-    axes (a tuple of axes folded pod-major).  Raises when a dim does not
-    divide.  A new, contiguous tensor."""
-    mesh = rules.mesh
-    if x.dim() != len(names):
-        raise ValueError(f"a {x.dim()}-d tensor named {names}")
+def _halves(x: torch.Tensor, d: int) -> torch.Tensor:
+    """``x`` with dim ``d`` (of size 2 h) as two dims (2, h)."""
+    return x.unflatten(d, (2, x.shape[d] // 2))
+
+
+def block_shape(shape: tuple, names: tuple, rules: MeshRules) -> tuple:
+    """The shape of ``block`` of a whole tensor of ``shape`` named
+    ``names``; raises as ``block`` does when a dim does not divide."""
+    if len(shape) != len(names):
+        raise ValueError(f"a {len(shape)}-d tensor named {names}")
+    out = list(shape)
     for d, axes in enumerate(dim_axes(names, rules)):
         if not axes:
             continue
-        n = mesh.axis_size(axes)
-        if x.shape[d] % n:
-            raise ValueError(f"dim {d} ({names[d]!r}) of {tuple(x.shape)} "
-                             f"does not divide over {axes} ({n} ranks)")
-        size = x.shape[d] // n
-        x = x.narrow(d, mesh.axis_index(axes) * size, size)
+        n = rules.mesh.axis_size(axes) * (2 if isinstance(names[d], Halves)
+                                          else 1)
+        if shape[d] % n:
+            raise ValueError(f"dim {d} ({names[d]!r}) of {tuple(shape)} "
+                             f"does not divide over {axes} ({n} parts)")
+        out[d] = shape[d] // rules.mesh.axis_size(axes)
+    return tuple(out)
+
+
+def block(x: torch.Tensor, names: tuple, rules: MeshRules) -> torch.Tensor:
+    """This rank's block of the whole tensor ``x``, whose dims are named
+    ``names``: each split dim cut to the rank's index along its mesh
+    axes (a tuple of axes folded pod-major); a ``Halves`` dim cut in
+    each half.  Raises when a dim does not divide.  A new, contiguous
+    tensor."""
+    mesh = rules.mesh
+    block_shape(tuple(x.shape), names, rules)
+    for d, axes in enumerate(dim_axes(names, rules)):
+        if not axes:
+            continue
+        n, i = mesh.axis_size(axes), mesh.axis_index(axes)
+        if isinstance(names[d], Halves):
+            h = _halves(x, d)
+            size = h.shape[d + 1] // n
+            x = h.narrow(d + 1, i * size, size).flatten(d, d + 1)
+        else:
+            size = x.shape[d] // n
+            x = x.narrow(d, i * size, size)
     return x.clone(memory_format=torch.contiguous_format)
 
 
@@ -189,7 +235,13 @@ def gather_block(x: torch.Tensor, names: tuple, rules: MeshRules,
     with its own; every rank gets the whole), without autograd."""
     from .collectives import all_gather_plain
     for d, axes in enumerate(dim_axes(names, rules)):
-        if axes:
+        if not axes:
+            continue
+        if isinstance(names[d], Halves):
+            # [x_0 | z_0], [x_1 | z_1], ... -> [x_0 x_1 ... | z_0 z_1 ...]
+            x = all_gather_plain(_halves(x, d), rules.mesh, axes, d + 1,
+                                 channel).flatten(d, d + 1)
+        else:
             x = all_gather_plain(x, rules.mesh, axes, d, channel)
     return x
 

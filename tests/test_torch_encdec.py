@@ -365,8 +365,8 @@ def test_serve_batch_on_cpu(arch, gen, monkeypatch):
     seen = []
     real = tserve.make_serve_step
 
-    def recording(cfg):
-        step = real(cfg)
+    def recording(cfg, rules=None):
+        step = real(cfg, rules)
 
         def wrapped(params, state, token, pos):
             seen.append(pos)

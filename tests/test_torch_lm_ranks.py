@@ -402,7 +402,8 @@ def test_torch_rank_bytes_split_the_whole(arch):
 
 
 # ---------------------------------------------------------------------------
-# 6: what this slice does not split raises
+# 6: what the port does not split raises (serving, d_inner and the
+# frontends on ranks: tests/test_torch_serve_ranks.py)
 # ---------------------------------------------------------------------------
 
 def _shape_rules(cfg, shape=(2, 1, 2)):
@@ -416,32 +417,6 @@ def _tiny(arch):
     cfg = tconfigs.get_reduced(arch)
     from repro_torch.models.transformer import init_model
     return cfg, init_model(cfg, 0, device="cpu")
-
-
-def test_torch_kv_seq_serving_on_ranks_raises():
-    cfg, params = _tiny("qwen2-1.5b")
-    rules = _shape_rules(cfg)
-    with pytest.raises(NotImplementedError, match="kv_seq"):
-        tm.make_prefill(cfg, rules)
-    with pytest.raises(NotImplementedError, match="kv_seq"):
-        tm.make_serve_step(cfg, rules)
-    from repro_torch.models.transformer import forward, init_decode_state
-    state = init_decode_state(cfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="kv_seq"):
-        forward(params, cfg, {"tokens": torch.zeros(1, 4, dtype=torch.int32)},
-                state=state, cache_pos=0, rules=rules)
-
-
-@pytest.mark.parametrize("arch,why", [
-    ("falcon-mamba-7b", "d_inner"), ("recurrentgemma-9b", "d_inner"),
-    ("whisper-small", "frontends"), ("internvl2-26b", "frontends")])
-def test_torch_unsplit_families_on_ranks_raise(arch, why):
-    cfg, params = _tiny(arch)
-    rules = _shape_rules(cfg)
-    batch = {"tokens": torch.zeros(2, 8, dtype=torch.int32),
-             "labels": torch.zeros(2, 8, dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match=why):
-        tm.make_eval_step(cfg, rules)(params, batch)
 
 
 def test_torch_seq_and_adafactor_on_ranks_raise():
