@@ -187,7 +187,7 @@ Phases, each of which exits non-zero on failure:
    falcon-mamba-7b (batch 4, 2048); each with its parameter count
    (``param_count()`` + ``param_count_gap()``), the kernel path's
    prefill (one tensor-core flash launch per attention layer: 24 / 12 /
-   0) and 32 greedy decode steps (no launch), the plain path's prefill
+   0) and 16 greedy decode steps (no launch), the plain path's prefill
    and decode teacher-forced on the kernel path's tokens (logits within
    ``FAMILY_TOL`` of the largest; granite's prefill also reports the
    share of assignments its MoE capacity dropped; MoE routes are
@@ -279,20 +279,37 @@ Phases, each of which exits non-zero on failure:
    factor 8 so that nothing drops) and reduced qwen2-1.5b (tensor-
    parallel), with the 3xTF32 flash kernel: one exact rank step held
    against the single-process step on the card (loss and grad norm to
-   1e-5, every leaf to 2e-5), then four compressed pod steps (the first
+   1e-5, every leaf to 2e-5), then two compressed pod steps (the first
    loss the exact step's to 1e-5, its parameters within 5e-3, the last
-   loss below the first).  Then granite-moe-1b-a400m whole (24 layers,
-   d_model 1024, 16 / 8 heads, 32 experts top-8, bf16, AdamW): its
-   blocks (heads, experts and the vocabulary split over ``model``), a
-   global batch of 4 x 2048 from ``LMBatchPipeline(seed=0)`` (two
-   sequences a pod), one ``make_eval_step`` loss (within 2e-3 of the
-   single-process eval on the card, run before the spawn and freed),
-   two compressed pod steps (the first loss the eval loss, finite
-   losses, each rank's pod wire bytes a step ``wire_bytes`` of its
-   gradient elements, 48 flash launches a rank a step): s per step
-   (slowest rank), tokens/s, bytes, seconds and calls per collective
-   channel a step, peak GB per rank beside the dry run's bytes per rank
-   (``launch.dryrun.rank_bytes``) and the dropped share;
+   loss below the first).  On a second mesh over the same ranks, (data
+   2, model 2), FSDP splitting d_model: two steps of the dry run's
+   Adafactor (``Optimizer.update(..., specs=, rules=)``) for reduced
+   internvl2-26b and kimi-k2 against one card (loss and grad norm to
+   1e-5, every parameter and row / col / full moment block to 2e-5),
+   and reduced qwen2-1.5b with its positions split over ``model``
+   (``MeshRules.seq``): one AdamW step as above, then a prefill and 4
+   greedy tokens (logits within 2e-6 of the largest one-card logit,
+   equal tokens).  Then granite-moe-1b-a400m whole (24 layers, d_model
+   1024, 16 / 8 heads, 32 experts top-8, bf16, AdamW): its blocks
+   (heads, experts and the vocabulary split over ``model``), a global
+   batch of 4 x 2048 from ``LMBatchPipeline(seed=0)`` (two sequences a
+   pod), one ``make_eval_step`` loss (within 2e-3 of the single-process
+   eval on the card, taken beside the ranks' start and freed), the same
+   eval under ``seq="model"`` (within 2e-3 too; its peak GB a rank
+   beside the eval's without ``seq``), two compressed pod steps (the
+   first loss the eval loss, finite losses, each rank's pod wire bytes
+   a step ``wire_bytes`` of its gradient elements, 48 flash launches a
+   rank a step): s per step (slowest rank), tokens/s, bytes, seconds
+   and calls per collective channel a step, peak GB per rank beside the
+   dry run's bytes per rank (``launch.dryrun.rank_bytes``) and the
+   dropped share.  Last, the slice's path on the second mesh:
+   internvl2-26b at its published width cut to 4 of 48 layers, bf16,
+   2 x (256 patches + 2048 tokens), two steps of the dry run's Adafactor
+   (finite losses, the first within 2e-3 of the single-process eval,
+   8 flash launches a rank a step, the blocks and moments a rank holds
+   the dry run's count): s per step (slowest rank), calls, bytes and
+   seconds per channel a step (the optimizer's reductions on ``opt``),
+   peak GB per rank;
 15. the launch geometry and the last three examples:
    ``analysis.hopper_geometry.check_built()`` over the seven built
    libraries (each kernel's ptxas registers, static shared memory,
@@ -313,7 +330,7 @@ Phases, each of which exits non-zero on failure:
    ``make_serve_step(cfg, rules)``): four rank processes on the one
    card on the host mesh of four, (data 2, model 2), gloo, and beside
    their start qwen2-1.5b served at full width by this process (4 x
-   2048 prompts, 32 greedy tokens: its tokens and every step's logits
+   2048 prompts, 8 greedy tokens: its tokens and every step's logits
    written to the host for the ranks).  Each rank serves six reduced
    float32 configs (qwen2-1.5b with a 32-slot state whose rank-1 slots
    are all masked in decode; recurrentgemma-9b's 16-slot ring
@@ -323,9 +340,10 @@ Phases, each of which exits non-zero on failure:
    step's logits within ``REDUCED_TOL`` of the largest, the same greedy
    tokens, the TF32 kernel once a prefill per attention, encoder and
    cross layer and never in decode.  Then the full-width bf16 models
-   of ``SERVE_RANK_FULL`` (qwen2-1.5b, falcon-mamba-7b, recurrentgemma-9b
-   2 x 3072 past its 2048 window, whisper-small's 16 clips, internvl2-26b
-   cut to 32 of its 48 layers): prefill s and decode ms a token
+   of ``SERVE_RANK_FULL`` (qwen2-1.5b, falcon-mamba-7b cut to 32 of its
+   64 layers, recurrentgemma-9b 2 x 3072 past its 2048 window,
+   whisper-small's 16 clips, internvl2-26b cut to 24 of its 48 layers;
+   8 greedy tokens each): prefill s and decode ms a token
    (slowest rank), collective calls, bytes and seconds a token by
    channel, peak GB a rank, flash launches (one a prefill per attention
    layer, none in decode); qwen2-1.5b decodes teacher-forced on the one
@@ -419,7 +437,7 @@ RANKS, RANK_TIMED_STEPS, RANK_PROFILE_STEPS, RANK_TIMEOUT_S = 4, 200, 50, 300
 # granite-moe-1b-a400m at full width; the gates
 LM_RANK_MESH = ((2, 1, 2), ("pod", "data", "model"))
 LM_RANK_PARITY = ("granite-moe-1b-a400m", "qwen2-1.5b")
-LM_RANK_PARITY_BATCH, LM_RANK_PARITY_SEQ, LM_RANK_POD_STEPS = 4, 64, 4
+LM_RANK_PARITY_BATCH, LM_RANK_PARITY_SEQ, LM_RANK_POD_STEPS = 4, 64, 2
 LM_RANK_ARCH, LM_RANK_BATCH, LM_RANK_SEQ, LM_RANK_STEPS = \
     "granite-moe-1b-a400m", 4, 2048, 2
 LM_RANK_LOSS_TOL, LM_RANK_LEAF_TOL = 1e-5, 2e-5   # exact step vs one card
@@ -431,6 +449,27 @@ LM_RANK_EVAL_TOL = 2e-3          # bf16 eval on ranks vs one card, relative
 LM_RANK_FLAT_GRAD = 1e-6         # 100 x AdamW's eps (see lm_rank_parity)
 LM_RANK_LR, LM_RANK_TIMEOUT_S = 1e-3, 900
 LM_RANK_FULL_LR = 1e-4           # AdamW's rate at full width
+# phase 14's second mesh, (data 2, model 2), over the same four ranks:
+# FSDP splits d_model and TP the heads, MLP, vocabulary and experts.
+# Parity legs (reduced, float32, against the one-card step from the same
+# seed and batch): two steps of the dry run's Adafactor (over the stack
+# groups) for the two configs it picks it for; qwen2-1.5b with its
+# positions split over model (seq): one AdamW step, then a prefill of
+# LM_RANK_SEQ_PROMPT tokens and LM_RANK_SEQ_TOKENS greedy tokens, the
+# logits within LM_RANK_SEQ_LOGIT_TOL of the largest one-card logit
+LM_RANK_MESH2 = ((2, 2), ("data", "model"))
+LM_RANK_ADAFACTOR = ("internvl2-26b", "kimi-k2-1t-a32b")
+LM_RANK_ADAFACTOR_STEPS = 2
+LM_RANK_SEQ_ARCH, LM_RANK_SEQ_PROMPT, LM_RANK_SEQ_TOKENS = \
+    "qwen2-1.5b", 16, 4
+LM_RANK_SEQ_LOGIT_TOL = 2e-6
+# the slice's full-width path: internvl2-26b at its published width, 4
+# of 48 layers (~0.78 GB of bf16 weights a layer; cut for the smoke's
+# time: the host-staged FSDP gathers take most of a step), bf16, 2 x
+# (256 patches + 2048 tokens), under the dry run's optimizer for the
+# whole model (Adafactor), on the second mesh
+LM_RANK_VLM, LM_RANK_VLM_LAYERS = "internvl2-26b", 4
+LM_RANK_VLM_BATCH, LM_RANK_VLM_SEQ, LM_RANK_VLM_STEPS = 2, 2048, 2
 # phase 16: LM serving on four ranks of the one card, the host mesh of
 # four, (data 2, model 2).  Parity leg: the six reduced float32 configs
 # of tests/test_torch_serve_ranks.py (arch, prompt, tokens, the state's
@@ -438,26 +477,29 @@ LM_RANK_FULL_LR = 1e-4           # AdamW's rate at full width
 # ring wraps, and qwen2's 32-slot state leaves rank 1's slots all
 # masked in decode.
 # Full-width bf16 models (arch, layers (None: all), batch, prompt,
-# tokens): phase 9-10's prompt shapes; internvl2-26b cut to 32 of 48
-# layers (its 48 layers' blocks are 19.9 GB a rank, 80 GB for four)
+# tokens): phase 9-10's prompt shapes; internvl2-26b cut to 24 of 48
+# layers (its 48 layers' blocks are 19.9 GB a rank, 80 GB for four),
+# falcon-mamba-7b to 32 of 64 (its scans are most of its prefill), and 8
+# tokens each (qwen2 32, the others 16 before), for the smoke's time
 SERVE_RANK_PARITY = [("qwen2-1.5b", 3, 4, 32),
                      ("recurrentgemma-9b", 24, 8, None),
                      ("falcon-mamba-7b", 20, 4, None),
                      ("granite-moe-1b-a400m", 12, 4, None),
                      ("whisper-small", 12, 4, None),
                      ("internvl2-26b", 12, 4, None)]
-SERVE_RANK_FULL = [("qwen2-1.5b", None, 4, 2048, 32),
-                   ("falcon-mamba-7b", None, 4, 2048, 16),
-                   ("recurrentgemma-9b", None, 2, 3072, 16),
-                   ("whisper-small", None, 16, 224, 16),
-                   ("internvl2-26b", 32, 2, 2048, 16)]
+SERVE_RANK_FULL = [("qwen2-1.5b", None, 4, 2048, 8),
+                   ("falcon-mamba-7b", 32, 4, 2048, 8),
+                   ("recurrentgemma-9b", None, 2, 3072, 8),
+                   ("whisper-small", None, 16, 224, 8),
+                   ("internvl2-26b", 24, 2, 2048, 8)]
 SERVE_RANK_TIMEOUT_S = 600
 SERVE_RANK_ONE_CARD_WAIT_S = 300   # a rank's wait for the one-card file
 LAWS = ("gaussian", "exponential")
 BF16_OPS_PER_S = 989e12            # H100 SXM bf16 dense tensor-core rate
 TF32_OPS_PER_S = 495e12            # H100 SXM TF32 dense tensor-core rate
 LM_ARCH = "qwen2-1.5b"             # served at full width, bf16
-LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 32
+# 16 greedy decode steps a loop, for the smoke's time limit
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 16
 # kernel path vs plain path: each logit's |difference| over (|plain
 # logit| + the logits' std).  In bf16 each path rounds its attention
 # output to bf16 on its own (one step is 2^-8 of the value) and 28
@@ -474,18 +516,22 @@ LM_BF16_TOL, LM_F32_TOL = 0.2, 1e-4
 # miss fails only beyond twice the plain routes' own difference + 0.01
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 5
 TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 2e-3, 3e-2
-# the train driver at reduced width: straight against preempt + resume
+# the train driver at reduced width: straight against preempt + resume,
+# a checkpoint every DRIVER_CKPT_EVERY steps; 20 steps, for the smoke's
+# time limit
 DRIVER_ARCHS = ("qwen2-1.5b", "qwen3-8b")
-DRIVER_BATCH, DRIVER_SEQ, DRIVER_STEPS, DRIVER_PREEMPT = 8, 128, 40, 25
+DRIVER_BATCH, DRIVER_SEQ, DRIVER_STEPS, DRIVER_PREEMPT = 8, 128, 20, 12
+DRIVER_CKPT_EVERY = 5
 # phase 9: full-width models of the new families, each served in turn:
 # (arch, batch, prompt, greedy steps, the split of the two-part prefill;
 # None for MoE, whose routed batch sets its capacity ranks).
 # recurrentgemma's 3072-token prompts pass its 2048 window: the mask
 # bites in prefill, the ring cache wraps in decode, and its two-part
-# prefill (1024 + 2048) attends across the parts
-FAMILIES = [("granite-moe-1b-a400m", 4, 2048, 32, None),
-            ("recurrentgemma-9b", 2, 3072, 32, 1024),
-            ("falcon-mamba-7b", 4, 2048, 32, 1024)]
+# prefill (1024 + 2048) attends across the parts.  16 greedy steps (32
+# before the LM-on-ranks phases grew), for the smoke's time
+FAMILIES = [("granite-moe-1b-a400m", 4, 2048, 16, None),
+            ("recurrentgemma-9b", 2, 3072, 16, 1024),
+            ("falcon-mamba-7b", 4, 2048, 16, 1024)]
 # kernel path vs plain path (teacher-forced), and the two-part prefill vs
 # the one-shot one: max |diff| over the largest |logit|, bf16
 FAMILY_TOL = 2e-2
@@ -498,8 +544,8 @@ FAMILY_PROFILE_STEPS = 8
 # conditioning), split 112 + 112 (frames with the first part only);
 # internvl2-26b: 256 patches + 2048 tokens, split at 1024 (patches and
 # the first half, then the rest at 256 + 1024)
-ENCDEC_FAMILIES = [("whisper-small", 16, 224, 32, 112),
-                   ("internvl2-26b", 2, 2048, 32, 1024)]
+ENCDEC_FAMILIES = [("whisper-small", 16, 224, 16, 112),
+                   ("internvl2-26b", 2, 2048, 16, 1024)]
 # reduced configs on the card (float32, the 3xTF32 flash kernel; the 8-
 # and 12-wide heads padded to 16) against the same run on the CPU
 REDUCED_ON_CARD = ("kimi-k2-1t-a32b", "qwen2.5-3b", "whisper-small",
@@ -866,7 +912,43 @@ def check_delivery(tabs, spec, gen, label: str) -> float:
         print(f"check event_delivery {label} ({tabs.storage.tgt_dtype} ids)"
               f" density {dens}: {n_spk} spikes, active_cap {cap}, "
               f"{int(ek)} events, {int(dk)} dropped, ring exact")
+        if dens == 0.05:
+            check_accum_events(tabs, spec, spk, ring0, label)
     return err
+
+
+def check_accum_events(tabs, spec, spk, ring0, label: str) -> None:
+    """``kernels.ops.synaptic_accum_events`` called with the reference's
+    signature (the single-tier wrapper: its run descriptor from
+    ``core.synapses.column_runs`` in groups of ``ops.DEFAULT_ROW_GROUP``,
+    which cut the 1240-neuron columns, so the descriptor indexes its
+    permuted copy of the entries; then one launch of the column kernel)
+    on the card against the plain ``deliver_events`` on CPU copies of
+    the same tables, spikes and ring: bit for bit (static bf16 delivery
+    is order-exact)."""
+    import torch
+    from repro_torch.core.synapses import deliver_events
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ops as kops
+    cap = spec.active_cap_local
+    # on copies of the tier: the wrapper's descriptor (and its permuted
+    # entries) is cached on them and freed with them after the check,
+    # not held beside the main path's on the tables' tensors
+    tier = {k: v.clone() for k, v in tabs.local.items()}
+    before = _build.launch_counts().get("event_delivery", 0)
+    rk, ek, dk = kops.synaptic_accum_events(tier, spk, ring0.clone(), 3, 8,
+                                            cap)
+    torch.cuda.synchronize()
+    require(_build.launch_counts()["event_delivery"] == before + 1,
+            "ops.synaptic_accum_events: not one launch of the column kernel")
+    cpu = {k: v.cpu() for k, v in tabs.local.items()}
+    rp, ep, dp = deliver_events(cpu, spk.cpu(), ring0.cpu(), 3, 8, cap)
+    require(torch.equal(rk.cpu(), rp) and int(ek) == int(ep)
+            and int(dk) == int(dp),
+            f"ops.synaptic_accum_events {label}: differs from the plain "
+            "version on CPU copies")
+    print(f"check ops.synaptic_accum_events {label}: {int(ek)} events, "
+          f"{int(dk)} dropped, ring bit for bit the CPU plain version's")
 
 
 def check_spike_compact(sizes, gen) -> float:
@@ -2178,15 +2260,304 @@ def lm_rank_parity(arch: str, mesh) -> dict:
             "compressed_losses": losses, "compressed_param_diff": diff}
 
 
+def lm_rank_mesh2():
+    """This rank's (data 2, model 2) mesh over the same process group,
+    with its own collectives."""
+    from repro_torch.core.halo import Transport
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel.collectives import attach
+    return attach(make_host_mesh(*LM_RANK_MESH2), Transport("gloo", "cuda"))
+
+
+def filled_model(cfg, seed: int = 0):
+    """``init_model(cfg, seed)`` on the card with every all-zero leaf
+    (norm scales, biases) set to seeded normal values of scale 0.3, as
+    the CPU tests' ``lm_params`` does: the relative error of a leaf is
+    then measured against values, not against its updates alone."""
+    import torch
+    from repro_torch.models.transformer import init_model
+    from repro_torch.tree import tree_flatten
+    params = init_model(cfg, seed, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 1)
+    for x in tree_flatten(params)[0]:
+        if x.is_floating_point() and not bool(x.any()):
+            x.copy_(0.3 * torch.randn(x.shape, generator=gen, device="cuda",
+                                      dtype=torch.float32))
+    return params
+
+
+def rel_leaf_err(want, got) -> float:
+    want, got = want.float(), got.float()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def lm_rank_adafactor_parity(arch: str, mesh) -> dict:
+    """One Adafactor parity leg of phase 14's second mesh on this rank:
+    the reduced ``arch`` in float32 with ``attn_impl="pallas"`` (a MoE at
+    capacity factor 8: nothing drops), its blocks under the dry run's
+    rules, ``LM_RANK_ADAFACTOR_STEPS`` steps of ``adafactor(...,
+    stacks=stack_groups(cfg))`` against the same steps of the whole
+    model on the card: each step's loss and grad norm within
+    ``LM_RANK_LOSS_TOL``, every parameter block and every row / col /
+    full moment block within ``LM_RANK_LEAF_TOL`` (error norm over
+    norm).  Returns the verdicts, figures and the leg's launches."""
+    import torch
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.pipeline import LMBatchPipeline, rank_batch
+    from repro_torch.kernels import _build
+    from repro_torch.launch import dryrun
+    from repro_torch.models import model as M
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.transformer import param_specs, stack_groups
+    from repro_torch.optim import adafactor, constant
+    from repro_torch.parallel import sharding as S
+    from repro_torch.tree import tree_flatten
+    cfg = dataclasses.replace(get_reduced(arch), attn_impl="pallas")
+    if cfg.is_moe:
+        cfg = dataclasses.replace(cfg, capacity_factor=8.0)
+    rules = dryrun._rules_for(cfg, mesh)[0]
+    pipe = LMBatchPipeline(cfg, ShapeConfig(
+        "train", LM_RANK_PARITY_SEQ + cfg.n_patches, LM_RANK_PARITY_BATCH,
+        "train"), seed=0)
+    one = filled_model(cfg)
+    specs = param_specs(one)
+    blocks = S.block_tree(one, specs, rules)
+    opt = adafactor(constant(LM_RANK_LR), stacks=stack_groups(cfg))
+    st_one, st = opt.init(one), opt.init(blocks)
+    step_one = M.make_train_step(cfg, opt)
+    step = M.make_train_step(cfg, opt, rules=rules)
+    errors, gaps, launches = [], [], {}
+    mesh.comm.reset_stats()
+    for i in range(LM_RANK_ADAFACTOR_STEPS):
+        b = {k: torch.from_numpy(v).cuda() for k, v in pipe.batch(i).items()}
+        one, st_one, out_one = step_one(one, st_one, b)
+        before = _build.launch_counts()
+        blocks, st, out = step(blocks, st, rank_batch(b, rules))
+        for k, n in _build.launches_since(before).items():
+            launches[k] = launches.get(k, 0) + n
+        for key in ("loss", "grad_norm"):
+            gap = abs(float(out[key]) / float(out_one[key]) - 1.0)
+            gaps.append(gap)
+            if not gap <= LM_RANK_LOSS_TOL:
+                errors.append(f"{arch} step {i} {key}: {float(out[key])} vs "
+                              f"one card {float(out_one[key])}")
+    worst = {"leaf": 0.0, "moment": 0.0}
+    for what, want_t, got_t, names in (
+            ("leaf", one, blocks, specs),
+            ("moment", st_one["v"], st["v"], opt.state_specs(specs)["v"])):
+        for w, g, n in zip(tree_flatten(want_t)[0], tree_flatten(got_t)[0],
+                           S.spec_leaves(names)):
+            err = rel_leaf_err(S.block(w, n, rules), g)
+            worst[what] = max(worst[what], err)
+            if not err <= LM_RANK_LEAF_TOL:
+                errors.append(f"{arch} {what} {n}: {err:.3g}")
+    stats = mesh.comm.stats
+    return {"errors": errors, "loss_one_card": float(out_one["loss"]),
+            "loss_ranks": float(out["loss"]), "worst_gap": max(gaps),
+            "worst_leaf_rel_err": worst["leaf"],
+            "worst_moment_rel_err": worst["moment"],
+            "opt_calls": stats.get("opt", {}).get("calls", 0),
+            "launches": launches}
+
+
+def lm_rank_seq_parity(mesh) -> dict:
+    """The ``seq`` parity leg of phase 14's second mesh on this rank:
+    reduced qwen2-1.5b in float32 (``"pallas"``), its positions split
+    over ``model``.  One AdamW step against the one-card step (loss and
+    grad norm within ``LM_RANK_LOSS_TOL``, every leaf block within
+    ``LM_RANK_LEAF_TOL``, the flat-gradient elements within lr as in
+    ``lm_rank_parity``); then a prefill and ``LM_RANK_SEQ_TOKENS`` greedy
+    tokens under ``serve_rules`` with ``seq="model"`` against one card:
+    every step's logits within ``LM_RANK_SEQ_LOGIT_TOL`` of the largest
+    one-card logit, the tokens equal."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.pipeline import LMBatchPipeline, rank_batch
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import serve_rules
+    from repro_torch.launch.train import rules_for
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as tt
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.transformer import param_specs
+    from repro_torch.optim import adamw, constant
+    from repro_torch.parallel import sharding as S
+    from repro_torch.tree import tree_flatten
+    cfg = dataclasses.replace(get_reduced(LM_RANK_SEQ_ARCH),
+                              attn_impl="pallas")
+    rules = dataclasses.replace(rules_for(cfg, mesh), seq="model")
+    pipe = LMBatchPipeline(cfg, ShapeConfig(
+        "train", LM_RANK_PARITY_SEQ, LM_RANK_PARITY_BATCH, "train"), seed=0)
+    b = {k: torch.from_numpy(v).cuda() for k, v in pipe.batch(0).items()}
+    one = filled_model(cfg)
+    specs = param_specs(one)
+    whole0 = [x.clone() for x in tree_flatten(one)[0]]
+    blocks = S.block_tree(one, specs, rules)
+    opt = adamw(constant(LM_RANK_LR))
+    _, _, g_one = M._grads_of(one, cfg, b)
+    one, _, out_one = M.make_train_step(cfg, opt)(one, opt.init(one), b)
+    mesh.comm.reset_stats()
+    before = _build.launch_counts()
+    blocks, _, out = M.make_train_step(cfg, opt, rules=rules)(
+        blocks, opt.init(blocks), rank_batch(b, rules))
+    launches = _build.launches_since(before)
+    seq_calls = mesh.comm.stats.get("seq", {}).get("calls", 0)
+    errors, worst = [], 0.0
+    for key in ("loss", "grad_norm"):
+        if not abs(float(out[key]) / float(out_one[key]) - 1.0) \
+                <= LM_RANK_LOSS_TOL:
+            errors.append(f"seq {key}: {float(out[key])} vs one card "
+                          f"{float(out_one[key])}")
+    for w, g, grad, n in zip(tree_flatten(one)[0], tree_flatten(blocks)[0],
+                             tree_flatten(g_one)[0], S.spec_leaves(specs)):
+        w = S.block(w, n, rules).float()
+        flat = S.block(grad, n, rules).abs() < LM_RANK_FLAT_GRAD
+        if flat.any() and float((g - w).abs()[flat].max()) > LM_RANK_LR:
+            errors.append(f"seq {n}: a flat element past lr")
+        err = rel_leaf_err(w, torch.where(flat, w, g.float()))
+        worst = max(worst, err)
+        if not err <= LM_RANK_LEAF_TOL:
+            errors.append(f"seq leaf {n}: {err:.3g}")
+    # serving: prefill and greedy decode, positions split in the prefill
+    for x, x0 in zip(tree_flatten(one)[0], whole0):
+        x.copy_(x0)
+    n_rows, max_len = LM_RANK_PARITY_BATCH, \
+        LM_RANK_SEQ_PROMPT + LM_RANK_SEQ_TOKENS
+    srules = dataclasses.replace(serve_rules(cfg, mesh, n_rows, max_len),
+                                 seq="model")
+    sblocks = S.block_tree(one, specs, srules)
+    prompt = {"tokens": torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (n_rows, LM_RANK_SEQ_PROMPT)).astype(
+            np.int32)).cuda()}
+
+    def serve(params, rules_, inputs):
+        state = tt.init_decode_state(cfg, n_rows, max_len, device="cuda",
+                                     rules=rules_)
+        lg, state = M.make_prefill(cfg, rules_)(params, inputs, state)
+        step = M.make_serve_step(cfg, rules_)
+        logits, toks = [lg], []
+        for i in range(LM_RANK_SEQ_TOKENS):
+            tok = torch.argmax(lg[:, -1:], dim=-1).to(torch.int32)
+            toks.append(tok)
+            lg, state = step(params, state, tok, LM_RANK_SEQ_PROMPT + i)
+            logits.append(lg)
+        return logits, torch.cat(toks, dim=1)
+    want, want_toks = serve(one, None, prompt)
+    mesh.comm.reset_stats()
+    got, got_toks = serve(sblocks, srules, rank_batch(prompt, srules))
+    serve_seq_calls = mesh.comm.stats.get("seq", {}).get("calls", 0)
+    gaps = [float((g - S.block(w, ("batch", None, None), srules)).abs().max()
+                  / w.abs().max()) for w, g in zip(want, got)]
+    if not max(gaps) <= LM_RANK_SEQ_LOGIT_TOL:
+        errors.append(f"seq serving logit gaps {gaps}")
+    if not torch.equal(got_toks, S.block(want_toks, ("batch", None),
+                                         srules)):
+        errors.append("seq serving tokens differ from one card's")
+    if not (seq_calls > 0 and serve_seq_calls > 0):
+        errors.append(f"seq: {seq_calls} / {serve_seq_calls} seq gathers")
+    return {"errors": errors, "loss_one_card": float(out_one["loss"]),
+            "loss_ranks": float(out["loss"]), "worst_leaf_rel_err": worst,
+            "logit_gaps": gaps, "seq_calls_step": seq_calls,
+            "seq_calls_serve": serve_seq_calls, "launches": launches}
+
+
+def lm_rank_vlm(mesh) -> dict:
+    """The slice's path on this rank of phase 14's second mesh:
+    internvl2-26b at its published width, ``LM_RANK_VLM_LAYERS`` layers,
+    bf16, ``attn_impl="pallas"``, its blocks under ``launch.train.
+    rules_for`` (FSDP over data, heads, MLP and vocabulary over model),
+    ``LM_RANK_VLM_STEPS`` steps of the dry run's optimizer for the whole
+    model (``dryrun.train_setup``: Adafactor over the stack groups),
+    the launch counts zeroed just before and read just after; per step
+    the seconds and each channel's calls / bytes / seconds (the
+    optimizer's reductions on ``"opt"``), the steps' peak bytes (the
+    blocks and state included) beside the dry run's count, and the
+    init's."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import LMBatchPipeline, rank_batch
+    from repro_torch.kernels import _build
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.train import rank_model, rules_for
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as tt
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.parallel.collectives import stats
+    from repro_torch.tree import tree_flatten
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    full = get_config(LM_RANK_VLM)
+    cfg = dataclasses.replace(full, attn_impl="pallas",
+                              n_layers=LM_RANK_VLM_LAYERS)
+    rules = rules_for(cfg, mesh)
+    opt, _ = dryrun.train_setup(cfg, full.param_count()
+                                + tt.param_count_gap(full), {})
+    require(opt.kind == "adafactor", f"phase 14: the dry run picks "
+            f"{opt.kind} for {LM_RANK_VLM}")
+    out = {}
+    t0 = time.perf_counter()
+    blocks, _ = rank_model(cfg, rules, 0, "cuda")
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["param_bytes"] = sum(x.numel() * x.element_size()
+                             for x in tree_flatten(blocks)[0])
+    state = opt.init(blocks)
+    out["optimizer_bytes"] = sum(x.numel() * x.element_size()
+                                 for x in tree_flatten(state)[0])
+    planned = dryrun.rank_bytes(cfg, rules, opt)
+    out["dryrun_bytes"] = planned
+    pipe = LMBatchPipeline(cfg, ShapeConfig(
+        "train", LM_RANK_VLM_SEQ + cfg.n_patches, LM_RANK_VLM_BATCH,
+        "train"), seed=0)
+    batch = {k: v.cuda() for k, v in rank_batch(pipe.batch(0),
+                                                rules).items()}
+    step = M.make_train_step(cfg, opt, rules=rules)
+    # the init draws each part whole before cutting it: its peak apart
+    out["init_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    mesh.comm.reset_stats()
+    steps = []
+    for _ in range(LM_RANK_VLM_STEPS):
+        dist.barrier()
+        torch.cuda.synchronize()
+        before = stats(mesh)
+        t0 = time.perf_counter()
+        blocks, state, o = step(blocks, state, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        after = stats(mesh)
+        steps.append({
+            "s": dt, "loss": float(o["loss"]),
+            "grad_norm": float(o["grad_norm"]),
+            "channels": {k: {f: v[f] - before.get(k, {}).get(f, 0)
+                             for f in v} for k, v in after.items()}})
+    out["launches"] = _build.launch_counts()
+    out["steps"] = steps
+    out["finite"] = bool(all(np.isfinite([s["loss"], s["grad_norm"]]).all()
+                             for s in steps))
+    out["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    del blocks, state, batch
+    torch.cuda.empty_cache()
+    return out
+
+
 def lm_ranks_rank(rank: int, world: int, job_path: str) -> None:
     """One rank of phase 14 (``launch.mesh.spawn_ranks`` runs it): the
-    parity legs, then granite-moe-1b-a400m at full width (bf16,
-    ``attn_impl="pallas"``): its blocks under ``launch.train.rules_for``
-    (heads, experts and the vocabulary split over ``model``, the batch
-    over ``pod``), one ``make_eval_step`` loss, ``LM_RANK_STEPS``
-    compressed pod steps (AdamW) with the launch counts zeroed just
-    before and read just after.  It writes ``build/lm_ranks/rank_<r>
-    .json``."""
+    parity legs, those of the second mesh (Adafactor, ``seq``), then
+    granite-moe-1b-a400m at full width (bf16, ``attn_impl="pallas"``):
+    its blocks under ``launch.train.rules_for`` (heads, experts and the
+    vocabulary split over ``model``, the batch over ``pod``), one
+    ``make_eval_step`` loss, the same under ``seq="model"``,
+    ``LM_RANK_STEPS`` compressed pod steps (AdamW) with the launch
+    counts zeroed just before and read just after; then internvl2-26b's
+    Adafactor steps on the second mesh (``lm_rank_vlm``).  It writes
+    ``build/lm_ranks/rank_<r>.json``."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -2208,6 +2579,12 @@ def lm_ranks_rank(rank: int, world: int, job_path: str) -> None:
     out = {"rank": rank, "coordinate": list(mesh.coordinate()),
            "parity": {a: lm_rank_parity(a, mesh) for a in LM_RANK_PARITY}}
     out["parity_s"] = time.perf_counter() - t_rank
+    t0 = time.perf_counter()
+    mesh2 = lm_rank_mesh2()
+    out["parity"].update({f"adafactor/{a}": lm_rank_adafactor_parity(a, mesh2)
+                          for a in LM_RANK_ADAFACTOR})
+    out["parity"]["seq"] = lm_rank_seq_parity(mesh2)
+    out["parity2_s"] = time.perf_counter() - t0
     # full width
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2224,10 +2601,27 @@ def lm_ranks_rank(rank: int, world: int, job_path: str) -> None:
                                             LM_RANK_BATCH, "train"), seed=0)
     batch = {k: v.cuda() for k, v in rank_batch(pipe.batch(0),
                                                 rules).items()}
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
     loss_e, metrics_e = M.make_eval_step(cfg, rules)(blocks, batch)
+    out["eval_s"] = time.perf_counter() - t0
     out["eval_loss"] = float(loss_e)
     out["eval_frac_dropped"] = float(metrics_e["frac_dropped"]) \
         / cfg.layer_kinds.count("moe")
+    out["eval_peak_bytes"] = torch.cuda.max_memory_allocated() - held
+    # the same eval with the positions split over model (seq)
+    torch.cuda.reset_peak_memory_stats()
+    mesh.comm.reset_stats()
+    t0 = time.perf_counter()
+    loss_s, _ = M.make_eval_step(cfg, dataclasses.replace(
+        rules, seq="model"))(blocks, batch)
+    torch.cuda.synchronize()
+    out["eval_seq_s"] = time.perf_counter() - t0
+    out["eval_seq_loss"] = float(loss_s)
+    out["eval_seq_peak_bytes"] = torch.cuda.max_memory_allocated() - held
+    out["eval_seq_channels"] = stats(mesh)
     opt = adamw(constant(LM_RANK_FULL_LR))
     state, resid = opt.init(blocks), init_residuals(blocks)
     step = M.make_compressed_pod_train_step(cfg, rules, opt)
@@ -2258,6 +2652,8 @@ def lm_ranks_rank(rank: int, world: int, job_path: str) -> None:
     out["finite"] = bool(all(np.isfinite([s["loss"], s["grad_norm"]]).all()
                              for s in steps))
     out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    del blocks, state, resid, batch
+    out["vlm"] = lm_rank_vlm(mesh2)
     out["rank_s"] = time.perf_counter() - t_rank
     Path(job_path).with_name(f"rank_{rank}.json").write_text(
         json.dumps(out))
@@ -2293,11 +2689,13 @@ def one_card_evals(cfg, params, batch: dict) -> dict:
 
 
 def run_lm_ranks() -> dict:
-    """Phase 14: the single-process eval losses of granite-moe-1b-a400m
-    at full width on the card (``one_card_evals``; freed before the
-    spawn), the dry run's bytes per rank, then four rank processes
-    (``lm_ranks_rank``), their figures, and the gates.  Returns the
-    ranks' summed launches."""
+    """Phase 14: four rank processes (``lm_ranks_rank``) spawned, and
+    while they start and run their parity legs, the single-process eval
+    losses on the card of granite-moe-1b-a400m at full width
+    (``one_card_evals``) and of internvl2-26b at ``LM_RANK_VLM_LAYERS``
+    layers, each freed after; then the ranks' figures beside the dry
+    run's bytes per rank, and the gates.  Returns the ranks' summed
+    launches (granite's and internvl's steps)."""
     import gc
     import torch
     from repro_torch.configs import get_config
@@ -2305,6 +2703,7 @@ def run_lm_ranks() -> dict:
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import RankFailure, RankMesh, spawn_ranks
     from repro_torch.launch.train import rules_for
+    from repro_torch.models import model as M
     from repro_torch.models.config import ShapeConfig
     from repro_torch.models.transformer import init_model
     from repro_torch.optim import adamw, constant
@@ -2313,14 +2712,8 @@ def run_lm_ranks() -> dict:
     for f in work.glob("rank_*.json"):
         f.unlink()
     cfg = dataclasses.replace(get_config(LM_RANK_ARCH), attn_impl="pallas")
-    gc.collect()
-    torch.cuda.empty_cache()
-    pipe = LMBatchPipeline(cfg, ShapeConfig("train", LM_RANK_SEQ,
-                                            LM_RANK_BATCH, "train"), seed=0)
-    params = init_model(cfg, 0, device="cuda")
-    batch = {k: torch.from_numpy(v).cuda() for k, v in pipe.batch(0).items()}
-    one = one_card_evals(cfg, params, batch)
-    del params, batch
+    vcfg = dataclasses.replace(get_config(LM_RANK_VLM), attn_impl="pallas",
+                               n_layers=LM_RANK_VLM_LAYERS)
     gc.collect()
     torch.cuda.empty_cache()
     rules = rules_for(cfg, RankMesh(*LM_RANK_MESH))
@@ -2330,14 +2723,43 @@ def run_lm_ranks() -> dict:
           f"({torch.cuda.memory_reserved()} B reserved) before the spawn",
           flush=True)
     job_path = work / "job.json"
-    job_path.write_text(json.dumps(one))
+    job_path.write_text("{}")
     t0 = time.perf_counter()
-    try:
-        spawn_ranks(lm_ranks_rank, RANKS, args=(str(job_path),),
-                    backend="gloo", timeout_s=LM_RANK_TIMEOUT_S,
-                    store_dir=str(work))
-    except RankFailure as e:
-        fail(f"phase 14: a rank failed: {e}")
+    with ThreadPoolExecutor(1) as pool:
+        # the ranks need no one-card figure: this process takes its evals
+        # while they start and run their parity legs, and frees the card
+        spawned = pool.submit(spawn_ranks, lm_ranks_rank, RANKS,
+                              args=(str(job_path),), backend="gloo",
+                              timeout_s=LM_RANK_TIMEOUT_S,
+                              store_dir=str(work))
+        t1 = time.perf_counter()
+        pipe = LMBatchPipeline(cfg, ShapeConfig("train", LM_RANK_SEQ,
+                                                LM_RANK_BATCH, "train"),
+                               seed=0)
+        params = init_model(cfg, 0, device="cuda")
+        batch = {k: torch.from_numpy(v).cuda()
+                 for k, v in pipe.batch(0).items()}
+        one = one_card_evals(cfg, params, batch)
+        del params, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        # internvl2-26b's (cut) model on one card: the whole batch's eval
+        vpipe = LMBatchPipeline(vcfg, ShapeConfig(
+            "train", LM_RANK_VLM_SEQ + vcfg.n_patches, LM_RANK_VLM_BATCH,
+            "train"), seed=0)
+        params = init_model(vcfg, 0, device="cuda")
+        batch = {k: torch.from_numpy(v).cuda()
+                 for k, v in vpipe.batch(0).items()}
+        one["vlm_eval_loss"] = float(M.make_eval_step(vcfg)(params,
+                                                            batch)[0])
+        del params, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        one_card_s = time.perf_counter() - t1
+        try:
+            spawned.result()
+        except RankFailure as e:
+            fail(f"phase 14: a rank failed: {e}")
     wall = time.perf_counter() - t0
     ranks = [json.loads((work / f"rank_{r}.json").read_text())
              for r in range(RANKS)]
@@ -2393,13 +2815,94 @@ def run_lm_ranks() -> dict:
             for r in ranks],
         "init_s": [r["init_s"] for r in ranks],
         "parity_s": [r["parity_s"] for r in ranks],
+        "parity2_s": [r["parity2_s"] for r in ranks],
         "rank_s": [r["rank_s"] for r in ranks],
-        "spawn_to_join_s": wall, "launches": launches,
-        "card": gpu_line()}
+        "spawn_to_join_s": wall, "one_card_evals_s": one_card_s,
+        "launches": launches, "card": gpu_line()}
     print("lm ranks " + json.dumps(res), flush=True)
+    print("lm ranks parity2 " + json.dumps(
+        {k: {f: v for f, v in ranks[0]["parity"][k].items() if f != "errors"}
+         for k in ranks[0]["parity"] if k not in LM_RANK_PARITY}),
+          flush=True)
+    print("lm ranks seq eval " + json.dumps({
+        "arch": LM_RANK_ARCH, "seq": "model",
+        "eval_loss_seq": [r["eval_seq_loss"] for r in ranks],
+        "eval_loss": [r["eval_loss"] for r in ranks],
+        "one_card": one["eval_loss"],
+        "eval_seq_s": [r["eval_seq_s"] for r in ranks],
+        "eval_s": [r["eval_s"] for r in ranks],
+        "peak_gb_seq": [r["eval_seq_peak_bytes"] / 1e9 for r in ranks],
+        "peak_gb_without_seq": [r["eval_peak_bytes"] / 1e9 for r in ranks],
+        "channels_rank0": ranks[0]["eval_seq_channels"],
+        "card": gpu_line()}), flush=True)
+    vlm = [r["vlm"] for r in ranks]
+    vtimed = range(1, LM_RANK_VLM_STEPS)
+    v_step = max(sum(v["steps"][i]["s"] for i in vtimed) / len(vtimed)
+                 for v in vlm)
+    vchannels = sorted({c for v in vlm for st in v["steps"]
+                        for c in st["channels"]})
+    vres = {
+        "arch": f"{LM_RANK_VLM} {LM_RANK_VLM_LAYERS} of 48 layers, d_model "
+                f"{vcfg.d_model}, bf16, {LM_RANK_VLM_BATCH} x "
+                f"({vcfg.n_patches} + {LM_RANK_VLM_SEQ}), Adafactor "
+                "(dryrun.train_setup)",
+        "mesh": dict(zip(LM_RANK_MESH2[1], LM_RANK_MESH2[0])),
+        "one_card_eval_loss": one["vlm_eval_loss"],
+        "losses": [[st["loss"] for st in v["steps"]] for v in vlm],
+        "grad_norms": [st["grad_norm"] for st in vlm[0]["steps"]],
+        "s_per_step_slowest_rank": v_step,
+        "s_per_step_by_rank": [[st["s"] for st in v["steps"]] for v in vlm],
+        "tokens_per_s": LM_RANK_VLM_BATCH * (LM_RANK_VLM_SEQ
+                                             + vcfg.n_patches) / v_step,
+        "per_step_rank0": {c: {f: sum(
+            vlm[0]["steps"][i]["channels"].get(c, {}).get(f, 0)
+            for i in vtimed) / len(vtimed) for f in (
+            "calls", "bytes_sent", "bytes_received", "seconds")}
+            for c in vchannels},
+        "peak_gb_by_rank": [v["peak_bytes"] / 1e9 for v in vlm],
+        "init_peak_gb_by_rank": [v["init_peak_bytes"] / 1e9 for v in vlm],
+        "held_gb_by_rank": [(v["param_bytes"] + v["optimizer_bytes"]) / 1e9
+                            for v in vlm],
+        "dryrun_gb_per_rank": {k: b / 1e9
+                               for k, b in vlm[0]["dryrun_bytes"].items()},
+        "flash_launches_per_rank_per_step": [
+            v["launches"].get("flash_attention", 0) / LM_RANK_VLM_STEPS
+            for v in vlm],
+        "init_s": [v["init_s"] for v in vlm],
+        "card": gpu_line()}
+    print("lm ranks vlm " + json.dumps(vres), flush=True)
+    for v in vlm:
+        for k, n in v["launches"].items():
+            launches[k] = launches.get(k, 0) + n
     errors = [(r["rank"], e) for r in ranks for leg in r["parity"].values()
               for e in leg["errors"]]
     require(not errors, f"phase 14: parity legs failed: {errors}")
+    vflash = 2 * LM_RANK_VLM_LAYERS         # forward and its recompute
+    for r, v in zip(ranks, vlm):
+        require(v["finite"], f"phase 14: rank {r['rank']}: an internvl loss "
+                "or grad norm is not finite")
+        gap = abs(v["steps"][0]["loss"] / one["vlm_eval_loss"] - 1.0)
+        require(gap <= LM_RANK_EVAL_TOL, f"phase 14: rank {r['rank']}'s "
+                f"internvl first loss {v['steps'][0]['loss']} vs one card's "
+                f"eval {one['vlm_eval_loss']} ({gap:.3g} > "
+                f"{LM_RANK_EVAL_TOL})")
+        require(v["param_bytes"] + v["optimizer_bytes"]
+                == v["dryrun_bytes"]["params"] + v["dryrun_bytes"][
+                    "optimizer"], f"phase 14: rank {r['rank']} holds "
+                f"{v['param_bytes']} + {v['optimizer_bytes']} B, the dry "
+                f"run counts {v['dryrun_bytes']}")
+        flash = v["launches"].get("flash_attention", 0)
+        require(flash == LM_RANK_VLM_STEPS * vflash,
+                f"phase 14: rank {r['rank']} launched flash {flash} times "
+                f"in {LM_RANK_VLM_STEPS} internvl steps, not {vflash} a step")
+        require(v["steps"][0]["channels"].get("opt", {}).get("calls", 0) > 0,
+                f"phase 14: rank {r['rank']}: no optimizer reduction")
+        gap = abs(r["eval_seq_loss"] / one["eval_loss"] - 1.0)
+        require(gap <= LM_RANK_EVAL_TOL, f"phase 14: rank {r['rank']}'s "
+                f"eval loss under seq {r['eval_seq_loss']} vs one card's "
+                f"{one['eval_loss']} ({gap:.3g} > {LM_RANK_EVAL_TOL})")
+        require(r["eval_seq_channels"].get("seq", {}).get("calls", 0) > 0,
+                f"phase 14: rank {r['rank']}: the seq eval gathered nothing")
     per_step = 2 * cfg.layer_kinds.count("moe") \
         + 2 * cfg.layer_kinds.count("attn")
     for r in ranks:
@@ -2836,12 +3339,14 @@ def seg_mean(tel, name: str) -> float:
 
 
 @contextlib.contextmanager
-def seg_shared_builds(prebuilt: dict):
+def seg_shared_builds(prebuilt: list):
     """While open, the drivers of this process build each table set and
     plastic inverse index once: ``SimDriver``'s builds are memoised by
     config and device (every driver of phase 5c builds the same model,
     and the host build costs about 0.3 us a synapse).  ``prebuilt``:
-    law -> its 8x8x1240 2x2 tables on the card, already built."""
+    ``(config, its tables on the card)`` pairs built ahead, the tables
+    or a function that returns them (called by the first driver of that
+    config, so they reach the card in its phase)."""
     from unittest import mock
     from repro_torch.runtime import sim_driver as sd
     tables, slots = {}, {}
@@ -2851,13 +3356,15 @@ def seg_shared_builds(prebuilt: dict):
     def model(cfg) -> str:          # an ensemble's tables are its solo's
         return repr(dataclasses.replace(cfg, ensemble_seeds=None))
 
-    for law, built in prebuilt.items():
-        tables[(model(ms_cfg(law, GRID)), "cuda", None)] = built
+    for cfg, built in prebuilt:
+        tables[(model(cfg), "cuda", None)] = built
 
     def shared_tables(cfg, device="cuda", mesh=None):
         key = (model(cfg), str(device), mesh)
         if key not in tables:
             tables[key] = build_tables(cfg, device=device, mesh=mesh)
+        elif callable(tables[key]):
+            tables[key] = tables[key]()
         return tables[key]
 
     def shared_index(cfg, host, mesh=None):
@@ -2871,7 +3378,26 @@ def seg_shared_builds(prebuilt: dict):
         yield
 
 
-def run_segmented(single_rate_hz: float) -> dict:
+def seg_retile_cfg(cfg):
+    """``cfg`` (a 2x2 ``DistConfig``) in 1x2 tiles: phase 5c's retile."""
+    from repro_torch.core import dist_engine as de
+    e = cfg.engine
+    return de.DistConfig(engine=dataclasses.replace(
+        e, decomp=dataclasses.replace(e.decomp, tiles_y=1, tiles_x=2)))
+
+
+def retile_host_build() -> tuple:
+    """Phase 5c's retile target, the gaussian 8x8x1240 tables in 1x2
+    tiles, built on the host beside phases 3 to 5b (one thread a tile),
+    and their seconds."""
+    from repro_torch.core import dist_engine as de
+    t0 = time.perf_counter()
+    built = de.build_dist_tables(seg_retile_cfg(ms_cfg("gaussian", GRID)),
+                                 device="cpu")
+    return built, time.perf_counter() - t0
+
+
+def run_segmented(single_rate_hz: float, retile_build) -> dict:
     """Phase 5c: the segmented driver (``runtime.SimDriver``) at
     8x8x1240 in 2x2 tiles, gaussian, 400 steps in segments of 50, a
     checkpoint after every segment: a straight captured run against 4
@@ -2879,7 +3405,9 @@ def run_segmented(single_rate_hz: float) -> dict:
     identical state), the same recorded (identical spool files), a
     retile of the preempted run onto 1x2 tiles, and the plastic driver
     at 4x4x1240 in 2x2 tiles (one 60-step segment against 30 + preempt +
-    resume + 30).  ``make_sim_fn`` alone is timed first on the same
+    resume + 30).  ``retile_build``: the future of
+    ``retile_host_build``, whose tables ``seg_shared_builds`` holds for
+    the retile.  ``make_sim_fn`` alone is timed first on the same
     tables; the launch counts are zeroed after it, so the counts read
     after this phase are the drivers' alone.  The recorded drivers
     capture too (the recorder's appends inside the graph): their spool
@@ -3032,13 +3560,12 @@ def run_segmented(single_rate_hz: float) -> dict:
     lap("recorded")
 
     # retile: the preempted run resumed on 1x2 tiles
-    cfg12 = de.DistConfig(engine=dataclasses.replace(
-        cfg.engine, decomp=dataclasses.replace(cfg.engine.decomp,
-                                               tiles_y=1, tiles_x=2)))
+    cfg12 = seg_retile_cfg(cfg)
     t0 = time.perf_counter()
     tel_r = Telemetry()
     retiled = driver("retiled", dist=cfg12, allow_retile=True, tel=tel_r)
     retile_build_s = time.perf_counter() - t0
+    retile_host_s = retile_build.result()[1]
     out_r = retiled.run(SEG_TOTAL)
     rt = retiled.metric_totals(out_r["state"])
     rate = retiled.firing_rate_hz(out_r["state"])
@@ -3109,6 +3636,8 @@ def run_segmented(single_rate_hz: float) -> dict:
         "totals": totals, "spooled_events": n_events,
         "recorder_dropped": rec_a.recorder_dropped,
         "retile": {"tiles": "1x2", "build_s": retile_build_s,
+                   "host_build_s": retile_host_s,
+                   "host_build_concurrent": True,
                    "metric_base": base, "totals": rt, "rate_hz": rate,
                    "single_shard_rate_hz": single_rate_hz,
                    "rate_rel_diff": rel},
@@ -3845,7 +4374,7 @@ def decode(params, cfg, state, first_tok, steps: int, forced=None,
 
 def run_lm() -> dict:
     """qwen2-1.5b at full width (bf16, random weights from a seed): a
-    4 x 2048-token prefill through the flash kernel and 32 greedy decode
+    4 x 2048-token prefill through the flash kernel and LM_GEN greedy decode
     steps, held against the plain path (attn_impl "naive") on the same
     weights and prompts, teacher-forced on the kernel path's tokens, with
     the chunked plain path as a control; then a float32 prefill of both
@@ -4303,9 +4832,10 @@ def run_train_driver() -> dict:
 def train_driver_checks() -> dict:
     """``launch.train.build_trainer`` on the card at qwen2-1.5b and
     qwen3-8b reduced (their configs' plain chunked attention, as the
-    reference's launcher): 40 steps with a checkpoint every 10, straight,
-    and preempted after step 25 then resumed by a fresh driver: the
-    final parameters, AdamW state and the 40 losses equal bit for bit.
+    reference's launcher): ``DRIVER_STEPS`` steps with a checkpoint every
+    ``DRIVER_CKPT_EVERY``, straight, and preempted after step
+    ``DRIVER_PREEMPT`` then resumed by a fresh driver: the final
+    parameters, AdamW state and every step's loss equal bit for bit.
     Runs under ``torch.use_deterministic_algorithms(True)`` (the caller
     sets ``CUBLAS_WORKSPACE_CONFIG``): the embedding gather's backward
     accumulates with atomics otherwise."""
@@ -4321,7 +4851,8 @@ def train_driver_checks() -> dict:
                 t0 = time.perf_counter()
                 straight = build_trainer(
                     arch, DRIVER_BATCH, DRIVER_SEQ, DRIVER_STEPS,
-                    f"{tmp}/straight", ckpt_every=10)[0].run(DRIVER_STEPS)
+                    f"{tmp}/straight",
+                    ckpt_every=DRIVER_CKPT_EVERY)[0].run(DRIVER_STEPS)
                 straight_s = time.perf_counter() - t0
                 holder = {}
 
@@ -4330,11 +4861,13 @@ def train_driver_checks() -> dict:
                         holder["driver"].preempted = True
                 holder["driver"] = build_trainer(
                     arch, DRIVER_BATCH, DRIVER_SEQ, DRIVER_STEPS,
-                    f"{tmp}/resumed", ckpt_every=10, fault_hook=preempt)[0]
+                    f"{tmp}/resumed", ckpt_every=DRIVER_CKPT_EVERY,
+                    fault_hook=preempt)[0]
                 first = holder["driver"].run(DRIVER_STEPS)
                 second = build_trainer(
                     arch, DRIVER_BATCH, DRIVER_SEQ, DRIVER_STEPS,
-                    f"{tmp}/resumed", ckpt_every=10)[0].run(DRIVER_STEPS)
+                    f"{tmp}/resumed",
+                    ckpt_every=DRIVER_CKPT_EVERY)[0].run(DRIVER_STEPS)
             torch.cuda.synchronize()
             losses = [m["loss"] for m in straight["metrics"]]
             resumed = [m["loss"] for m in first["metrics"]
@@ -6085,6 +6618,10 @@ def main() -> None:
     print(f"host work of phases 2, 4 and 5b: "
           f"{time.perf_counter() - t_builds:.1f} s from before phase 1")
     phase("2 (with the host table builds)")
+    # phase 5c's retile tables (8x8x1240 in 1x2 tiles), built on the host
+    # beside phases 3 to 5b and moved to the card by 5c's retile driver
+    retile_pool = ThreadPoolExecutor(1)
+    retile_pending = retile_pool.submit(retile_host_build)
 
     # 3. the static path
     torch.cuda.reset_peak_memory_stats()
@@ -6148,7 +6685,12 @@ def main() -> None:
     ms_card = {law: ((tabs.to("cuda"), stats), build_s)
                for law, ((tabs, stats), build_s) in ms_built.items()}
     del ms_built
-    with seg_shared_builds({law: b[0] for law, b in ms_card.items()}):
+    def retile_tables():            # called by 5c's retile driver
+        (tabs, stats), _ = retile_pending.result()
+        return tabs.to("cuda"), stats
+    with seg_shared_builds(
+            [(ms_cfg(law, GRID), b[0]) for law, b in ms_card.items()]
+            + [(seg_retile_cfg(ms_cfg("gaussian", GRID)), retile_tables)]):
         ms_runs = {law: run_multishard(law, runs[law], ms_card[law][1])
                    for law in LAWS}
         del ms_card
@@ -6179,7 +6721,7 @@ def main() -> None:
         # zeroes the counts itself, after timing make_sim_fn alone); 5d.
         # ensembles through the same drivers (their table builds shared),
         # then the job service on builds of its own
-        seg = run_segmented(runs["gaussian"]["rate_hz"])
+        seg = run_segmented(runs["gaussian"]["rate_hz"], retile_pending)
         seg_launches = _build.launch_counts()
         print(f"segmented driver launches: {json.dumps(seg_launches)}")
         for name in ("neuron_step", "event_delivery", "step_graph",
@@ -6189,6 +6731,7 @@ def main() -> None:
         phase("5c")
         _build.reset_launch_counts()
         run_ensembles(seg)
+    retile_pool.shutdown()
     run_service()
     ens_launches = _build.launch_counts()
     print(f"ensemble and service launches: {json.dumps(ens_launches)}")

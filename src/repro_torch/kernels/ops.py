@@ -12,12 +12,18 @@ from __future__ import annotations
 
 import torch
 
+from . import _build, ref
 from .flash_attention import flash_attention
 from .lif_step import lif_step as _lif_step
 from .neuron_step import neuron_step as _neuron_step
 from .plastic_step import plastic_delivery_ltd
 from .spike_compact import spike_compact as _spike_compact
-from .synaptic_accum import event_delivery_banded
+from .synaptic_accum import event_delivery, event_delivery_banded
+
+# the row group (and target column width) of ``synaptic_accum_events``'
+# run descriptor: any grouping delivers the same sums, this one a warp's
+# rows
+DEFAULT_ROW_GROUP = 32
 
 
 def lif_step(state: dict, i_total, params, active=None):
@@ -26,6 +32,16 @@ def lif_step(state: dict, i_total, params, active=None):
          else torch.ones_like(state["v"], dtype=torch.bool))
     v, c, r, spk = _lif_step(state["v"], state["c"], state["refrac"],
                              i_total, a, **params.kernel_args())
+    return {"v": v, "c": c, "refrac": r}, spk
+
+
+def lif_step_ref(state: dict, i_total, params, active=None):
+    """The plain version of ``lif_step`` (``ref.lif_step_ref``) on any
+    device."""
+    a = (active if active is not None
+         else torch.ones_like(state["v"], dtype=torch.bool))
+    v, c, r, spk = ref.lif_step_ref(state["v"], state["c"], state["refrac"],
+                                    i_total, a, **params.kernel_args())
     return {"v": v, "c": c, "refrac": r}, spk
 
 
@@ -42,6 +58,26 @@ def neuron_step(state: dict, i_ring, slot: int, drive, params, active,
         out=(state["v"], state["c"], state["refrac"]) if inplace else None,
         **params.kernel_args())
     return {"v": v, "c": c, "refrac": r}, spk, bits, count
+
+
+def synaptic_accum_events(tables: dict, spikes_src, i_ring, t_slot: int,
+                          d_ring: int, active_cap: int):
+    """Kernel-backed drop-in for ``core.synapses.deliver_events``: one
+    tier's delivery of its first ``active_cap`` spiking rows into the
+    ring (in place).  On a CUDA ring the tier's run descriptor is built
+    at first use and cached on its tensors (``core.synapses.column_runs``,
+    rows and targets in groups of ``DEFAULT_ROW_GROUP``: the tables do
+    not name their columns, and where the groups cut them the descriptor
+    indexes a copy of the entries sorted by run, which delivers the same
+    sums) and the column kernel delivers; a CPU ring takes the plain
+    version.  Returns (ring, n_events, n_dropped)."""
+    runs = None
+    if _build.on_cuda(i_ring):
+        from ..core.synapses import column_runs
+        runs = column_runs([tables], DEFAULT_ROW_GROUP, DEFAULT_ROW_GROUP,
+                           d_ring)[0]
+    return event_delivery(tables, spikes_src, i_ring, t_slot, d_ring,
+                          active_cap, runs=runs)
 
 
 def synaptic_accum_banded(tiers, i_ring, t_slot: int, d_ring: int,

@@ -1,14 +1,16 @@
 """Runnable training launcher (the port of ``repro.launch.train``): a
 reduced ``--arch`` variant trained with the fault-tolerant runtime
 (checkpoints, retry, straggler watchdog, preemption) on the synthetic
-pipeline, with AdamW under a warmup-cosine schedule, on one card or on
-the ranks of a process group.
+pipeline, with AdamW (or ``--optimizer adafactor``, over the config's
+stack groups) under a warmup-cosine schedule, on one card or on the
+ranks of a process group.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
         --steps 200 --ckpt-dir RUN [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
         --steps 200 --ckpt-dir RUN --nproc 4 [--mesh 2x1x2] \\
-        [--transport gloo|nccl] [--device cpu]
+        [--transport gloo|nccl] [--optimizer adafactor] \\
+        [--seq-axis model] [--device cpu]
 
 A run resumes from the newest checkpoint in ``--ckpt-dir``.  The
 parameters and the optimizer state are updated in place (the port
@@ -22,9 +24,12 @@ each builds the whole model from the seed and keeps its blocks under the
 rules of ``rules_for`` (tensor-, expert- and FSDP-parallel,
 ``parallel.sharding``), takes its slice of each batch, and runs
 ``models.model.make_train_step(..., rules=)``.  Checkpoints hold the
-whole tree (rank 0 writes it), so a run on ranks resumes on one card
-and back.  Ranks on one card need ``--transport gloo`` (CUDA tensors
-staged through host memory); ``nccl`` needs one card a rank.
+whole tree (rank 0 writes it; Adafactor's moments too), so a run on
+ranks resumes on one card and back.  ``--seq-axis`` splits each
+sequence's positions between blocks over that mesh axis (sequence
+parallelism; the axis must not be the batch's).  Ranks on one card
+need ``--transport gloo`` (CUDA tensors staged through host memory);
+``nccl`` needs one card a rank.
 """
 
 from __future__ import annotations
@@ -39,8 +44,9 @@ from ..configs import get_reduced
 from ..data.pipeline import LMBatchPipeline, rank_batch
 from ..models import model as M
 from ..models.config import ShapeConfig
-from ..models.transformer import abstract_model, init_model, param_specs
-from ..optim import adamw, warmup_cosine
+from ..models.transformer import (abstract_model, init_model, param_specs,
+                                  stack_groups)
+from ..optim import adafactor, adamw, warmup_cosine
 from ..runtime import DriverConfig, TrainDriver
 from ..tree import tree_flatten, tree_unflatten
 
@@ -77,9 +83,11 @@ def _leaf_specs(tree):
 
 def build_trainer(arch: str, batch: int, seq: int, steps: int,
                   ckpt_dir: str, mesh=None, seed: int = 0, fault_hook=None,
-                  lr: float = 3e-4, ckpt_every: int = 50, device="cuda"):
+                  lr: float = 3e-4, ckpt_every: int = 50, device="cuda",
+                  optimizer: str = "adamw", seq_axis=None):
     """``(TrainDriver, cfg)`` for the reduced ``arch`` on ``device``:
-    parameters from ``init_model(cfg, seed)``, AdamW with
+    parameters from ``init_model(cfg, seed)``, AdamW (``optimizer=
+    "adafactor"``: Adafactor over ``stack_groups(cfg)``) with
     ``warmup_cosine(lr, min(50, steps // 4 + 1), steps)``, batches
     ``LMBatchPipeline(cfg, (seq, batch), seed).batch(step)``, a
     checkpoint every ``ckpt_every`` steps in ``ckpt_dir``.  The driver's
@@ -87,14 +95,24 @@ def build_trainer(arch: str, batch: int, seq: int, steps: int,
 
     ``mesh``: a ``launch.mesh.RankMesh`` with its collectives
     (``parallel.collectives.attach``): the state is this rank's blocks
-    under ``rules_for(cfg, mesh)``, each batch this rank's slice, and
-    the checkpoints the whole tree (``TrainDriver``'s ``rank_layout``)."""
+    under ``rules_for(cfg, mesh)`` (``seq=seq_axis``), each batch this
+    rank's slice, and the checkpoints the whole tree (``TrainDriver``'s
+    ``rank_layout``)."""
     dev = resolve_device(device)
     cfg = get_reduced(arch)
     shape = ShapeConfig("custom", seq, batch, "train")
-    opt = adamw(warmup_cosine(lr, min(50, steps // 4 + 1), steps))
+    sched = warmup_cosine(lr, min(50, steps // 4 + 1), steps)
+    if optimizer == "adafactor":
+        opt = adafactor(sched, stacks=stack_groups(cfg))
+    elif optimizer == "adamw":
+        opt = adamw(sched)
+    else:
+        raise ValueError(f"unknown optimizer {optimizer!r}")
     pipe = LMBatchPipeline(cfg=cfg, shape=shape, seed=seed)
-    rules = None if mesh is None else rules_for(cfg, mesh)
+    rules = None
+    if mesh is not None:
+        import dataclasses
+        rules = dataclasses.replace(rules_for(cfg, mesh), seq=seq_axis)
     step_fn = M.make_train_step(cfg, opt, rules=rules)
 
     def fresh_state():
@@ -177,7 +195,9 @@ def _rank_main(rank: int, world: int, args: dict) -> None:
                   Transport(args["transport"], dev))
     driver, cfg = build_trainer(args["arch"], args["batch"], args["seq"],
                                 args["steps"], args["ckpt_dir"], mesh=mesh,
-                                lr=args["lr"], device=dev)
+                                lr=args["lr"], device=dev,
+                                optimizer=args["optimizer"],
+                                seq_axis=args["seq_axis"])
     out = driver.run(args["steps"])
     if rank == 0:
         _report(out, cfg)
@@ -198,6 +218,11 @@ def main(argv=None):
                     help="DxM or PxDxM (default: the host-mesh shape)")
     ap.add_argument("--transport", default="gloo",
                     choices=("gloo", "nccl"))
+    ap.add_argument("--optimizer", default="adamw",
+                    choices=("adamw", "adafactor"))
+    ap.add_argument("--seq-axis", default=None, choices=("data", "model"),
+                    help="with --nproc: the mesh axis that splits each "
+                         "sequence's positions (sequence parallelism)")
     args = ap.parse_args(argv)
 
     if args.nproc:
@@ -207,7 +232,8 @@ def main(argv=None):
         return None
     driver, cfg = build_trainer(args.arch, args.batch, args.seq,
                                 args.steps, args.ckpt_dir, lr=args.lr,
-                                device=args.device)
+                                device=args.device,
+                                optimizer=args.optimizer)
     out = driver.run(args.steps)
     _report(out, cfg)
     return out

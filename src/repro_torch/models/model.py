@@ -24,16 +24,18 @@ from typing import Dict
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..parallel.collectives import (all_reduce_plain, gather_dim,
-                                    index_along, psum_over)
-from ..parallel.sharding import (on_ranks, replicated_axes, rule_axes,
-                                 shard_axes, spec_leaves)
+from ..parallel.collectives import (all_gather, all_gather_plain,
+                                    all_reduce_plain, gather_dim,
+                                    index_along, psum, psum_over)
+from ..parallel.sharding import (live_axes, on_ranks, replicated_axes,
+                                 rule_axes, spec_leaves)
 from ..tree import tree_flatten, tree_unflatten
 from .config import ModelConfig, ShapeConfig
 from .frontends import STUB_WIDTH
 from .layers import torch_dtype
 from .transformer import (abstract_model, decode_state_names, forward,
-                          init_decode_state, logits as lm_logits)
+                          init_decode_state, logits as lm_logits,
+                          own_positions, prefix_len, seq_axes)
 
 
 # ---------------------------------------------------------------------------
@@ -75,7 +77,8 @@ def _chunk_nll_ranks(table, xc, lc, rules):
     return torch.where(valid, lse - picked, torch.zeros_like(lse)).sum()
 
 
-def chunked_xent(p, cfg: ModelConfig, x, labels, rules=None):
+def chunked_xent(p, cfg: ModelConfig, x, labels, rules=None,
+                 seq_gather=()):
     """x: (B, S, d) final hidden; labels: (B, S) integer, -1 = masked.
 
     Returns (sum_nll float32, n_valid int32), chunk by chunk of
@@ -83,7 +86,13 @@ def chunked_xent(p, cfg: ModelConfig, x, labels, rules=None):
     ``torch.utils.checkpoint``: the backward recomputes that chunk's
     logits instead of keeping all of them (the reference's
     ``jax.checkpoint`` scan body).  On ranks the sums are this rank's
-    batch slice's (the vocabulary split: ``_chunk_nll_ranks``)."""
+    batch slice's (the vocabulary split: ``_chunk_nll_ranks``); under
+    sequence parallelism ``x`` and ``labels`` are this rank's positions,
+    joined first with those of the ranks along the mesh axes
+    ``seq_gather``."""
+    if seq_gather:
+        x = all_gather(x, rules.mesh, seq_gather, 1, "seq")
+        labels = all_gather_plain(labels, rules.mesh, seq_gather, 1, "seq")
     b, s, _ = x.shape
     chunk = min(cfg.loss_chunk, s)
     table = p["embed"]["table"]
@@ -109,12 +118,28 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict, rules=None):
     config (the aux values summed over the layers, as the reference adds
     them); ``metrics`` = ``{"nll", "tokens"}`` and the aux values.  On
     ranks the loss is the global ``sum nll / sum n`` over the batch
-    axes, the same on every rank."""
+    axes, the same on every rank.  Under sequence parallelism each rank
+    scores its own positions (its labels sliced as ``forward`` slices
+    the stream, a VLM's prefix masked) and the sums run over the seq
+    axes too; where a seq axis splits the vocabulary as well, its ranks'
+    positions are joined first (the vocabulary's logsumexp needs the
+    same positions on every vocab rank)."""
     x, _, aux = forward(params, cfg, batch, rules=rules)
-    nll, n = chunked_xent(params, cfg, x, batch["labels"], rules)
+    labels = batch["labels"]
+    n_prefix = prefix_len(cfg, batch)
+    sp = seq_axes(rules, n_prefix + labels.shape[1])
+    if sp:
+        if n_prefix:
+            labels = torch.cat([torch.full_like(labels[:, :1], -1).expand(
+                -1, n_prefix), labels], dim=1)
+        labels = own_positions(labels, rules, sp)
+    shared = tuple(a for a in sp if a in live_axes(rules, rules.vocab))
+    nll, n = chunked_xent(params, cfg, x, labels, rules, shared)
     if on_ranks(rules):
-        nll = psum_over(nll, rules, "batch", "loss")
-        n = all_reduce_plain(n, rules.mesh, rules.batch, channel="loss")
+        axes = set(live_axes(rules, rules.batch)) | (set(sp) - set(shared))
+        axes = tuple(a for a in rules.mesh.axis_names if a in axes)
+        nll = psum(nll, rules.mesh, axes, "loss")
+        n = all_reduce_plain(n, rules.mesh, axes, channel="loss")
     loss = nll / torch.clamp(n, min=1)
     if cfg.is_moe:
         loss = loss + cfg.router_aux_coef * aux["load_balance"] \
@@ -191,15 +216,6 @@ def sync_grads(grads, specs, rules, within=None, channel: str = "grad"):
     return tree_unflatten(treedef, out)
 
 
-def _check_optimizer(optimizer, specs, rules) -> None:
-    if optimizer.kind == "adafactor" and any(
-            shard_axes(n, rules) for n in spec_leaves(specs)):
-        raise NotImplementedError(
-            "Adafactor over leaves split across ranks (its factored "
-            "moments need row and column sums across the ranks): ROADMAP "
-            "item 6b-LM part 3")
-
-
 def make_train_step(cfg: ModelConfig, optimizer, microbatches: int = 1,
                     rules=None):
     """Returns ``step(params, opt_state, batch) -> (params, opt_state,
@@ -216,8 +232,11 @@ def make_train_step(cfg: ModelConfig, optimizer, microbatches: int = 1,
     On ranks (``rules`` with a mesh): ``params`` and ``opt_state`` are
     this rank's blocks, ``batch`` its slice; each rank seeds its
     backward with ``1 / ranks``, sums each leaf's gradient over the axes
-    that hold whole copies of it (``sync_grads``), and clips by the norm
-    of the whole tree (``optim.global_norm(grads, specs, rules)``)."""
+    that hold whole copies of it (``sync_grads``), and the optimizer
+    takes every reduction over the whole leaf (the global norm,
+    Adafactor's factored moments and update clip: ``Optimizer.update(...,
+    specs=, rules=)``); its state is this rank's blocks
+    (``Optimizer.state_specs``)."""
     from .transformer import param_specs
 
     def step(params, opt_state, batch):
@@ -227,15 +246,12 @@ def make_train_step(cfg: ModelConfig, optimizer, microbatches: int = 1,
             params, opt_state, gnorm = optimizer.update(params, grads,
                                                         opt_state)
         else:
-            from ..optim.optimizers import global_norm
             specs = param_specs(params)
-            _check_optimizer(optimizer, specs, rules)
             loss, metrics, grads = _accumulated(
                 params, cfg, batch, microbatches, rules, _seed(rules))
             grads = sync_grads(grads, specs, rules, rule_axes(rules))
             params, opt_state, gnorm = optimizer.update(
-                params, grads, opt_state,
-                norm=lambda g: global_norm(g, specs, rules))
+                params, grads, opt_state, specs=specs, rules=rules)
         return params, opt_state, {"loss": loss, "grad_norm": gnorm,
                                    **metrics}
 
@@ -268,7 +284,6 @@ def make_compressed_pod_train_step(cfg: ModelConfig, rules, optimizer):
     place."""
     import dataclasses as dc
     from ..optim.compression import CompressedAllReduce
-    from ..optim.optimizers import global_norm
     from .transformer import param_specs
 
     mesh = rules.mesh
@@ -281,7 +296,6 @@ def make_compressed_pod_train_step(cfg: ModelConfig, rules, optimizer):
 
     def step(params, opt_state, residuals, batch):
         specs = param_specs(params)
-        _check_optimizer(optimizer, specs, rules)
         loss, metrics, grads = _grads_of(params, cfg, batch, inner,
                                          _seed(inner))
         grads = sync_grads(grads, specs, inner, rule_axes(inner))
@@ -295,8 +309,7 @@ def make_compressed_pod_train_step(cfg: ModelConfig, rules, optimizer):
         grads = tree_unflatten(treedef, synced)
         loss = all_reduce_plain(loss, mesh, "pod", channel="loss") / n_pods
         params, opt_state, gnorm = optimizer.update(
-            params, grads, opt_state,
-            norm=lambda g: global_norm(g, specs, rules))
+            params, grads, opt_state, specs=specs, rules=rules)
         return params, opt_state, residuals, {"loss": loss,
                                               "grad_norm": gnorm, **metrics}
 

@@ -36,7 +36,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
-from ..parallel.sharding import block, block_shape, on_ranks
+from ..parallel.collectives import all_gather
+from ..parallel.sharding import block, block_shape, live_axes, on_ranks
 from .attention import (KVCache, abstract_cache, apply_attention,
                         init_attention, init_cache)
 from .config import ModelConfig
@@ -305,12 +306,77 @@ def param_count_gap(cfg: ModelConfig) -> int:
     return gap
 
 
+def seq_axes(rules, length: int) -> tuple:
+    """The live mesh axes that split a stream of ``length`` positions
+    between blocks (sequence parallelism, ``rules.seq``): ``()`` off
+    ranks, without ``seq``, or for one position (decode stays whole).
+    Raises ``ValueError`` where ``seq`` names a mesh axis that ``batch``
+    uses (the reference's ``PartitionSpec`` refuses one mesh axis on two
+    dims) and where ``length`` does not divide over the axes (the
+    reference's GSPMD pads that case; the port does not)."""
+    if not on_ranks(rules) or rules.seq is None:
+        return ()
+    both = set(_axis_names(rules.seq)) & set(_axis_names(rules.batch))
+    if both:
+        raise ValueError(f"sequence parallelism: seq {rules.seq!r} shares "
+                         f"the mesh axis {sorted(both)} with batch "
+                         f"{rules.batch!r} ({length} positions)")
+    axes = live_axes(rules, rules.seq)
+    if length <= 1 or not axes:
+        return ()
+    n = rules.mesh.axis_size(axes)
+    if length % n:
+        raise ValueError(f"sequence parallelism: {length} positions do not "
+                         f"divide over seq {axes} ({n} ranks)")
+    return axes
+
+
+def prefix_len(cfg: ModelConfig, batch: Dict) -> int:
+    """The positions a VLM's patches prefix the tokens with (0 without
+    ``patch_embeds``)."""
+    return (batch["patch_embeds"].shape[1]
+            if cfg.n_patches and "patch_embeds" in batch else 0)
+
+
+def _axis_names(axis) -> tuple:
+    return () if axis is None else (axis,) if isinstance(axis, str) \
+        else tuple(axis)
+
+
+def own_positions(x, rules, axes: tuple):
+    """This rank's block of ``x``'s positions (dim 1) along the ``seq``
+    axes ``axes`` (``x`` itself for none)."""
+    if not axes:
+        return x
+    size = x.shape[1] // rules.mesh.axis_size(axes)
+    return x.narrow(1, rules.mesh.axis_index(axes) * size, size)
+
+
+def _whole_positions(x, rules, axes: tuple):
+    """Every rank's positions joined (under autograd: the backward sums
+    the slices and keeps this rank's)."""
+    return x if not axes else all_gather(x, rules.mesh, axes, 1, "seq")
+
+
+def _seq_block(lp, cfg: ModelConfig, kind: str, x, positions, sp=(), *,
+               rules=None, **kw):
+    """``apply_block`` on this rank's positions ``x`` under sequence
+    parallelism (``sp``: the seq axes): the input gathered whole along
+    the sequence, the block run as without ``seq`` (whole positions,
+    mask and RoPE), this rank's block of its output kept."""
+    x, new_state, aux = apply_block(lp, cfg, kind,
+                                    _whole_positions(x, rules, sp),
+                                    positions, rules=rules, **kw)
+    return own_positions(x, rules, sp), new_state, aux
+
+
 def _block_out(lp, cfg: ModelConfig, kind: str, x, positions, window,
-               enc_out=None, causal=True, rules=None):
+               enc_out=None, causal=True, rules=None, sp=()):
     """One training block's output and its aux values (no cache), the
-    checkpointed unit (on ranks, its FSDP gathers with it)."""
-    x, _, aux = apply_block(lp, cfg, kind, x, positions, window=window,
-                            enc_out=enc_out, causal=causal, rules=rules)
+    checkpointed unit (on ranks, its FSDP gathers with it, and under
+    ``seq`` the gather of its input along the sequence)."""
+    x, _, aux = _seq_block(lp, cfg, kind, x, positions, sp, window=window,
+                           enc_out=enc_out, causal=causal, rules=rules)
     aux = aux or _zero_aux(x.device)
     return (x,) + tuple(aux[k] for k in AUX_KEYS)
 
@@ -318,17 +384,21 @@ def _block_out(lp, cfg: ModelConfig, kind: str, x, positions, window,
 def _encode(p, cfg: ModelConfig, frames, dtype, remat: bool, rules=None):
     """Whisper's encoder: the audio frontend, ``cfg.encoder_layers``
     non-causal "attn" blocks (each under ``torch.utils.checkpoint`` with
-    ``remat``), the final norm."""
+    ``remat``), the final norm.  Under ``seq`` the frames are split as
+    the decoder's stream is, and the output gathered whole for the
+    cross-attention."""
     e = apply_audio_frontend(p["frontend"], frames, rules).to(dtype)
     e_pos = torch.arange(e.shape[1], device=e.device)
+    sp = seq_axes(rules, e.shape[1])
+    e = own_positions(e, rules, sp)
     for lp in p["enc_layers"]:
         if remat:
             e = checkpoint(_block_out, lp, cfg, "attn", e, e_pos, None,
-                           None, False, rules, use_reentrant=False)[0]
+                           None, False, rules, sp, use_reentrant=False)[0]
         else:
-            e = apply_block(lp, cfg, "attn", e, e_pos, causal=False,
-                            rules=rules)[0]
-    return apply_rmsnorm(p["enc_ln_f"], e)
+            e = _seq_block(lp, cfg, "attn", e, e_pos, sp, causal=False,
+                           rules=rules)[0]
+    return _whole_positions(apply_rmsnorm(p["enc_ln_f"], e), rules, sp)
 
 
 def forward(p, cfg: ModelConfig, batch: Dict, *, state=None,
@@ -360,20 +430,26 @@ def forward(p, cfg: ModelConfig, batch: Dict, *, state=None,
     On ranks (``rules`` with a mesh; ``p`` this rank's blocks, ``batch``
     its slice, ``state`` its blocks of ``init_decode_state(...,
     rules=)``): every family, training (each layer with its FSDP gathers
-    under the checkpoint), prefill and decode; sequence parallelism
-    (``seq``) raises."""
-    if on_ranks(rules) and rules.seq is not None:
-        raise NotImplementedError("sequence parallelism (seq) on ranks: "
-                                  "ROADMAP item 6b-LM part 3")
+    under the checkpoint), prefill and decode.  Sequence parallelism
+    (``rules.seq``, ``seq_axes``): between blocks each rank holds its
+    ``1 / n`` of the positions (split after the embedding, the patch
+    prefix and the sinusoidal add; whisper's frames alike); each block
+    gathers its input along the sequence and keeps its own block of the
+    output.  Without ``state`` the result is then this rank's positions
+    (a VLM's prefix rows included: ``model.loss_fn`` masks them); a
+    prefill returns the whole sequence; decode's one position stays
+    whole."""
     tokens = batch["tokens"]
+    n_prefix = prefix_len(cfg, batch)
+    sp = seq_axes(rules, n_prefix + tokens.shape[1])
+    if cfg.encoder_layers and "frames" in batch:
+        seq_axes(rules, batch["frames"].shape[1])      # refuse before work
     x = apply_embedding(p["embed"], tokens, scale=cfg.embed_scale,
                         rules=rules)
-    n_prefix = 0
-    if cfg.n_patches and "patch_embeds" in batch:
+    if n_prefix:
         px = apply_patch_frontend(p["frontend"], batch["patch_embeds"],
                                   rules)
         x = torch.cat([px.to(x.dtype), x], dim=1)
-        n_prefix = px.shape[1]
     positions = torch.arange(x.shape[1], device=x.device)
     if cache_pos is not None:
         positions = positions + cache_pos
@@ -382,6 +458,7 @@ def forward(p, cfg: ModelConfig, batch: Dict, *, state=None,
         # offsets (no table)
         x = x + sinusoidal_positions(positions, cfg.d_model).to(
             x.dtype)[None]
+    x = own_positions(x, rules, sp)
     remat = cfg.remat and state is None and torch.is_grad_enabled()
     enc_out = None
     if cfg.encoder_layers and "frames" in batch:
@@ -396,20 +473,22 @@ def forward(p, cfg: ModelConfig, batch: Dict, *, state=None,
         win = cfg.window if kind in ("attn", "moe") else None
         if remat:
             x, *vals = checkpoint(_block_out, lp, cfg, kind, x, positions,
-                                  win, enc_out, True, rules,
+                                  win, enc_out, True, rules, sp,
                                   use_reentrant=False)
             aux = dict(zip(AUX_KEYS, vals))
             new_states.append(None)
         else:
-            x, ns, aux = apply_block(lp, cfg, kind, x, positions, state=st,
-                                     cache_pos=cache_pos, window=win,
-                                     enc_out=enc_out, cross_state=cst,
-                                     rules=rules)
+            x, ns, aux = _seq_block(lp, cfg, kind, x, positions, sp,
+                                    state=st, cache_pos=cache_pos,
+                                    window=win, enc_out=enc_out,
+                                    cross_state=cst, rules=rules)
             new_states.append(ns)
         if aux is not None:
             aux_total = {k: aux_total[k] + aux[k] for k in AUX_KEYS}
     x = apply_rmsnorm(p["ln_f"], x)
-    if n_prefix and cache_pos is None:
+    if state is not None:
+        x = _whole_positions(x, rules, sp)
+    elif n_prefix and cache_pos is None and not sp:
         x = x[:, n_prefix:]
     new_state = {"layers": new_states}
     if state and "cross" in state:

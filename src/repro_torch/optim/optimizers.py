@@ -16,16 +16,26 @@ factors and clips each group as the reference does its stacked leaf.
 ``abstract_state`` builds the state on ``"meta"`` through the same
 ``init`` (the dry run's input), and ``state_specs`` names its leaves as
 the reference does.
+
+On ranks (``update(..., specs=, rules=)``: the parameters, gradients and
+moments are this rank's blocks) every reduction runs over the whole
+leaf, as GSPMD runs the reference's: the global norm, and Adafactor's
+row and column sums, its row factor's mean and its update clip's RMS.
+Each is a local partial sum added across the ranks that split the
+dimension it reduces, in one flattened all-reduce per set of mesh axes
+(channel ``"opt"``), and divided by the whole leaf's length.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable
 
 import torch
 from torch.profiler import record_function
 
+from ..parallel.sharding import shard_axes, spec_leaves
 from ..tree import tree_flatten, tree_flatten_up_to, tree_unflatten
 
 MOMENT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -42,17 +52,11 @@ def global_norm(tree, specs=None, rules=None) -> torch.Tensor:
     leaves = tree_flatten(tree)[0]
     acc = torch.promote_types(leaves[0].dtype, torch.float32)
     sq = [torch.linalg.vector_norm(x, dtype=acc).square() for x in leaves]
-    if rules is None or rules.mesh is None:
-        return torch.sqrt(torch.stack(sq).sum())
-    from ..parallel.collectives import all_reduce_plain
-    from ..parallel.sharding import shard_axes, spec_leaves
-    by_axes: dict = {}
-    for s, names in zip(sq, spec_leaves(specs)):
-        by_axes.setdefault(shard_axes(names, rules), []).append(s)
-    total = [all_reduce_plain(torch.stack(v).sum(), rules.mesh, axes,
-                              channel="norm")
-             for axes, v in sorted(by_axes.items())]
-    return torch.sqrt(torch.stack(total).sum())
+    if rules is not None and rules.mesh is not None:
+        sq = _sum_across([(s, shard_axes(n, rules))
+                          for s, n in zip(sq, spec_leaves(specs))], rules,
+                         "norm")
+    return torch.sqrt(torch.stack(sq).sum())
 
 
 def _is_names(t) -> bool:
@@ -72,7 +76,7 @@ def _map_names(fn, specs):
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
     init: Callable          # params -> opt_state
-    _update: Callable       # (params, grads, state, norm) -> (.., gnorm)
+    _update: Callable       # (params, grads, state, specs, rules)
     _state_specs: Callable  # param logical-name tree -> state name tree
     kind: str = ""          # "adamw" / "adafactor"
 
@@ -90,27 +94,59 @@ class Optimizer:
         parameters they mirror, ``step`` ``()``."""
         return self._state_specs(param_specs)
 
-    def update(self, params, grads, state, norm: Callable = None):
+    def update(self, params, grads, state, specs=None, rules=None):
         """One step: ``(params, state, grad_norm)``, the parameters and
         the state updated in place (in the ``torch.profiler`` range
-        ``optimizer_update``).  ``norm(grads)``: the global gradient
-        norm that clipping reads (default ``global_norm``; on ranks, the
-        norm of the whole tree from this rank's blocks)."""
+        ``optimizer_update``).  On ranks (``rules`` with a mesh,
+        ``specs`` the parameters' logical names) the trees are this
+        rank's blocks and every reduction covers the whole leaf, the
+        clip's global norm too."""
+        if rules is not None and rules.mesh is None:
+            rules = None
         with torch.no_grad(), record_function("optimizer_update"):
-            return self._update(params, grads, state, norm or global_norm)
+            return self._update(params, grads, state, specs, rules)
 
 
-def _clipped(grads: list, max_norm: float, g: torch.Tensor):
-    """The leaves scaled to a global norm of at most ``max_norm`` (each
-    in its own dtype), given their norm ``g``; and ``g``."""
+def _clipped(grads, max_norm: float, specs, rules):
+    """The leaves of ``grads`` scaled to a global norm of at most
+    ``max_norm`` (each in its own dtype), and that norm
+    (``global_norm(grads, specs, rules)``)."""
+    g = global_norm(grads, specs, rules)
     scale = torch.clamp(max_norm / (g + 1e-9), max=1.0)
-    return [x * scale.to(x.dtype) for x in grads], g
+    return [x * scale.to(x.dtype) for x in tree_flatten(grads)[0]], g
 
 
-def _mean_sq(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """mean(x^2) over one axis, accumulated in float32."""
-    acc = torch.promote_types(x.dtype, torch.float32)
-    return torch.square(x.to(acc)).sum(dim=dim) / x.shape[dim]
+def _sum_across(parts: list, rules, channel: str = "opt") -> list:
+    """``parts``: ``(tensor, mesh axes)`` pairs; each tensor summed over
+    its axes, in one all-reduce a distinct set of axes (the set's
+    tensors flattened into one buffer).  Over no axis, or off ranks,
+    the tensor itself."""
+    out = [t for t, _ in parts]
+    if rules is None:
+        return out
+    from ..parallel.collectives import all_reduce_plain
+    by_axes: dict = {}
+    for i, (_, axes) in enumerate(parts):
+        if axes:
+            key = tuple(a for a in rules.mesh.axis_names if a in axes)
+            by_axes.setdefault(key, []).append(i)
+    for axes, ids in sorted(by_axes.items()):
+        flat = all_reduce_plain(torch.cat([out[i].reshape(-1) for i in ids]),
+                                rules.mesh, axes, channel=channel)
+        for i, part in zip(ids, flat.split([out[i].numel() for i in ids])):
+            out[i] = part.view_as(out[i])
+    return out
+
+
+def _split(names, rules, ndim: int) -> list:
+    """Per dim of a leaf named ``names``: the live mesh axes that split
+    it (``()`` for every dim off ranks)."""
+    from ..parallel.sharding import dim_axes
+    return dim_axes(names, rules) if rules is not None else [()] * ndim
+
+
+def _parts(axes, rules) -> int:
+    return rules.mesh.axis_size(axes) if axes else 1
 
 
 def _zero_step(params) -> torch.Tensor:
@@ -133,10 +169,9 @@ def adamw(lr: Callable, *, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
                                             for p in leaves])
         return {"m": zeros(), "v": zeros(), "step": _zero_step(params)}
 
-    def update(params, grads, state, norm):
+    def update(params, grads, state, specs, rules):
         flat_p, _ = tree_flatten(params)
-        flat_g, gnorm = _clipped(tree_flatten(grads)[0], clip_norm,
-                                 norm(grads))
+        flat_g, gnorm = _clipped(grads, clip_norm, specs, rules)
         flat_m = tree_flatten(state["m"])[0]
         flat_v = tree_flatten(state["v"])[0]
         state["step"] += 1
@@ -233,25 +268,63 @@ def _moments(shape: tuple, device) -> dict:
     return {"full": torch.zeros(shape, **z)}
 
 
-def _scaled_grad(g, v: dict, beta, eps: float):
-    """The reference's Adafactor direction of one leaf ``g`` (before the
-    update clipping), its second moments ``v`` updated in place:
-    factored over the last two axes of a leaf with two or more, full
-    otherwise.  Full-size intermediates keep the gradient's dtype."""
-    if g.dim() >= 2:
-        row = beta * v["row"] + (1 - beta) * (_mean_sq(g, -1) + eps)
-        col = beta * v["col"] + (1 - beta) * (_mean_sq(g, -2) + eps)
-        rinv = torch.rsqrt(row + eps)
-        cinv = torch.rsqrt(col / (row.mean(dim=-1, keepdim=True) + eps)
-                           + eps)
-        v["row"].copy_(row)
-        v["col"].copy_(col)
-        return (g * rinv.to(g.dtype)[..., None]) \
-            * cinv.to(g.dtype)[..., None, :]
-    full = beta * v["full"] + (1 - beta) * (
-        torch.square(g.to(torch.float32)) + eps)
-    v["full"].copy_(full)
-    return (g.to(torch.float32) * torch.rsqrt(full + eps)).to(g.dtype)
+def _factors(items: list, beta, eps: float, rules) -> list:
+    """The reference's Adafactor second moments of each ``(g, v,
+    names)`` of ``items``, updated in place in ``v``, and the small
+    factors of its direction (``_direction``): factored over the last
+    two axes of a leaf with two or more (``rsqrt`` of the row and of the
+    column over the row factor's mean, cast to the gradient's dtype),
+    full otherwise.  ``g`` may be a block of the leaf (``names`` its
+    logical names, ``rules`` the mesh's): the row and column sums and
+    the row factor's mean are taken over the whole leaf, in two rounds
+    of ``_sum_across``."""
+    fac = [i for i, (g, _, _) in enumerate(items) if g.dim() >= 2]
+    dims = {i: _split(items[i][2], rules, items[i][0].dim()) for i in fac}
+    parts = []
+    for i in fac:
+        g = items[i][0]
+        sq = torch.square(g.to(torch.promote_types(g.dtype, torch.float32)))
+        parts += [(sq.sum(dim=-1), dims[i][-1]), (sq.sum(dim=-2),
+                                                  dims[i][-2])]
+    sums = _sum_across(parts, rules)
+    rows, cols, lens = {}, {}, {}
+    for k, i in enumerate(fac):
+        g, v, _ = items[i]
+        last = g.shape[-1] * _parts(dims[i][-1], rules)
+        lens[i] = g.shape[-2] * _parts(dims[i][-2], rules)
+        rows[i] = beta * v["row"] + (1 - beta) * (sums[2 * k] / last + eps)
+        cols[i] = beta * v["col"] + (1 - beta) * (sums[2 * k + 1] / lens[i]
+                                                  + eps)
+    row_sums = dict(zip(fac, _sum_across(
+        [(rows[i].sum(dim=-1, keepdim=True), dims[i][-2]) for i in fac],
+        rules)))
+    out = []
+    for i, (g, v, _) in enumerate(items):
+        if i in rows:
+            row, col = rows[i], cols[i]
+            mean = row_sums[i] / lens[i]
+            rinv = torch.rsqrt(row + eps)
+            cinv = torch.rsqrt(col / (mean + eps) + eps)
+            v["row"].copy_(row)
+            v["col"].copy_(col)
+            # the small factors cast before the outer product
+            out.append((rinv.to(g.dtype)[..., None],
+                        cinv.to(g.dtype)[..., None, :]))
+            continue
+        full = beta * v["full"] + (1 - beta) * (
+            torch.square(g.to(torch.float32)) + eps)
+        v["full"].copy_(full)
+        out.append((torch.rsqrt(full + eps),))
+    return out
+
+
+def _direction(g, f: tuple):
+    """The Adafactor direction of ``g`` (before the update clipping)
+    from its ``_factors``; full-size intermediates keep the gradient's
+    dtype."""
+    if len(f) == 2:
+        return (g * f[0]) * f[1]
+    return (g.to(torch.float32) * f[0]).to(g.dtype)
 
 
 def adafactor(lr: Callable, *, stacks: dict, decay=0.8, eps=1e-30,
@@ -286,38 +359,69 @@ def adafactor(lr: Callable, *, stacks: dict, decay=0.8, eps=1e-30,
                                  _regroup(params, stacks)),
                 "step": _zero_step(params)}
 
-    def update(params, grads, state, norm):
+    def update(params, grads, state, specs, rules):
         flat_p, treedef = tree_flatten(params)
-        flat_g, gnorm = _clipped(tree_flatten(grads)[0], clip_norm,
-                                 norm(grads))
+        flat_g, gnorm = _clipped(grads, clip_norm, specs, rules)
+        names = (spec_leaves(specs) if rules is not None
+                 else [None] * len(flat_p))
         index = tree_unflatten(treedef, list(range(len(flat_p))))
         units = _units(_regroup(index, stacks), state["v"], [])
         state["step"] += 1
         step = state["step"]
         lr_t = lr(step)
         beta = 1.0 - (step.to(torch.float32) + 1.0) ** (-decay)
-        for ids, v, stacked in units:
-            gs = [flat_g[i] for i in ids]
+        # (gradient, moments, names, unit): a stacked leaf of two or more
+        # dims slice by slice (the last two axes are each layer's own),
+        # a stacked 1-D leaf as the (L, d) stack
+        items = []
+        for u, (ids, v, stacked) in enumerate(units):
+            gs, n = [flat_g[i] for i in ids], names[ids[0]]
             if stacked and gs[0].dim() >= 2:
-                # the stacked leaf's moments, slice by slice (the last two
-                # axes are each layer's own)
-                us = [_scaled_grad(g, {k: m[j] for k, m in v.items()},
-                                   beta, eps) for j, g in enumerate(gs)]
+                items += [(g, {k: m[j] for k, m in v.items()}, n, u)
+                          for j, g in enumerate(gs)]
             elif stacked:
-                us = list(_scaled_grad(torch.stack(gs), v, beta,
-                                       eps).unbind(0))
+                items.append((torch.stack(gs), v,
+                              None if n is None else ("stack",) + n, u))
             else:
-                us = [_scaled_grad(gs[0], v, beta, eps)]
-            # relative-scale update clipping over the whole (stacked) leaf
-            acc = torch.promote_types(us[0].dtype, torch.float32)
-            sq = sum(torch.square(u.to(acc)).sum() for u in us)
-            n = sum(u.numel() for u in us)
+                items.append((gs[0], v, n, u))
+        facs = _factors([it[:3] for it in items], beta, eps, rules)
+        by_unit: dict = {}
+        for it, f in zip(items, facs):
+            by_unit.setdefault(it[3], []).append((it[0], f, it[2]))
+
+        def apply(u, dirs, sq, n):
+            # relative-scale update clipping over the whole (stacked)
+            # leaf
+            ids, _, stacked = units[u]
+            if stacked and flat_g[ids[0]].dim() < 2:
+                dirs = list(dirs[0].unbind(0))
             rms = torch.sqrt(sq / float(n) + 1e-12)
-            scale = (lr_t / torch.clamp(rms, min=1.0)).to(us[0].dtype)
-            for i, u in zip(ids, us):
+            scale = (lr_t / torch.clamp(rms, min=1.0)).to(dirs[0].dtype)
+            for i, d in zip(ids, dirs):
                 p = flat_p[i]
                 dec = (1.0 - lr_t * weight_decay).to(p.dtype)
-                p.copy_(p * dec - (u * scale).to(p.dtype))
+                p.copy_(p * dec - (d * scale).to(p.dtype))
+
+        sqs, counts = [], []
+        for u in range(len(units)):
+            dirs = [_direction(g, f) for g, f, _ in by_unit[u]]
+            acc = torch.promote_types(dirs[0].dtype, torch.float32)
+            sq = sum(torch.square(d.to(acc)).sum() for d in dirs)
+            n = sum(d.numel() * math.prod(
+                _parts(a, rules) for a in _split(nm, rules, d.dim()))
+                for d, (_, _, nm) in zip(dirs, by_unit[u]))
+            if rules is None:
+                apply(u, dirs, sq, n)
+            sqs.append(sq)
+            counts.append(n)
+        if rules is not None:
+            # on ranks the squares are summed across the ranks that split
+            # each leaf first; the directions are made again to apply
+            sqs = _sum_across([(sq, shard_axes(names[units[u][0][0]], rules))
+                               for u, sq in enumerate(sqs)], rules)
+            for u in range(len(units)):
+                apply(u, [_direction(g, f) for g, f, _ in by_unit[u]],
+                      sqs[u], counts[u])
         return params, state, gnorm
 
     def state_specs(param_specs):

@@ -12,6 +12,7 @@ figures the test reads.  A rank that raises ends the job
 
 from __future__ import annotations
 
+import dataclasses
 import json
 from pathlib import Path
 
@@ -24,8 +25,8 @@ from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import model as tm
 from repro_torch.models.layers import logical_names
 from repro_torch.models.moe import _apply_moe_ep
-from repro_torch.models.transformer import param_specs
-from repro_torch.optim import adamw, constant
+from repro_torch.models.transformer import param_specs, stack_groups
+from repro_torch.optim import adafactor, adamw, constant
 from repro_torch.optim.compression import (CompressedAllReduce,
                                            init_residuals)
 from repro_torch.parallel import collectives as C
@@ -154,6 +155,89 @@ def case_train(job: dict) -> dict:
             "dryrun_bytes": {k: want[k] for k in held}}
 
 
+def case_train_seq(job: dict) -> dict:
+    """The dense config's AdamW step on (data 4, model 2) with the
+    positions split over ``model`` (``seq``): the loss, the grad norm
+    and every leaf as ``case_train`` holds them."""
+    mesh, rules = mesh_rules((4, 2), ("data", "model"))
+    rules = dataclasses.replace(rules, seq="model")
+    cfg, params = job["cfg"], job["params"]
+    specs = param_specs(params)
+    blocks = S.block_tree(params, specs, rules)
+    opt = adamw(constant(LR))
+    mesh.comm.reset_stats()
+    blocks, _, out = tm.make_train_step(cfg, opt, rules=rules)(
+        blocks, opt.init(blocks), rank_batch(job["batch"], rules))
+    bad = []
+    for key, tol in (("loss", LOSS_TOL), ("grad_norm", GNORM_TOL)):
+        if abs(float(out[key]) - job[key]) > tol * abs(job[key]):
+            bad.append(f"{key} {float(out[key])} vs {job[key]}")
+    bad += leaf_errors(job["p1"], blocks, specs, rules, LEAF_TOL, "leaf",
+                       job["grads"])
+    return {"errors": bad, "seq_calls": mesh.comm.stats["seq"]["calls"]}
+
+
+def adafactor_steps(job: dict, rules) -> tuple:
+    """``ADAFACTOR_STEPS`` Adafactor steps (over the config's stack
+    groups) of this rank's blocks of the job's parameters, on its slices
+    of the job's batches: (per-step outs, blocks, state, held bytes)."""
+    cfg = job["cfg"]
+    specs = param_specs(job["params"])
+    blocks = S.block_tree(job["params"], specs, rules)
+    opt = adafactor(constant(LR), stacks=stack_groups(cfg))
+    state = opt.init(blocks)
+    held = sum(x.numel() * x.element_size()
+               for x in tree_flatten(state)[0])
+    step = tm.make_train_step(cfg, opt, rules=rules)
+    outs = []
+    for b in job["batches"]:
+        blocks, state, out = step(blocks, state, rank_batch(b, rules))
+        outs.append({k: float(out[k]) for k in ("loss", "grad_norm")})
+    return outs, blocks, state, held, opt
+
+
+def case_adafactor(jobs: dict) -> dict:
+    """Each reduced config's Adafactor steps on (pod 2, data 2, model 2)
+    (the dry run's rules: FSDP over ``data``, heads, MLP, experts and
+    vocabulary over ``model``), then the same with the positions split
+    over ``model`` (``seq``), against the reference's single-device
+    steps: every loss within ``LOSS_TOL``, every grad norm within
+    ``GNORM_TOL``, every parameter block and every moment block
+    (``row`` / ``col`` / ``full``, ``Optimizer.state_specs``) within
+    ``LEAF_TOL``; the moments' bytes the dry run's."""
+    mesh, _ = mesh_rules((2, 2, 2), ("pod", "data", "model"))
+    out = {}
+    for arch, job in jobs.items():
+        cfg = job["cfg"]
+        for seq in (None, "model"):
+            rules = dataclasses.replace(dryrun._rules_for(cfg, mesh)[0],
+                                        seq=seq)
+            mesh.comm.reset_stats()
+            outs, blocks, state, held, opt = adafactor_steps(job, rules)
+            bad = []
+            for i, (got, want) in enumerate(zip(outs, job["outs"])):
+                for key, tol in (("loss", LOSS_TOL),
+                                 ("grad_norm", GNORM_TOL)):
+                    if abs(got[key] - want[key]) > tol * abs(want[key]):
+                        bad.append(f"step {i} {key} {got[key]} vs "
+                                   f"{want[key]}")
+            specs = param_specs(job["params"])
+            bad += leaf_errors(job["p_end"], blocks, specs, rules, LEAF_TOL,
+                               "leaf")
+            bad += leaf_errors(job["v_end"], state["v"],
+                               opt.state_specs(specs)["v"], rules, LEAF_TOL,
+                               "moment")
+            stats = mesh.comm.stats
+            out[f"{arch}/{seq}"] = {
+                "errors": bad, "losses": [o["loss"] for o in outs],
+                "held_bytes": held,
+                "dryrun_bytes": dryrun.rank_bytes(cfg, rules, opt)[
+                    "optimizer"],
+                "opt_calls": stats.get("opt", {}).get("calls", 0),
+                "seq_calls": stats.get("seq", {}).get("calls", 0)}
+    return out
+
+
 def case_pod(job: dict) -> dict:
     """(pod 2, data 2, model 2): the exact rank step, then six
     compressed pod steps held to the reference's docstring."""
@@ -225,7 +309,8 @@ def case_compression(job: dict) -> dict:
 
 
 CASES = {"ep": case_ep, "train": case_train, "pod": case_pod,
-         "compression": case_compression}
+         "compression": case_compression, "train_seq": case_train_seq,
+         "adafactor": case_adafactor}
 
 
 def worker(rank: int, world: int, job_path: str) -> None:

@@ -13,6 +13,7 @@ A rank that raises ends the job (``spawn_ranks`` raises
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 from pathlib import Path
@@ -41,6 +42,9 @@ STATE_TOL = 1e-5      # decode-state leaves, float32 (rtol and atol)
 SERVE_MESHES = {"2x2": ((2, 2), ("data", "model")),
                 "1x4": ((1, 4), ("data", "model"))}
 TRAIN_MESH = ((2, 1, 2), ("pod", "data", "model"))
+# served on 2x2 with the prompt's positions split over model (seq): the
+# dense model, the d_inner mixer, the encoder's frames
+SEQ_SERVE = ("qwen2-1.5b", "falcon-mamba-7b", "whisper-small")
 
 
 def attached(shape, axes):
@@ -111,15 +115,18 @@ def _clone_state(state: dict) -> dict:
                          tt.decode_state_names(state))
 
 
-def case_serve(case: dict, mesh) -> dict:
+def case_serve(case: dict, mesh, seq=None) -> dict:
     """One reduced config served on ``mesh`` under ``serve_rules``
-    against the reference (logits and greedy tokens), the one-process
-    port (the decode state after the prefill and at the end) and the
-    dry run's bytes; its blocks against the whole parameters."""
+    (``seq``: the axis that splits the prompt's positions) against the
+    reference (logits and greedy tokens), the one-process port (the
+    decode state after the prefill and at the end) and the dry run's
+    bytes; its blocks against the whole parameters."""
     cfg, inputs = case["cfg"], case["inputs"]
     b, gen, max_len = inputs["tokens"].shape[0], case["gen"], \
         case["max_len"]
-    rules = serve_rules(cfg, mesh, b, max_len)
+    rules = dataclasses.replace(serve_rules(cfg, mesh, b, max_len), seq=seq)
+    if seq is not None:
+        mesh.comm.reset_stats()
     specs = param_specs(case["params"])
     blocks = S.block_tree(case["params"], specs, rules)
     bad = []
@@ -159,7 +166,8 @@ def case_serve(case: dict, mesh) -> dict:
         bad.append(f"decode state {state_bytes} B vs the dry run's "
                    f"{planned}")
     return {"errors": bad, "gaps": gaps,
-            "kv_seq": rules.kv_seq, "heads": rules.heads}
+            "kv_seq": rules.kv_seq, "heads": rules.heads,
+            "seq_calls": mesh.comm.stats.get("seq", {}).get("calls", 0)}
 
 
 def case_two_part(case: dict, mesh) -> dict:
@@ -245,6 +253,9 @@ def worker(rank: int, world: int, job_path: str) -> None:
                 out[f"two_part/{key}/{name}"] = case_two_part(case, mesh)
         if name == "2x2":
             out["serve_batch"] = case_serve_batch(job["serve_batch"], mesh)
+            for key in SEQ_SERVE:
+                out[f"serve_seq/{key}"] = case_serve(job["serve"][key], mesh,
+                                                     seq="model")
     mesh = attached(*TRAIN_MESH)
     for key, case in job["train"].items():
         out[f"train/{key}"] = case_train(case, mesh)

@@ -20,6 +20,7 @@ Inputs come from numpy seeds; parameters cross through
 import dataclasses
 import json
 import os
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -38,7 +39,8 @@ from repro.optim.schedules import constant as jconstant
 from repro.parallel.sharding import MeshRules as JRules
 from repro.parallel.sharding import rules_for_mesh as jrules_for_mesh
 from repro_torch import configs as tconfigs
-from repro_torch.core.convert import model_params_from_arrays
+from repro_torch.core.convert import (adafactor_state_from_arrays,
+                                      model_params_from_arrays)
 from repro_torch.data.pipeline import make_batch_specs, rank_batch
 from repro_torch.launch import dryrun
 from repro_torch.launch import mesh as tmesh
@@ -50,7 +52,7 @@ from repro_torch.optim import compression as tcomp
 from repro_torch.parallel import sharding as S
 
 import _torch_lm_ranks as R
-from _torch_parity import lm_params
+from _torch_parity import frontend_inputs, lm_params
 
 NOMESH = JRules(batch=None, fsdp=None, heads=None, mlp=None, experts=None,
                 vocab=None, kv_seq=None, d_inner=None)
@@ -109,6 +111,61 @@ def train_job() -> dict:
                 cfg, jax.tree.map(np.asarray, p1), device="cpu")}
 
 
+# Adafactor over split leaves: the configs the reference's dry run trains
+# with it (above 15e9 parameters), reduced; the MoE at capacity factor 8,
+# so that nothing drops (EP and the dense dispatch agree only then).
+# Tokens a row: a VLM's patches come on top, and patches + tokens divide
+# over the model axis for the seq legs.
+ADAFACTOR = {"internvl2-26b": 24, "kimi-k2-1t-a32b": 32}
+ADAFACTOR_STEPS = 2
+
+
+def adafactor_job(arch: str) -> dict:
+    """The reduced ``arch``'s parameters (``lm_params``), two numpy
+    batches (a VLM's patches too) and the reference's two Adafactor
+    steps (``repro.optim.adafactor`` over its stacked layers, meshless):
+    each step's loss and grad norm, the parameters and the state after
+    the last.  The gradient is jitted, ``_clipped`` runs op by op and the
+    update (jitted) has ``clip_norm=inf``: XLA:CPU's jitted global norm
+    sums each leaf's squares sequentially (tests/test_torch_train_
+    families.py)."""
+    from repro.configs import get_reduced as jget_reduced
+    from repro.optim import adafactor as jadafactor
+    from repro.optim.optimizers import _clipped as jclipped
+    jcfg = jget_reduced(arch)
+    cfg = tconfigs.get_reduced(arch)
+    if cfg.is_moe:
+        jcfg = dataclasses.replace(jcfg, capacity_factor=8.0)
+        cfg = dataclasses.replace(cfg, capacity_factor=8.0)
+    params, host = lm_params(jcfg, seed=0)
+    rng = np.random.default_rng(4)
+    batches = []
+    for _ in range(ADAFACTOR_STEPS):
+        tokens = rng.integers(0, cfg.vocab_size, size=(8, ADAFACTOR[arch])) \
+            .astype(np.int32)
+        batches.append({"tokens": tokens, "labels": tokens,
+                        **frontend_inputs(cfg, rng, 8)})
+    grads_of = jax.jit(jax.value_and_grad(
+        lambda p, b: jm.loss_fn(p, jcfg, NOMESH, b)[0]))
+    jopt = jadafactor(jconstant(R.LR), clip_norm=float("inf"))
+    update = jax.jit(jopt.update)
+    p, state, outs = params, jopt.init(params), []
+    for b in batches:
+        loss, grads = grads_of(p, {k: jnp.asarray(v) for k, v in b.items()})
+        grads, gnorm = jclipped(grads, 1.0)
+        p, state, _ = update(p, grads, state)
+        outs.append({"loss": float(loss), "grad_norm": float(gnorm)})
+    return {"cfg": cfg,
+            "params": model_params_from_arrays(cfg, host, device="cpu"),
+            "batches": [{k: torch.from_numpy(v) for k, v in b.items()}
+                        for b in batches],
+            "outs": outs,
+            "p_end": model_params_from_arrays(
+                cfg, jax.tree.map(np.asarray, p), device="cpu"),
+            "v_end": adafactor_state_from_arrays(
+                cfg, jax.tree.map(np.asarray, state), device="cpu")["v"]}
+
+
 COMPRESSION_SHAPES = [(3, 301), (256,), (2, 5, 7), (1000,)]
 
 
@@ -138,9 +195,16 @@ BLOCK_ZERO = 256     # the first block of a longer gradient is zero
 @pytest.fixture(scope="module")
 def ranks8(tmp_path_factory):
     """Every case on 8 ranks: ``{case: [rank result, ...]}``."""
-    train = train_job()
-    job = {"ep": ep_job(), "train": train, "pod": train,
-           "compression": compression_job()}
+    # the reference's runs in threads: most of their time is XLA's
+    # compiles, which run beside each other
+    with ThreadPoolExecutor(4) as pool:
+        ep, train, comp, *adaf = [pool.submit(fn, *a).result for fn, a in (
+            (ep_job, ()), (train_job, ()), (compression_job, ()),
+            *((adafactor_job, (a,)) for a in ADAFACTOR))]
+        train = train()
+        job = {"ep": ep(), "train": train, "pod": train,
+               "compression": comp(), "train_seq": train,
+               "adafactor": {a: f() for a, f in zip(ADAFACTOR, adaf)}}
     out_dir = tmp_path_factory.mktemp("lm_ranks")
     path = out_dir / "job.pt"
     torch.save(job, path)
@@ -205,6 +269,46 @@ def test_torch_rank_bytes_are_the_blocks_held(ranks8):
     blocks each rank holds (parameters and AdamW state)."""
     for r in ranks8["train"]:
         assert r["held_bytes"] == r["dryrun_bytes"]
+
+
+@pytest.mark.parametrize("seq", [None, "model"])
+@pytest.mark.parametrize("arch", sorted(ADAFACTOR))
+def test_torch_adafactor_over_split_leaves_matches_reference(ranks8, arch,
+                                                             seq):
+    """Two Adafactor steps (over ``stack_groups``) on (pod 2, data 2,
+    model 2), leaves split by FSDP, heads, MLP, experts and vocabulary,
+    with and without ``seq``: each loss within 1e-5 and grad norm within
+    5e-5 of the reference's single-device steps (its stacked layers),
+    every parameter block and every row / col / full moment block within
+    2e-5; the optimizer's reductions ran on their own channel, a few
+    calls a step (one per set of mesh axes a stage)."""
+    results = ranks8["adafactor"]
+    check([r[f"{arch}/{seq}"] for r in results])
+    calls = results[0][f"{arch}/{seq}"]["opt_calls"]
+    assert 0 < calls <= 8 * ADAFACTOR_STEPS, calls
+
+
+def test_torch_seq_training_matches_reference(ranks8):
+    """One AdamW step of the dense config on (data 4, model 2) with the
+    positions split over ``model`` (``seq``): loss 1e-5, grad norm 5e-5,
+    every leaf 2e-5 (the flat-gradient elements within lr) of the
+    reference's; the stream went through the seq gathers.  The MoE
+    (kimi-k2) and the VLM prefix (internvl) run under ``seq`` in
+    ``test_torch_adafactor_over_split_leaves_matches_reference``."""
+    check(ranks8["train_seq"])
+    assert all(r["seq_calls"] > 0 for r in ranks8["train_seq"])
+    for arch in ADAFACTOR:
+        assert all(r[f"{arch}/model"]["seq_calls"] > 0
+                   and r[f"{arch}/None"]["seq_calls"] == 0
+                   for r in ranks8["adafactor"])
+
+
+def test_torch_adafactor_rank_bytes_are_the_blocks_held(ranks8):
+    """``dryrun.rank_bytes`` under Adafactor counts the moment blocks
+    (and the step) each rank holds."""
+    for r in ranks8["adafactor"]:
+        for leg in r.values():
+            assert leg["held_bytes"] == leg["dryrun_bytes"]
 
 
 # ---------------------------------------------------------------------------
@@ -380,25 +484,55 @@ def test_torch_local_kv_heads_are_the_groups_of_the_local_query_heads(
             assert got == want
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "qwen2-1.5b"])
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "qwen2-1.5b",
+                                  "internvl2-26b", "kimi-k2-1t-a32b"])
 def test_torch_rank_bytes_split_the_whole(arch):
     """The dry run's bytes per rank: every rank the same, and a mesh of
-    one rank holds the whole tree (the phase-14 mesh at full width)."""
+    one rank holds the whole tree (the phase-14 mesh at full width).
+    Under the dry run's optimizer (Adafactor above 15e9 parameters:
+    internvl2-26b, kimi-k2) on (data 2, model 2): the moments each rank
+    makes from its blocks (``init`` on them) are the blocks of the whole
+    state under ``state_specs``, so the blocks of the four ranks tile
+    the whole state, and ``rank_bytes`` counts them."""
     from repro_torch.tree import tree_flatten
     cfg = tconfigs.get_config(arch)
-    params, _ = abstract_model(cfg)
+    params, specs = abstract_model(cfg)
     whole = sum(x.numel() * x.element_size()
                 for x in tree_flatten(params)[0])
     one = S.rules_for_mesh(tmesh.RankMesh((1, 1, 1),
                                           ("pod", "data", "model")))
     assert dryrun.rank_bytes(cfg, one)["params"] == whole
-    rules, _ = dryrun._rules_for(cfg, tmesh.RankMesh(
-        (2, 1, 2), ("pod", "data", "model")))
-    got = dryrun.rank_bytes(cfg, rules, adamw(constant(1e-4)),
-                            residuals=True)
-    assert whole // 2 < got["params"] < whole
-    assert got["total"] == sum(got[k] for k in ("params", "optimizer",
-                                                "residuals"))
+    opt, _ = dryrun.train_setup(cfg, sum(x.numel() for x in tree_flatten(
+        params)[0]), {})
+    if opt.kind == "adamw":
+        rules, _ = dryrun._rules_for(cfg, tmesh.RankMesh(
+            (2, 1, 2), ("pod", "data", "model")))
+        got = dryrun.rank_bytes(cfg, rules, opt, residuals=True)
+        assert whole // 2 < got["params"] < whole
+        assert got["total"] == sum(got[k] for k in ("params", "optimizer",
+                                                    "residuals"))
+        return
+    state = opt.abstract_state(params)
+    leaves = list(zip(tree_flatten(state["v"])[0],
+                      S.spec_leaves(opt.state_specs(specs)["v"])))
+    total = sum(x.numel() for x, _ in leaves)
+    counted = []
+    for r in range(4):
+        rules, _ = dryrun._rules_for(cfg, tmesh.RankMesh(
+            (2, 2), ("data", "model"), r))
+        blocks = S.block_tree(params, specs, rules)
+        mine = tree_flatten(opt.init(blocks)["v"])[0]
+        tiled = 0
+        for m, (x, n) in zip(mine, leaves):
+            assert tuple(m.shape) == S.block_shape(tuple(x.shape), n, rules)
+            split = S.shard_axes(n, rules)
+            tiled += m.numel() * (rules.mesh.axis_size(split) if split
+                                  else 1)
+        assert tiled == total
+        counted.append(dryrun.rank_bytes(cfg, rules, opt)["optimizer"])
+        assert counted[-1] == 4 + sum(m.numel() * m.element_size()
+                                      for m in mine)
+    assert len(set(counted)) == 1 and counted[0] < 4 * total
 
 
 # ---------------------------------------------------------------------------
@@ -419,18 +553,22 @@ def _tiny(arch):
     return cfg, init_model(cfg, 0, device="cpu")
 
 
-def test_torch_seq_and_adafactor_on_ranks_raise():
+@pytest.mark.parametrize("case", ["batch-axis", "indivisible"])
+def test_torch_seq_refusals_name_the_axis_and_length(case):
+    """``seq`` on a mesh axis that ``batch`` uses (the reference's
+    ``PartitionSpec`` refuses one mesh axis on two dims), and a length
+    that does not divide over the ``seq`` axis (the reference's GSPMD
+    pads it; ROADMAP queue 1), raise ``ValueError`` before any
+    collective, naming the axis and the length."""
     cfg, params = _tiny("qwen2-1.5b")
-    rules = dataclasses.replace(_shape_rules(cfg), seq="data")
-    batch = {"tokens": torch.zeros(2, 8, dtype=torch.int32),
-             "labels": torch.zeros(2, 8, dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="seq"):
+    seq, length = {"batch-axis": ("data", 8), "indivisible": ("model", 7)}[
+        case]
+    rules = dataclasses.replace(_shape_rules(cfg, (2, 2, 2)), seq=seq)
+    batch = {"tokens": torch.zeros(2, length, dtype=torch.int32),
+             "labels": torch.zeros(2, length, dtype=torch.int32)}
+    with pytest.raises(ValueError, match=f"{seq}.*{length}|{length}.*"
+                       f"{seq}"):
         tm.make_eval_step(cfg, rules)(params, batch)
-    from repro_torch.models.transformer import stack_groups
-    opt = adafactor(constant(1e-3), stacks=stack_groups(cfg))
-    step = tm.make_train_step(cfg, opt, rules=_shape_rules(cfg))
-    with pytest.raises(NotImplementedError, match="Adafactor"):
-        step(params, opt.init(params), batch)
 
 
 def test_torch_nccl_refuses_two_ranks_on_one_card():
@@ -454,6 +592,45 @@ def test_torch_nccl_refuses_two_ranks_on_one_card():
 # the launcher on ranks
 # ---------------------------------------------------------------------------
 
+def _launcher_round_trip(tmp_path, extra: list, rank_extra: list):
+    """``launch.train.main`` of qwen2-1.5b (4 x 32, 3 steps, CPU) on two
+    ranks (mesh 1x2, ``extra + rank_extra``), then straight in one
+    process and again from the ranks' checkpoint (``extra``): the
+    restored and the straight ``(params, opt_state)``."""
+    from repro_torch.launch import train
+    kw = ["--arch", "qwen2-1.5b", "--batch", "4", "--seq", "32",
+          "--steps", "3", "--device", "cpu"] + extra
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        train.main(kw + ["--ckpt-dir", str(tmp_path / "r"), "--nproc", "2",
+                         "--mesh", "1x2"] + rank_extra)
+    finally:
+        torch.set_num_threads(n)
+    straight = train.main(kw + ["--ckpt-dir", str(tmp_path / "s")])
+    restored = train.main(kw + ["--ckpt-dir", str(tmp_path / "r")])
+    assert restored["final_step"] == 3 and not restored["metrics"]
+    (p_want, o_want), (p_got, o_got) = straight["state"], restored["state"]
+    assert int(o_got["step"]) == int(o_want["step"]) == 3
+    return (p_want, o_want), (p_got, o_got)
+
+
+def _whole_trees_agree(pairs_by_tol) -> None:
+    """Each ``(tol, want, got)``: the trees' leaves equal in shape and
+    dtype, and the error norm over the norm of the whole tree within
+    ``tol``."""
+    from repro_torch.tree import tree_flatten
+    for tol, want, got in pairs_by_tol:
+        w_leaves, g_leaves = tree_flatten(want)[0], tree_flatten(got)[0]
+        assert len(w_leaves) == len(g_leaves)
+        pairs = list(zip(w_leaves, g_leaves))
+        assert all(w.shape == g.shape and w.dtype == g.dtype
+                   for w, g in pairs)
+        assert R.rel_err(torch.cat([w.float().reshape(-1) for w, _ in pairs]),
+                         torch.cat([g.float().reshape(-1) for _, g in pairs])
+                         ) <= tol
+
+
 def test_torch_train_launcher_on_ranks_resumes_on_one_process(tmp_path):
     """``python -m repro_torch.launch.train --nproc 2 --mesh 1x2``: its
     checkpoint (the whole tree, written by rank 0) restores in one
@@ -465,28 +642,24 @@ def test_torch_train_launcher_on_ranks_resumes_on_one_process(tmp_path):
     updates, whose rounding a leaf's own norm does not bound.  The
     ranks differ from one process only in the order of their sums; the
     per-leaf parity of a rank step is the tests above."""
-    from repro_torch.launch import train
-    kw = ["--arch", "qwen2-1.5b", "--batch", "4", "--seq", "32",
-          "--steps", "3", "--device", "cpu"]
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        train.main(kw + ["--ckpt-dir", str(tmp_path / "r"), "--nproc", "2",
-                         "--mesh", "1x2"])
-    finally:
-        torch.set_num_threads(n)
-    straight = train.main(kw + ["--ckpt-dir", str(tmp_path / "s")])
-    restored = train.main(kw + ["--ckpt-dir", str(tmp_path / "r")])
-    assert restored["final_step"] == 3 and not restored["metrics"]
-    (p_want, o_want), (p_got, o_got) = straight["state"], restored["state"]
-    assert int(o_got["step"]) == int(o_want["step"]) == 3
-    from repro_torch.tree import tree_flatten
-    for tol, want, got in ((R.LEAF_TOL, p_want, p_got),
-                           (5e-5, o_want["m"], o_got["m"]),
-                           (1e-4, o_want["v"], o_got["v"])):
-        pairs = list(zip(tree_flatten(want)[0], tree_flatten(got)[0]))
-        assert all(w.shape == g.shape and w.dtype == g.dtype
-                   for w, g in pairs)
-        assert R.rel_err(torch.cat([w.float().reshape(-1) for w, _ in pairs]),
-                         torch.cat([g.float().reshape(-1) for _, g in pairs])
-                         ) <= tol
+    (p_want, o_want), (p_got, o_got) = _launcher_round_trip(tmp_path, [], [])
+    _whole_trees_agree(((R.LEAF_TOL, p_want, p_got),
+                        (5e-5, o_want["m"], o_got["m"]),
+                        (1e-4, o_want["v"], o_got["v"])))
+
+
+def test_torch_train_launcher_adafactor_seq_on_ranks_resumes(tmp_path):
+    """``launch.train --optimizer adafactor --nproc 2 --mesh 1x2
+    --seq-axis model``: each sequence's positions split over ``model``
+    between blocks, Adafactor over the stack groups with its factored
+    moments split as the parameters are.  Rank 0's checkpoint gathers
+    the moments whole: it restores in one process as the one process's
+    Adafactor state after the same three steps, every ``row`` /
+    ``col`` / ``full`` leaf in the one process's shape and dtype, and
+    in value within the AdamW case's tolerances over each whole tree
+    (parameters 2e-5, the moments 1e-4, as AdamW's v)."""
+    (p_want, o_want), (p_got, o_got) = _launcher_round_trip(
+        tmp_path, ["--optimizer", "adafactor"], ["--seq-axis", "model"])
+    assert "m" not in o_got and set(o_got) == set(o_want) == {"v", "step"}
+    _whole_trees_agree(((R.LEAF_TOL, p_want, p_got),
+                        (1e-4, o_want["v"], o_got["v"])))

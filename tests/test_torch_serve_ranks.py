@@ -296,15 +296,30 @@ def test_torch_rank_decode_state_is_the_named_blocks():
             assert got["cross"][0].k.shape[1] == cfg.encoder_seq
 
 
-def test_torch_seq_still_raises_when_serving():
-    """Sequence parallelism stays a refusal (ROADMAP item 6b-LM part
-    3): serving under ``seq`` raises before any collective."""
+@pytest.mark.parametrize("case", W.SEQ_SERVE)
+def test_torch_seq_serving_matches_reference(ranks4, case):
+    """Prefill and decode on (data 2, model 2) with the prompt's
+    positions (whisper's encoder frames too) split over ``model``
+    (``seq``): the logits within 1e-4 of the reference's largest, the
+    same greedy tokens and the one-process port's decode state, as
+    ``test_torch_rank_serving_matches_reference`` holds them; the
+    prefill went through the seq gathers, decode's one position
+    whole."""
+    results = ranks4[f"serve_seq/{case}"]
+    check(results)
+    assert all(r["seq_calls"] > 0 for r in results)
+
+
+def test_torch_seq_prefill_refuses_an_indivisible_prompt():
+    """A prompt whose length does not divide over the ``seq`` axis
+    raises ``ValueError`` naming the axis and the length, before any
+    collective (the reference's GSPMD pads it; ROADMAP queue 1)."""
     cfg = tconfigs.get_reduced("qwen2-1.5b")
     rules = dataclasses.replace(tserve.serve_rules(
         cfg, tmesh.RankMesh((2, 2), ("data", "model"), 0), 2, 16),
-        seq="data")
+        seq="model")
     from repro_torch.models.transformer import init_model
     params = init_model(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="seq"):
+    with pytest.raises(ValueError, match="5 positions.*model"):
         tm.make_prefill(cfg, rules)(params, {"tokens": torch.zeros(
-            1, 4, dtype=torch.int32)}, None)
+            1, 5, dtype=torch.int32)}, None)
