@@ -392,6 +392,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -463,6 +464,14 @@ LM_RANK_ADAFACTOR_STEPS = 2
 LM_RANK_SEQ_ARCH, LM_RANK_SEQ_PROMPT, LM_RANK_SEQ_TOKENS = \
     "qwen2-1.5b", 16, 4
 LM_RANK_SEQ_LOGIT_TOL = 2e-6
+# the seq legs at lengths that do not divide over model (2 ranks): arch
+# -> (train tokens, prompt tokens, config overrides): qwen2 63 and 15;
+# internvl's 8 patches + 63 and + 11; whisper's 11 frames, 63 and 15
+LM_RANK_SEQ_ODD = {"qwen2-1.5b": (63, 15, {}),
+                   "internvl2-26b": (63, 11, {}),
+                   "whisper-small": (63, 15, {"encoder_seq": 11})}
+# the dry run of one production cell beside phase 14 (a host process)
+LM_RANK_DRY_CELL = ("qwen2-1.5b", "train_4k", "single")
 # the slice's full-width path: internvl2-26b at its published width, 4
 # of 48 layers (~0.78 GB of bf16 weights a layer; cut for the smoke's
 # time: the host-staged FSDP gathers take most of a step), bf16, 2 x
@@ -2361,22 +2370,28 @@ def lm_rank_adafactor_parity(arch: str, mesh) -> dict:
             "launches": launches}
 
 
-def lm_rank_seq_parity(mesh) -> dict:
-    """The ``seq`` parity leg of phase 14's second mesh on this rank:
-    reduced qwen2-1.5b in float32 (``"pallas"``), its positions split
-    over ``model``.  One AdamW step against the one-card step (loss and
-    grad norm within ``LM_RANK_LOSS_TOL``, every leaf block within
+def lm_rank_seq_parity(mesh, arch: str = LM_RANK_SEQ_ARCH,
+                       length: int = LM_RANK_PARITY_SEQ,
+                       prompt_len: int = LM_RANK_SEQ_PROMPT,
+                       overrides=None) -> dict:
+    """A ``seq`` parity leg of phase 14's second mesh on this rank: the
+    reduced ``arch`` in float32 (``"pallas"``; ``overrides`` on its
+    config), its positions split over ``model``.  One AdamW step at
+    ``length`` tokens (a VLM's patches on top; whisper's
+    ``encoder_seq`` frames) against the one-card step (loss and grad
+    norm within ``LM_RANK_LOSS_TOL``, every leaf block within
     ``LM_RANK_LEAF_TOL``, the flat-gradient elements within lr as in
-    ``lm_rank_parity``); then a prefill and ``LM_RANK_SEQ_TOKENS`` greedy
-    tokens under ``serve_rules`` with ``seq="model"`` against one card:
-    every step's logits within ``LM_RANK_SEQ_LOGIT_TOL`` of the largest
-    one-card logit, the tokens equal."""
-    import numpy as np
+    ``lm_rank_parity``); then a prefill of ``prompt_len`` tokens and
+    ``LM_RANK_SEQ_TOKENS`` greedy tokens under ``serve_rules`` with
+    ``seq="model"`` against one card: every step's logits within
+    ``LM_RANK_SEQ_LOGIT_TOL`` of the largest one-card logit, the tokens
+    equal.  The lengths need not divide over ``model`` (each rank's
+    block padded between blocks)."""
     import torch
     from repro_torch.configs import get_reduced
     from repro_torch.data.pipeline import LMBatchPipeline, rank_batch
     from repro_torch.kernels import _build
-    from repro_torch.launch.serve import serve_rules
+    from repro_torch.launch.serve import serve_inputs, serve_rules
     from repro_torch.launch.train import rules_for
     from repro_torch.models import model as M
     from repro_torch.models import transformer as tt
@@ -2385,11 +2400,12 @@ def lm_rank_seq_parity(mesh) -> dict:
     from repro_torch.optim import adamw, constant
     from repro_torch.parallel import sharding as S
     from repro_torch.tree import tree_flatten
-    cfg = dataclasses.replace(get_reduced(LM_RANK_SEQ_ARCH),
-                              attn_impl="pallas")
+    cfg = dataclasses.replace(get_reduced(arch), attn_impl="pallas",
+                              **(overrides or {}))
     rules = dataclasses.replace(rules_for(cfg, mesh), seq="model")
     pipe = LMBatchPipeline(cfg, ShapeConfig(
-        "train", LM_RANK_PARITY_SEQ, LM_RANK_PARITY_BATCH, "train"), seed=0)
+        "train", length + cfg.n_patches, LM_RANK_PARITY_BATCH, "train"),
+        seed=0)
     b = {k: torch.from_numpy(v).cuda() for k, v in pipe.batch(0).items()}
     one = filled_model(cfg)
     specs = param_specs(one)
@@ -2404,33 +2420,33 @@ def lm_rank_seq_parity(mesh) -> dict:
         blocks, opt.init(blocks), rank_batch(b, rules))
     launches = _build.launches_since(before)
     seq_calls = mesh.comm.stats.get("seq", {}).get("calls", 0)
+    label = f"seq {arch} at {cfg.n_patches} + {length}"
     errors, worst = [], 0.0
     for key in ("loss", "grad_norm"):
         if not abs(float(out[key]) / float(out_one[key]) - 1.0) \
                 <= LM_RANK_LOSS_TOL:
-            errors.append(f"seq {key}: {float(out[key])} vs one card "
+            errors.append(f"{label} {key}: {float(out[key])} vs one card "
                           f"{float(out_one[key])}")
     for w, g, grad, n in zip(tree_flatten(one)[0], tree_flatten(blocks)[0],
                              tree_flatten(g_one)[0], S.spec_leaves(specs)):
         w = S.block(w, n, rules).float()
         flat = S.block(grad, n, rules).abs() < LM_RANK_FLAT_GRAD
         if flat.any() and float((g - w).abs()[flat].max()) > LM_RANK_LR:
-            errors.append(f"seq {n}: a flat element past lr")
+            errors.append(f"{label} {n}: a flat element past lr")
         err = rel_leaf_err(w, torch.where(flat, w, g.float()))
         worst = max(worst, err)
         if not err <= LM_RANK_LEAF_TOL:
-            errors.append(f"seq leaf {n}: {err:.3g}")
+            errors.append(f"{label} leaf {n}: {err:.3g}")
     # serving: prefill and greedy decode, positions split in the prefill
     for x, x0 in zip(tree_flatten(one)[0], whole0):
         x.copy_(x0)
-    n_rows, max_len = LM_RANK_PARITY_BATCH, \
-        LM_RANK_SEQ_PROMPT + LM_RANK_SEQ_TOKENS
+    n_rows = LM_RANK_PARITY_BATCH
+    start = cfg.n_patches + prompt_len
+    max_len = start + LM_RANK_SEQ_TOKENS
     srules = dataclasses.replace(serve_rules(cfg, mesh, n_rows, max_len),
                                  seq="model")
     sblocks = S.block_tree(one, specs, srules)
-    prompt = {"tokens": torch.from_numpy(np.random.default_rng(3).integers(
-        0, cfg.vocab_size, (n_rows, LM_RANK_SEQ_PROMPT)).astype(
-            np.int32)).cuda()}
+    prompt = serve_inputs(cfg, n_rows, prompt_len, seed=3, device="cuda")
 
     def serve(params, rules_, inputs):
         state = tt.init_decode_state(cfg, n_rows, max_len, device="cuda",
@@ -2441,26 +2457,70 @@ def lm_rank_seq_parity(mesh) -> dict:
         for i in range(LM_RANK_SEQ_TOKENS):
             tok = torch.argmax(lg[:, -1:], dim=-1).to(torch.int32)
             toks.append(tok)
-            lg, state = step(params, state, tok, LM_RANK_SEQ_PROMPT + i)
+            lg, state = step(params, state, tok, start + i)
             logits.append(lg)
         return logits, torch.cat(toks, dim=1)
     want, want_toks = serve(one, None, prompt)
     mesh.comm.reset_stats()
+    before = _build.launch_counts()
     got, got_toks = serve(sblocks, srules, rank_batch(prompt, srules))
+    serve_launches = _build.launches_since(before)
     serve_seq_calls = mesh.comm.stats.get("seq", {}).get("calls", 0)
     gaps = [float((g - S.block(w, ("batch", None, None), srules)).abs().max()
                   / w.abs().max()) for w, g in zip(want, got)]
     if not max(gaps) <= LM_RANK_SEQ_LOGIT_TOL:
-        errors.append(f"seq serving logit gaps {gaps}")
+        errors.append(f"{label} serving logit gaps {gaps}")
     if not torch.equal(got_toks, S.block(want_toks, ("batch", None),
                                          srules)):
-        errors.append("seq serving tokens differ from one card's")
+        errors.append(f"{label} serving tokens differ from one card's")
     if not (seq_calls > 0 and serve_seq_calls > 0):
-        errors.append(f"seq: {seq_calls} / {serve_seq_calls} seq gathers")
-    return {"errors": errors, "loss_one_card": float(out_one["loss"]),
-            "loss_ranks": float(out["loss"]), "worst_leaf_rel_err": worst,
+        errors.append(f"{label}: {seq_calls} / {serve_seq_calls} seq "
+                      "gathers")
+    for k, n in serve_launches.items():
+        launches[k] = launches.get(k, 0) + n
+    return {"errors": errors, "length": cfg.n_patches + length,
+            "prompt": start, "frames": cfg.encoder_seq,
+            "loss_one_card": float(out_one["loss"]),
+            "loss_ranks": float(out["loss"]),
+            "loss_gap": abs(float(out["loss"]) / float(out_one["loss"]) - 1),
+            "grad_norm_gap": abs(float(out["grad_norm"])
+                                 / float(out_one["grad_norm"]) - 1),
+            "worst_leaf_rel_err": worst,
             "logit_gaps": gaps, "seq_calls_step": seq_calls,
             "seq_calls_serve": serve_seq_calls, "launches": launches}
+
+
+def dry_config(cfg):
+    """``cfg`` on the plain chunked attention, as every cell of the dry
+    run traces it (``dryrun.cell_config``): the flash kernel has no
+    ``"meta"`` form, and it moves nothing between ranks."""
+    return dataclasses.replace(cfg, attn_impl="chunked")
+
+
+def lm_rank_dry(make_step, args, rules) -> dict:
+    """The dry run of a rank step on this rank's coordinates: the step
+    (``make_step`` of the rules) under ``rules`` on a mesh of shapes
+    with ``DryCollectives``, traced once on ``"meta"`` copies of
+    ``args`` (``launch.dryrun.trace_rank_step``): its calls and bytes
+    per channel, the inputs' bytes, the traced peak and the trace's
+    seconds."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import RankMesh
+    from repro_torch.parallel.collectives import attach_dry
+    mesh = rules.mesh
+    dry = attach_dry(RankMesh(mesh.shape, mesh.axis_names, mesh.rank))
+    meta = dryrun.meta_like(args)
+    t0 = time.perf_counter()
+    costs, stats = dryrun.trace_rank_step(
+        make_step(dataclasses.replace(rules, mesh=dry)), meta, dry)
+    inputs = dryrun.analytic_memory(meta)["input_state_bytes_per_device"]
+    return {"channels": {c: {f: v[f] for f in ("calls", "bytes_sent",
+                                                "bytes_received")}
+                         for c, v in stats.items()},
+            "input_bytes": inputs, "peak_bytes": inputs + costs.peak_bytes,
+            "coll_bytes": costs.coll_bytes,
+            "coll_by_kind": costs.coll_by_kind,
+            "trace_s": time.perf_counter() - t0}
 
 
 def lm_rank_vlm(mesh) -> dict:
@@ -2542,6 +2602,8 @@ def lm_rank_vlm(mesh) -> dict:
     out["finite"] = bool(all(np.isfinite([s["loss"], s["grad_norm"]]).all()
                              for s in steps))
     out["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    out["dry"] = lm_rank_dry(lambda r: M.make_train_step(
+        dry_config(cfg), opt, rules=r), (blocks, state, batch), rules)
     del blocks, state, batch
     torch.cuda.empty_cache()
     return out
@@ -2584,6 +2646,9 @@ def lm_ranks_rank(rank: int, world: int, job_path: str) -> None:
     out["parity"].update({f"adafactor/{a}": lm_rank_adafactor_parity(a, mesh2)
                           for a in LM_RANK_ADAFACTOR})
     out["parity"]["seq"] = lm_rank_seq_parity(mesh2)
+    for arch, (length, prompt, ov) in LM_RANK_SEQ_ODD.items():
+        out["parity"][f"seq_odd/{arch}"] = lm_rank_seq_parity(
+            mesh2, arch, length, prompt, ov)
     out["parity2_s"] = time.perf_counter() - t0
     # full width
     torch.cuda.empty_cache()
@@ -2652,6 +2717,9 @@ def lm_ranks_rank(rank: int, world: int, job_path: str) -> None:
     out["finite"] = bool(all(np.isfinite([s["loss"], s["grad_norm"]]).all()
                              for s in steps))
     out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["dry"] = lm_rank_dry(
+        lambda r: M.make_compressed_pod_train_step(dry_config(cfg), r, opt),
+        (blocks, state, resid, batch), rules)
     del blocks, state, resid, batch
     out["vlm"] = lm_rank_vlm(mesh2)
     out["rank_s"] = time.perf_counter() - t_rank
@@ -2695,17 +2763,17 @@ def run_lm_ranks() -> dict:
     (``one_card_evals``) and of internvl2-26b at ``LM_RANK_VLM_LAYERS``
     layers, each freed after; then the ranks' figures beside the dry
     run's bytes per rank, and the gates.  Returns the ranks' summed
-    launches (granite's and internvl's steps)."""
+    launches (granite's and internvl's steps).  Beside them a host
+    process runs the dry run of ``LM_RANK_DRY_CELL`` on its production
+    mesh; each rank traces its granite and internvl steps on ``"meta"``
+    too, and the dry counts must be the measured ones
+    (``lm_rank_dry_report``)."""
     import gc
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.data.pipeline import LMBatchPipeline
     from repro_torch.launch import dryrun
-    from repro_torch.launch.mesh import RankFailure, RankMesh, spawn_ranks
+    from repro_torch.launch.mesh import RankMesh
     from repro_torch.launch.train import rules_for
-    from repro_torch.models import model as M
-    from repro_torch.models.config import ShapeConfig
-    from repro_torch.models.transformer import init_model
     from repro_torch.optim import adamw, constant
     work = ROOT / "build" / "lm_ranks"
     work.mkdir(parents=True, exist_ok=True)
@@ -2724,6 +2792,90 @@ def run_lm_ranks() -> dict:
           flush=True)
     job_path = work / "job.json"
     job_path.write_text("{}")
+    # the production cell's dry run: a host process beside the ranks
+    arch_d, shape_d, mesh_d = LM_RANK_DRY_CELL
+    t_dry = time.perf_counter()
+    dry_cell = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch_d,
+         "--shape", shape_d, "--mesh", mesh_d, "--force", "--out",
+         str(work / "dryrun")],
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                 CUDA_VISIBLE_DEVICES=""),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        launches, ranks = _lm_ranks_spawned(cfg, vcfg, planned, job_path,
+                                            work)
+        dry_text, _ = dry_cell.communicate(timeout=LM_RANK_TIMEOUT_S)
+    finally:
+        if dry_cell.poll() is None:
+            dry_cell.kill()
+            dry_cell.wait()
+    dry_wall = time.perf_counter() - t_dry
+    require(dry_cell.returncode == 0, f"phase 14: the dry run of "
+            f"{LM_RANK_DRY_CELL} failed: {dry_text[-2000:]}")
+    cell = json.loads((work / "dryrun" / f"{arch_d}__{shape_d}__{mesh_d}"
+                       ".json").read_text())
+    require(cell["ok"] and cell["roofline"]["collective_s"] > 0,
+            f"phase 14: the dry run of {LM_RANK_DRY_CELL}: {cell}")
+    lm_rank_dry_report(ranks, cell, dry_wall)
+    return launches
+
+
+def lm_rank_dry_report(ranks: list, cell: dict, dry_wall: float) -> None:
+    """The dry run against the ranks: each rank's dry count of its
+    granite and internvl steps equal to every measured step's calls and
+    bytes per channel, the dry peak beside the measured one; the
+    production cell's record in short.  One line, ``lm ranks dry``."""
+    fields = ("calls", "bytes_sent", "bytes_received")
+    rows = []
+    for r in ranks:
+        for what, dry, steps, peak in (
+                (LM_RANK_ARCH, r["dry"], r["steps"], r["peak_bytes"]),
+                (LM_RANK_VLM, r["vlm"]["dry"], r["vlm"]["steps"],
+                 r["vlm"]["peak_bytes"])):
+            for i, st in enumerate(steps):
+                got = {c: {f: v[f] for f in fields}
+                       for c, v in st["channels"].items() if v["calls"]}
+                require(got == dry["channels"], f"phase 14: rank "
+                        f"{r['rank']} {what} step {i}: the dry run counts "
+                        f"{dry['channels']}, the step {got}")
+            rows.append({"rank": r["rank"], "arch": what,
+                         "dry_channels": dry["channels"],
+                         "measured_steps_equal": len(steps),
+                         "dry_peak_gb": dry["peak_bytes"] / 1e9,
+                         "measured_peak_gb": peak / 1e9,
+                         "dry_input_gb": dry["input_bytes"] / 1e9,
+                         "dry_wire_gb": dry["coll_bytes"] / 1e9,
+                         "dry_trace_s": dry["trace_s"]})
+    rl = cell["roofline"]
+    print("lm ranks dry " + json.dumps({
+        "ranks": rows,
+        "production_cell": {
+            "cell": cell["cell"], "chips": cell["chips"],
+            "dominant": rl["dominant"], "step_s": rl["step_time_s"],
+            "compute_s": rl["compute_s"], "memory_s": rl["memory_s"],
+            "collective_s": rl["collective_s"],
+            "collective_share": cell["collectives"]["share_of_step"],
+            "coll_by_kind": cell["collectives"]["coll_by_kind"],
+            "calls": {c: v["calls"] for c, v in
+                      cell["collectives"]["channels"].items()},
+            "peak_gb": cell["memory"]["peak_bytes"] / 1e9,
+            "input_gb": cell["memory"]["input_state_bytes_per_device"]
+            / 1e9, "fits_one_card": cell["memory"]["fits_one_card"],
+            "trace_s": cell["trace_s"], "process_wall_s": dry_wall},
+        "card": gpu_line()}), flush=True)
+
+
+def _lm_ranks_spawned(cfg, vcfg, planned, job_path, work) -> tuple:
+    """Phase 14's ranks and the one-card evals beside them, the figures
+    and the gates (``run_lm_ranks``): ``(launches, ranks' records)``."""
+    import gc
+    import torch
+    from repro_torch.data.pipeline import LMBatchPipeline
+    from repro_torch.launch.mesh import RankFailure, spawn_ranks
+    from repro_torch.models import model as M
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.transformer import init_model
     t0 = time.perf_counter()
     with ThreadPoolExecutor(1) as pool:
         # the ranks need no one-card figure: this process takes its evals
@@ -2925,7 +3077,7 @@ def run_lm_ranks() -> dict:
         require(flash == LM_RANK_STEPS * per_step,
                 f"phase 14: rank {r['rank']} launched flash {flash} times "
                 f"in {LM_RANK_STEPS} steps, not {per_step} a step")
-    return launches
+    return launches, ranks
 
 
 # ---------------------------------------------------------------------------

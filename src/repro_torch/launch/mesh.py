@@ -140,12 +140,21 @@ def make_host_mesh(shape: Optional[Sequence[int]] = None,
     return RankMesh(shape, tuple(axes), rank)
 
 
+def production_mesh_shape(multi_pod: bool = False) -> tuple:
+    """``(shape, axes)`` of the production mesh: (16, 16) ``("data",
+    "model")``, or (2, 16, 16) ``("pod", "data", "model")``.
+    ``RankMesh(*production_mesh_shape(m), rank)`` is one rank's mesh of
+    shapes, with no process group (the dry run's)."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
 def make_production_mesh(*, multi_pod: bool = False) -> RankMesh:
-    """The production mesh: (16, 16) ``("data", "model")``, or (2, 16,
-    16) ``("pod", "data", "model")``.  Raises unless the process group
-    holds exactly 256 (512) ranks."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    """The production mesh of the current process group's ranks
+    (``production_mesh_shape``).  Raises unless the process group holds
+    exactly 256 (512) ranks."""
+    shape, axes = production_mesh_shape(multi_pod)
     rank, n = _world()
     want = int(np.prod(shape))
     if n != want:

@@ -35,7 +35,8 @@ from .frontends import STUB_WIDTH
 from .layers import torch_dtype
 from .transformer import (abstract_model, decode_state_names, forward,
                           init_decode_state, logits as lm_logits,
-                          own_positions, prefix_len, seq_axes)
+                          own_positions, prefix_len, seq_axes,
+                          whole_positions)
 
 
 # ---------------------------------------------------------------------------
@@ -87,9 +88,9 @@ def chunked_xent(p, cfg: ModelConfig, x, labels, rules=None,
     logits instead of keeping all of them (the reference's
     ``jax.checkpoint`` scan body).  On ranks the sums are this rank's
     batch slice's (the vocabulary split: ``_chunk_nll_ranks``); under
-    sequence parallelism ``x`` and ``labels`` are this rank's positions,
-    joined first with those of the ranks along the mesh axes
-    ``seq_gather``."""
+    sequence parallelism ``x`` and ``labels`` are this rank's padded
+    block of positions (the padding labelled -1), joined first with
+    those of the ranks along the mesh axes ``seq_gather``."""
     if seq_gather:
         x = all_gather(x, rules.mesh, seq_gather, 1, "seq")
         labels = all_gather_plain(labels, rules.mesh, seq_gather, 1, "seq")
@@ -119,21 +120,27 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict, rules=None):
     them); ``metrics`` = ``{"nll", "tokens"}`` and the aux values.  On
     ranks the loss is the global ``sum nll / sum n`` over the batch
     axes, the same on every rank.  Under sequence parallelism each rank
-    scores its own positions (its labels sliced as ``forward`` slices
-    the stream, a VLM's prefix masked) and the sums run over the seq
-    axes too; where a seq axis splits the vocabulary as well, its ranks'
-    positions are joined first (the vocabulary's logsumexp needs the
-    same positions on every vocab rank)."""
+    scores its own block of positions: its labels padded with -1 and
+    cut as ``forward`` pads and cuts the stream (a VLM's prefix -1 too),
+    so the padding scores nothing and the sums, run over the seq axes
+    too, are the one-card loss at any length.  Where the seq axes also
+    split the vocabulary (the vocabulary's logsumexp needs the same
+    positions on every vocab rank), the positions are joined first: all
+    of them, the padding sliced off, where every seq axis splits it;
+    else along the shared axes, the padding masked."""
     x, _, aux = forward(params, cfg, batch, rules=rules)
     labels = batch["labels"]
     n_prefix = prefix_len(cfg, batch)
-    sp = seq_axes(rules, n_prefix + labels.shape[1])
-    if sp:
-        if n_prefix:
-            labels = torch.cat([torch.full_like(labels[:, :1], -1).expand(
-                -1, n_prefix), labels], dim=1)
-        labels = own_positions(labels, rules, sp)
+    length = n_prefix + labels.shape[1]
+    sp = seq_axes(rules, length)
+    if sp and n_prefix:
+        labels = torch.cat([torch.full_like(labels[:, :1], -1).expand(
+            -1, n_prefix), labels], dim=1)
     shared = tuple(a for a in sp if a in live_axes(rules, rules.vocab))
+    if sp and shared == sp:
+        x, sp, shared = whole_positions(x, rules, sp, length), (), ()
+    elif sp:
+        labels = own_positions(labels, rules, sp, fill=-1)
     nll, n = chunked_xent(params, cfg, x, labels, rules, shared)
     if on_ranks(rules):
         axes = set(live_axes(rules, rules.batch)) | (set(sp) - set(shared))

@@ -312,8 +312,17 @@ def seq_axes(rules, length: int) -> tuple:
     ranks, without ``seq``, or for one position (decode stays whole).
     Raises ``ValueError`` where ``seq`` names a mesh axis that ``batch``
     uses (the reference's ``PartitionSpec`` refuses one mesh axis on two
-    dims) and where ``length`` does not divide over the axes (the
-    reference's GSPMD pads that case; the port does not)."""
+    dims).
+
+    Any length splits, as the reference's padded GSPMD layout does:
+    between blocks each of the n ranks holds ``ceil(length / n)``
+    positions of the stream padded to ``n * ceil(length / n)``
+    (``own_positions``: the last ranks' blocks end in padding, or are
+    all padding).  The padding is only a carry between blocks: each
+    block's ``"seq"`` gather joins the n blocks and slices the padding
+    off (``whole_positions``), so every block, kernel and collective
+    inside it sees the ``length`` true positions; the loss gives the
+    padded positions the label -1."""
     if not on_ranks(rules) or rules.seq is None:
         return ()
     both = set(_axis_names(rules.seq)) & set(_axis_names(rules.batch))
@@ -324,10 +333,6 @@ def seq_axes(rules, length: int) -> tuple:
     axes = live_axes(rules, rules.seq)
     if length <= 1 or not axes:
         return ()
-    n = rules.mesh.axis_size(axes)
-    if length % n:
-        raise ValueError(f"sequence parallelism: {length} positions do not "
-                         f"divide over seq {axes} ({n} ranks)")
     return axes
 
 
@@ -343,30 +348,40 @@ def _axis_names(axis) -> tuple:
         else tuple(axis)
 
 
-def own_positions(x, rules, axes: tuple):
+def own_positions(x, rules, axes: tuple, fill=0):
     """This rank's block of ``x``'s positions (dim 1) along the ``seq``
-    axes ``axes`` (``x`` itself for none)."""
+    axes ``axes`` (``x`` itself for none): ``x`` padded with ``fill`` to
+    a multiple of the ranks along ``axes``, then cut (``seq_axes``)."""
     if not axes:
         return x
-    size = x.shape[1] // rules.mesh.axis_size(axes)
+    n = rules.mesh.axis_size(axes)
+    size = -(-x.shape[1] // n)
+    pad = n * size - x.shape[1]
+    if pad:
+        x = torch.cat([x, x.new_full((x.shape[0], pad) + tuple(x.shape[2:]),
+                                     fill)], dim=1)
     return x.narrow(1, rules.mesh.axis_index(axes) * size, size)
 
 
-def _whole_positions(x, rules, axes: tuple):
-    """Every rank's positions joined (under autograd: the backward sums
-    the slices and keeps this rank's)."""
-    return x if not axes else all_gather(x, rules.mesh, axes, 1, "seq")
+def whole_positions(x, rules, axes: tuple, length: int):
+    """Every rank's block joined and the padding sliced off: the
+    ``length`` true positions (under autograd: the backward sums the
+    blocks' cotangents and keeps this rank's)."""
+    if not axes:
+        return x
+    return all_gather(x, rules.mesh, axes, 1, "seq")[:, :length]
 
 
 def _seq_block(lp, cfg: ModelConfig, kind: str, x, positions, sp=(), *,
                rules=None, **kw):
     """``apply_block`` on this rank's positions ``x`` under sequence
     parallelism (``sp``: the seq axes): the input gathered whole along
-    the sequence, the block run as without ``seq`` (whole positions,
-    mask and RoPE), this rank's block of its output kept."""
-    x, new_state, aux = apply_block(lp, cfg, kind,
-                                    _whole_positions(x, rules, sp),
-                                    positions, rules=rules, **kw)
+    the sequence (``positions``' length, the padding sliced off), the
+    block run as without ``seq`` (whole positions, mask and RoPE), this
+    rank's padded block of its output kept."""
+    x, new_state, aux = apply_block(
+        lp, cfg, kind, whole_positions(x, rules, sp, positions.shape[0]),
+        positions, rules=rules, **kw)
     return own_positions(x, rules, sp), new_state, aux
 
 
@@ -385,8 +400,8 @@ def _encode(p, cfg: ModelConfig, frames, dtype, remat: bool, rules=None):
     """Whisper's encoder: the audio frontend, ``cfg.encoder_layers``
     non-causal "attn" blocks (each under ``torch.utils.checkpoint`` with
     ``remat``), the final norm.  Under ``seq`` the frames are split as
-    the decoder's stream is, and the output gathered whole for the
-    cross-attention."""
+    the decoder's stream is (padded to a multiple of the ranks), and the
+    output gathered whole for the cross-attention."""
     e = apply_audio_frontend(p["frontend"], frames, rules).to(dtype)
     e_pos = torch.arange(e.shape[1], device=e.device)
     sp = seq_axes(rules, e.shape[1])
@@ -398,7 +413,8 @@ def _encode(p, cfg: ModelConfig, frames, dtype, remat: bool, rules=None):
         else:
             e = _seq_block(lp, cfg, "attn", e, e_pos, sp, causal=False,
                            rules=rules)[0]
-    return _whole_positions(apply_rmsnorm(p["enc_ln_f"], e), rules, sp)
+    return whole_positions(apply_rmsnorm(p["enc_ln_f"], e), rules, sp,
+                            e_pos.shape[0])
 
 
 def forward(p, cfg: ModelConfig, batch: Dict, *, state=None,
@@ -431,19 +447,20 @@ def forward(p, cfg: ModelConfig, batch: Dict, *, state=None,
     its slice, ``state`` its blocks of ``init_decode_state(...,
     rules=)``): every family, training (each layer with its FSDP gathers
     under the checkpoint), prefill and decode.  Sequence parallelism
-    (``rules.seq``, ``seq_axes``): between blocks each rank holds its
-    ``1 / n`` of the positions (split after the embedding, the patch
-    prefix and the sinusoidal add; whisper's frames alike); each block
-    gathers its input along the sequence and keeps its own block of the
-    output.  Without ``state`` the result is then this rank's positions
-    (a VLM's prefix rows included: ``model.loss_fn`` masks them); a
-    prefill returns the whole sequence; decode's one position stays
+    (``rules.seq``, ``seq_axes``), at any length: between blocks each
+    rank holds its block of the positions padded to a multiple of the
+    ranks (split after the embedding, the patch prefix and the
+    sinusoidal add; whisper's frames alike); each block gathers its
+    input along the sequence, runs on the true positions and keeps its
+    own padded block of the output.  Without ``state`` the result is
+    then this rank's padded block (a VLM's prefix rows included:
+    ``model.loss_fn`` masks them and the padding); a prefill returns
+    the whole sequence at its true length; decode's one position stays
     whole."""
     tokens = batch["tokens"]
     n_prefix = prefix_len(cfg, batch)
-    sp = seq_axes(rules, n_prefix + tokens.shape[1])
-    if cfg.encoder_layers and "frames" in batch:
-        seq_axes(rules, batch["frames"].shape[1])      # refuse before work
+    length = n_prefix + tokens.shape[1]
+    sp = seq_axes(rules, length)
     x = apply_embedding(p["embed"], tokens, scale=cfg.embed_scale,
                         rules=rules)
     if n_prefix:
@@ -487,7 +504,7 @@ def forward(p, cfg: ModelConfig, batch: Dict, *, state=None,
             aux_total = {k: aux_total[k] + aux[k] for k in AUX_KEYS}
     x = apply_rmsnorm(p["ln_f"], x)
     if state is not None:
-        x = _whole_positions(x, rules, sp)
+        x = whole_positions(x, rules, sp, length)
     elif n_prefix and cache_pos is None and not sp:
         x = x[:, n_prefix:]
     new_state = {"layers": new_states}

@@ -36,7 +36,10 @@ not need to tell apart.)
 
 A reduce-scatter is an all-reduce and a cut (gloo has no
 reduce-scatter).  Every collective is one synchronising call on the
-host; nothing overlaps them yet.  Nothing here runs at import.
+host; nothing overlaps them yet.  ``DryCollectives`` (``attach_dry``)
+stands in for one rank of a mesh without a process group: the same
+groups and counts, outputs of the right shape, the ring's wire bytes
+(the dry run on the production meshes).  Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -53,6 +56,28 @@ def _names(axis) -> tuple:
     return (axis,) if isinstance(axis, str) else tuple(axis)
 
 
+def _axis_sets(mesh) -> list:
+    """Every set of the mesh's live axes (in the mesh's order): one
+    group per set and rank."""
+    live = [a for a in mesh.axis_names if mesh.axis_size(a) > 1]
+    return [axes for k in range(1, len(live) + 1)
+            for axes in itertools.combinations(live, k)]
+
+
+def _rank_groups(mesh, axes: tuple) -> list:
+    """The groups of ranks along ``axes``: each the ranks that share
+    every other coordinate, in the order of their index along ``axes``
+    (pod-major for a folded tuple)."""
+    members: Dict[tuple, list] = {}
+    for r in range(mesh.size):
+        c = mesh.coordinate(r)
+        key = tuple(c[i] for i, a in enumerate(mesh.axis_names)
+                    if a not in axes)
+        members.setdefault(key, []).append(r)
+    return [sorted(g, key=lambda r: mesh.axis_index(axes, r))
+            for g in members.values()]
+
+
 class Collectives:
     """The groups of one rank's mesh and the transport their collectives
     go through.  Every rank of the mesh builds it at the same point (it
@@ -67,19 +92,10 @@ class Collectives:
         self.mesh = mesh
         self.transport = transport
         self._groups: Dict[tuple, object] = {}
-        live = [a for a in mesh.axis_names if mesh.axis_size(a) > 1]
-        for k in range(1, len(live) + 1):
-            for axes in itertools.combinations(live, k):
-                members = {}
-                for r in range(mesh.size):
-                    c = mesh.coordinate(r)
-                    key = tuple(c[i] for i, a in enumerate(mesh.axis_names)
-                                if a not in axes)
-                    members.setdefault(key, []).append(r)
-                ranks = [sorted(g, key=lambda r: mesh.axis_index(axes, r))
-                         for g in members.values()]
-                mine, _ = dist.new_subgroups_by_enumeration(ranks)
-                self._groups[axes] = mine
+        for axes in _axis_sets(mesh):
+            mine, _ = dist.new_subgroups_by_enumeration(
+                _rank_groups(mesh, axes))
+            self._groups[axes] = mine
         self.stats: Dict[str, dict] = {}
 
     def live(self, axis) -> tuple:
@@ -145,11 +161,87 @@ class Collectives:
             x, group, n))
 
 
+class DryTransport:
+    """``core.halo.Transport``'s collectives without a wire, for a dry
+    run: each returns a tensor of the right shape on its input's device
+    (zeros; nothing is allocated on ``"meta"``), and counts what the
+    transport would: an all-reduce its tensor's bytes sent and received,
+    an all-gather its own block sent and the others' received.  It also
+    sums the ring's wire bytes a rank by kind, the reference's
+    convention (``repro.perf.hlo_analysis``): an all-reduce of S bytes
+    over g ranks ``2 S (g - 1) / g``, an all-gather of a block of S
+    bytes ``S (g - 1)`` (its output's ``(g - 1) / g``).  A group is the
+    tuple of its ranks."""
+
+    def __init__(self):
+        self.bytes_sent = self.bytes_received = 0
+        self.seconds = 0.0
+        self.coll_bytes = 0.0
+        self.coll_by_kind: Dict[str, float] = {}
+
+    def _wire(self, kind: str, nbytes: float) -> None:
+        self.coll_bytes += nbytes
+        self.coll_by_kind[kind] = self.coll_by_kind.get(kind, 0.0) + nbytes
+
+    def all_reduce(self, x: torch.Tensor, group, op: str = "sum"
+                   ) -> torch.Tensor:
+        n, g = x.numel() * x.element_size(), len(group)
+        self.bytes_sent += n
+        self.bytes_received += n
+        self._wire("all-reduce", 2.0 * n * (g - 1) / g)
+        return x.new_zeros(x.shape)
+
+    def all_gather(self, x: torch.Tensor, group, n: int) -> list:
+        size = x.numel() * x.element_size()
+        self.bytes_sent += size
+        self.bytes_received += (n - 1) * size
+        self._wire("all-gather", float((n - 1) * size))
+        return list(x.new_zeros((n,) + tuple(x.shape)).unbind(0))
+
+
+class DryCollectives(Collectives):
+    """``Collectives`` for one rank of a mesh with no process group: the
+    same groups, built from the mesh's shape and ``mesh.rank``, and the
+    same ``stats`` per channel (``seconds`` 0), through a
+    ``DryTransport``, whose ``coll_bytes`` / ``coll_by_kind`` are the
+    ring's wire bytes this rank moved.  A rank path runs under it
+    unchanged (``attach_dry``): on ``"meta"`` tensors it is the dry run
+    of that rank's step (``launch.dryrun``)."""
+
+    def __init__(self, mesh):
+        if mesh.rank is None:
+            raise ValueError("a dry run traces one rank: give the mesh a "
+                             "rank")
+        self.mesh = mesh
+        self.transport = DryTransport()
+        self._groups = {axes: next(tuple(g) for g in _rank_groups(mesh, axes)
+                                   if mesh.rank in g)
+                        for axes in _axis_sets(mesh)}
+        self.stats: Dict[str, dict] = {}
+
+    def wire(self) -> tuple:
+        """``(coll_bytes, coll_by_kind)`` so far (``perf.op_analysis.
+        Costs``' fields)."""
+        t = self.transport
+        return t.coll_bytes, dict(t.coll_by_kind)
+
+    def reset_stats(self) -> None:
+        self.stats = {}
+        self.transport = DryTransport()
+
+
 def attach(mesh, transport):
     """``mesh`` with its ``Collectives`` (every rank calls it at the same
     point, after ``launch.mesh.init_ranks``)."""
     import dataclasses
     return dataclasses.replace(mesh, comm=Collectives(mesh, transport))
+
+
+def attach_dry(mesh):
+    """``mesh`` (shape, axes and a rank; no process group needed) with
+    its ``DryCollectives``."""
+    import dataclasses
+    return dataclasses.replace(mesh, comm=DryCollectives(mesh))
 
 
 def _comm(mesh) -> Optional[Collectives]:

@@ -18,8 +18,9 @@ Default mapping (mesh ("data", "model"), or ("pod", "data", "model")):
   kv_seq         -> "model"          decode-time KV caches (each rank
                                      holds a range of the slots)
   d_inner        -> "model"          the SSM / RG-LRU channels
-  seq            -> None             (sequence parallelism: raises when
-                                     set on ranks)
+  seq            -> None             (sequence parallelism between
+                                     blocks, any length:
+                                     ``transformer.seq_axes``)
 
 The reference hands its specs to XLA (``NamedSharding``, GSPMD); here
 the layout is explicit.  Each rank holds its ``block`` of every

@@ -67,12 +67,14 @@ def chunk_traffic_bytes(cfg: ModelConfig, shape: ShapeConfig,
 
 
 def flash_credit_bytes(cfg: ModelConfig, shape: ShapeConfig,
-                       microbatches: int = 1) -> float:
-    """The port's credit on one card: the forward's passes only, twice
+                       microbatches: int = 1, chips: int = 1,
+                       model_axis: int = 1) -> float:
+    """The port's credit on one card (or one of ``chips`` ranks with
+    ``model_axis`` on the model axis): the forward's passes only, twice
     to train (the per-layer recompute runs the flash forward again); the
     plain chunked backward's chunks stay in device memory."""
     passes = FORWARD_PASSES * (2 if shape.kind == "train" else 1)
-    return chunk_pass_bytes(cfg, shape, chips=1, model_axis=1,
+    return chunk_pass_bytes(cfg, shape, chips=chips, model_axis=model_axis,
                             microbatches=microbatches) * passes
 
 

@@ -21,7 +21,14 @@ Conventions, per op:
   counts its stored elements once;
 * views, reshapes, ``expand``, ``detach`` and factory ops of no data
   (``empty*``) cost 0;
-* collectives cost 0 on one card and are listed in ``notes``.
+* collectives: the port's go through ``parallel.collectives``, not
+  through aten.  In a dry run on ranks (``launch.dryrun``) its
+  ``DryCollectives`` stand in for them: each output is a fill of the
+  right shape, whose bytes (the operand read, the output written) are
+  the reference's bytes of a collective, and the ring's wire bytes a
+  rank go into ``coll_bytes`` / ``coll_by_kind`` (the dry run copies
+  them from ``DryCollectives.wire()``).  An aten collective (``c10d``)
+  costs 0 and is listed in ``notes``.
 
 The reference exists because XLA counts a ``while`` body once; Python
 loops dispatch every iteration, so nothing here needs a trip count.
@@ -166,7 +173,7 @@ class _Counter(TorchDispatchMode):
         c = self.costs
         c.n_ops += 1
         if ns in _COLLECTIVE_NS:
-            note = f"collective {ns}.{name} (0 bytes on one card)"
+            note = f"collective {ns}.{name} (not counted)"
             if note not in c.notes:
                 c.notes.append(note)
             return out

@@ -6,7 +6,10 @@
     collective = collective bytes / link    (450e9 B/s, NVLink 4)
 
 The FLOPs and bytes are ``perf.op_analysis``'s count of the eager
-program on one card, so the collective term is 0 there.  The dominant
+program of one card or, on a mesh (``launch.dryrun --mesh``), of one
+rank; the collective bytes are that rank's ring wire bytes, counted by
+``parallel.collectives.DryCollectives`` (0 on one card).  One link rate
+serves every collective, as the reference keeps one.  The dominant
 term is the bottleneck.  ``model_flops`` (6 N D train / 2 N D prefill /
 2 N_active B decode) over the counted matmul FLOPs says how much of the
 computed work is useful: the training recompute and the padded or

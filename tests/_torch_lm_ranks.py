@@ -21,7 +21,7 @@ import torch
 from repro_torch.core.halo import Transport
 from repro_torch.data.pipeline import rank_batch
 from repro_torch.launch import dryrun
-from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.mesh import RankMesh, make_host_mesh
 from repro_torch.models import model as tm
 from repro_torch.models.layers import logical_names
 from repro_torch.models.moe import _apply_moe_ep
@@ -82,6 +82,29 @@ def leaf_errors(want_tree, got_tree, specs, rules, tol: float,
     return bad
 
 
+COUNTED = ("calls", "bytes_sent", "bytes_received")
+
+
+def counts(stats: dict) -> dict:
+    """Each channel's calls and bytes of ``stats``
+    (``Collectives.stats``), without the seconds."""
+    return {ch: {f: v[f] for f in COUNTED} for ch, v in stats.items()}
+
+
+def dry_counts(rules, make_step, args) -> dict:
+    """The dry run of a step on this rank's coordinates: ``make_step``
+    (a function of the rules) under ``rules`` on a mesh of shapes with
+    ``DryCollectives``, run once on ``"meta"`` copies of ``args``
+    (``launch.dryrun.trace_rank_step``): each channel's calls and
+    bytes."""
+    mesh = rules.mesh
+    dry = C.attach_dry(RankMesh(mesh.shape, mesh.axis_names, mesh.rank))
+    _, stats = dryrun.trace_rank_step(
+        make_step(dataclasses.replace(rules, mesh=dry)),
+        dryrun.meta_like(args), dry)
+    return counts(stats)
+
+
 def rank_grads(blocks, cfg, batch, rules):
     """This rank's gradient blocks of the loss, as the train step
     computes them (before clipping)."""
@@ -140,8 +163,12 @@ def case_train(job: dict) -> dict:
                           for x in tree_flatten(blocks)[0]),
             "optimizer": sum(x.numel() * x.element_size()
                              for x in tree_flatten(state)[0])}
+    dry = dry_counts(rules, lambda r: tm.make_train_step(cfg, opt, rules=r),
+                     (blocks, state, batch))
+    mesh.comm.reset_stats()
     blocks, state, out = tm.make_train_step(cfg, opt, rules=rules)(
         blocks, state, batch)
+    measured = counts(mesh.comm.stats)
     if abs(float(out["loss"]) - job["loss"]) > LOSS_TOL * abs(job["loss"]):
         bad.append(f"step loss {float(out['loss'])} vs {job['loss']}")
     if abs(float(out["grad_norm"]) - job["grad_norm"]) \
@@ -152,35 +179,44 @@ def case_train(job: dict) -> dict:
                        job["grads"])
     want = dryrun.rank_bytes(cfg, rules, opt)
     return {"errors": bad, "held_bytes": held,
-            "dryrun_bytes": {k: want[k] for k in held}}
+            "dryrun_bytes": {k: want[k] for k in held},
+            "measured": measured, "dry": dry}
 
 
 def case_train_seq(job: dict) -> dict:
     """The dense config's AdamW step on (data 4, model 2) with the
     positions split over ``model`` (``seq``): the loss, the grad norm
-    and every leaf as ``case_train`` holds them."""
+    and every leaf as ``case_train`` holds them.  The job's length need
+    not divide over ``model``."""
     mesh, rules = mesh_rules((4, 2), ("data", "model"))
     rules = dataclasses.replace(rules, seq="model")
     cfg, params = job["cfg"], job["params"]
     specs = param_specs(params)
     blocks = S.block_tree(params, specs, rules)
     opt = adamw(constant(LR))
+    state, batch = opt.init(blocks), rank_batch(job["batch"], rules)
+    dry = dry_counts(rules, lambda r: tm.make_train_step(cfg, opt, rules=r),
+                     (blocks, state, batch))
     mesh.comm.reset_stats()
     blocks, _, out = tm.make_train_step(cfg, opt, rules=rules)(
-        blocks, opt.init(blocks), rank_batch(job["batch"], rules))
+        blocks, state, batch)
     bad = []
     for key, tol in (("loss", LOSS_TOL), ("grad_norm", GNORM_TOL)):
         if abs(float(out[key]) - job[key]) > tol * abs(job[key]):
             bad.append(f"{key} {float(out[key])} vs {job[key]}")
     bad += leaf_errors(job["p1"], blocks, specs, rules, LEAF_TOL, "leaf",
                        job["grads"])
-    return {"errors": bad, "seq_calls": mesh.comm.stats["seq"]["calls"]}
+    return {"errors": bad, "seq_calls": mesh.comm.stats["seq"]["calls"],
+            "length": job["batch"]["tokens"].shape[1],
+            "measured": counts(mesh.comm.stats), "dry": dry}
 
 
 def adafactor_steps(job: dict, rules) -> tuple:
     """``ADAFACTOR_STEPS`` Adafactor steps (over the config's stack
     groups) of this rank's blocks of the job's parameters, on its slices
-    of the job's batches: (per-step outs, blocks, state, held bytes)."""
+    of the job's batches, the collectives counted from zero: (per-step
+    outs, blocks, state, held bytes, the optimizer, the dry run's
+    counts of the same steps)."""
     cfg = job["cfg"]
     specs = param_specs(job["params"])
     blocks = S.block_tree(job["params"], specs, rules)
@@ -188,15 +224,21 @@ def adafactor_steps(job: dict, rules) -> tuple:
     state = opt.init(blocks)
     held = sum(x.numel() * x.element_size()
                for x in tree_flatten(state)[0])
-    step = tm.make_train_step(cfg, opt, rules=rules)
-    outs = []
-    for b in job["batches"]:
-        blocks, state, out = step(blocks, state, rank_batch(b, rules))
-        outs.append({k: float(out[k]) for k in ("loss", "grad_norm")})
-    return outs, blocks, state, held, opt
+    batches = [rank_batch(b, rules) for b in job["batches"]]
+
+    def steps(r):
+        def run(blocks, state, batches):
+            step = tm.make_train_step(cfg, opt, rules=r)
+            return [step(blocks, state, b)[2] for b in batches]
+        return run
+    dry = dry_counts(rules, steps, (blocks, state, batches))
+    rules.mesh.comm.reset_stats()
+    outs = [{k: float(out[k]) for k in ("loss", "grad_norm")}
+            for out in steps(rules)(blocks, state, batches)]
+    return outs, blocks, state, held, opt, dry
 
 
-def case_adafactor(jobs: dict) -> dict:
+def case_adafactor(jobs: dict, seqs=(None, "model")) -> dict:
     """Each reduced config's Adafactor steps on (pod 2, data 2, model 2)
     (the dry run's rules: FSDP over ``data``, heads, MLP, experts and
     vocabulary over ``model``), then the same with the positions split
@@ -204,16 +246,17 @@ def case_adafactor(jobs: dict) -> dict:
     steps: every loss within ``LOSS_TOL``, every grad norm within
     ``GNORM_TOL``, every parameter block and every moment block
     (``row`` / ``col`` / ``full``, ``Optimizer.state_specs``) within
-    ``LEAF_TOL``; the moments' bytes the dry run's."""
+    ``LEAF_TOL``; the moments' bytes the dry run's.  ``seqs``: the legs'
+    ``seq`` axes.  A job's positions need not divide over ``model``."""
     mesh, _ = mesh_rules((2, 2, 2), ("pod", "data", "model"))
     out = {}
     for arch, job in jobs.items():
         cfg = job["cfg"]
-        for seq in (None, "model"):
+        for seq in seqs:
             rules = dataclasses.replace(dryrun._rules_for(cfg, mesh)[0],
                                         seq=seq)
-            mesh.comm.reset_stats()
-            outs, blocks, state, held, opt = adafactor_steps(job, rules)
+            outs, blocks, state, held, opt, dry = adafactor_steps(job,
+                                                                  rules)
             bad = []
             for i, (got, want) in enumerate(zip(outs, job["outs"])):
                 for key, tol in (("loss", LOSS_TOL),
@@ -234,7 +277,8 @@ def case_adafactor(jobs: dict) -> dict:
                 "dryrun_bytes": dryrun.rank_bytes(cfg, rules, opt)[
                     "optimizer"],
                 "opt_calls": stats.get("opt", {}).get("calls", 0),
-                "seq_calls": stats.get("seq", {}).get("calls", 0)}
+                "seq_calls": stats.get("seq", {}).get("calls", 0),
+                "measured": counts(stats), "dry": dry}
     return out
 
 
@@ -257,14 +301,17 @@ def case_pod(job: dict) -> dict:
     blocks = S.block_tree(params, specs, rules)
     state = opt.init(blocks)
     resid = init_residuals(blocks)
+    dry = dry_counts(rules, lambda r: tm.make_compressed_pod_train_step(
+        cfg, r, opt), (blocks, state, resid, batch))
     step = tm.make_compressed_pod_train_step(cfg, rules, opt)
     comm = mesh.comm
-    losses, wire, d = [], [], None
+    losses, wire, d, measured = [], [], None, []
     for i in range(6):
         comm.reset_stats()
         blocks, state, resid, o = step(blocks, state, resid, batch)
         losses.append(float(o["loss"]))
         wire.append(comm.stats["pod"]["bytes_sent"])
+        measured.append(counts(comm.stats))
         if i == 0:
             d = max(float((S.block(w, n, rules) - g).abs().max())
                     for w, g, n in zip(tree_flatten(job["p1"])[0],
@@ -282,7 +329,10 @@ def case_pod(job: dict) -> dict:
                     for x in tree_flatten(blocks)[0])
     if any(w != want_wire for w in wire):
         bad.append(f"pod wire {wire} B a step, wire_bytes {want_wire}")
-    return {"errors": bad, "losses": losses, "max_param_diff": d}
+    if any(m != measured[0] for m in measured):
+        bad.append("the compressed steps' collectives differ step to step")
+    return {"errors": bad, "losses": losses, "max_param_diff": d,
+            "measured": measured[0], "dry": dry}
 
 
 def case_compression(job: dict) -> dict:
@@ -310,7 +360,8 @@ def case_compression(job: dict) -> dict:
 
 CASES = {"ep": case_ep, "train": case_train, "pod": case_pod,
          "compression": case_compression, "train_seq": case_train_seq,
-         "adafactor": case_adafactor}
+         "train_seq_odd": case_train_seq, "adafactor": case_adafactor,
+         "adafactor_odd": lambda jobs: case_adafactor(jobs, ("model",))}
 
 
 def worker(rank: int, world: int, job_path: str) -> None:

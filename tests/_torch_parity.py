@@ -269,3 +269,33 @@ def assert_states_close(ref_layers: list, port_layers: list, tol: float):
             np.testing.assert_allclose(
                 b, a, rtol=tol, atol=tol,
                 err_msg=f"layer {i} {jax.tree_util.keystr(path)}")
+
+
+class ShapeMesh:
+    """What the reference's ``launch.dryrun._rules_for`` reads of a mesh
+    (its axis names, iterable as ``rules_for_mesh`` takes a tuple, and
+    its device array's shape): no device is needed."""
+
+    def __init__(self, shape, axes):
+        self.axis_names = axes
+        self.devices = np.empty(shape, dtype=np.int8)
+
+    def __iter__(self):
+        return iter(self.axis_names)
+
+
+def reference_dryrun():
+    """The reference's dry-run module, imported after jax has its
+    devices (its import sets XLA_FLAGS for a later first init, which is
+    put back)."""
+    import os
+    jax.devices()
+    old = os.environ.get("XLA_FLAGS")
+    try:
+        from repro.launch import dryrun as jdryrun
+    finally:
+        if old is None:
+            os.environ.pop("XLA_FLAGS", None)
+        else:
+            os.environ["XLA_FLAGS"] = old
+    return jdryrun

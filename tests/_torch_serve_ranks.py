@@ -256,6 +256,9 @@ def worker(rank: int, world: int, job_path: str) -> None:
             for key in SEQ_SERVE:
                 out[f"serve_seq/{key}"] = case_serve(job["serve"][key], mesh,
                                                      seq="model")
+            for key, case in job["serve_seq_odd"].items():
+                out[f"serve_seq_odd/{key}"] = case_serve(case, mesh,
+                                                         seq="model")
     mesh = attached(*TRAIN_MESH)
     for key, case in job["train"].items():
         out[f"train/{key}"] = case_train(case, mesh)

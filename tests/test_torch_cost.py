@@ -12,6 +12,7 @@ against the reference's HLO analysis; and the dry run on ``"meta"``.
 """
 
 import dataclasses
+import functools
 
 import jax
 import numpy as np
@@ -46,7 +47,7 @@ from repro_torch.perf import attention_credit, roofline
 from repro_torch.perf.op_analysis import analyze
 from repro_torch.tree import tree_flatten, tree_nbytes, tree_signature
 
-from _torch_parity import configs
+from _torch_parity import ShapeMesh, configs, reference_dryrun
 
 # ---------------------------------------------------------------------------
 # the reference's abstract trees in the port's layout
@@ -542,3 +543,173 @@ def test_dry_run_adafactor_state_matches_reference(arch):
     assert port_sig(opt_state["v"]) == _flat(_node(jst["v"]))
     assert all(t.device.type == "meta"
                for t in tree_flatten(opt_state)[0])
+
+
+# ---------------------------------------------------------------------------
+# the dry run on the production meshes (a rank's step, DryCollectives)
+# ---------------------------------------------------------------------------
+
+def _is_names(x) -> bool:
+    return isinstance(x, tuple) and all(e is None or isinstance(e, str)
+                                        for e in x)
+
+
+def _ref_shard_bytes(tree, specs, rules, amesh) -> int:
+    """The bytes of one device's shard of every leaf of the reference's
+    abstract ``tree`` under its logical ``specs`` (``NamedSharding``
+    over an ``AbstractMesh``: shapes only)."""
+    from jax.sharding import NamedSharding
+    leaves = jax.tree.leaves(tree)
+    names = jax.tree.leaves(specs, is_leaf=_is_names)
+    assert len(leaves) == len(names)
+    return sum(int(np.prod(NamedSharding(amesh, rules.pspec(*n))
+                           .shard_shape(x.shape))) * x.dtype.itemsize
+               for x, n in zip(leaves, names))
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_params(arch):
+    return JM.abstract_params(jget_config(arch))
+
+
+def reference_input_bytes(arch, shape_name, mesh_kind) -> int:
+    """The reference's per-device bytes of a cell's abstract inputs on a
+    production mesh, as its ``build_cell`` lays them (``_rules_for``,
+    ``_batch_rules``; params, the optimizer state, the decode state and
+    the batch) less its scalar ``pos`` (a Python int in the port)."""
+    from jax.sharding import AbstractMesh
+    jdryrun = reference_dryrun()
+    # the reference's make_production_mesh
+    shape, axes = {"single": ((16, 16), ("data", "model")),
+                   "multi": ((2, 16, 16), ("pod", "data", "model"))}[
+                       mesh_kind]
+    amesh = AbstractMesh(shape, axes)
+    cfg = jget_config(arch)
+    rules, dp = jdryrun._rules_for(cfg, ShapeMesh(shape, axes))
+    jshape = JSHAPES[shape_name]
+    rules = jdryrun._batch_rules(rules, jshape, dp)
+    params, specs = _ref_params(arch)
+    total = _ref_shard_bytes(params, specs, rules, amesh)
+    if jshape.kind == "decode":
+        token = jax.ShapeDtypeStruct((jshape.global_batch, 1), np.int32)
+        return total + _ref_shard_bytes(
+            (JM.abstract_decode_state(cfg, jshape), token),
+            (JM.decode_state_specs(cfg, jshape), ("batch", None)), rules,
+            amesh)
+    batch = JM.input_specs(cfg, jshape)
+    total += _ref_shard_bytes(
+        batch, {k: ("batch",) + (None,) * (len(v.shape) - 1)
+                for k, v in batch.items()}, rules, amesh)
+    if jshape.kind == "prefill":
+        return total + _ref_shard_bytes(JM.abstract_decode_state(cfg, jshape),
+                                        JM.decode_state_specs(cfg, jshape),
+                                        rules, amesh)
+    big = sum(x.size for x in jax.tree.leaves(params)) > 15e9
+    opt = jadafactor(jwarmup(1e-4, 100, 10000)) if big \
+        else jadamw(jwarmup(3e-4, 100, 10000))
+    return total + _ref_shard_bytes(opt.abstract_state(params),
+                                    opt.state_specs(specs), rules, amesh)
+
+
+@pytest.mark.parametrize("arch", ARCH_NAMES)
+def test_mesh_cells_hold_the_references_bytes_per_device(arch):
+    """For every cell of ``arch`` on both production meshes, the dry
+    run's inputs (rank 0's blocks on ``"meta"``: parameters, optimizer
+    state, decode state and batch slice) hold exactly the reference's
+    per-device bytes of the same abstract inputs under its rules
+    (``NamedSharding(AbstractMesh).shard_shape``): shapes only, no
+    trace."""
+    from repro_torch.configs import shape_cells
+    for mesh_kind in dryrun.MESHES:
+        mesh = dryrun.production_rank_mesh(mesh_kind)
+        for shape in shape_cells(arch):
+            _, args, meta = dryrun.build_cell(arch, shape.name, mesh=mesh)
+            got = dryrun.analytic_memory(args)[
+                "input_state_bytes_per_device"]
+            want = reference_input_bytes(arch, shape.name, mesh_kind)
+            assert got == want, (mesh_kind, shape.name, got, want)
+            assert meta["rank"] == 0 and all(
+                t.device.type == "meta" for t in tree_flatten(args[0])[0])
+
+
+def test_dry_collectives_follow_the_ring_convention():
+    """``DryCollectives`` on rank 0 of a (data 2, model 2) mesh of
+    shapes: an all-reduce of 60 bytes over 2 ranks puts 2 x 60 x 1 / 2
+    = 60 on the wire, an all-gather of a 60-byte block over 4 ranks (a
+    folded axis) 60 x 3 = 180, its output the four blocks joined; the
+    channels count as the gloo transport does (an all-reduce its bytes
+    sent and received, an all-gather its block sent and the others'
+    received), seconds 0; the groups are the real ones."""
+    from repro_torch.launch.mesh import RankMesh
+    from repro_torch.parallel.collectives import _rank_groups, attach_dry
+    mesh = attach_dry(RankMesh((2, 2), ("data", "model"), 0))
+    comm = mesh.comm
+    x = torch.empty((3, 5), dtype=torch.float32, device="meta")
+    y = comm.all_reduce(x, "model", channel="tp")
+    assert y.shape == x.shape and y.device.type == "meta"
+    z = comm.all_gather(x, ("data", "model"), 0, channel="fsdp")
+    assert z.shape == (12, 5)
+    assert len(comm.all_gather_list(x, "data")) == 2
+    coll, by_kind = comm.wire()
+    assert by_kind == {"all-reduce": 60.0, "all-gather": 180.0 + 60.0}
+    assert coll == 300.0
+    assert comm.stats["tp"] == {"calls": 1, "bytes_sent": 60,
+                                "bytes_received": 60, "seconds": 0.0}
+    assert comm.stats["fsdp"] == {"calls": 1, "bytes_sent": 60,
+                                  "bytes_received": 180, "seconds": 0.0}
+    assert comm._groups[("model",)] == (0, 1)
+    assert comm._groups[("data", "model")] == (0, 1, 2, 3)
+    assert [list(g) for g in [comm._groups[("data",)]]] == [
+        g for g in _rank_groups(mesh, ("data",)) if 0 in g]
+    # a collective over an axis of one rank is the identity, uncounted
+    one = attach_dry(RankMesh((1, 2), ("data", "model"), 1))
+    assert one.comm.all_reduce(x, "data") is x and not one.comm.stats
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "granite-moe-1b-a400m",
+                                  "falcon-mamba-7b"])
+def test_dryrun_mesh_cells_complete_on_meta(arch):
+    """The reduced cells complete as a rank of (data 2, model 2) and of
+    (pod 2, data 2, model 2) meshes of shapes (no process group), in
+    prefill, decode and train: FLOPs, bytes and peak a rank, calls per
+    channel, wire bytes by kind, and a collective term > 0."""
+    from repro_torch.launch.mesh import RankMesh
+    for shape, axes in (((2, 2), ("data", "model")),
+                        ((2, 2, 2), ("pod", "data", "model"))):
+        for kind in ("prefill", "decode", "train"):
+            r = dryrun._run_lm(arch, ShapeConfig(f"{kind}_32", 32, 4, kind),
+                               None, True, RankMesh(shape, axes, 0),
+                               "x".join(map(str, shape)))
+            coll = r["collectives"]
+            assert r["chips"] == int(np.prod(shape))
+            assert coll["coll_bytes"] > 0 and coll["channels"]
+            assert coll["coll_bytes"] == pytest.approx(
+                sum(coll["coll_by_kind"].values()))
+            assert r["roofline"]["collective_s"] > 0
+            assert r["op_cost"]["dot_flops"] > 0
+            assert r["memory"]["peak_bytes"] > \
+                r["memory"]["input_state_bytes_per_device"] > 0
+            if kind == "train":
+                assert {"grad", "loss", "norm"} <= set(coll["channels"])
+
+
+def test_dryrun_main_on_the_production_meshes(tmp_path, capsys):
+    """``--mesh both`` writes one record a mesh, named as the reference
+    names its cells; an SNN case takes the mesh's tiles, (16, 16) and
+    (32, 16), and reports one tile's bytes and the halo's collective
+    term."""
+    dryrun.main(["--arch", "snn-24x24-gaussian", "--mesh", "both", "--out",
+                 str(tmp_path)])
+    for kind, tiles in (("single", [16, 16]), ("multi", [32, 16])):
+        r = dryrun.run_cell("snn-24x24-gaussian", "sim", out_dir=str(tmp_path),
+                            mesh_kind=kind)
+        assert (tmp_path / f"snn-24x24-gaussian__sim__{kind}.json").exists()
+        assert r["ok"] and list(r["meta"]["tiles"]) == tiles
+        assert r["chips"] == tiles[0] * tiles[1]
+        assert r["step_time_model"]["collective_s"] > 0
+        assert r["roofline"]["collective_s"] == \
+            r["step_time_model"]["collective_s"]
+    assert capsys.readouterr().out.count("[OK ]") == 2
+    with pytest.raises(ValueError, match="mesh"):
+        dryrun.run_cell("qwen2-1.5b", "train_4k", out_dir=None,
+                        mesh_kind="4x4")

@@ -14,12 +14,14 @@ test process runs the reference and writes one job; one spawn of 8
 ranks (``launch.mesh.spawn_ranks``, one torch thread each) runs every
 case (``tests/_torch_lm_ranks.py``) and each rank writes its verdicts.
 Inputs come from numpy seeds; parameters cross through
-``core.convert``.
+``core.convert``.  The ranks also run each step's dry run on their own
+coordinates (``DryCollectives`` on ``"meta"``), whose calls and bytes per
+channel must be the gloo step's, and the ``seq`` legs run at lengths
+that do not divide over the ``seq`` axis too.
 """
 
 import dataclasses
 import json
-import os
 from concurrent.futures import ThreadPoolExecutor
 
 import jax
@@ -52,7 +54,8 @@ from repro_torch.optim import compression as tcomp
 from repro_torch.parallel import sharding as S
 
 import _torch_lm_ranks as R
-from _torch_parity import frontend_inputs, lm_params
+from _torch_parity import (ShapeMesh, frontend_inputs, lm_params,
+                           reference_dryrun)
 
 NOMESH = JRules(batch=None, fsdp=None, heads=None, mlp=None, experts=None,
                 vocab=None, kv_seq=None, d_inner=None)
@@ -83,14 +86,20 @@ def ep_job() -> dict:
             "aux": {k: float(v) for k, v in aux.items()}}
 
 
-def train_job() -> dict:
+# a sequence length that does not divide over the seq legs' model axis
+# (2 ranks): each rank's block of 31 positions, the second's last one
+# padding
+ODD_LENGTH = 61
+
+
+def train_job(length: int = 64) -> dict:
     """The dense config's parameters (zero-initialised leaves given
-    small random values, ``lm_params``), a numpy batch, the reference's
-    loss and one jitted AdamW step."""
+    small random values, ``lm_params``), a numpy batch of ``length``
+    positions, the reference's loss and one jitted AdamW step."""
     jcfg = JConfig(**DENSE)
     params, host = lm_params(jcfg, seed=0)
     tokens = np.random.default_rng(1).integers(0, 256, size=(8, 64)) \
-        .astype(np.int32)
+        .astype(np.int32)[:, :length]
     batch = {"tokens": tokens, "labels": tokens}
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     loss, _ = jm.loss_fn(params, jcfg, NOMESH, jbatch)
@@ -118,9 +127,11 @@ def train_job() -> dict:
 # over the model axis for the seq legs.
 ADAFACTOR = {"internvl2-26b": 24, "kimi-k2-1t-a32b": 32}
 ADAFACTOR_STEPS = 2
+# the VLM's seq leg at 8 patches + 23 tokens: 31 positions over 2 ranks
+ODD_VLM, ODD_VLM_TOKENS = "internvl2-26b", 23
 
 
-def adafactor_job(arch: str) -> dict:
+def adafactor_job(arch: str, n_tokens=None) -> dict:
     """The reduced ``arch``'s parameters (``lm_params``), two numpy
     batches (a VLM's patches too) and the reference's two Adafactor
     steps (``repro.optim.adafactor`` over its stacked layers, meshless):
@@ -141,7 +152,8 @@ def adafactor_job(arch: str) -> dict:
     rng = np.random.default_rng(4)
     batches = []
     for _ in range(ADAFACTOR_STEPS):
-        tokens = rng.integers(0, cfg.vocab_size, size=(8, ADAFACTOR[arch])) \
+        tokens = rng.integers(0, cfg.vocab_size,
+                              size=(8, n_tokens or ADAFACTOR[arch])) \
             .astype(np.int32)
         batches.append({"tokens": tokens, "labels": tokens,
                         **frontend_inputs(cfg, rng, 8)})
@@ -198,13 +210,18 @@ def ranks8(tmp_path_factory):
     # the reference's runs in threads: most of their time is XLA's
     # compiles, which run beside each other
     with ThreadPoolExecutor(4) as pool:
-        ep, train, comp, *adaf = [pool.submit(fn, *a).result for fn, a in (
-            (ep_job, ()), (train_job, ()), (compression_job, ()),
-            *((adafactor_job, (a,)) for a in ADAFACTOR))]
-        train = train()
+        ep, train, odd, comp, *adaf = [
+            pool.submit(fn, *a).result for fn, a in (
+                (ep_job, ()), (train_job, ()), (train_job, (ODD_LENGTH,)),
+                (compression_job, ()),
+                (adafactor_job, (ODD_VLM, ODD_VLM_TOKENS)),
+                *((adafactor_job, (a,)) for a in ADAFACTOR))]
+        train, vlm_odd = train(), adaf.pop(0)
         job = {"ep": ep(), "train": train, "pod": train,
                "compression": comp(), "train_seq": train,
-               "adafactor": {a: f() for a, f in zip(ADAFACTOR, adaf)}}
+               "train_seq_odd": odd(),
+               "adafactor": {a: f() for a, f in zip(ADAFACTOR, adaf)},
+               "adafactor_odd": {ODD_VLM: vlm_odd()}}
     out_dir = tmp_path_factory.mktemp("lm_ranks")
     path = out_dir / "job.pt"
     torch.save(job, path)
@@ -311,6 +328,22 @@ def test_torch_adafactor_rank_bytes_are_the_blocks_held(ranks8):
             assert leg["held_bytes"] == leg["dryrun_bytes"]
 
 
+@pytest.mark.parametrize("case", ["train", "train_seq", "train_seq_odd",
+                                  "pod", "adafactor", "adafactor_odd"])
+def test_torch_dry_run_counts_are_the_ranks(ranks8, case):
+    """The dry run of each rank's step (``launch.dryrun.trace_rank_step``
+    on ``"meta"`` copies of the rank's inputs, ``DryCollectives`` on a
+    mesh of shapes at the rank's coordinates, no process group) counts
+    exactly what the rank's step on gloo counted: per channel the calls,
+    the bytes sent and the bytes received, rank by rank (the AdamW step,
+    with ``seq`` at an even and an odd length, the compressed pod step,
+    the Adafactor steps)."""
+    for r in ranks8[case]:
+        legs = list(r.values()) if case.startswith("adafactor") else [r]
+        for leg in legs:
+            assert leg["measured"] and leg["dry"] == leg["measured"]
+
+
 # ---------------------------------------------------------------------------
 # 4: compression, one process
 # ---------------------------------------------------------------------------
@@ -348,24 +381,6 @@ def test_torch_int8_compression_is_bit_identical(shape):
 # 5: the rules, field for field the reference's
 # ---------------------------------------------------------------------------
 
-class _Devices:
-    def __init__(self, shape):
-        self.shape = shape
-
-
-class _ShapeMesh:
-    """What the reference's ``_rules_for`` reads of a mesh (its axis
-    names, iterable as ``rules_for_mesh`` takes a tuple, and its device
-    array's shape): nothing runs on devices."""
-
-    def __init__(self, shape, axes):
-        self.axis_names = axes
-        self.devices = _Devices(shape)
-
-    def __iter__(self):
-        return iter(self.axis_names)
-
-
 MESHES = {"16x16": ((16, 16), ("data", "model")),
           "2x16x16": ((2, 16, 16), ("pod", "data", "model"))}
 
@@ -375,22 +390,6 @@ def _fields(rules) -> dict:
             for f in dataclasses.fields(JRules) if f.name != "mesh"}
 
 
-def _reference_dryrun():
-    """The reference's dry-run module, imported after jax has its
-    devices (its import sets XLA_FLAGS for a later first init, which is
-    put back)."""
-    jax.devices()
-    old = os.environ.get("XLA_FLAGS")
-    try:
-        from repro.launch import dryrun as jdryrun
-    finally:
-        if old is None:
-            os.environ.pop("XLA_FLAGS", None)
-        else:
-            os.environ["XLA_FLAGS"] = old
-    return jdryrun
-
-
 @pytest.mark.parametrize("mesh_name", sorted(MESHES))
 @pytest.mark.parametrize("arch", tconfigs.ARCH_NAMES)
 def test_torch_rules_for_are_the_references(arch, mesh_name):
@@ -398,11 +397,11 @@ def test_torch_rules_for_are_the_references(arch, mesh_name):
     config on the production meshes: field for field the reference's."""
     from repro.configs import get_config as jget
     from repro.configs import shape_cells as jcells
-    jdryrun = _reference_dryrun()
+    jdryrun = reference_dryrun()
     shape, axes = MESHES[mesh_name]
     tmesh_ = tmesh.RankMesh(shape, axes)
     rules, dp = dryrun._rules_for(tconfigs.get_config(arch), tmesh_)
-    jrules, jdp = jdryrun._rules_for(jget(arch), _ShapeMesh(shape, axes))
+    jrules, jdp = jdryrun._rules_for(jget(arch), ShapeMesh(shape, axes))
     assert dp == jdp and _fields(rules) == _fields(jrules)
     assert rules.mesh == tmesh_
     for tshape, jshape in zip(tconfigs.shape_cells(arch), jcells(arch)):
@@ -553,22 +552,42 @@ def _tiny(arch):
     return cfg, init_model(cfg, 0, device="cpu")
 
 
-@pytest.mark.parametrize("case", ["batch-axis", "indivisible"])
+@pytest.mark.parametrize("case", ["batch-axis"])
 def test_torch_seq_refusals_name_the_axis_and_length(case):
     """``seq`` on a mesh axis that ``batch`` uses (the reference's
-    ``PartitionSpec`` refuses one mesh axis on two dims), and a length
-    that does not divide over the ``seq`` axis (the reference's GSPMD
-    pads it; ROADMAP queue 1), raise ``ValueError`` before any
-    collective, naming the axis and the length."""
+    ``PartitionSpec`` refuses one mesh axis on two dims) raises
+    ``ValueError`` before any collective, naming the axis and the
+    length.  (A length that does not divide over the ``seq`` axes no
+    longer raises: ``test_torch_seq_at_an_indivisible_length_matches_
+    reference``.)"""
     cfg, params = _tiny("qwen2-1.5b")
-    seq, length = {"batch-axis": ("data", 8), "indivisible": ("model", 7)}[
-        case]
+    seq, length = {"batch-axis": ("data", 8)}[case]
     rules = dataclasses.replace(_shape_rules(cfg, (2, 2, 2)), seq=seq)
     batch = {"tokens": torch.zeros(2, length, dtype=torch.int32),
              "labels": torch.zeros(2, length, dtype=torch.int32)}
     with pytest.raises(ValueError, match=f"{seq}.*{length}|{length}.*"
                        f"{seq}"):
         tm.make_eval_step(cfg, rules)(params, batch)
+
+
+@pytest.mark.parametrize("case", ["train_seq_odd", "adafactor_vlm_odd"])
+def test_torch_seq_at_an_indivisible_length_matches_reference(ranks8, case):
+    """``seq`` over ``model`` (2 ranks) at a length that does not
+    divide, each rank's block padded (``transformer.seq_axes``), against
+    the reference's unsharded steps: the dense config's AdamW step at 61
+    positions on (data 4, model 2) (loss 1e-5, grad norm 5e-5, every
+    leaf 2e-5, the flat-gradient elements within lr), and reduced
+    internvl2-26b's two Adafactor steps at 8 patches + 23 tokens on
+    (pod 2, data 2, model 2) (losses 1e-5, grad norms 5e-5, every leaf
+    and moment block 2e-5).  The streams went through the seq
+    gathers."""
+    if case == "train_seq_odd":
+        results = ranks8["train_seq_odd"]
+        assert all(r["length"] == ODD_LENGTH for r in results)
+    else:
+        results = [r[f"{ODD_VLM}/model"] for r in ranks8["adafactor_odd"]]
+    check(results)
+    assert all(r["seq_calls"] > 0 for r in results)
 
 
 def test_torch_nccl_refuses_two_ranks_on_one_card():

@@ -16,7 +16,9 @@ one-process port's.  One case leaves the state's length indivisible
 slots.  A two-part prefill (the second part at ``cache_pos > 0``) is
 held against the one-process port, and one AdamW step of the recurrent
 and frontend families on (pod 2, data 1, model 2) against the
-one-process step.  The test process runs the reference and writes one
+one-process step.  Under ``seq`` (the prompt's positions split over
+``model``) the dense, mamba and whisper configs serve on (2, 2), and
+three configs at lengths that do not divide over it.  The test process runs the reference and writes one
 job; one spawn of 4 ranks (one torch thread each) runs every case
 (``tests/_torch_serve_ranks.py``) and each rank writes its verdicts.
 """
@@ -60,6 +62,14 @@ SERVE = {
     "whisper-small": ("whisper-small", 12, 4, None, True),
     "internvl2-26b": ("internvl2-26b", 12, 4, None, True),
 }
+# served on 2x2 under seq="model" at lengths that do not divide over its
+# 2 ranks: (arch, prompt, tokens decoded, config overrides): 13 tokens;
+# 8 patches + 11 tokens; 11 encoder frames and 9 tokens
+SEQ_ODD = {
+    "qwen2-1.5b-odd": ("qwen2-1.5b", 13, 3, {}),
+    "internvl2-26b-odd": ("internvl2-26b", 11, 3, {}),
+    "whisper-small-odd": ("whisper-small", 9, 3, {"encoder_seq": 11}),
+}
 TRAIN = ("falcon-mamba-7b", "recurrentgemma-9b", "whisper-small",
          "internvl2-26b")
 TRAIN_BATCH, TRAIN_SEQ = 4, 32
@@ -69,14 +79,15 @@ def _t(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, np.float32))
 
 
-def serve_case(arch, prompt, gen, max_len, two_part) -> dict:
+def serve_case(arch, prompt, gen, max_len, two_part, overrides=None) -> dict:
     """The reference's prefill and ``gen`` greedy steps, meshless and
     jitted (its MoE then takes the dispatch the port ports): the
     weights (``lm_params``), the inputs, every step's logits and the
-    tokens; the port's config and weights."""
-    jcfg = jget_reduced(arch)
+    tokens; the port's config and weights.  ``overrides``: fields of
+    both configs."""
+    jcfg = dataclasses.replace(jget_reduced(arch), **(overrides or {}))
     jp, arrays = lm_params(jcfg)
-    cfg = tconfigs.get_reduced(arch)
+    cfg = dataclasses.replace(tconfigs.get_reduced(arch), **(overrides or {}))
     rng = np.random.default_rng(7)
     inputs = {"tokens": rng.integers(0, jcfg.vocab_size, (BATCH, prompt))
               .astype(np.int32), **frontend_inputs(jcfg, rng, BATCH)}
@@ -128,6 +139,8 @@ def train_case(arch) -> dict:
 def ranks4(tmp_path_factory):
     """Every case on 4 ranks: ``{case: [rank result, ...]}``."""
     job = {"serve": {k: serve_case(*v) for k, v in SERVE.items()},
+           "serve_seq_odd": {k: serve_case(a, p, g, None, False, ov)
+                             for k, (a, p, g, ov) in SEQ_ODD.items()},
            "train": {a: train_case(a) for a in TRAIN},
            "serve_batch": {"arch": "qwen2-1.5b", "batch": 4, "prompt": 8,
                            "gen": 4}}
@@ -310,16 +323,17 @@ def test_torch_seq_serving_matches_reference(ranks4, case):
     assert all(r["seq_calls"] > 0 for r in results)
 
 
-def test_torch_seq_prefill_refuses_an_indivisible_prompt():
-    """A prompt whose length does not divide over the ``seq`` axis
-    raises ``ValueError`` naming the axis and the length, before any
-    collective (the reference's GSPMD pads it; ROADMAP queue 1)."""
-    cfg = tconfigs.get_reduced("qwen2-1.5b")
-    rules = dataclasses.replace(tserve.serve_rules(
-        cfg, tmesh.RankMesh((2, 2), ("data", "model"), 0), 2, 16),
-        seq="model")
-    from repro_torch.models.transformer import init_model
-    params = init_model(cfg, 0, device="cpu")
-    with pytest.raises(ValueError, match="5 positions.*model"):
-        tm.make_prefill(cfg, rules)(params, {"tokens": torch.zeros(
-            1, 5, dtype=torch.int32)}, None)
+@pytest.mark.parametrize("case", sorted(SEQ_ODD))
+def test_torch_seq_serving_at_an_indivisible_length_matches_reference(
+        ranks4, case):
+    """Prefill and decode on (data 2, model 2) under ``seq="model"`` at
+    lengths that do not divide over its 2 ranks (a 13-token prompt;
+    internvl's 8 patches + 11 tokens; whisper's 11 encoder frames and 9
+    tokens), each rank's block padded between blocks
+    (``transformer.seq_axes``): the logits within 1e-4 of the
+    reference's largest, the same greedy tokens and the one-process
+    port's decode state, as ``test_torch_rank_serving_matches_reference``
+    holds them; the prefill went through the seq gathers."""
+    results = ranks4[f"serve_seq_odd/{case}"]
+    check(results)
+    assert all(r["seq_calls"] > 0 for r in results)
